@@ -1,0 +1,326 @@
+"""Integer-only ResNet inference engine (port of hawq_tpu/inference/engine.py
+``build_resnet_engine``, native requant mode).
+
+A FrozenModel becomes a callable ``engine(images) -> logits``: int8
+activations, int8×int8→int32 convolutions with dyadic requant epilogues and
+int32 or int16 residual carriers, bit-identical to the reference engine on
+logits and on every capture node.  All multipliers are computed on the host
+in numpy float32 and uploaded once.
+
+Routing (every integer conv and the FC go through the port's kernels; on a
+CPU device the kernels' plain versions run instead):
+
+  * 1×1 convs → ``int8_matmul_requant`` / ``int8_matmul_acc``; stride 2 is a
+    slice, made contiguous, then the matmul;
+  * 3×3 convs → ``int8_conv_requant`` / ``int8_conv_acc``; stride 2 through
+    the space-to-depth rewrite;
+  * the folded init (``input_mode='folded_float32'``) → ``int8_conv_acc``
+    over the 3×3, C=48, N=4·64 fold, requant + ReLU in the folded layout,
+    then ``maxpool_folded``;
+  * the raw 7×7/s2 init (``input_mode='float32'``) → ``int8_conv_acc`` over
+    its space-to-depth 4×4, C=12 rewrite; its max-pool is a plain float32
+    ``max_pool2d`` (exact: the pooled integers are below 2²⁴);
+  * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
+    be exact).
+
+``capture=<node>`` returns the raw integer tensor at a named node instead of
+the logits: 'input', 'init', '<stage>.<unit>.input' / '.conv1' / '.conv2' /
+'.quant_act_int32', 'avg_pool', 'fc_input', 'fc_output'.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hawq_tpu_torch.configs.bit_config import (RESNET_UNITS,
+                                               RESNET_CONVS_PER_UNIT,
+                                               RESNET_CIFAR_ARCHS)
+from hawq_tpu_torch.inference import fold as _fold
+from hawq_tpu_torch.inference.freeze import FrozenModel
+from hawq_tpu_torch.kernels import conv as kc
+from hawq_tpu_torch.kernels import matmul as km
+from hawq_tpu_torch.kernels import pool as kp
+from hawq_tpu_torch.quant import ops as qops
+
+INPUT_MODES = ('float32', 'folded_float32')
+
+
+def _maxpool_int(x: torch.Tensor) -> torch.Tensor:
+    """3×3/s2/p1 max-pool of an NHWC integer tensor, run in float32 (exact
+    for |v| < 2²⁴; the border acts as the dtype minimum)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2).to(torch.float32), 3, 2, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+class ResnetEngine:
+    """Callable integer ResNet; see :func:`build_resnet_engine`."""
+
+    def __init__(self, fm: FrozenModel, capture: Optional[str],
+                 residual_dtype: torch.dtype, input_mode: str,
+                 device: torch.device):
+        if input_mode not in INPUT_MODES:
+            raise ValueError(f'input_mode {input_mode!r} not in {INPUT_MODES}')
+        if residual_dtype not in (torch.int32, torch.int16):
+            raise ValueError(f'residual_dtype {residual_dtype} must be '
+                             f'torch.int32 or torch.int16')
+        self.fm = fm
+        self.capture = capture
+        self.res_dt = residual_dtype
+        self.device = device
+        arch = fm.arch
+        self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
+        self.conv1_stride = arch == 'resnet50'
+        self.cifar = arch in RESNET_CIFAR_ARCHS
+        self.init_key = ('quant_init_convbn' if self.bottleneck
+                         else 'quant_init_block_convbn')
+        self.folded = input_mode == 'folded_float32'
+        if self.folded and fm[self.init_key + '.weight_int'].shape[:2] != (7, 7):
+            raise ValueError('folded input needs the 7×7/s2 init conv')
+        self.units = [(si, u) for si, n in enumerate(RESNET_UNITS[arch], 1)
+                      for u in range(1, n + 1)]
+        self._mult: Dict[str, torch.Tensor] = {}
+        self._w: Dict[Tuple, tuple] = {}
+
+    # -- host-side constants ----------------------------------------------
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), device=self.device)
+
+    def requant_mult(self, name: str, acc_scale, out_scale) -> torch.Tensor:
+        if name not in self._mult:
+            ratio = (np.asarray(acc_scale, np.float32)
+                     / np.float32(out_scale)).astype(np.float32)
+            self._mult[name] = self._dev(qops.np_dyadic_multiplier(ratio))
+        return self._mult[name]
+
+    def act_info(self, key: str) -> Tuple[np.float32, int, bool]:
+        cfg = self.fm.cfg
+        return (self.fm.act_scale(key), cfg.act_bits(key),
+                cfg.act_mode(key) == 'symmetric')
+
+    def _matmul_w(self, key: str):
+        """(Cin, Cout) weights and bias of a 1×1 conv or the FC."""
+        if key not in self._w:
+            w = np.asarray(self.fm[key + '.weight_int'])
+            self._w[key] = (self._dev(w.reshape(w.shape[-2], w.shape[-1])),
+                            self._dev(self.fm[key + '.bias_int']))
+        return self._w[key]
+
+    def _conv_w(self, key: str, stride: int):
+        """Flattened conv weights (space-to-depth for stride 2), taps, cin."""
+        if (key, stride) not in self._w:
+            w = np.asarray(self.fm[key + '.weight_int'])
+            if stride == 2:
+                w = kc.s2d_kernel(w)
+            self._w[key, stride] = (self._dev(kc.flatten_conv_kernel(w)),
+                                    (w.shape[0], w.shape[1]), w.shape[2],
+                                    self._dev(self.fm[key + '.bias_int']))
+        return self._w[key, stride]
+
+    def _init_w(self):
+        """Init conv weights: the 3×3 fold (folded input), the 4×4
+        space-to-depth rewrite of the 7×7/s2 conv, or the CIFAR 3×3."""
+        if 'init' not in self._w:
+            w = np.asarray(self.fm[self.init_key + '.weight_int'])
+            b = np.asarray(self.fm[self.init_key + '.bias_int'])
+            if self.folded:
+                cin = 16 * w.shape[2]
+                w, b = _fold.fold4_kernel(w), np.tile(b, 4)
+            else:
+                if not self.cifar:
+                    w = kc.s2d_kernel(w)
+                cin = w.shape[2]
+            self._w['init'] = (self._dev(kc.flatten_conv_kernel(w)),
+                               (w.shape[0], w.shape[1]), cin, self._dev(b))
+        return self._w['init']
+
+    # -- layers -------------------------------------------------------------
+    def _conv3x3(self, x8, key, stride, mult=None, bits=8, signed=True):
+        """3×3/pad-1 conv: requant+ReLU to int8, or (mult None) int32 acc."""
+        b, h, w, _ = x8.shape
+        if stride == 2:
+            oh, ow = kc.s2d_output_hw(h, w, 3, 3, 1)
+            xp = kc.prepare_conv_input(kc.s2d_input(x8, 1), (0, 0))
+        else:
+            oh, ow = h, w
+            xp = kc.prepare_conv_input(x8, (1, 1))
+        wf, taps, cin, bias = self._conv_w(key, stride)
+        if mult is None:
+            y = kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
+                                 cin=cin)
+        else:
+            y = kc.int8_conv_requant(xp, wf, bias, mult, taps=taps,
+                                     out_hw=(oh, ow), cin=cin, out_bits=bits,
+                                     signed=signed, relu=True)
+        return y.reshape(b, oh, ow, -1)
+
+    def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
+        """1×1 conv as a matmul: requant+ReLU to int8, or int32 acc."""
+        if stride > 1:
+            x8 = x8[:, ::stride, ::stride, :].contiguous()
+        b, h, w, c = x8.shape
+        wm, bias = self._matmul_w(key)
+        xm = x8.reshape(b * h * w, c)
+        if mult is None:
+            y = km.int8_matmul_acc(xm, wm, bias)
+        else:
+            y = km.int8_matmul_requant(xm, wm, bias, mult, out_bits=bits,
+                                       signed=signed, relu=True)
+        return y.reshape(b, h, w, -1)
+
+    # -- forward ------------------------------------------------------------
+    def __call__(self, images) -> torch.Tensor:
+        """``images``: a float32 tensor on the engine's device, or a host
+        numpy array, which is uploaded to it."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.asarray(images)).to(self.device)
+        if images.device != self.device:
+            raise ValueError(f'images on {images.device}, engine on '
+                             f'{self.device}')
+        if images.dtype != torch.float32:
+            raise ValueError(f'images must be float32, got {images.dtype}')
+        return self._forward(images)
+
+    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+        fm, capture = self.fm, self.capture
+        captured = {}
+
+        def emit(name, value):
+            if name == capture:
+                captured['value'] = value
+
+        # ---- input quantization and init block ----
+        s_in = fm.act_scale('quant_input')
+        x8 = torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
+                         -128, 127).to(torch.int8)
+        emit('input', x8)
+        s16, b16, signed16 = self.act_info('quant_act_int32')
+        s_init = (fm[self.init_key + '.weight_scale'].astype(np.float32)
+                  * np.float32(s_in))
+        wf, taps, cin, bias = self._init_w()
+        b, h, w, _ = x8.shape
+        if self.folded:
+            # per-channel vectors tiled over the 4 stride-2 origins, in the
+            # fold's (py, px, n) channel order
+            s_init = np.tile(s_init, 4)
+            oh, ow = h - 2, w - 2
+            xp = kc.prepare_conv_input(x8, (0, 0))
+        elif self.cifar:
+            oh, ow = h, w
+            xp = kc.prepare_conv_input(x8, (1, 1))
+        else:
+            oh, ow = kc.s2d_output_hw(h, w, 7, 7, 3)
+            xp = kc.prepare_conv_input(kc.s2d_input(x8, 3), (0, 0))
+        acc = kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
+                               cin=cin).reshape(b, oh, ow, -1)
+        # requant + ReLU before the pool (monotone, so it commutes with the
+        # training graph's pool → requant → relu order)
+        mult = self.requant_mult('init_requant', s_init, s16)
+        x = torch.clamp_min(
+            qops.requant_int32(acc, mult, b16, signed16, self.res_dt), 0)
+        if self.folded:
+            x = kp.maxpool_folded(x)
+        elif not self.cifar:
+            x = _maxpool_int(x)
+        emit('init', x)
+        prev_scale = np.float32(s16)
+
+        # ---- units ----
+        for si, u in self.units:
+            p = f'stage{si}.unit{u}'
+            stride = 2 if (u == 1 and si > 1) else 1
+            sa, ba, signed_a = self.act_info(f'{p}.quant_act')
+            mult = self.requant_mult(f'{p}.in', prev_scale, sa)
+            xa = qops.requant_int32(x, mult, ba, signed_a, torch.int8)
+            emit(f'{p}.input', xa)
+
+            id_key = f'{p}.quant_identity_convbn'
+            if id_key + '.weight_int' in fm.tensors:
+                id_scale = (fm[id_key + '.weight_scale'].astype(np.float32)
+                            * np.float32(sa))
+                id_acc = self._conv1x1(xa, id_key, stride)
+            else:
+                id_acc, id_scale = x, prev_scale
+
+            key1 = f'{p}.quant_convbn1'
+            sa1, ba1, sg1 = self.act_info(f'{p}.quant_act1')
+            mult = self.requant_mult(
+                f'{p}.a1', fm[key1 + '.weight_scale'].astype(np.float32)
+                * np.float32(sa), sa1)
+            key2 = f'{p}.quant_convbn2'
+            acc_scale = (fm[key2 + '.weight_scale'].astype(np.float32)
+                         * np.float32(sa1))
+            if self.bottleneck:
+                s1, s2 = (stride, 1) if self.conv1_stride else (1, stride)
+                h = self._conv1x1(xa, key1, s1, mult, ba1, sg1)
+                emit(f'{p}.conv1', h)
+                sa2, ba2, sg2 = self.act_info(f'{p}.quant_act2')
+                mult = self.requant_mult(f'{p}.a2', acc_scale, sa2)
+                h = self._conv3x3(h, key2, s2, mult, ba2, sg2)
+                emit(f'{p}.conv2', h)
+                key3 = f'{p}.quant_convbn3'
+                acc_scale = (fm[key3 + '.weight_scale'].astype(np.float32)
+                             * np.float32(sa2))
+                acc = self._conv1x1(h, key3, 1)
+            else:
+                h = self._conv3x3(xa, key1, stride, mult, ba1, sg1)
+                emit(f'{p}.conv1', h)
+                acc = self._conv3x3(h, key2, 1)
+
+            # residual requant-add at 16-bit precision; the unclamped sum
+            # stays int32 until the ReLU and the int16 clamp
+            s_out = self.act_info(f'{p}.quant_act_int32')[0]
+            mult_main = self.requant_mult(f'{p}.res_main', acc_scale, s_out)
+            mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out)
+            x_wide = torch.clamp_min(qops.requant_add_int32(
+                acc, mult_main, id_acc, mult_id, torch.int32), 0)
+            if self.res_dt != torch.int32:
+                x_wide = torch.clamp(x_wide, 0, torch.iinfo(self.res_dt).max)
+            x = x_wide.to(self.res_dt)
+            prev_scale = np.float32(s_out)
+            emit(f'{p}.quant_act_int32', x)
+
+        # ---- head: integer average pool with truncation, then the FC ----
+        hw = x.shape[1] * x.shape[2]
+        pooled = torch.sum(x, dim=(1, 2), dtype=torch.int32)
+        pooled = torch.trunc(qops.exact_div(pooled.to(torch.float32), hw)
+                             + 0.01)
+        emit('avg_pool', pooled)
+        s_fc, b_fc, sg_fc = self.act_info('quant_act_output')
+        mult = self.requant_mult('fc_in', prev_scale, s_fc)
+        f8 = qops.requant_int32(pooled.to(torch.int32), mult, b_fc, sg_fc)
+        emit('fc_input', f8)
+        w_fc, bias_fc = self._matmul_w('quant_output')
+        acc = km.int8_matmul_acc(f8, w_fc, bias_fc)
+        if 'out_scale' not in self._mult:
+            self._mult['out_scale'] = self._dev(
+                fm['quant_output.weight_scale'].astype(np.float32)
+                * np.float32(s_fc))
+        logits = acc.to(torch.float32) * self._mult['out_scale']
+        emit('fc_output', logits)
+        if capture is None:
+            return logits
+        if 'value' not in captured:
+            raise KeyError(f'no capture node {capture!r}')
+        return captured['value']
+
+
+def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
+                        residual_dtype: torch.dtype = torch.int32,
+                        input_mode: str = 'float32',
+                        device='cuda') -> ResnetEngine:
+    """Build ``engine(images_f32_nhwc) -> logits_f32`` on ``device``.
+
+    ``input_mode``: 'float32' takes raw (B, H, W, 3) images, quantized on
+    the device; 'folded_float32' takes (B, (H+8)/4, (W+8)/4, 48) images
+    that the host folded with ``inference.fold.fold4_images``.
+    ``residual_dtype`` is the carrier between units: torch.int32, or
+    torch.int16 (clamps sums above 2¹⁵−1).  With ``capture``, the engine
+    returns the raw tensor at that node instead of the logits."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return ResnetEngine(fm, capture, residual_dtype, input_mode, device)

@@ -1,0 +1,171 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled with nvcc for ``sm_90a`` into one shared
+library with a plain C interface, at first use, and loaded with ctypes.
+One nvcc process per source runs in parallel, then one link.  The library
+name carries a hash of the sources (and headers), so an edited source
+rebuilds and an unchanged one is reused.  The build directory,
+``hawq_tpu_torch/kernels/build/``, is listed in ``.gitignore``.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch; the
+wrappers raise on a non-zero code (:func:`check`).  The wrappers also count
+their launches in :data:`LAUNCHES`, so a run can show that the engine's
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, 'csrc')
+BUILD_DIR = os.path.join(_HERE, 'build')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    'hawq_int8_matmul': [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    'hawq_int8_conv': [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    'hawq_maxpool_folded': [_P, _P] + [_I] * 5 + [_P],
+}
+
+# Launch counts per wrapper; reset with reset_launches().
+LAUNCHES: Dict[str, int] = {}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_info: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in list(LAUNCHES):
+        LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    path = os.path.join(cuda_home, 'bin', 'nvcc')
+    if os.path.exists(path):
+        return path
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                           'toolkit (set CUDA_HOME)')
+    return found
+
+
+def _sources_hash(files) -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(os.path.basename(f).encode())
+        with open(f, 'rb') as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels (if this source hash is not built yet) and return
+    the path of the shared library."""
+    sources = sorted(glob.glob(os.path.join(CSRC, '*.cu')))
+    headers = sorted(glob.glob(os.path.join(CSRC, '*.cuh')))
+    key = _sources_hash(sources + headers)
+    lib_path = os.path.join(BUILD_DIR, f'libhawq_kernels_{key}.so')
+    if os.path.exists(lib_path):
+        build_info.update(path=lib_path, seconds=0.0, cached=True, log='')
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    tmp = os.path.join(BUILD_DIR, f'tmp_{key}_{os.getpid()}')
+    os.makedirs(tmp, exist_ok=True)
+    procs, objs = [], []
+    for src in sources:
+        obj = os.path.join(tmp, os.path.basename(src) + '.o')
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-I', CSRC, '-c', src, '-o', obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f'--- {os.path.basename(src)}\n{out}')
+        if proc.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError('nvcc failed for ' + ', '.join(failed) + '\n'
+                           + '\n'.join(log))
+    tmp_lib = os.path.join(tmp, 'lib.so')
+    link = subprocess.run([nvcc, '-shared', '-o', tmp_lib, *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode != 0:
+        raise RuntimeError('nvcc link failed\n' + link.stdout)
+    os.replace(tmp_lib, lib_path)          # atomic: concurrent builds agree
+    shutil.rmtree(tmp, ignore_errors=True)
+    build_info.update(path=lib_path, seconds=time.perf_counter() - t0,
+                      cached=False, log='\n'.join(log))
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f'{name}: CUDA launch failed with cudaError {code}')
+
+
+def kernel_device(t: torch.Tensor) -> torch.device:
+    """The CUDA device a kernel launch for ``t`` runs on; raises for any
+    other device (a CPU tensor takes the plain version before this)."""
+    if t.device.type != 'cuda':
+        raise ValueError(f'no kernel for a tensor on {t.device}')
+    return t.device
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+            device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what a kernel reading raw pointers needs."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f'{name}: expected a torch.Tensor, got {type(t)}')
+    if t.device != device:
+        raise ValueError(f'{name}: on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name}: dtype {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: shape {tuple(t.shape)}, expected '
+                         f'{tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: must be contiguous')

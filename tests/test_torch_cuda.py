@@ -1,0 +1,130 @@
+"""CUDA kernels == their plain PyTorch versions on the card, bit for bit.
+
+These need an NVIDIA GPU with nvcc (they build the kernels) and skip
+without one.  They import only torch and hawq_tpu_torch, so they run on a
+machine without JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hawq_tpu_torch.configs.bit_config import get_bit_config
+from hawq_tpu_torch.inference.engine import build_resnet_engine
+from hawq_tpu_torch.inference.fold import fold4_images, maxpool_3x3s2p1_folded
+from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
+from hawq_tpu_torch.kernels import _build
+from hawq_tpu_torch.kernels import conv as kc
+from hawq_tpu_torch.kernels import matmul as km
+from hawq_tpu_torch.kernels.pool import maxpool_folded
+from hawq_tpu_torch.quant.ops import exact_div, np_dyadic_multiplier
+
+pytestmark = pytest.mark.cuda
+
+_EPILOGUES = [(8, True, False), (8, True, True), (4, False, True)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+def _operands(rng, m, k, n, dev):
+    x = torch.tensor(rng.randint(-128, 128, (m, k)).astype(np.int8), device=dev)
+    w = torch.tensor(rng.randint(-127, 128, (k, n)).astype(np.int8), device=dev)
+    b = torch.tensor(rng.randint(-2 ** 16, 2 ** 16, n).astype(np.int32),
+                     device=dev)
+    mult = torch.tensor(np_dyadic_multiplier(
+        (rng.rand(n) * 2e-4 + 1e-5).astype(np.float32)), device=dev)
+    return x, w, b, mult
+
+
+@pytest.mark.parametrize('m,k,n', [(37, 45, 19), (64, 64, 64), (130, 256, 72),
+                                   (8, 2048, 1000), (392, 2048, 512), (3, 5, 2)])
+def test_matmul_kernel_equals_plain(dev, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    x, w, b, mult = _operands(rng, m, k, n, dev)
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        got = km.int8_matmul_requant(x, w, b, mult, out_bits=out_bits,
+                                     signed=signed, relu=relu)
+        torch.testing.assert_close(got, km.matmul_requant_plain(
+            x, w, b, mult, lo, hi), rtol=0, atol=0)
+    torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
+                               km.matmul_acc_plain(x, w, b), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('shape,cout,stride', [
+    ((2, 9, 7, 5), 11, 1), ((2, 9, 7, 5), 11, 2), ((2, 14, 14, 64), 64, 1),
+    ((1, 12, 10, 32), 40, 2), ((2, 16, 16, 3), 16, 1)])
+def test_conv_kernel_equals_plain(dev, shape, cout, stride):
+    rng = np.random.RandomState(sum(shape) + cout)
+    x8 = torch.tensor(rng.randint(-128, 128, shape).astype(np.int8), device=dev)
+    w = rng.randint(-127, 128, (3, 3, shape[3], cout)).astype(np.int8)
+    b, h, wd, _ = shape
+    if stride == 2:
+        x2, w = kc.s2d_conv_transform(x8, w, 1)
+        oh, ow = kc.s2d_output_hw(h, wd, 3, 3, 1)
+        xp = kc.prepare_conv_input(x2, (0, 0))
+    else:
+        oh, ow = h, wd
+        xp = kc.prepare_conv_input(x8, (1, 1))
+    wf = torch.tensor(kc.flatten_conv_kernel(w), device=dev)
+    _, _, bias, mult = _operands(rng, 1, 1, cout, dev)
+    geo = dict(taps=w.shape[:2], out_hw=(oh, ow), cin=w.shape[2])
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        got = kc.int8_conv_requant(xp, wf, bias, mult, out_bits=out_bits,
+                                   signed=signed, relu=relu, **geo)
+        torch.testing.assert_close(got, kc.conv_requant_plain(
+            xp, wf, bias, mult, lo=lo, hi=hi, **geo), rtol=0, atol=0)
+    torch.testing.assert_close(kc.int8_conv_acc(xp, wf, bias, **geo),
+                               kc.conv_acc_plain(xp, wf, bias, **geo),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.int16, torch.int32, torch.float32])
+def test_pool_kernel_equals_plain(dev, dtype):
+    rng = np.random.RandomState(1)
+    for shape in ((2, 7, 9, 20), (2, 56, 56, 256)):
+        xf = torch.tensor(rng.randint(-2 ** 14, 2 ** 14, shape),
+                          device=dev).to(dtype)
+        torch.testing.assert_close(maxpool_folded(xf),
+                                   maxpool_3x3s2p1_folded(xf), rtol=0, atol=0)
+
+
+def test_wrappers_check_layout(dev):
+    x = torch.zeros((16, 32), dtype=torch.int8, device=dev)
+    w = torch.zeros((32, 8), dtype=torch.int8, device=dev)
+    b = torch.zeros((8,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        km.int8_matmul_acc(x.t(), w, b)                 # not contiguous
+    with pytest.raises(ValueError):
+        km.int8_matmul_acc(x, w, b.cpu())               # wrong device
+
+
+def test_exact_div_cuda_equals_cpu(dev):
+    x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0)) * 4
+    for s in (np.float32(0.0517), np.float32(0.0493), 49):
+        torch.testing.assert_close(exact_div(x.to(dev), s).cpu(),
+                                   exact_div(x, s), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('arch,mode', [('tiny50', 'folded_float32'),
+                                       ('tiny18', 'float32'),
+                                       ('resnet20_cifar', 'float32')])
+def test_engine_cuda_equals_cpu(dev, arch, mode):
+    fm = synthetic_frozen_resnet(arch, get_bit_config(arch, 'uniform8'),
+                                 num_classes=10, seed=1)
+    x = np.random.RandomState(2).randn(2, 32, 32, 3).astype(np.float32)
+    if mode == 'folded_float32':
+        x = fold4_images(x)
+    want = build_resnet_engine(fm, input_mode=mode, device='cpu')(x)
+    _build.reset_launches()
+    got = build_resnet_engine(fm, input_mode=mode, device=dev)(x)
+    assert sum(_build.LAUNCHES.values()) > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
