@@ -14,12 +14,18 @@ CPU device the kernels' plain versions run instead):
     slice, made contiguous, then the matmul;
   * 3×3 convs → ``int8_conv_requant`` / ``int8_conv_acc``; stride 2 through
     the space-to-depth rewrite;
-  * the folded init (``input_mode='folded_float32'``) → ``int8_conv_acc``
-    over the 3×3, C=48, N=4·64 fold, requant + ReLU in the folded layout,
-    then ``maxpool_folded``;
-  * the raw 7×7/s2 init (``input_mode='float32'``) → ``int8_conv_acc`` over
-    its space-to-depth 4×4, C=12 rewrite; its max-pool is a plain float32
-    ``max_pool2d`` (exact: the pooled integers are below 2²⁴);
+  * every unit conv whose weights are 4-bit (``cfg.weight_bits(key) == 4``,
+    the reference's rule with ``routing=None``) takes the ``int4w_*`` form of
+    the same kernel instead, with its weights nibble-packed once on the host
+    (``pack_int4`` / ``pack_int4_conv``); the init conv and the FC always
+    take the int8 kernels, as in the reference;
+  * the folded init (``input_mode='folded_float32'`` or ``'folded_int8'``)
+    → ``int8_conv_acc`` over the 3×3, C=48, N=4·64 fold, requant + ReLU in
+    the folded layout, then ``maxpool_folded``;
+  * the raw 7×7/s2 init (``input_mode='float32'`` or ``'uint8'``) →
+    ``int8_conv_acc`` over its space-to-depth 4×4, C=12 rewrite; its
+    max-pool is a plain float32 ``max_pool2d`` (exact: the pooled integers
+    are below 2²⁴);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
     be exact).
 
@@ -46,7 +52,11 @@ from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
 from hawq_tpu_torch.quant import ops as qops
 
-INPUT_MODES = ('float32', 'folded_float32')
+# input mode → the dtype its images arrive in
+INPUT_MODES = {'float32': torch.float32, 'folded_float32': torch.float32,
+               'uint8': torch.uint8, 'folded_int8': torch.int8}
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _maxpool_int(x: torch.Tensor) -> torch.Tensor:
@@ -61,15 +71,18 @@ class ResnetEngine:
 
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  residual_dtype: torch.dtype, input_mode: str,
+                 input_mean: np.ndarray, input_std: np.ndarray,
                  device: torch.device):
         if input_mode not in INPUT_MODES:
-            raise ValueError(f'input_mode {input_mode!r} not in {INPUT_MODES}')
+            raise ValueError(f'input_mode {input_mode!r} not in '
+                             f'{tuple(INPUT_MODES)}')
         if residual_dtype not in (torch.int32, torch.int16):
             raise ValueError(f'residual_dtype {residual_dtype} must be '
                              f'torch.int32 or torch.int16')
         self.fm = fm
         self.capture = capture
         self.res_dt = residual_dtype
+        self.input_mode = input_mode
         self.device = device
         arch = fm.arch
         self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
@@ -77,13 +90,17 @@ class ResnetEngine:
         self.cifar = arch in RESNET_CIFAR_ARCHS
         self.init_key = ('quant_init_convbn' if self.bottleneck
                          else 'quant_init_block_convbn')
-        self.folded = input_mode == 'folded_float32'
+        self.folded = input_mode.startswith('folded')
         if self.folded and fm[self.init_key + '.weight_int'].shape[:2] != (7, 7):
             raise ValueError('folded input needs the 7×7/s2 init conv')
         self.units = [(si, u) for si, n in enumerate(RESNET_UNITS[arch], 1)
                       for u in range(1, n + 1)]
         self._mult: Dict[str, torch.Tensor] = {}
         self._w: Dict[Tuple, tuple] = {}
+        # uint8 input: the host preprocessing u8/255 → (v − mean)/std,
+        # replayed on the device in the same float32 op order
+        self._u8_mean = self._dev(np.asarray(input_mean, np.float32))
+        self._u8_std = np.asarray(input_std, np.float32)
 
     # -- host-side constants ----------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -101,22 +118,32 @@ class ResnetEngine:
         return (self.fm.act_scale(key), cfg.act_bits(key),
                 cfg.act_mode(key) == 'symmetric')
 
-    def _matmul_w(self, key: str):
-        """(Cin, Cout) weights and bias of a 1×1 conv or the FC."""
+    def _int4(self, key: str) -> bool:
+        """Whether a unit conv streams nibble-packed int4 weights."""
+        return self.fm.cfg.weight_bits(key) == 4
+
+    def _matmul_w(self, key: str, int4: bool = False):
+        """(Cin, Cout) weights — (Cin/2, Cout) packed with ``int4`` — and
+        bias of a 1×1 conv or the FC."""
         if key not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
-            self._w[key] = (self._dev(w.reshape(w.shape[-2], w.shape[-1])),
+            w = w.reshape(w.shape[-2], w.shape[-1])
+            self._w[key] = (self._dev(km.pack_int4(w) if int4 else w),
                             self._dev(self.fm[key + '.bias_int']))
         return self._w[key]
 
-    def _conv_w(self, key: str, stride: int):
-        """Flattened conv weights (space-to-depth for stride 2), taps, cin."""
+    def _conv_w(self, key: str, stride: int, int4: bool):
+        """Flattened conv weights (space-to-depth for stride 2; per-tap
+        nibble-packed with ``int4``), taps, cin."""
         if (key, stride) not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             if stride == 2:
                 w = kc.s2d_kernel(w)
-            self._w[key, stride] = (self._dev(kc.flatten_conv_kernel(w)),
-                                    (w.shape[0], w.shape[1]), w.shape[2],
+            wf = kc.flatten_conv_kernel(w)
+            if int4:
+                wf = kc.pack_int4_conv(wf, w.shape[0] * w.shape[1])
+            self._w[key, stride] = (self._dev(wf), (w.shape[0], w.shape[1]),
+                                    w.shape[2],
                                     self._dev(self.fm[key + '.bias_int']))
         return self._w[key, stride]
 
@@ -147,14 +174,15 @@ class ResnetEngine:
         else:
             oh, ow = h, w
             xp = kc.prepare_conv_input(x8, (1, 1))
-        wf, taps, cin, bias = self._conv_w(key, stride)
+        int4 = self._int4(key)
+        wf, taps, cin, bias = self._conv_w(key, stride, int4)
         if mult is None:
-            y = kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
-                                 cin=cin)
+            fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
+            y = fn(xp, wf, bias, taps=taps, out_hw=(oh, ow), cin=cin)
         else:
-            y = kc.int8_conv_requant(xp, wf, bias, mult, taps=taps,
-                                     out_hw=(oh, ow), cin=cin, out_bits=bits,
-                                     signed=signed, relu=True)
+            fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
+            y = fn(xp, wf, bias, mult, taps=taps, out_hw=(oh, ow), cin=cin,
+                   out_bits=bits, signed=signed, relu=True)
         return y.reshape(b, oh, ow, -1)
 
     def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
@@ -162,27 +190,47 @@ class ResnetEngine:
         if stride > 1:
             x8 = x8[:, ::stride, ::stride, :].contiguous()
         b, h, w, c = x8.shape
-        wm, bias = self._matmul_w(key)
+        int4 = self._int4(key)
+        wm, bias = self._matmul_w(key, int4)
         xm = x8.reshape(b * h * w, c)
         if mult is None:
-            y = km.int8_matmul_acc(xm, wm, bias)
+            fn = km.int4w_matmul_acc if int4 else km.int8_matmul_acc
+            y = fn(xm, wm, bias)
         else:
-            y = km.int8_matmul_requant(xm, wm, bias, mult, out_bits=bits,
-                                       signed=signed, relu=True)
+            fn = km.int4w_matmul_requant if int4 else km.int8_matmul_requant
+            y = fn(xm, wm, bias, mult, out_bits=bits, signed=signed,
+                   relu=True)
         return y.reshape(b, h, w, -1)
 
     # -- forward ------------------------------------------------------------
     def __call__(self, images) -> torch.Tensor:
-        """``images``: a float32 tensor on the engine's device, or a host
-        numpy array, which is uploaded to it."""
+        """``images``: a tensor on the engine's device in the input mode's
+        dtype (float32, or uint8 / int8 for 'uint8' / 'folded_int8'), or a
+        host numpy array, which is uploaded to it."""
         if not isinstance(images, torch.Tensor):
             images = torch.from_numpy(np.asarray(images)).to(self.device)
         if images.device != self.device:
             raise ValueError(f'images on {images.device}, engine on '
                              f'{self.device}')
-        if images.dtype != torch.float32:
-            raise ValueError(f'images must be float32, got {images.dtype}')
+        want = INPUT_MODES[self.input_mode]
+        if images.dtype != want:
+            raise ValueError(f'input_mode {self.input_mode!r} takes {want} '
+                             f'images, got {images.dtype}')
         return self._forward(images)
+
+    def _quantize_input(self, images: torch.Tensor) -> torch.Tensor:
+        """Images → the int8 input integers (true divisions throughout:
+        :func:`qops.exact_div`)."""
+        if self.input_mode == 'folded_int8':
+            return images            # quantized and folded on the host
+        if self.input_mode == 'uint8':
+            images = qops.exact_div(
+                qops.exact_div(images.to(torch.float32), 255.0)
+                - self._u8_mean, self._u8_std)
+        # folded input: the pad zeros quantize to 0, like the conv's padding
+        s_in = self.fm.act_scale('quant_input')
+        return torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
+                           -128, 127).to(torch.int8)
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
         fm, capture = self.fm, self.capture
@@ -194,8 +242,7 @@ class ResnetEngine:
 
         # ---- input quantization and init block ----
         s_in = fm.act_scale('quant_input')
-        x8 = torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
-                         -128, 127).to(torch.int8)
+        x8 = self._quantize_input(images)
         emit('input', x8)
         s16, b16, signed16 = self.act_info('quant_act_int32')
         s_init = (fm[self.init_key + '.weight_scale'].astype(np.float32)
@@ -311,16 +358,25 @@ class ResnetEngine:
 def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
                         residual_dtype: torch.dtype = torch.int32,
                         input_mode: str = 'float32',
+                        input_mean: np.ndarray = IMAGENET_MEAN,
+                        input_std: np.ndarray = IMAGENET_STD,
                         device='cuda') -> ResnetEngine:
-    """Build ``engine(images_f32_nhwc) -> logits_f32`` on ``device``.
+    """Build ``engine(images_nhwc) -> logits_f32`` on ``device``.
 
-    ``input_mode``: 'float32' takes raw (B, H, W, 3) images, quantized on
-    the device; 'folded_float32' takes (B, (H+8)/4, (W+8)/4, 48) images
-    that the host folded with ``inference.fold.fold4_images``.
+    ``input_mode``: 'float32' takes raw (B, H, W, 3) float32 images,
+    quantized on the device; 'uint8' takes raw (B, H, W, 3) uint8 pixels,
+    normalized with ``input_mean`` / ``input_std`` and quantized on the
+    device with the host preprocessing's float32 op order (u8/255 →
+    (v − mean)/std → floor(v/s_in + 0.5)); 'folded_float32' takes
+    (B, (H+8)/4, (W+8)/4, 48) float32 images that the host folded with
+    ``inference.fold.fold4_images``; 'folded_int8' takes the same layout as
+    int8, which the host also quantized (``utils.preproc.quantize_int8``
+    with the model's input scale).
     ``residual_dtype`` is the carrier between units: torch.int32, or
     torch.int16 (clamps sums above 2¹⁵−1).  With ``capture``, the engine
     returns the raw tensor at that node instead of the logits."""
     device = torch.device(device)
     if device.type == 'cuda' and device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
-    return ResnetEngine(fm, capture, residual_dtype, input_mode, device)
+    return ResnetEngine(fm, capture, residual_dtype, input_mode, input_mean,
+                        input_std, device)

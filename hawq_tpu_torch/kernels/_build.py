@@ -35,8 +35,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    'hawq_int8_matmul': [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    'hawq_int8_conv': [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    'hawq_int8_matmul': [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    'hawq_int8_conv': [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
     'hawq_maxpool_folded': [_P, _P] + [_I] * 5 + [_P],
 }
 

@@ -1,16 +1,19 @@
-"""Stride-1 implicit-GEMM int8 convolution with fused dyadic requant (port of
-hawq_tpu/kernels/conv.py ``int8_conv_requant`` / ``int8_conv_acc``), and
-the host layout helpers around it.
+"""Stride-1 implicit-GEMM integer convolution with fused dyadic requant (port
+of hawq_tpu/kernels/conv.py ``int8_conv_requant`` / ``int8_conv_acc`` and
+their nibble-packed int4-weight forms ``int4w_conv_requant`` /
+``int4w_conv_acc``), and the host layout helpers around it.
 
 Same layouts and signatures as the reference: the input is the zero-padded
 (B, Hp, Wp·C) slab of :func:`prepare_conv_input`, the weights the
-(kh·kw·C, N) flattening of an HWIO kernel, the output (B, H·W, N).  Stride 2
-is rewritten to stride 1 by space-to-depth (:func:`s2d_conv_transform`).
+(kh·kw·C, N) flattening of an HWIO kernel (or its per-tap split-C packing,
+:func:`pack_int4_conv`), the output (B, H·W, N).  Stride 2 is rewritten to
+stride 1 by space-to-depth (:func:`s2d_conv_transform`).
 
 On a CUDA tensor each wrapper launches the hand-written kernel
 (csrc/conv.cu over csrc/gemm_s8.cuh: any taps, C and N, ragged edges
-masked); on a CPU tensor it runs the plain version, a tap-decomposed float64
-product that is exact for these integer sums.
+masked; the int4 forms need an even C); on a CPU tensor it runs the plain
+version, a tap-decomposed float64 product that is exact for these integer
+sums.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
-from hawq_tpu_torch.kernels.matmul import epilogue_bounds, requant_epilogue
+from hawq_tpu_torch.kernels.matmul import (epilogue_bounds, pack_int4,
+                                           requant_epilogue, unpack_int4)
 
 
 # ---------------------------------------------------------------------------
@@ -33,6 +37,22 @@ def flatten_conv_kernel(w: np.ndarray) -> np.ndarray:
     """(kh, kw, C, O) HWIO → (kh·kw·C, O), row = (dy·kw + dx)·C + c."""
     kh, kw, c, o = w.shape
     return np.ascontiguousarray(w.reshape(kh * kw * c, o))
+
+
+def pack_int4_conv(w_flat: np.ndarray, taps: int) -> np.ndarray:
+    """Per-tap split-C nibble packing of a flattened conv kernel.
+
+    w_flat (taps·C, N) int4-valued int8 → (taps·C/2, N) bytes; within each
+    tap block, byte[c, n] = (W[c + C/2, n] << 4) | (W[c, n] & 0xF)."""
+    k, n = w_flat.shape
+    return pack_int4(w_flat.reshape(taps, k // taps, n)).reshape(k // 2, n)
+
+
+def unpack_int4_conv(w_packed: torch.Tensor, taps: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_conv` in torch → (taps·C, N) int8."""
+    kh, n = w_packed.shape
+    return unpack_int4(w_packed.reshape(taps, kh // taps, n)).reshape(
+        2 * kh, n)
 
 
 def prepare_conv_input(x8: torch.Tensor, pad: Tuple[int, int]) -> torch.Tensor:
@@ -112,15 +132,18 @@ def conv_requant_plain(xp, w_flat, bias, mult, *, taps, out_hw, cin, lo, hi):
 # ---------------------------------------------------------------------------
 
 def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
-            requant: bool) -> torch.Tensor:
+            requant: bool, int4: bool) -> torch.Tensor:
     kh, kw = taps
     h, w = out_hw
     b = xp.shape[0]
     n = w_flat.shape[1]
+    if int4 and cin % 2:
+        raise ValueError(f'int4w conv needs an even C per tap, got {cin}')
     dev = _build.kernel_device(xp)
     _build.require(xp, 'xp', torch.int8, (b, h + kh - 1, (w + kw - 1) * cin),
                    dev)
-    _build.require(w_flat, 'w_flat', torch.int8, (kh * kw * cin, n), dev)
+    _build.require(w_flat, 'w_packed' if int4 else 'w_flat', torch.int8,
+                   (kh * kw * (cin // 2 if int4 else cin), n), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
     if requant:
         _build.require(mult, 'mult', torch.float32, (n,), dev)
@@ -128,13 +151,14 @@ def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
                       dtype=torch.int8 if requant else torch.int32, device=dev)
     vec_a = int(cin % 16 == 0 and xp.data_ptr() % 16 == 0)
     vec_b = int(n % 4 == 0 and w_flat.data_ptr() % 4 == 0)
-    name = 'int8_conv_requant' if requant else 'int8_conv_acc'
+    name = (('int4w' if int4 else 'int8') + '_conv_'
+            + ('requant' if requant else 'acc'))
     with torch.cuda.device(dev):
         code = _build.lib().hawq_int8_conv(
             xp.data_ptr(), w_flat.data_ptr(), bias.data_ptr(),
             mult.data_ptr() if requant else None, out.data_ptr(),
-            b, h, w, cin, kh, kw, n, lo, hi, int(requant), vec_a, vec_b,
-            _build.stream_ptr(dev))
+            b, h, w, cin, kh, kw, n, lo, hi, int(requant), int(int4), vec_a,
+            vec_b, _build.stream_ptr(dev))
     _build.check(code, name)
     _build.count(name)
     return out
@@ -151,7 +175,8 @@ def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
     if xp.device.type == 'cpu':
         return conv_requant_plain(xp, w_flat, bias, mult, taps=taps,
                                   out_hw=out_hw, cin=cin, lo=lo, hi=hi)
-    return _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi, True)
+    return _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi, True,
+                   False)
 
 
 def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin):
@@ -159,4 +184,28 @@ def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin):
     if xp.device.type == 'cpu':
         return conv_acc_plain(xp, w_flat, bias, taps=taps, out_hw=out_hw,
                               cin=cin)
-    return _launch(xp, w_flat, bias, None, taps, out_hw, cin, 0, 0, False)
+    return _launch(xp, w_flat, bias, None, taps, out_hw, cin, 0, 0, False,
+                   False)
+
+
+def int4w_conv_requant(xp, w_packed, bias, mult, *, taps, out_hw, cin,
+                       out_bits=8, signed=True, relu=False):
+    """:func:`int8_conv_requant` with nibble-packed int4 weights: w_packed
+    (kh·kw·C/2, N) from :func:`pack_int4_conv`; C even."""
+    lo, hi = epilogue_bounds(out_bits, signed, relu)
+    if xp.device.type == 'cpu':
+        return conv_requant_plain(
+            xp, unpack_int4_conv(w_packed, taps[0] * taps[1]), bias, mult,
+            taps=taps, out_hw=out_hw, cin=cin, lo=lo, hi=hi)
+    return _launch(xp, w_packed, bias, mult, taps, out_hw, cin, lo, hi, True,
+                   True)
+
+
+def int4w_conv_acc(xp, w_packed, bias, *, taps, out_hw, cin):
+    """:func:`int8_conv_acc` with nibble-packed int4 weights."""
+    if xp.device.type == 'cpu':
+        return conv_acc_plain(
+            xp, unpack_int4_conv(w_packed, taps[0] * taps[1]), bias,
+            taps=taps, out_hw=out_hw, cin=cin)
+    return _launch(xp, w_packed, bias, None, taps, out_hw, cin, 0, 0, False,
+                   True)

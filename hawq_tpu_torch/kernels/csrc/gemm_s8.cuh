@@ -8,6 +8,13 @@
 // (K, N) row-major int8 weight; it is transposed into shared memory in 4x4
 // byte blocks so that each mma B fragment is one 32-bit shared load.
 //
+// With INT4, W arrives nibble-packed, (K/2, N) bytes: in each tap block of C
+// unpacked rows (the matmul is one tap, C = K), packed row t*C/2 + c holds
+// row c in its low nibble and row c + C/2 in its high nibble.  The W loader
+// reads the packed bytes and sign-extends the wanted nibble of each to an
+// int8 on the way into shared memory; the product itself is the same s8*s8
+// mma (Hopper's tensor cores have no 4-bit integer type).
+//
 // Products run on mma.sync.m16n8k32 s8*s8->s32 (exact int32 accumulation).
 // A 128-thread block computes a 64x64 tile, each warp 32x32, K in steps of
 // 64 with a register prefetch of the next K tile.  Ragged M, N and K edges
@@ -38,8 +45,9 @@ struct GemmArgs {
   const int32_t* bias;  // (N,)
   const float* mult;    // (N,), requant only
   void* out;            // (M, N) int8 (requant) or int32 (acc)
-  int M, N, K;
-  int H, W, C, kw, Hp, Wp;  // conv geometry (output H, W; slab Hp, Wp)
+  int M, N, K;              // K counts unpacked rows
+  int H, W, C, kw, Hp, Wp;  // conv geometry (output H, W; slab Hp, Wp);
+                            // C is also the int4 tap block (K for the matmul)
   int lo, hi;               // requant clip bounds
   int vec_a, vec_b;         // 16-byte A loads / 4-byte W loads allowed
 };
@@ -105,22 +113,55 @@ __device__ __forceinline__ void load_a(const GemmArgs& p, const long long (&rb)[
   }
 }
 
+// Four packed int4 values (one per byte, low or high nibble) → four
+// sign-extended int8 bytes: bit 3 of each byte is copied into bits 4..7
+// (u | (u & 0x08)·0x1E per byte; no carries cross a byte).  A masked zero
+// byte stays 0.
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t v, bool high) {
+  uint32_t u = (high ? v >> 4 : v) & 0x0F0F0F0Fu;
+  return u | ((u & 0x08080808u) * 0x1Eu);
+}
+
 // Two 4x4 byte blocks of the W tile per thread: block id = tid + 128 i,
-// k rows (id % 16) * 4 .. +3, n columns (id / 16) * 4 .. +3.  Each of the
-// four words holds 4 n-bytes of one k row.
+// k rows (id % 16) * 4 .. +3 (the same four rows for both blocks), n
+// columns (id / 16) * 4 .. +3.  Each of the four words holds 4 n-bytes of
+// one k row.  With INT4 the four rows' packed offsets and nibbles are
+// worked out once per K tile: one division, then a step per row.  The words
+// stay packed here; bit r of ``hmask`` says that row r takes the high
+// nibbles, and store_tiles unpacks them, so that no instruction waits on
+// the loads before the mma loop that they overlap.
+template <bool INT4>
 __device__ __forceinline__ void load_b(const GemmArgs& p, int k0, int n0, int tid,
-                                       uint32_t (&rb)[2][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int id = tid + i * THREADS;
-    int kr = k0 + (id & 15) * 4;
-    int nc = n0 + (id >> 4) * 4;
+                                       uint32_t (&rb)[2][4], uint32_t& hmask) {
+  const int kr = k0 + (tid & 15) * 4;
+  long long roff[4];
+  hmask = 0;
+  if (INT4) {      // unpacked row k → packed row t*C/2 + c mod C/2, nibble
+    const int h = p.C >> 1;
+    int t = kr / p.C;
+    int c = kr - t * p.C;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      int k = kr + r;
+      bool high = c >= h;
+      hmask |= (uint32_t)high << r;
+      roff[r] = (long long)(t * h + (high ? c - h : c)) * p.N;
+      if (++c == p.C) {
+        c = 0;
+        ++t;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) roff[r] = (long long)(kr + r) * p.N;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int nc = n0 + ((tid + i * THREADS) >> 4) * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
       uint32_t v = 0;
-      if (k < p.K) {
-        const int8_t* row = p.w + (long long)k * p.N;
+      if (kr + r < p.K) {
+        const int8_t* row = p.w + roff[r];
         if (p.vec_b) {
           if (nc < p.N) v = *reinterpret_cast<const uint32_t*>(row + nc);
         } else {
@@ -134,9 +175,11 @@ __device__ __forceinline__ void load_b(const GemmArgs& p, int k0, int n0, int ti
   }
 }
 
+template <bool INT4>
 __device__ __forceinline__ void store_tiles(uint8_t* As, uint8_t* Bs, int tid,
                                             const uint4 (&ra)[2],
-                                            const uint32_t (&rb)[2][4]) {
+                                            const uint32_t (&rb)[2][4],
+                                            uint32_t hmask) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     int row = (tid >> 2) + i * 32;
@@ -147,12 +190,16 @@ __device__ __forceinline__ void store_tiles(uint8_t* As, uint8_t* Bs, int tid,
     int id = tid + i * THREADS;
     int kr = (id & 15) * 4;
     int nc = (id >> 4) * 4;
+    uint32_t b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      b[r] = INT4 ? sext_nibbles(rb[i][r], (hmask >> r) & 1) : rb[i][r];
     // 4x4 byte transpose: word j of the result holds column n = nc + j
     // for k rows kr .. kr+3.
-    uint32_t t0 = __byte_perm(rb[i][0], rb[i][1], 0x5140);
-    uint32_t t1 = __byte_perm(rb[i][0], rb[i][1], 0x7362);
-    uint32_t t2 = __byte_perm(rb[i][2], rb[i][3], 0x5140);
-    uint32_t t3 = __byte_perm(rb[i][2], rb[i][3], 0x7362);
+    uint32_t t0 = __byte_perm(b[0], b[1], 0x5140);
+    uint32_t t1 = __byte_perm(b[0], b[1], 0x7362);
+    uint32_t t2 = __byte_perm(b[2], b[3], 0x5140);
+    uint32_t t3 = __byte_perm(b[2], b[3], 0x7362);
     *reinterpret_cast<uint32_t*>(Bs + (nc + 0) * LDS + kr) = __byte_perm(t0, t2, 0x5410);
     *reinterpret_cast<uint32_t*>(Bs + (nc + 1) * LDS + kr) = __byte_perm(t0, t2, 0x7632);
     *reinterpret_cast<uint32_t*>(Bs + (nc + 2) * LDS + kr) = __byte_perm(t1, t3, 0x5410);
@@ -160,7 +207,7 @@ __device__ __forceinline__ void store_tiles(uint8_t* As, uint8_t* Bs, int tid,
   }
 }
 
-template <bool CONV, bool REQUANT>
+template <bool CONV, bool REQUANT, bool INT4>
 __global__ void __launch_bounds__(THREADS)
 gemm_s8_kernel(const GemmArgs p) {
   __shared__ __align__(16) uint8_t As[BM * LDS];
@@ -193,15 +240,16 @@ gemm_s8_kernel(const GemmArgs p) {
 
   uint4 ra[2];
   uint32_t rb[2][4];
+  uint32_t hmask;
   load_a<CONV>(p, rbase, rvalid, 0, tid, ra);
-  load_b(p, 0, n0, tid, rb);
+  load_b<INT4>(p, 0, n0, tid, rb, hmask);
 
   for (int k0 = 0; k0 < p.K; k0 += BK) {
-    store_tiles(As, Bs, tid, ra, rb);
+    store_tiles<INT4>(As, Bs, tid, ra, rb, hmask);
     __syncthreads();
     if (k0 + BK < p.K) {          // prefetch the next K tile into registers
       load_a<CONV>(p, rbase, rvalid, k0 + BK, tid, ra);
-      load_b(p, k0 + BK, n0, tid, rb);
+      load_b<INT4>(p, k0 + BK, n0, tid, rb, hmask);
     }
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 32) {
@@ -251,12 +299,17 @@ gemm_s8_kernel(const GemmArgs p) {
 }
 
 template <bool CONV>
-inline int launch_gemm_s8(const GemmArgs& p, int requant, cudaStream_t stream) {
+inline int launch_gemm_s8(const GemmArgs& p, int requant, int int4,
+                          cudaStream_t stream) {
   dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-  if (requant)
-    gemm_s8_kernel<CONV, true><<<grid, THREADS, 0, stream>>>(p);
+  if (requant && int4)
+    gemm_s8_kernel<CONV, true, true><<<grid, THREADS, 0, stream>>>(p);
+  else if (requant)
+    gemm_s8_kernel<CONV, true, false><<<grid, THREADS, 0, stream>>>(p);
+  else if (int4)
+    gemm_s8_kernel<CONV, false, true><<<grid, THREADS, 0, stream>>>(p);
   else
-    gemm_s8_kernel<CONV, false><<<grid, THREADS, 0, stream>>>(p);
+    gemm_s8_kernel<CONV, false, false><<<grid, THREADS, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

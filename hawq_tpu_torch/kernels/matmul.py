@@ -1,17 +1,21 @@
-"""int8 matmul with fused dyadic requant epilogues (port of
-hawq_tpu/kernels/matmul.py ``int8_matmul_requant`` / ``int8_matmul_acc``).
+"""Integer matmul with fused dyadic requant epilogues (port of
+hawq_tpu/kernels/matmul.py ``int8_matmul_requant`` / ``int8_matmul_acc``
+and their nibble-packed int4-weight forms ``int4w_matmul_requant`` /
+``int4w_matmul_acc``), and the host packer for those weights.
 
 On a CUDA tensor each wrapper launches the hand-written tensor-core kernel
-(csrc/matmul.cu over csrc/gemm_s8.cuh, any M, K and N); on a CPU tensor it
-runs the plain PyTorch version beside it.  The plain versions compute the
-int32 accumulator exactly through float64 (every sum here is far below
-2⁵³) and repeat the kernel's epilogue op for op.
+(csrc/matmul.cu over csrc/gemm_s8.cuh, any M, K and N; the int4 forms need
+an even K); on a CPU tensor it runs the plain PyTorch version beside it.
+The plain versions compute the int32 accumulator exactly through float64
+(every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
+op; the int4 forms unpack the weights with :func:`unpack_int4` first.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from hawq_tpu_torch.kernels import _build
@@ -24,6 +28,40 @@ def epilogue_bounds(out_bits: int, signed: bool,
     lo, hi = requant_clip_bounds(out_bits, signed)
     return (0 if relu else int(lo)), int(hi)
 
+
+# ---------------------------------------------------------------------------
+# int4 packing
+# ---------------------------------------------------------------------------
+
+def pack_int4(w: np.ndarray) -> np.ndarray:
+    """Pack int4-valued (..., K, N) int8 weights → (..., K/2, N) bytes.
+
+    byte[k, n] = (W[k + K/2, n] << 4) | (W[k, n] & 0xF), the split-K layout
+    of hawq_tpu/kernels/matmul.py ``pack_int4``; over a leading axis each
+    (K, N) block is packed on its own (the conv's per-tap packing)."""
+    w = np.asarray(w, np.int8)
+    k = w.shape[-2]
+    if k % 2:
+        raise ValueError(f'pack_int4 needs an even K, got {k}')
+    if w.size and (w.min() < -8 or w.max() > 7):
+        raise ValueError('pack_int4: weights outside the int4 range [-8, 7]')
+    lo = w[..., : k // 2, :].astype(np.uint8) & 0xF
+    hi = (w[..., k // 2:, :].astype(np.uint8) & 0xF) << 4
+    return np.ascontiguousarray((lo | hi).astype(np.int8))
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` in torch: (..., K/2, N) bytes → (..., K,
+    N) int8 values in [-8, 7], low nibbles first, each sign-extended."""
+    p = packed.to(torch.int16)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = (((p >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-2).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def requant_epilogue(acc: torch.Tensor, mult: torch.Tensor, lo: int,
                      hi: int) -> torch.Tensor:
@@ -45,12 +83,20 @@ def matmul_requant_plain(x, w, bias, mult, lo, hi):
     return requant_epilogue(matmul_acc_plain(x, w, bias), mult, lo, hi)
 
 
-def _launch(x, w, bias, mult, lo, hi, requant: bool) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def _launch(x, w, bias, mult, lo, hi, requant: bool,
+            int4: bool) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
+    if int4 and k % 2:
+        raise ValueError(f'int4w matmul needs an even K, got {k}')
     dev = _build.kernel_device(x)
     _build.require(x, 'x', torch.int8, (m, k), dev)
-    _build.require(w, 'w', torch.int8, (k, n), dev)
+    _build.require(w, 'w_packed' if int4 else 'w', torch.int8,
+                   (k // 2 if int4 else k, n), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
     if requant:
         _build.require(mult, 'mult', torch.float32, (n,), dev)
@@ -58,12 +104,13 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool) -> torch.Tensor:
                       device=dev)
     vec_a = int(k % 16 == 0 and x.data_ptr() % 16 == 0)
     vec_b = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
-    name = 'int8_matmul_requant' if requant else 'int8_matmul_acc'
+    name = (('int4w' if int4 else 'int8') + '_matmul_'
+            + ('requant' if requant else 'acc'))
     with torch.cuda.device(dev):
         code = _build.lib().hawq_int8_matmul(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(),
             mult.data_ptr() if requant else None, out.data_ptr(),
-            m, k, n, lo, hi, int(requant), vec_a, vec_b,
+            m, k, n, lo, hi, int(requant), int(int4), vec_a, vec_b,
             _build.stream_ptr(dev))
     _build.check(code, name)
     _build.count(name)
@@ -81,7 +128,7 @@ def int8_matmul_requant(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     lo, hi = epilogue_bounds(out_bits, signed, relu)
     if x.device.type == 'cpu':
         return matmul_requant_plain(x, w, bias, mult, lo, hi)
-    return _launch(x, w, bias, mult, lo, hi, True)
+    return _launch(x, w, bias, mult, lo, hi, True, False)
 
 
 def int8_matmul_acc(x: torch.Tensor, w: torch.Tensor,
@@ -89,4 +136,25 @@ def int8_matmul_acc(x: torch.Tensor, w: torch.Tensor,
     """int8 matmul returning the raw int32 accumulator + bias."""
     if x.device.type == 'cpu':
         return matmul_acc_plain(x, w, bias)
-    return _launch(x, w, bias, None, 0, 0, False)
+    return _launch(x, w, bias, None, 0, 0, False, False)
+
+
+def int4w_matmul_requant(x: torch.Tensor, w_packed: torch.Tensor,
+                         bias: torch.Tensor, mult: torch.Tensor, *,
+                         out_bits: int = 8, signed: bool = True,
+                         relu: bool = False) -> torch.Tensor:
+    """:func:`int8_matmul_requant` with nibble-packed int4 weights: w_packed
+    (K/2, N) from :func:`pack_int4`; K even."""
+    lo, hi = epilogue_bounds(out_bits, signed, relu)
+    if x.device.type == 'cpu':
+        return matmul_requant_plain(x, unpack_int4(w_packed), bias, mult,
+                                    lo, hi)
+    return _launch(x, w_packed, bias, mult, lo, hi, True, True)
+
+
+def int4w_matmul_acc(x: torch.Tensor, w_packed: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """:func:`int8_matmul_acc` with nibble-packed int4 weights."""
+    if x.device.type == 'cpu':
+        return matmul_acc_plain(x, unpack_int4(w_packed), bias)
+    return _launch(x, w_packed, bias, None, 0, 0, False, True)

@@ -1,4 +1,6 @@
-"""CUDA kernels == their plain PyTorch versions on the card, bit for bit.
+"""CUDA kernels == their plain PyTorch versions on the card, bit for bit
+(the int8 and the nibble-packed int4-weight forms), and the engine on the
+card == the engine on the CPU.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -20,6 +22,7 @@ from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels.pool import maxpool_folded
 from hawq_tpu_torch.quant.ops import exact_div, np_dyadic_multiplier
+from hawq_tpu_torch.utils.preproc import quantize_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +90,77 @@ def test_conv_kernel_equals_plain(dev, shape, cout, stride):
                                rtol=0, atol=0)
 
 
+def _w4(rng, shape):
+    """int4 weights over the whole range, -8 and 7 included."""
+    w = rng.randint(-8, 8, shape).astype(np.int8)
+    w.reshape(-1)[:2] = (-8, 7)
+    return w
+
+
+@pytest.mark.parametrize('m,k,n', [(37, 46, 19), (3, 6, 2), (130, 200, 72),
+                                   (392, 2048, 512)])     # last: stage-4 conv1
+def test_int4w_matmul_kernel_equals_plain(dev, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    _, _, b, mult = _operands(rng, 1, 1, n, dev)
+    x = torch.tensor(rng.randint(-128, 128, (m, k)).astype(np.int8),
+                     device=dev)
+    wp = torch.tensor(km.pack_int4(_w4(rng, (k, n))), device=dev)
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        got = km.int4w_matmul_requant(x, wp, b, mult, out_bits=out_bits,
+                                      signed=signed, relu=relu)
+        torch.testing.assert_close(got, km.matmul_requant_plain(
+            x, km.unpack_int4(wp), b, mult, lo, hi), rtol=0, atol=0)
+    torch.testing.assert_close(km.int4w_matmul_acc(x, wp, b),
+                               km.matmul_acc_plain(x, km.unpack_int4(wp), b),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('shape,cout,stride', [
+    ((2, 9, 7, 6), 11, 1), ((1, 12, 10, 10), 9, 2), ((1, 9, 7, 6), 5, 2),
+    ((2, 33, 31, 64), 72, 1), ((8, 7, 7, 512), 512, 1)])  # last: stage-4 conv2
+def test_int4w_conv_kernel_equals_plain(dev, shape, cout, stride):
+    rng = np.random.RandomState(sum(shape) + cout)
+    x8 = torch.tensor(rng.randint(-128, 128, shape).astype(np.int8), device=dev)
+    w = _w4(rng, (3, 3, shape[3], cout))
+    b, h, wd, _ = shape
+    if stride == 2:
+        x2, w = kc.s2d_conv_transform(x8, w, 1)
+        oh, ow = kc.s2d_output_hw(h, wd, 3, 3, 1)
+        xp = kc.prepare_conv_input(x2, (0, 0))
+    else:
+        oh, ow = h, wd
+        xp = kc.prepare_conv_input(x8, (1, 1))
+    taps = w.shape[:2]
+    wp = torch.tensor(kc.pack_int4_conv(kc.flatten_conv_kernel(w),
+                                        taps[0] * taps[1]), device=dev)
+    wf = kc.unpack_int4_conv(wp, taps[0] * taps[1])
+    _, _, bias, mult = _operands(rng, 1, 1, cout, dev)
+    geo = dict(taps=taps, out_hw=(oh, ow), cin=w.shape[2])
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        got = kc.int4w_conv_requant(xp, wp, bias, mult, out_bits=out_bits,
+                                    signed=signed, relu=relu, **geo)
+        torch.testing.assert_close(got, kc.conv_requant_plain(
+            xp, wf, bias, mult, lo=lo, hi=hi, **geo), rtol=0, atol=0)
+    torch.testing.assert_close(kc.int4w_conv_acc(xp, wp, bias, **geo),
+                               kc.conv_acc_plain(xp, wf, bias, **geo),
+                               rtol=0, atol=0)
+
+
+def test_int4w_wrappers_reject_odd_k(dev):
+    x = torch.zeros((4, 5), dtype=torch.int8, device=dev)
+    wp = torch.zeros((2, 8), dtype=torch.int8, device=dev)
+    b = torch.zeros((8,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        km.int4w_matmul_acc(x, wp, b)
+    xp = torch.zeros((1, 3, 3 * 3), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        kc.int4w_conv_acc(xp, torch.zeros((4, 8), dtype=torch.int8,
+                                          device=dev), b,
+                          taps=(3, 3), out_hw=(1, 1), cin=3)
+
+
 @pytest.mark.parametrize('dtype', [torch.int16, torch.int32, torch.float32])
 def test_pool_kernel_equals_plain(dev, dtype):
     rng = np.random.RandomState(1)
@@ -114,17 +188,26 @@ def test_exact_div_cuda_equals_cpu(dev):
                                    exact_div(x, s), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize('arch,mode', [('tiny50', 'folded_float32'),
-                                       ('tiny18', 'float32'),
-                                       ('resnet20_cifar', 'float32')])
-def test_engine_cuda_equals_cpu(dev, arch, mode):
-    fm = synthetic_frozen_resnet(arch, get_bit_config(arch, 'uniform8'),
+@pytest.mark.parametrize('arch,mode,scheme', [
+    ('tiny50', 'folded_float32', 'uniform8'), ('tiny18', 'float32', 'uniform8'),
+    ('resnet20_cifar', 'float32', 'uniform8'),
+    ('tiny18', 'float32', 'uniform4'), ('tiny18', 'uint8', 'uniform4'),
+    ('tiny50', 'folded_int8', 'uniform4')])
+def test_engine_cuda_equals_cpu(dev, arch, mode, scheme):
+    fm = synthetic_frozen_resnet(arch, get_bit_config(arch, scheme),
                                  num_classes=10, seed=1)
-    x = np.random.RandomState(2).randn(2, 32, 32, 3).astype(np.float32)
-    if mode == 'folded_float32':
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 32, 32, 3).astype(np.float32)
+    if mode == 'uint8':
+        x = rng.randint(0, 256, x.shape).astype(np.uint8)
+    if mode.startswith('folded'):
         x = fold4_images(x)
+    if mode == 'folded_int8':
+        x = quantize_int8(x, fm.act_scale('quant_input'))
     want = build_resnet_engine(fm, input_mode=mode, device='cpu')(x)
     _build.reset_launches()
     got = build_resnet_engine(fm, input_mode=mode, device=dev)(x)
     assert sum(_build.LAUNCHES.values()) > 0
+    if scheme == 'uniform4':
+        assert _build.LAUNCHES.get('int4w_conv_requant', 0) > 0
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)

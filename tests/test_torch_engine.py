@@ -148,7 +148,10 @@ def test_engine_rejects_unsupported_options():
     fm = _port_fm(synthetic_frozen_resnet(
         'tiny18', get_bit_config('tiny18', 'uniform8'), num_classes=10))
     with pytest.raises(ValueError):
-        build_resnet_engine(fm, input_mode='uint8', device='cpu')
+        build_resnet_engine(fm, input_mode='uint16', device='cpu')
+    with pytest.raises(ValueError):             # images in the wrong dtype
+        build_resnet_engine(fm, input_mode='uint8', device='cpu')(
+            np.zeros((1, 32, 32, 3), np.float32))
     with pytest.raises(ValueError):
         build_resnet_engine(fm, residual_dtype=torch.int8, device='cpu')
     with pytest.raises(KeyError):
