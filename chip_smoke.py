@@ -31,7 +31,29 @@ non-zero exit and no result line:
     the bops_0.5 engine (folded_int8 input, quantized on the host) answer
     12 single-image requests each, each equal to its row of a batched
     engine call;
- 6. one JSON line with the kernels' numbers, then the result line.
+ 6. the split-K matmul ``int8_matmul_requant_kblocked`` (on no path of the
+    package: the reference has it beside its matmul kernel) on the 16
+    recorded ``int8_matmul_requant`` calls of the ResNet-50 uniform8 path
+    and on ragged shapes, equal to its plain version and to that kernel's
+    output, timed beside it; then those 16 calls once more as its own path,
+    counted;
+ 7. QAT training through the Trainer: ResNet-50 uniform8 at full width and
+    depth, 224×224, 1000 classes, batch 32, synthetic data, seed 0 — 2
+    calibration batches, 4 steps with ``fix_bn_threshold=2`` (two unfolded,
+    two folded), evaluation on 1 batch, the checkpoint with its frozen
+    artifact.  Losses finite; the launch counts of every step equal to what
+    the architecture predicts (``minmax_1pass`` once per activation
+    quantizer, every conv and the FC through ``int8_conv_acc`` /
+    ``int8_matmul_acc``); every distinct kernel call of a step repeated on
+    synthetic inputs of its shapes and held against its plain version, then
+    timed; ``minmax_1pass`` also on unaligned, one-element, NaN and ±inf
+    inputs; one folded step at batch 2, 64×64 on the card against the same
+    step on the CPU (integers and ranges equal, loss within 1e-5, gradients
+    within 1e-3); the saved frozen checkpoint served by the integer engine
+    on the card, its logits equal as integers to the trainer's QAT eval
+    logits; ms per step, images/s, peak memory and a profiler trace of one
+    step;
+ 8. one JSON line with the kernels' numbers, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -42,6 +64,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,7 +95,16 @@ KERNELS = {
                            'hawq_tpu/kernels/conv.py:254'),
     'int4w_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv.cu',
                        'hawq_tpu/kernels/conv.py:265'),
+    'int8_matmul_requant_kblocked': (
+        'hawq_tpu_torch/kernels/csrc/matmul_kblocked.cu',
+        'hawq_tpu/kernels/matmul.py:322'),
+    'minmax_1pass': ('hawq_tpu_torch/kernels/csrc/reduce.cu',
+                     'hawq_tpu/kernels/reduce.py:63'),
 }
+# the two kernels that no serving path launches: phases 6 and 7 drive them
+KBLOCKED, MINMAX = 'int8_matmul_requant_kblocked', 'minmax_1pass'
+SERVING_KERNELS = [k for k in KERNELS if k not in (KBLOCKED, MINMAX)]
+TRAIN_BATCH = 32
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -158,20 +190,28 @@ def expected_launches(arch, cfg, input_mode):
 
 
 def kernel_modules():
-    from hawq_tpu_torch.kernels import conv, matmul, pool
+    from hawq_tpu_torch.kernels import conv, matmul, pool, reduce
     return {name: (pool if name == 'maxpool_folded' else
+                   reduce if name == MINMAX else
                    conv if '_conv' in name else matmul) for name in KERNELS}
 
 
+def shapes_only(args):
+    """Tensors replaced by storage-free stand-ins of their shape and dtype."""
+    return tuple(torch.empty_like(a, device='meta')
+                 if isinstance(a, torch.Tensor) else a for a in args)
+
+
 @contextlib.contextmanager
-def recording(calls):
-    """Record every kernel-wrapper call (its inputs) while the engine runs."""
+def recording(calls, keep=lambda args: args):
+    """Record every kernel-wrapper call while a path runs: its inputs, or
+    with ``keep=shapes_only`` only their shapes and dtypes."""
     mods = kernel_modules()
     orig = {name: getattr(mod, name) for name, mod in mods.items()}
 
     def recorder(name):
         def call(*args, **kw):
-            calls.append((name, args, kw))
+            calls.append((name, keep(args), kw))
             return orig[name](*args, **kw)
         return call
     for name, mod in mods.items():
@@ -194,12 +234,16 @@ def unpacked_weights(name, args, kw):
     return args[1]
 
 
-def plain_call(name, args, kw):
+def plain_call(name, args, kw, stack=True):
     from hawq_tpu_torch.inference.fold import maxpool_3x3s2p1_folded
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
+    from hawq_tpu_torch.kernels import reduce as kr
     if name == 'maxpool_folded':
         return maxpool_3x3s2p1_folded(*args)
+    if name == MINMAX:
+        out = kr.minmax_plain(*args)
+        return torch.stack(out) if stack else out
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
     geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin') if k in kw}
     if name.endswith('matmul_acc'):
@@ -208,13 +252,16 @@ def plain_call(name, args, kw):
         return kc.conv_acc_plain(*args, **geo)
     lo, hi = km.epilogue_bounds(kw.get('out_bits', 8), kw.get('signed', True),
                                 kw.get('relu', False))
-    if name.endswith('matmul_requant'):
+    if '_matmul_requant' in name:
         return km.matmul_requant_plain(*args, lo, hi)
     return kc.conv_requant_plain(*args, lo=lo, hi=hi, **geo)
 
 
-def kernel_call(name, args, kw):
-    return getattr(kernel_modules()[name], name)(*args, **kw)
+def kernel_call(name, args, kw, stack=True):
+    """The wrapper's result; the (min, max) pair stacked into one tensor
+    unless ``stack`` is off (the timed calls)."""
+    out = getattr(kernel_modules()[name], name)(*args, **kw)
+    return torch.stack(out) if name == MINMAX and stack else out
 
 
 def work(name, args, kw, out):
@@ -225,7 +272,7 @@ def work(name, args, kw, out):
     nbytes = sum(t.numel() * t.element_size() for t in args
                  if isinstance(t, torch.Tensor))
     nbytes += out.numel() * out.element_size()
-    if name == 'maxpool_folded':
+    if name in ('maxpool_folded', MINMAX):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
     n = args[1].shape[1]
     if '_matmul' in name:
@@ -242,8 +289,10 @@ def library_call(name, args, kw):
     """One PyTorch call over the same inputs as the yardstick, where one
     exists: torch._int_mm (int8 → int32 product, without bias or requant;
     int4 weights unpacked to int8 before the timing) under its shape
-    rules.  None elsewhere (PyTorch has no int8 conv and no folded-layout
-    pool)."""
+    rules, torch.aminmax for the min/max.  None elsewhere (PyTorch has no
+    int8 conv and no folded-layout pool)."""
+    if name == MINMAX:
+        return lambda: torch.aminmax(args[0])
     if '_matmul' not in name:
         return None
     x, w = args[0], unpacked_weights(name, args, kw)
@@ -255,8 +304,9 @@ def library_call(name, args, kw):
 
 def ragged_calls(dev):
     """Unaligned shapes beside the paths': odd M/K/N, small C (byte loads),
-    s2d stride 2, int32/float32 pools; for the int4w kernels odd M/N, C/2
-    odd (C = 6, 10), s2d stride 2, nibbles -8 and 7."""
+    s2d stride 2, int32/float32 pools; for the split-K matmul ragged K and
+    every split count; for the int4w kernels odd M/N, C/2 odd (C = 6, 10),
+    s2d stride 2, nibbles -8 and 7."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
@@ -283,6 +333,15 @@ def ragged_calls(dev):
         calls.append(('int8_matmul_requant', (i8(m, k), i8(k, n), b, mu),
                       dict(out_bits=4, signed=False, relu=True)))
         calls.append(('int8_matmul_acc', (i8(m, k), i8(k, n), b), {}))
+    # split-K: K not a multiple of the 64-wide tile, M = 8, 1 to ⌈K/64⌉ pieces
+    for m, k, n in ((8, 200, 72), (37, 45, 19), (8, 2048, 1000),
+                    (130, 1000, 64)):
+        x, w = i8(m, k), i8(k, n)
+        b, mu = vec(n)
+        for splits in sorted({1, min(2, -(-k // 64)), -(-k // 64)}) + [None]:
+            calls.append((KBLOCKED, (x, w, b, mu), dict(
+                out_bits=4, signed=False, relu=True, k_splits=splits)))
+            calls.append((KBLOCKED, (x, w, b, mu), dict(k_splits=splits)))
     for shape, n, stride in (((2, 9, 7, 5), 11, 1), ((1, 12, 10, 32), 40, 2),
                              ((2, 33, 31, 64), 72, 1)):
         x8 = i8(*shape)
@@ -340,24 +399,37 @@ def ragged_calls(dev):
     return calls
 
 
-def check_calls(calls, dev):
-    """Hold every recorded and ragged call against its plain version."""
-    errs = {name: 0.0 for name in KERNELS}
-    ragged = ragged_calls(dev)
-    for name, args, kw in calls + ragged:
+def same(got, want):
+    """Bit-equal, a NaN equal to a NaN."""
+    if got.is_floating_point():
+        return bool(((got == want) | (got.isnan() & want.isnan())).all())
+    return torch.equal(got, want)
+
+
+def check_calls(calls, errs, what):
+    """Hold every call against its plain version, bit for bit; the largest
+    absolute difference per kernel goes into ``errs``."""
+    for name, args, kw in calls:
         got = kernel_call(name, args, kw)
         want = plain_call(name, args, kw)
         check(got.dtype == want.dtype and got.shape == want.shape,
               f'{name}: {got.dtype}{tuple(got.shape)} vs plain '
               f'{want.dtype}{tuple(want.shape)}')
-        err = (got.to(torch.float64) - want.to(torch.float64)).abs().max()
-        errs[name] = max(errs[name], float(err))
-        check(torch.equal(got, want), f'{name} differs from its plain version '
-              f'at {[tuple(a.shape) for a in args]} {kw}: max |err| '
-              f'{float(err)}')
-    log(f'phase 3: all {len(calls)} recorded and {len(ragged)} ragged calls '
-        f'equal their plain versions')
-    return errs
+        err = float(torch.nan_to_num(
+            (got.to(torch.float64) - want.to(torch.float64)).abs(),
+            nan=0.0).max())
+        errs[name] = max(errs[name], err)
+        check(same(got, want), f'{name} differs from its plain version '
+              f'at {[tuple(a.shape) for a in args]} {kw}: max |err| {err}')
+    log(f'{what} equal their plain versions')
+
+
+def call_key(name, args, kw):
+    """What makes two kernel calls the same work: name, shapes, dtypes and
+    keyword arguments."""
+    return (name, tuple((tuple(a.shape), str(a.dtype)) for a in args
+                        if isinstance(a, torch.Tensor)),
+            tuple(sorted((k, str(v)) for k, v in kw.items())))
 
 
 def time_calls(calls, totals):
@@ -365,15 +437,13 @@ def time_calls(calls, totals):
     times as the path launched it."""
     seen = {}
     for name, args, kw in calls:
-        key = (name, tuple(tuple(a.shape) for a in args
-                           if isinstance(a, torch.Tensor)),
-               tuple(sorted((k, str(v)) for k, v in kw.items())))
+        key = call_key(name, args, kw)
         if key not in seen:
             out = kernel_call(name, args, kw)
             nbytes, ops, label = work(name, args, kw, out)
-            ms = graph_ms(lambda: kernel_call(name, args, kw), 20)
-            host_ms = cuda_ms(lambda: kernel_call(name, args, kw), 20)
-            plain_ms = graph_ms(lambda: plain_call(name, args, kw), 3)
+            ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
+            host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
+            plain_ms = graph_ms(lambda: plain_call(name, args, kw, False), 3)
             lib = library_call(name, args, kw)
             lib_ms = graph_ms(lib, 20) if lib is not None else None
             bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
@@ -483,50 +553,65 @@ _TEMPLATE = (re.compile(r'gemm_s8_kernel<(\w+), \w+, (\w+)>'),
 
 
 def port_kernel(name):
-    """'port: conv' / 'port: matmul' (' int4' with packed weights) /
-    'port: pool' for the port's kernels in a trace (demangled or mangled
-    names), None for any other kernel."""
+    """'port: conv' / 'port: matmul' (' int4' with packed weights, ' split-K')
+    / 'port: pool' / 'port: minmax' for the port's kernels in a trace
+    (demangled or mangled names), None for any other kernel."""
     for pattern in _TEMPLATE:
         m = pattern.search(name)
         if m:
             conv, int4 = (g in ('true', '1') for g in m.groups())
             return ('port: ' + ('conv' if conv else 'matmul')
                     + (' int4' if int4 else ''))
+    if 'gemm_s8_splitk_kernel' in name:
+        return 'port: matmul split-K'
     if 'maxpool_folded_kernel' in name:
         return 'port: pool'
+    if 'minmax_partial_kernel' in name or 'minmax_finish_kernel' in name:
+        return 'port: minmax'
     return None
 
 
-def trace_breakdown(eng, x, label):
-    """Device-side breakdown of one forward from a torch.profiler trace:
-    kernel time of the port's kernels and of the rest, and the share of the
-    device timeline with no kernel running."""
-    import tempfile
+def device_kernels(fn):
+    """The device kernels of one call of ``fn`` (after a warm-up call), from
+    a torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
-    eng(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng(x)
+        fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, 'trace.json')
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get('traceEvents', [])
-    kernels = [e for e in events
-               if e.get('cat') == 'kernel' and e.get('ph') == 'X']
-    if not kernels:
-        log(f'phase 4: {label}: the profiler trace holds no device kernels; '
-            f'device busy share not measured')
-        return
+    return [e for e in events
+            if e.get('cat') == 'kernel' and e.get('ph') == 'X']
+
+
+def busy_and_timeline(kernels):
+    """(µs with a kernel running, µs from the first kernel's start to the
+    last one's end)."""
     spans = sorted((float(e['ts']), float(e['ts']) + float(e['dur']))
                    for e in kernels)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    timeline = spans[-1][1] - spans[0][0]
+    return busy, spans[-1][1] - spans[0][0]
+
+
+def trace_breakdown(eng, x, label):
+    """Device-side breakdown of one forward from a torch.profiler trace:
+    kernel time of the port's kernels and of the rest, and the share of the
+    device timeline with no kernel running."""
+    kernels = device_kernels(lambda: eng(x))
+    if not kernels:
+        log(f'phase 4: {label}: the profiler trace holds no device kernels; '
+            f'device busy share not measured')
+        return
+    busy, timeline = busy_and_timeline(kernels)
     by_name = {}
     for e in kernels:
         key = port_kernel(e['name']) or e['name'][:60]
@@ -567,6 +652,348 @@ def serving_phase(eng, host_transform, label, dev):
           f'from the batched engine call')
     log(f'phase 5: DynamicBatcher over {label} answered {n_req} requests, '
         f'each equal to its row of a batched call')
+
+
+def kblocked_phase(conv1_calls, errs, totals):
+    """Phase 6: the split-K matmul on the recorded ``int8_matmul_requant``
+    calls of the ResNet-50 uniform8 path → its launch count when those
+    calls are driven once through it."""
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.kernels import matmul as km
+    check(len(conv1_calls) == 16, f'{len(conv1_calls)} recorded '
+          f'int8_matmul_requant calls on resnet50 uniform8, expected 16')
+    calls = [(KBLOCKED, args, kw) for _, args, kw in conv1_calls]
+    check_calls(calls, errs, 'phase 6: int8_matmul_requant_kblocked on the '
+                '16 recorded int8_matmul_requant calls')
+    for (_, args, kw) in calls:
+        check(torch.equal(kernel_call(KBLOCKED, args, kw),
+                          km.int8_matmul_requant(*args, **kw)),
+              f'{KBLOCKED} differs from int8_matmul_requant at '
+              f'{[tuple(a.shape) for a in args]}')
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = [km.default_k_splits(a[0].shape[0], a[0].shape[1], a[1].shape[1],
+                                  sm) for _, a, _ in calls]
+    log(f'phase 6: equal to int8_matmul_requant on all 16; K splits chosen '
+        f'on {sm} SMs: {splits}; timed beside it in this run:')
+    time_calls(calls, totals)
+    beside = {}
+    time_calls(conv1_calls, beside)
+    log(f"phase 6: over the 16 calls {KBLOCKED} {totals[KBLOCKED]['ms']:.4f} "
+        f"ms, int8_matmul_requant {beside['int8_matmul_requant']['ms']:.4f} "
+        f"ms (a reading, not a claim)")
+    _build.reset_launches()
+    for name, args, kw in calls:
+        kernel_call(name, args, kw)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(counts == {KBLOCKED: 16}, f'phase 6: launches {counts}')
+    return 16
+
+
+def expected_train_launches(arch, cfg):
+    """Kernel launches of one QAT forward (a train, calibration or eval
+    step; ``minmax_1pass`` only where the ranges update), from the arch:
+    one ``minmax_1pass`` per activation quantizer, the init conv and every
+    3×3 conv through ``int8_conv_acc``, every 1×1 conv and the FC through
+    ``int8_matmul_acc``."""
+    from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
+                                                   resnet_layer_keys)
+    bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
+    counts = {'int8_conv_acc': 0, 'int8_matmul_acc': 1, MINMAX: 0}
+    for key in resnet_layer_keys(arch):
+        leaf = key.rsplit('.', 1)[-1]
+        if leaf == 'quant_input' or leaf.startswith('quant_act'):
+            counts[MINMAX] += int(cfg.settings.act_percentile == 0)
+        elif leaf.startswith('quant_init'):
+            counts['int8_conv_acc'] += 1
+        elif 'convbn' in leaf:
+            three = (leaf == 'quant_convbn2' if bottleneck
+                     else leaf != 'quant_identity_convbn')
+            counts['int8_conv_acc' if three else 'int8_matmul_acc'] += 1
+    return counts
+
+
+def synthesize(args, dev, gen):
+    """Random tensors on the card in place of recorded shapes and dtypes."""
+    out = []
+    for a in args:
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+        elif a.dtype == torch.float32:
+            out.append(torch.randn(a.shape, device=dev, generator=gen) * 3)
+        else:
+            hi = 128 if a.dtype == torch.int8 else 2 ** 16
+            out.append(torch.randint(-hi, hi, a.shape, device=dev,
+                                     dtype=a.dtype, generator=gen))
+    return tuple(out)
+
+
+def minmax_edge_calls(dev, gen):
+    """Unaligned, one-element, NaN and ±inf inputs of the min/max."""
+    x = torch.randn(1 << 20, device=dev, generator=gen)
+    nan, pinf, ninf = x.clone(), x.clone(), x.clone()
+    nan[12345], pinf[7], ninf[-2] = float('nan'), float('inf'), float('-inf')
+    tail_nan = x[:4099].clone()
+    tail_nan[-1] = float('nan')
+    return [(MINMAX, (t,), {}) for t in (
+        x[1:], x[3:70001], x[:1], x[5:6], nan, pinf, ninf, tail_nan,
+        x[::3])]
+
+
+_LIBRARY_KERNEL = re.compile(
+    r'cudnn|cublas|cutlass|xmma|gemm|gemv|wgrad|dgrad|fprop|convolve|conv2d|'
+    r'implicit|winograd|nchw|nhwc|sm\d\d_|ampere|hopper', re.I)
+
+
+def train_trace_breakdown(step, label):
+    """Device-side breakdown of one train step from a profiler trace: the
+    port's kernels, the library's (cuDNN / cuBLAS: the float backward),
+    PyTorch's elementwise and reduction glue, and the idle share."""
+    kernels = device_kernels(step)
+    if not kernels:
+        log(f'phase 7: {label}: the profiler trace holds no device kernels; '
+            f'breakdown not measured')
+        return None
+    busy, timeline = busy_and_timeline(kernels)
+    groups, by_name = {}, {}
+    for e in kernels:
+        port = port_kernel(e['name'])
+        group = ('port' if port else 'library'
+                 if _LIBRARY_KERNEL.search(e['name']) else 'glue')
+        c, t = groups.get(group, (0, 0.0))
+        groups[group] = (c + 1, t + float(e['dur']))
+        key = port or e['name'][:70]
+        c, t = by_name.get(key, (0, 0.0))
+        by_name[key] = (c + 1, t + float(e['dur']))
+    parts = ', '.join(f'{g} {t / 1e3:.3f} ms x{c}'
+                      for g, (c, t) in sorted(groups.items()))
+    log(f'phase 7: trace of one {label}: {len(kernels)} kernels, device busy '
+        f'{busy / 1e3:.3f} ms of a {timeline / 1e3:.3f} ms device timeline '
+        f'(idle share {1 - busy / timeline:.3f}); {parts} (port = this '
+        f"package's kernels, library = cuDNN/cuBLAS, glue = PyTorch "
+        f'elementwise and reduction kernels)')
+    for k, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f'  {t / 1e3:8.4f} ms  x{c:<4d} {k}')
+    return groups
+
+
+def run_trainer(batch_size, dev):
+    """Phase 7, the Trainer run at one batch size → what it measured."""
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.train import trainer as tt
+    from hawq_tpu_torch.train.data import synthetic_batches
+    from hawq_tpu_torch.utils.checkpoint import load_frozen
+    steps, specs = [], []
+    real = tt.make_train_step
+
+    def instrumented(model, *, folded, **kw):
+        step = real(model, folded=folded, **kw)
+
+        def run(state, batch):
+            del specs[:]
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            with recording(specs, keep=shapes_only):
+                out = step(state, batch)
+            t1.record()
+            torch.cuda.synchronize()
+            counts = {k: v - before.get(k, 0)
+                      for k, v in _build.LAUNCHES.items()
+                      if v - before.get(k, 0)}
+            steps.append(dict(step=state.step - 1, folded=folded,
+                              ms=t0.elapsed_time(t1), counts=counts,
+                              loss=float(out[1]['loss'])))
+            return out
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = tt.TrainerConfig(
+            arch='resnet50', scheme='uniform8', num_classes=1000,
+            image_size=SIZE, batch_size=batch_size, epochs=1,
+            steps_per_epoch=4, fix_bn_threshold=2, calib_batches=2,
+            eval_batches=1, seed=0, save_path=tmp, device='cuda')
+        tt.make_train_step = instrumented
+        try:
+            trainer = tt.Trainer(cfg)
+            want = expected_train_launches(cfg.arch, trainer.bit_cfg)
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            trainer.run()       # calibrate, 4 steps, evaluate, checkpoint
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = {k: v for k, v in _build.LAUNCHES.items() if v}
+        finally:
+            tt.make_train_step = real
+        label = f'resnet50 uniform8 b{batch_size} {SIZE}x{SIZE}'
+        check([s['folded'] for s in steps] == [False, False, True, True],
+              f'fix-BN schedule ran {[s["folded"] for s in steps]}')
+        for s in steps:
+            check(np.isfinite(s['loss']), f'step {s["step"]}: loss '
+                  f'{s["loss"]}')
+            check(s['counts'] == want, f'step {s["step"]}: launches '
+                  f'{s["counts"]}, expected {want}')
+        # 2 calibration passes and 4 steps update the ranges, the eval
+        # batch does not
+        want_total = {k: v * (7 if k != MINMAX else 6) for k, v in want.items()}
+        check(total == want_total, f'{label}: launches of the whole run '
+              f'{total}, expected {want_total}')
+        log(f'phase 7: Trainer on {label}: 2 calibration batches, steps '
+            + ', '.join(f"{s['step']} ({'folded' if s['folded'] else 'unfolded'}"
+                        f" BN) loss {s['loss']:.4f} {s['ms']:.1f} ms"
+                        for s in steps)
+            + f', 1 eval batch, checkpoint; {wall:.1f} s in all; launches '
+            f'per step {want}, whole run {total}')
+        for name in ('checkpoint.npz', 'checkpoint.npz.meta.json',
+                     'quantized_checkpoint.npz',
+                     'quantized_checkpoint.npz.manifest.json'):
+            check(os.path.exists(os.path.join(tmp, name)), f'{name} missing')
+        fm = load_frozen(os.path.join(tmp, 'quantized_checkpoint.npz'))
+
+    # the parity contract on the card: the frozen checkpoint through the
+    # integer engine == the trainer's QAT eval logits, as integers
+    images = torch.from_numpy(next(synthetic_batches(
+        batch_size, SIZE, 1000, 1, seed=10_000))['image']).to(dev)
+    with torch.no_grad():
+        qat = trainer.model(images, folded=True, update_stats=False)
+    eng = build_resnet_engine(fm, device=dev)
+    _build.reset_launches()
+    logits = eng(images)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want_eng = expected_launches(fm.arch, fm.cfg, 'float32')
+    check(counts == want_eng, f'engine on the frozen checkpoint: launches '
+          f'{counts}, expected {want_eng}')
+    scale = (torch.from_numpy(fm['quant_output.weight_scale']).to(dev).double()
+             * float(fm.act_scale('quant_act_output')))
+    qat_int = torch.round(qat.double() / scale)
+    eng_int = torch.round(logits.double() / scale)
+    check(qat.shape == (batch_size, 1000) and bool(torch.isfinite(qat).all()),
+          'QAT eval logits not finite/shaped')
+    check(torch.equal(qat_int, eng_int), f'engine logits differ from the QAT '
+          f'eval logits as integers on {int((qat_int != eng_int).sum())} of '
+          f'{qat_int.numel()}')
+    log(f'phase 7: quantized_checkpoint.npz → load_frozen → '
+        f'build_resnet_engine on the card: integer logits equal the '
+        f"trainer's QAT eval logits on all {qat_int.numel()} "
+        f'(launches {counts})')
+
+    # steadier step times: a fixed batch, one warm-up, CUDA events
+    batch = trainer._device_batch(next(synthetic_batches(
+        batch_size, SIZE, 1000, 1, seed=0)))
+    timed = {}
+    for folded in (False, True):
+        step = real(trainer.model, folded=folded)
+        run = lambda: step(trainer.state, batch)
+        timed[folded] = cuda_ms(run, 3)
+    peak = torch.cuda.max_memory_allocated()
+    log(f'phase 7: {label}: {timed[False]:.2f} ms per unfolded step, '
+        f'{timed[True]:.2f} ms per folded step (CUDA events around 3 whole '
+        f'steps after a warm-up), {batch_size / timed[True] * 1e3:.1f} '
+        f'images/s folded, peak memory allocated {peak / 2 ** 30:.2f} GiB')
+    step = real(trainer.model, folded=True)
+    groups = train_trace_breakdown(lambda: step(trainer.state, batch),
+                                   f'folded step of {label}')
+    return dict(batch=batch_size, want=want, specs=list(specs), timed=timed,
+                peak=peak, groups=groups)
+
+
+def card_vs_cpu_step(dev):
+    """One folded train step of ResNet-50 at batch 2, 64×64 on the card
+    against the same step on the CPU from the same state."""
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.models.resnet import (QResNet, qat_from_numpy,
+                                              qat_to_numpy)
+    from hawq_tpu_torch.nn.layers import capture_q_int
+    from hawq_tpu_torch.train.train import (TrainState, make_train_step,
+                                            sgd_with_step_decay)
+    cfg = get_bit_config('resnet50', 'uniform8')
+    rng = np.random.RandomState(4)
+    images = rng.randn(2, 64, 64, 3).astype(np.float32)
+    labels = rng.randint(0, 1000, (2,))
+    cpu = QResNet('resnet50', cfg, 1000, seed=0)
+    with torch.no_grad():
+        for _ in range(2):
+            cpu(torch.from_numpy(images), folded=True, update_stats=True)
+    card = qat_from_numpy(QResNet('resnet50', cfg, 1000, seed=1).to(dev),
+                          qat_to_numpy(cpu))
+    out = {}
+    for name, model, device in (('cpu', cpu, 'cpu'), ('card', card, dev)):
+        state = TrainState.create(model, sgd_with_step_decay(model, 1e-4))
+        batch = {'image': torch.from_numpy(images).to(device),
+                 'label': torch.from_numpy(labels).to(device)}
+        with capture_q_int(model) as q:
+            _, metrics = make_train_step(model, folded=True)(state, batch)
+        out[name] = dict(
+            q={k: v.cpu() for k, v in q.items()},
+            ranges={k: v.cpu() for k, v in model.named_buffers()
+                    if k.endswith(('x_min', 'x_max'))},
+            grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+            loss=float(metrics['loss']))
+    for kind in ('q', 'ranges'):
+        for k, want in out['cpu'][kind].items():
+            check(torch.equal(out['card'][kind][k], want),
+                  f'card step: {kind} {k} differs from the CPU step')
+    rel = abs(out['card']['loss'] - out['cpu']['loss']) / abs(out['cpu']['loss'])
+    check(rel <= 1e-5, f'card step: loss {out["card"]["loss"]} vs CPU '
+          f'{out["cpu"]["loss"]}')
+    worst = 0.0
+    for k, want in out['cpu']['grads'].items():
+        got = out['card']['grads'][k]
+        # cuDNN / cuBLAS against the CPU's float convolutions: rtol 1e-3,
+        # with a floor of 1e-3 of the leaf's largest value
+        tol = 1e-3 * want.abs() + 1e-3 * float(want.abs().max())
+        check(bool(((got - want).abs() <= tol).all()),
+              f'card step: gradient {k} differs from the CPU step')
+        worst = max(worst, float((got - want).abs().max()
+                                 / (want.abs().max() + 1e-30)))
+    log(f"phase 7: one folded step of resnet50 uniform8 b2 64x64 on the card "
+        f"== on the CPU: {len(out['cpu']['q'])} q_int tensors and "
+        f"{len(out['cpu']['ranges'])} ranges bit-equal, loss "
+        f"{out['card']['loss']:.6f} vs {out['cpu']['loss']:.6f}, "
+        f"{len(out['cpu']['grads'])} gradient leaves within rtol 1e-3 "
+        f"(worst |err| / max|g| {worst:.2e})")
+
+
+def training_phase(errs, totals, dev):
+    """Phase 7 → (launches per step of the kernels it drives, its totals
+    per kernel over one step, the batch it ran at)."""
+    batch = TRAIN_BATCH
+    while True:
+        try:
+            run = run_trainer(batch, dev)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            check(batch > 1, f'phase 7: out of memory at batch 1: {e}')
+            log(f'phase 7: batch {batch} does not fit in the card\'s memory '
+                f'in eager mode ({str(e).splitlines()[0]}); halving it')
+            batch //= 2
+            torch.cuda.empty_cache()
+    # every distinct kernel call of the last folded step, on synthetic
+    # inputs of its shapes: against the plain version, then timed
+    gen = torch.Generator(device=dev).manual_seed(0)
+    distinct = {}
+    for name, args, kw in run['specs']:
+        key = call_key(name, args, kw)
+        if key not in distinct:
+            distinct[key] = (name, synthesize(args, dev, gen), kw)
+    calls = [distinct[call_key(*spec)] for spec in run['specs']]
+    shapes = {k for k in distinct if k[0] == MINMAX}
+    edges = minmax_edge_calls(dev, gen)
+    check_calls(list(distinct.values()) + edges, errs,
+                f'phase 7: the {len(distinct)} distinct kernel calls of a '
+                f'step ({len(shapes)} minmax_1pass shapes) and '
+                f'{len(edges)} minmax_1pass edge inputs')
+    train_totals = {}
+    log(f'phase 7: timed at the shapes of one step (batch {batch}):')
+    time_calls(calls, train_totals)
+    totals[MINMAX] = train_totals[MINMAX]
+    card_vs_cpu_step(dev)
+    return run['want'], train_totals, batch
 
 
 def main():
@@ -619,13 +1046,18 @@ def main():
     for path in PATHS:
         for name in recorded[path][1]:
             report.setdefault(name, path)
-    check(set(report) == set(KERNELS), f'kernels launched on no path: '
-          f'{set(KERNELS) - set(report)}')
+    check(set(report) == set(SERVING_KERNELS), f'kernels launched on no '
+          f'path: {set(SERVING_KERNELS) - set(report)}')
     x = torch.randn(1 << 22, generator=torch.Generator().manual_seed(0)) * 4
     for s in (np.float32(0.0517), 49):
         check(torch.equal(exact_div(x.to(dev), s).cpu(), exact_div(x, s)),
               'exact_div on the card differs from the CPU')
-    errs = check_calls([c for path in PATHS for c in recorded[path][0]], dev)
+    errs = {name: 0.0 for name in KERNELS}
+    n_recorded = sum(len(recorded[path][0]) for path in PATHS)
+    ragged = ragged_calls(dev)
+    check_calls([c for path in PATHS for c in recorded[path][0]] + ragged,
+                errs, f'phase 3: all {n_recorded} recorded and {len(ragged)} '
+                f'ragged calls')
     totals = {}
     for path in PATHS:
         log(f'phase 3: timed on {path[0]} {path[1]}:')
@@ -633,6 +1065,8 @@ def main():
                    totals)
     calls_kept = sum(len(recorded[p][0]) for p in PATHS)
     launches = {name: recorded[path][1][name] for name, path in report.items()}
+    conv1_calls = [c for c in recorded['resnet50', 'uniform8'][0]
+                   if c[0] == 'int8_matmul_requant']
     del recorded
 
     # ---- phase 4 ----
@@ -664,23 +1098,48 @@ def main():
                   'resnet50 bops_0.5 folded_int8', dev)
 
     # ---- phase 6 ----
+    launches[KBLOCKED] = kblocked_phase(conv1_calls, errs, totals)
+    del conv1_calls
+
+    # ---- phase 7 ----
+    train_launches, train_totals, train_batch = training_phase(errs, totals,
+                                                               dev)
+    launches[MINMAX] = train_launches[MINMAX]
+    train_label = f'QAT train step resnet50 uniform8 b{train_batch} ' \
+                  f'{SIZE}x{SIZE}'
+    labels = {name: f'{arch} {scheme} folded_float32 int16 b{BATCH} '
+                    f'{SIZE}x{SIZE}' for name, (arch, scheme) in report.items()}
+    labels[KBLOCKED] = (f'the 16 int8_matmul_requant calls of resnet50 '
+                        f'uniform8 b{BATCH}, driven once through it (on no '
+                        f'path of the package)')
+    labels[MINMAX] = train_label
+
+    # ---- phase 8 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
-        arch, scheme = report[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route='cuda', source=source, replaces=replaces,
             launches=launches[name], max_abs_err=errs[name],
             ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
             bound_by=('bytes' if t['bytes'] / HBM_BYTES_PER_S
                       >= t['ops'] / INT8_OPS_PER_S else 'operations'),
             library_ms=t['library_ms'] if t['library_ok'] else None,
-            path=f'{arch} {scheme} folded_float32 int16 b{BATCH} '
-                 f'{SIZE}x{SIZE}'))
-    log(f'phase 6: all phases passed in {time.perf_counter() - t_start:.1f} s '
+            path=labels[name])
+        if name != MINMAX and name in train_totals:
+            # the accumulator kernels' second path: one QAT train step
+            tt = train_totals[name]
+            entry.update(train_path=train_label,
+                         train_launches=train_launches[name],
+                         train_ms=tt['ms'], train_plain_ms=tt['plain_ms'],
+                         train_bound_ms=tt['bound_ms'],
+                         train_library_ms=(tt['library_ms']
+                                           if tt['library_ok'] else None))
+        kernels.append(entry)
+    log(f'phase 8: all phases passed in {time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
-        f'and library_ms are totals over one forward of the path named in '
-        f'each entry)')
+        f'and library_ms are totals over one forward, or one train step, of '
+        f'the path named in each entry)')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -9,8 +9,8 @@ rebuilds and an unchanged one is reused.  The build directory,
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a non-zero code (:func:`check`).  The wrappers also count
-their launches in :data:`LAUNCHES`, so a run can show that the engine's
-path went through the kernels.
+their launches in :data:`LAUNCHES`, so a run can show that a path (the
+engine's, the trainer's) went through the kernels.
 """
 
 from __future__ import annotations
@@ -33,11 +33,14 @@ BUILD_DIR = os.path.join(_HERE, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     'hawq_int8_matmul': [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    'hawq_int8_matmul_kblocked': [_P] * 6 + [_I] * 8 + [_P],
     'hawq_int8_conv': [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
     'hawq_maxpool_folded': [_P, _P] + [_I] * 5 + [_P],
+    'hawq_minmax_max_blocks': [],
+    'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }
 
 # Launch counts per wrapper; reset with reset_launches().

@@ -87,6 +87,23 @@ def s2d_kernel(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w2.reshape(a, b2, 4 * c, o))
 
 
+def flatten_conv_kernel_torch(w: torch.Tensor) -> torch.Tensor:
+    """:func:`flatten_conv_kernel` on a tensor, on its own device."""
+    kh, kw, c, o = w.shape
+    return w.contiguous().reshape(kh * kw * c, o)
+
+
+def s2d_kernel_torch(w: torch.Tensor) -> torch.Tensor:
+    """:func:`s2d_kernel` on a tensor, on its own device: in training the
+    weights change every step and live on the device, so the rewrite must
+    not pass through the host."""
+    kh, kw, c, o = w.shape
+    a, b2 = (kh + 2) // 2, (kw + 2) // 2
+    wpad = F.pad(w, (0, 0, 0, 0, 0, 2 * b2 - kw, 0, 2 * a - kh))
+    w2 = wpad.reshape(a, 2, b2, 2, c, o).permute(0, 2, 1, 3, 4, 5)
+    return w2.reshape(a, b2, 4 * c, o)
+
+
 def s2d_conv_transform(x8: torch.Tensor, w: np.ndarray, pad: int
                        ) -> Tuple[torch.Tensor, np.ndarray]:
     """Rewrite a stride-2 conv as a stride-1 VALID conv via space-to-depth

@@ -207,19 +207,20 @@ __device__ __forceinline__ void store_tiles(uint8_t* As, uint8_t* Bs, int tid,
   }
 }
 
-template <bool CONV, bool REQUANT, bool INT4>
-__global__ void __launch_bounds__(THREADS)
-gemm_s8_kernel(const GemmArgs p) {
-  __shared__ __align__(16) uint8_t As[BM * LDS];
-  __shared__ __align__(16) uint8_t Bs[BN * LDS];
-
+// The tile loop: accumulates A[m0.., k] * W[k, n0..] for k in [k_begin, k_end)
+// into the warp's 32x32 piece of the block's 64x64 tile.  k_begin must be a
+// multiple of BK; loads beyond p.K are masked, so k_end may be ragged only
+// where it equals p.K.
+template <bool CONV, bool INT4>
+__device__ __forceinline__ void gemm_s8_mainloop(const GemmArgs& p, int m0, int n0,
+                                                 int k_begin, int k_end,
+                                                 uint8_t* As, uint8_t* Bs,
+                                                 int32_t (&acc)[2][4][4]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, t4 = lane & 3;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
 
   long long rbase[2];
   bool rvalid[2];
@@ -230,7 +231,6 @@ gemm_s8_kernel(const GemmArgs p) {
     rbase[i] = rvalid[i] ? a_row_base<CONV>(p, m) : 0;
   }
 
-  int32_t acc[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -241,13 +241,13 @@ gemm_s8_kernel(const GemmArgs p) {
   uint4 ra[2];
   uint32_t rb[2][4];
   uint32_t hmask;
-  load_a<CONV>(p, rbase, rvalid, 0, tid, ra);
-  load_b<INT4>(p, 0, n0, tid, rb, hmask);
+  load_a<CONV>(p, rbase, rvalid, k_begin, tid, ra);
+  load_b<INT4>(p, k_begin, n0, tid, rb, hmask);
 
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     store_tiles<INT4>(As, Bs, tid, ra, rb, hmask);
     __syncthreads();
-    if (k0 + BK < p.K) {          // prefetch the next K tile into registers
+    if (k0 + BK < k_end) {        // prefetch the next K tile into registers
       load_a<CONV>(p, rbase, rvalid, k0 + BK, tid, ra);
       load_b<INT4>(p, k0 + BK, n0, tid, rb, hmask);
     }
@@ -273,6 +273,32 @@ gemm_s8_kernel(const GemmArgs p) {
     }
     __syncthreads();
   }
+}
+
+// clip(floor(f32(v) * mult + 0.5), lo, hi) as int8: a rounded multiply, then
+// a rounded add (see the note at the top of this file).
+__device__ __forceinline__ int8_t requant_s8(int32_t v, float mult, int lo, int hi) {
+  float f = __fadd_rn(__fmul_rn(__int2float_rn(v), mult), 0.5f);
+  f = fminf(fmaxf(floorf(f), (float)lo), (float)hi);
+  return (int8_t)__float2int_rz(f);
+}
+
+template <bool CONV, bool REQUANT, bool INT4>
+__global__ void __launch_bounds__(THREADS)
+gemm_s8_kernel(const GemmArgs p) {
+  __shared__ __align__(16) uint8_t As[BM * LDS];
+  __shared__ __align__(16) uint8_t Bs[BN * LDS];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  int32_t acc[2][4][4];
+  gemm_s8_mainloop<CONV, INT4>(p, m0, n0, 0, p.K, As, Bs, acc);
 
   // Epilogue: c0, c1 at row g, columns 2*t4 + {0, 1}; c2, c3 at row g + 8.
 #pragma unroll
@@ -287,9 +313,7 @@ gemm_s8_kernel(const GemmArgs p) {
         int32_t v = acc[mi][ni][r] + p.bias[n];
         long long o = (long long)m * p.N + n;
         if (REQUANT) {
-          float f = __fadd_rn(__fmul_rn(__int2float_rn(v), p.mult[n]), 0.5f);
-          f = fminf(fmaxf(floorf(f), (float)p.lo), (float)p.hi);
-          static_cast<int8_t*>(p.out)[o] = (int8_t)__float2int_rz(f);
+          static_cast<int8_t*>(p.out)[o] = requant_s8(v, p.mult[n], p.lo, p.hi);
         } else {
           static_cast<int32_t*>(p.out)[o] = v;
         }

@@ -1,11 +1,12 @@
 """Integer matmul with fused dyadic requant epilogues (port of
-hawq_tpu/kernels/matmul.py ``int8_matmul_requant`` / ``int8_matmul_acc``
-and their nibble-packed int4-weight forms ``int4w_matmul_requant`` /
-``int4w_matmul_acc``), and the host packer for those weights.
+hawq_tpu/kernels/matmul.py ``int8_matmul_requant`` / ``int8_matmul_acc``,
+their nibble-packed int4-weight forms ``int4w_matmul_requant`` /
+``int4w_matmul_acc``, and the K-blocked ``int8_matmul_requant_kblocked``),
+and the host packer for those weights.
 
 On a CUDA tensor each wrapper launches the hand-written tensor-core kernel
-(csrc/matmul.cu over csrc/gemm_s8.cuh, any M, K and N; the int4 forms need
-an even K); on a CPU tensor it runs the plain PyTorch version beside it.
+(csrc/matmul.cu and csrc/matmul_kblocked.cu over csrc/gemm_s8.cuh, any M, K
+and N; the int4 forms need an even K); on a CPU tensor it runs the plain PyTorch version beside it.
 The plain versions compute the int32 accumulator exactly through float64
 (every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
 op; the int4 forms unpack the weights with :func:`unpack_int4` first.
@@ -13,7 +14,7 @@ op; the int4 forms unpack the weights with :func:`unpack_int4` first.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +159,62 @@ def int4w_matmul_acc(x: torch.Tensor, w_packed: torch.Tensor,
     if x.device.type == 'cpu':
         return matmul_acc_plain(x, unpack_int4(w_packed), bias)
     return _launch(x, w_packed, bias, None, 0, 0, False, True)
+
+
+def default_k_splits(m: int, k: int, n: int, sm_count: int) -> int:
+    """Pieces of K for the split-K kernel: enough that output tiles × splits
+    reach about two blocks per SM, with at least four 64-wide K tiles in a
+    piece; 1 when the output tiles alone fill the card."""
+    tiles = -(-m // 64) * -(-n // 64)
+    k_tiles = -(-k // 64)
+    return max(1, min(2 * sm_count // tiles, k_tiles // 4))
+
+
+def int8_matmul_requant_kblocked(x: torch.Tensor, w: torch.Tensor,
+                                 bias: torch.Tensor, mult: torch.Tensor, *,
+                                 out_bits: int = 8, signed: bool = True,
+                                 relu: bool = False,
+                                 k_splits: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """:func:`int8_matmul_requant`'s function with K accumulated in pieces
+    through an int32 workspace and a single requant at the end (split-K; see
+    csrc/matmul_kblocked.cu).  Any K (the last piece is masked).
+
+    ``k_splits`` is the number of pieces, at most ⌈K/64⌉; None picks it from
+    the shape and the card's SM count (:func:`default_k_splits`).  The
+    result does not depend on it."""
+    lo, hi = epilogue_bounds(out_bits, signed, relu)
+    m, k = x.shape
+    n = w.shape[1]
+    k_tiles = -(-k // 64)
+    if k_splits is not None and not 1 <= k_splits <= k_tiles:
+        raise ValueError(f'k_splits {k_splits} not in [1, {k_tiles}] for '
+                         f'K = {k}')
+    if x.device.type == 'cpu':
+        return matmul_requant_plain(x, w, bias, mult, lo, hi)
+    dev = _build.kernel_device(x)
+    _build.require(x, 'x', torch.int8, (m, k), dev)
+    _build.require(w, 'w', torch.int8, (k, n), dev)
+    _build.require(bias, 'bias', torch.int32, (n,), dev)
+    _build.require(mult, 'mult', torch.float32, (n,), dev)
+    if m < 1 or k < 1 or n < 1:
+        raise ValueError(f'int8_matmul_requant_kblocked: empty shape '
+                         f'({m}, {k}) x ({k}, {n})')
+    if k_splits is None:
+        k_splits = default_k_splits(
+            m, k, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    ws = None
+    if k_splits > 1:        # the sums, then one arrival counter per tile
+        ws = torch.zeros(m * n + -(-m // 64) * -(-n // 64),
+                         dtype=torch.int32, device=dev)
+    vec_a = int(k % 16 == 0 and x.data_ptr() % 16 == 0)
+    vec_b = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
+    with torch.cuda.device(dev):
+        code = _build.lib().hawq_int8_matmul_kblocked(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), mult.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n,
+            lo, hi, k_splits, vec_a, vec_b, _build.stream_ptr(dev))
+    _build.check(code, 'int8_matmul_requant_kblocked')
+    _build.count('int8_matmul_requant_kblocked')
+    return out

@@ -1,6 +1,8 @@
-"""Integer-side quantization numerics (port of hawq_tpu/quant/ops.py).
+"""Quantization numerics (port of hawq_tpu/quant/ops.py).
 
-The frozen engine's requant is the framework-canonical dyadic arithmetic
+One definition serves the QAT graph (integer-valued float32 tensors with
+straight-through gradients) and the frozen integer engine.  The requant is
+the framework-canonical dyadic arithmetic
 
     out = clip(floor(f32(acc) * m·2⁻ᵉ + 0.5), lo, hi)
 
@@ -10,19 +12,32 @@ the reference needs a rounded multiply followed by a rounded add: eager
 PyTorch runs ``*`` and ``+`` as separate kernels, so no FMA contraction can
 merge them here; the CUDA epilogues use ``__fmul_rn``/``__fadd_rn``.
 
-Multipliers are computed on the host in numpy float32
-(:func:`np_dyadic_multiplier`), never on the device.
+The reference pins quantization-critical values against XLA's algebraic
+rewrites with ``exact()``.  That function has no counterpart here: eager
+PyTorch evaluates the op order as written.  For the same reason the QAT
+forward must stay out of ``torch.compile``, whose fusions may contract or
+reassociate these ops.
+
+The frozen engine computes its multipliers on the host in numpy float32
+(:func:`np_dyadic_multiplier`); in QAT the scales are device tensors and
+:func:`dyadic_multiplier` snaps them on the device, elementwise and exactly.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from hawq_tpu_torch.kernels import reduce as _reduce
+
 # Number of mantissa bits in the dyadic multiplier (m ∈ [2²², 2²³]).
 DYADIC_MANTISSA_BITS = 23
+
+_EPS = 1e-8  # scale clamp floor
 
 
 def np_dyadic_multiplier(ratio: np.ndarray) -> np.ndarray:
@@ -35,6 +50,14 @@ def np_dyadic_multiplier(ratio: np.ndarray) -> np.ndarray:
     return np.ldexp(m_int.astype(np.float32), -e_out).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=4096)
+def _constant(value: float, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """A 0-dim constant on ``device``, made once per (value, dtype, device):
+    making it anew costs a host→device copy on every call."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def exact_div(x: torch.Tensor, denom) -> torch.Tensor:
     """True IEEE division of a float tensor by a constant.
 
@@ -42,14 +65,292 @@ def exact_div(x: torch.Tensor, denom) -> torch.Tensor:
     is a Python or CPU scalar, which differs from division by 1 ulp on a few
     percent of inputs and flips borderline round-half-up decisions.  Dividing
     by a 0-dim tensor on ``x``'s own device takes the elementwise divide
-    path on both CPU and CUDA."""
-    d = torch.tensor(denom, dtype=x.dtype, device=x.device)
+    path on both CPU and CUDA.  Scalar divisors are cached as device
+    constants (:func:`_constant`); an array divisor is uploaded per call."""
+    if isinstance(denom, (int, float, np.integer, np.floating)):
+        d = _constant(float(denom), x.dtype, x.device)
+    else:
+        d = torch.tensor(denom, dtype=x.dtype, device=x.device)
     return x / d
+
+
+def bn_inv_factor(gamma: torch.Tensor, var: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """γ / √(var + ε), a square root and then a true division as written
+    (no ``rsqrt``).  Every BN fold comes through here.
+
+    The root is taken in float64 and rounded back: PyTorch's vectorized
+    float32 ``sqrt`` on the CPU is off by one ulp on a few inputs in a
+    thousand, while the freeze's numpy mirror rounds correctly; a float64
+    root rounded to float32 is the correctly rounded float32 root."""
+    std = torch.sqrt((var + eps).to(torch.float64)).to(var.dtype)
+    return gamma / std
 
 
 def round_half_up(x: torch.Tensor) -> torch.Tensor:
     """Deterministic round-half-up (0.5 → 1, −0.5 → 0)."""
     return torch.floor(x + 0.5)
+
+
+# ---------------------------------------------------------------------------
+# Scale computation
+# ---------------------------------------------------------------------------
+
+def symmetric_quant_scale(num_bits: int, sat_min: torch.Tensor,
+                          sat_max: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-tensor or per-channel scale,
+    max(|sat_min|, |sat_max|).clip(1e-8) / (2**(b-1) - 1), elementwise."""
+    n = 2 ** (num_bits - 1) - 1
+    bound = torch.maximum(torch.abs(sat_min), torch.abs(sat_max))
+    return exact_div(torch.clamp(bound, min=_EPS), n)
+
+
+def asymmetric_quant_scale(num_bits: int, sat_min: torch.Tensor,
+                           sat_max: torch.Tensor) -> torch.Tensor:
+    """Asymmetric (scaled-unsigned, zero point 0) scale, only valid
+    post-ReLU: (max - min).clip(1e-8) / (2**b - 1)."""
+    n = 2 ** num_bits - 1
+    return exact_div(torch.clamp(sat_max - sat_min, min=_EPS), n)
+
+
+def fused_minmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) of an activation tensor as two 0-dim tensors on its device:
+    the one-pass kernel on a CUDA tensor, ``torch.amin`` / ``torch.amax`` on
+    a CPU tensor (kernels/reduce.py).  Both compute the same function, so
+    the statistics do not depend on the route."""
+    return _reduce.minmax_1pass(x)
+
+
+def percentile_bounds(x_flat: torch.Tensor, lower_pct: float,
+                      upper_pct: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Percentile min/max of a flat tensor: exact order statistics with the
+    reference's ``kthvalue`` index semantics, no interpolation.
+
+    lower_pct / upper_pct are in percent, e.g. (0.1, 99.9) keeps the central
+    99.8%.  The upper bound is the ``round(n·upper_pct/100)``-th smallest
+    value, the lower bound the ``round(n·(1 − lower_pct/100))``-th largest
+    (``round`` is Python's builtin, half-even).  One ascending sort serves
+    both ends; an index below 1 raises as ``kthvalue(k=0)`` would."""
+    n = int(x_flat.shape[0])
+    s = torch.sort(x_flat).values
+    upper_index = round(n * upper_pct * 0.01)
+    if upper_index < 1:
+        raise ValueError(
+            f'percentile_bounds: upper index {upper_index} < 1 '
+            f'(n={n}, upper_pct={upper_pct}) — tensor too small for this '
+            f'percentile')
+    upper = s[upper_index - 1]
+    if lower_pct == 0:
+        lower = upper * 0
+    else:
+        lower_index = round(n * (1.0 - lower_pct * 0.01))
+        if lower_index < 1 or lower_index > n:
+            raise ValueError(
+                f'percentile_bounds: lower index {lower_index} out of '
+                f'[1, {n}] (lower_pct={lower_pct})')
+        lower = s[n - lower_index]
+    return lower, upper
+
+
+def weight_percentile_bounds_per_channel(
+        w_flat: torch.Tensor, pct: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel weight percentile range of a (L, Cout) tensor: the
+    ``ceil(L·(100−pct)/100)``-th and ``ceil(L·pct/100)``-th smallest value of
+    each column (``math.ceil`` indices, a different rounding from the
+    activation path's ``round``)."""
+    ln = int(w_flat.shape[0])
+    lower_index = math.ceil(ln * (100.0 - pct) * 0.01)
+    upper_index = math.ceil(ln * pct * 0.01)
+    if lower_index < 1 or upper_index < 1:
+        raise ValueError(
+            f'weight_percentile_bounds_per_channel: kth indices '
+            f'({lower_index}, {upper_index}) < 1 (L={ln}, pct={pct}) — '
+            f'channel too small for this percentile')
+    ws = torch.sort(w_flat, dim=0).values
+    return ws[lower_index - 1], ws[upper_index - 1]
+
+
+# ---------------------------------------------------------------------------
+# STE quantizers
+# ---------------------------------------------------------------------------
+
+class _QuantizeSTE(torch.autograd.Function):
+    """clip(round_half_up(x / scale), lo, hi); backward g / scale with no
+    range masking, and no gradient to the scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, lo, hi):
+        ctx.save_for_backward(scale)
+        return torch.clamp(round_half_up(x / scale), lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, = ctx.saved_tensors
+        return g / scale, None, None, None
+
+
+def quantize_symmetric(x: torch.Tensor, scale: torch.Tensor,
+                       num_bits: int) -> torch.Tensor:
+    """Symmetric STE quantizer → integer-valued float tensor in
+    [-2^(b-1), 2^(b-1)-1]; callers multiply by ``scale`` for the fake-quant
+    value.  A per-channel scale is 1-D over the last axis."""
+    n = 2 ** (num_bits - 1) - 1
+    return _QuantizeSTE.apply(x, scale, float(-n - 1), float(n))
+
+
+def quantize_asymmetric(x: torch.Tensor, scale: torch.Tensor,
+                        num_bits: int) -> torch.Tensor:
+    """Asymmetric (unsigned, zero point 0) STE quantizer → [0, 2^b-1]; only
+    used for post-ReLU activations."""
+    return _QuantizeSTE.apply(x, scale, 0.0, float(2 ** num_bits - 1))
+
+
+class _RoundSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return round_half_up(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _FloorEpsSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.trunc(x + 0.01)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Straight-through round-half-up."""
+    return _RoundSTE.apply(x)
+
+
+def ste_floor_eps(x: torch.Tensor) -> torch.Tensor:
+    """trunc(x + 0.01) with straight-through backward: turns a float average
+    into the integer division a hardware average pool performs (the 0.01
+    absorbs float representation error; safe for windows up to 7×7)."""
+    return _FloorEpsSTE.apply(x)
+
+
+# ---------------------------------------------------------------------------
+# Dyadic requantization
+# ---------------------------------------------------------------------------
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """Exact float32 2**k of an int32 tensor (normal range), built from the
+    exponent bits: a ``pow`` on the device need not be exact."""
+    return ((k + 127).clamp(1, 254) << 23).view(torch.float32)
+
+
+def dyadic_decompose(scale_ratio: torch.Tensor,
+                     mantissa_bits: int = DYADIC_MANTISSA_BITS
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decompose a positive scale ratio into (m, e) with ratio ≈ m / 2**e:
+    m an integer in [2**(mb-1), 2**mb] held in float32 (exact), e int32."""
+    mant, exp = torch.frexp(scale_ratio.to(torch.float32))
+    m = round_half_up(mant * (2.0 ** mantissa_bits))
+    return m, (mantissa_bits - exp).to(torch.int32)
+
+
+def dyadic_multiplier(scale_ratio: torch.Tensor) -> torch.Tensor:
+    """The exact float32 value of the dyadic multiplier m · 2**-e of a scale
+    ratio, on the ratio's device (the tensor form of
+    :func:`np_dyadic_multiplier`)."""
+    m, e = dyadic_decompose(scale_ratio)
+    return m * _pow2(-e)
+
+
+class _RecoverIntSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, scale):
+        ctx.save_for_backward(scale)
+        return round_half_up(z / scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, = ctx.saved_tensors
+        return g / scale, None
+
+
+def ste_recover_int(z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """round_half_up(z / scale) with STE backward g / scale: recovers the
+    integer tensor from an int·scale value, exact while the integers stay
+    below 2**22.  Raw conv accumulators can exceed that, which is why the
+    quant layers thread their accumulators directly (``z_int`` below)."""
+    return _RecoverIntSTE.apply(z, scale)
+
+
+class _RequantCoreSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z_int, acc_scale, out_scale, lo, hi):
+        ctx.save_for_backward(acc_scale, out_scale)
+        out = round_half_up(z_int * dyadic_multiplier(acc_scale / out_scale))
+        return out if lo is None else torch.clamp(out, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc_scale, out_scale = ctx.saved_tensors
+        return g * acc_scale / out_scale, None, None, None, None
+
+
+def requant_core_ste(z_int: torch.Tensor, acc_scale: torch.Tensor,
+                     out_scale: torch.Tensor, num_bits: Optional[int],
+                     signed: bool) -> torch.Tensor:
+    """Dyadic requant of an exact integer-valued float tensor (e.g. the
+    accumulator of ``int_conv2d``), with STE backward.
+
+    Forward is the frozen engine's :func:`requant_int32`: snap
+    acc_scale/out_scale to the dyadic grid, multiply, round, clamp
+    (``num_bits=None`` skips the clamp, the residual-branch case).  Backward
+    is g·acc_scale/out_scale."""
+    lo, hi = ((None, None) if num_bits is None
+              else requant_clip_bounds(num_bits, signed))
+    return _RequantCoreSTE.apply(z_int, acc_scale, out_scale, lo, hi)
+
+
+def dyadic_requant(z: torch.Tensor, acc_scale: torch.Tensor,
+                   out_scale: torch.Tensor, num_bits: int, signed: bool,
+                   z_int: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Requantize an accumulator *value* tensor (= z_int · acc_scale) to
+    ``num_bits`` integers (float dtype).  With ``z_int`` given, the
+    value/scale recovery division is skipped and the result is bit-exact for
+    accumulators beyond the f32 round-trip range."""
+    if z_int is None:
+        z_int = ste_recover_int(z, acc_scale)
+    return requant_core_ste(z_int, acc_scale, out_scale, num_bits, signed)
+
+
+def dyadic_requant_residual(z: torch.Tensor, acc_scale: torch.Tensor,
+                            identity: torch.Tensor,
+                            identity_scale: torch.Tensor,
+                            out_scale: torch.Tensor,
+                            z_int: Optional[torch.Tensor] = None,
+                            identity_int: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Residual-add requantization: ``z`` is the sum main + identity; each
+    branch is requantized with its own dyadic multiplier to the common
+    ``out_scale`` and rounded on its own, then the two are added.  The sum is
+    not clamped here (it carries the 16-bit residual precision; the next
+    QuantAct clamps).  ``z_int`` is the exact main-branch accumulator (not
+    the sum), ``identity_int`` likewise for a convolved identity branch."""
+    if z_int is None:
+        z_int = ste_recover_int(z - identity, acc_scale)
+    if identity_int is None:
+        identity_int = ste_recover_int(identity, identity_scale)
+    out_main = requant_core_ste(z_int, acc_scale, out_scale, None, True)
+    out_id = requant_core_ste(identity_int, identity_scale, out_scale,
+                              None, True)
+    return out_main + out_id
+
+
+# ---------------------------------------------------------------------------
+# Pure integer-side helpers (frozen inference engine)
+# ---------------------------------------------------------------------------
 
 
 def requant_clip_bounds(num_bits: int, signed: bool) -> Tuple[float, float]:

@@ -1,6 +1,7 @@
 """CUDA kernels == their plain PyTorch versions on the card, bit for bit
-(the int8 and the nibble-packed int4-weight forms), and the engine on the
-card == the engine on the CPU.
+(the int8 and the nibble-packed int4-weight forms, the split-K matmul and
+the one-pass min/max), and the engine, the integer conv of the QAT layers
+and a QAT forward on the card == on the CPU.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -21,7 +22,11 @@ from hawq_tpu_torch.kernels import _build
 from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels.pool import maxpool_folded
-from hawq_tpu_torch.quant.ops import exact_div, np_dyadic_multiplier
+from hawq_tpu_torch.kernels.reduce import minmax_1pass, minmax_plain
+from hawq_tpu_torch.models.resnet import QResNet
+from hawq_tpu_torch.nn import layers as L
+from hawq_tpu_torch.quant.ops import (dyadic_multiplier, exact_div,
+                                      np_dyadic_multiplier)
 from hawq_tpu_torch.utils.preproc import quantize_int8
 
 pytestmark = pytest.mark.cuda
@@ -211,3 +216,131 @@ def test_engine_cuda_equals_cpu(dev, arch, mode, scheme):
     if scheme == 'uniform4':
         assert _build.LAUNCHES.get('int4w_conv_requant', 0) > 0
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('m,k,n', [(37, 45, 19), (8, 2048, 1000),
+                                   (392, 2048, 512), (392, 512, 2048),
+                                   (3, 5, 2), (130, 200, 72), (64, 64, 64)])
+def test_kblocked_kernel_equals_plain_and_matmul_kernel(dev, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    x, w, b, mult = _operands(rng, m, k, n, dev)
+    k_tiles = -(-k // 64)
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        want = km.matmul_requant_plain(x, w, b, mult, lo, hi)
+        kw = dict(out_bits=out_bits, signed=signed, relu=relu)
+        for splits in sorted({None, 1, 2, 3, k_tiles} - {0},
+                             key=lambda v: -1 if v is None else v):
+            if splits is not None and splits > k_tiles:
+                continue
+            got = km.int8_matmul_requant_kblocked(x, w, b, mult,
+                                                  k_splits=splits, **kw)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(km.int8_matmul_requant(x, w, b, mult, **kw),
+                                   want, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        km.int8_matmul_requant_kblocked(x, w, b, mult, k_splits=k_tiles + 1)
+
+
+@pytest.mark.parametrize('shape', [(1,), (3,), (777,), (2, 56, 56, 128),
+                                   (32, 112, 112, 64), (5, 1031), (4099,)])
+def test_minmax_kernel_equals_plain(dev, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(
+        sum(shape))).to(dev)
+    for t in (x, x.reshape(-1)[1:] if x.numel() > 1 else x,   # unaligned
+              x.reshape(-1)[3:] if x.numel() > 3 else x):
+        got, want = minmax_1pass(t), minmax_plain(t)
+        for g, w_ in zip(got, want):
+            assert g.shape == () and g.device == t.device
+            torch.testing.assert_close(g, w_, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('case', ['nan', 'posinf', 'neginf', 'strided',
+                                  'nan_in_tail'])
+def test_minmax_kernel_edge_cases(dev, case):
+    x = torch.randn(70001, generator=torch.Generator().manual_seed(1)).to(dev)
+    if case == 'nan':
+        x[12345] = float('nan')
+    elif case == 'nan_in_tail':
+        x[-1] = float('nan')
+    elif case == 'posinf':
+        x[7] = float('inf')
+    elif case == 'neginf':
+        x[-2] = float('-inf')
+    elif case == 'strided':
+        x = x[::3]
+    got, want = minmax_1pass(x), minmax_plain(x)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError):
+        minmax_1pass(x[:0])
+    with pytest.raises(ValueError):
+        minmax_1pass(x.to(torch.float16))
+
+
+def test_dyadic_multiplier_cuda_equals_host(dev):
+    rng = np.random.RandomState(0)
+    r = np.exp(rng.uniform(np.log(1e-7), np.log(50.0), 1 << 16)).astype(
+        np.float32)
+    got = dyadic_multiplier(torch.tensor(r, device=dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, np_dyadic_multiplier(r))
+
+
+@pytest.mark.parametrize('k,s,pad,c,o,h', [
+    (1, 1, 'VALID', 64, 256, 14), (1, 2, 'VALID', 256, 512, 14),
+    (3, 1, ((1, 1), (1, 1)), 64, 64, 14), (3, 2, ((1, 1), (1, 1)), 32, 40, 13),
+    (7, 2, ((3, 3), (3, 3)), 3, 64, 64), (3, 2, 'SAME', 5, 7, 10)])
+def test_int_conv2d_cuda_equals_cpu(dev, k, s, pad, c, o, h):
+    rng = np.random.RandomState(k + s + c)
+    x = rng.randint(-128, 128, (2, h, h, c)).astype(np.float32)
+    w = rng.randint(-127, 128, (k, k, c, o)).astype(np.float32)
+    b = rng.randint(-2 ** 20, 2 ** 20, (o,)).astype(np.float32)
+    with torch.no_grad():
+        shape = L.int_conv2d(torch.tensor(x), torch.tensor(w),
+                             torch.tensor(b), (s, s), pad).shape
+    g = rng.randn(*shape).astype(np.float32)
+    outs = {}
+    for name, device in (('cpu', 'cpu'), ('cuda', dev)):
+        tx, tw, tb = (torch.tensor(a, device=device, requires_grad=True)
+                      for a in (x, w, b))
+        with L.faithful_float_math():
+            y = L.int_conv2d(tx, tw, tb, (s, s), pad)
+            y.backward(torch.tensor(g, device=device))
+        outs[name] = [t.detach().cpu() for t in (y, tx.grad, tw.grad,
+                                                  tb.grad)]
+    torch.testing.assert_close(outs['cuda'][0], outs['cpu'][0], rtol=0,
+                               atol=0)
+    # cuDNN against the CPU's float convolutions: other summation orders
+    for got, want in zip(outs['cuda'][1:], outs['cpu'][1:]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize('arch,scheme', [('tiny50', 'uniform8'),
+                                         ('tiny18', 'uniform4')])
+def test_qat_forward_cuda_equals_cpu(dev, arch, scheme):
+    """Calibration passes and a frozen-range forward: ranges, every q_int
+    and the logits on the card equal the CPU's."""
+    x = np.random.RandomState(4).randn(2, 32, 32, 3).astype(np.float32)
+    results = {}
+    for name, device in (('cpu', torch.device('cpu')), ('cuda', dev)):
+        model = QResNet(arch, get_bit_config(arch, scheme), 10, seed=3).to(
+            device)
+        xt = torch.tensor(x, device=device)
+        _build.reset_launches()
+        with torch.no_grad(), L.capture_q_int(model) as q:
+            for _ in range(2):
+                model(xt, folded=True, update_stats=True)
+            logits = model(xt, folded=True, update_stats=False)
+        results[name] = ({k: v.cpu() for k, v in q.items()},
+                         {k: v.cpu() for k, v in model.named_buffers()},
+                         logits.cpu())
+    assert _build.LAUNCHES.get('minmax_1pass', 0) > 0
+    assert _build.LAUNCHES.get('int8_conv_acc', 0) > 0
+    for got, want in zip(results['cuda'][:2], results['cpu'][:2]):
+        assert sorted(got) == sorted(want)
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0,
+                                       msg=key)
+    torch.testing.assert_close(results['cuda'][2], results['cpu'][2], rtol=0,
+                               atol=0)

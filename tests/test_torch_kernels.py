@@ -4,7 +4,8 @@ JAX package's oracles, bit for bit.
 Oracles: ``reference_matmul_requant`` (kernels/matmul.py), the int32
 ``lax.dot_general``, ``reference_conv_requant`` (kernels/conv.py) and the
 int32 lax conv, ``fold.maxpool_3x3s2p1_folded`` and the Pallas
-``maxpool_folded`` in interpret mode.  The CUDA kernels themselves are held
+``maxpool_folded`` in interpret mode, the Pallas ``minmax_1pass`` and
+``int8_matmul_requant_kblocked`` in interpret mode.  The CUDA kernels themselves are held
 against these plain versions on the card (tests/test_torch_cuda.py).
 """
 
@@ -13,15 +14,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from hawq_tpu.inference.fold import maxpool_3x3s2p1_folded as jpool_ref
 from hawq_tpu.kernels import conv as jkc
 from hawq_tpu.kernels import matmul as jkm
 from hawq_tpu.kernels.pool import maxpool_folded as jpool_kernel
+from hawq_tpu.kernels.reduce import minmax_1pass as jminmax
 
 from hawq_tpu_torch.kernels import conv as tkc
 from hawq_tpu_torch.kernels import matmul as tkm
 from hawq_tpu_torch.kernels.pool import maxpool_folded as tpool
+from hawq_tpu_torch.kernels.reduce import minmax_1pass as tminmax
 from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
 
 torch.set_num_threads(1)
@@ -165,6 +169,112 @@ def test_folded_maxpool_plain_matches_oracles():
                                                  interpret=True)))
 
 
+@pytest.mark.parametrize('shape', [(2, 56, 56, 128), (777,)])
+def test_minmax_plain_matches_pallas_kernel(shape):
+    """(2,56,56,128) is one whole Pallas block plus a tail; (777,) is below
+    one block."""
+    x = np.random.RandomState(len(shape)).randn(*shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jminmax(jnp.asarray(x))
+    got = tminmax(_t(x))
+    for g, w in zip(got, want):
+        assert g.shape == () and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(got[0].numpy(), x.min())
+    np.testing.assert_array_equal(got[1].numpy(), x.max())
+
+
+@pytest.mark.parametrize('case', ['nan', 'inf', 'single', 'strided'])
+def test_minmax_edge_cases_match_jnp(case):
+    x = np.random.RandomState(3).randn(5, 9).astype(np.float32)
+    if case == 'nan':
+        x[2, 3] = np.nan
+    elif case == 'inf':
+        x[0, 0], x[4, 8] = np.inf, -np.inf
+    elif case == 'single':
+        x = x[:1, :1]
+    tx = _t(x)
+    if case == 'strided':
+        x, tx = x[:, ::2], tx[:, ::2]
+        assert not tx.is_contiguous()
+    got = tminmax(tx)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  np.asarray(jnp.min(jnp.asarray(x))))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.asarray(jnp.max(jnp.asarray(x))))
+
+
+def test_minmax_empty_raises():
+    with pytest.raises(ValueError):
+        tminmax(torch.zeros((0, 4)))
+
+
+def test_kblocked_plain_matches_pallas_kernel_and_oracle():
+    """The shape and blocks of the reference's own K-blocked test."""
+    rng = np.random.RandomState(5)
+    x, w, bias, mult = _operands(rng, 128, 512, 128)
+    args = [jnp.asarray(a) for a in (x, w, bias, mult)]
+    with pltpu.force_tpu_interpret_mode():
+        kernel = np.asarray(jkm.int8_matmul_requant_kblocked(
+            *args, block_m=64, block_n=128, block_k=128))
+    oracle = np.asarray(jkm.reference_matmul_requant(*args))
+    got = tkm.int8_matmul_requant_kblocked(_t(x), _t(w), _t(bias),
+                                           _t(mult)).numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, kernel)
+    np.testing.assert_array_equal(got, oracle)
+    # its own epilogues, and a K that no block size divides
+    x, w, bias, mult = _operands(rng, 37, 45, 19)
+    for out_bits, signed, relu in _EPILOGUES:
+        want = np.asarray(jkm.reference_matmul_requant(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+            jnp.asarray(mult), out_bits=out_bits, signed=signed))
+        if relu:
+            want = np.maximum(want, 0)
+        np.testing.assert_array_equal(
+            tkm.int8_matmul_requant_kblocked(
+                _t(x), _t(w), _t(bias), _t(mult), out_bits=out_bits,
+                signed=signed, relu=relu, k_splits=1).numpy(), want)
+
+
+def test_kblocked_rejects_bad_split_counts():
+    x, w, bias, mult = (_t(a) for a in _operands(np.random.RandomState(0),
+                                                 8, 130, 16))
+    for splits in (0, 4, -1):                    # K = 130: three K tiles
+        with pytest.raises(ValueError):
+            tkm.int8_matmul_requant_kblocked(x, w, bias, mult,
+                                             k_splits=splits)
+    tkm.int8_matmul_requant_kblocked(x, w, bias, mult, k_splits=3)
+
+
+def test_default_k_splits():
+    # stage-4 conv1 of ResNet-50 at batch 8: 56 tiles on 132 SMs, 32 K tiles
+    assert tkm.default_k_splits(392, 2048, 512, 132) == 4
+    # many output tiles: no split; a short K: no split
+    assert tkm.default_k_splits(25088, 64, 256, 132) == 1
+    assert tkm.default_k_splits(8, 128, 64, 132) == 1
+    for m, k, n in ((8, 2048, 1000), (392, 512, 2048), (1, 1, 1)):
+        assert 1 <= tkm.default_k_splits(m, k, n, 132) <= max(1, -(-k // 64))
+
+
+def test_device_twins_of_the_host_conv_helpers():
+    """The torch twins that rewrite training weights on their own device ==
+    the numpy helpers the engine uses once per layer."""
+    rng = np.random.RandomState(13)
+    for shape in ((3, 3, 4, 6), (7, 7, 3, 10), (1, 1, 8, 5), (2, 2, 4, 3),
+                  (3, 5, 2, 4)):
+        w = rng.randint(-127, 128, shape).astype(np.int8)
+        np.testing.assert_array_equal(tkc.s2d_kernel_torch(_t(w)).numpy(),
+                                      tkc.s2d_kernel(w))
+        np.testing.assert_array_equal(
+            tkc.flatten_conv_kernel_torch(_t(w)).numpy(),
+            tkc.flatten_conv_kernel(w))
+        np.testing.assert_array_equal(
+            tkc.flatten_conv_kernel_torch(
+                tkc.s2d_kernel_torch(_t(w))).numpy(),
+            tkc.flatten_conv_kernel(tkc.s2d_kernel(w)))
+
+
 def test_wrappers_reject_other_devices():
     """No silent fallback: a tensor that is not on the CPU never takes the
     plain path, and without a CUDA device there is no kernel to launch."""
@@ -175,3 +285,8 @@ def test_wrappers_reject_other_devices():
         tkm.int8_matmul_acc(x, w, b)
     with pytest.raises(ValueError):
         tpool(torch.zeros((1, 2, 2, 4), dtype=torch.int16, device='meta'))
+    with pytest.raises(ValueError):
+        tminmax(torch.zeros((4, 4), device='meta'))
+    with pytest.raises(ValueError):
+        tkm.int8_matmul_requant_kblocked(
+            x, w, b, torch.zeros((4,), device='meta'))
