@@ -14,19 +14,29 @@ non-zero exit and no result line:
     the 4-bit layers) and ResNet-18 uniform4, all 224×224, batch 8,
     host-folded input, int16 residual carrier — each with the launch counts
     set to 0 just before it and read just after, and held against the
-    counts its bit config predicts.  Every kernel call of those runs is
-    recorded; each is then repeated on the same inputs and held against its
-    plain PyTorch version, bit for bit (tolerance 0), as are a few ragged
-    shapes; then each call of the path a kernel is reported on is timed
-    (kernel, plain version, library call) and set beside its bound;
+    counts its bit config predicts, per kernel and per GEMM core (every
+    ``int8_conv_requant`` and ``int8_matmul_acc`` launch on the Hopper core
+    csrc/gemm_s8_sm90.cuh, every other GEMM launch on csrc/gemm_s8.cuh).
+    Every kernel call of those runs is recorded; each is then repeated on
+    the same inputs and held against its plain PyTorch version, bit for bit
+    (tolerance 0), as are ragged shapes, among them the Hopper core's (M
+    off the tile, 7×7 and 14×14 images, N = 1000, B = 1, 1×1 and 2×2 taps,
+    saturated operands, requant inputs on a .5 boundary) and one call per
+    clause of its shape rule, checked to have run on the core the rule
+    names; then each call of the path a kernel is reported on is timed
+    (kernel, plain version, library call) and set beside its bound — the
+    two kernels on the Hopper core on both cores in turns (old, new, new,
+    old), both equal to the plain version, with the wrapper's host time per
+    call on each;
  4. the engine at full width: ResNet-50 uniform8 and uniform4, on folded
     input with the int16 carrier and on raw float32 input with the int32
     carrier, ResNet-50 bops_0.5 and ResNet-18 uniform4 on folded input, and
     ResNet-50 uniform4 on uint8 and on host-quantized folded_int8 input —
     logits and pooled features for the first two images equal the CPU
     (plain) engine's, finite, launch counts as the bit config predicts,
-    milliseconds per batch; a profiler trace of the uniform8 and uniform4
-    forwards;
+    milliseconds per batch; the main path's engine on the first core and
+    on the Hopper core in turns; a profiler trace of the uniform8 (both
+    cores) and uniform4 forwards;
  5. serving: DynamicBatchers over the uniform8 engine (folded input) and
     the bops_0.5 engine (folded_int8 input, quantized on the host) answer
     12 single-image requests each, each equal to its row of a batched
@@ -44,9 +54,10 @@ non-zero exit and no result line:
     artifact.  Losses finite; the launch counts of every step equal to what
     the architecture predicts (``minmax_1pass`` once per activation
     quantizer, every conv and the FC through ``int8_conv_acc`` /
-    ``int8_matmul_acc``); every distinct kernel call of a step repeated on
-    synthetic inputs of its shapes and held against its plain version, then
-    timed; ``minmax_1pass`` also on unaligned, one-element, NaN and ±inf
+    ``int8_matmul_acc``, the latter on the Hopper core); every distinct
+    kernel call of a step repeated on synthetic inputs of its shapes and
+    held against its plain version, then timed (``int8_matmul_acc`` on both
+    cores in turns); ``minmax_1pass`` also on unaligned, one-element, NaN and ±inf
     inputs; one folded step at batch 2, 64×64 on the card against the same
     step on the CPU (integers and ranges equal, loss within 1e-5, gradients
     within 1e-3); the saved frozen checkpoint served by the integer engine
@@ -77,13 +88,13 @@ BATCH, SIZE = 8, 224
 
 # entry point → (kernel source, TPU kernel it replaces)
 KERNELS = {
-    'int8_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv.cu',
+    'int8_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv_sm90.cu',
                           'hawq_tpu/kernels/conv.py:228'),
     'int8_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv.cu',
                       'hawq_tpu/kernels/conv.py:243'),
     'int8_matmul_requant': ('hawq_tpu_torch/kernels/csrc/matmul.cu',
                             'hawq_tpu/kernels/matmul.py:68'),
-    'int8_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul.cu',
+    'int8_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
                         'hawq_tpu/kernels/matmul.py:189'),
     'maxpool_folded': ('hawq_tpu_torch/kernels/csrc/pool.cu',
                        'hawq_tpu/kernels/pool.py:69'),
@@ -105,6 +116,12 @@ KERNELS = {
 KBLOCKED, MINMAX = 'int8_matmul_requant_kblocked', 'minmax_1pass'
 SERVING_KERNELS = [k for k in KERNELS if k not in (KBLOCKED, MINMAX)]
 TRAIN_BATCH = 32
+# the kernels on the Hopper core (csrc/gemm_s8_sm90.cuh); the first core
+# (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
+# beside the new one
+SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc')
+GEMM_KERNELS = [k for k in KERNELS if k not in ('maxpool_folded',
+                                                'minmax_1pass')]
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -189,6 +206,45 @@ def expected_launches(arch, cfg, input_mode):
     return counts
 
 
+def core_split(counts):
+    """Launches per GEMM core that go with launches per kernel, where every
+    ``int8_conv_requant`` / ``int8_matmul_acc`` call has widths the Hopper
+    core takes (all full-width ResNets): those on 'sm90', every other GEMM
+    kernel on 'mma'."""
+    return {f"{k}@{'sm90' if k in SM90_KERNELS else 'mma'}": v
+            for k, v in counts.items() if k in GEMM_KERNELS and v}
+
+
+def core_launches():
+    from hawq_tpu_torch.kernels import _build
+    return {k: v for k, v in _build.CORE_LAUNCHES.items() if v}
+
+
+def sm90_rule(name, args, kw):
+    """The clause of the Hopper core's shape rule that excludes a call of
+    one of its kernels, None where the core takes it."""
+    from hawq_tpu_torch.kernels import matmul as km
+    w = args[1]
+    n = w.n if isinstance(w, km.PreparedWeights) else w.shape[1]
+    if '_conv' in name:
+        return km.sm90_route('conv', k=kw['cin'], n=n, ptr=args[0].data_ptr())
+    return km.sm90_route('matmul', k=args[0].shape[1], n=n,
+                         ptr=args[0].data_ptr())
+
+
+@contextlib.contextmanager
+def first_core():
+    """Inside, the Hopper core's rule excludes every call, so engines built
+    and run here keep plain weights and run on csrc/gemm_s8.cuh alone."""
+    from hawq_tpu_torch.kernels import matmul as km
+    rule = km.sm90_route
+    km.sm90_route = lambda kind, *, k, n, ptr: 'switched off'
+    try:
+        yield
+    finally:
+        km.sm90_route = rule
+
+
 def kernel_modules():
     from hawq_tpu_torch.kernels import conv, matmul, pool, reduce
     return {name: (pool if name == 'maxpool_folded' else
@@ -231,6 +287,8 @@ def unpacked_weights(name, args, kw):
         return km.unpack_int4(args[1])
     if name.startswith('int4w_conv'):
         return kc.unpack_int4_conv(args[1], kw['taps'][0] * kw['taps'][1])
+    if isinstance(args[1], km.PreparedWeights):
+        return km.unprepare_weights(args[1])
     return args[1]
 
 
@@ -245,7 +303,16 @@ def plain_call(name, args, kw, stack=True):
         out = kr.minmax_plain(*args)
         return torch.stack(out) if stack else out
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
+    return plain_gemm_call(name, args, kw)
+
+
+def plain_gemm_call(name, args, kw):
+    """The plain version of a GEMM kernel on unpacked (K, N) weights."""
+    from hawq_tpu_torch.kernels import conv as kc
+    from hawq_tpu_torch.kernels import matmul as km
     geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin') if k in kw}
+    if kw.get('pad', (0, 0)) != (0, 0):      # the border the kernel supplies
+        args = (kc.pad_conv_input(args[0], kw['pad'], **geo),) + args[1:]
     if name.endswith('matmul_acc'):
         return km.matmul_acc_plain(*args)
     if name.endswith('conv_acc'):
@@ -269,12 +336,17 @@ def work(name, args, kw, out):
     read once as passed (int4 weights packed), each output written once;
     the operations over the unpacked K (taps·C for the conv, x's K for the
     matmul)."""
+    from hawq_tpu_torch.kernels.matmul import PreparedWeights
     nbytes = sum(t.numel() * t.element_size() for t in args
                  if isinstance(t, torch.Tensor))
     nbytes += out.numel() * out.element_size()
     if name in ('maxpool_folded', MINMAX):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
-    n = args[1].shape[1]
+    if isinstance(args[1], PreparedWeights):   # counted unpadded, as (K, N)
+        n = args[1].n
+        nbytes += args[1].k * n
+    else:
+        n = args[1].shape[1]
     if '_matmul' in name:
         m, k = args[0].shape
         return nbytes, 2 * m * k * n, f'M{m} K{k} N{n}'
@@ -282,7 +354,8 @@ def work(name, args, kw, out):
     h, w = kw['out_hw']
     kh, kw_ = kw['taps']
     return (nbytes, 2 * b * h * w * kh * kw_ * kw['cin'] * n,
-            f'B{b} {h}x{w} taps{kh}x{kw_} C{kw["cin"]} N{n}')
+            f'B{b} {h}x{w} taps{kh}x{kw_} C{kw["cin"]} N{n}'
+            + (' unpadded' if kw.get('pad', (0, 0)) != (0, 0) else ''))
 
 
 def library_call(name, args, kw):
@@ -399,6 +472,138 @@ def ragged_calls(dev):
     return calls
 
 
+def sm90_calls(dev):
+    """Calls of the two kernels on the Hopper core beside the paths' →
+    (calls its rule admits, [(call, excluding clause)]).
+
+    Admitted: M off the 64-row tile, K below and between the K paddings,
+    N = 1000 and N off every tile width, M = 1; 7×7, 14×14, 5×5 and 1×1
+    images, B = 1 and 3, a 1×1 tap and the 2×2 taps of a space-to-depth
+    stride-2 conv, C below and between the paddings, the zero border left
+    to TMA (``pad``); operands at -128 /
+    ±127 over K = 2048 and 9·512 (|acc| passes 2²⁴), and multipliers of 0.5
+    (odd accumulators sit exactly on a .5 boundary).  Excluded: one call
+    per clause of ``sm90_route``."""
+    from hawq_tpu_torch.kernels import conv as kc
+    from hawq_tpu_torch.kernels import matmul as km
+    from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
+    rng = np.random.RandomState(11)
+
+    def i8(*shape, offset=0):
+        """A contiguous int8 tensor; with ``offset``, that many bytes into
+        an aligned allocation."""
+        n = int(np.prod(shape))
+        flat = torch.tensor(rng.randint(-128, 128, n + offset).astype(
+            np.int8), device=dev)
+        return flat[offset:].view(*shape)
+
+    def vec(n, half=True):
+        b = torch.tensor(rng.randint(-2 ** 16, 2 ** 16, n).astype(np.int32),
+                         device=dev)
+        m = np_dyadic_multiplier((rng.rand(n) * 2e-4 + 1e-5).astype(
+            np.float32))
+        if half:
+            m[::3] = 0.5
+        return b, torch.tensor(m, device=dev)
+
+    def matmul(m, k, n, offset=0, saturate=False):
+        x, w = i8(m, k, offset=offset), i8(k, n)
+        if saturate:
+            x[0, :], w[:, 0], w[:, 1] = -128, 127, -127
+        return ('int8_matmul_acc', (x, w, vec(n)[0]), {})
+
+    def conv(shape, n, taps, offset=0, saturate=False, pad=(0, 0), **epi):
+        b, h, w, c = shape
+        kh, kw = taps
+        xp = i8(b, h + kh - 1 - 2 * pad[0], (w + kw - 1 - 2 * pad[1]) * c,
+                offset=offset)
+        if pad != (0, 0):
+            epi['pad'] = pad
+        wf = i8(kh * kw * c, n)
+        if saturate:
+            xp[0], wf[:, 0], wf[:, 1] = -128, 127, -127
+        bias, mult = vec(n)
+        return ('int8_conv_requant', (xp, wf, bias, mult),
+                dict(taps=taps, out_hw=(h, w), cin=c, **epi))
+    admitted = [matmul(37, 48, 20), matmul(1000, 2048, 1000, saturate=True),
+                matmul(1, 16, 4), matmul(130, 80, 72), matmul(65, 192, 36),
+                matmul(8, 2048, 1000, saturate=True)]
+    for shape, n, taps in (((8, 7, 7, 512), 512, (3, 3)),
+                           ((1, 14, 14, 256), 256, (3, 3)),
+                           ((1, 5, 5, 16), 16, (3, 3)),
+                           ((3, 1, 1, 32), 48, (3, 3)),
+                           ((2, 9, 7, 48), 32, (1, 1)),
+                           ((1, 14, 14, 80), 80, (3, 3)),
+                           ((3, 33, 31, 64), 144, (3, 3)),
+                           ((1, 7, 7, 192), 1008, (2, 2))):
+        admitted.append(conv(shape, n, taps, saturate=shape[3] == 512,
+                             out_bits=8, signed=True, relu=True))
+        admitted.append(conv(shape, n, taps, out_bits=4, signed=False,
+                             relu=True))
+        admitted.append(conv(shape, n, taps))
+    # the prepared handle in place of the (K, N) weights
+    name, args, kw = admitted[-1]
+    admitted.append((name, (args[0], km.prepare_weights(args[1], 4))
+                     + args[2:], kw))
+    # the zero border left to TMA: 3×3 / pad 1 on whole, ragged and
+    # smaller-than-a-tile images, a border on one axis only, 5×5 / pad 2
+    for shape, n, taps, pad in (((2, 14, 14, 64), 64, (3, 3), (1, 1)),
+                                ((1, 7, 7, 128), 32, (3, 3), (1, 1)),
+                                ((3, 33, 31, 64), 144, (3, 3), (1, 1)),
+                                ((2, 9, 7, 48), 32, (3, 3), (1, 0)),
+                                ((2, 5, 6, 16), 16, (3, 3), (0, 1)),
+                                ((1, 12, 20, 32), 48, (5, 5), (2, 2)),
+                                ((1, 1, 1, 16), 16, (3, 3), (1, 1))):
+        admitted.append(conv(shape, n, taps, pad=pad, relu=True))
+    name, args, kw = admitted[-1]
+    admitted.append((name, (args[0], km.prepare_weights(args[1], 9))
+                     + args[2:], kw))
+    name, args, kw = admitted[3]
+    admitted.append((name, (args[0], km.prepare_weights(args[1]), args[2]),
+                     kw))
+    excluded = [(matmul(40, 45, 20), 'K % 16'), (matmul(40, 48, 18), 'N % 4'),
+                (matmul(40, 48, 20, offset=8), 'pointer % 16'),
+                (conv((2, 6, 5, 5), 16, (3, 3)), 'C % 16'),
+                (conv((2, 6, 5, 16), 24, (3, 3)), 'N % 16'),
+                (conv((2, 6, 5, 16), 16, (3, 3), offset=4), 'pointer % 16'),
+                (conv((2, 6, 5, 5), 16, (3, 3), pad=(1, 1)), 'C % 16')]
+    return admitted, excluded
+
+
+def sm90_rule_phase(dev, errs):
+    """The Hopper core's ragged calls and one call per clause of its rule:
+    each equal to its plain version, each on the core the rule names."""
+    from hawq_tpu_torch.kernels import _build
+    admitted, excluded = sm90_calls(dev)
+    for call in admitted:
+        check(sm90_rule(*call) is None, f'rule excludes {call_key(*call)}')
+    _build.reset_launches()
+    check_calls(admitted, errs, f'phase 3: {len(admitted)} ragged calls of '
+                f'the Hopper core')
+    want = {}
+    for name, _, _ in admitted:
+        want[f'{name}@sm90'] = want.get(f'{name}@sm90', 0) + 1
+    check(core_launches() == want, f'ragged calls of the Hopper core ran as '
+          f'{core_launches()}, expected {want}')
+    for call, clause in excluded:
+        name, args, kw = call
+        check(sm90_rule(*call) == clause, f'{call_key(*call)}: rule says '
+              f'{sm90_rule(*call)}, expected {clause}')
+        _build.reset_launches()
+        check_calls([call], errs, f'phase 3: {name} excluded by "{clause}"')
+        check(core_launches() == {f'{name}@mma': 1}, f'{name} excluded by '
+              f'"{clause}" ran as {core_launches()}')
+        try:
+            kernel_call(name, args, dict(kw, core='sm90'))
+        except ValueError:
+            continue
+        raise RuntimeError(f'{name} excluded by "{clause}" was taken by the '
+                           f'Hopper core when asked')
+    log(f'phase 3: the {len(admitted)} ragged calls ran on the Hopper core, '
+        f'the {len(excluded)} calls its rule excludes (one per clause) on '
+        f'the first core')
+
+
 def same(got, want):
     """Bit-equal, a NaN equal to a NaN."""
     if got.is_floating_point():
@@ -420,16 +625,95 @@ def check_calls(calls, errs, what):
             nan=0.0).max())
         errs[name] = max(errs[name], err)
         check(same(got, want), f'{name} differs from its plain version '
-              f'at {[tuple(a.shape) for a in args]} {kw}: max |err| {err}')
+              f'at {call_key(name, args, kw)[1]} {kw}: max |err| {err}')
     log(f'{what} equal their plain versions')
 
 
 def call_key(name, args, kw):
     """What makes two kernel calls the same work: name, shapes, dtypes and
     keyword arguments."""
-    return (name, tuple((tuple(a.shape), str(a.dtype)) for a in args
-                        if isinstance(a, torch.Tensor)),
-            tuple(sorted((k, str(v)) for k, v in kw.items())))
+    from hawq_tpu_torch.kernels.matmul import PreparedWeights
+    shapes = tuple(((a.k, a.n), 'prepared') if isinstance(a, PreparedWeights)
+                   else (tuple(a.shape), str(a.dtype)) for a in args
+                   if isinstance(a, (torch.Tensor, PreparedWeights)))
+    return (name, shapes, tuple(sorted((k, str(v)) for k, v in kw.items())))
+
+
+def host_us(fn, reps=1000):
+    """Host microseconds per call of ``fn``: ``reps`` enqueues on the host
+    clock, the device not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def sm90_tiles(name, args, kw):
+    """'m-tiles x n-tiles of 64xN' of a call on the Hopper core."""
+    from hawq_tpu_torch.kernels import conv as kc
+    from hawq_tpu_torch.kernels import matmul as km
+    w = args[1]
+    taps = kw['taps'][0] * kw['taps'][1] if 'taps' in kw else 1
+    if not isinstance(w, km.PreparedWeights):
+        w = km.prepare_weights(w, taps)
+    n = w.n
+    if '_conv' in name:
+        th, tw = kc.conv_tile_plan(*kw['out_hw'])
+        m_tiles = (args[0].shape[0] * -(-kw['out_hw'][0] // th)
+                   * -(-kw['out_hw'][1] // tw))
+        shape = f'{th}x{tw} px'
+    else:
+        m_tiles, shape = -(-args[0].shape[0] // km.SM90_TILE_M), '64'
+    tile_n = km.sm90_tile_n(m_tiles, n, taps * (w.cpad // w.tile_k),
+                            km.sm_count(args[0].device))
+    return f'{m_tiles}x{-(-n // tile_n)} tiles of {shape} x {tile_n}'
+
+
+def time_both_cores(name, args, kw):
+    """One call of a kernel of the Hopper core on both cores, in turns (old,
+    new, new, old; CUDA-graph replay), both held against the plain version
+    → (ms new, ms old, host µs new, host µs old, ms of laying out the
+    weights).  The kernels are timed on inputs each core reads as they
+    are: (K, N) weights and the padded slab for the first core, prepared
+    K-major weights (and the unpadded activations, where the path passes
+    them) for the Hopper core.
+    Where the path passes plain weights (training: they change every step)
+    the wrapper lays them out on the device at each call: that glue is
+    timed on its own, and is part of the host time, which is taken with the
+    arguments as the path passed them."""
+    from hawq_tpu_torch.kernels import matmul as km
+    from hawq_tpu_torch.kernels import conv as kc
+    plain_w = unpacked_weights(name, args, kw)
+    old_args, old_kw = (args[0], plain_w) + tuple(args[2:]), dict(kw)
+    if kw.get('pad', (0, 0)) != (0, 0):      # the first core reads the slab
+        geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin')}
+        old_args = (kc.pad_conv_input(args[0], old_kw.pop('pad'), **geo),) \
+            + old_args[1:]
+    taps = kw['taps'][0] * kw['taps'][1] if 'taps' in kw else 1
+    prep_ms = 0.0
+    new_args = args
+    if not isinstance(args[1], km.PreparedWeights):
+        prep_ms = graph_ms(lambda: km.prepare_weights(plain_w, taps), 20)
+        new_args = (args[0], km.prepare_weights(plain_w, taps)) \
+            + tuple(args[2:])
+    want = plain_gemm_call(name, old_args, old_kw)
+    runs = {'mma': lambda: kernel_call(name, old_args,
+                                       dict(old_kw, core='mma')),
+            'sm90': lambda: kernel_call(name, new_args,
+                                        dict(kw, core='sm90'))}
+    for core, run in runs.items():
+        check(same(run(), want), f'{name} on the {core} core differs from '
+              f'its plain version at {call_key(name, args, kw)[1]} {kw}')
+    ms = {core: [] for core in runs}
+    for core in ('mma', 'sm90', 'sm90', 'mma'):
+        ms[core].append(graph_ms(runs[core], 20))
+    host_new = host_us(lambda: kernel_call(name, args, dict(kw, core='sm90')))
+    return (sum(ms['sm90']) / 2, sum(ms['mma']) / 2, host_new,
+            host_us(runs['mma']), prep_ms)
 
 
 def time_calls(calls, totals):
@@ -441,7 +725,17 @@ def time_calls(calls, totals):
         if key not in seen:
             out = kernel_call(name, args, kw)
             nbytes, ops, label = work(name, args, kw, out)
-            ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
+            extra = {}
+            if name in SM90_KERNELS:
+                check(sm90_rule(name, args, kw) is None, f'{name} at {label}: '
+                      f'the Hopper core\'s rule excludes a call of the path')
+                ms, old_ms, host, old_host, prep_ms = time_both_cores(
+                    name, args, kw)
+                extra = dict(old_ms=old_ms, host_us=host, old_host_us=old_host,
+                             prep_ms=prep_ms,
+                             tiles=sm90_tiles(name, args, kw))
+            else:
+                ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
             plain_ms = graph_ms(lambda: plain_call(name, args, kw, False), 3)
             lib = library_call(name, args, kw)
@@ -450,24 +744,46 @@ def time_calls(calls, totals):
             seen[key] = dict(name=name, shape=label, n=0, ms=ms,
                              host_ms=host_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound,
-                             bytes=nbytes, ops=ops)
+                             bytes=nbytes, ops=ops, **extra)
         seen[key]['n'] += 1
     for row in seen.values():
         t = totals.setdefault(row['name'], dict(
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-            library_ok=True, bytes=0, ops=0))
-        for k in ('ms', 'plain_ms', 'bound_ms', 'bytes', 'ops'):
-            t[k] += row[k] * row['n']
+            library_ok=True, library_calls=0,
+            bytes=0, ops=0, old_ms=0.0, host_us=0.0, old_host_us=0.0,
+            prep_ms=0.0))
+        for k in ('ms', 'plain_ms', 'bound_ms', 'bytes', 'ops', 'old_ms',
+                  'host_us', 'old_host_us', 'prep_ms'):
+            t[k] += row.get(k, 0.0) * row['n']
         if row['library_ms'] is None:
             t['library_ok'] = False
         else:
             t['library_ms'] += row['library_ms'] * row['n']
+            t['library_calls'] += row['n']
         lib = ('-' if row['library_ms'] is None
                else f"{row['library_ms']:.5f}")
+        both = ''
+        if 'old_ms' in row:
+            both = (f" | first core {row['old_ms']:.5f} ms, x"
+                    f"{row['old_ms'] / row['ms']:.2f}; {row['tiles']}; host "
+                    f"us/call {row['host_us']:.1f} (first core "
+                    f"{row['old_host_us']:.1f})")
+            if row['prep_ms']:
+                both += (f"; weights laid out K-major at each call: "
+                         f"+{row['prep_ms']:.5f} ms of glue")
         log(f"  {row['name']:20s} {row['shape']:34s} x{row['n']:<2d} "
             f"ms {row['ms']:.5f} host-bound {row['host_ms']:.5f} "
             f"plain {row['plain_ms']:.4f} "
-            f"bound {row['bound_ms']:.5f} library {lib}")
+            f"bound {row['bound_ms']:.5f} library {lib}{both}")
+    for name in SM90_KERNELS:
+        if name in totals and any(r['name'] == name for r in seen.values()):
+            t = totals[name]
+            log(f"  {name}: Hopper core {t['ms']:.4f} ms, first core "
+                f"{t['old_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms summed "
+                f"over the path's launches; host us summed {t['host_us']:.0f}"
+                f" (first core {t['old_host_us']:.0f}); laying out plain "
+                f"weights {t['prep_ms']:.4f} ms; library over the "
+                f"{t['library_calls']} calls it takes {t['library_ms']:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -489,12 +805,23 @@ def record_path(fm, x, dev):
         logits = eng(x)
         torch.cuda.synchronize()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cores = core_launches()
     label = f'{fm.arch} {fm.cfg.name}'
     want = expected_launches(fm.arch, fm.cfg, 'folded_float32')
     check(launches == want, f'{label}: launches {launches}, expected {want}')
+    # per core: what the rule says of each recorded call, which at these
+    # widths is the Hopper core for every call of its two kernels
+    by_rule = {}
+    for name, args, kw in calls:
+        if name in GEMM_KERNELS:
+            core = ('sm90' if name in SM90_KERNELS
+                    and sm90_rule(name, args, kw) is None else 'mma')
+            by_rule[f'{name}@{core}'] = by_rule.get(f'{name}@{core}', 0) + 1
+    check(cores == by_rule == core_split(want), f'{label}: launches per core '
+          f'{cores}, by the rule {by_rule}, expected {core_split(want)}')
     check(bool(torch.isfinite(logits).all()), f'{label}: logits not finite')
     log(f'phase 3: {label} folded_float32 int16 batch {BATCH}: launches '
-        f'{launches}')
+        f'{launches}; per core {cores}')
     return calls, launches
 
 
@@ -523,6 +850,8 @@ def engine_phase(fm, x, mode, residual, dev):
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
     want = expected_launches(fm.arch, fm.cfg, mode)
     check(counts == want, f'{label}: launches {counts}, expected {want}')
+    check(core_launches() == core_split(want), f'{label}: launches per core '
+          f'{core_launches()}, expected {core_split(want)}')
     out = logits.cpu()
     check(out.shape == (BATCH, 1000) and bool(torch.isfinite(out).all()),
           f'{label}: logits {tuple(out.shape)} not finite/shaped')
@@ -548,14 +877,66 @@ def engine_phase(fm, x, mode, residual, dev):
     return eng
 
 
+def engine_both_cores(fm, x, eng, dev):
+    """The main path's engine on the first core (built and run with every
+    GEMM call sent there) and on the Hopper core, in turns: equal logits,
+    the first core's launch counts, ms per batch of each."""
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.kernels import _build
+    with first_core():
+        old = build_resnet_engine(fm, input_mode='folded_float32',
+                                  residual_dtype=torch.int16, device=dev)
+        old(x)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        logits = old(x)
+        torch.cuda.synchronize()
+        want = {f'{k}@mma': v for k, v in expected_launches(
+            fm.arch, fm.cfg, 'folded_float32').items() if k in GEMM_KERNELS}
+        check(core_launches() == want, f'engine on the first core: launches '
+              f'per core {core_launches()}, expected {want}')
+    check(torch.equal(logits, eng(x)), 'engine logits on the first core '
+          'differ from those on the Hopper core')
+
+    def ms_per_batch(engine):
+        event = cuda_ms(lambda: engine(x), 20)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            engine(x)
+        torch.cuda.synchronize()
+        return event, (time.perf_counter() - t0) / 10 * 1e3
+    rows = []
+    for core in ('mma', 'sm90', 'sm90', 'mma'):
+        if core == 'mma':
+            with first_core():
+                rows.append((core,) + ms_per_batch(old))
+        else:
+            rows.append((core,) + ms_per_batch(eng))
+    log(f'phase 4: {fm.arch} {fm.cfg.name} folded_float32 int16 engine, '
+        f'first core and Hopper core in turns, equal logits; ms/batch '
+        f'(CUDA events / host clock): '
+        + ', '.join(f'{c} {e:.3f} / {h:.3f}' for c, e, h in rows))
+    return old
+
+
 _TEMPLATE = (re.compile(r'gemm_s8_kernel<(\w+), \w+, (\w+)>'),
              re.compile(r'gemm_s8_kernelILb(\d)ELb\dELb(\d)E'))
 
 
+_SM90_TEMPLATE = (re.compile(r'gemm_s8_sm90_kernel<(\w+),'),
+                  re.compile(r'gemm_s8_sm90_kernelILb(\d)E'))
+
+
 def port_kernel(name):
-    """'port: conv' / 'port: matmul' (' int4' with packed weights, ' split-K')
-    / 'port: pool' / 'port: minmax' for the port's kernels in a trace
-    (demangled or mangled names), None for any other kernel."""
+    """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, ' int4'
+    with packed weights, ' split-K') / 'port: pool' / 'port: minmax' for
+    the port's kernels in a trace (demangled or mangled names), None for
+    any other kernel."""
+    for pattern in _SM90_TEMPLATE:
+        m = pattern.search(name)
+        if m:
+            conv = m.group(1) in ('true', '1')
+            return 'port: ' + ('conv' if conv else 'matmul') + ' sm90'
     for pattern in _TEMPLATE:
         m = pattern.search(name)
         if m:
@@ -794,6 +1175,7 @@ def run_trainer(batch_size, dev):
             del specs[:]
             torch.cuda.synchronize()
             before = dict(_build.LAUNCHES)
+            cores_before = dict(_build.CORE_LAUNCHES)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -804,8 +1186,12 @@ def run_trainer(batch_size, dev):
             counts = {k: v - before.get(k, 0)
                       for k, v in _build.LAUNCHES.items()
                       if v - before.get(k, 0)}
+            cores = {k: v - cores_before.get(k, 0)
+                     for k, v in _build.CORE_LAUNCHES.items()
+                     if v - cores_before.get(k, 0)}
             steps.append(dict(step=state.step - 1, folded=folded,
                               ms=t0.elapsed_time(t1), counts=counts,
+                              cores=cores,
                               loss=float(out[1]['loss'])))
             return out
         return run
@@ -837,6 +1223,9 @@ def run_trainer(batch_size, dev):
                   f'{s["loss"]}')
             check(s['counts'] == want, f'step {s["step"]}: launches '
                   f'{s["counts"]}, expected {want}')
+            check(s['cores'] == core_split(want), f'step {s["step"]}: '
+                  f'launches per core {s["cores"]}, expected '
+                  f'{core_split(want)}')
         # 2 calibration passes and 4 steps update the ranges, the eval
         # batch does not
         want_total = {k: v * (7 if k != MINMAX else 6) for k, v in want.items()}
@@ -847,7 +1236,8 @@ def run_trainer(batch_size, dev):
                         f" BN) loss {s['loss']:.4f} {s['ms']:.1f} ms"
                         for s in steps)
             + f', 1 eval batch, checkpoint; {wall:.1f} s in all; launches '
-            f'per step {want}, whole run {total}')
+            f'per step {want} (per core {core_split(want)}), whole run '
+            f'{total}')
         for name in ('checkpoint.npz', 'checkpoint.npz.meta.json',
                      'quantized_checkpoint.npz',
                      'quantized_checkpoint.npz.manifest.json'):
@@ -868,6 +1258,9 @@ def run_trainer(batch_size, dev):
     want_eng = expected_launches(fm.arch, fm.cfg, 'float32')
     check(counts == want_eng, f'engine on the frozen checkpoint: launches '
           f'{counts}, expected {want_eng}')
+    check(core_launches() == core_split(want_eng), f'engine on the frozen '
+          f'checkpoint: launches per core {core_launches()}, expected '
+          f'{core_split(want_eng)}')
     scale = (torch.from_numpy(fm['quant_output.weight_scale']).to(dev).double()
              * float(fm.act_scale('quant_act_output')))
     qat_int = torch.round(qat.double() / scale)
@@ -1029,6 +1422,9 @@ def main():
     log(f"phase 2: kernels built in {info['seconds']:.1f} s "
         f"(cached {info['cached']}) -> {os.path.relpath(info['path'], REPO)}")
     for line in str(info['log']).splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:                     # the mangled name, its template values
+            log('  ' + entry.group(1)[:96])
         if 'registers' in line or 'spill' in line or line.startswith('---'):
             log('  ' + line.strip())
 
@@ -1058,6 +1454,7 @@ def main():
     check_calls([c for path in PATHS for c in recorded[path][0]] + ragged,
                 errs, f'phase 3: all {n_recorded} recorded and {len(ragged)} '
                 f'ragged calls')
+    sm90_rule_phase(dev, errs)
     totals = {}
     for path in PATHS:
         log(f'phase 3: timed on {path[0]} {path[1]}:')
@@ -1083,6 +1480,13 @@ def main():
         fm = fms[arch, scheme]
         engines[arch, scheme, mode] = engine_phase(
             fm, engine_input(fm, mode, raw, raw_u8, dev), mode, residual, dev)
+    main_engine = engines['resnet50', 'uniform8', 'folded_float32']
+    old_engine = engine_both_cores(fms['resnet50', 'uniform8'], folded,
+                                   main_engine, dev)
+    with first_core():
+        trace_breakdown(old_engine, folded, 'resnet50 uniform8 '
+                        'folded_float32 int16 on the first core')
+    del old_engine
     for scheme in ('uniform8', 'uniform4'):
         trace_breakdown(engines['resnet50', scheme, 'folded_float32'], folded,
                         f'resnet50 {scheme} folded_float32 int16')
@@ -1126,6 +1530,14 @@ def main():
                       >= t['ops'] / INT8_OPS_PER_S else 'operations'),
             library_ms=t['library_ms'] if t['library_ok'] else None,
             path=labels[name])
+        if name in SM90_KERNELS:
+            entry.update(core='sm90', old_ms=t['old_ms'],
+                         host_us_per_call=t['host_us'] / launches[name],
+                         old_host_us_per_call=(t['old_host_us']
+                                               / launches[name]))
+            if not t['library_ok'] and t['library_calls']:
+                entry.update(library_partial_ms=t['library_ms'],
+                             library_partial_calls=t['library_calls'])
         if name != MINMAX and name in train_totals:
             # the accumulator kernels' second path: one QAT train step
             tt = train_totals[name]
@@ -1135,6 +1547,9 @@ def main():
                          train_bound_ms=tt['bound_ms'],
                          train_library_ms=(tt['library_ms']
                                            if tt['library_ok'] else None))
+            if name in SM90_KERNELS:
+                entry.update(train_old_ms=tt['old_ms'],
+                             train_weight_layout_ms=tt['prep_ms'])
         kernels.append(entry)
     log(f'phase 8: all phases passed in {time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Sweep the Hopper GEMM core's tile width on one NVIDIA GPU.
+
+    python3 chip_sweep_sm90.py
+
+The measurements behind ``kernels.matmul.sm90_tile_n`` and the notes in
+csrc/gemm_s8_sm90.cuh, each by CUDA-graph replay (``chip_smoke.graph_ms``):
+
+ 1. the fixed cost of a launch: a one-element PyTorch kernel, and the core's
+    smallest call (one 64 x 32 tile, one K step);
+ 2. what one block alone takes in: one 64 x 32 tile over K = 4096 (32 steps
+    of 12 KB), per step and in bytes per microsecond;
+ 3. every ``int8_matmul_acc`` and ``int8_conv_requant`` shape of a ResNet-50
+    forward at batch 8, 224 x 224, and the largest ``int8_matmul_acc``
+    shapes of a batch-32 QAT step, at tile widths 32, 64 and 128, with the
+    width the rule picks marked ``*``; each result is first held against
+    the plain version.
+
+Needs a GPU and nvcc (it builds the kernels); exits non-zero without one.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+MATMULS = [(25088, 64, 256), (6272, 128, 512), (6272, 256, 512),
+           (1568, 256, 1024), (1568, 512, 1024), (392, 512, 2048),
+           (392, 1024, 2048), (8, 2048, 1000), (100352, 64, 256),
+           (100352, 256, 64), (25088, 512, 128), (8448, 4096, 128)]
+CONVS = [(8, 56, 64, 64), (8, 28, 128, 128), (8, 14, 256, 256),
+         (8, 7, 512, 512)]             # B, H = W, C, N; 3 x 3 taps, pad 1
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit('chip_sweep_sm90: needs an NVIDIA GPU')
+    from chip_smoke import graph_ms
+    from hawq_tpu_torch.kernels import conv as kc
+    from hawq_tpu_torch.kernels import matmul as km
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+    def i8(*shape):
+        return torch.tensor(rng.randint(-128, 128, shape).astype(np.int8),
+                            device=dev)
+
+    def matmul_us(m, k, n, tile_n):
+        x, w = i8(m, k), i8(k, n)
+        bias = torch.zeros(n, dtype=torch.int32, device=dev)
+        prepared = km.prepare_weights(w)
+        run = lambda: km.int8_matmul_acc(x, prepared, bias, tile_n=tile_n)
+        assert torch.equal(run(), km.matmul_acc_plain(x, w, bias))
+        return graph_ms(run, 50) * 1e3
+
+    one = torch.zeros(1, device=dev)
+    print(f'one-element add_: {graph_ms(lambda: one.add_(1), 50) * 1e3:.2f} '
+          f'us per graph node')
+    print(f'M64 K64 N32, one tile, one K step: {matmul_us(64, 64, 32, 32):.2f}'
+          f' us')
+    short, long = matmul_us(64, 128, 32, 32), matmul_us(64, 4096, 32, 32)
+    step = (long - short) / 31
+    print(f'M64 N32 one block: K128 {short:.2f} us, K4096 {long:.2f} us: '
+          f'{step:.3f} us per 12 KB step, {12288 / step / 1e3:.1f} GB/s')
+
+    sms = km.sm_count(dev)
+    print('int8_matmul_acc  M K N: us at tile 32 / 64 / 128 (* = the rule)')
+    for m, k, n in MATMULS:
+        tile_k = 128 if k % 128 == 0 else 64
+        pick = km.sm90_tile_n(-(-m // 64), n, -(-k // tile_k), sms)
+        row = ' / '.join(f"{matmul_us(m, k, n, t):.2f}{'*' if t == pick else ''}"
+                         for t in km.SM90_TILE_NS[::-1])
+        print(f'  M{m} K{k} N{n}: {row}')
+    print('int8_conv_requant  B HxW C N: us at tile 32 / 64 / 128')
+    for b, h, c, n in CONVS:
+        x, wf = i8(b, h, h * c), i8(9 * c, n)
+        bias = torch.zeros(n, dtype=torch.int32, device=dev)
+        mult = torch.full((n,), 2.0 ** -12, device=dev)
+        prepared = km.prepare_weights(wf, 9)
+        geo = dict(taps=(3, 3), out_hw=(h, h), cin=c, pad=(1, 1))
+        want = kc.conv_requant_plain(kc.pad_conv_input(x, (1, 1), taps=(3, 3),
+                                                       out_hw=(h, h), cin=c),
+                                     wf, bias, mult, taps=(3, 3),
+                                     out_hw=(h, h), cin=c, lo=-128, hi=127)
+        th, tw = kc.conv_tile_plan(h, h)
+        pick = km.sm90_tile_n(b * -(-h // th) * -(-h // tw), n,
+                              9 * (prepared.cpad // prepared.tile_k), sms)
+        row = []
+        for t in km.SM90_TILE_NS[::-1]:
+            run = lambda: kc.int8_conv_requant(x, prepared, bias, mult,
+                                               tile_n=t, **geo)
+            assert torch.equal(run(), want)
+            row.append(f"{graph_ms(run, 50) * 1e3:.2f}{'*' if t == pick else ''}")
+        print(f'  B{b} {h}x{h} C{c} N{n}: ' + ' / '.join(row))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

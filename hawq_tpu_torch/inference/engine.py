@@ -27,7 +27,12 @@ CPU device the kernels' plain versions run instead):
     max-pool is a plain float32 ``max_pool2d`` (exact: the pooled integers
     are below 2²⁴);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
-    be exact).
+    be exact);
+  * the weights of every ``int8_conv_requant`` and ``int8_matmul_acc`` call
+    whose widths the Hopper GEMM core takes (``kernels.matmul.sm90_route``)
+    are cached in that core's K-major layout (``prepare_weights``), on a
+    CPU device too, where the wrappers then run the plain versions of that
+    core's walk.
 
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
 the logits: 'input', 'init', '<stage>.<unit>.input' / '.conv1' / '.conv2' /
@@ -122,28 +127,40 @@ class ResnetEngine:
         """Whether a unit conv streams nibble-packed int4 weights."""
         return self.fm.cfg.weight_bits(key) == 4
 
-    def _matmul_w(self, key: str, int4: bool = False):
+    def _matmul_w(self, key: str, int4: bool = False, acc: bool = False):
         """(Cin, Cout) weights — (Cin/2, Cout) packed with ``int4`` — and
-        bias of a 1×1 conv or the FC."""
+        bias of a 1×1 conv or the FC.  With ``acc`` (the weights feed
+        ``int8_matmul_acc``) they are prepared for the Hopper core where its
+        rule takes the widths."""
         if key not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             w = w.reshape(w.shape[-2], w.shape[-1])
-            self._w[key] = (self._dev(km.pack_int4(w) if int4 else w),
-                            self._dev(self.fm[key + '.bias_int']))
+            wd = self._dev(km.pack_int4(w) if int4 else w)
+            if acc and not int4 and km.sm90_route(
+                    'matmul', k=w.shape[0], n=w.shape[1], ptr=0) is None:
+                wd = km.prepare_weights(wd)
+            self._w[key] = (wd, self._dev(self.fm[key + '.bias_int']))
         return self._w[key]
 
-    def _conv_w(self, key: str, stride: int, int4: bool):
+    def _conv_w(self, key: str, stride: int, int4: bool,
+                requant: bool = False):
         """Flattened conv weights (space-to-depth for stride 2; per-tap
-        nibble-packed with ``int4``), taps, cin."""
+        nibble-packed with ``int4``), taps, cin.  With ``requant`` (the
+        weights feed ``int8_conv_requant``) they are prepared for the Hopper
+        core where its rule takes the widths."""
         if (key, stride) not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             if stride == 2:
                 w = kc.s2d_kernel(w)
             wf = kc.flatten_conv_kernel(w)
+            taps = (w.shape[0], w.shape[1])
             if int4:
-                wf = kc.pack_int4_conv(wf, w.shape[0] * w.shape[1])
-            self._w[key, stride] = (self._dev(wf), (w.shape[0], w.shape[1]),
-                                    w.shape[2],
+                wf = kc.pack_int4_conv(wf, taps[0] * taps[1])
+            wd = self._dev(wf)
+            if requant and not int4 and km.sm90_route(
+                    'conv', k=w.shape[2], n=w.shape[3], ptr=0) is None:
+                wd = km.prepare_weights(wd, taps[0] * taps[1])
+            self._w[key, stride] = (wd, taps, w.shape[2],
                                     self._dev(self.fm[key + '.bias_int']))
         return self._w[key, stride]
 
@@ -167,15 +184,23 @@ class ResnetEngine:
     # -- layers -------------------------------------------------------------
     def _conv3x3(self, x8, key, stride, mult=None, bits=8, signed=True):
         """3×3/pad-1 conv: requant+ReLU to int8, or (mult None) int32 acc."""
-        b, h, w, _ = x8.shape
+        b, h, w, c = x8.shape
+        int4 = self._int4(key)
+        wf, taps, cin, bias = self._conv_w(key, stride, int4,
+                                           requant=mult is not None)
+        if stride == 1 and isinstance(wf, km.PreparedWeights):
+            # the Hopper core's conv: TMA supplies the zero border
+            y = kc.int8_conv_requant(
+                x8.contiguous().reshape(b, h, w * c), wf, bias, mult,
+                taps=taps, out_hw=(h, w), cin=cin, out_bits=bits,
+                signed=signed, relu=True, pad=(1, 1))
+            return y.reshape(b, h, w, -1)
         if stride == 2:
             oh, ow = kc.s2d_output_hw(h, w, 3, 3, 1)
             xp = kc.prepare_conv_input(kc.s2d_input(x8, 1), (0, 0))
         else:
             oh, ow = h, w
             xp = kc.prepare_conv_input(x8, (1, 1))
-        int4 = self._int4(key)
-        wf, taps, cin, bias = self._conv_w(key, stride, int4)
         if mult is None:
             fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
             y = fn(xp, wf, bias, taps=taps, out_hw=(oh, ow), cin=cin)
@@ -191,7 +216,7 @@ class ResnetEngine:
             x8 = x8[:, ::stride, ::stride, :].contiguous()
         b, h, w, c = x8.shape
         int4 = self._int4(key)
-        wm, bias = self._matmul_w(key, int4)
+        wm, bias = self._matmul_w(key, int4, acc=mult is None)
         xm = x8.reshape(b * h * w, c)
         if mult is None:
             fn = km.int4w_matmul_acc if int4 else km.int8_matmul_acc
@@ -340,7 +365,7 @@ class ResnetEngine:
         mult = self.requant_mult('fc_in', prev_scale, s_fc)
         f8 = qops.requant_int32(pooled.to(torch.int32), mult, b_fc, sg_fc)
         emit('fc_input', f8)
-        w_fc, bias_fc = self._matmul_w('quant_output')
+        w_fc, bias_fc = self._matmul_w('quant_output', acc=True)
         acc = km.int8_matmul_acc(f8, w_fc, bias_fc)
         if 'out_scale' not in self._mult:
             self._mult['out_scale'] = self._dev(

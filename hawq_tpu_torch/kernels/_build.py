@@ -8,7 +8,10 @@ rebuilds and an unchanged one is reused.  The build directory,
 ``hawq_tpu_torch/kernels/build/``, is listed in ``.gitignore``.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers raise on a non-zero code (:func:`check`).  The wrappers also count
+wrappers raise on a non-zero code (:func:`check`).  The Hopper core's entry
+points (csrc/*_sm90.cu) also encode TMA tensor maps, with libcuda's
+``cuTensorMapEncodeTiled`` resolved through ``cudaGetDriverEntryPoint``, so
+the library links against the CUDA runtime alone.  The wrappers also count
 their launches in :data:`LAUNCHES`, so a run can show that a path (the
 engine's, the trainer's) went through the kernels.
 """
@@ -38,13 +41,19 @@ _SIGNATURES = {
     'hawq_int8_matmul': [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     'hawq_int8_matmul_kblocked': [_P] * 6 + [_I] * 8 + [_P],
     'hawq_int8_conv': [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
+    'hawq_sm90_weight_map': [_P, _P] + [_I] * 4,
+    'hawq_int8_matmul_sm90': [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    'hawq_int8_conv_sm90': [_P, _P, _P, _P, _P] + [_I] * 17 + [_P],
     'hawq_maxpool_folded': [_P, _P] + [_I] * 5 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }
 
-# Launch counts per wrapper; reset with reset_launches().
+# Launch counts per wrapper, and per wrapper and GEMM core ('name@sm90' for
+# csrc/gemm_s8_sm90.cuh, 'name@mma' for csrc/gemm_s8.cuh); reset with
+# reset_launches().
 LAUNCHES: Dict[str, int] = {}
+CORE_LAUNCHES: Dict[str, int] = {}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -52,12 +61,17 @@ build_info: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for k in list(LAUNCHES):
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CORE_LAUNCHES):
+        for k in list(counts):
+            counts[k] = 0
 
 
-def count(name: str) -> None:
+def count(name: str, core: Optional[str] = None) -> None:
+    """One launch of wrapper ``name``; for the GEMM kernels on ``core``."""
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    if core is not None:
+        key = f'{name}@{core}'
+        CORE_LAUNCHES[key] = CORE_LAUNCHES.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -144,7 +158,13 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+ENCODE_ERROR = 10000      # csrc/gemm_s8_sm90.cuh: + the CUresult
+
+
 def check(code: int, name: str) -> None:
+    if code >= ENCODE_ERROR:
+        raise RuntimeError(f'{name}: encoding a TMA tensor map failed with '
+                           f'CUresult {code - ENCODE_ERROR}')
     if code != 0:
         raise RuntimeError(f'{name}: CUDA launch failed with cudaError {code}')
 

@@ -14,19 +14,32 @@ On a CUDA tensor each wrapper launches the hand-written kernel
 masked; the int4 forms need an even C); on a CPU tensor it runs the plain
 version, a tap-decomposed float64 product that is exact for these integer
 sums.
+
+``int8_conv_requant`` runs on the Hopper core (csrc/conv_sm90.cu over
+csrc/gemm_s8_sm90.cuh) wherever ``matmul.sm90_route`` admits the shape: its
+M tiles are rectangles of output pixels (:func:`conv_tile_plan`) so that
+every tap of a tile is one TMA box of the slab, and its weights are the
+K-major layout of ``matmul.prepare_weights`` (a handle, or laid out on the
+device at each call).  :func:`conv_requant_tiled_plain` is the plain version
+of that walk.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
-from hawq_tpu_torch.kernels.matmul import (epilogue_bounds, pack_int4,
-                                           requant_epilogue, unpack_int4)
+from hawq_tpu_torch.kernels.matmul import (SM90_TILE_M, PreparedWeights,
+                                           epilogue_bounds, pack_int4,
+                                           pick_core, prepare_weights,
+                                           requant_epilogue, sm90_tile_n,
+                                           sm_count, unpack_int4,
+                                           unprepare_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +157,108 @@ def conv_requant_plain(xp, w_flat, bias, mult, *, taps, out_hw, cin, lo, hi):
     return requant_epilogue(acc, mult, lo, hi)
 
 
+def _slab_shape(b, taps, out_hw, cin, pad=(0, 0)):
+    """Shape of the conv input: the padded slab, less ``pad`` rows / columns
+    of zero border on each side."""
+    return (b, out_hw[0] + taps[0] - 1 - 2 * pad[0],
+            (out_hw[1] + taps[1] - 1 - 2 * pad[1]) * cin)
+
+
+def pad_conv_input(x, pad, *, taps, out_hw, cin):
+    """The activations that lack ``pad`` rows / columns of zero border, (B,
+    Hi, Wi·C) → the padded slab (B, Hp, Wp·C)."""
+    b = x.shape[0]
+    want = _slab_shape(b, taps, out_hw, cin, pad)
+    if tuple(x.shape) != want:
+        raise ValueError(f'xp: shape {tuple(x.shape)}, expected {want}')
+    return prepare_conv_input(x.reshape(b, want[1], want[2] // cin, cin), pad)
+
+
+# The Hopper core's M tile: a th × tw rectangle of th·tw = 64 output pixels
+# of one image.
+_TILE_SHAPES = ((8, 8), (4, 16), (16, 4), (2, 32), (32, 2), (1, 64), (64, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tile_plan(h: int, w: int) -> Tuple[int, int]:
+    """(th, tw) of the pixel rectangles that cover an h × w output image in
+    the fewest tiles (the squarer shape on a tie): 8×8 at 56², 14² and 7²,
+    4×16 at 28²."""
+    return min(_TILE_SHAPES,
+               key=lambda t: -(-h // t[0]) * -(-w // t[1]))
+
+
+def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
+                             taps, out_hw, cin, lo, hi):
+    """:func:`conv_requant_plain` by the Hopper core's walk: the output
+    image cut into :func:`conv_tile_plan` rectangles; for each tap the
+    rectangle's box of the slab, zero-filled where it leaves the slab (as
+    TMA does) and in the channels up to the weights' padded C; the product
+    against the K-major ``prepared.wt``; pixels outside the image dropped
+    at the store."""
+    kh, kw = taps
+    h, w = out_hw
+    b = xp.shape[0]
+    prepared.check(kh * kw, cin, 'int8_conv_requant')
+    th, tw = conv_tile_plan(h, w)
+    ty, tx = -(-h // th), -(-w // tw)
+    cpad = prepared.cpad
+    x4 = xp.reshape(b, h + kh - 1, w + kw - 1, cin)
+    x4 = F.pad(x4, (0, cpad - cin, 0, tx * tw - w, 0, ty * th - h))
+    wd = prepared.wt.to(torch.float64)
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            t = dy * kw + dx
+            box = x4[:, dy:dy + ty * th, dx:dx + tx * tw, :]
+            rows = box.reshape(b, ty, th, tx, tw, cpad).permute(
+                0, 1, 3, 2, 4, 5).reshape(b * ty * tx * SM90_TILE_M, cpad)
+            d = rows.to(torch.float64) @ wd[:, t * cpad:(t + 1) * cpad].t()
+            acc = d if acc is None else acc + d
+    acc = acc.to(torch.int32).reshape(b, ty, tx, th, tw, -1).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, ty * th, tx * tw, -1)
+    acc = acc[:, :h, :w, :].reshape(b, h * w, -1) + bias
+    return requant_epilogue(acc, mult, lo, hi)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+
+def _launch_sm90(xp, prepared: PreparedWeights, bias, mult, taps, out_hw,
+                 cin, lo, hi, pad, tile_n: Optional[int],
+                 smem_extra: int) -> torch.Tensor:
+    """``int8_conv_requant`` on the Hopper core."""
+    kh, kw = taps
+    h, w = out_hw
+    b = xp.shape[0]
+    n = prepared.n
+    dev = _build.kernel_device(xp)
+    _build.require(xp, 'xp', torch.int8, _slab_shape(b, taps, out_hw, cin,
+                                                     pad), dev)
+    prepared.check(kh * kw, cin, 'int8_conv_requant')
+    _build.require(prepared.wt, 'prepared.wt', torch.int8,
+                   (n, kh * kw * prepared.cpad), dev)
+    _build.require(bias, 'bias', torch.int32, (n,), dev)
+    _build.require(mult, 'mult', torch.float32, (n,), dev)
+    if b < 1 or h < 1 or w < 1:
+        raise ValueError('int8_conv_requant: empty output')
+    th, tw = conv_tile_plan(h, w)
+    if tile_n is None:
+        tile_n = sm90_tile_n(b * -(-h // th) * -(-w // tw), n,
+                             kh * kw * (prepared.cpad // prepared.tile_k),
+                             sm_count(dev))
+    out = torch.empty((b, h * w, n), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.lib().hawq_int8_conv_sm90(
+            xp.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
+            mult.data_ptr(), out.data_ptr(), b, h, w, cin, kh, kw, n, lo, hi,
+            prepared.cpad, prepared.tile_k, tile_n, th, tw, pad[0], pad[1],
+            smem_extra, _build.stream_ptr(dev))
+    _build.check(code, 'int8_conv_requant (sm90 core)')
+    _build.count('int8_conv_requant', 'sm90')
+    return out
+
 
 def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
             requant: bool, int4: bool) -> torch.Tensor:
@@ -177,23 +289,61 @@ def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
             b, h, w, cin, kh, kw, n, lo, hi, int(requant), int(int4), vec_a,
             vec_b, _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name)
+    _build.count(name, 'mma')
     return out
 
 
 def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
-                      out_bits=8, signed=True, relu=False):
+                      out_bits=8, signed=True, relu=False,
+                      pad: Tuple[int, int] = (0, 0),
+                      core: Optional[str] = None,
+                      tile_n: Optional[int] = None, smem_extra: int = 0):
     """Stride-1 int8 conv + fused dyadic requant → (B, H·W, N) int8.
 
     xp from :func:`prepare_conv_input`, w_flat from
-    :func:`flatten_conv_kernel`, bias (N,) int32, mult (N,) f32 dyadic
-    multipliers.  relu=True clamps the low end at 0."""
+    :func:`flatten_conv_kernel` (or its ``prepare_weights(w_flat, kh·kw)``
+    handle), bias (N,) int32, mult (N,) f32 dyadic multipliers.  relu=True
+    clamps the low end at 0.
+
+    With ``pad`` = (ph, pw), xp is the activations that still lack ph rows
+    and pw columns of zero border on each side, (B, H + kh − 1 − 2ph,
+    (W + kw − 1 − 2pw)·C): the Hopper core lets TMA's out-of-bounds zero
+    fill supply the border, so no padded copy is made; on the CPU and on
+    the first core the wrapper pads first.
+
+    On a CUDA tensor the call runs on the Hopper core where
+    ``matmul.sm90_route`` admits it, else on the first core; ``core``
+    ('sm90' / 'mma') overrides the rule, ``tile_n`` the Hopper core's tile
+    width, and ``smem_extra`` adds to its shared-memory request (timing and
+    tests).  The result does not depend on any of them."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
+    prepared = w_flat if isinstance(w_flat, PreparedWeights) else None
+    pad = (int(pad[0]), int(pad[1]))
+    core = None if xp.device.type == 'cpu' else pick_core(
+        'conv', 'int8_conv_requant', core, k=cin,
+        n=prepared.n if prepared is not None else w_flat.shape[1],
+        ptr=xp.data_ptr())
+    if pad != (0, 0) and core != 'sm90':
+        xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
+        pad = (0, 0)
     if xp.device.type == 'cpu':
+        if prepared is not None:
+            return conv_requant_tiled_plain(
+                xp, prepared, bias, mult, taps=taps, out_hw=out_hw, cin=cin,
+                lo=lo, hi=hi)
         return conv_requant_plain(xp, w_flat, bias, mult, taps=taps,
                                   out_hw=out_hw, cin=cin, lo=lo, hi=hi)
-    return _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi, True,
-                   False)
+    if core == 'mma':
+        if prepared is not None:
+            w_flat = unprepare_weights(prepared)
+        return _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
+                       True, False)
+    if prepared is None:
+        _build.require(w_flat, 'w_flat', torch.int8,
+                       (taps[0] * taps[1] * cin, w_flat.shape[1]), xp.device)
+        prepared = prepare_weights(w_flat, taps[0] * taps[1])
+    return _launch_sm90(xp, prepared, bias, mult, taps, out_hw, cin, lo, hi,
+                        pad, tile_n, smem_extra)
 
 
 def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin):

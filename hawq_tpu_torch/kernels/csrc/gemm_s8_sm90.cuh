@@ -1,0 +1,605 @@
+// Hopper-native int8 GEMM core: TMA loads into a swizzled shared-memory ring,
+// mbarrier hand-over between one producer warp and one consumer warpgroup,
+// wgmma s8*s8->s32 from shared memory, and an epilogue that leaves through
+// shared memory and TMA stores.
+//
+//   out[m, n] = epilogue(sum_k A[m, k] * W[k, n] + bias[n])
+//
+// the function of gemm_s8.cuh, for the two kernels a ResNet-50 forward loses
+// the most time on:
+//
+//  * int8_conv_requant (CONV, REQUANT): replaces hawq_tpu/kernels/conv.py
+//    int8_conv_requant (conv.py:228, through _conv_call / _conv_kernel /
+//    _tap_dot).  On the H100 the 3x3 convs of stages 2-4 are bound by their
+//    int8 operations (550-1200 ops per byte against a ridge of ~590), the
+//    C = 64 convs of stage 1 by their bytes; in practice the old core was held
+//    45x above that bound by one shared-memory stage, two __syncthreads per
+//    64-deep K step, mma.sync fed by 4-byte shared loads, and a 4x4 byte
+//    transpose of W by every block on every K tile.
+//  * int8_matmul_acc (!CONV, !REQUANT): replaces hawq_tpu/kernels/matmul.py
+//    int8_matmul_acc (matmul.py:189).  Its int32 output is nine tenths of its
+//    bytes, so its stores bound it; the old core stored 4 bytes per lane with
+//    an 8-byte lane stride.
+//
+// What the design does about that:
+//
+//  * wgmma.mma_async m64nBNk32 s8*s8->s32 (exact int32), BN in {32, 64, 128},
+//    accumulators in registers.  For 8-bit operands wgmma reads both A and B
+//    K-major from shared memory, so W is laid out once, outside the kernel,
+//    as (N, taps * Cpad) K-major with every tap's C channels zero-padded to
+//    Cpad, a multiple of 64 (prepare_weights in kernels/matmul.py): no
+//    transpose in the kernel.
+//  * A ring of STAGES = 4 stages of (64 + BN) * BK bytes in dynamic shared
+//    memory, BK = 128 bytes (128-byte swizzle) where Cpad is a multiple of
+//    128, else 64 (64-byte swizzle).  (A deeper ring was tried on the H100
+//    and was no faster at any ResNet-50 shape, and slower where it cost
+//    resident blocks: one block alone takes in a 12 KB stage per 0.16 us,
+//    78 GB/s (chip_sweep_sm90.py), which is the SM's rate, not the ring's.)  Warp 4's lane 0 is the producer: it
+//    waits on empty[s], arms full[s] with the stage's bytes and starts two
+//    TMA tensor loads; the four consumer warps wait on full[s], start the
+//    BK / 32 wgmmas of the stage, keep one wgmma group in flight and release
+//    the previous stage through empty[s].  No __syncthreads in the K loop.
+//  * Matmul A: a 2-D tensor map over x (M, K); ragged M and K are zero-filled
+//    by TMA's out-of-bounds rule.  Conv A: an M tile is a th x tw rectangle of
+//    output pixels of one image, th * tw = 64 (conv_tile_plan in
+//    kernels/conv.py: 8x8 at 56x56, 14x14 and 7x7, 4x16 at 28x28), so tap
+//    (dy, dx), channel chunk c0 is one box {BK, tw, th, 1} of a 4-D map over
+//    the padded slab (B, Hp, Wp, C) at (c0, ox0 + dx, oy0 + dy, b): 64 K-major
+//    rows with no division and no per-thread address.  Pixels of the
+//    rectangle outside the image are computed on neighbouring or zero-filled
+//    data and dropped by the store.  The map may also lie over the unpadded
+//    activations (B, H, W, C): the box then starts at (ox0 + dx - pad_x,
+//    oy0 + dy - pad_y), negative at the image's edge, and TMA's zero fill is
+//    the conv's zero border, so that no padded copy is made first.
+//  * Tensor maps are encoded on the host inside the C entry points
+//    (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint) and passed as
+//    __grid_constant__ parameters; the weight map is encoded once per
+//    prepared weight and tile width and handed in.
+//  * The epilogue adds the bias (and requants with gemm_s8.cuh's requant_s8,
+//    rounded multiply then rounded add) in registers, stages the tile in the
+//    ring's shared memory, and one thread stores it with TMA: int32 tiles as
+//    64 x 32 chunks in the 128-byte swizzle (conflict-free 8-byte shared
+//    stores, whole 128-byte lines to device memory), int8 tiles as one dense
+//    64 x BN box; rows and columns outside (M, N), or outside the image for
+//    the conv's 4-D output map (B, H, W, N), are dropped by TMA.
+//  * Enough blocks without a global workspace: one 64 x BN tile per block,
+//    several blocks resident per SM (at most 96 KB of ring each), and the
+//    wrapper narrows BN until the grid fills the card (sm90_tile_n in
+//    kernels/matmul.py): stage 4 of ResNet-50 at batch 8 runs 8 x 16 tiles
+//    of 64 x 32.  No split-K workspace, no cluster.
+//
+// Shapes this core does not take (row strides or base pointers that are not
+// multiples of 16 bytes) go to gemm_s8.cuh by the explicit rule sm90_route
+// in kernels/matmul.py; a failure here is returned to the caller, never
+// retried on the other core.
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include "gemm_s8.cuh"
+
+namespace hawq_sm90 {
+
+constexpr int BM = 64;
+constexpr int STAGES = 4;
+constexpr int CONSUMER_THREADS = 128;
+constexpr int THREADS = CONSUMER_THREADS + 32;
+constexpr int ENCODE_ERROR = 10000;   // + CUresult, for a failed map encode
+
+struct Args {
+  const int32_t* bias;   // (N,)
+  const float* mult;     // (N,), requant only
+  int N;
+  int k_tiles;           // BK-deep steps: taps * chunks for the conv
+  int lo, hi;            // requant clip bounds
+  int kw, chunks, cpad;  // conv: taps per row, BK chunks per tap, padded C
+  int tiles_x, tiles_y;  // conv: th x tw pixel rectangles per image
+  int th, tw;
+  int pad_y, pad_x;      // conv: rows / columns of zero border that TMA supplies
+};
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the barrier's phase differs from ``parity``.  A wait that lasts
+// four seconds means a load that never landed: trap, so that the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint32_t spins = 0;
+  unsigned long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((++spins & 1023u) == 0) {
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      if (now - t0 > 4000000000ull) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {   // the four consumer warps
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile whose rows are BK bytes,
+// written by TMA in the BK-byte swizzle: 8-row groups 8 * BK bytes apart
+// (SBO); the leading offset is unused for swizzled K-major tiles.  The tile
+// base is 1024-byte aligned, so the base offset field is 0; a 32-byte K step
+// inside the swizzle row is +2 on the (address >> 4) field.
+template <int BK>
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
+  constexpr uint64_t layout = BK == 128 ? 1 : 2;   // 128-byte / 64-byte swizzle
+  constexpr uint64_t sbo = (8 * BK) >> 4;
+  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (sbo << 32) | (layout << 62);
+}
+
+// d (64 x BN, int32) = or += A (64 x 32, K-major) * B (BN x 32, K-major).
+// Thread t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and
+// columns 8 j + 2 (t % 4) (+ 1): d[4 j + 0, 1] in the first row, d[4 j + 2,
+// 3] in the second.
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int32_t (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+      "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+      "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int32_t (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+      "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+      "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+      "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+      "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+      "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+      "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+      "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+      "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+      "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+      "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of one block: the ring, 1024 bytes of slack to align
+// it (the swizzle patterns repeat every 1024 bytes), and the 2 * STAGES
+// barriers.  The epilogue's staging tile reuses the ring.
+template <int BK, int BN>
+constexpr int smem_bytes() {
+  return STAGES * (BM + BN) * BK + 1024 + 2 * STAGES * 8;
+}
+
+template <bool CONV, bool REQUANT, int BK, int BN>
+__global__ void __launch_bounds__(THREADS)
+gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap omap, const Args p) {
+  constexpr int A_BYTES = BM * BK;
+  constexpr int STAGE_BYTES = (BM + BN) * BK;
+  // the staged output: int8 as one dense 64 x BN box, int32 as 64 x 32
+  // chunks in the 128-byte swizzle
+  constexpr int CHUNK_COLS = REQUANT ? BN : 32;
+  constexpr int CHUNKS = BN / CHUNK_COLS;
+  constexpr int CHUNK_BYTES = BM * CHUNK_COLS * (REQUANT ? 1 : 4);
+  static_assert(CHUNKS * CHUNK_BYTES <= STAGES * STAGE_BYTES,
+                "the staged output tile must fit in the ring");
+  constexpr int CHAINS = 2;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t full = ring + STAGES * STAGE_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.y * BN;
+  int m0 = blockIdx.x * BM;          // matmul: first row of the tile
+  int b = 0, oy0 = 0, ox0 = 0;       // conv: image and corner of the rectangle
+  if (CONV) {
+    const int per = p.tiles_x * p.tiles_y;
+    b = blockIdx.x / per;
+    const int r = blockIdx.x - b * per;
+    const int ty = r / p.tiles_x;
+    oy0 = ty * p.th;
+    ox0 = (r - ty * p.tiles_x) * p.tw;
+  }
+
+  if (tid == CONSUMER_THREADS) {     // the producer lane: descriptors on their way
+    tma_prefetch_map(&amap);
+    tma_prefetch_map(&wmap);
+    tma_prefetch_map(&omap);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s * 8, 1);    // the producer's arrive + the bytes
+      mbar_init(empty + s * 8, 4);   // one lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_THREADS / 32) {
+    // ---- producer: one lane keeps the ring full ----
+    if (lane == 0) {
+      uint32_t stage = 0, parity = 1;     // the first pass finds every stage empty
+      int dy = 0, dx = 0, chunk = 0, kcol = 0;
+      for (int kt = 0; kt < p.k_tiles; ++kt) {
+        mbar_wait(empty + stage * 8, parity);
+        const uint32_t a_s = ring + stage * STAGE_BYTES;
+        const uint32_t bar = full + stage * 8;
+        mbar_expect_tx(bar, STAGE_BYTES);
+        if (CONV) {
+          tma_load_4d(a_s, &amap, bar, chunk * BK, ox0 + dx - p.pad_x,
+                      oy0 + dy - p.pad_y, b);
+          tma_load_2d(a_s + A_BYTES, &wmap, bar, kcol + chunk * BK, n0);
+          if (++chunk == p.chunks) {
+            chunk = 0;
+            kcol += p.cpad;
+            if (++dx == p.kw) {
+              dx = 0;
+              ++dy;
+            }
+          }
+        } else {
+          tma_load_2d(a_s, &amap, bar, kt * BK, m0);
+          tma_load_2d(a_s + A_BYTES, &wmap, bar, kt * BK, n0);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: wgmma over the stages as they land ----
+  // The BK / 32 wgmmas of a stage alternate between CHAINS accumulator
+  // sets, summed in the epilogue: wgmmas into one set wait for each other,
+  // wgmmas into different sets overlap (on the H100 two sets were faster
+  // than one at K = 4096 on a full grid and equal at the ResNet shapes).
+  int32_t acc[CHAINS][BN / 2];
+#pragma unroll
+  for (int c = 0; c < CHAINS; ++c)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[c][i] = 0;
+  {
+    uint32_t stage = 0, parity = 0, prev = 0;
+    for (int kt = 0; kt < p.k_tiles; ++kt) {
+      mbar_wait(full + stage * 8, parity);
+      const uint32_t a_s = ring + stage * STAGE_BYTES;
+      const uint64_t da = make_desc<BK>(a_s);
+      const uint64_t db = make_desc<BK>(a_s + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks)
+        wgmma_s8<BN>(acc[ks % CHAINS], da + 2 * ks, db + 2 * ks, 1);
+      wgmma_commit();
+      if (kt > 0) {                 // the group before this one has finished
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + prev * 8);
+      }
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+  }
+  consumer_sync();                  // every warp is done reading the ring
+
+  // ---- epilogue: registers -> staged tile -> TMA store ----
+  const int row0 = warp * 16 + (lane >> 2);
+  const int q2 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + q2;
+    const int n = n0 + col;
+    const int32_t bias0 = n < p.N ? __ldg(p.bias + n) : 0;
+    const int32_t bias1 = n + 1 < p.N ? __ldg(p.bias + n + 1) : 0;
+    float mult0 = 0.f, mult1 = 0.f;
+    if (REQUANT) {
+      mult0 = n < p.N ? __ldg(p.mult + n) : 0.f;
+      mult1 = n + 1 < p.N ? __ldg(p.mult + n + 1) : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + h * 8;
+      int32_t v0 = bias0, v1 = bias1;
+#pragma unroll
+      for (int c = 0; c < CHAINS; ++c) {
+        v0 += acc[c][4 * j + 2 * h];
+        v1 += acc[c][4 * j + 2 * h + 1];
+      }
+      if (REQUANT) {
+        const uint32_t lo8 = (uint8_t)hawq::requant_s8(v0, mult0, p.lo, p.hi);
+        const uint32_t hi8 = (uint8_t)hawq::requant_s8(v1, mult1, p.lo, p.hi);
+        *reinterpret_cast<uint16_t*>(ring_ptr + row * BN + col) =
+            (uint16_t)(lo8 | (hi8 << 8));
+      } else {
+        const int cc = col & 31;
+        const int unit = (cc >> 2) ^ (row & 7);
+        *reinterpret_cast<int2*>(ring_ptr + (col >> 5) * CHUNK_BYTES +
+                                 row * 128 + unit * 16 + (cc & 3) * 4) =
+            make_int2(v0, v1);
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumer_sync();
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int nc = n0 + c * CHUNK_COLS;
+      if (nc >= p.N) break;
+      if (CONV)
+        tma_store_4d(&omap, ring + c * CHUNK_BYTES, nc, ox0, oy0, b);
+      else
+        tma_store_2d(&omap, ring + c * CHUNK_BYTES, nc, m0);
+    }
+    tma_store_commit_and_wait();    // the block's shared memory must outlive it
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda that the runtime has loaded: the
+// library needs no link against it.
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) f = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+// A tiled map of ``rank`` dimensions, innermost first; strides[i] is the byte
+// stride of dimension i + 1.  Out-of-bounds elements load as zeros and are
+// not stored.  Returns 0, or ENCODE_ERROR + the CUresult.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
+                      const void* base, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return ENCODE_ERROR;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult res = fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                    strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)res;
+}
+
+inline CUtensorMapSwizzle k_swizzle(int bk) {
+  return bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+}
+
+// The map of prepared weights wt (N, Kpad) K-major for BK x BN boxes.
+inline int encode_weight_map(CUtensorMap* map, const int8_t* wt, int N,
+                             int Kpad, int bk, int bn) {
+  const cuuint64_t dims[2] = {(cuuint64_t)Kpad, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kpad};
+  const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bn};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wt, dims, strides,
+                    box, k_swizzle(bk));
+}
+
+template <bool CONV, bool REQUANT, int BK, int BN>
+inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
+                      const CUtensorMap& omap, const Args& p, dim3 grid,
+                      int smem_extra, cudaStream_t stream) {
+  // above 48 KB the dynamic shared memory size is opted into, once per
+  // instantiation, device and size
+  constexpr int MAX_DEVICES = 64;
+  static int configured[MAX_DEVICES] = {};
+  const int smem = smem_bytes<BK, BN>() + smem_extra;
+  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, BK, BN>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= MAX_DEVICES || smem != configured[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    if (device < MAX_DEVICES) configured[device] = smem;
+  }
+  kernel<<<grid, THREADS, smem, stream>>>(amap, wmap, omap, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool CONV, bool REQUANT>
+inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
+                  const CUtensorMap& omap, const Args& p, dim3 grid, int bk,
+                  int bn, int smem_extra, cudaStream_t stream) {
+#define HAWQ_SM90_CASE(K, N)                                               \
+  if (bk == K && bn == N)                                                  \
+    return launch_one<CONV, REQUANT, K, N>(amap, wmap, omap, p, grid,      \
+                                           smem_extra, stream);
+  HAWQ_SM90_CASE(64, 32)
+  HAWQ_SM90_CASE(64, 64)
+  HAWQ_SM90_CASE(64, 128)
+  HAWQ_SM90_CASE(128, 32)
+  HAWQ_SM90_CASE(128, 64)
+  HAWQ_SM90_CASE(128, 128)
+#undef HAWQ_SM90_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace hawq_sm90

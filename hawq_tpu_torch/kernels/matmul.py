@@ -10,14 +10,25 @@ and N; the int4 forms need an even K); on a CPU tensor it runs the plain PyTorch
 The plain versions compute the int32 accumulator exactly through float64
 (every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
 op; the int4 forms unpack the weights with :func:`unpack_int4` first.
+
+``int8_matmul_acc`` (and ``int8_conv_requant`` in kernels/conv.py) run on a
+second core written for Hopper (csrc/gemm_s8_sm90.cuh: TMA, mbarriers,
+wgmma) wherever :func:`sm90_route` admits the shape, and on csrc/gemm_s8.cuh
+elsewhere.  That core reads the weights K-major: :func:`prepare_weights`
+lays them out once (the engine caches the handle); a wrapper handed plain
+(K, N) weights lays them out on the device at each call.
+:data:`_build.CORE_LAUNCHES` counts the launches of each core.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
 from hawq_tpu_torch.quant.ops import requant_clip_bounds, round_half_up
@@ -84,9 +95,191 @@ def matmul_requant_plain(x, w, bias, mult, lo, hi):
     return requant_epilogue(matmul_acc_plain(x, w, bias), mult, lo, hi)
 
 
+def matmul_acc_kmajor_plain(x, prepared: 'PreparedWeights', bias):
+    """:func:`matmul_acc_plain` by the Hopper core's walk: x zero-filled to
+    whole 64-row tiles and to the padded K of the K-major weights (what TMA
+    does out of bounds), the product against ``prepared.wt``, the rows
+    beyond M dropped at the store."""
+    m, k = x.shape
+    prepared.check(1, k, 'int8_matmul_acc')
+    xt = F.pad(x, (0, prepared.cpad - k, 0, -m % SM90_TILE_M))
+    acc = (xt.to(torch.float64) @ prepared.wt.to(torch.float64).t())
+    return acc[:m].to(torch.int32) + bias
+
+
+# ---------------------------------------------------------------------------
+# the Hopper core's weights, routing rule and tile width
+# ---------------------------------------------------------------------------
+
+SM90_TILE_M = 64          # rows of an output tile (one wgmma)
+SM90_TILE_NS = (128, 64, 32)
+SM90_K_ALIGN = 64         # every tap's K is zero-padded to a multiple of it
+
+
+class PreparedWeights:
+    """(K, N) int8 weights laid out for the Hopper core: ``wt`` is (N,
+    taps·cpad) K-major, each tap's ``cin`` rows zero-padded to ``cpad``, a
+    multiple of 64.  Accepted by ``int8_matmul_acc`` and
+    ``int8_conv_requant`` in place of the (K, N) tensor.  On a CUDA device
+    it also keeps the encoded TMA tensor map of ``wt`` per tile shape."""
+
+    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', '_maps')
+
+    def __init__(self, wt: torch.Tensor, taps: int, cin: int, cpad: int):
+        self.wt, self.taps, self.cin, self.cpad = wt, taps, cin, cpad
+        self.n = wt.shape[0]
+        self._maps: Dict[Tuple[int, int], ctypes.Array] = {}
+
+    @property
+    def k(self) -> int:
+        return self.taps * self.cin
+
+    @property
+    def tile_k(self) -> int:
+        """Bytes of K per ring stage: 128 where the padded K allows."""
+        return 128 if self.cpad % 128 == 0 else 64
+
+    def check(self, taps: int, cin: int, name: str) -> None:
+        """Raise unless the weights were prepared for ``taps`` taps of
+        ``cin`` channels (a matmul: one tap of K)."""
+        if (self.taps, self.cin) != (taps, cin):
+            raise ValueError(f'{name}: weights prepared for {self.taps} '
+                             f'tap(s) of {self.cin}, the call has {taps} '
+                             f'of {cin}')
+
+    def tensor_map(self, tile_n: int) -> ctypes.Array:
+        """The 128-byte CUtensorMap of ``wt`` for tile_k × tile_n boxes."""
+        key = (self.tile_k, tile_n)
+        if key not in self._maps:
+            buf = ctypes.create_string_buffer(128)
+            code = _build.lib().hawq_sm90_weight_map(
+                buf, self.wt.data_ptr(), self.n, self.taps * self.cpad,
+                self.tile_k, tile_n)
+            _build.check(code, 'hawq_sm90_weight_map')
+            self._maps[key] = buf
+        return self._maps[key]
+
+
+def prepare_weights(w_flat: torch.Tensor, taps: int = 1) -> PreparedWeights:
+    """(taps·C, N) int8 weights (a matmul's (K, N) is one tap) → their
+    K-major layout for the Hopper core, on ``w_flat``'s device:
+    wt[n, t·cpad + c] = w_flat[t·C + c, n], zeros for C ≤ c < cpad, cpad = C
+    rounded up to a multiple of 64."""
+    k, n = w_flat.shape
+    if k % taps:
+        raise ValueError(f'prepare_weights: K = {k} is not {taps} taps of '
+                         f'equal C')
+    cin = k // taps
+    cpad = -(-cin // SM90_K_ALIGN) * SM90_K_ALIGN
+    if taps == 1 and cpad == cin:          # a matmul with nothing to pad
+        return PreparedWeights(w_flat.t().contiguous(), 1, cin, cin)
+    wt = w_flat.reshape(taps, cin, n).permute(2, 0, 1)
+    if cpad != cin:
+        wt = F.pad(wt, (0, cpad - cin))
+    return PreparedWeights(wt.contiguous().reshape(n, taps * cpad), taps, cin,
+                           cpad)
+
+
+def unprepare_weights(prepared: PreparedWeights) -> torch.Tensor:
+    """Inverse of :func:`prepare_weights`: the (taps·C, N) weights."""
+    p = prepared
+    wt = p.wt.reshape(p.n, p.taps, p.cpad)[:, :, :p.cin]
+    return wt.permute(1, 2, 0).reshape(p.k, p.n).contiguous()
+
+
+def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
+    """The rule that sends a call to the Hopper core or to the first one:
+    None where the Hopper core takes it, else the clause that excludes it.
+
+    TMA needs every row stride and base pointer to be a multiple of 16
+    bytes.  ``kind`` 'matmul' (``int8_matmul_acc``: x (M, K) int8 at
+    ``ptr``, int32 output rows of N): K % 16, N % 4.  ``kind`` 'conv'
+    (``int8_conv_requant``: slab pixels of ``k`` = C channels at ``ptr``,
+    int8 output rows of N): C % 16, N % 16."""
+    if kind not in ('matmul', 'conv'):
+        raise ValueError(f'sm90_route: kind {kind!r}')
+    if k % 16:
+        return 'K % 16' if kind == 'matmul' else 'C % 16'
+    n_align = 4 if kind == 'matmul' else 16
+    if n % n_align:
+        return f'N % {n_align}'
+    if ptr % 16:
+        return 'pointer % 16'
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_tile_n(m_tiles: int, n: int, k_tiles: int, sm_count: int) -> int:
+    """Width of the Hopper core's output tile: the widest of 128 and 64
+    (not wider than twice N) whose grid still has two blocks for every
+    three SMs, else 32; 64 at most where K is a single step.  Measured on
+    the H100 at the ResNet-50 shapes (chip_sweep_sm90.py at the root of the
+    repository): a wide tile reads A fewer times and wins wherever the grid
+    stays that full; below it the narrower tile's extra blocks win; and a
+    one-step call is all epilogue, where the narrower tile's smaller
+    staging lets more blocks overlap their stores (M = 25088 and 100352,
+    K = 64, N = 256: 11.4 against 12.8 µs and 48.7 against 54.5 at 64)."""
+    widths = SM90_TILE_NS[1:2] if k_tiles == 1 else SM90_TILE_NS[:2]
+    for tile_n in widths:
+        if (2 * n > tile_n
+                and 3 * m_tiles * -(-n // tile_n) >= 2 * sm_count):
+            return tile_n
+    return SM90_TILE_NS[2]
+
+
+_SM_COUNT: Dict[torch.device, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def pick_core(kind: str, name: str, core: Optional[str], *, k: int, n: int,
+              ptr: int) -> str:
+    """'sm90' or 'mma' for a call: by :func:`sm90_route`, or as ``core``
+    asks; asking for 'sm90' where the rule excludes the shape raises."""
+    reason = sm90_route(kind, k=k, n=n, ptr=ptr)
+    if core not in (None, 'sm90', 'mma'):
+        raise ValueError(f'{name}: core {core!r} not in (None, sm90, mma)')
+    if core == 'sm90' and reason is not None:
+        raise ValueError(f'{name}: the Hopper core does not take this call '
+                         f'({reason})')
+    return core or ('mma' if reason is not None else 'sm90')
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+
+def _launch_sm90(x, prepared: PreparedWeights, bias, tile_n: Optional[int],
+                 smem_extra: int) -> torch.Tensor:
+    """``int8_matmul_acc`` on the Hopper core."""
+    m, k = x.shape
+    n = prepared.n
+    dev = _build.kernel_device(x)
+    _build.require(x, 'x', torch.int8, (m, k), dev)
+    prepared.check(1, k, 'int8_matmul_acc')
+    _build.require(prepared.wt, 'prepared.wt', torch.int8,
+                   (n, prepared.cpad), dev)
+    _build.require(bias, 'bias', torch.int32, (n,), dev)
+    if m < 1:
+        raise ValueError('int8_matmul_acc: empty x')
+    if tile_n is None:
+        tile_n = sm90_tile_n(-(-m // SM90_TILE_M), n,
+                             -(-k // prepared.tile_k), sm_count(dev))
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.lib().hawq_int8_matmul_sm90(
+            x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
+            out.data_ptr(), m, k, n, prepared.tile_k, tile_n, smem_extra,
+            _build.stream_ptr(dev))
+    _build.check(code, 'int8_matmul_acc (sm90 core)')
+    _build.count('int8_matmul_acc', 'sm90')
+    return out
+
 
 def _launch(x, w, bias, mult, lo, hi, requant: bool,
             int4: bool) -> torch.Tensor:
@@ -114,7 +307,7 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool,
             m, k, n, lo, hi, int(requant), int(int4), vec_a, vec_b,
             _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name)
+    _build.count(name, 'mma')
     return out
 
 
@@ -132,12 +325,34 @@ def int8_matmul_requant(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return _launch(x, w, bias, mult, lo, hi, True, False)
 
 
-def int8_matmul_acc(x: torch.Tensor, w: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """int8 matmul returning the raw int32 accumulator + bias."""
+def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
+                    core: Optional[str] = None,
+                    tile_n: Optional[int] = None,
+                    smem_extra: int = 0) -> torch.Tensor:
+    """int8 matmul returning the raw int32 accumulator + bias.
+
+    ``w`` is the (K, N) int8 tensor or its :func:`prepare_weights` handle.
+    On a CUDA tensor the call runs on the Hopper core where
+    :func:`sm90_route` admits it, else on the first core; ``core`` ('sm90' /
+    'mma') overrides the rule, ``tile_n`` the Hopper core's tile width, and
+    ``smem_extra`` adds to its shared-memory request (timing and tests).
+    The result does not depend on any of them."""
+    prepared = w if isinstance(w, PreparedWeights) else None
     if x.device.type == 'cpu':
+        if prepared is not None:
+            return matmul_acc_kmajor_plain(x, prepared, bias)
         return matmul_acc_plain(x, w, bias)
-    return _launch(x, w, bias, None, 0, 0, False, False)
+    n = prepared.n if prepared is not None else w.shape[1]
+    core = pick_core('matmul', 'int8_matmul_acc', core, k=x.shape[1], n=n,
+                     ptr=x.data_ptr())
+    if core == 'mma':
+        if prepared is not None:
+            w = unprepare_weights(prepared)
+        return _launch(x, w, bias, None, 0, 0, False, False)
+    if prepared is None:
+        _build.require(w, 'w', torch.int8, (x.shape[1], n), x.device)
+        prepared = prepare_weights(w)
+    return _launch_sm90(x, prepared, bias, tile_n, smem_extra)
 
 
 def int4w_matmul_requant(x: torch.Tensor, w_packed: torch.Tensor,

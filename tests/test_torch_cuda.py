@@ -344,3 +344,209 @@ def test_qat_forward_cuda_equals_cpu(dev, arch, scheme):
                                        msg=key)
     torch.testing.assert_close(results['cuda'][2], results['cpu'][2], rtol=0,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper GEMM core (csrc/gemm_s8_sm90.cuh) under int8_matmul_acc and
+# int8_conv_requant
+# ---------------------------------------------------------------------------
+
+def _core_counts():
+    return {k: v for k, v in _build.CORE_LAUNCHES.items() if v}
+
+
+# the int8_matmul_acc shapes of ResNet-50 at batch 8 (conv3, identity, FC)
+# and of a batch-32 QAT step, then ragged ones: M, K, N off the tiles, K
+# padded up to 64 and to 128, N = 1000, M = 1
+_SM90_MATMULS = [(25088, 64, 256), (6272, 128, 512), (6272, 256, 512),
+                 (1568, 256, 1024), (1568, 512, 1024), (392, 512, 2048),
+                 (392, 1024, 2048), (8, 2048, 1000), (100352, 64, 256),
+                 (100352, 256, 64), (32, 2048, 1000), (37, 48, 20),
+                 (1000, 2048, 1000), (1, 16, 4), (130, 80, 72),
+                 (65, 192, 36)]
+
+
+@pytest.mark.parametrize('m,k,n', _SM90_MATMULS)
+def test_sm90_matmul_acc_equals_plain_and_first_core(dev, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    x, w, b, _ = _operands(rng, m, k, n, dev)
+    if k >= 2048:                   # saturated operands: |acc| passes 2**24
+        x[0, :] = -128
+        w[:, 0] = 127
+        w[:, 1] = -127
+    want = km.matmul_acc_plain(x, w, b)
+    prepared = km.prepare_weights(w)
+    torch.testing.assert_close(km.matmul_acc_kmajor_plain(x, prepared, b),
+                               want, rtol=0, atol=0)
+    _build.reset_launches()
+    for tile_n in (None, 32, 64, 128):
+        for weights in (w, prepared):
+            got = km.int8_matmul_acc(x, weights, b, tile_n=tile_n)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert _core_counts() == {'int8_matmul_acc@sm90': 8}
+    torch.testing.assert_close(km.int8_matmul_acc(x, w, b, core='mma'), want,
+                               rtol=0, atol=0)
+    assert _core_counts() == {'int8_matmul_acc@sm90': 8,
+                              'int8_matmul_acc@mma': 1}
+
+
+# (B, H, W, C), N, taps, of the slab conv: the four 3×3 stages of ResNet-50
+# at batch 8 and a space-to-depth (2×2-tap) stride-2 conv, then ragged ones:
+# images smaller than a tile, B = 1 and 3, a 1×1 tap, C below and between
+# the K paddings, N off the tile widths
+_SM90_CONVS = [((8, 56, 56, 64), 64, (3, 3)), ((8, 28, 28, 128), 128, (3, 3)),
+               ((8, 14, 14, 256), 256, (3, 3)), ((8, 7, 7, 512), 512, (3, 3)),
+               ((2, 28, 28, 512), 128, (2, 2)), ((1, 5, 5, 16), 16, (3, 3)),
+               ((3, 1, 1, 32), 48, (3, 3)), ((2, 9, 7, 48), 32, (1, 1)),
+               ((1, 14, 14, 80), 80, (3, 3)), ((3, 33, 31, 64), 144, (3, 3)),
+               ((1, 7, 7, 192), 1008, (2, 2))]
+
+
+@pytest.mark.parametrize('shape,n,taps', _SM90_CONVS)
+def test_sm90_conv_requant_equals_plain_and_first_core(dev, shape, n, taps):
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    xp = torch.tensor(rng.randint(-128, 128, (b, h + kh - 1, (w + kw - 1) * c)
+                                  ).astype(np.int8), device=dev)
+    wf = torch.tensor(rng.randint(-127, 128, (kh * kw * c, n)).astype(np.int8),
+                      device=dev)
+    _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+    mult[::3] = 0.5          # odd accumulators land exactly on a .5 boundary
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    prepared = km.prepare_weights(wf, kh * kw)
+    _build.reset_launches()
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        want = kc.conv_requant_plain(xp, wf, bias, mult, lo=lo, hi=hi, **geo)
+        torch.testing.assert_close(kc.conv_requant_tiled_plain(
+            xp, prepared, bias, mult, lo=lo, hi=hi, **geo), want, rtol=0,
+            atol=0)
+        epi = dict(geo, out_bits=out_bits, signed=signed, relu=relu)
+        for tile_n in (None, 32, 64, 128):
+            got = kc.int8_conv_requant(xp, prepared, bias, mult, tile_n=tile_n,
+                                       **epi)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(kc.int8_conv_requant(xp, wf, bias, mult,
+                                                        **epi), want,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(kc.int8_conv_requant(
+            xp, wf, bias, mult, core='mma', **epi), want, rtol=0, atol=0)
+    assert _core_counts() == {'int8_conv_requant@sm90': 15,
+                              'int8_conv_requant@mma': 3}
+
+
+@pytest.mark.parametrize('shape,n,taps,pad', [
+    ((8, 56, 56, 64), 64, (3, 3), (1, 1)), ((8, 7, 7, 512), 512, (3, 3), (1, 1)),
+    ((2, 14, 14, 256), 256, (3, 3), (1, 1)), ((3, 33, 31, 64), 144, (3, 3), (1, 1)),
+    ((2, 9, 7, 48), 32, (3, 3), (1, 0)), ((2, 5, 6, 16), 16, (3, 3), (0, 1)),
+    ((1, 12, 20, 32), 48, (5, 5), (2, 2)), ((1, 1, 1, 16), 16, (3, 3), (1, 1))])
+def test_sm90_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
+    """``pad``: the kernel reads the unpadded activations and TMA's zero fill
+    is the conv's border; the first core pads in the wrapper.  Both equal the
+    slab call on the padded copy."""
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    x = torch.tensor(rng.randint(-128, 128, (
+        b, h + kh - 1 - 2 * pad[0], (w + kw - 1 - 2 * pad[1]) * c)).astype(
+            np.int8), device=dev)
+    wf = torch.tensor(rng.randint(-127, 128, (kh * kw * c, n)).astype(np.int8),
+                      device=dev)
+    _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    xp = kc.pad_conv_input(x, pad, **geo)
+    want = kc.conv_requant_plain(xp, wf, bias, mult, lo=0, hi=127, **geo)
+    _build.reset_launches()
+    for weights in (wf, km.prepare_weights(wf, kh * kw)):
+        for tile_n in (None, 32, 128):
+            got = kc.int8_conv_requant(x, weights, bias, mult, relu=True,
+                                       pad=pad, tile_n=tile_n, **geo)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = kc.int8_conv_requant(x, wf, bias, mult, relu=True, pad=pad,
+                               core='mma', **geo)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert _core_counts() == {'int8_conv_requant@sm90': 6,
+                              'int8_conv_requant@mma': 1}
+    with pytest.raises(ValueError):             # the slab where x is expected
+        kc.int8_conv_requant(xp, wf, bias, mult, pad=pad, **geo)
+
+
+def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
+    """One call per clause of ``sm90_route``: it runs on the first core,
+    equals the plain version, and asking for the Hopper core raises."""
+    rng = np.random.RandomState(0)
+    big = torch.tensor(rng.randint(-128, 128, 1 << 16).astype(np.int8),
+                       device=dev)
+
+    def matmul_case(m, k, n, offset):
+        x = big[offset:offset + m * k].view(m, k)
+        _, w, b, _ = _operands(rng, 1, k, n, dev)
+        return x, w, b
+    for (m, k, n, offset), clause in (((40, 45, 20, 0), 'K % 16'),
+                                      ((40, 48, 18, 0), 'N % 4'),
+                                      ((40, 48, 20, 8), 'pointer % 16')):
+        x, w, b = matmul_case(m, k, n, offset)
+        assert km.sm90_route('matmul', k=k, n=n, ptr=x.data_ptr()) == clause
+        _build.reset_launches()
+        torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
+                                   km.matmul_acc_plain(x, w, b), rtol=0,
+                                   atol=0)
+        assert _core_counts() == {'int8_matmul_acc@mma': 1}
+        with pytest.raises(ValueError):
+            km.int8_matmul_acc(x, w, b, core='sm90')
+    for (c, n, offset), clause in (((5, 16, 0), 'C % 16'),
+                                   ((16, 24, 0), 'N % 16'),
+                                   ((16, 16, 4), 'pointer % 16')):
+        bsz, h, w_ = 2, 6, 5
+        size = bsz * (h + 2) * (w_ + 2) * c
+        xp = big[offset:offset + size].view(bsz, h + 2, (w_ + 2) * c)
+        _, wf, bias, mult = _operands(rng, 1, 9 * c, n, dev)
+        geo = dict(taps=(3, 3), out_hw=(h, w_), cin=c)
+        assert km.sm90_route('conv', k=c, n=n, ptr=xp.data_ptr()) == clause
+        _build.reset_launches()
+        torch.testing.assert_close(
+            kc.int8_conv_requant(xp, wf, bias, mult, **geo),
+            kc.conv_requant_plain(xp, wf, bias, mult, lo=-128, hi=127, **geo),
+            rtol=0, atol=0)
+        assert _core_counts() == {'int8_conv_requant@mma': 1}
+        with pytest.raises(ValueError):
+            kc.int8_conv_requant(xp, wf, bias, mult, core='sm90', **geo)
+
+
+def test_sm90_oversized_shared_memory_request_raises(dev):
+    """A launch the card refuses is an error, not a run on the first core."""
+    rng = np.random.RandomState(1)
+    x, w, b, mult = _operands(rng, 64, 64, 64, dev)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError):
+        km.int8_matmul_acc(x, w, b, smem_extra=1 << 20)
+    xp = torch.zeros((1, 10, 10 * 64), dtype=torch.int8, device=dev)
+    _, wf, _, _ = _operands(rng, 1, 9 * 64, 64, dev)
+    with pytest.raises(RuntimeError):
+        kc.int8_conv_requant(xp, wf, b, mult, taps=(3, 3), out_hw=(8, 8),
+                             cin=64, smem_extra=1 << 20)
+    assert _core_counts() == {}
+    # and the same calls go through afterwards
+    torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
+                               km.matmul_acc_plain(x, w, b), rtol=0, atol=0)
+    assert _core_counts() == {'int8_matmul_acc@sm90': 1}
+
+
+def test_engine_cuda_runs_the_hopper_core(dev):
+    """ResNet-50 widths at a small image: the engine's prepared weights go
+    through the Hopper core and the logits equal the CPU engine's."""
+    fm = synthetic_frozen_resnet('resnet50', get_bit_config('resnet50',
+                                                            'uniform8'),
+                                 num_classes=1000, seed=2)
+    x = fold4_images(np.random.RandomState(5).randn(2, 64, 64, 3).astype(
+        np.float32))
+    kw = dict(input_mode='folded_float32', residual_dtype=torch.int16)
+    want = build_resnet_engine(fm, device='cpu', **kw)(x)
+    _build.reset_launches()
+    got = build_resnet_engine(fm, device=dev, **kw)(x)
+    assert _core_counts() == {'int8_conv_requant@sm90': 16,
+                              'int8_matmul_acc@sm90': 21,
+                              'int8_matmul_requant@mma': 16,
+                              'int8_conv_acc@mma': 1}
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)

@@ -1,0 +1,351 @@
+"""The Hopper GEMM core's host side and plain walk on the CPU.
+
+``int8_conv_requant`` and ``int8_matmul_acc`` run on a second CUDA core on
+the card (csrc/gemm_s8_sm90.cuh).  What surrounds that kernel is Python and
+is tested here: the K-major weight layout (``prepare_weights``), the conv's
+plan of pixel-rectangle tiles, the plain versions of the kernel's own walk
+(``conv_requant_tiled_plain``, ``matmul_acc_kmajor_plain``) against the
+first plain versions and against the JAX package's Pallas kernels in
+interpret mode (same numpy inputs from a seed, tolerance 0), and the rule
+that routes a call to one core or the other.  The kernel itself is held
+against these plain versions on the card (tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from hawq_tpu.kernels import conv as jkc
+from hawq_tpu.kernels import matmul as jkm
+
+from hawq_tpu_torch.configs.bit_config import (RESNET_UNITS, get_bit_config)
+from hawq_tpu_torch.inference.engine import build_resnet_engine
+from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
+from hawq_tpu_torch.kernels import conv as tkc
+from hawq_tpu_torch.kernels import matmul as tkm
+from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# (a) the K-major layout
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('taps,cin,n', [(1, 64, 16), (1, 45, 19), (9, 64, 64),
+                                        (9, 5, 11), (4, 80, 24), (1, 2048, 8),
+                                        (9, 128, 32), (1, 1, 1)])
+def test_prepare_weights_layout_and_round_trip(taps, cin, n):
+    rng = np.random.RandomState(taps + cin + n)
+    w = rng.randint(-128, 128, (taps * cin, n)).astype(np.int8)
+    p = tkm.prepare_weights(_t(w), taps)
+    cpad = -(-cin // 64) * 64
+    assert (p.taps, p.cin, p.cpad, p.n, p.k) == (taps, cin, cpad, n,
+                                                 taps * cin)
+    assert p.tile_k == (128 if cpad % 128 == 0 else 64)
+    wt = p.wt.numpy()
+    assert wt.shape == (n, taps * cpad) and wt.dtype == np.int8
+    assert p.wt.is_contiguous()
+    for t in range(taps):                  # per tap: w_flat.T, then zeros
+        block = wt[:, t * cpad:(t + 1) * cpad]
+        np.testing.assert_array_equal(block[:, :cin],
+                                      w[t * cin:(t + 1) * cin].T)
+        assert not block[:, cin:].any()
+    np.testing.assert_array_equal(tkm.unprepare_weights(p).numpy(), w)
+
+
+def test_prepare_weights_rejects_uneven_taps():
+    with pytest.raises(ValueError):
+        tkm.prepare_weights(torch.zeros((10, 4), dtype=torch.int8), 3)
+
+
+# ---------------------------------------------------------------------------
+# (b) the conv tile plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('size', [56, 28, 14, 7, 5, 1])
+@pytest.mark.parametrize('batch', [1, 3])
+def test_conv_tile_plan_covers_every_pixel_once(size, batch):
+    th, tw = tkc.conv_tile_plan(size, size)
+    assert th * tw == tkm.SM90_TILE_M
+    ty, tx = -(-size // th), -(-size // tw)
+    hits = np.zeros((batch, size, size), np.int64)
+    for tile in range(batch * ty * tx):     # the kernel's blockIdx.x walk
+        b, r = divmod(tile, ty * tx)
+        oy0, ox0 = (r // tx) * th, (r % tx) * tw
+        for row in range(tkm.SM90_TILE_M):
+            oy, ox = oy0 + row // tw, ox0 + row % tw
+            if oy < size and ox < size:     # the store drops the others
+                hits[b, oy, ox] += 1
+    assert (hits == 1).all()
+    # the plan of the ResNet stages, as the kernel source states it
+    assert (th, tw) == {28: (4, 16)}.get(size, (8, 8))
+
+
+def test_conv_tile_plan_of_a_wide_image_is_wide():
+    assert tkc.conv_tile_plan(2, 64) == (2, 32)
+    assert tkc.conv_tile_plan(64, 1) == (64, 1)
+
+
+# ---------------------------------------------------------------------------
+# (c) the plain versions of the kernel's walk
+# ---------------------------------------------------------------------------
+
+def _vectors(rng, n, half):
+    bias = rng.randint(-2 ** 14, 2 ** 14, n).astype(np.int32)
+    mult = np_dyadic_multiplier((rng.rand(n) * 2e-3 + 1e-4).astype(np.float32))
+    if half:          # odd accumulators land exactly on a .5 boundary
+        mult[::2] = 0.5
+    return bias, mult
+
+
+# (B, H, W, C), N, taps, case: block_n of the Pallas call divides N
+_WALK_CONVS = [((2, 9, 7, 16), 16, (3, 3), 'random'),
+               ((1, 14, 14, 8), 8, (3, 3), 'random'),
+               ((3, 5, 5, 64), 32, (2, 2), 'random'),
+               ((1, 28, 6, 5), 8, (3, 3), 'random'),
+               ((2, 7, 7, 80), 16, (1, 1), 'random'),
+               ((1, 8, 8, 128), 8, (3, 3), 'saturated'),
+               ((2, 6, 6, 16), 16, (3, 3), 'half')]
+
+
+@pytest.mark.parametrize('shape,n,taps,case', _WALK_CONVS)
+def test_conv_tiled_plain_matches_plain_and_pallas(shape, n, taps, case):
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    xp = rng.randint(-128, 128, (b, h + kh - 1, (w + kw - 1) * c)).astype(
+        np.int8)
+    wf = rng.randint(-127, 128, (kh * kw * c, n)).astype(np.int8)
+    if case == 'saturated':                 # |acc| = 9·128·128·127 > 2**24
+        xp[:] = -128
+        wf[:, 0], wf[:, 1] = 127, -127
+    if case == 'half':                      # small sums, so .5 is not clipped
+        xp = rng.randint(-3, 4, xp.shape).astype(np.int8)
+        wf = rng.randint(-3, 4, wf.shape).astype(np.int8)
+    bias, mult = _vectors(rng, n, half=case == 'half')
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    prepared = tkm.prepare_weights(_t(wf), kh * kw)
+    for out_bits, signed, relu in [(8, True, False), (8, True, True),
+                                   (4, False, True)]:
+        epi = dict(out_bits=out_bits, signed=signed, relu=relu)
+        lo, hi = tkm.epilogue_bounds(out_bits, signed, relu)
+        plain = tkc.conv_requant_plain(_t(xp), _t(wf), _t(bias), _t(mult),
+                                       lo=lo, hi=hi, **geo).numpy()
+        tiled = tkc.conv_requant_tiled_plain(_t(xp), prepared, _t(bias),
+                                             _t(mult), lo=lo, hi=hi,
+                                             **geo).numpy()
+        # the wrapper takes the walk's plain version for a prepared handle
+        wrapped = tkc.int8_conv_requant(_t(xp), prepared, _t(bias), _t(mult),
+                                        **geo, **epi).numpy()
+        with pltpu.force_tpu_interpret_mode():
+            pallas = np.asarray(jkc.int8_conv_requant(
+                jnp.asarray(xp), jnp.asarray(wf), jnp.asarray(bias),
+                jnp.asarray(mult), **geo, **epi))
+        assert tiled.dtype == np.int8 and tiled.shape == (b, h * w, n)
+        np.testing.assert_array_equal(tiled, plain, err_msg=str(epi))
+        np.testing.assert_array_equal(wrapped, plain, err_msg=str(epi))
+        np.testing.assert_array_equal(tiled, pallas, err_msg=str(epi))
+    if case == 'half':                      # the boundary really was hit
+        acc = tkc.conv_acc_plain(_t(xp), _t(wf), _t(bias), **geo).numpy()
+        assert (acc[..., ::2] % 2 != 0).any()
+
+
+@pytest.mark.parametrize('shape,n,taps,pad', [
+    ((2, 9, 7, 16), 8, (3, 3), (1, 1)), ((1, 5, 6, 8), 4, (3, 3), (0, 1)),
+    ((1, 6, 5, 8), 4, (5, 5), (2, 2)), ((2, 4, 4, 16), 16, (3, 3), (1, 0))])
+def test_conv_pad_argument_equals_the_padded_slab(shape, n, taps, pad):
+    """With ``pad`` the wrapper takes the activations without their zero
+    border (the Hopper core leaves the border to TMA; here, on the CPU, the
+    wrapper pads): the result is that of the slab call."""
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    x = _t(rng.randint(-128, 128, (b, h + kh - 1 - 2 * pad[0],
+                                   (w + kw - 1 - 2 * pad[1]) * c)).astype(
+                                       np.int8))
+    wf = _t(rng.randint(-127, 128, (kh * kw * c, n)).astype(np.int8))
+    bias, mult = (_t(a) for a in _vectors(rng, n, half=False))
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    x4 = x.reshape(b, x.shape[1], -1, c)
+    xp = tkc.prepare_conv_input(x4, pad)
+    np.testing.assert_array_equal(
+        tkc.pad_conv_input(x, pad, **geo).numpy(), xp.numpy())
+    want = tkc.int8_conv_requant(xp, wf, bias, mult, relu=True, **geo)
+    for weights in (wf, tkm.prepare_weights(wf, kh * kw)):
+        got = tkc.int8_conv_requant(x, weights, bias, mult, relu=True,
+                                    pad=pad, **geo)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError):
+        tkc.int8_conv_requant(xp, wf, bias, mult, pad=pad, **geo)
+
+
+_WALK_MATMULS = [(37, 45, 19, 'random'), (64, 64, 64, 'random'),
+                 (130, 80, 72, 'random'), (8, 2048, 24, 'saturated'),
+                 (1, 16, 4, 'random'), (65, 192, 128, 'random')]
+
+
+@pytest.mark.parametrize('m,k,n,case', _WALK_MATMULS)
+def test_matmul_kmajor_plain_matches_plain_and_pallas(m, k, n, case):
+    rng = np.random.RandomState(m + k + n)
+    x = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    w = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    if case == 'saturated':                 # |acc| = 2048·128·127 > 2**24
+        x[0, :] = -128
+        w[:, 0], w[:, 1] = 127, -127
+    bias = rng.randint(-2 ** 14, 2 ** 14, n).astype(np.int32)
+    prepared = tkm.prepare_weights(_t(w))
+    plain = tkm.matmul_acc_plain(_t(x), _t(w), _t(bias)).numpy()
+    kmajor = tkm.matmul_acc_kmajor_plain(_t(x), prepared, _t(bias)).numpy()
+    wrapped = tkm.int8_matmul_acc(_t(x), prepared, _t(bias)).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jkm.int8_matmul_acc(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias)))
+    assert kmajor.dtype == np.int32 and kmajor.shape == (m, n)
+    np.testing.assert_array_equal(kmajor, plain)
+    np.testing.assert_array_equal(wrapped, plain)
+    np.testing.assert_array_equal(kmajor, pallas)
+    if case == 'saturated':
+        assert abs(int(kmajor[0, 0])) > 2 ** 24
+
+
+def test_wrappers_reject_a_handle_of_another_shape():
+    """A handle prepared for other taps or another K is refused, not
+    zero-filled up to its padded K."""
+    bias = torch.zeros(8, dtype=torch.int32)
+    p = tkm.prepare_weights(torch.zeros((64, 8), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        tkm.int8_matmul_acc(torch.zeros((4, 32), dtype=torch.int8), p, bias)
+    xp = torch.zeros((1, 4, 4 * 16), dtype=torch.int8)
+    mult = torch.ones(8)
+    geo = dict(taps=(2, 2), out_hw=(3, 3), cin=16)
+    tkc.int8_conv_requant(xp, tkm.prepare_weights(p.wt.t().contiguous(), 4),
+                          bias, mult, **geo)
+    with pytest.raises(ValueError):
+        tkc.int8_conv_requant(xp, p, bias, mult, **geo)
+
+
+# ---------------------------------------------------------------------------
+# (d) the routing rule and the tile width
+# ---------------------------------------------------------------------------
+
+def _resnet50_gemm_shapes(batch, size=224):
+    """(kind, M or pixels, K or C, N) of every ``int8_conv_requant`` and
+    ``int8_matmul_acc`` call of a ResNet-50 uniform8 engine forward, and of
+    every ``int8_matmul_acc`` call of a QAT forward (all 1×1 convs and the
+    FC), at ``batch`` × ``size``²."""
+    engine, train = [], []
+    hw = size // 4
+    cin = 64
+    for stage, units in enumerate(RESNET_UNITS['resnet50']):
+        mid, out = 64 * 2 ** stage, 256 * 2 ** stage
+        for unit in range(units):
+            stride = 2 if (unit == 0 and stage > 0) else 1
+            hw_out = hw // stride
+            m_in, m_out = batch * hw * hw, batch * hw_out * hw_out
+            train.append(('matmul', m_out, cin, mid))            # conv1
+            # conv2: 3×3 stride 1, or its 2×2-tap space-to-depth rewrite
+            engine.append(('conv', m_out, mid * stride * stride, mid))
+            engine.append(('matmul', m_out, mid, out))           # conv3
+            train.append(('matmul', m_out, mid, out))
+            if unit == 0:                                        # identity
+                engine.append(('matmul', m_out, cin, out))
+                train.append(('matmul', m_out, cin, out))
+            cin, hw = out, hw_out
+            del m_in
+    engine.append(('matmul', batch, 2048, 1000))
+    train.append(('matmul', batch, 2048, 1000))
+    return engine, train
+
+
+_ENGINE_SHAPES, _ = _resnet50_gemm_shapes(8)
+_, _TRAIN_SHAPES = _resnet50_gemm_shapes(32)
+
+
+@pytest.mark.parametrize('kind,m,k,n', sorted(set(_ENGINE_SHAPES)))
+def test_rule_takes_every_engine_shape_of_resnet50_b8(kind, m, k, n):
+    assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
+    assert tkm.sm90_tile_n(-(-m // 64), n, -(-k // 128), 132) in \
+        tkm.SM90_TILE_NS
+
+
+@pytest.mark.parametrize('kind,m,k,n', sorted(set(_TRAIN_SHAPES)))
+def test_rule_takes_every_train_shape_of_resnet50_b32(kind, m, k, n):
+    assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
+
+
+def test_resnet50_shape_lists_have_the_launch_counts():
+    assert sum(s[0] == 'conv' for s in _ENGINE_SHAPES) == 16
+    assert sum(s[0] == 'matmul' for s in _ENGINE_SHAPES) == 21
+    assert len(_TRAIN_SHAPES) == 37
+
+
+@pytest.mark.parametrize('kind,k,n,ptr,clause', [
+    ('matmul', 45, 20, 512, 'K % 16'), ('matmul', 48, 18, 512, 'N % 4'),
+    ('matmul', 48, 20, 520, 'pointer % 16'), ('conv', 5, 16, 512, 'C % 16'),
+    ('conv', 48, 1000, 512, 'N % 16'), ('conv', 16, 24, 512, 'N % 16'),
+    ('conv', 16, 16, 4, 'pointer % 16'), ('conv', 3, 7, 1, 'C % 16')])
+def test_rule_names_the_clause_that_excludes(kind, k, n, ptr, clause):
+    assert tkm.sm90_route(kind, k=k, n=n, ptr=ptr) == clause
+    with pytest.raises(ValueError):
+        tkm.pick_core(kind, 'test', 'sm90', k=k, n=n, ptr=ptr)
+    assert tkm.pick_core(kind, 'test', None, k=k, n=n, ptr=ptr) == 'mma'
+
+
+def test_pick_core_follows_the_rule_unless_asked():
+    args = dict(k=64, n=64, ptr=0)
+    assert tkm.pick_core('conv', 'test', None, **args) == 'sm90'
+    assert tkm.pick_core('conv', 'test', 'mma', **args) == 'mma'
+    with pytest.raises(ValueError):
+        tkm.pick_core('conv', 'test', 'wgmma', **args)
+    with pytest.raises(ValueError):
+        tkm.sm90_route('pool', **args)
+
+
+@pytest.mark.parametrize('m_tiles,n,k_tiles,want', [
+    (392, 256, 1, 64), (392, 256, 2, 128), (98, 512, 1, 64),
+    (98, 512, 2, 128), (25, 1024, 2, 128), (7, 2048, 4, 128),
+    (1, 1000, 16, 32), (1568, 64, 2, 64), (392, 64, 9, 64),
+    (112, 128, 9, 128), (32, 256, 18, 64), (8, 512, 36, 32), (1, 4, 1, 32),
+    (1000, 40, 3, 64)])
+def test_tile_width_rule(m_tiles, n, k_tiles, want):
+    assert tkm.sm90_tile_n(m_tiles, n, k_tiles, 132) == want
+
+
+# ---------------------------------------------------------------------------
+# the engine keeps prepared weights, on the CPU too
+# ---------------------------------------------------------------------------
+
+def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
+    """tiny50's unit widths are multiples of 16, so its CPU engine keeps
+    K-major handles for conv2 / conv3 / identity / FC and runs the plain
+    walk; where the rule excludes every width it keeps plain tensors.  Both
+    give the same logits."""
+    fm = synthetic_frozen_resnet('tiny50', get_bit_config('tiny50',
+                                                          'uniform8'),
+                                 num_classes=10, seed=3)
+    x = np.random.RandomState(0).randn(2, 32, 32, 3).astype(np.float32)
+    eng = build_resnet_engine(fm, device='cpu')
+    got = eng(x)
+    kinds = {key: type(val[0]) for key, val in eng._w.items()}
+    prepared = [k for k, t in kinds.items() if t is tkm.PreparedWeights]
+    assert any('quant_convbn2' in str(k) for k in prepared)
+    assert any('quant_convbn3' in str(k) for k in prepared)
+    assert not any('quant_convbn1' in str(k) for k in prepared)
+    assert kinds['init'] is torch.Tensor
+    rule = tkm.sm90_route
+    tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
+    try:
+        plain_eng = build_resnet_engine(fm, device='cpu')
+        want = plain_eng(x)
+    finally:
+        tkm.sm90_route = rule
+    assert not any(t is tkm.PreparedWeights
+                   for t in (type(v[0]) for v in plain_eng._w.values()))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
