@@ -15,28 +15,31 @@ non-zero exit and no result line:
     host-folded input, int16 residual carrier — each with the launch counts
     set to 0 just before it and read just after, and held against the
     counts its bit config predicts, per kernel and per GEMM core (every
-    ``int8_conv_requant`` and ``int8_matmul_acc`` launch on the Hopper core
+    ``int8_conv_requant``, ``int4w_conv_requant``, ``int8_matmul_requant``
+    and ``int8_matmul_acc`` launch on the Hopper core
     csrc/gemm_s8_sm90.cuh, every other GEMM launch on csrc/gemm_s8.cuh).
     Every kernel call of those runs is recorded; each is then repeated on
     the same inputs and held against its plain PyTorch version, bit for bit
     (tolerance 0), as are ragged shapes, among them the Hopper core's (M
     off the tile, 7×7 and 14×14 images, N = 1000, B = 1, 1×1 and 2×2 taps,
-    saturated operands, requant inputs on a .5 boundary) and one call per
-    clause of its shape rule, checked to have run on the core the rule
-    names; then each call of the path a kernel is reported on is timed
-    (kernel, plain version, library call) and set beside its bound — the
-    two kernels on the Hopper core on both cores in turns (old, new, new,
-    old), both equal to the plain version, with the wrapper's host time per
-    call on each;
+    C = 16, saturated operands, requant inputs on a .5 boundary, packed
+    int4 handles) and one call per clause of its shape rule, checked to
+    have run on the core the rule names; then each call of the path a
+    kernel is reported on is timed (kernel, plain version, library call)
+    and set beside its bound — the four kernels on the Hopper core on both
+    cores in turns (old, new, new, old), both equal to the plain version,
+    with the wrapper's host time per call on each, and
+    ``int4w_conv_requant`` also beside ``int8_conv_requant`` on the same
+    weights unpacked once to int8;
  4. the engine at full width: ResNet-50 uniform8 and uniform4, on folded
     input with the int16 carrier and on raw float32 input with the int32
     carrier, ResNet-50 bops_0.5 and ResNet-18 uniform4 on folded input, and
     ResNet-50 uniform4 on uint8 and on host-quantized folded_int8 input —
     logits and pooled features for the first two images equal the CPU
     (plain) engine's, finite, launch counts as the bit config predicts,
-    milliseconds per batch; the main path's engine on the first core and
-    on the Hopper core in turns; a profiler trace of the uniform8 (both
-    cores) and uniform4 forwards;
+    milliseconds per batch; the ResNet-50 uniform8 (main path) and uniform4
+    engines on the first core and on the Hopper core in turns; a profiler
+    trace of both forwards on both cores;
  5. serving: DynamicBatchers over the uniform8 engine (folded input) and
     the bops_0.5 engine (folded_int8 input, quantized on the host) answer
     12 single-image requests each, each equal to its row of a batched
@@ -92,8 +95,9 @@ KERNELS = {
                           'hawq_tpu/kernels/conv.py:228'),
     'int8_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv.cu',
                       'hawq_tpu/kernels/conv.py:243'),
-    'int8_matmul_requant': ('hawq_tpu_torch/kernels/csrc/matmul.cu',
-                            'hawq_tpu/kernels/matmul.py:68'),
+    'int8_matmul_requant': (
+        'hawq_tpu_torch/kernels/csrc/matmul_requant_sm90.cu',
+        'hawq_tpu/kernels/matmul.py:68'),
     'int8_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
                         'hawq_tpu/kernels/matmul.py:189'),
     'maxpool_folded': ('hawq_tpu_torch/kernels/csrc/pool.cu',
@@ -102,7 +106,7 @@ KERNELS = {
                              'hawq_tpu/kernels/matmul.py:134'),
     'int4w_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul.cu',
                          'hawq_tpu/kernels/matmul.py:234'),
-    'int4w_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv.cu',
+    'int4w_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv_int4_sm90.cu',
                            'hawq_tpu/kernels/conv.py:254'),
     'int4w_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv.cu',
                        'hawq_tpu/kernels/conv.py:265'),
@@ -119,7 +123,8 @@ TRAIN_BATCH = 32
 # the kernels on the Hopper core (csrc/gemm_s8_sm90.cuh); the first core
 # (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
 # beside the new one
-SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc')
+SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
+                'int4w_conv_requant')
 GEMM_KERNELS = [k for k in KERNELS if k not in ('maxpool_folded',
                                                 'minmax_1pass')]
 
@@ -208,7 +213,7 @@ def expected_launches(arch, cfg, input_mode):
 
 def core_split(counts):
     """Launches per GEMM core that go with launches per kernel, where every
-    ``int8_conv_requant`` / ``int8_matmul_acc`` call has widths the Hopper
+    call of the Hopper core's kernels (``SM90_KERNELS``) has widths that
     core takes (all full-width ResNets): those on 'sm90', every other GEMM
     kernel on 'mma'."""
     return {f"{k}@{'sm90' if k in SM90_KERNELS else 'mma'}": v
@@ -228,7 +233,8 @@ def sm90_rule(name, args, kw):
     n = w.n if isinstance(w, km.PreparedWeights) else w.shape[1]
     if '_conv' in name:
         return km.sm90_route('conv', k=kw['cin'], n=n, ptr=args[0].data_ptr())
-    return km.sm90_route('matmul', k=args[0].shape[1], n=n,
+    kind = 'matmul_requant' if name.endswith('requant') else 'matmul'
+    return km.sm90_route(kind, k=args[0].shape[1], n=n,
                          ptr=args[0].data_ptr())
 
 
@@ -280,16 +286,33 @@ def recording(calls, keep=lambda args: args):
 
 
 def unpacked_weights(name, args, kw):
-    """The int8 weights of a call: its own, or its packed int4 unpacked."""
+    """The int8 (K, N) weights of a call: its own (out of their handle), or
+    its packed int4 unpacked."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
+    w = first_core_weights(args[1])
     if name.startswith('int4w_matmul'):
-        return km.unpack_int4(args[1])
+        return km.unpack_int4(w)
     if name.startswith('int4w_conv'):
-        return kc.unpack_int4_conv(args[1], kw['taps'][0] * kw['taps'][1])
-    if isinstance(args[1], km.PreparedWeights):
-        return km.unprepare_weights(args[1])
-    return args[1]
+        return kc.unpack_int4_conv(w, kw['taps'][0] * kw['taps'][1])
+    return w
+
+
+def first_core_weights(w):
+    """The weights as csrc/gemm_s8.cuh reads them: the (K, N) tensor, or the
+    packed (K/2, N) bytes, out of a Hopper-core handle."""
+    from hawq_tpu_torch.kernels import matmul as km
+    return km.unprepare_weights(w) if isinstance(w, km.PreparedWeights) else w
+
+
+def hopper_core_weights(name, w, taps):
+    """The weights as csrc/gemm_s8_sm90.cuh reads them: their handle."""
+    from hawq_tpu_torch.kernels import matmul as km
+    if isinstance(w, km.PreparedWeights):
+        return w
+    prepare = (km.prepare_weights_int4 if name.startswith('int4w')
+               else km.prepare_weights)
+    return prepare(w, taps)
 
 
 def plain_call(name, args, kw, stack=True):
@@ -342,9 +365,9 @@ def work(name, args, kw, out):
     nbytes += out.numel() * out.element_size()
     if name in ('maxpool_folded', MINMAX):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
-    if isinstance(args[1], PreparedWeights):   # counted unpadded, as (K, N)
-        n = args[1].n
-        nbytes += args[1].k * n
+    if isinstance(args[1], PreparedWeights):   # counted unpadded, as passed
+        n = args[1].n                          # to the reference: (K, N), or
+        nbytes += args[1].k * n // (2 if args[1].int4 else 1)   # (K/2, N)
     else:
         n = args[1].shape[1]
     if '_matmul' in name:
@@ -473,7 +496,7 @@ def ragged_calls(dev):
 
 
 def sm90_calls(dev):
-    """Calls of the two kernels on the Hopper core beside the paths' →
+    """Calls of the four kernels on the Hopper core beside the paths' →
     (calls its rule admits, [(call, excluding clause)]).
 
     Admitted: M off the 64-row tile, K below and between the K paddings,
@@ -482,8 +505,10 @@ def sm90_calls(dev):
     stride-2 conv, C below and between the paddings, the zero border left
     to TMA (``pad``); operands at -128 /
     ±127 over K = 2048 and 9·512 (|acc| passes 2²⁴), and multipliers of 0.5
-    (odd accumulators sit exactly on a .5 boundary).  Excluded: one call
-    per clause of ``sm90_route``."""
+    (odd accumulators sit exactly on a .5 boundary); for the packed int4
+    conv the same conv shapes (C = 16 to 512, nibbles -8 and 7) with plain
+    packed bytes and with their handle.  Excluded: one call per clause of
+    ``sm90_route`` for each of the four kernels."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
@@ -506,24 +531,40 @@ def sm90_calls(dev):
             m[::3] = 0.5
         return b, torch.tensor(m, device=dev)
 
-    def matmul(m, k, n, offset=0, saturate=False):
+    def matmul(m, k, n, offset=0, saturate=False, **epi):
+        """``int8_matmul_acc``, or with an epilogue ``int8_matmul_requant``."""
         x, w = i8(m, k, offset=offset), i8(k, n)
         if saturate:
             x[0, :], w[:, 0], w[:, 1] = -128, 127, -127
+        if epi:
+            return ('int8_matmul_requant', (x, w) + vec(n), epi)
         return ('int8_matmul_acc', (x, w, vec(n)[0]), {})
 
-    def conv(shape, n, taps, offset=0, saturate=False, pad=(0, 0), **epi):
+    def conv(shape, n, taps, offset=0, saturate=False, pad=(0, 0),
+             int4=False, **epi):
+        """``int8_conv_requant``, or with ``int4`` ``int4w_conv_requant``
+        on per-tap packed weights."""
         b, h, w, c = shape
         kh, kw = taps
         xp = i8(b, h + kh - 1 - 2 * pad[0], (w + kw - 1 - 2 * pad[1]) * c,
                 offset=offset)
         if pad != (0, 0):
             epi['pad'] = pad
-        wf = i8(kh * kw * c, n)
+        if int4:
+            wf = rng.randint(-8, 8, (kh * kw * c, n)).astype(np.int8)
+            wf.reshape(-1)[:2] = (-8, 7)
+            if saturate:
+                wf[:, 0], wf[:, 1] = 7, -8
+            wf = torch.tensor(kc.pack_int4_conv(wf, kh * kw), device=dev)
+        else:
+            wf = i8(kh * kw * c, n)
         if saturate:
-            xp[0], wf[:, 0], wf[:, 1] = -128, 127, -127
+            xp[0] = -128
+            if not int4:
+                wf[:, 0], wf[:, 1] = 127, -127
         bias, mult = vec(n)
-        return ('int8_conv_requant', (xp, wf, bias, mult),
+        return ('int4w_conv_requant' if int4 else 'int8_conv_requant',
+                (xp, wf, bias, mult),
                 dict(taps=taps, out_hw=(h, w), cin=c, **epi))
     admitted = [matmul(37, 48, 20), matmul(1000, 2048, 1000, saturate=True),
                 matmul(1, 16, 4), matmul(130, 80, 72), matmul(65, 192, 36),
@@ -536,15 +577,17 @@ def sm90_calls(dev):
                            ((1, 14, 14, 80), 80, (3, 3)),
                            ((3, 33, 31, 64), 144, (3, 3)),
                            ((1, 7, 7, 192), 1008, (2, 2))):
-        admitted.append(conv(shape, n, taps, saturate=shape[3] == 512,
-                             out_bits=8, signed=True, relu=True))
-        admitted.append(conv(shape, n, taps, out_bits=4, signed=False,
-                             relu=True))
-        admitted.append(conv(shape, n, taps))
-    # the prepared handle in place of the (K, N) weights
-    name, args, kw = admitted[-1]
-    admitted.append((name, (args[0], km.prepare_weights(args[1], 4))
-                     + args[2:], kw))
+        for int4 in (False, True):
+            admitted.append(conv(shape, n, taps, saturate=shape[3] == 512,
+                                 int4=int4, out_bits=8, signed=True,
+                                 relu=True))
+            admitted.append(conv(shape, n, taps, int4=int4, out_bits=4,
+                                 signed=False, relu=True))
+            admitted.append(conv(shape, n, taps, int4=int4))
+    # the prepared handle in place of the (K, N) weights / the packed bytes
+    for name, args, kw in admitted[-4:-2]:
+        admitted.append((name, (args[0], hopper_core_weights(name, args[1], 4))
+                         + args[2:], kw))
     # the zero border left to TMA: 3×3 / pad 1 on whole, ragged and
     # smaller-than-a-tile images, a border on one axis only, 5×5 / pad 2
     for shape, n, taps, pad in (((2, 14, 14, 64), 64, (3, 3), (1, 1)),
@@ -555,18 +598,38 @@ def sm90_calls(dev):
                                 ((1, 12, 20, 32), 48, (5, 5), (2, 2)),
                                 ((1, 1, 1, 16), 16, (3, 3), (1, 1))):
         admitted.append(conv(shape, n, taps, pad=pad, relu=True))
-    name, args, kw = admitted[-1]
-    admitted.append((name, (args[0], km.prepare_weights(args[1], 9))
-                     + args[2:], kw))
+        admitted.append(conv(shape, n, taps, pad=pad, int4=True, relu=True))
+    for name, args, kw in admitted[-2:]:
+        admitted.append((name, (args[0], hopper_core_weights(name, args[1], 9))
+                         + args[2:], kw))
     name, args, kw = admitted[3]
     admitted.append((name, (args[0], km.prepare_weights(args[1]), args[2]),
                      kw))
+    # the requant matmul: M and N off the tiles, K between the paddings,
+    # M = 1, saturated operands, the handle in place of the (K, N) weights
+    u4 = dict(out_bits=4, signed=False, relu=True)
+    admitted += [matmul(37, 48, 16, relu=True), matmul(1, 16, 16, **u4),
+                 matmul(1000, 2048, 1008, saturate=True, signed=True),
+                 matmul(130, 80, 80, **u4), matmul(65, 192, 48, relu=True),
+                 matmul(392, 2048, 512, saturate=True, **u4)]
+    name, args, kw = admitted[-2]
+    admitted.append((name, (args[0], km.prepare_weights(args[1])) + args[2:],
+                     kw))
     excluded = [(matmul(40, 45, 20), 'K % 16'), (matmul(40, 48, 18), 'N % 4'),
                 (matmul(40, 48, 20, offset=8), 'pointer % 16'),
+                (matmul(40, 45, 16, relu=True), 'K % 16'),
+                (matmul(40, 48, 24, relu=True), 'N % 16'),
+                (matmul(40, 48, 16, offset=8, relu=True), 'pointer % 16'),
                 (conv((2, 6, 5, 5), 16, (3, 3)), 'C % 16'),
                 (conv((2, 6, 5, 16), 24, (3, 3)), 'N % 16'),
                 (conv((2, 6, 5, 16), 16, (3, 3), offset=4), 'pointer % 16'),
-                (conv((2, 6, 5, 5), 16, (3, 3), pad=(1, 1)), 'C % 16')]
+                (conv((2, 6, 5, 5), 16, (3, 3), pad=(1, 1)), 'C % 16'),
+                (conv((2, 6, 5, 10), 16, (3, 3), int4=True), 'C % 16'),
+                (conv((2, 6, 5, 16), 24, (3, 3), int4=True), 'N % 16'),
+                (conv((2, 6, 5, 16), 16, (3, 3), offset=4, int4=True),
+                 'pointer % 16'),
+                (conv((2, 6, 5, 10), 16, (3, 3), pad=(1, 1), int4=True),
+                 'C % 16')]
     return admitted, excluded
 
 
@@ -633,7 +696,8 @@ def call_key(name, args, kw):
     """What makes two kernel calls the same work: name, shapes, dtypes and
     keyword arguments."""
     from hawq_tpu_torch.kernels.matmul import PreparedWeights
-    shapes = tuple(((a.k, a.n), 'prepared') if isinstance(a, PreparedWeights)
+    shapes = tuple(((a.k, a.n), 'prepared int4' if a.int4 else 'prepared')
+                   if isinstance(a, PreparedWeights)
                    else (tuple(a.shape), str(a.dtype)) for a in args
                    if isinstance(a, (torch.Tensor, PreparedWeights)))
     return (name, shapes, tuple(sorted((k, str(v)) for k, v in kw.items())))
@@ -656,10 +720,8 @@ def sm90_tiles(name, args, kw):
     """'m-tiles x n-tiles of 64xN' of a call on the Hopper core."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
-    w = args[1]
     taps = kw['taps'][0] * kw['taps'][1] if 'taps' in kw else 1
-    if not isinstance(w, km.PreparedWeights):
-        w = km.prepare_weights(w, taps)
+    w = hopper_core_weights(name, args[1], taps)
     n = w.n
     if '_conv' in name:
         th, tw = kc.conv_tile_plan(*kw['out_hw'])
@@ -669,51 +731,68 @@ def sm90_tiles(name, args, kw):
     else:
         m_tiles, shape = -(-args[0].shape[0] // km.SM90_TILE_M), '64'
     tile_n = km.sm90_tile_n(m_tiles, n, taps * (w.cpad // w.tile_k),
-                            km.sm_count(args[0].device))
+                            km.sm_count(args[0].device),
+                            64 if w.int4 else 128)
     return f'{m_tiles}x{-(-n // tile_n)} tiles of {shape} x {tile_n}'
 
 
 def time_both_cores(name, args, kw):
     """One call of a kernel of the Hopper core on both cores, in turns (old,
     new, new, old; CUDA-graph replay), both held against the plain version
-    → (ms new, ms old, host µs new, host µs old, ms of laying out the
-    weights).  The kernels are timed on inputs each core reads as they
-    are: (K, N) weights and the padded slab for the first core, prepared
-    K-major weights (and the unpadded activations, where the path passes
-    them) for the Hopper core.
+    → dict(ms, old_ms, host_us, old_host_us, prep_ms: laying out the
+    weights; for ``int4w_conv_requant`` also int8_twin_ms).  The kernels are
+    timed on inputs each core reads as they are: (K, N) weights (packed
+    (K/2, N) bytes for an int4w kernel) and the padded slab for the first
+    core, the K-major handle (and the unpadded activations, where the path
+    passes them) for the Hopper core.
     Where the path passes plain weights (training: they change every step)
     the wrapper lays them out on the device at each call: that glue is
     timed on its own, and is part of the host time, which is taken with the
-    arguments as the path passed them."""
+    arguments as the path passed them.
+    ``int8_twin_ms`` is ``int8_conv_requant`` on the Hopper core over the
+    same call with the weights unpacked once to int8: what streaming them
+    packed, and unpacking them in the kernel, saves or costs."""
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.kernels import conv as kc
     plain_w = unpacked_weights(name, args, kw)
-    old_args, old_kw = (args[0], plain_w) + tuple(args[2:]), dict(kw)
+    old_args = (args[0], first_core_weights(args[1])) + tuple(args[2:])
+    old_kw = dict(kw)
     if kw.get('pad', (0, 0)) != (0, 0):      # the first core reads the slab
         geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin')}
         old_args = (kc.pad_conv_input(args[0], old_kw.pop('pad'), **geo),) \
             + old_args[1:]
     taps = kw['taps'][0] * kw['taps'][1] if 'taps' in kw else 1
     prep_ms = 0.0
-    new_args = args
     if not isinstance(args[1], km.PreparedWeights):
-        prep_ms = graph_ms(lambda: km.prepare_weights(plain_w, taps), 20)
-        new_args = (args[0], km.prepare_weights(plain_w, taps)) \
-            + tuple(args[2:])
-    want = plain_gemm_call(name, old_args, old_kw)
+        prep_ms = graph_ms(
+            lambda: hopper_core_weights(name, args[1], taps), 20)
+    new_args = (args[0], hopper_core_weights(name, args[1], taps)) \
+        + tuple(args[2:])
+    want = plain_gemm_call(name, (old_args[0], plain_w) + old_args[2:],
+                           old_kw)
     runs = {'mma': lambda: kernel_call(name, old_args,
                                        dict(old_kw, core='mma')),
             'sm90': lambda: kernel_call(name, new_args,
                                         dict(kw, core='sm90'))}
+    if name == 'int4w_conv_requant':
+        twin_args = (args[0], km.prepare_weights(plain_w, taps)) \
+            + tuple(args[2:])
+        runs['twin'] = lambda: kernel_call('int8_conv_requant', twin_args,
+                                           dict(kw, core='sm90'))
     for core, run in runs.items():
         check(same(run(), want), f'{name} on the {core} core differs from '
               f'its plain version at {call_key(name, args, kw)[1]} {kw}')
     ms = {core: [] for core in runs}
-    for core in ('mma', 'sm90', 'sm90', 'mma'):
-        ms[core].append(graph_ms(runs[core], 20))
-    host_new = host_us(lambda: kernel_call(name, args, dict(kw, core='sm90')))
-    return (sum(ms['sm90']) / 2, sum(ms['mma']) / 2, host_new,
-            host_us(runs['mma']), prep_ms)
+    for core in ('mma', 'sm90', 'twin', 'twin', 'sm90', 'mma'):
+        if core in runs:
+            ms[core].append(graph_ms(runs[core], 20))
+    out = dict(ms=sum(ms['sm90']) / 2, old_ms=sum(ms['mma']) / 2,
+               host_us=host_us(lambda: kernel_call(name, args,
+                                                   dict(kw, core='sm90'))),
+               old_host_us=host_us(runs['mma']), prep_ms=prep_ms)
+    if 'twin' in runs:
+        out['int8_twin_ms'] = sum(ms['twin']) / 2
+    return out
 
 
 def time_calls(calls, totals):
@@ -729,11 +808,9 @@ def time_calls(calls, totals):
             if name in SM90_KERNELS:
                 check(sm90_rule(name, args, kw) is None, f'{name} at {label}: '
                       f'the Hopper core\'s rule excludes a call of the path')
-                ms, old_ms, host, old_host, prep_ms = time_both_cores(
-                    name, args, kw)
-                extra = dict(old_ms=old_ms, host_us=host, old_host_us=old_host,
-                             prep_ms=prep_ms,
+                extra = dict(time_both_cores(name, args, kw),
                              tiles=sm90_tiles(name, args, kw))
+                ms = extra.pop('ms')
             else:
                 ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
@@ -751,9 +828,9 @@ def time_calls(calls, totals):
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
             library_ok=True, library_calls=0,
             bytes=0, ops=0, old_ms=0.0, host_us=0.0, old_host_us=0.0,
-            prep_ms=0.0))
+            prep_ms=0.0, int8_twin_ms=0.0))
         for k in ('ms', 'plain_ms', 'bound_ms', 'bytes', 'ops', 'old_ms',
-                  'host_us', 'old_host_us', 'prep_ms'):
+                  'host_us', 'old_host_us', 'prep_ms', 'int8_twin_ms'):
             t[k] += row.get(k, 0.0) * row['n']
         if row['library_ms'] is None:
             t['library_ok'] = False
@@ -771,6 +848,9 @@ def time_calls(calls, totals):
             if row['prep_ms']:
                 both += (f"; weights laid out K-major at each call: "
                          f"+{row['prep_ms']:.5f} ms of glue")
+            if 'int8_twin_ms' in row:
+                both += (f"; int8_conv_requant on the weights unpacked to "
+                         f"int8 {row['int8_twin_ms']:.5f} ms")
         log(f"  {row['name']:20s} {row['shape']:34s} x{row['n']:<2d} "
             f"ms {row['ms']:.5f} host-bound {row['host_ms']:.5f} "
             f"plain {row['plain_ms']:.4f} "
@@ -783,7 +863,10 @@ def time_calls(calls, totals):
                 f"over the path's launches; host us summed {t['host_us']:.0f}"
                 f" (first core {t['old_host_us']:.0f}); laying out plain "
                 f"weights {t['prep_ms']:.4f} ms; library over the "
-                f"{t['library_calls']} calls it takes {t['library_ms']:.4f} ms")
+                f"{t['library_calls']} calls it takes {t['library_ms']:.4f} ms"
+                + (f"; int8_conv_requant on the same calls with the weights "
+                   f"unpacked once to int8 {t['int8_twin_ms']:.4f} ms"
+                   if name == 'int4w_conv_requant' else ''))
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +893,7 @@ def record_path(fm, x, dev):
     want = expected_launches(fm.arch, fm.cfg, 'folded_float32')
     check(launches == want, f'{label}: launches {launches}, expected {want}')
     # per core: what the rule says of each recorded call, which at these
-    # widths is the Hopper core for every call of its two kernels
+    # widths is the Hopper core for every call of its kernels
     by_rule = {}
     for name, args, kw in calls:
         if name in GEMM_KERNELS:
@@ -878,9 +961,10 @@ def engine_phase(fm, x, mode, residual, dev):
 
 
 def engine_both_cores(fm, x, eng, dev):
-    """The main path's engine on the first core (built and run with every
-    GEMM call sent there) and on the Hopper core, in turns: equal logits,
-    the first core's launch counts, ms per batch of each."""
+    """A folded int16 engine on the first core (built and run with every
+    GEMM call sent there) and on the Hopper core (``eng``), in turns: equal
+    logits, the first core's launch counts, ms per batch of each → the
+    first-core engine."""
     from hawq_tpu_torch.inference.engine import build_resnet_engine
     from hawq_tpu_torch.kernels import _build
     with first_core():
@@ -923,20 +1007,24 @@ _TEMPLATE = (re.compile(r'gemm_s8_kernel<(\w+), \w+, (\w+)>'),
              re.compile(r'gemm_s8_kernelILb(\d)ELb\dELb(\d)E'))
 
 
-_SM90_TEMPLATE = (re.compile(r'gemm_s8_sm90_kernel<(\w+),'),
-                  re.compile(r'gemm_s8_sm90_kernelILb(\d)E'))
+_SM90_TEMPLATE = (
+    re.compile(r'gemm_s8_sm90_kernel<(\w+), (\w+), (\w+),'),
+    re.compile(r'gemm_s8_sm90_kernelILb(\d)ELb(\d)ELb(\d)E'))
 
 
 def port_kernel(name):
-    """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, ' int4'
-    with packed weights, ' split-K') / 'port: pool' / 'port: minmax' for
-    the port's kernels in a trace (demangled or mangled names), None for
-    any other kernel."""
+    """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, there
+    ' requant' for the matmul with the requant epilogue; ' int4' with
+    packed weights, ' split-K') / 'port: pool' / 'port: minmax' for the
+    port's kernels in a trace (demangled or mangled names), None for any
+    other kernel."""
     for pattern in _SM90_TEMPLATE:
         m = pattern.search(name)
         if m:
-            conv = m.group(1) in ('true', '1')
-            return 'port: ' + ('conv' if conv else 'matmul') + ' sm90'
+            conv, requant, int4 = (g in ('true', '1') for g in m.groups())
+            return ('port: ' + ('conv' if conv else 'matmul') + ' sm90'
+                    + (' requant' if requant and not conv else '')
+                    + (' int4' if int4 else ''))
     for pattern in _TEMPLATE:
         m = pattern.search(name)
         if m:
@@ -1043,7 +1131,9 @@ def kblocked_phase(conv1_calls, errs, totals):
     from hawq_tpu_torch.kernels import matmul as km
     check(len(conv1_calls) == 16, f'{len(conv1_calls)} recorded '
           f'int8_matmul_requant calls on resnet50 uniform8, expected 16')
-    calls = [(KBLOCKED, args, kw) for _, args, kw in conv1_calls]
+    # the split-K kernel reads (K, N) weights: out of the engine's handles
+    calls = [(KBLOCKED, (args[0], first_core_weights(args[1])) + args[2:], kw)
+             for _, args, kw in conv1_calls]
     check_calls(calls, errs, 'phase 6: int8_matmul_requant_kblocked on the '
                 '16 recorded int8_matmul_requant calls')
     for (_, args, kw) in calls:
@@ -1055,13 +1145,13 @@ def kblocked_phase(conv1_calls, errs, totals):
     splits = [km.default_k_splits(a[0].shape[0], a[0].shape[1], a[1].shape[1],
                                   sm) for _, a, _ in calls]
     log(f'phase 6: equal to int8_matmul_requant on all 16; K splits chosen '
-        f'on {sm} SMs: {splits}; timed beside it in this run:')
+        f'on {sm} SMs: {splits}; timed:')
     time_calls(calls, totals)
-    beside = {}
-    time_calls(conv1_calls, beside)
+    beside = totals['int8_matmul_requant']       # the same calls, phase 3
     log(f"phase 6: over the 16 calls {KBLOCKED} {totals[KBLOCKED]['ms']:.4f} "
-        f"ms, int8_matmul_requant {beside['int8_matmul_requant']['ms']:.4f} "
-        f"ms (a reading, not a claim)")
+        f"ms; int8_matmul_requant in phase 3 of this run {beside['ms']:.4f} "
+        f"ms on the Hopper core, {beside['old_ms']:.4f} ms on the first (a "
+        f"reading, not a claim)")
     _build.reset_launches()
     for name, args, kw in calls:
         kernel_call(name, args, kw)
@@ -1480,15 +1570,15 @@ def main():
         fm = fms[arch, scheme]
         engines[arch, scheme, mode] = engine_phase(
             fm, engine_input(fm, mode, raw, raw_u8, dev), mode, residual, dev)
-    main_engine = engines['resnet50', 'uniform8', 'folded_float32']
-    old_engine = engine_both_cores(fms['resnet50', 'uniform8'], folded,
-                                   main_engine, dev)
-    with first_core():
-        trace_breakdown(old_engine, folded, 'resnet50 uniform8 '
-                        'folded_float32 int16 on the first core')
-    del old_engine
-    for scheme in ('uniform8', 'uniform4'):
-        trace_breakdown(engines['resnet50', scheme, 'folded_float32'], folded,
+    for scheme in ('uniform8', 'uniform4'):     # W8A8 and W4A4 serving
+        eng = engines['resnet50', scheme, 'folded_float32']
+        old_engine = engine_both_cores(fms['resnet50', scheme], folded, eng,
+                                       dev)
+        with first_core():
+            trace_breakdown(old_engine, folded, f'resnet50 {scheme} '
+                            f'folded_float32 int16 on the first core')
+        del old_engine
+        trace_breakdown(eng, folded,
                         f'resnet50 {scheme} folded_float32 int16')
 
     # ---- phase 5 ----
@@ -1538,6 +1628,9 @@ def main():
             if not t['library_ok'] and t['library_calls']:
                 entry.update(library_partial_ms=t['library_ms'],
                              library_partial_calls=t['library_calls'])
+            if name == 'int4w_conv_requant':
+                entry.update(int8_conv_requant_on_unpacked_weights_ms=t[
+                    'int8_twin_ms'])
         if name != MINMAX and name in train_totals:
             # the accumulator kernels' second path: one QAT train step
             tt = train_totals[name]

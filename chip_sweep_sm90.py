@@ -10,11 +10,13 @@ csrc/gemm_s8_sm90.cuh, each by CUDA-graph replay (``chip_smoke.graph_ms``):
     smallest call (one 64 x 32 tile, one K step);
  2. what one block alone takes in: one 64 x 32 tile over K = 4096 (32 steps
     of 12 KB), per step and in bytes per microsecond;
- 3. every ``int8_matmul_acc`` and ``int8_conv_requant`` shape of a ResNet-50
-    forward at batch 8, 224 x 224, and the largest ``int8_matmul_acc``
-    shapes of a batch-32 QAT step, at tile widths 32, 64 and 128, with the
-    width the rule picks marked ``*``; each result is first held against
-    the plain version.
+ 3. every ``int8_matmul_acc``, ``int8_matmul_requant``, ``int8_conv_requant``
+    and ``int4w_conv_requant`` shape of a ResNet-50 forward at batch 8,
+    224 x 224 (the 3 x 3 convs with their zero border left to TMA, the
+    stride-2 ones as their 2 x 2-tap space-to-depth rewrite), and the
+    largest ``int8_matmul_acc`` shapes of a batch-32 QAT step, at tile
+    widths 32, 64 and 128, with the width the rule picks marked ``*``; each
+    result is first held against the plain version.
 
 Needs a GPU and nvcc (it builds the kernels); exits non-zero without one.
 """
@@ -33,8 +35,14 @@ MATMULS = [(25088, 64, 256), (6272, 128, 512), (6272, 256, 512),
            (1568, 256, 1024), (1568, 512, 1024), (392, 512, 2048),
            (392, 1024, 2048), (8, 2048, 1000), (100352, 64, 256),
            (100352, 256, 64), (25088, 512, 128), (8448, 4096, 128)]
-CONVS = [(8, 56, 64, 64), (8, 28, 128, 128), (8, 14, 256, 256),
-         (8, 7, 512, 512)]             # B, H = W, C, N; 3 x 3 taps, pad 1
+REQUANT_MATMULS = [(25088, 64, 64), (25088, 256, 64), (6272, 256, 128),
+                   (6272, 512, 128), (1568, 512, 256), (1568, 1024, 256),
+                   (392, 1024, 512), (392, 2048, 512)]
+# B, H = W, C, N, taps per side: 3 x 3 taps with pad 1, or the 2 x 2 taps of a
+# space-to-depth stride-2 conv on its slab
+CONVS = [(8, 56, 64, 64, 3), (8, 28, 128, 128, 3), (8, 14, 256, 256, 3),
+         (8, 7, 512, 512, 3), (8, 28, 512, 128, 2), (8, 14, 1024, 256, 2),
+         (8, 7, 2048, 512, 2)]
 
 
 def main():
@@ -53,12 +61,19 @@ def main():
         return torch.tensor(rng.randint(-128, 128, shape).astype(np.int8),
                             device=dev)
 
-    def matmul_us(m, k, n, tile_n):
+    def matmul_us(m, k, n, tile_n, requant=False):
         x, w = i8(m, k), i8(k, n)
         bias = torch.zeros(n, dtype=torch.int32, device=dev)
         prepared = km.prepare_weights(w)
-        run = lambda: km.int8_matmul_acc(x, prepared, bias, tile_n=tile_n)
-        assert torch.equal(run(), km.matmul_acc_plain(x, w, bias))
+        if requant:
+            mult = torch.full((n,), 2.0 ** -12, device=dev)
+            run = lambda: km.int8_matmul_requant(x, prepared, bias, mult,
+                                                 tile_n=tile_n)
+            want = km.matmul_requant_plain(x, w, bias, mult, -128, 127)
+        else:
+            run = lambda: km.int8_matmul_acc(x, prepared, bias, tile_n=tile_n)
+            want = km.matmul_acc_plain(x, w, bias)
+        assert torch.equal(run(), want)
         return graph_ms(run, 50) * 1e3
 
     one = torch.zeros(1, device=dev)
@@ -79,27 +94,46 @@ def main():
         row = ' / '.join(f"{matmul_us(m, k, n, t):.2f}{'*' if t == pick else ''}"
                          for t in km.SM90_TILE_NS[::-1])
         print(f'  M{m} K{k} N{n}: {row}')
-    print('int8_conv_requant  B HxW C N: us at tile 32 / 64 / 128')
-    for b, h, c, n in CONVS:
-        x, wf = i8(b, h, h * c), i8(9 * c, n)
+    print('int8_matmul_requant  M K N: us at tile 32 / 64 / 128')
+    for m, k, n in REQUANT_MATMULS:
+        tile_k = 128 if k % 128 == 0 else 64
+        pick = km.sm90_tile_n(-(-m // 64), n, -(-k // tile_k), sms)
+        row = ' / '.join(
+            f"{matmul_us(m, k, n, t, True):.2f}{'*' if t == pick else ''}"
+            for t in km.SM90_TILE_NS[::-1])
+        print(f'  M{m} K{k} N{n}: {row}')
+    print('int8_conv_requant, then int4w_conv_requant  B HxW taps C N: us at '
+          'tile 32 / 64 / 128')
+    for b, h, c, n, side in CONVS:
+        taps, pad = (side, side), ((1, 1) if side == 3 else (0, 0))
+        x = i8(b, h + side - 1 - 2 * pad[0], (h + side - 1 - 2 * pad[1]) * c)
+        wf = torch.tensor(rng.randint(-8, 8, (side * side * c, n)).astype(
+            np.int8), device=dev)
+        wp = torch.tensor(kc.pack_int4_conv(wf.cpu().numpy(), side * side),
+                          device=dev)
         bias = torch.zeros(n, dtype=torch.int32, device=dev)
         mult = torch.full((n,), 2.0 ** -12, device=dev)
-        prepared = km.prepare_weights(wf, 9)
-        geo = dict(taps=(3, 3), out_hw=(h, h), cin=c, pad=(1, 1))
-        want = kc.conv_requant_plain(kc.pad_conv_input(x, (1, 1), taps=(3, 3),
-                                                       out_hw=(h, h), cin=c),
-                                     wf, bias, mult, taps=(3, 3),
-                                     out_hw=(h, h), cin=c, lo=-128, hi=127)
+        geo = dict(taps=taps, out_hw=(h, h), cin=c)
+        want = kc.conv_requant_plain(kc.pad_conv_input(x, pad, **geo), wf,
+                                     bias, mult, lo=-128, hi=127, **geo)
         th, tw = kc.conv_tile_plan(h, h)
-        pick = km.sm90_tile_n(b * -(-h // th) * -(-h // tw), n,
-                              9 * (prepared.cpad // prepared.tile_k), sms)
-        row = []
-        for t in km.SM90_TILE_NS[::-1]:
-            run = lambda: kc.int8_conv_requant(x, prepared, bias, mult,
-                                               tile_n=t, **geo)
-            assert torch.equal(run(), want)
-            row.append(f"{graph_ms(run, 50) * 1e3:.2f}{'*' if t == pick else ''}")
-        print(f'  B{b} {h}x{h} C{c} N{n}: ' + ' / '.join(row))
+        for fn, weights in (
+                (kc.int8_conv_requant, km.prepare_weights(wf, side * side)),
+                (kc.int4w_conv_requant,
+                 km.prepare_weights_int4(wp, side * side))):
+            pick = km.sm90_tile_n(b * -(-h // th) * -(-h // tw), n,
+                                  side * side * (weights.cpad
+                                                 // weights.tile_k), sms,
+                                  64 if weights.int4 else 128)
+            row = []
+            for t in km.SM90_TILE_NS[::-1]:
+                run = lambda: fn(x, weights, bias, mult, tile_n=t, pad=pad,
+                                 **geo)
+                assert torch.equal(run(), want)
+                row.append(f"{graph_ms(run, 50) * 1e3:.2f}"
+                           f"{'*' if t == pick else ''}")
+            print(f"  {'int4w' if weights.int4 else 'int8 '} B{b} {h}x{h} "
+                  f"taps{side}x{side} C{c} N{n}: " + ' / '.join(row))
     return 0
 
 

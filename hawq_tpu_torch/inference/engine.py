@@ -28,11 +28,14 @@ CPU device the kernels' plain versions run instead):
     are below 2²⁴);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
     be exact);
-  * the weights of every ``int8_conv_requant`` and ``int8_matmul_acc`` call
-    whose widths the Hopper GEMM core takes (``kernels.matmul.sm90_route``)
-    are cached in that core's K-major layout (``prepare_weights``), on a
-    CPU device too, where the wrappers then run the plain versions of that
-    core's walk.
+  * the weights of every ``int8_conv_requant``, ``int8_matmul_requant``,
+    ``int8_matmul_acc`` and ``int4w_conv_requant`` call whose widths the
+    Hopper GEMM core takes (``kernels.matmul.sm90_route``) are cached in
+    that core's K-major layout (``prepare_weights``; the 4-bit convs'
+    ``prepare_weights_int4``, still nibble-packed), on a CPU device too,
+    where the wrappers then run the plain versions of that core's walk;
+    the stride-1 3×3 convs among them take unpadded activations (TMA
+    supplies the zero border).
 
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
 the logits: 'input', 'init', '<stage>.<unit>.input' / '.conv1' / '.conv2' /
@@ -129,15 +132,16 @@ class ResnetEngine:
 
     def _matmul_w(self, key: str, int4: bool = False, acc: bool = False):
         """(Cin, Cout) weights — (Cin/2, Cout) packed with ``int4`` — and
-        bias of a 1×1 conv or the FC.  With ``acc`` (the weights feed
-        ``int8_matmul_acc``) they are prepared for the Hopper core where its
-        rule takes the widths."""
+        bias of a 1×1 conv or the FC.  The int8 ones (they feed
+        ``int8_matmul_acc`` with ``acc``, else ``int8_matmul_requant``) are
+        prepared for the Hopper core where its rule takes the widths."""
         if key not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             w = w.reshape(w.shape[-2], w.shape[-1])
             wd = self._dev(km.pack_int4(w) if int4 else w)
-            if acc and not int4 and km.sm90_route(
-                    'matmul', k=w.shape[0], n=w.shape[1], ptr=0) is None:
+            if not int4 and km.sm90_route(
+                    'matmul' if acc else 'matmul_requant', k=w.shape[0],
+                    n=w.shape[1], ptr=0) is None:
                 wd = km.prepare_weights(wd)
             self._w[key] = (wd, self._dev(self.fm[key + '.bias_int']))
         return self._w[key]
@@ -146,8 +150,9 @@ class ResnetEngine:
                 requant: bool = False):
         """Flattened conv weights (space-to-depth for stride 2; per-tap
         nibble-packed with ``int4``), taps, cin.  With ``requant`` (the
-        weights feed ``int8_conv_requant``) they are prepared for the Hopper
-        core where its rule takes the widths."""
+        weights feed ``int8_conv_requant`` / ``int4w_conv_requant``) they
+        are prepared for the Hopper core, the packed ones still packed,
+        where its rule takes the widths."""
         if (key, stride) not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             if stride == 2:
@@ -157,9 +162,11 @@ class ResnetEngine:
             if int4:
                 wf = kc.pack_int4_conv(wf, taps[0] * taps[1])
             wd = self._dev(wf)
-            if requant and not int4 and km.sm90_route(
+            if requant and km.sm90_route(
                     'conv', k=w.shape[2], n=w.shape[3], ptr=0) is None:
-                wd = km.prepare_weights(wd, taps[0] * taps[1])
+                prepare = km.prepare_weights_int4 if int4 \
+                    else km.prepare_weights
+                wd = prepare(wd, taps[0] * taps[1])
             self._w[key, stride] = (wd, taps, w.shape[2],
                                     self._dev(self.fm[key + '.bias_int']))
         return self._w[key, stride]
@@ -190,7 +197,8 @@ class ResnetEngine:
                                            requant=mult is not None)
         if stride == 1 and isinstance(wf, km.PreparedWeights):
             # the Hopper core's conv: TMA supplies the zero border
-            y = kc.int8_conv_requant(
+            fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
+            y = fn(
                 x8.contiguous().reshape(b, h, w * c), wf, bias, mult,
                 taps=taps, out_hw=(h, w), cin=cin, out_bits=bits,
                 signed=signed, relu=True, pad=(1, 1))

@@ -15,13 +15,15 @@ masked; the int4 forms need an even C); on a CPU tensor it runs the plain
 version, a tap-decomposed float64 product that is exact for these integer
 sums.
 
-``int8_conv_requant`` runs on the Hopper core (csrc/conv_sm90.cu over
-csrc/gemm_s8_sm90.cuh) wherever ``matmul.sm90_route`` admits the shape: its
-M tiles are rectangles of output pixels (:func:`conv_tile_plan`) so that
-every tap of a tile is one TMA box of the slab, and its weights are the
-K-major layout of ``matmul.prepare_weights`` (a handle, or laid out on the
-device at each call).  :func:`conv_requant_tiled_plain` is the plain version
-of that walk.
+``int8_conv_requant`` and ``int4w_conv_requant`` run on the Hopper core
+(csrc/conv_sm90.cu and csrc/conv_int4_sm90.cu over csrc/gemm_s8_sm90.cuh)
+wherever ``matmul.sm90_route`` admits the shape: the M tiles are rectangles
+of output pixels (:func:`conv_tile_plan`) so that every tap of a tile is one
+TMA box of the slab, and the weights are the K-major layout of
+``matmul.prepare_weights`` / ``matmul.prepare_weights_int4`` (a handle, or
+laid out on the device at each call); the int4 form keeps them
+nibble-packed in device memory and unpacks them inside the kernel.
+:func:`conv_requant_tiled_plain` is the plain version of that walk.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from hawq_tpu_torch.kernels import _build
 from hawq_tpu_torch.kernels.matmul import (SM90_TILE_M, PreparedWeights,
                                            epilogue_bounds, pack_int4,
                                            pick_core, prepare_weights,
+                                           prepare_weights_int4,
                                            requant_epilogue, sm90_tile_n,
                                            sm_count, unpack_int4,
                                            unprepare_weights)
@@ -194,18 +197,20 @@ def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
     image cut into :func:`conv_tile_plan` rectangles; for each tap the
     rectangle's box of the slab, zero-filled where it leaves the slab (as
     TMA does) and in the channels up to the weights' padded C; the product
-    against the K-major ``prepared.wt``; pixels outside the image dropped
-    at the store."""
+    against the K-major ``prepared.wt`` (a packed int4 handle unpacked chunk
+    by chunk, as the kernel does); pixels outside the image dropped at the
+    store."""
     kh, kw = taps
     h, w = out_hw
     b = xp.shape[0]
-    prepared.check(kh * kw, cin, 'int8_conv_requant')
+    prepared.check(kh * kw, cin, 'int4w_conv_requant' if prepared.int4
+                   else 'int8_conv_requant')
     th, tw = conv_tile_plan(h, w)
     ty, tx = -(-h // th), -(-w // tw)
     cpad = prepared.cpad
     x4 = xp.reshape(b, h + kh - 1, w + kw - 1, cin)
     x4 = F.pad(x4, (0, cpad - cin, 0, tx * tw - w, 0, ty * th - h))
-    wd = prepared.wt.to(torch.float64)
+    wd = prepared.kmajor_int8().to(torch.float64)
     acc = None
     for dy in range(kh):
         for dx in range(kw):
@@ -225,10 +230,10 @@ def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
 # kernels
 # ---------------------------------------------------------------------------
 
-def _launch_sm90(xp, prepared: PreparedWeights, bias, mult, taps, out_hw,
-                 cin, lo, hi, pad, tile_n: Optional[int],
+def _launch_sm90(name, xp, prepared: PreparedWeights, bias, mult, taps,
+                 out_hw, cin, lo, hi, pad, tile_n: Optional[int],
                  smem_extra: int) -> torch.Tensor:
-    """``int8_conv_requant`` on the Hopper core."""
+    """``int8_conv_requant`` / ``int4w_conv_requant`` on the Hopper core."""
     kh, kw = taps
     h, w = out_hw
     b = xp.shape[0]
@@ -236,27 +241,29 @@ def _launch_sm90(xp, prepared: PreparedWeights, bias, mult, taps, out_hw,
     dev = _build.kernel_device(xp)
     _build.require(xp, 'xp', torch.int8, _slab_shape(b, taps, out_hw, cin,
                                                      pad), dev)
-    prepared.check(kh * kw, cin, 'int8_conv_requant')
+    prepared.check(kh * kw, cin, name)
     _build.require(prepared.wt, 'prepared.wt', torch.int8,
-                   (n, kh * kw * prepared.cpad), dev)
+                   (n, prepared.row_bytes), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
     _build.require(mult, 'mult', torch.float32, (n,), dev)
     if b < 1 or h < 1 or w < 1:
-        raise ValueError('int8_conv_requant: empty output')
+        raise ValueError(f'{name}: empty output')
     th, tw = conv_tile_plan(h, w)
     if tile_n is None:
         tile_n = sm90_tile_n(b * -(-h // th) * -(-w // tw), n,
                              kh * kw * (prepared.cpad // prepared.tile_k),
-                             sm_count(dev))
+                             sm_count(dev), 64 if prepared.int4 else 128)
     out = torch.empty((b, h * w, n), dtype=torch.int8, device=dev)
+    entry = (_build.lib().hawq_int4w_conv_sm90 if prepared.int4
+             else _build.lib().hawq_int8_conv_sm90)
     with torch.cuda.device(dev):
-        code = _build.lib().hawq_int8_conv_sm90(
+        code = entry(
             xp.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
             mult.data_ptr(), out.data_ptr(), b, h, w, cin, kh, kw, n, lo, hi,
             prepared.cpad, prepared.tile_k, tile_n, th, tw, pad[0], pad[1],
             smem_extra, _build.stream_ptr(dev))
-    _build.check(code, 'int8_conv_requant (sm90 core)')
-    _build.count('int8_conv_requant', 'sm90')
+    _build.check(code, f'{name} (sm90 core)')
+    _build.count(name, 'sm90')
     return out
 
 
@@ -293,6 +300,50 @@ def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
     return out
 
 
+def _conv_requant(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi,
+                  pad, core, tile_n, smem_extra):
+    """``int8_conv_requant`` / ``int4w_conv_requant``: the plain version (of
+    the Hopper core's walk for a handle) on a CPU tensor, else the core the
+    rule, or ``core``, names."""
+    int4 = name.startswith('int4w')
+    n_taps = taps[0] * taps[1]
+    prepared = weights if isinstance(weights, PreparedWeights) else None
+    if prepared is not None:
+        prepared.check(n_taps, cin, name)
+    pad = (int(pad[0]), int(pad[1]))
+    core = None if xp.device.type == 'cpu' else pick_core(
+        'conv', name, core, k=cin,
+        n=prepared.n if prepared is not None else weights.shape[1],
+        ptr=xp.data_ptr())
+    if pad != (0, 0) and core != 'sm90':
+        xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
+        pad = (0, 0)
+    if xp.device.type == 'cpu':
+        if prepared is not None:
+            return conv_requant_tiled_plain(
+                xp, prepared, bias, mult, taps=taps, out_hw=out_hw, cin=cin,
+                lo=lo, hi=hi)
+        if int4:
+            weights = unpack_int4_conv(weights, n_taps)
+        return conv_requant_plain(xp, weights, bias, mult, taps=taps,
+                                  out_hw=out_hw, cin=cin, lo=lo, hi=hi)
+    if core == 'mma':
+        if prepared is not None:
+            weights = unprepare_weights(prepared)
+        return _launch(xp, weights, bias, mult, taps, out_hw, cin, lo, hi,
+                       True, int4)
+    if prepared is None:
+        if int4 and cin % 2:
+            raise ValueError(f'{name} needs an even C per tap, got {cin}')
+        _build.require(weights, 'w_packed' if int4 else 'w_flat', torch.int8,
+                       (n_taps * (cin // 2 if int4 else cin),
+                        weights.shape[1]), xp.device)
+        prepared = (prepare_weights_int4 if int4 else prepare_weights)(
+            weights, n_taps)
+    return _launch_sm90(name, xp, prepared, bias, mult, taps, out_hw, cin, lo,
+                        hi, pad, tile_n, smem_extra)
+
+
 def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
                       out_bits=8, signed=True, relu=False,
                       pad: Tuple[int, int] = (0, 0),
@@ -317,33 +368,8 @@ def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
     width, and ``smem_extra`` adds to its shared-memory request (timing and
     tests).  The result does not depend on any of them."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    prepared = w_flat if isinstance(w_flat, PreparedWeights) else None
-    pad = (int(pad[0]), int(pad[1]))
-    core = None if xp.device.type == 'cpu' else pick_core(
-        'conv', 'int8_conv_requant', core, k=cin,
-        n=prepared.n if prepared is not None else w_flat.shape[1],
-        ptr=xp.data_ptr())
-    if pad != (0, 0) and core != 'sm90':
-        xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
-        pad = (0, 0)
-    if xp.device.type == 'cpu':
-        if prepared is not None:
-            return conv_requant_tiled_plain(
-                xp, prepared, bias, mult, taps=taps, out_hw=out_hw, cin=cin,
-                lo=lo, hi=hi)
-        return conv_requant_plain(xp, w_flat, bias, mult, taps=taps,
-                                  out_hw=out_hw, cin=cin, lo=lo, hi=hi)
-    if core == 'mma':
-        if prepared is not None:
-            w_flat = unprepare_weights(prepared)
-        return _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
-                       True, False)
-    if prepared is None:
-        _build.require(w_flat, 'w_flat', torch.int8,
-                       (taps[0] * taps[1] * cin, w_flat.shape[1]), xp.device)
-        prepared = prepare_weights(w_flat, taps[0] * taps[1])
-    return _launch_sm90(xp, prepared, bias, mult, taps, out_hw, cin, lo, hi,
-                        pad, tile_n, smem_extra)
+    return _conv_requant('int8_conv_requant', xp, w_flat, bias, mult, taps,
+                         out_hw, cin, lo, hi, pad, core, tile_n, smem_extra)
 
 
 def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin):
@@ -356,16 +382,19 @@ def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin):
 
 
 def int4w_conv_requant(xp, w_packed, bias, mult, *, taps, out_hw, cin,
-                       out_bits=8, signed=True, relu=False):
+                       out_bits=8, signed=True, relu=False,
+                       pad: Tuple[int, int] = (0, 0),
+                       core: Optional[str] = None,
+                       tile_n: Optional[int] = None, smem_extra: int = 0):
     """:func:`int8_conv_requant` with nibble-packed int4 weights: w_packed
-    (kh·kw·C/2, N) from :func:`pack_int4_conv`; C even."""
+    (kh·kw·C/2, N) from :func:`pack_int4_conv`, or its
+    ``prepare_weights_int4(w_packed, kh·kw)`` handle; C even.  On the Hopper
+    core the weights stay packed in device memory and the kernel unpacks
+    them; ``pad``, ``core``, ``tile_n`` and ``smem_extra`` as in
+    :func:`int8_conv_requant`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    if xp.device.type == 'cpu':
-        return conv_requant_plain(
-            xp, unpack_int4_conv(w_packed, taps[0] * taps[1]), bias, mult,
-            taps=taps, out_hw=out_hw, cin=cin, lo=lo, hi=hi)
-    return _launch(xp, w_packed, bias, mult, taps, out_hw, cin, lo, hi, True,
-                   True)
+    return _conv_requant('int4w_conv_requant', xp, w_packed, bias, mult, taps,
+                         out_hw, cin, lo, hi, pad, core, tile_n, smem_extra)
 
 
 def int4w_conv_acc(xp, w_packed, bias, *, taps, out_hw, cin):

@@ -5,8 +5,8 @@
 //
 //   out[m, n] = epilogue(sum_k A[m, k] * W[k, n] + bias[n])
 //
-// the function of gemm_s8.cuh, for the two kernels a ResNet-50 forward loses
-// the most time on:
+// the function of gemm_s8.cuh, for the kernels a ResNet-50 forward loses the
+// most time on:
 //
 //  * int8_conv_requant (CONV, REQUANT): replaces hawq_tpu/kernels/conv.py
 //    int8_conv_requant (conv.py:228, through _conv_call / _conv_kernel /
@@ -20,6 +20,15 @@
 //    int8_matmul_acc (matmul.py:189).  Its int32 output is nine tenths of its
 //    bytes, so its stores bound it; the old core stored 4 bytes per lane with
 //    an 8-byte lane stride.
+//  * int8_matmul_requant (!CONV, REQUANT): replaces hawq_tpu/kernels/matmul.py
+//    int8_matmul_requant (matmul.py:68), the first 1x1 conv of every
+//    bottleneck unit.  Bound by its bytes (M K + K N + M N); the matmul
+//    producer and the conv's int8 epilogue, with a 2-D output map.
+//  * int4w_conv_requant (CONV, REQUANT, INT4): replaces hawq_tpu/kernels/conv.py
+//    int4w_conv_requant (conv.py:254, the int4 branch of _tap_dot).  Same
+//    bounds as the int8 conv with half the weight bytes.  wgmma has no 4-bit
+//    integer type, so the weights stream nibble-packed through the ring and
+//    are unpacked to int8 inside the kernel (see "Packed weights" below).
 //
 // What the design does about that:
 //
@@ -29,8 +38,8 @@
 //    as (N, taps * Cpad) K-major with every tap's C channels zero-padded to
 //    Cpad, a multiple of 64 (prepare_weights in kernels/matmul.py): no
 //    transpose in the kernel.
-//  * A ring of STAGES = 4 stages of (64 + BN) * BK bytes in dynamic shared
-//    memory, BK = 128 bytes (128-byte swizzle) where Cpad is a multiple of
+//  * A ring of STAGES = 4 stages of (64 + BN) * BK bytes ((64 + BN / 2) * BK
+//    with packed weights) in dynamic shared memory, BK = 128 bytes (128-byte swizzle) where Cpad is a multiple of
 //    128, else 64 (64-byte swizzle).  (A deeper ring was tried on the H100
 //    and was no faster at any ResNet-50 shape, and slower where it cost
 //    resident blocks: one block alone takes in a 12 KB stage per 0.16 us,
@@ -67,6 +76,33 @@
 //    wrapper narrows BN until the grid fills the card (sm90_tile_n in
 //    kernels/matmul.py): stage 4 of ResNet-50 at batch 8 runs 8 x 16 tiles
 //    of 64 x 32.  No split-K workspace, no cluster.
+//
+// Packed weights (INT4).  The handle (prepare_weights_int4 in
+// kernels/matmul.py) is (N, taps * Cpad / 2) bytes, K-major like the int8
+// handle; inside every BK-channel chunk, byte i holds channel c0 + i in its
+// low nibble and channel c0 + BK/2 + i in its high nibble.  A ring stage is
+// the A tile plus the BN x BK/2 packed tile (a 2-D box in the BK/2-byte
+// swizzle).  After full[s] the four consumer warps read the packed tile 16
+// bytes a thread (every load of a step before its first store), sign-extend
+// the low and the high nibbles (two operations per word) into two whole
+// 16-byte units of the int8 B tile - units u and u + BK/32 of the row: no
+// byte shuffle, no transpose - and store them into one of two unpack buffers
+// in the BK-byte swizzle that make_desc expects; both the loads and the
+// stores are free of bank conflicts (eight lanes take eight consecutive rows
+// of one unit).  Then fence.proxy.async (without it the wgmmas read stale
+// bytes: seen on the H100), the wait for the previous stage's wgmma group,
+// one bar.sync of the consumers, and the stage's wgmmas with A from the ring
+// and B from the buffer.  The wait stands before the bar.sync so that every
+// warp's group kt - 1 has finished before any warp, one iteration later,
+// rewrites the buffer that group read: the unpack of stage kt overlaps the
+// wgmmas of stage kt - 1.  The wrapper keeps BN at 64 or 32 for this form
+// (sm90_tile_n): what the unpack moves through shared memory grows with BN.
+// Tried on the H100 and dropped, each bit-equal and none faster over the
+// 3x3 convs of ResNet-50 at batch 8: four dedicated unpack warps feeding the
+// consumers through a second pair of mbarriers (two or three buffers), and
+// the swapped product out^T = W^T X^T with the weights unpacked in registers
+// as the wgmma A operand (no shared-memory round trip, but only 64-wide
+// channel tiles, so half the blocks at 7x7 and 14x14).
 //
 // Shapes this core does not take (row strides or base pointers that are not
 // multiples of 16 bytes) go to gemm_s8.cuh by the explicit rule sm90_route
@@ -225,6 +261,64 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
          (sbo << 32) | (layout << 62);
 }
 
+// Byte offset ``off`` of a tile whose rows are ROW bytes (32, 64 or 128) in
+// the ROW-byte swizzle, as TMA writes it and wgmma reads it: the 16-byte
+// unit index is XORed with the bits above the 128-byte line.  The tile base
+// is 1024-byte aligned.
+template <int ROW>
+__device__ __forceinline__ int swizzled(int off) {
+  return off ^ (((off >> 7) & (ROW / 16 - 1)) << 4);
+}
+
+// The packed BN x BK/2 tile at ``packed`` -> the int8 BN x BK tile at ``dst``,
+// both swizzled, by the 128 consumer threads.  Item i is the 16-byte packed
+// unit u of row r, with i % 8 the row inside an 8-row group, so that the
+// eight lanes of a quarter warp hit eight different bank groups on the load
+// and on both stores.
+template <int BK, int BN>
+__device__ __forceinline__ void unpack_b_tile(const uint8_t* __restrict__ packed,
+                                              uint8_t* __restrict__ dst,
+                                              int tid) {
+  constexpr int PB = BK / 2;          // packed bytes per row
+  constexpr int UNITS = PB / 16;      // 16-byte units per packed row
+  constexpr int ITEMS = BN * UNITS;
+  constexpr int PER_THREAD = (ITEMS + CONSUMER_THREADS - 1) / CONSUMER_THREADS;
+  // every load first, then the arithmetic and the stores: the loads of one
+  // item do not wait behind the stores of the item before
+  uint4 v[PER_THREAD];
+#pragma unroll
+  for (int it = 0; it < PER_THREAD; ++it) {
+    const int i = it * CONSUMER_THREADS + tid;
+    const int g = i >> 3;
+    const int r = (g / UNITS) * 8 + (i & 7);
+    const int u = g % UNITS;
+    if (ITEMS % CONSUMER_THREADS == 0 || i < ITEMS)
+      v[it] = *reinterpret_cast<const uint4*>(
+          packed + swizzled<PB>(r * PB + u * 16));
+  }
+#pragma unroll
+  for (int it = 0; it < PER_THREAD; ++it) {
+    const int i = it * CONSUMER_THREADS + tid;
+    const int g = i >> 3;
+    const int r = (g / UNITS) * 8 + (i & 7);
+    const int u = g % UNITS;
+    if (ITEMS % CONSUMER_THREADS == 0 || i < ITEMS) {
+      uint4 lo, hi;
+      lo.x = hawq::sext_nibbles(v[it].x, false);
+      lo.y = hawq::sext_nibbles(v[it].y, false);
+      lo.z = hawq::sext_nibbles(v[it].z, false);
+      lo.w = hawq::sext_nibbles(v[it].w, false);
+      hi.x = hawq::sext_nibbles(v[it].x, true);
+      hi.y = hawq::sext_nibbles(v[it].y, true);
+      hi.z = hawq::sext_nibbles(v[it].z, true);
+      hi.w = hawq::sext_nibbles(v[it].w, true);
+      *reinterpret_cast<uint4*>(dst + swizzled<BK>(r * BK + u * 16)) = lo;
+      *reinterpret_cast<uint4*>(dst + swizzled<BK>(r * BK + (u + UNITS) * 16)) =
+          hi;
+    }
+  }
+}
+
 // d (64 x BN, int32) = or += A (64 x 32, K-major) * B (BN x 32, K-major).
 // Thread t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and
 // columns 8 j + 2 (t % 4) (+ 1): d[4 j + 0, 1] in the first row, d[4 j + 2,
@@ -312,21 +406,31 @@ __device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64], uint64_t da,
 // the kernel
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of one block: the ring, 1024 bytes of slack to align
-// it (the swizzle patterns repeat every 1024 bytes), and the 2 * STAGES
-// barriers.  The epilogue's staging tile reuses the ring.
-template <int BK, int BN>
-constexpr int smem_bytes() {
-  return STAGES * (BM + BN) * BK + 1024 + 2 * STAGES * 8;
+// Bytes of one ring stage: the A tile and the B tile, packed with INT4.
+template <int BK, int BN, bool INT4>
+__host__ __device__ constexpr int stage_bytes() {
+  return BM * BK + (INT4 ? BN * BK / 2 : BN * BK);
 }
 
-template <bool CONV, bool REQUANT, int BK, int BN>
+// Dynamic shared memory of one block: the ring, with INT4 the two unpack
+// buffers, 1024 bytes of slack to align it (the swizzle patterns repeat every
+// 1024 bytes), and the 2 * STAGES barriers.  The epilogue's staging tile
+// reuses the ring.
+template <int BK, int BN, bool INT4>
+constexpr int smem_bytes() {
+  return STAGES * stage_bytes<BK, BN, INT4>() + (INT4 ? 2 * BN * BK : 0) +
+         1024 + 2 * STAGES * 8;
+}
+
+template <bool CONV, bool REQUANT, bool INT4, int BK, int BN>
 __global__ void __launch_bounds__(THREADS)
 gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ CUtensorMap omap, const Args p) {
+  static_assert(!INT4 || CONV, "packed weights: only the conv producer");
   constexpr int A_BYTES = BM * BK;
-  constexpr int STAGE_BYTES = (BM + BN) * BK;
+  constexpr int STAGE_BYTES = stage_bytes<BK, BN, INT4>();
+  constexpr int UNPACK_BYTES = INT4 ? BN * BK : 0;
   // the staged output: int8 as one dense 64 x BN box, int32 as 64 x 32
   // chunks in the 128-byte swizzle
   constexpr int CHUNK_COLS = REQUANT ? BN : 32;
@@ -340,7 +444,8 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   uint8_t* ring_ptr = smem_raw + (ring - raw);
-  const uint32_t full = ring + STAGES * STAGE_BYTES;
+  const uint32_t unpacked = ring + STAGES * STAGE_BYTES;
+  const uint32_t full = unpacked + 2 * UNPACK_BYTES;
   const uint32_t empty = full + STAGES * 8;
 
   const int tid = threadIdx.x;
@@ -386,7 +491,8 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
         if (CONV) {
           tma_load_4d(a_s, &amap, bar, chunk * BK, ox0 + dx - p.pad_x,
                       oy0 + dy - p.pad_y, b);
-          tma_load_2d(a_s + A_BYTES, &wmap, bar, kcol + chunk * BK, n0);
+          const int wcol = kcol + chunk * BK;
+          tma_load_2d(a_s + A_BYTES, &wmap, bar, INT4 ? wcol / 2 : wcol, n0);
           if (++chunk == p.chunks) {
             chunk = 0;
             kcol += p.cpad;
@@ -423,14 +529,30 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
     for (int kt = 0; kt < p.k_tiles; ++kt) {
       mbar_wait(full + stage * 8, parity);
       const uint32_t a_s = ring + stage * STAGE_BYTES;
+      uint32_t b_s = a_s + A_BYTES;
+      if (INT4) {
+        // the stage's packed tile -> int8 in unpack buffer kt % 2, while the
+        // wgmmas of the stage before run; then that group is waited for, so
+        // that after the bar.sync no warp is still reading the other buffer
+        const int off = STAGE_BYTES * STAGES + (kt & 1) * UNPACK_BYTES;
+        unpack_b_tile<BK, BN>(ring_ptr + stage * STAGE_BYTES + A_BYTES,
+                              ring_ptr + off, tid);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        if (kt > 0) {
+          wgmma_wait<0>();
+          if (lane == 0) mbar_arrive(empty + prev * 8);
+        }
+        consumer_sync();
+        b_s = ring + off;
+      }
       const uint64_t da = make_desc<BK>(a_s);
-      const uint64_t db = make_desc<BK>(a_s + A_BYTES);
+      const uint64_t db = make_desc<BK>(b_s);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < BK / 32; ++ks)
         wgmma_s8<BN>(acc[ks % CHAINS], da + 2 * ks, db + 2 * ks, 1);
       wgmma_commit();
-      if (kt > 0) {                 // the group before this one has finished
+      if (!INT4 && kt > 0) {        // the group before this one has finished
         wgmma_wait<1>();
         if (lane == 0) mbar_arrive(empty + prev * 8);
       }
@@ -544,21 +666,28 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
   return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)res;
 }
 
-inline CUtensorMapSwizzle k_swizzle(int bk) {
-  return bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+// The swizzle of a tile whose rows are ``row_bytes`` (32, 64 or 128) wide.
+inline CUtensorMapSwizzle k_swizzle(int row_bytes) {
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// The map of prepared weights wt (N, Kpad) K-major for BK x BN boxes.
+// The map of prepared weights wt, N K-major rows of ``row_bytes``, for boxes
+// of ``box_bytes`` x BN: int8 weights (N, Kpad) with BK-byte boxes, packed
+// int4 weights (N, Kpad / 2) with BK/2-byte boxes.
 inline int encode_weight_map(CUtensorMap* map, const int8_t* wt, int N,
-                             int Kpad, int bk, int bn) {
-  const cuuint64_t dims[2] = {(cuuint64_t)Kpad, (cuuint64_t)N};
-  const cuuint64_t strides[1] = {(cuuint64_t)Kpad};
-  const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bn};
+                             int row_bytes, int box_bytes, int bn) {
+  if (box_bytes != 32 && box_bytes != 64 && box_bytes != 128)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_bytes, (cuuint32_t)bn};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wt, dims, strides,
-                    box, k_swizzle(bk));
+                    box, k_swizzle(box_bytes));
 }
 
-template <bool CONV, bool REQUANT, int BK, int BN>
+template <bool CONV, bool REQUANT, bool INT4, int BK, int BN>
 inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
                       const CUtensorMap& omap, const Args& p, dim3 grid,
                       int smem_extra, cudaStream_t stream) {
@@ -566,8 +695,8 @@ inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
   // instantiation, device and size
   constexpr int MAX_DEVICES = 64;
   static int configured[MAX_DEVICES] = {};
-  const int smem = smem_bytes<BK, BN>() + smem_extra;
-  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, BK, BN>;
+  const int smem = smem_bytes<BK, BN, INT4>() + smem_extra;
+  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -584,14 +713,14 @@ inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
   return (int)cudaGetLastError();
 }
 
-template <bool CONV, bool REQUANT>
+template <bool CONV, bool REQUANT, bool INT4 = false>
 inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
                   const CUtensorMap& omap, const Args& p, dim3 grid, int bk,
                   int bn, int smem_extra, cudaStream_t stream) {
 #define HAWQ_SM90_CASE(K, N)                                               \
   if (bk == K && bn == N)                                                  \
-    return launch_one<CONV, REQUANT, K, N>(amap, wmap, omap, p, grid,      \
-                                           smem_extra, stream);
+    return launch_one<CONV, REQUANT, INT4, K, N>(amap, wmap, omap, p, grid, \
+                                                 smem_extra, stream);
   HAWQ_SM90_CASE(64, 32)
   HAWQ_SM90_CASE(64, 64)
   HAWQ_SM90_CASE(64, 128)
@@ -600,6 +729,113 @@ inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
   HAWQ_SM90_CASE(128, 128)
 #undef HAWQ_SM90_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// the entry points' bodies
+// ---------------------------------------------------------------------------
+
+// x (M, K) int8 row-major times the prepared weights behind ``wmap_bytes``:
+// the int32 accumulator + bias (out int32, 64 x 32 boxes in the 128-byte
+// swizzle), or with REQUANT its requant (out int8, one dense 64 x BN box).
+template <bool REQUANT>
+inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
+                        const int32_t* bias, const float* mult, void* out,
+                        int M, int K, int N, int lo, int hi, int bk, int bn,
+                        int smem_extra, cudaStream_t stream) {
+  CUtensorMap amap, wmap, omap;
+  std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)K};
+    const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)BM};
+    int code = encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, dims,
+                          strides, box, k_swizzle(bk));
+    if (code) return code;
+  }
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)N * (REQUANT ? 1 : 4)};
+    const cuuint32_t box[2] = {(cuuint32_t)(REQUANT ? bn : 32),
+                               (cuuint32_t)BM};
+    int code = encode_map(&omap,
+                          REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : CU_TENSOR_MAP_DATA_TYPE_INT32,
+                          2, out, dims, strides, box,
+                          REQUANT ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                  : CU_TENSOR_MAP_SWIZZLE_128B);
+    if (code) return code;
+  }
+  Args p{};
+  p.bias = bias;
+  p.mult = mult;
+  p.N = N;
+  p.lo = lo;
+  p.hi = hi;
+  p.k_tiles = (K + bk - 1) / bk;
+  dim3 grid((M + BM - 1) / BM, (N + bn - 1) / bn);
+  return launch<false, REQUANT>(amap, wmap, omap, p, grid, bk, bn, smem_extra,
+                                stream);
+}
+
+// The stride-1 conv + requant over xp: the zero-padded (B, Hp, Wp*C) slab, or
+// with pad_h / pad_w the activations that lack that many rows / columns of
+// zero border on each side, which TMA then supplies.  The weights behind
+// ``wmap_bytes`` are the prepared (N, taps*Cpad) K-major copy, or with INT4
+// its nibble-packed (N, taps*Cpad/2) form; an M tile is a th x tw rectangle
+// of output pixels, so that every tap of it is one 4-D TMA box of the slab.
+template <bool INT4>
+inline int conv_requant_entry(const int8_t* xp, const void* wmap_bytes,
+                              const int32_t* bias, const float* mult,
+                              int8_t* out, int B, int H, int W, int C, int kh,
+                              int kw, int N, int lo, int hi, int cpad, int bk,
+                              int bn, int th, int tw, int pad_h, int pad_w,
+                              int smem_extra, cudaStream_t stream) {
+  if (th * tw != BM) return (int)cudaErrorInvalidValue;
+  const int Hp = H + kh - 1 - 2 * pad_h, Wp = W + kw - 1 - 2 * pad_w;
+  CUtensorMap amap, wmap, omap;
+  std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)Wp, (cuuint64_t)Hp,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)Wp * C,
+                                   (cuuint64_t)Hp * Wp * C};
+    const cuuint32_t box[4] = {(cuuint32_t)bk, (cuuint32_t)tw, (cuuint32_t)th,
+                               1};
+    int code = encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, xp, dims,
+                          strides, box, k_swizzle(bk));
+    if (code) return code;
+  }
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)N, (cuuint64_t)W * N,
+                                   (cuuint64_t)H * W * N};
+    const cuuint32_t box[4] = {(cuuint32_t)bn, (cuuint32_t)tw, (cuuint32_t)th,
+                               1};
+    int code = encode_map(&omap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, out, dims,
+                          strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (code) return code;
+  }
+  Args p{};
+  p.bias = bias;
+  p.mult = mult;
+  p.N = N;
+  p.lo = lo;
+  p.hi = hi;
+  p.kw = kw;
+  p.chunks = cpad / bk;
+  p.cpad = cpad;
+  p.k_tiles = kh * kw * p.chunks;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.th = th;
+  p.tw = tw;
+  p.pad_y = pad_h;
+  p.pad_x = pad_w;
+  dim3 grid(B * p.tiles_x * p.tiles_y, (N + bn - 1) / bn);
+  return launch<true, true, INT4>(amap, wmap, omap, p, grid, bk, bn,
+                                  smem_extra, stream);
 }
 
 }  // namespace hawq_sm90

@@ -1,0 +1,18 @@
+// int8 matmul with fused bias + dyadic requant on the Hopper-native core
+// (gemm_s8_sm90.cuh: TMA ring, mbarriers, wgmma).
+//
+// Replaces hawq_tpu/kernels/matmul.py int8_matmul_requant (matmul.py:68) for
+// the shapes the core takes (kernels/matmul.py sm90_route: K, N and the
+// pointer multiples of 16); the others stay on matmul.cu.  Bound on the H100
+// by its bytes (M K + K N + M N).  x is (M, K) row-major; the weights arrive
+// as the map of their prepared (N, Kpad) K-major copy; the int8 tile leaves
+// through shared memory as one dense 64 x BN TMA box.
+#include "gemm_s8_sm90.cuh"
+
+extern "C" int hawq_int8_matmul_requant_sm90(
+    const int8_t* x, const void* wmap_bytes, const int32_t* bias,
+    const float* mult, int8_t* out, int M, int K, int N, int lo, int hi,
+    int bk, int bn, int smem_extra, cudaStream_t stream) {
+  return hawq_sm90::matmul_entry<true>(x, wmap_bytes, bias, mult, out, M, K,
+                                       N, lo, hi, bk, bn, smem_extra, stream);
+}

@@ -11,13 +11,15 @@ The plain versions compute the int32 accumulator exactly through float64
 (every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
 op; the int4 forms unpack the weights with :func:`unpack_int4` first.
 
-``int8_matmul_acc`` (and ``int8_conv_requant`` in kernels/conv.py) run on a
-second core written for Hopper (csrc/gemm_s8_sm90.cuh: TMA, mbarriers,
-wgmma) wherever :func:`sm90_route` admits the shape, and on csrc/gemm_s8.cuh
-elsewhere.  That core reads the weights K-major: :func:`prepare_weights`
-lays them out once (the engine caches the handle); a wrapper handed plain
-(K, N) weights lays them out on the device at each call.
-:data:`_build.CORE_LAUNCHES` counts the launches of each core.
+``int8_matmul_requant`` and ``int8_matmul_acc`` (and ``int8_conv_requant`` /
+``int4w_conv_requant`` in kernels/conv.py) run on a second core written for
+Hopper (csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma) wherever
+:func:`sm90_route` admits the shape, and on csrc/gemm_s8.cuh elsewhere.
+That core reads the weights K-major: :func:`prepare_weights` (and
+:func:`prepare_weights_int4` for nibble-packed weights, which stay packed
+and are unpacked inside the kernel) lays them out once (the engine caches
+the handle); a wrapper handed plain weights lays them out on the device at
+each call.  :data:`_build.CORE_LAUNCHES` counts the launches of each core.
 """
 
 from __future__ import annotations
@@ -95,16 +97,26 @@ def matmul_requant_plain(x, w, bias, mult, lo, hi):
     return requant_epilogue(matmul_acc_plain(x, w, bias), mult, lo, hi)
 
 
-def matmul_acc_kmajor_plain(x, prepared: 'PreparedWeights', bias):
+def matmul_acc_kmajor_plain(x, prepared: 'PreparedWeights', bias,
+                            name: str = 'int8_matmul_acc'):
     """:func:`matmul_acc_plain` by the Hopper core's walk: x zero-filled to
     whole 64-row tiles and to the padded K of the K-major weights (what TMA
     does out of bounds), the product against ``prepared.wt``, the rows
     beyond M dropped at the store."""
     m, k = x.shape
-    prepared.check(1, k, 'int8_matmul_acc')
+    prepared.check(1, k, name)
     xt = F.pad(x, (0, prepared.cpad - k, 0, -m % SM90_TILE_M))
-    acc = (xt.to(torch.float64) @ prepared.wt.to(torch.float64).t())
+    acc = (xt.to(torch.float64) @ prepared.kmajor_int8().to(torch.float64).t())
     return acc[:m].to(torch.int32) + bias
+
+
+def matmul_requant_kmajor_plain(x, prepared: 'PreparedWeights', bias, mult,
+                                lo, hi):
+    """:func:`matmul_requant_plain` by the Hopper core's walk: the requant
+    of :func:`matmul_acc_kmajor_plain`."""
+    return requant_epilogue(
+        matmul_acc_kmajor_plain(x, prepared, bias, 'int8_matmul_requant'),
+        mult, lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -119,15 +131,23 @@ SM90_K_ALIGN = 64         # every tap's K is zero-padded to a multiple of it
 class PreparedWeights:
     """(K, N) int8 weights laid out for the Hopper core: ``wt`` is (N,
     taps·cpad) K-major, each tap's ``cin`` rows zero-padded to ``cpad``, a
-    multiple of 64.  Accepted by ``int8_matmul_acc`` and
-    ``int8_conv_requant`` in place of the (K, N) tensor.  On a CUDA device
-    it also keeps the encoded TMA tensor map of ``wt`` per tile shape."""
+    multiple of 64.  Accepted by ``int8_matmul_requant``,
+    ``int8_matmul_acc`` and ``int8_conv_requant`` in place of the (K, N)
+    tensor.  With ``int4`` (:func:`prepare_weights_int4`, accepted by
+    ``int4w_conv_requant``) the weights stay nibble-packed: ``wt`` is (N,
+    taps·cpad/2) bytes, and inside every ``tile_k``-channel chunk byte i
+    holds channel c0 + i in its low nibble and channel c0 + tile_k/2 + i in
+    its high nibble, so that the kernel unpacks 16 packed bytes into two
+    whole 16-byte units of its int8 tile.  On a CUDA device the handle also
+    keeps the encoded TMA tensor map of ``wt`` per tile shape."""
 
-    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', '_maps')
+    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', 'int4', '_maps')
 
-    def __init__(self, wt: torch.Tensor, taps: int, cin: int, cpad: int):
+    def __init__(self, wt: torch.Tensor, taps: int, cin: int, cpad: int,
+                 int4: bool = False):
         self.wt, self.taps, self.cin, self.cpad = wt, taps, cin, cpad
         self.n = wt.shape[0]
+        self.int4 = int4
         self._maps: Dict[Tuple[int, int], ctypes.Array] = {}
 
     @property
@@ -141,20 +161,42 @@ class PreparedWeights:
 
     def check(self, taps: int, cin: int, name: str) -> None:
         """Raise unless the weights were prepared for ``taps`` taps of
-        ``cin`` channels (a matmul: one tap of K)."""
+        ``cin`` channels (a matmul: one tap of K), packed for an ``int4w_*``
+        kernel and not packed for an ``int8_*`` one."""
         if (self.taps, self.cin) != (taps, cin):
             raise ValueError(f'{name}: weights prepared for {self.taps} '
                              f'tap(s) of {self.cin}, the call has {taps} '
                              f'of {cin}')
+        if self.int4 != name.startswith('int4w'):
+            raise ValueError(f'{name}: the handle holds '
+                             f'{"packed int4" if self.int4 else "int8"} '
+                             f'weights')
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of one K-major row of ``wt``."""
+        return self.taps * self.cpad // (2 if self.int4 else 1)
+
+    def kmajor_int8(self) -> torch.Tensor:
+        """The (N, taps·cpad) int8 K-major weights: ``wt``, or with ``int4``
+        its nibbles unpacked chunk by chunk as the kernel does."""
+        if not self.int4:
+            return self.wt
+        p = self.wt.reshape(self.n, -1, self.tile_k // 2).to(torch.int16)
+        lo = ((p & 0xF) ^ 8) - 8
+        hi = (((p >> 4) & 0xF) ^ 8) - 8
+        return torch.cat([lo, hi], dim=-1).to(torch.int8).reshape(
+            self.n, self.taps * self.cpad)
 
     def tensor_map(self, tile_n: int) -> ctypes.Array:
-        """The 128-byte CUtensorMap of ``wt`` for tile_k × tile_n boxes."""
+        """The 128-byte CUtensorMap of ``wt`` for boxes of tile_k channels ×
+        tile_n rows."""
         key = (self.tile_k, tile_n)
         if key not in self._maps:
             buf = ctypes.create_string_buffer(128)
             code = _build.lib().hawq_sm90_weight_map(
-                buf, self.wt.data_ptr(), self.n, self.taps * self.cpad,
-                self.tile_k, tile_n)
+                buf, self.wt.data_ptr(), self.n, self.row_bytes,
+                self.tile_k // (2 if self.int4 else 1), tile_n)
             _build.check(code, 'hawq_sm90_weight_map')
             self._maps[key] = buf
         return self._maps[key]
@@ -180,11 +222,47 @@ def prepare_weights(w_flat: torch.Tensor, taps: int = 1) -> PreparedWeights:
                            cpad)
 
 
+def pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int4-valued int8 tensors → bytes (hi << 4) | (lo & 0xF), as int8."""
+    b = ((hi.to(torch.int16) & 0xF) << 4) | (lo.to(torch.int16) & 0xF)
+    return b.to(torch.uint8).view(torch.int8)
+
+
+def prepare_weights_int4(w_packed: torch.Tensor,
+                         taps: int = 1) -> PreparedWeights:
+    """(taps·C/2, N) nibble-packed weights (``conv.pack_int4_conv``: per
+    tap, byte[c] = W[c + C/2] << 4 | W[c] & 0xF) → their packed K-major
+    handle for the Hopper core, on ``w_packed``'s device: (N, taps·cpad/2)
+    bytes, cpad as in :func:`prepare_weights`, each ``tile_k``-channel chunk
+    split into its low-nibble and high-nibble halves (see
+    :class:`PreparedWeights`)."""
+    kh, n = w_packed.shape
+    if kh % taps:
+        raise ValueError(f'prepare_weights_int4: {kh} packed rows are not '
+                         f'{taps} taps of equal C/2')
+    cin = 2 * kh // taps
+    w = unpack_int4(w_packed.reshape(taps, kh // taps, n))    # (taps, C, N)
+    cpad = -(-cin // SM90_K_ALIGN) * SM90_K_ALIGN
+    wt = F.pad(w.permute(2, 0, 1), (0, cpad - cin))           # (N, taps, cpad)
+    tile_k = 128 if cpad % 128 == 0 else 64
+    halves = wt.reshape(n, taps * cpad // tile_k, 2, tile_k // 2)
+    packed = pack_nibbles(halves[:, :, 0], halves[:, :, 1])
+    return PreparedWeights(packed.reshape(n, taps * cpad // 2).contiguous(),
+                           taps, cin, cpad, int4=True)
+
+
 def unprepare_weights(prepared: PreparedWeights) -> torch.Tensor:
-    """Inverse of :func:`prepare_weights`: the (taps·C, N) weights."""
+    """Inverse of :func:`prepare_weights`: the (taps·C, N) weights; of
+    :func:`prepare_weights_int4`: the (taps·C/2, N) bytes of
+    ``conv.pack_int4_conv``."""
     p = prepared
-    wt = p.wt.reshape(p.n, p.taps, p.cpad)[:, :, :p.cin]
-    return wt.permute(1, 2, 0).reshape(p.k, p.n).contiguous()
+    wt = p.kmajor_int8().reshape(p.n, p.taps, p.cpad)[:, :, :p.cin]
+    w = wt.permute(1, 2, 0)                                   # (taps, C, N)
+    if p.int4:
+        half = p.cin // 2
+        return pack_nibbles(w[:, :half], w[:, half:]).reshape(
+            p.taps * half, p.n).contiguous()
+    return w.reshape(p.k, p.n).contiguous()
 
 
 def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
@@ -193,13 +271,15 @@ def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
 
     TMA needs every row stride and base pointer to be a multiple of 16
     bytes.  ``kind`` 'matmul' (``int8_matmul_acc``: x (M, K) int8 at
-    ``ptr``, int32 output rows of N): K % 16, N % 4.  ``kind`` 'conv'
-    (``int8_conv_requant``: slab pixels of ``k`` = C channels at ``ptr``,
+    ``ptr``, int32 output rows of N): K % 16, N % 4.  ``kind``
+    'matmul_requant' (``int8_matmul_requant``: the same x, int8 output rows
+    of N): K % 16, N % 16.  ``kind`` 'conv' (``int8_conv_requant`` and
+    ``int4w_conv_requant``: slab pixels of ``k`` = C channels at ``ptr``,
     int8 output rows of N): C % 16, N % 16."""
-    if kind not in ('matmul', 'conv'):
+    if kind not in ('matmul', 'matmul_requant', 'conv'):
         raise ValueError(f'sm90_route: kind {kind!r}')
     if k % 16:
-        return 'K % 16' if kind == 'matmul' else 'C % 16'
+        return 'C % 16' if kind == 'conv' else 'K % 16'
     n_align = 4 if kind == 'matmul' else 16
     if n % n_align:
         return f'N % {n_align}'
@@ -209,20 +289,32 @@ def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
 
 
 @functools.lru_cache(maxsize=None)
-def sm90_tile_n(m_tiles: int, n: int, k_tiles: int, sm_count: int) -> int:
+def sm90_tile_n(m_tiles: int, n: int, k_tiles: int, sm_count: int,
+                widest: int = 128) -> int:
     """Width of the Hopper core's output tile: the widest of 128 and 64
-    (not wider than twice N) whose grid still has two blocks for every
-    three SMs, else 32; 64 at most where K is a single step.  Measured on
-    the H100 at the ResNet-50 shapes (chip_sweep_sm90.py at the root of the
-    repository): a wide tile reads A fewer times and wins wherever the grid
-    stays that full; below it the narrower tile's extra blocks win; and a
-    one-step call is all epilogue, where the narrower tile's smaller
+    (not wider than twice N, nor than ``widest``) whose grid still has two
+    blocks for every three SMs, else 32.  Where K is at most four steps a
+    128-wide grid must have a block for every SM, and where K is a single
+    step 64 is the most.  Measured on the H100 at the ResNet-50 shapes
+    (chip_sweep_sm90.py at the root of the repository): a wide tile reads A
+    fewer times and wins wherever the grid stays that full; below it the
+    narrower tile's extra blocks win; a short call is mostly launch and
+    epilogue, where more and smaller blocks win (M = 6272, K = 256, N = 128:
+    3.9 against 4.75 µs at 64; M = 392, K = 512, N = 2048: 4.2 against 4.5);
+    and a one-step call is all epilogue, where the narrower tile's smaller
     staging lets more blocks overlap their stores (M = 25088 and 100352,
-    K = 64, N = 256: 11.4 against 12.8 µs and 48.7 against 54.5 at 64)."""
-    widths = SM90_TILE_NS[1:2] if k_tiles == 1 else SM90_TILE_NS[:2]
-    for tile_n in widths:
-        if (2 * n > tile_n
-                and 3 * m_tiles * -(-n // tile_n) >= 2 * sm_count):
+    K = 64, N = 256: 11.4 against 12.8 µs and 48.7 against 54.5 at 64).
+    The packed int4 conv passes ``widest`` = 64: its consumers unpack every
+    B tile through shared memory, which costs a 128-wide tile more than
+    the A re-reads it saves (at every 3×3 and 2×2-tap conv of ResNet-50 at
+    batch 8 the 64- or 32-wide tile is the faster)."""
+    for tile_n in SM90_TILE_NS[:2]:
+        if tile_n > widest or (tile_n == 128 and k_tiles == 1):
+            continue
+        blocks = m_tiles * -(-n // tile_n)
+        full = (blocks >= sm_count if tile_n == 128 and k_tiles <= 4
+                else 3 * blocks >= 2 * sm_count)
+        if 2 * n > tile_n and full:
             return tile_n
     return SM90_TILE_NS[2]
 
@@ -254,30 +346,41 @@ def pick_core(kind: str, name: str, core: Optional[str], *, k: int, n: int,
 # kernels
 # ---------------------------------------------------------------------------
 
-def _launch_sm90(x, prepared: PreparedWeights, bias, tile_n: Optional[int],
+def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
+                 requant: bool, tile_n: Optional[int],
                  smem_extra: int) -> torch.Tensor:
-    """``int8_matmul_acc`` on the Hopper core."""
+    """``int8_matmul_requant`` / ``int8_matmul_acc`` on the Hopper core."""
+    name = 'int8_matmul_requant' if requant else 'int8_matmul_acc'
     m, k = x.shape
     n = prepared.n
     dev = _build.kernel_device(x)
     _build.require(x, 'x', torch.int8, (m, k), dev)
-    prepared.check(1, k, 'int8_matmul_acc')
+    prepared.check(1, k, name)
     _build.require(prepared.wt, 'prepared.wt', torch.int8,
                    (n, prepared.cpad), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
+    if requant:
+        _build.require(mult, 'mult', torch.float32, (n,), dev)
     if m < 1:
-        raise ValueError('int8_matmul_acc: empty x')
+        raise ValueError(f'{name}: empty x')
     if tile_n is None:
         tile_n = sm90_tile_n(-(-m // SM90_TILE_M), n,
                              -(-k // prepared.tile_k), sm_count(dev))
-    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    out = torch.empty((m, n), dtype=torch.int8 if requant else torch.int32,
+                      device=dev)
     with torch.cuda.device(dev):
-        code = _build.lib().hawq_int8_matmul_sm90(
-            x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
-            out.data_ptr(), m, k, n, prepared.tile_k, tile_n, smem_extra,
-            _build.stream_ptr(dev))
-    _build.check(code, 'int8_matmul_acc (sm90 core)')
-    _build.count('int8_matmul_acc', 'sm90')
+        if requant:
+            code = _build.lib().hawq_int8_matmul_requant_sm90(
+                x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
+                mult.data_ptr(), out.data_ptr(), m, k, n, lo, hi,
+                prepared.tile_k, tile_n, smem_extra, _build.stream_ptr(dev))
+        else:
+            code = _build.lib().hawq_int8_matmul_sm90(
+                x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
+                out.data_ptr(), m, k, n, prepared.tile_k, tile_n, smem_extra,
+                _build.stream_ptr(dev))
+    _build.check(code, f'{name} (sm90 core)')
+    _build.count(name, 'sm90')
     return out
 
 
@@ -311,18 +414,54 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool,
     return out
 
 
-def int8_matmul_requant(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def _int8_matmul(x, w, bias, mult, lo, hi, requant: bool,
+                 core: Optional[str], tile_n: Optional[int],
+                 smem_extra: int) -> torch.Tensor:
+    """The int8 matmul with either epilogue: the plain version (of the
+    Hopper core's walk for a handle) on a CPU tensor, else the core the
+    rule, or ``core``, names."""
+    name = 'int8_matmul_requant' if requant else 'int8_matmul_acc'
+    prepared = w if isinstance(w, PreparedWeights) else None
+    if prepared is not None:
+        prepared.check(1, x.shape[1], name)
+    if x.device.type == 'cpu':
+        if requant and prepared is not None:
+            return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo,
+                                               hi)
+        if requant:
+            return matmul_requant_plain(x, w, bias, mult, lo, hi)
+        if prepared is not None:
+            return matmul_acc_kmajor_plain(x, prepared, bias)
+        return matmul_acc_plain(x, w, bias)
+    n = prepared.n if prepared is not None else w.shape[1]
+    core = pick_core('matmul_requant' if requant else 'matmul', name, core,
+                     k=x.shape[1], n=n, ptr=x.data_ptr())
+    if core == 'mma':
+        if prepared is not None:
+            w = unprepare_weights(prepared)
+        return _launch(x, w, bias, mult, lo, hi, requant, False)
+    if prepared is None:
+        _build.require(w, 'w', torch.int8, (x.shape[1], n), x.device)
+        prepared = prepare_weights(w)
+    return _launch_sm90(x, prepared, bias, mult, lo, hi, requant, tile_n,
+                        smem_extra)
+
+
+def int8_matmul_requant(x: torch.Tensor, w, bias: torch.Tensor,
                         mult: torch.Tensor, *, out_bits: int = 8,
-                        signed: bool = True,
-                        relu: bool = False) -> torch.Tensor:
+                        signed: bool = True, relu: bool = False,
+                        core: Optional[str] = None,
+                        tile_n: Optional[int] = None,
+                        smem_extra: int = 0) -> torch.Tensor:
     """out[i, n] = requant(Σ_k x[i,k]·w[k,n] + bias[n]) as int8.
 
-    x (M, K) int8, w (K, N) int8, bias (N,) int32, mult (N,) float32 dyadic
-    multipliers.  relu=True clamps the low end at 0."""
+    x (M, K) int8, w (K, N) int8 or its :func:`prepare_weights` handle,
+    bias (N,) int32, mult (N,) float32 dyadic multipliers.  relu=True
+    clamps the low end at 0.  ``core``, ``tile_n`` and ``smem_extra`` as in
+    :func:`int8_matmul_acc`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    if x.device.type == 'cpu':
-        return matmul_requant_plain(x, w, bias, mult, lo, hi)
-    return _launch(x, w, bias, mult, lo, hi, True, False)
+    return _int8_matmul(x, w, bias, mult, lo, hi, True, core, tile_n,
+                        smem_extra)
 
 
 def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
@@ -337,22 +476,8 @@ def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
     'mma') overrides the rule, ``tile_n`` the Hopper core's tile width, and
     ``smem_extra`` adds to its shared-memory request (timing and tests).
     The result does not depend on any of them."""
-    prepared = w if isinstance(w, PreparedWeights) else None
-    if x.device.type == 'cpu':
-        if prepared is not None:
-            return matmul_acc_kmajor_plain(x, prepared, bias)
-        return matmul_acc_plain(x, w, bias)
-    n = prepared.n if prepared is not None else w.shape[1]
-    core = pick_core('matmul', 'int8_matmul_acc', core, k=x.shape[1], n=n,
-                     ptr=x.data_ptr())
-    if core == 'mma':
-        if prepared is not None:
-            w = unprepare_weights(prepared)
-        return _launch(x, w, bias, None, 0, 0, False, False)
-    if prepared is None:
-        _build.require(w, 'w', torch.int8, (x.shape[1], n), x.device)
-        prepared = prepare_weights(w)
-    return _launch_sm90(x, prepared, bias, tile_n, smem_extra)
+    return _int8_matmul(x, w, bias, None, 0, 0, False, core, tile_n,
+                        smem_extra)
 
 
 def int4w_matmul_requant(x: torch.Tensor, w_packed: torch.Tensor,

@@ -347,8 +347,8 @@ def test_qat_forward_cuda_equals_cpu(dev, arch, scheme):
 
 
 # ---------------------------------------------------------------------------
-# the Hopper GEMM core (csrc/gemm_s8_sm90.cuh) under int8_matmul_acc and
-# int8_conv_requant
+# the Hopper GEMM core (csrc/gemm_s8_sm90.cuh) under int8_matmul_acc,
+# int8_matmul_requant, int8_conv_requant and int4w_conv_requant
 # ---------------------------------------------------------------------------
 
 def _core_counts():
@@ -472,6 +472,168 @@ def test_sm90_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
         kc.int8_conv_requant(xp, wf, bias, mult, pad=pad, **geo)
 
 
+# the int8_matmul_requant shapes of ResNet-50 at batch 8 (conv1 of every
+# unit; stride 2 is a slice first), then ragged ones: M and N off the tiles,
+# K padded up to 64 and to 128, M = 1
+_SM90_REQUANT_MATMULS = [(25088, 64, 64), (25088, 256, 64), (6272, 256, 128),
+                         (6272, 512, 128), (1568, 512, 256),
+                         (1568, 1024, 256), (392, 1024, 512),
+                         (392, 2048, 512), (37, 48, 16), (1000, 2048, 1008),
+                         (1, 16, 16), (130, 80, 80), (65, 192, 48)]
+
+
+@pytest.mark.parametrize('m,k,n', _SM90_REQUANT_MATMULS)
+def test_sm90_matmul_requant_equals_plain_and_first_core(dev, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    x, w, b, mult = _operands(rng, m, k, n, dev)
+    mult[::3] = 0.5          # odd accumulators land exactly on a .5 boundary
+    if k >= 2048:                   # saturated operands: |acc| passes 2**24
+        x[0, :] = -128
+        w[:, 0] = 127
+        w[:, 1] = -127
+    prepared = km.prepare_weights(w)
+    _build.reset_launches()
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        epi = dict(out_bits=out_bits, signed=signed, relu=relu)
+        want = km.matmul_requant_plain(x, w, b, mult, lo, hi)
+        torch.testing.assert_close(km.matmul_requant_kmajor_plain(
+            x, prepared, b, mult, lo, hi), want, rtol=0, atol=0)
+        for tile_n in (None, 32, 64, 128):
+            for weights in (w, prepared):
+                got = km.int8_matmul_requant(x, weights, b, mult,
+                                             tile_n=tile_n, **epi)
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(km.int8_matmul_requant(
+            x, prepared, b, mult, smem_extra=4096, **epi), want, rtol=0,
+            atol=0)
+        torch.testing.assert_close(km.int8_matmul_requant(
+            x, prepared, b, mult, core='mma', **epi), want, rtol=0, atol=0)
+    assert _core_counts() == {'int8_matmul_requant@sm90': 27,
+                              'int8_matmul_requant@mma': 3}
+
+
+def _w4_conv(rng, shape, n, taps, dev):
+    """Slab, int4 weights (flattened int8 values and their per-tap packed
+    bytes), bias and multipliers of a conv on the card."""
+    b, h, w, c = shape
+    kh, kw = taps
+    xp = torch.tensor(rng.randint(-128, 128, (b, h + kh - 1, (w + kw - 1) * c)
+                                  ).astype(np.int8), device=dev)
+    wf = _w4(rng, (kh * kw * c, n))
+    wp = torch.tensor(kc.pack_int4_conv(wf, kh * kw), device=dev)
+    _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+    return xp, torch.tensor(wf, device=dev), wp, bias, mult
+
+
+@pytest.mark.parametrize('shape,n,taps', _SM90_CONVS)
+def test_sm90_int4w_conv_equals_plain_int8_form_and_first_core(dev, shape, n,
+                                                               taps):
+    """The packed form on the Hopper core == the plain version == the int8
+    form of the same core on the unpacked weights (whose B tile TMA
+    swizzles; here the kernel's unpack writes it) == the first core."""
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    xp, wf, wp, bias, mult = _w4_conv(rng, shape, n, taps, dev)
+    mult[::3] = 0.5
+    if c == 512:                    # |acc| = 9 * 512 * 128 * 8 passes 2**22
+        xp[0] = -128
+        wf[:, 0], wf[:, 1] = -8, 7
+        wp = torch.tensor(kc.pack_int4_conv(wf.cpu().numpy(), kh * kw),
+                          device=dev)
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    prepared = km.prepare_weights_int4(wp, kh * kw)
+    torch.testing.assert_close(km.unprepare_weights(prepared), wp, rtol=0,
+                               atol=0)
+    _build.reset_launches()
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        want = kc.conv_requant_plain(xp, wf, bias, mult, lo=lo, hi=hi, **geo)
+        torch.testing.assert_close(kc.conv_requant_tiled_plain(
+            xp, prepared, bias, mult, lo=lo, hi=hi, **geo), want, rtol=0,
+            atol=0)
+        epi = dict(geo, out_bits=out_bits, signed=signed, relu=relu)
+        for tile_n in (None, 32, 64, 128):
+            got = kc.int4w_conv_requant(xp, prepared, bias, mult,
+                                        tile_n=tile_n, **epi)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(kc.int4w_conv_requant(
+            xp, wp, bias, mult, **epi), want, rtol=0, atol=0)
+        torch.testing.assert_close(kc.int4w_conv_requant(
+            xp, prepared, bias, mult, smem_extra=4096, **epi), want, rtol=0,
+            atol=0)
+        torch.testing.assert_close(kc.int8_conv_requant(
+            xp, wf, bias, mult, core='sm90', **epi), want, rtol=0, atol=0)
+        torch.testing.assert_close(kc.int4w_conv_requant(
+            xp, prepared, bias, mult, core='mma', **epi), want, rtol=0,
+            atol=0)
+    assert _core_counts() == {'int4w_conv_requant@sm90': 18,
+                              'int8_conv_requant@sm90': 3,
+                              'int4w_conv_requant@mma': 3}
+
+
+@pytest.mark.parametrize('c,n', [(64, 32), (128, 128), (192, 80), (16, 16),
+                                 (256, 256)])
+def test_sm90_int4_unpack_places_every_nibble(dev, c, n):
+    """A handle of known values through a 1×1 conv whose pixel p holds a
+    single 1 at channel c0 + p: the output is W[c0 + p, :], so a nibble
+    unpacked to the wrong unit, row or half of the swizzled tile shows up by
+    position; every tile width."""
+    cc, nn = np.meshgrid(np.arange(c), np.arange(n), indexing='ij')
+    wf = ((cc * 7 + nn * 3 + cc // 16) % 16 - 8).astype(np.int8)
+    wp = torch.tensor(kc.pack_int4_conv(wf, 1), device=dev)
+    prepared = km.prepare_weights_int4(wp, 1)
+    bias = torch.zeros(n, dtype=torch.int32, device=dev)
+    mult = torch.ones(n, device=dev)
+    for c0 in range(0, c, 64):
+        x = torch.zeros((1, 8, 8, c), dtype=torch.int8, device=dev)
+        for p_ in range(min(64, c - c0)):
+            x[0, p_ // 8, p_ % 8, c0 + p_] = 1
+        for tile_n in (32, 64, 128):
+            got = kc.int4w_conv_requant(
+                x.reshape(1, 8, 8 * c), prepared, bias, mult, taps=(1, 1),
+                out_hw=(8, 8), cin=c, tile_n=tile_n)
+            rows = min(64, c - c0)
+            np.testing.assert_array_equal(
+                got[0, :rows].cpu().numpy(), wf[c0:c0 + rows],
+                err_msg=f'c0 {c0} tile_n {tile_n}')
+            assert not got[0, rows:].any()
+
+
+@pytest.mark.parametrize('shape,n,taps,pad', [
+    ((8, 56, 56, 64), 64, (3, 3), (1, 1)), ((8, 7, 7, 512), 512, (3, 3), (1, 1)),
+    ((3, 33, 31, 64), 144, (3, 3), (1, 1)), ((2, 9, 7, 48), 32, (3, 3), (1, 0)),
+    ((1, 12, 20, 32), 48, (5, 5), (2, 2)), ((1, 1, 1, 16), 16, (3, 3), (1, 1))])
+def test_sm90_int4w_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    x = torch.tensor(rng.randint(-128, 128, (
+        b, h + kh - 1 - 2 * pad[0], (w + kw - 1 - 2 * pad[1]) * c)).astype(
+            np.int8), device=dev)
+    wf = _w4(rng, (kh * kw * c, n))
+    wp = torch.tensor(kc.pack_int4_conv(wf, kh * kw), device=dev)
+    _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    xp = kc.pad_conv_input(x, pad, **geo)
+    want = kc.conv_requant_plain(xp, torch.tensor(wf, device=dev), bias, mult,
+                                 lo=0, hi=127, **geo)
+    _build.reset_launches()
+    for weights in (wp, km.prepare_weights_int4(wp, kh * kw)):
+        for tile_n in (None, 32, 128):
+            got = kc.int4w_conv_requant(x, weights, bias, mult, relu=True,
+                                        pad=pad, tile_n=tile_n, **geo)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = kc.int4w_conv_requant(x, wp, bias, mult, relu=True, pad=pad,
+                                core='mma', **geo)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert _core_counts() == {'int4w_conv_requant@sm90': 6,
+                              'int4w_conv_requant@mma': 1}
+    with pytest.raises(ValueError):             # the slab where x is expected
+        kc.int4w_conv_requant(xp, wp, bias, mult, pad=pad, **geo)
+
+
 def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
     """One call per clause of ``sm90_route``: it runs on the first core,
     equals the plain version, and asking for the Hopper core raises."""
@@ -495,6 +657,38 @@ def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
         assert _core_counts() == {'int8_matmul_acc@mma': 1}
         with pytest.raises(ValueError):
             km.int8_matmul_acc(x, w, b, core='sm90')
+    for (m, k, n, offset), clause in (((40, 45, 16, 0), 'K % 16'),
+                                      ((40, 48, 24, 0), 'N % 16'),
+                                      ((40, 48, 16, 8), 'pointer % 16')):
+        x, w, b = matmul_case(m, k, n, offset)
+        mult = torch.full((n,), 2.0 ** -9, device=dev)
+        assert km.sm90_route('matmul_requant', k=k, n=n,
+                             ptr=x.data_ptr()) == clause
+        _build.reset_launches()
+        torch.testing.assert_close(
+            km.int8_matmul_requant(x, w, b, mult),
+            km.matmul_requant_plain(x, w, b, mult, -128, 127), rtol=0, atol=0)
+        assert _core_counts() == {'int8_matmul_requant@mma': 1}
+        with pytest.raises(ValueError):
+            km.int8_matmul_requant(x, w, b, mult, core='sm90')
+    for (c, n, offset), clause in (((10, 16, 0), 'C % 16'),
+                                   ((16, 24, 0), 'N % 16'),
+                                   ((16, 16, 4), 'pointer % 16')):
+        bsz, h, w_ = 2, 6, 5
+        size = bsz * (h + 2) * (w_ + 2) * c
+        xp = big[offset:offset + size].view(bsz, h + 2, (w_ + 2) * c)
+        wf = _w4(rng, (9 * c, n))
+        wp = torch.tensor(kc.pack_int4_conv(wf, 9), device=dev)
+        _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+        geo = dict(taps=(3, 3), out_hw=(h, w_), cin=c)
+        _build.reset_launches()
+        torch.testing.assert_close(
+            kc.int4w_conv_requant(xp, wp, bias, mult, **geo),
+            kc.conv_requant_plain(xp, torch.tensor(wf, device=dev), bias, mult,
+                                  lo=-128, hi=127, **geo), rtol=0, atol=0)
+        assert _core_counts() == {'int4w_conv_requant@mma': 1}
+        with pytest.raises(ValueError):
+            kc.int4w_conv_requant(xp, wp, bias, mult, core='sm90', **geo)
     for (c, n, offset), clause in (((5, 16, 0), 'C % 16'),
                                    ((16, 24, 0), 'N % 16'),
                                    ((16, 16, 4), 'pointer % 16')):
@@ -526,6 +720,12 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
     with pytest.raises(RuntimeError):
         kc.int8_conv_requant(xp, wf, b, mult, taps=(3, 3), out_hw=(8, 8),
                              cin=64, smem_extra=1 << 20)
+    with pytest.raises(RuntimeError):
+        km.int8_matmul_requant(x, w, b, mult, smem_extra=1 << 20)
+    wp = torch.tensor(kc.pack_int4_conv(_w4(rng, (9 * 64, 64)), 9), device=dev)
+    with pytest.raises(RuntimeError):
+        kc.int4w_conv_requant(xp, wp, b, mult, taps=(3, 3), out_hw=(8, 8),
+                              cin=64, smem_extra=1 << 20)
     assert _core_counts() == {}
     # and the same calls go through afterwards
     torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
@@ -533,20 +733,23 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
     assert _core_counts() == {'int8_matmul_acc@sm90': 1}
 
 
-def test_engine_cuda_runs_the_hopper_core(dev):
+@pytest.mark.parametrize('scheme,want', [
+    ('uniform8', {'int8_conv_requant@sm90': 16, 'int8_matmul_acc@sm90': 21,
+                  'int8_matmul_requant@sm90': 16, 'int8_conv_acc@mma': 1}),
+    ('uniform4', {'int4w_conv_requant@sm90': 16, 'int4w_matmul_requant@mma': 16,
+                  'int4w_matmul_acc@mma': 20, 'int8_matmul_acc@sm90': 1,
+                  'int8_conv_acc@mma': 1})])
+def test_engine_cuda_runs_the_hopper_core(dev, scheme, want):
     """ResNet-50 widths at a small image: the engine's prepared weights go
     through the Hopper core and the logits equal the CPU engine's."""
     fm = synthetic_frozen_resnet('resnet50', get_bit_config('resnet50',
-                                                            'uniform8'),
+                                                            scheme),
                                  num_classes=1000, seed=2)
     x = fold4_images(np.random.RandomState(5).randn(2, 64, 64, 3).astype(
         np.float32))
     kw = dict(input_mode='folded_float32', residual_dtype=torch.int16)
-    want = build_resnet_engine(fm, device='cpu', **kw)(x)
+    logits = build_resnet_engine(fm, device='cpu', **kw)(x)
     _build.reset_launches()
     got = build_resnet_engine(fm, device=dev, **kw)(x)
-    assert _core_counts() == {'int8_conv_requant@sm90': 16,
-                              'int8_matmul_acc@sm90': 21,
-                              'int8_matmul_requant@mma': 16,
-                              'int8_conv_acc@mma': 1}
-    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert _core_counts() == want
+    torch.testing.assert_close(got.cpu(), logits, rtol=0, atol=0)

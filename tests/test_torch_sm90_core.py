@@ -1,14 +1,17 @@
 """The Hopper GEMM core's host side and plain walk on the CPU.
 
-``int8_conv_requant`` and ``int8_matmul_acc`` run on a second CUDA core on
-the card (csrc/gemm_s8_sm90.cuh).  What surrounds that kernel is Python and
-is tested here: the K-major weight layout (``prepare_weights``), the conv's
+``int8_conv_requant``, ``int4w_conv_requant``, ``int8_matmul_requant`` and
+``int8_matmul_acc`` run on a second CUDA core on the card
+(csrc/gemm_s8_sm90.cuh).  What surrounds that kernel is Python and is tested
+here: the K-major weight layouts (``prepare_weights``, and
+``prepare_weights_int4`` for weights that stay nibble-packed), the conv's
 plan of pixel-rectangle tiles, the plain versions of the kernel's own walk
-(``conv_requant_tiled_plain``, ``matmul_acc_kmajor_plain``) against the
-first plain versions and against the JAX package's Pallas kernels in
-interpret mode (same numpy inputs from a seed, tolerance 0), and the rule
-that routes a call to one core or the other.  The kernel itself is held
-against these plain versions on the card (tests/test_torch_cuda.py).
+(``conv_requant_tiled_plain``, ``matmul_acc_kmajor_plain``,
+``matmul_requant_kmajor_plain``) against the first plain versions and
+against the JAX package's Pallas kernels in interpret mode (same numpy
+inputs from a seed, tolerance 0), the rule that routes a call to one core or
+the other, and the engine's caches of prepared weights.  The kernel itself
+is held against these plain versions on the card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -17,6 +20,11 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from hawq_tpu.configs.bit_config import get_bit_config as jax_bit_config
+from hawq_tpu.inference import fold as jfold
+from hawq_tpu.inference.engine import build_resnet_engine as jax_engine
+from hawq_tpu.inference.synthetic import (
+    synthetic_frozen_resnet as jax_synthetic_frozen_resnet)
 from hawq_tpu.kernels import conv as jkc
 from hawq_tpu.kernels import matmul as jkm
 
@@ -26,6 +34,7 @@ from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
 from hawq_tpu_torch.kernels import conv as tkc
 from hawq_tpu_torch.kernels import matmul as tkm
 from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
+from tests.test_torch_engine import _port_fm, _reference_nodes
 
 torch.set_num_threads(1)
 
@@ -63,6 +72,55 @@ def test_prepare_weights_layout_and_round_trip(taps, cin, n):
 def test_prepare_weights_rejects_uneven_taps():
     with pytest.raises(ValueError):
         tkm.prepare_weights(torch.zeros((10, 4), dtype=torch.int8), 3)
+
+
+def _w4(rng, shape):
+    """int4 weights over the whole range, -8 and 7 included."""
+    w = rng.randint(-8, 8, shape).astype(np.int8)
+    w.reshape(-1)[:2] = (-8, 7)
+    return w
+
+
+@pytest.mark.parametrize('taps', [1, 3, 9])
+@pytest.mark.parametrize('cin', [16, 64, 80, 128, 6])
+def test_prepare_weights_int4_layout_and_round_trip(taps, cin):
+    """The packed K-major handle: (N, taps·cpad/2) bytes; inside every
+    tile_k-channel chunk byte i holds channel c0 + i (low nibble) and
+    channel c0 + tile_k/2 + i (high nibble), zeros beyond C; back to
+    ``pack_int4_conv``'s bytes."""
+    n = 12
+    rng = np.random.RandomState(taps + cin)
+    w = _w4(rng, (taps * cin, n))
+    packed = tkc.pack_int4_conv(w, taps)
+    p = tkm.prepare_weights_int4(_t(packed), taps)
+    cpad = -(-cin // 64) * 64
+    bk = 128 if cpad % 128 == 0 else 64
+    assert (p.taps, p.cin, p.cpad, p.n, p.k, p.int4, p.tile_k) == (
+        taps, cin, cpad, n, taps * cin, True, bk)
+    assert p.row_bytes == taps * cpad // 2
+    wt = p.wt.numpy()
+    assert wt.shape == (n, taps * cpad // 2) and wt.dtype == np.int8
+    assert p.wt.is_contiguous()
+    wpad = np.zeros((taps, cpad, n), np.int8)
+    wpad[:, :cin] = w.reshape(taps, cin, n)
+    lo = (wt.astype(np.int16) & 0xF ^ 8) - 8
+    hi = ((wt.astype(np.int16) >> 4) & 0xF ^ 8) - 8
+    for t in range(taps):
+        for c0 in range(0, cpad, bk):
+            cols = slice((t * cpad + c0) // 2, (t * cpad + c0 + bk) // 2)
+            np.testing.assert_array_equal(lo[:, cols],
+                                          wpad[t, c0:c0 + bk // 2].T)
+            np.testing.assert_array_equal(hi[:, cols],
+                                          wpad[t, c0 + bk // 2:c0 + bk].T)
+    # what the kernel's unpack rebuilds is the int8 handle of the same weights
+    np.testing.assert_array_equal(
+        p.kmajor_int8().numpy(), tkm.prepare_weights(_t(w), taps).wt.numpy())
+    np.testing.assert_array_equal(tkm.unprepare_weights(p).numpy(), packed)
+
+
+def test_prepare_weights_int4_rejects_uneven_taps():
+    with pytest.raises(ValueError):
+        tkm.prepare_weights_int4(torch.zeros((10, 4), dtype=torch.int8), 3)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +273,111 @@ def test_matmul_kmajor_plain_matches_plain_and_pallas(m, k, n, case):
         assert abs(int(kmajor[0, 0])) > 2 ** 24
 
 
+# (B, H, W, C), N, taps, pad, case: C even; block_n of the Pallas call
+# divides N
+_WALK_CONVS_INT4 = [((2, 9, 7, 16), 16, (3, 3), (1, 1), 'random'),
+                    ((1, 14, 14, 8), 8, (3, 3), (0, 0), 'random'),
+                    ((3, 5, 5, 64), 32, (2, 2), (0, 0), 'random'),
+                    ((1, 28, 6, 6), 8, (3, 3), (1, 0), 'random'),
+                    ((2, 7, 7, 80), 16, (1, 1), (0, 0), 'random'),
+                    ((1, 8, 8, 128), 8, (3, 3), (1, 1), 'saturated'),
+                    ((2, 6, 6, 16), 16, (3, 3), (0, 1), 'half')]
+
+
+@pytest.mark.parametrize('shape,n,taps,pad,case', _WALK_CONVS_INT4)
+def test_int4w_conv_tiled_plain_matches_plain_and_pallas(shape, n, taps, pad,
+                                                         case):
+    """``int4w_conv_requant`` with the packed handle (the Hopper core's
+    walk, its nibbles unpacked chunk by chunk) == with ``pack_int4_conv``'s
+    bytes == the Pallas kernel on those bytes; with ``pad`` the wrapper is
+    handed the activations without their zero border."""
+    rng = np.random.RandomState(sum(shape) + n)
+    b, h, w, c = shape
+    kh, kw = taps
+    x = rng.randint(-128, 128, (b, h + kh - 1 - 2 * pad[0],
+                                (w + kw - 1 - 2 * pad[1]) * c)).astype(np.int8)
+    wf = _w4(rng, (kh * kw * c, n))
+    if case == 'saturated':                 # |acc| = 9·128·128·8 > 2**20
+        x[:] = -128
+        wf[:, 0], wf[:, 1] = 7, -8
+    if case == 'half':                      # small sums, so .5 is not clipped
+        x = rng.randint(-3, 4, x.shape).astype(np.int8)
+        wf = rng.randint(-3, 4, wf.shape).astype(np.int8)
+    bias, mult = _vectors(rng, n, half=case == 'half')
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    wp = tkc.pack_int4_conv(wf, kh * kw)
+    prepared = tkm.prepare_weights_int4(_t(wp), kh * kw)
+    xp = tkc.pad_conv_input(_t(x), pad, **geo) if pad != (0, 0) else _t(x)
+    for out_bits, signed, relu in [(8, True, False), (8, True, True),
+                                   (4, False, True)]:
+        epi = dict(out_bits=out_bits, signed=signed, relu=relu)
+        lo, hi = tkm.epilogue_bounds(out_bits, signed, relu)
+        plain = tkc.conv_requant_plain(xp, _t(wf), _t(bias), _t(mult),
+                                       lo=lo, hi=hi, **geo).numpy()
+        tiled = tkc.conv_requant_tiled_plain(xp, prepared, _t(bias),
+                                             _t(mult), lo=lo, hi=hi,
+                                             **geo).numpy()
+        wrapped = [tkc.int4w_conv_requant(_t(x), wts, _t(bias), _t(mult),
+                                          pad=pad, **geo, **epi).numpy()
+                   for wts in (prepared, _t(wp))]
+        with pltpu.force_tpu_interpret_mode():
+            pallas = np.asarray(jkc.int4w_conv_requant(
+                jnp.asarray(xp.numpy()), jnp.asarray(wp), jnp.asarray(bias),
+                jnp.asarray(mult), **geo, **epi))
+        assert tiled.dtype == np.int8 and tiled.shape == (b, h * w, n)
+        np.testing.assert_array_equal(tiled, plain, err_msg=str(epi))
+        for got in wrapped:
+            np.testing.assert_array_equal(got, plain, err_msg=str(epi))
+        np.testing.assert_array_equal(tiled, pallas, err_msg=str(epi))
+    if case == 'half':                      # the boundary really was hit
+        acc = tkc.conv_acc_plain(xp, _t(wf), _t(bias), **geo).numpy()
+        assert (acc[..., ::2] % 2 != 0).any()
+
+
+_WALK_REQUANT_MATMULS = [(37, 48, 16, 'random'), (64, 64, 64, 'random'),
+                         (130, 80, 80, 'random'), (8, 2048, 32, 'saturated'),
+                         (256, 192, 48, 'random'), (65, 32, 16, 'half'),
+                         (1, 16, 16, 'random'), (37, 45, 19, 'random')]
+
+
+@pytest.mark.parametrize('m,k,n,case', _WALK_REQUANT_MATMULS)
+def test_matmul_requant_kmajor_plain_matches_plain_and_pallas(m, k, n, case):
+    rng = np.random.RandomState(m + k + n)
+    x = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    w = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    if case == 'saturated':                 # |acc| = 2048·128·127 > 2**24
+        x[0, :] = -128
+        w[:, 0], w[:, 1] = 127, -127
+    if case == 'half':
+        x = rng.randint(-3, 4, x.shape).astype(np.int8)
+        w = rng.randint(-3, 4, w.shape).astype(np.int8)
+    bias, mult = _vectors(rng, n, half=case == 'half')
+    prepared = tkm.prepare_weights(_t(w))
+    for out_bits, signed, relu in [(8, True, False), (8, True, True),
+                                   (4, False, True)]:
+        epi = dict(out_bits=out_bits, signed=signed, relu=relu)
+        lo, hi = tkm.epilogue_bounds(out_bits, signed, relu)
+        plain = tkm.matmul_requant_plain(_t(x), _t(w), _t(bias), _t(mult),
+                                         lo, hi).numpy()
+        kmajor = tkm.matmul_requant_kmajor_plain(_t(x), prepared, _t(bias),
+                                                 _t(mult), lo, hi).numpy()
+        wrapped = tkm.int8_matmul_requant(_t(x), prepared, _t(bias),
+                                          _t(mult), **epi).numpy()
+        with pltpu.force_tpu_interpret_mode():
+            pallas = np.asarray(jkm.int8_matmul_requant(
+                jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                jnp.asarray(mult), **epi))
+        assert kmajor.dtype == np.int8 and kmajor.shape == (m, n)
+        np.testing.assert_array_equal(kmajor, plain, err_msg=str(epi))
+        np.testing.assert_array_equal(wrapped, plain, err_msg=str(epi))
+        np.testing.assert_array_equal(kmajor, pallas, err_msg=str(epi))
+    acc = tkm.matmul_acc_plain(_t(x), _t(w), _t(bias)).numpy()
+    if case == 'saturated':
+        assert abs(int(acc[0, 0] - bias[0])) > 2 ** 24
+    if case == 'half':
+        assert (acc[..., ::2] % 2 != 0).any()
+
+
 def test_wrappers_reject_a_handle_of_another_shape():
     """A handle prepared for other taps or another K is refused, not
     zero-filled up to its padded K."""
@@ -229,6 +392,19 @@ def test_wrappers_reject_a_handle_of_another_shape():
                           bias, mult, **geo)
     with pytest.raises(ValueError):
         tkc.int8_conv_requant(xp, p, bias, mult, **geo)
+    with pytest.raises(ValueError):
+        tkm.int8_matmul_requant(torch.zeros((4, 32), dtype=torch.int8), p,
+                                bias, mult)
+    # packed weights only through the int4w kernel, int8 ones only through
+    # the int8 kernels
+    p4 = tkm.prepare_weights_int4(torch.zeros((4 * 8, 8), dtype=torch.int8), 4)
+    tkc.int4w_conv_requant(xp, p4, bias, mult, **geo)
+    with pytest.raises(ValueError):
+        tkc.int8_conv_requant(xp, p4, bias, mult, **geo)
+    with pytest.raises(ValueError):
+        tkc.int4w_conv_requant(
+            xp, tkm.prepare_weights(torch.zeros((64, 8), dtype=torch.int8),
+                                    4), bias, mult, **geo)
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +412,10 @@ def test_wrappers_reject_a_handle_of_another_shape():
 # ---------------------------------------------------------------------------
 
 def _resnet50_gemm_shapes(batch, size=224):
-    """(kind, M or pixels, K or C, N) of every ``int8_conv_requant`` and
-    ``int8_matmul_acc`` call of a ResNet-50 uniform8 engine forward, and of
+    """(kind, M or pixels, K or C, N) of every ``int8_matmul_requant``
+    (kind 'matmul_requant'), ``int8_conv_requant`` and ``int8_matmul_acc``
+    call of a ResNet-50 uniform8 engine forward (the 'conv' entries are
+    also the ``int4w_conv_requant`` calls of the uniform4 engine), and of
     every ``int8_matmul_acc`` call of a QAT forward (all 1×1 convs and the
     FC), at ``batch`` × ``size``²."""
     engine, train = [], []
@@ -250,6 +428,7 @@ def _resnet50_gemm_shapes(batch, size=224):
             hw_out = hw // stride
             m_in, m_out = batch * hw * hw, batch * hw_out * hw_out
             train.append(('matmul', m_out, cin, mid))            # conv1
+            engine.append(('matmul_requant', m_out, cin, mid))
             # conv2: 3×3 stride 1, or its 2×2-tap space-to-depth rewrite
             engine.append(('conv', m_out, mid * stride * stride, mid))
             engine.append(('matmul', m_out, mid, out))           # conv3
@@ -282,6 +461,7 @@ def test_rule_takes_every_train_shape_of_resnet50_b32(kind, m, k, n):
 
 def test_resnet50_shape_lists_have_the_launch_counts():
     assert sum(s[0] == 'conv' for s in _ENGINE_SHAPES) == 16
+    assert sum(s[0] == 'matmul_requant' for s in _ENGINE_SHAPES) == 16
     assert sum(s[0] == 'matmul' for s in _ENGINE_SHAPES) == 21
     assert len(_TRAIN_SHAPES) == 37
 
@@ -290,7 +470,11 @@ def test_resnet50_shape_lists_have_the_launch_counts():
     ('matmul', 45, 20, 512, 'K % 16'), ('matmul', 48, 18, 512, 'N % 4'),
     ('matmul', 48, 20, 520, 'pointer % 16'), ('conv', 5, 16, 512, 'C % 16'),
     ('conv', 48, 1000, 512, 'N % 16'), ('conv', 16, 24, 512, 'N % 16'),
-    ('conv', 16, 16, 4, 'pointer % 16'), ('conv', 3, 7, 1, 'C % 16')])
+    ('conv', 16, 16, 4, 'pointer % 16'), ('conv', 3, 7, 1, 'C % 16'),
+    ('conv', 10, 16, 512, 'C % 16'), ('matmul_requant', 45, 16, 512, 'K % 16'),
+    ('matmul_requant', 48, 20, 512, 'N % 16'),
+    ('matmul_requant', 48, 1000, 512, 'N % 16'),
+    ('matmul_requant', 48, 16, 520, 'pointer % 16')])
 def test_rule_names_the_clause_that_excludes(kind, k, n, ptr, clause):
     assert tkm.sm90_route(kind, k=k, n=n, ptr=ptr) == clause
     with pytest.raises(ValueError):
@@ -310,12 +494,27 @@ def test_pick_core_follows_the_rule_unless_asked():
 
 @pytest.mark.parametrize('m_tiles,n,k_tiles,want', [
     (392, 256, 1, 64), (392, 256, 2, 128), (98, 512, 1, 64),
-    (98, 512, 2, 128), (25, 1024, 2, 128), (7, 2048, 4, 128),
+    (98, 512, 2, 128), (25, 1024, 2, 128), (7, 2048, 4, 64),
+    (7, 2048, 8, 128),
     (1, 1000, 16, 32), (1568, 64, 2, 64), (392, 64, 9, 64),
     (112, 128, 9, 128), (32, 256, 18, 64), (8, 512, 36, 32), (1, 4, 1, 32),
-    (1000, 40, 3, 64)])
+    (1000, 40, 3, 64),
+    # int8_matmul_requant of ResNet-50 at batch 8: conv1 of stages 1 to 4
+    # (a 128-wide grid of a short call must have a block for every SM)
+    (392, 64, 1, 64), (392, 64, 2, 64), (98, 128, 2, 64), (98, 128, 4, 64),
+    (25, 256, 4, 64), (25, 256, 8, 64), (7, 512, 8, 32), (7, 512, 16, 32)])
 def test_tile_width_rule(m_tiles, n, k_tiles, want):
     assert tkm.sm90_tile_n(m_tiles, n, k_tiles, 132) == want
+
+
+@pytest.mark.parametrize('m_tiles,n,k_tiles,want', [
+    # int4w_conv_requant of ResNet-50 at batch 8: the 3×3 convs of stages 1
+    # to 4, then the three 2×2-tap stride-2 convs
+    (392, 64, 9, 64), (112, 128, 9, 64), (32, 256, 18, 64), (8, 512, 36, 32),
+    (112, 128, 16, 64), (32, 256, 32, 64), (8, 512, 64, 32)])
+def test_tile_width_rule_of_the_packed_conv_stops_at_64(m_tiles, n, k_tiles,
+                                                        want):
+    assert tkm.sm90_tile_n(m_tiles, n, k_tiles, 132, 64) == want
 
 
 # ---------------------------------------------------------------------------
@@ -323,10 +522,13 @@ def test_tile_width_rule(m_tiles, n, k_tiles, want):
 # ---------------------------------------------------------------------------
 
 def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
-    """tiny50's unit widths are multiples of 16, so its CPU engine keeps
-    K-major handles for conv2 / conv3 / identity / FC and runs the plain
-    walk; where the rule excludes every width it keeps plain tensors.  Both
-    give the same logits."""
+    """tiny50's stage-2 widths are multiples of 16, so its CPU engine keeps
+    K-major handles for every conv of that stage (conv1 feeds
+    ``int8_matmul_requant``, conv2 ``int8_conv_requant``, conv3 / identity
+    ``int8_matmul_acc``) and runs the plain walk; the 8-wide convs of stage
+    1, the init conv and the 10-class FC (N % 4) stay plain tensors, as
+    does everything where the rule excludes every width.  Both give the
+    same logits."""
     fm = synthetic_frozen_resnet('tiny50', get_bit_config('tiny50',
                                                           'uniform8'),
                                  num_classes=10, seed=3)
@@ -335,9 +537,14 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     got = eng(x)
     kinds = {key: type(val[0]) for key, val in eng._w.items()}
     prepared = [k for k, t in kinds.items() if t is tkm.PreparedWeights]
-    assert any('quant_convbn2' in str(k) for k in prepared)
-    assert any('quant_convbn3' in str(k) for k in prepared)
-    assert not any('quant_convbn1' in str(k) for k in prepared)
+    for conv in ('quant_convbn1', 'quant_convbn2', 'quant_convbn3',
+                 'quant_identity_convbn'):
+        assert any(conv in str(k) for k in prepared), conv
+    assert all(kinds[k] is tkm.PreparedWeights for k in kinds
+               if str(k).startswith(('stage2', "('stage2")))
+    assert kinds['stage1.unit1.quant_convbn1'] is torch.Tensor   # N = 8
+    assert kinds['quant_output'] is torch.Tensor
+    assert not any(eng._w[k][0].int4 for k in prepared)
     assert kinds['init'] is torch.Tensor
     rule = tkm.sm90_route
     tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
@@ -349,3 +556,48 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     assert not any(t is tkm.PreparedWeights
                    for t in (type(v[0]) for v in plain_eng._w.values()))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('arch,scheme,input_mode', [
+    ('tiny18', 'uniform8', 'float32'), ('tiny18', 'uniform4', 'folded_float32'),
+    ('tiny50', 'uniform8', 'folded_float32'), ('tiny50', 'uniform4', 'float32'),
+    ('wide50', 'uniform4', 'float32')])
+def test_engine_with_cached_handles_matches_reference(arch, scheme,
+                                                      input_mode):
+    """The CPU engine keeps handles for the requant 1×1 convs (int8) and for
+    the 4-bit 3×3 requant convs (packed), runs their plain walks, and its
+    logits and every capture node equal the JAX engine's."""
+    fm = jax_synthetic_frozen_resnet(arch, jax_bit_config(arch, scheme),
+                                     num_classes=10, seed=11)
+    x = np.random.RandomState(12).randn(1, 32, 32, 3).astype(np.float32)
+    if input_mode == 'folded_float32':
+        x = jfold.fold4_images(x)
+    jkw = dict(input_mode=input_mode, residual_dtype=jnp.int16)
+    tkw = dict(input_mode=input_mode, residual_dtype=torch.int16,
+               device='cpu')
+    eng = build_resnet_engine(_port_fm(fm), **tkw)
+    got = eng(x).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_engine(fm, **jkw)(jnp.asarray(x))))
+    handles = {(k if isinstance(k, str) else k[0]): v[0]
+               for k, v in eng._w.items()
+               if isinstance(v[0], tkm.PreparedWeights)}
+    int4 = scheme == 'uniform4'
+    bottleneck = arch != 'tiny18'
+    # the requant convs: conv1 (1×1 of a bottleneck, else 3×3) and conv2 of
+    # a bottleneck; 4-bit 1×1 weights stay plain packed tensors
+    conv1 = [h for k, h in handles.items() if k.endswith('quant_convbn1')]
+    conv2 = [h for k, h in handles.items() if k.endswith('quant_convbn2')]
+    if bottleneck:
+        assert bool(conv1) == (not int4) and conv2
+        assert all(h.int4 == int4 and h.taps in (4, 9) for h in conv2)
+        assert not any(h.int4 for h in conv1)
+    else:
+        assert conv1 and all(h.int4 == int4 and h.taps in (4, 9)
+                             for h in conv1)
+        assert not conv2                  # feeds int8_conv_acc / int4w_conv_acc
+    nodes = _reference_nodes(fm, x, **jkw)
+    for node, ref in nodes.items():
+        port = build_resnet_engine(_port_fm(fm), capture=node, **tkw)(x)
+        assert port.numpy().dtype == ref.dtype, node
+        np.testing.assert_array_equal(port.numpy(), ref, err_msg=node)
