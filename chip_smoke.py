@@ -15,9 +15,9 @@ non-zero exit and no result line:
     host-folded input, int16 residual carrier — each with the launch counts
     set to 0 just before it and read just after, and held against the
     counts its bit config predicts, per kernel and per GEMM core (every
-    ``int8_conv_requant``, ``int4w_conv_requant``, ``int8_matmul_requant``
-    and ``int8_matmul_acc`` launch on the Hopper core
-    csrc/gemm_s8_sm90.cuh, every other GEMM launch on csrc/gemm_s8.cuh).
+    launch of the four convs, ``int8_matmul_requant`` and
+    ``int8_matmul_acc`` on the Hopper core csrc/gemm_s8_sm90.cuh, the
+    ``int4w_*`` matmuls on csrc/gemm_s8.cuh).
     Every kernel call of those runs is recorded; each is then repeated on
     the same inputs and held against its plain PyTorch version, bit for bit
     (tolerance 0), as are ragged shapes, among them the Hopper core's (M
@@ -26,10 +26,10 @@ non-zero exit and no result line:
     int4 handles) and one call per clause of its shape rule, checked to
     have run on the core the rule names; then each call of the path a
     kernel is reported on is timed (kernel, plain version, library call)
-    and set beside its bound — the four kernels on the Hopper core on both
+    and set beside its bound — the six kernels on the Hopper core on both
     cores in turns (old, new, new, old), both equal to the plain version,
-    with the wrapper's host time per call on each, and
-    ``int4w_conv_requant`` also beside ``int8_conv_requant`` on the same
+    with the wrapper's host time per call on each, and the packed
+    ``int4w_conv_*`` also beside their ``int8_conv_*`` twins on the same
     weights unpacked once to int8;
  4. the engine at full width: ResNet-50 uniform8 and uniform4, on folded
     input with the int16 carrier and on raw float32 input with the int32
@@ -57,10 +57,12 @@ non-zero exit and no result line:
     artifact.  Losses finite; the launch counts of every step equal to what
     the architecture predicts (``minmax_1pass`` once per activation
     quantizer, every conv and the FC through ``int8_conv_acc`` /
-    ``int8_matmul_acc``, the latter on the Hopper core); every distinct
-    kernel call of a step repeated on synthetic inputs of its shapes and
-    held against its plain version, then timed (``int8_matmul_acc`` on both
-    cores in turns); ``minmax_1pass`` also on unaligned, one-element, NaN and ±inf
+    ``int8_matmul_acc``, both on the Hopper core); every distinct kernel
+    call of a step repeated on synthetic inputs of its shapes and held
+    against its plain version, then timed (``int8_conv_acc`` and
+    ``int8_matmul_acc`` on both cores in turns, with the K-major layout of
+    their plain weights apart); ``minmax_1pass`` also on unaligned,
+    one-element, NaN and ±inf
     inputs; one folded step at batch 2, 64×64 on the card against the same
     step on the CPU (integers and ranges equal, loss within 1e-5, gradients
     within 1e-3); the saved frozen checkpoint served by the integer engine
@@ -93,7 +95,7 @@ BATCH, SIZE = 8, 224
 KERNELS = {
     'int8_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv_sm90.cu',
                           'hawq_tpu/kernels/conv.py:228'),
-    'int8_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv.cu',
+    'int8_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv_sm90.cu',
                       'hawq_tpu/kernels/conv.py:243'),
     'int8_matmul_requant': (
         'hawq_tpu_torch/kernels/csrc/matmul_requant_sm90.cu',
@@ -108,7 +110,7 @@ KERNELS = {
                          'hawq_tpu/kernels/matmul.py:234'),
     'int4w_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv_int4_sm90.cu',
                            'hawq_tpu/kernels/conv.py:254'),
-    'int4w_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv.cu',
+    'int4w_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv_int4_sm90.cu',
                        'hawq_tpu/kernels/conv.py:265'),
     'int8_matmul_requant_kblocked': (
         'hawq_tpu_torch/kernels/csrc/matmul_kblocked.cu',
@@ -124,7 +126,7 @@ TRAIN_BATCH = 32
 # (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
 # beside the new one
 SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
-                'int4w_conv_requant')
+                'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc')
 GEMM_KERNELS = [k for k in KERNELS if k not in ('maxpool_folded',
                                                 'minmax_1pass')]
 
@@ -232,7 +234,8 @@ def sm90_rule(name, args, kw):
     w = args[1]
     n = w.n if isinstance(w, km.PreparedWeights) else w.shape[1]
     if '_conv' in name:
-        return km.sm90_route('conv', k=kw['cin'], n=n, ptr=args[0].data_ptr())
+        return km.sm90_route('conv_acc' if name.endswith('acc') else 'conv',
+                             k=kw['cin'], n=n, ptr=args[0].data_ptr())
     kind = 'matmul_requant' if name.endswith('requant') else 'matmul'
     return km.sm90_route(kind, k=args[0].shape[1], n=n,
                          ptr=args[0].data_ptr())
@@ -305,14 +308,19 @@ def first_core_weights(w):
     return km.unprepare_weights(w) if isinstance(w, km.PreparedWeights) else w
 
 
-def hopper_core_weights(name, w, taps):
-    """The weights as csrc/gemm_s8_sm90.cuh reads them: their handle."""
+def hopper_core_weights(name, w, kw):
+    """The weights as csrc/gemm_s8_sm90.cuh reads them: their handle, laid
+    out as the wrapper lays out plain weights (a conv's for the call's
+    geometry, ``kw``)."""
+    from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     if isinstance(w, km.PreparedWeights):
         return w
-    prepare = (km.prepare_weights_int4 if name.startswith('int4w')
-               else km.prepare_weights)
-    return prepare(w, taps)
+    if '_conv' in name:
+        return kc.prepare_conv_weights(w, kw['taps'], kw['cin'],
+                                       kw.get('pad', (0, 0)),
+                                       name.startswith('int4w'))
+    return km.prepare_weights(w)
 
 
 def plain_call(name, args, kw, stack=True):
@@ -496,7 +504,7 @@ def ragged_calls(dev):
 
 
 def sm90_calls(dev):
-    """Calls of the four kernels on the Hopper core beside the paths' →
+    """Calls of the six kernels on the Hopper core beside the paths' →
     (calls its rule admits, [(call, excluding clause)]).
 
     Admitted: M off the 64-row tile, K below and between the K paddings,
@@ -507,8 +515,10 @@ def sm90_calls(dev):
     ±127 over K = 2048 and 9·512 (|acc| passes 2²⁴), and multipliers of 0.5
     (odd accumulators sit exactly on a .5 boundary); for the packed int4
     conv the same conv shapes (C = 16 to 512, nibbles -8 and 7) with plain
-    packed bytes and with their handle.  Excluded: one call per clause of
-    ``sm90_route`` for each of the four kernels."""
+    packed bytes and with their handle; for the accumulator convs N off 16,
+    the 4×4 taps of the RGB init's rewrite and the rest as above.
+    Excluded: one call per clause of ``sm90_route`` for each of the six
+    kernels (the CIFAR init's C = 3 among them)."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
@@ -541,9 +551,9 @@ def sm90_calls(dev):
         return ('int8_matmul_acc', (x, w, vec(n)[0]), {})
 
     def conv(shape, n, taps, offset=0, saturate=False, pad=(0, 0),
-             int4=False, **epi):
+             int4=False, acc=False, **epi):
         """``int8_conv_requant``, or with ``int4`` ``int4w_conv_requant``
-        on per-tap packed weights."""
+        on per-tap packed weights; with ``acc`` the accumulator forms."""
         b, h, w, c = shape
         kh, kw = taps
         xp = i8(b, h + kh - 1 - 2 * pad[0], (w + kw - 1 - 2 * pad[1]) * c,
@@ -563,8 +573,9 @@ def sm90_calls(dev):
             if not int4:
                 wf[:, 0], wf[:, 1] = 127, -127
         bias, mult = vec(n)
-        return ('int4w_conv_requant' if int4 else 'int8_conv_requant',
-                (xp, wf, bias, mult),
+        name = ('int4w' if int4 else 'int8') + ('_conv_acc' if acc
+                                                 else '_conv_requant')
+        return (name, (xp, wf, bias) if acc else (xp, wf, bias, mult),
                 dict(taps=taps, out_hw=(h, w), cin=c, **epi))
     admitted = [matmul(37, 48, 20), matmul(1000, 2048, 1000, saturate=True),
                 matmul(1, 16, 4), matmul(130, 80, 72), matmul(65, 192, 36),
@@ -586,7 +597,8 @@ def sm90_calls(dev):
             admitted.append(conv(shape, n, taps, int4=int4))
     # the prepared handle in place of the (K, N) weights / the packed bytes
     for name, args, kw in admitted[-4:-2]:
-        admitted.append((name, (args[0], hopper_core_weights(name, args[1], 4))
+        admitted.append((name, (args[0], hopper_core_weights(name, args[1],
+                                                             kw))
                          + args[2:], kw))
     # the zero border left to TMA: 3×3 / pad 1 on whole, ragged and
     # smaller-than-a-tile images, a border on one axis only, 5×5 / pad 2
@@ -600,11 +612,37 @@ def sm90_calls(dev):
         admitted.append(conv(shape, n, taps, pad=pad, relu=True))
         admitted.append(conv(shape, n, taps, pad=pad, int4=True, relu=True))
     for name, args, kw in admitted[-2:]:
-        admitted.append((name, (args[0], hopper_core_weights(name, args[1], 9))
+        admitted.append((name, (args[0], hopper_core_weights(name, args[1],
+                                                             kw))
                          + args[2:], kw))
     name, args, kw = admitted[3]
     admitted.append((name, (args[0], km.prepare_weights(args[1]), args[2]),
                      kw))
+    # the accumulator convs: N % 4 only, images smaller than a tile, B = 1
+    # and 3, 1×1 and 2×2 taps, C below and between the paddings, saturated
+    # operands (|acc| passes 2²⁴), the border left to TMA, the handles
+    n_before = len(admitted)
+    for shape, n, taps, pad in (((2, 9, 7, 16), 20, (3, 3), (1, 1)),
+                                ((1, 5, 5, 16), 16, (3, 3), (0, 0)),
+                                ((3, 1, 1, 32), 44, (3, 3), (1, 1)),
+                                ((2, 9, 7, 48), 32, (1, 1), (0, 0)),
+                                ((1, 7, 7, 192), 1004, (2, 2), (0, 0)),
+                                ((1, 14, 14, 80), 80, (3, 3), (1, 0)),
+                                ((8, 7, 7, 512), 512, (3, 3), (1, 1)),
+                                ((2, 12, 12, 16), 64, (4, 4), (0, 0))):
+        for int4 in (False, True):
+            admitted.append(conv(shape, n, taps, pad=pad, int4=int4,
+                                 acc=True, saturate=shape[3] == 512))
+    # their handles: a plain one, and where the call reads a kernel row as
+    # one tap (C = 16, no border along x) the row-folded one
+    for name, args, kw in admitted[n_before:n_before + 4]:
+        admitted.append((name, (args[0], hopper_core_weights(name, args[1],
+                                                             kw), args[2]),
+                         kw))
+    for name, args, kw in admitted[n_before + 14:n_before + 16]:
+        prepare = (km.prepare_weights_int4 if name.startswith('int4w')
+                   else km.prepare_weights)
+        admitted.append((name, (args[0], prepare(args[1], 16), args[2]), kw))
     # the requant matmul: M and N off the tiles, K between the paddings,
     # M = 1, saturated operands, the handle in place of the (K, N) weights
     u4 = dict(out_bits=4, signed=False, relu=True)
@@ -630,6 +668,15 @@ def sm90_calls(dev):
                  'pointer % 16'),
                 (conv((2, 6, 5, 10), 16, (3, 3), pad=(1, 1), int4=True),
                  'C % 16')]
+    for int4 in (False, True):
+        excluded += [(conv((2, 6, 5, 12), 16, (3, 3), int4=int4, acc=True),
+                      'C % 16'),
+                     (conv((2, 6, 5, 16), 18, (3, 3), int4=int4, acc=True),
+                      'N % 4'),
+                     (conv((2, 6, 5, 16), 20, (3, 3), offset=4, int4=int4,
+                           acc=True), 'pointer % 16')]
+    excluded.append((conv((1, 8, 8, 3), 64, (3, 3), pad=(1, 1), acc=True),
+                     'C % 16'))
     return admitted, excluded
 
 
@@ -720,38 +767,45 @@ def sm90_tiles(name, args, kw):
     """'m-tiles x n-tiles of 64xN' of a call on the Hopper core."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
-    taps = kw['taps'][0] * kw['taps'][1] if 'taps' in kw else 1
-    w = hopper_core_weights(name, args[1], taps)
+    w = hopper_core_weights(name, args[1], kw)
     n = w.n
+    sms = km.sm_count(args[0].device)
     if '_conv' in name:
         th, tw = kc.conv_tile_plan(*kw['out_hw'])
         m_tiles = (args[0].shape[0] * -(-kw['out_hw'][0] // th)
                    * -(-kw['out_hw'][1] // tw))
         shape = f'{th}x{tw} px'
+        tile_n = kc.sm90_conv_tile_n(w, args[0].shape[0], kw['out_hw'], sms)
+        if w.row_taps > 1:
+            shape += f', {w.row_taps} taps a row read as one'
     else:
         m_tiles, shape = -(-args[0].shape[0] // km.SM90_TILE_M), '64'
-    tile_n = km.sm90_tile_n(m_tiles, n, taps * (w.cpad // w.tile_k),
-                            km.sm_count(args[0].device),
-                            64 if w.int4 else 128)
+        tile_n = km.sm90_tile_n(m_tiles, n, w.cpad // w.tile_k, sms)
     return f'{m_tiles}x{-(-n // tile_n)} tiles of {shape} x {tile_n}'
+
+
+def twin_name(name):
+    """The int8 kernel beside a packed int4w conv: the same call on weights
+    unpacked once to int8."""
+    return name.replace('int4w', 'int8')
 
 
 def time_both_cores(name, args, kw):
     """One call of a kernel of the Hopper core on both cores, in turns (old,
     new, new, old; CUDA-graph replay), both held against the plain version
     → dict(ms, old_ms, host_us, old_host_us, prep_ms: laying out the
-    weights; for ``int4w_conv_requant`` also int8_twin_ms).  The kernels are
-    timed on inputs each core reads as they are: (K, N) weights (packed
-    (K/2, N) bytes for an int4w kernel) and the padded slab for the first
-    core, the K-major handle (and the unpadded activations, where the path
-    passes them) for the Hopper core.
+    weights; for the packed ``int4w_conv_*`` also int8_twin_ms).  The
+    kernels are timed on inputs each core reads as they are: (K, N) weights
+    (packed (K/2, N) bytes for an int4w kernel) and the padded slab for the
+    first core, the K-major handle (and the unpadded activations, where the
+    path passes them) for the Hopper core.
     Where the path passes plain weights (training: they change every step)
     the wrapper lays them out on the device at each call: that glue is
     timed on its own, and is part of the host time, which is taken with the
     arguments as the path passed them.
-    ``int8_twin_ms`` is ``int8_conv_requant`` on the Hopper core over the
-    same call with the weights unpacked once to int8: what streaming them
-    packed, and unpacking them in the kernel, saves or costs."""
+    ``int8_twin_ms`` is the ``int8_conv_*`` twin on the Hopper core over
+    the same call with the weights unpacked once to int8: what streaming
+    them packed, and unpacking them in the kernel, saves or costs."""
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.kernels import conv as kc
     plain_w = unpacked_weights(name, args, kw)
@@ -761,12 +815,11 @@ def time_both_cores(name, args, kw):
         geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin')}
         old_args = (kc.pad_conv_input(args[0], old_kw.pop('pad'), **geo),) \
             + old_args[1:]
-    taps = kw['taps'][0] * kw['taps'][1] if 'taps' in kw else 1
     prep_ms = 0.0
     if not isinstance(args[1], km.PreparedWeights):
         prep_ms = graph_ms(
-            lambda: hopper_core_weights(name, args[1], taps), 20)
-    new_args = (args[0], hopper_core_weights(name, args[1], taps)) \
+            lambda: hopper_core_weights(name, args[1], kw), 20)
+    new_args = (args[0], hopper_core_weights(name, args[1], kw)) \
         + tuple(args[2:])
     want = plain_gemm_call(name, (old_args[0], plain_w) + old_args[2:],
                            old_kw)
@@ -774,11 +827,12 @@ def time_both_cores(name, args, kw):
                                        dict(old_kw, core='mma')),
             'sm90': lambda: kernel_call(name, new_args,
                                         dict(kw, core='sm90'))}
-    if name == 'int4w_conv_requant':
-        twin_args = (args[0], km.prepare_weights(plain_w, taps)) \
+    if name.startswith('int4w_conv'):
+        twin_args = (args[0], kc.prepare_conv_weights(
+            plain_w, kw['taps'], kw['cin'], kw.get('pad', (0, 0)))) \
             + tuple(args[2:])
-        runs['twin'] = lambda: kernel_call('int8_conv_requant', twin_args,
-                                           dict(kw, core='sm90'))
+        runs['twin'] = lambda: kernel_call(name.replace('int4w', 'int8'),
+                                           twin_args, dict(kw, core='sm90'))
     for core, run in runs.items():
         check(same(run(), want), f'{name} on the {core} core differs from '
               f'its plain version at {call_key(name, args, kw)[1]} {kw}')
@@ -849,8 +903,8 @@ def time_calls(calls, totals):
                 both += (f"; weights laid out K-major at each call: "
                          f"+{row['prep_ms']:.5f} ms of glue")
             if 'int8_twin_ms' in row:
-                both += (f"; int8_conv_requant on the weights unpacked to "
-                         f"int8 {row['int8_twin_ms']:.5f} ms")
+                both += (f"; {twin_name(row['name'])} on the weights "
+                         f"unpacked to int8 {row['int8_twin_ms']:.5f} ms")
         log(f"  {row['name']:20s} {row['shape']:34s} x{row['n']:<2d} "
             f"ms {row['ms']:.5f} host-bound {row['host_ms']:.5f} "
             f"plain {row['plain_ms']:.4f} "
@@ -864,9 +918,9 @@ def time_calls(calls, totals):
                 f" (first core {t['old_host_us']:.0f}); laying out plain "
                 f"weights {t['prep_ms']:.4f} ms; library over the "
                 f"{t['library_calls']} calls it takes {t['library_ms']:.4f} ms"
-                + (f"; int8_conv_requant on the same calls with the weights "
+                + (f"; {twin_name(name)} on the same calls with the weights "
                    f"unpacked once to int8 {t['int8_twin_ms']:.4f} ms"
-                   if name == 'int4w_conv_requant' else ''))
+                   if name.startswith('int4w_conv') else ''))
 
 
 # ---------------------------------------------------------------------------
@@ -1014,7 +1068,8 @@ _SM90_TEMPLATE = (
 
 def port_kernel(name):
     """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, there
-    ' requant' for the matmul with the requant epilogue; ' int4' with
+    ' requant' for the matmul with the requant epilogue, ' acc' for the
+    conv with the int32 one; ' int4' with
     packed weights, ' split-K') / 'port: pool' / 'port: minmax' for the
     port's kernels in a trace (demangled or mangled names), None for any
     other kernel."""
@@ -1024,6 +1079,7 @@ def port_kernel(name):
             conv, requant, int4 = (g in ('true', '1') for g in m.groups())
             return ('port: ' + ('conv' if conv else 'matmul') + ' sm90'
                     + (' requant' if requant and not conv else '')
+                    + (' acc' if conv and not requant else '')
                     + (' int4' if int4 else ''))
     for pattern in _TEMPLATE:
         m = pattern.search(name)
@@ -1628,9 +1684,9 @@ def main():
             if not t['library_ok'] and t['library_calls']:
                 entry.update(library_partial_ms=t['library_ms'],
                              library_partial_calls=t['library_calls'])
-            if name == 'int4w_conv_requant':
-                entry.update(int8_conv_requant_on_unpacked_weights_ms=t[
-                    'int8_twin_ms'])
+            if name.startswith('int4w_conv'):
+                entry[f'{twin_name(name)}_on_unpacked_weights_ms'] = t[
+                    'int8_twin_ms']
         if name != MINMAX and name in train_totals:
             # the accumulator kernels' second path: one QAT train step
             tt = train_totals[name]

@@ -16,7 +16,12 @@ csrc/gemm_s8_sm90.cuh, each by CUDA-graph replay (``chip_smoke.graph_ms``):
     stride-2 ones as their 2 x 2-tap space-to-depth rewrite), and the
     largest ``int8_matmul_acc`` shapes of a batch-32 QAT step, at tile
     widths 32, 64 and 128, with the width the rule picks marked ``*``; each
-    result is first held against the plain version.
+    result is first held against the plain version;
+ 4. the same for the accumulator convs: ``int8_conv_acc`` at the folded
+    init of a batch-8 forward and at every call of a batch-32 QAT step of
+    ResNet-50 (the channel-padded init's 4 x 4-tap rewrite, the 3 x 3s),
+    and ``int8_conv_acc`` / ``int4w_conv_acc`` at the four conv2 shapes of
+    a batch-8 ResNet-18 forward.
 
 Needs a GPU and nvcc (it builds the kernels); exits non-zero without one.
 """
@@ -43,6 +48,14 @@ REQUANT_MATMULS = [(25088, 64, 64), (25088, 256, 64), (6272, 256, 128),
 CONVS = [(8, 56, 64, 64, 3), (8, 28, 128, 128, 3), (8, 14, 256, 256, 3),
          (8, 7, 512, 512, 3), (8, 28, 512, 128, 2), (8, 14, 1024, 256, 2),
          (8, 7, 2048, 512, 2)]
+# B, H = W, C, N, taps per side, border left to TMA, packed form too: the
+# folded init (on its slab), the QAT step's init rewrite and 3 x 3s at batch
+# 32, ResNet-18's conv2 at batch 8
+ACC_CONVS = [(8, 56, 48, 256, 3, 0, False), (32, 112, 16, 64, 4, 0, False),
+             (32, 56, 64, 64, 3, 1, False), (32, 28, 128, 128, 3, 1, False),
+             (32, 14, 256, 256, 3, 1, False), (32, 7, 512, 512, 3, 1, False),
+             (8, 56, 64, 64, 3, 1, True), (8, 28, 128, 128, 3, 1, True),
+             (8, 14, 256, 256, 3, 1, True), (8, 7, 512, 512, 3, 1, True)]
 
 
 def main():
@@ -102,10 +115,9 @@ def main():
             f"{matmul_us(m, k, n, t, True):.2f}{'*' if t == pick else ''}"
             for t in km.SM90_TILE_NS[::-1])
         print(f'  M{m} K{k} N{n}: {row}')
-    print('int8_conv_requant, then int4w_conv_requant  B HxW taps C N: us at '
-          'tile 32 / 64 / 128')
-    for b, h, c, n, side in CONVS:
-        taps, pad = (side, side), ((1, 1) if side == 3 else (0, 0))
+
+    def conv_row(b, h, c, n, side, pad, int4s, requant):
+        taps, pad = (side, side), (pad, pad)
         x = i8(b, h + side - 1 - 2 * pad[0], (h + side - 1 - 2 * pad[1]) * c)
         wf = torch.tensor(rng.randint(-8, 8, (side * side * c, n)).astype(
             np.int8), device=dev)
@@ -114,26 +126,36 @@ def main():
         bias = torch.zeros(n, dtype=torch.int32, device=dev)
         mult = torch.full((n,), 2.0 ** -12, device=dev)
         geo = dict(taps=taps, out_hw=(h, h), cin=c)
-        want = kc.conv_requant_plain(kc.pad_conv_input(x, pad, **geo), wf,
-                                     bias, mult, lo=-128, hi=127, **geo)
-        th, tw = kc.conv_tile_plan(h, h)
-        for fn, weights in (
-                (kc.int8_conv_requant, km.prepare_weights(wf, side * side)),
-                (kc.int4w_conv_requant,
-                 km.prepare_weights_int4(wp, side * side))):
-            pick = km.sm90_tile_n(b * -(-h // th) * -(-h // tw), n,
-                                  side * side * (weights.cpad
-                                                 // weights.tile_k), sms,
-                                  64 if weights.int4 else 128)
+        want = kc.conv_acc_plain(kc.pad_conv_input(x, pad, **geo), wf, bias,
+                                 **geo)
+        if requant:
+            want = km.requant_epilogue(want, mult, -128, 127)
+        for int4 in int4s:
+            weights = kc.prepare_conv_weights(wp if int4 else wf, taps, c,
+                                              pad, int4)
+            name = ('int4w' if int4 else 'int8') + (
+                '_conv_requant' if requant else '_conv_acc')
+            fn = getattr(kc, name)
+            args = (x, weights, bias, mult) if requant else (x, weights, bias)
+            pick = kc.sm90_conv_tile_n(weights, b, (h, h), sms)
             row = []
             for t in km.SM90_TILE_NS[::-1]:
-                run = lambda: fn(x, weights, bias, mult, tile_n=t, pad=pad,
-                                 **geo)
+                run = lambda: fn(*args, tile_n=t, pad=pad, **geo)
                 assert torch.equal(run(), want)
                 row.append(f"{graph_ms(run, 50) * 1e3:.2f}"
                            f"{'*' if t == pick else ''}")
-            print(f"  {'int4w' if weights.int4 else 'int8 '} B{b} {h}x{h} "
-                  f"taps{side}x{side} C{c} N{n}: " + ' / '.join(row))
+            print(f"  {name} B{b} {h}x{h} taps{side}x{side} C{c} N{n}: "
+                  + ' / '.join(row))
+
+    print('int8_conv_requant, then int4w_conv_requant  B HxW taps C N: us at '
+          'tile 32 / 64 / 128')
+    for b, h, c, n, side in CONVS:
+        conv_row(b, h, c, n, side, 1 if side == 3 else 0, (False, True), True)
+    print('int8_conv_acc (and int4w_conv_acc)  B HxW taps C N: us at tile 32 '
+          '/ 64 / 128')
+    for b, h, c, n, side, pad, packed in ACC_CONVS:
+        conv_row(b, h, c, n, side, pad, (False, True) if packed else (False,),
+                 False)
     return 0
 
 

@@ -23,18 +23,18 @@ CPU device the kernels' plain versions run instead):
     → ``int8_conv_acc`` over the 3×3, C=48, N=4·64 fold, requant + ReLU in
     the folded layout, then ``maxpool_folded``;
   * the raw 7×7/s2 init (``input_mode='float32'`` or ``'uint8'``) →
-    ``int8_conv_acc`` over its space-to-depth 4×4, C=12 rewrite; its
-    max-pool is a plain float32 ``max_pool2d`` (exact: the pooled integers
-    are below 2²⁴);
+    ``int8_conv_acc`` over its space-to-depth 4×4 rewrite, with the image's
+    3 channels and the weights' zero-padded to 4 (C=16 after the rewrite);
+    its max-pool is a plain float32 ``max_pool2d`` (exact: the pooled
+    integers are below 2²⁴);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
     be exact);
-  * the weights of every ``int8_conv_requant``, ``int8_matmul_requant``,
-    ``int8_matmul_acc`` and ``int4w_conv_requant`` call whose widths the
-    Hopper GEMM core takes (``kernels.matmul.sm90_route``) are cached in
-    that core's K-major layout (``prepare_weights``; the 4-bit convs'
-    ``prepare_weights_int4``, still nibble-packed), on a CPU device too,
-    where the wrappers then run the plain versions of that core's walk;
-    the stride-1 3×3 convs among them take unpadded activations (TMA
+  * the weights of every conv and int8 matmul call whose widths the Hopper
+    GEMM core takes (``kernels.matmul.sm90_route``; the init conv's too) are
+    cached in that core's K-major layout (``prepare_weights``; the 4-bit
+    convs' ``prepare_weights_int4``, still nibble-packed), on a CPU device
+    too, where the wrappers then run the plain versions of that core's
+    walk; the stride-1 3×3 convs among them take unpadded activations (TMA
     supplies the zero border).
 
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
@@ -146,46 +146,51 @@ class ResnetEngine:
             self._w[key] = (wd, self._dev(self.fm[key + '.bias_int']))
         return self._w[key]
 
-    def _conv_w(self, key: str, stride: int, int4: bool,
-                requant: bool = False):
+    def _conv_w(self, key: str, stride: int, int4: bool, requant: bool):
         """Flattened conv weights (space-to-depth for stride 2; per-tap
-        nibble-packed with ``int4``), taps, cin.  With ``requant`` (the
-        weights feed ``int8_conv_requant`` / ``int4w_conv_requant``) they
-        are prepared for the Hopper core, the packed ones still packed,
-        where its rule takes the widths."""
+        nibble-packed with ``int4``), taps, cin, bias.  They are prepared
+        for the Hopper core, the packed ones still packed, where its rule
+        takes the widths (kind 'conv' for the weights of
+        ``int8_conv_requant`` / ``int4w_conv_requant``, with ``requant``,
+        else 'conv_acc')."""
         if (key, stride) not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             if stride == 2:
                 w = kc.s2d_kernel(w)
-            wf = kc.flatten_conv_kernel(w)
-            taps = (w.shape[0], w.shape[1])
-            if int4:
-                wf = kc.pack_int4_conv(wf, taps[0] * taps[1])
-            wd = self._dev(wf)
-            if requant and km.sm90_route(
-                    'conv', k=w.shape[2], n=w.shape[3], ptr=0) is None:
-                prepare = km.prepare_weights_int4 if int4 \
-                    else km.prepare_weights
-                wd = prepare(wd, taps[0] * taps[1])
-            self._w[key, stride] = (wd, taps, w.shape[2],
-                                    self._dev(self.fm[key + '.bias_int']))
+            # the stride-1 convs leave their border to TMA (``_conv3x3``)
+            self._w[key, stride] = self._conv_weights(
+                w, self.fm[key + '.bias_int'], 'conv' if requant else
+                'conv_acc', (1, 1) if stride == 1 else (0, 0), int4)
         return self._w[key, stride]
+
+    def _conv_weights(self, w: np.ndarray, bias: np.ndarray, kind: str,
+                      pad: Tuple[int, int], int4: bool = False):
+        """(weights, taps, cin, bias) of an HWIO kernel on the device: the
+        flattened (or per-tap packed) tensor, or where ``sm90_route(kind)``
+        takes the widths its Hopper-core handle for calls with ``pad``."""
+        wf = kc.flatten_conv_kernel(w)
+        taps = (w.shape[0], w.shape[1])
+        if int4:
+            wf = kc.pack_int4_conv(wf, taps[0] * taps[1])
+        wd = self._dev(wf)
+        if km.sm90_route(kind, k=w.shape[2], n=w.shape[3], ptr=0) is None:
+            wd = kc.prepare_conv_weights(wd, taps, w.shape[2], pad, int4)
+        return wd, taps, w.shape[2], self._dev(bias)
 
     def _init_w(self):
         """Init conv weights: the 3×3 fold (folded input), the 4×4
-        space-to-depth rewrite of the 7×7/s2 conv, or the CIFAR 3×3."""
+        space-to-depth rewrite of the 7×7/s2 conv with its input channels
+        zero-padded from 3 to 4 (so that the rewrite's C = 16 meets the
+        Hopper core's rule; zero activations meet zero weights), or the
+        CIFAR 3×3 (C = 3: the rule leaves it on the first core)."""
         if 'init' not in self._w:
             w = np.asarray(self.fm[self.init_key + '.weight_int'])
             b = np.asarray(self.fm[self.init_key + '.bias_int'])
             if self.folded:
-                cin = 16 * w.shape[2]
                 w, b = _fold.fold4_kernel(w), np.tile(b, 4)
-            else:
-                if not self.cifar:
-                    w = kc.s2d_kernel(w)
-                cin = w.shape[2]
-            self._w['init'] = (self._dev(kc.flatten_conv_kernel(w)),
-                               (w.shape[0], w.shape[1]), cin, self._dev(b))
+            elif not self.cifar:
+                w = kc.s2d_kernel(np.pad(w, ((0, 0), (0, 0), (0, 1), (0, 0))))
+            self._w['init'] = self._conv_weights(w, b, 'conv_acc', (0, 0))
         return self._w['init']
 
     # -- layers -------------------------------------------------------------
@@ -195,27 +200,23 @@ class ResnetEngine:
         int4 = self._int4(key)
         wf, taps, cin, bias = self._conv_w(key, stride, int4,
                                            requant=mult is not None)
+        oh, ow, pad = h, w, (0, 0)
         if stride == 1 and isinstance(wf, km.PreparedWeights):
             # the Hopper core's conv: TMA supplies the zero border
-            fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
-            y = fn(
-                x8.contiguous().reshape(b, h, w * c), wf, bias, mult,
-                taps=taps, out_hw=(h, w), cin=cin, out_bits=bits,
-                signed=signed, relu=True, pad=(1, 1))
-            return y.reshape(b, h, w, -1)
-        if stride == 2:
+            xp, pad = x8.contiguous().reshape(b, h, w * c), (1, 1)
+        elif stride == 2:
             oh, ow = kc.s2d_output_hw(h, w, 3, 3, 1)
             xp = kc.prepare_conv_input(kc.s2d_input(x8, 1), (0, 0))
         else:
-            oh, ow = h, w
             xp = kc.prepare_conv_input(x8, (1, 1))
+        geo = dict(taps=taps, out_hw=(oh, ow), cin=cin, pad=pad)
         if mult is None:
             fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
-            y = fn(xp, wf, bias, taps=taps, out_hw=(oh, ow), cin=cin)
+            y = fn(xp, wf, bias, **geo)
         else:
             fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
-            y = fn(xp, wf, bias, mult, taps=taps, out_hw=(oh, ow), cin=cin,
-                   out_bits=bits, signed=signed, relu=True)
+            y = fn(xp, wf, bias, mult, out_bits=bits, signed=signed,
+                   relu=True, **geo)
         return y.reshape(b, oh, ow, -1)
 
     def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
@@ -293,7 +294,9 @@ class ResnetEngine:
             xp = kc.prepare_conv_input(x8, (1, 1))
         else:
             oh, ow = kc.s2d_output_hw(h, w, 7, 7, 3)
-            xp = kc.prepare_conv_input(kc.s2d_input(x8, 3), (0, 0))
+            # the fourth, zero, input channel of the init weights
+            xp = kc.prepare_conv_input(kc.s2d_input(F.pad(x8, (0, 1)), 3),
+                                       (0, 0))
         acc = kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
                                cin=cin).reshape(b, oh, ow, -1)
         # requant + ReLU before the pool (monotone, so it commutes with the

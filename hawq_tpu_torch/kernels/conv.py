@@ -15,15 +15,16 @@ masked; the int4 forms need an even C); on a CPU tensor it runs the plain
 version, a tap-decomposed float64 product that is exact for these integer
 sums.
 
-``int8_conv_requant`` and ``int4w_conv_requant`` run on the Hopper core
-(csrc/conv_sm90.cu and csrc/conv_int4_sm90.cu over csrc/gemm_s8_sm90.cuh)
-wherever ``matmul.sm90_route`` admits the shape: the M tiles are rectangles
-of output pixels (:func:`conv_tile_plan`) so that every tap of a tile is one
-TMA box of the slab, and the weights are the K-major layout of
-``matmul.prepare_weights`` / ``matmul.prepare_weights_int4`` (a handle, or
-laid out on the device at each call); the int4 form keeps them
-nibble-packed in device memory and unpacks them inside the kernel.
-:func:`conv_requant_tiled_plain` is the plain version of that walk.
+All four run on the Hopper core (csrc/conv_sm90.cu and
+csrc/conv_int4_sm90.cu over csrc/gemm_s8_sm90.cuh) wherever
+``matmul.sm90_route`` admits the shape (kind 'conv' for the requant forms,
+'conv_acc' for the int32 ones): the M tiles are rectangles of output pixels
+(:func:`conv_tile_plan`) so that every tap of a tile is one TMA box of the
+slab, and the weights are the K-major layout of ``matmul.prepare_weights``
+/ ``matmul.prepare_weights_int4`` (a handle, or laid out on the device at
+each call); the int4 forms keep them nibble-packed in device memory and
+unpack them inside the kernel.  :func:`conv_acc_tiled_plain` is the plain
+version of that walk, :func:`conv_requant_tiled_plain` its requant.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
-from hawq_tpu_torch.kernels.matmul import (SM90_TILE_M, PreparedWeights,
+from hawq_tpu_torch.kernels.matmul import (SM90_K_ALIGN, SM90_TILE_M,
+                                           PreparedWeights,
                                            epilogue_bounds, pack_int4,
                                            pick_core, prepare_weights,
                                            prepare_weights_int4,
@@ -191,24 +193,65 @@ def conv_tile_plan(h: int, w: int) -> Tuple[int, int]:
                key=lambda t: -(-h // t[0]) * -(-w // t[1]))
 
 
-def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
-                             taps, out_hw, cin, lo, hi):
-    """:func:`conv_requant_plain` by the Hopper core's walk: the output
-    image cut into :func:`conv_tile_plan` rectangles; for each tap the
+def sm90_row_taps(taps: Tuple[int, int], cin: int,
+                  pad: Tuple[int, int] = (0, 0)) -> int:
+    """Taps of a kernel row the Hopper core reads as one: kw where C is not
+    a multiple of 64 and the slab is read whole along x (no zero border left
+    to TMA there), else 1.  A row's kw·C bytes are contiguous in the slab,
+    so one TMA box over a map whose pixels are kw·C bytes wide, C bytes
+    apart, holds the whole row: K is padded to 64 once a row, not once a
+    tap (the RGB init's 4×4 taps of C = 16: 64 bytes a row, not 4 × 64),
+    and the box's inner extent is whole."""
+    kw = taps[1]
+    return kw if kw > 1 and pad[1] == 0 and cin % SM90_K_ALIGN else 1
+
+
+def prepare_conv_weights(weights: torch.Tensor, taps: Tuple[int, int],
+                         cin: int, pad: Tuple[int, int] = (0, 0),
+                         int4: bool = False) -> PreparedWeights:
+    """The Hopper-core handle of a conv's flat weights (with ``int4`` its
+    per-tap packed bytes), laid out for the walk the core takes on a call
+    of this geometry: a kernel row read as one tap where
+    :func:`sm90_row_taps` says so."""
+    prepare = prepare_weights_int4 if int4 else prepare_weights
+    return prepare(weights, taps[0] * taps[1], sm90_row_taps(taps, cin, pad))
+
+
+def sm90_conv_tile_n(prepared: PreparedWeights, b: int,
+                     out_hw: Tuple[int, int], sm: int) -> int:
+    """The Hopper core's tile width for a conv of ``b`` images onto
+    ``out_hw`` with these weights: ``matmul.sm90_tile_n`` over its
+    :func:`conv_tile_plan` tiles and K steps, at most 64 wide for packed
+    weights (the unpack's shared-memory traffic grows with the width)."""
+    h, w = out_hw
+    th, tw = conv_tile_plan(h, w)
+    return sm90_tile_n(b * -(-h // th) * -(-w // tw), prepared.n,
+                       prepared.taps * (prepared.cpad // prepared.tile_k), sm,
+                       64 if prepared.int4 else 128)
+
+
+def conv_acc_tiled_plain(xp, prepared: PreparedWeights, bias, *, taps,
+                         out_hw, cin):
+    """:func:`conv_acc_plain` by the Hopper core's walk: the output image
+    cut into :func:`conv_tile_plan` rectangles; for each tap the
     rectangle's box of the slab, zero-filled where it leaves the slab (as
     TMA does) and in the channels up to the weights' padded C; the product
     against the K-major ``prepared.wt`` (a packed int4 handle unpacked chunk
     by chunk, as the kernel does); pixels outside the image dropped at the
-    store."""
+    store → (B, H·W, N) int32."""
     kh, kw = taps
     h, w = out_hw
     b = xp.shape[0]
-    prepared.check(kh * kw, cin, 'int4w_conv_requant' if prepared.int4
-                   else 'int8_conv_requant')
+    prepared.check(kh * kw, cin, 'int4w_conv_acc' if prepared.int4
+                   else 'int8_conv_acc')
+    x4 = xp.reshape(b, h + kh - 1, w + kw - 1, cin)
+    if prepared.row_taps > 1:
+        # a kernel row as one pixel of kw·C channels, as TMA reads it
+        x4 = torch.cat([x4[:, :, dx:dx + w] for dx in range(kw)], dim=-1)
+        kw, cin = 1, kw * cin
     th, tw = conv_tile_plan(h, w)
     ty, tx = -(-h // th), -(-w // tw)
     cpad = prepared.cpad
-    x4 = xp.reshape(b, h + kh - 1, w + kw - 1, cin)
     x4 = F.pad(x4, (0, cpad - cin, 0, tx * tw - w, 0, ty * th - h))
     wd = prepared.kmajor_int8().to(torch.float64)
     acc = None
@@ -222,7 +265,15 @@ def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
             acc = d if acc is None else acc + d
     acc = acc.to(torch.int32).reshape(b, ty, tx, th, tw, -1).permute(
         0, 1, 3, 2, 4, 5).reshape(b, ty * th, tx * tw, -1)
-    acc = acc[:, :h, :w, :].reshape(b, h * w, -1) + bias
+    return acc[:, :h, :w, :].reshape(b, h * w, -1) + bias
+
+
+def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
+                             taps, out_hw, cin, lo, hi):
+    """:func:`conv_requant_plain` by the Hopper core's walk: the requant of
+    :func:`conv_acc_tiled_plain`."""
+    acc = conv_acc_tiled_plain(xp, prepared, bias, taps=taps, out_hw=out_hw,
+                               cin=cin)
     return requant_epilogue(acc, mult, lo, hi)
 
 
@@ -233,7 +284,9 @@ def conv_requant_tiled_plain(xp, prepared: PreparedWeights, bias, mult, *,
 def _launch_sm90(name, xp, prepared: PreparedWeights, bias, mult, taps,
                  out_hw, cin, lo, hi, pad, tile_n: Optional[int],
                  smem_extra: int) -> torch.Tensor:
-    """``int8_conv_requant`` / ``int4w_conv_requant`` on the Hopper core."""
+    """The four convs on the Hopper core: with ``mult`` the requant forms
+    (int8 out), without it the accumulator forms (int32 out)."""
+    requant = mult is not None
     kh, kw = taps
     h, w = out_hw
     b = xp.shape[0]
@@ -245,23 +298,31 @@ def _launch_sm90(name, xp, prepared: PreparedWeights, bias, mult, taps,
     _build.require(prepared.wt, 'prepared.wt', torch.int8,
                    (n, prepared.row_bytes), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
-    _build.require(mult, 'mult', torch.float32, (n,), dev)
+    if requant:
+        _build.require(mult, 'mult', torch.float32, (n,), dev)
     if b < 1 or h < 1 or w < 1:
         raise ValueError(f'{name}: empty output')
     th, tw = conv_tile_plan(h, w)
     if tile_n is None:
-        tile_n = sm90_tile_n(b * -(-h // th) * -(-w // tw), n,
-                             kh * kw * (prepared.cpad // prepared.tile_k),
-                             sm_count(dev), 64 if prepared.int4 else 128)
-    out = torch.empty((b, h * w, n), dtype=torch.int8, device=dev)
-    entry = (_build.lib().hawq_int4w_conv_sm90 if prepared.int4
-             else _build.lib().hawq_int8_conv_sm90)
+        tile_n = sm90_conv_tile_n(prepared, b, out_hw, sm_count(dev))
+    out = torch.empty((b, h * w, n),
+                      dtype=torch.int8 if requant else torch.int32, device=dev)
+    lib = _build.lib()
+    shape = (b, h, w, cin, kh, kw, n)
+    tail = (prepared.row_taps, prepared.cpad, prepared.tile_k, tile_n, th,
+            tw, pad[0], pad[1], smem_extra, _build.stream_ptr(dev))
     with torch.cuda.device(dev):
-        code = entry(
-            xp.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
-            mult.data_ptr(), out.data_ptr(), b, h, w, cin, kh, kw, n, lo, hi,
-            prepared.cpad, prepared.tile_k, tile_n, th, tw, pad[0], pad[1],
-            smem_extra, _build.stream_ptr(dev))
+        if requant:
+            entry = (lib.hawq_int4w_conv_sm90 if prepared.int4
+                     else lib.hawq_int8_conv_sm90)
+            code = entry(xp.data_ptr(), prepared.tensor_map(tile_n),
+                         bias.data_ptr(), mult.data_ptr(), out.data_ptr(),
+                         *shape, lo, hi, *tail)
+        else:
+            entry = (lib.hawq_int4w_conv_acc_sm90 if prepared.int4
+                     else lib.hawq_int8_conv_acc_sm90)
+            code = entry(xp.data_ptr(), prepared.tensor_map(tile_n),
+                         bias.data_ptr(), out.data_ptr(), *shape, *tail)
     _build.check(code, f'{name} (sm90 core)')
     _build.count(name, 'sm90')
     return out
@@ -300,46 +361,50 @@ def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
     return out
 
 
-def _conv_requant(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi,
-                  pad, core, tile_n, smem_extra):
-    """``int8_conv_requant`` / ``int4w_conv_requant``: the plain version (of
-    the Hopper core's walk for a handle) on a CPU tensor, else the core the
-    rule, or ``core``, names."""
+def _conv(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi, pad,
+          core, tile_n, smem_extra):
+    """The four convs (``mult`` None for the accumulator forms): the plain
+    version (of the Hopper core's walk for a handle) on a CPU tensor, else
+    the core the rule, or ``core``, names."""
     int4 = name.startswith('int4w')
+    requant = mult is not None
     n_taps = taps[0] * taps[1]
+    pad = (int(pad[0]), int(pad[1]))
     prepared = weights if isinstance(weights, PreparedWeights) else None
     if prepared is not None:
         prepared.check(n_taps, cin, name)
-    pad = (int(pad[0]), int(pad[1]))
+        if prepared.row_taps > 1 and (prepared.row_taps != taps[1] or pad[1]):
+            raise ValueError(f'{name}: weights prepared to read rows of '
+                             f'{prepared.row_taps} taps, the call has '
+                             f'{taps[1]} a row and a border of {pad[1]}')
     core = None if xp.device.type == 'cpu' else pick_core(
-        'conv', name, core, k=cin,
+        'conv' if requant else 'conv_acc', name, core, k=cin,
         n=prepared.n if prepared is not None else weights.shape[1],
         ptr=xp.data_ptr())
     if pad != (0, 0) and core != 'sm90':
         xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
         pad = (0, 0)
     if xp.device.type == 'cpu':
+        geo = dict(taps=taps, out_hw=out_hw, cin=cin)
         if prepared is not None:
-            return conv_requant_tiled_plain(
-                xp, prepared, bias, mult, taps=taps, out_hw=out_hw, cin=cin,
-                lo=lo, hi=hi)
-        if int4:
-            weights = unpack_int4_conv(weights, n_taps)
-        return conv_requant_plain(xp, weights, bias, mult, taps=taps,
-                                  out_hw=out_hw, cin=cin, lo=lo, hi=hi)
+            acc = conv_acc_tiled_plain(xp, prepared, bias, **geo)
+        else:
+            if int4:
+                weights = unpack_int4_conv(weights, n_taps)
+            acc = conv_acc_plain(xp, weights, bias, **geo)
+        return requant_epilogue(acc, mult, lo, hi) if requant else acc
     if core == 'mma':
         if prepared is not None:
             weights = unprepare_weights(prepared)
         return _launch(xp, weights, bias, mult, taps, out_hw, cin, lo, hi,
-                       True, int4)
+                       requant, int4)
     if prepared is None:
         if int4 and cin % 2:
             raise ValueError(f'{name} needs an even C per tap, got {cin}')
         _build.require(weights, 'w_packed' if int4 else 'w_flat', torch.int8,
                        (n_taps * (cin // 2 if int4 else cin),
                         weights.shape[1]), xp.device)
-        prepared = (prepare_weights_int4 if int4 else prepare_weights)(
-            weights, n_taps)
+        prepared = prepare_conv_weights(weights, taps, cin, pad, int4)
     return _launch_sm90(name, xp, prepared, bias, mult, taps, out_hw, cin, lo,
                         hi, pad, tile_n, smem_extra)
 
@@ -368,17 +433,20 @@ def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
     width, and ``smem_extra`` adds to its shared-memory request (timing and
     tests).  The result does not depend on any of them."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    return _conv_requant('int8_conv_requant', xp, w_flat, bias, mult, taps,
-                         out_hw, cin, lo, hi, pad, core, tile_n, smem_extra)
+    return _conv('int8_conv_requant', xp, w_flat, bias, mult, taps, out_hw,
+                 cin, lo, hi, pad, core, tile_n, smem_extra)
 
 
-def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin):
-    """Stride-1 int8 conv returning the raw int32 accumulator + bias."""
-    if xp.device.type == 'cpu':
-        return conv_acc_plain(xp, w_flat, bias, taps=taps, out_hw=out_hw,
-                              cin=cin)
-    return _launch(xp, w_flat, bias, None, taps, out_hw, cin, 0, 0, False,
-                   False)
+def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin,
+                  pad: Tuple[int, int] = (0, 0), core: Optional[str] = None,
+                  tile_n: Optional[int] = None, smem_extra: int = 0):
+    """Stride-1 int8 conv returning the raw int32 accumulator + bias →
+    (B, H·W, N) int32.  ``w_flat`` (or its ``prepare_weights`` handle),
+    ``pad``, ``core``, ``tile_n`` and ``smem_extra`` as in
+    :func:`int8_conv_requant`; the Hopper core takes the call where
+    ``matmul.sm90_route('conv_acc', …)`` admits it."""
+    return _conv('int8_conv_acc', xp, w_flat, bias, None, taps, out_hw, cin,
+                 0, 0, pad, core, tile_n, smem_extra)
 
 
 def int4w_conv_requant(xp, w_packed, bias, mult, *, taps, out_hw, cin,
@@ -393,15 +461,15 @@ def int4w_conv_requant(xp, w_packed, bias, mult, *, taps, out_hw, cin,
     them; ``pad``, ``core``, ``tile_n`` and ``smem_extra`` as in
     :func:`int8_conv_requant`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    return _conv_requant('int4w_conv_requant', xp, w_packed, bias, mult, taps,
-                         out_hw, cin, lo, hi, pad, core, tile_n, smem_extra)
+    return _conv('int4w_conv_requant', xp, w_packed, bias, mult, taps,
+                 out_hw, cin, lo, hi, pad, core, tile_n, smem_extra)
 
 
-def int4w_conv_acc(xp, w_packed, bias, *, taps, out_hw, cin):
-    """:func:`int8_conv_acc` with nibble-packed int4 weights."""
-    if xp.device.type == 'cpu':
-        return conv_acc_plain(
-            xp, unpack_int4_conv(w_packed, taps[0] * taps[1]), bias,
-            taps=taps, out_hw=out_hw, cin=cin)
-    return _launch(xp, w_packed, bias, None, taps, out_hw, cin, 0, 0, False,
-                   True)
+def int4w_conv_acc(xp, w_packed, bias, *, taps, out_hw, cin,
+                   pad: Tuple[int, int] = (0, 0), core: Optional[str] = None,
+                   tile_n: Optional[int] = None, smem_extra: int = 0):
+    """:func:`int8_conv_acc` with nibble-packed int4 weights: w_packed from
+    :func:`pack_int4_conv`, or its ``prepare_weights_int4`` handle (kept
+    packed on the Hopper core); C even."""
+    return _conv('int4w_conv_acc', xp, w_packed, bias, None, taps, out_hw,
+                 cin, 0, 0, pad, core, tile_n, smem_extra)

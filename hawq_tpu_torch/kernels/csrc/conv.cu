@@ -17,7 +17,9 @@
 // (C = 48, N = 256) is bound by its bytes.  The requant epilogue is fused so
 // that only int8 leaves the kernel; int4 weights are read packed (K/2*N
 // bytes) and unpacked in the W loader, the operations counted over the
-// unpacked K.  The core is gemm_s8.cuh.
+// unpacked K.  The core is gemm_s8.cuh.  All four kernels run on the
+// Hopper-native core (conv_sm90.cu, conv_int4_sm90.cu) wherever
+// kernels/matmul.py sm90_route takes the call; this file keeps the others.
 #include "gemm_s8.cuh"
 
 extern "C" int hawq_int8_conv(const int8_t* xp, const int8_t* w,

@@ -29,6 +29,13 @@
 //    bounds as the int8 conv with half the weight bytes.  wgmma has no 4-bit
 //    integer type, so the weights stream nibble-packed through the ring and
 //    are unpacked to int8 inside the kernel (see "Packed weights" below).
+//  * int8_conv_acc (CONV, !REQUANT) and int4w_conv_acc (CONV, !REQUANT,
+//    INT4): replace hawq_tpu/kernels/conv.py int8_conv_acc (conv.py:243) and
+//    int4w_conv_acc (conv.py:265): the engine's init conv, the second 3x3
+//    conv of a basic block, every k x k conv of the QAT forward.  Bound by
+//    their bytes: the int32 output is 4 bytes per output against 1 per
+//    input.  The conv producer with int8_matmul_acc's epilogue, stored
+//    through a 4-D int32 map in whole 128-byte lines.
 //
 // What the design does about that:
 //
@@ -778,26 +785,40 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
                                 stream);
 }
 
-// The stride-1 conv + requant over xp: the zero-padded (B, Hp, Wp*C) slab, or
-// with pad_h / pad_w the activations that lack that many rows / columns of
-// zero border on each side, which TMA then supplies.  The weights behind
+// The stride-1 conv over xp: the zero-padded (B, Hp, Wp*C) slab, or with
+// pad_h / pad_w the activations that lack that many rows / columns of zero
+// border on each side, which TMA then supplies.  The weights behind
 // ``wmap_bytes`` are the prepared (N, taps*Cpad) K-major copy, or with INT4
 // its nibble-packed (N, taps*Cpad/2) form; an M tile is a th x tw rectangle
 // of output pixels, so that every tap of it is one 4-D TMA box of the slab.
-template <bool INT4>
-inline int conv_requant_entry(const int8_t* xp, const void* wmap_bytes,
-                              const int32_t* bias, const float* mult,
-                              int8_t* out, int B, int H, int W, int C, int kh,
-                              int kw, int N, int lo, int hi, int cpad, int bk,
-                              int bn, int th, int tw, int pad_h, int pad_w,
-                              int smem_extra, cudaStream_t stream) {
+// With row_taps = kw (pad_w 0) a kernel row is one tap: the map's pixels are
+// kw*C bytes wide and C bytes apart, so that they overlap and one box holds
+// the row's kw taps of every pixel of the rectangle (TMA reads overlapping
+// rows as they are; the weights are laid out a row to a tap, Cpad the row's
+// kw*C rounded up to 64).
+// With REQUANT the output is the int8 (B, H, W, N) requant (one dense
+// {BN, tw, th, 1} box); without, the int32 accumulator + bias (mult, lo and
+// hi unused), stored as {32, tw, th, 1} boxes in the 128-byte swizzle: a
+// box's 128-byte rows are the rectangle's pixels in row-major order, the
+// order of the tile's rows, so the epilogue's int32 chunks go out as they
+// are staged.
+template <bool REQUANT, bool INT4>
+inline int conv_entry(const int8_t* xp, const void* wmap_bytes,
+                      const int32_t* bias, const float* mult, void* out, int B,
+                      int H, int W, int C, int kh, int kw, int N, int lo,
+                      int hi, int row_taps, int cpad, int bk, int bn, int th,
+                      int tw, int pad_h, int pad_w, int smem_extra,
+                      cudaStream_t stream) {
   if (th * tw != BM) return (int)cudaErrorInvalidValue;
+  if (row_taps != 1 && (row_taps != kw || pad_w != 0))
+    return (int)cudaErrorInvalidValue;
   const int Hp = H + kh - 1 - 2 * pad_h, Wp = W + kw - 1 - 2 * pad_w;
   CUtensorMap amap, wmap, omap;
   std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
   {
-    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)Wp, (cuuint64_t)Hp,
-                                (cuuint64_t)B};
+    const cuuint64_t dims[4] = {(cuuint64_t)row_taps * C,
+                                (cuuint64_t)(Wp - row_taps + 1),
+                                (cuuint64_t)Hp, (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)Wp * C,
                                    (cuuint64_t)Hp * Wp * C};
     const cuuint32_t box[4] = {(cuuint32_t)bk, (cuuint32_t)tw, (cuuint32_t)th,
@@ -807,14 +828,20 @@ inline int conv_requant_entry(const int8_t* xp, const void* wmap_bytes,
     if (code) return code;
   }
   {
+    const cuuint64_t elem = REQUANT ? 1 : 4;
     const cuuint64_t dims[4] = {(cuuint64_t)N, (cuuint64_t)W, (cuuint64_t)H,
                                 (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)N, (cuuint64_t)W * N,
-                                   (cuuint64_t)H * W * N};
-    const cuuint32_t box[4] = {(cuuint32_t)bn, (cuuint32_t)tw, (cuuint32_t)th,
-                               1};
-    int code = encode_map(&omap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, out, dims,
-                          strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    const cuuint64_t strides[3] = {(cuuint64_t)N * elem,
+                                   (cuuint64_t)W * N * elem,
+                                   (cuuint64_t)H * W * N * elem};
+    const cuuint32_t box[4] = {(cuuint32_t)(REQUANT ? bn : 32), (cuuint32_t)tw,
+                               (cuuint32_t)th, 1};
+    int code = encode_map(&omap,
+                          REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : CU_TENSOR_MAP_DATA_TYPE_INT32,
+                          4, out, dims, strides, box,
+                          REQUANT ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                  : CU_TENSOR_MAP_SWIZZLE_128B);
     if (code) return code;
   }
   Args p{};
@@ -823,10 +850,10 @@ inline int conv_requant_entry(const int8_t* xp, const void* wmap_bytes,
   p.N = N;
   p.lo = lo;
   p.hi = hi;
-  p.kw = kw;
+  p.kw = kw / row_taps;
   p.chunks = cpad / bk;
   p.cpad = cpad;
-  p.k_tiles = kh * kw * p.chunks;
+  p.k_tiles = kh * p.kw * p.chunks;
   p.tiles_x = (W + tw - 1) / tw;
   p.tiles_y = (H + th - 1) / th;
   p.th = th;
@@ -834,8 +861,8 @@ inline int conv_requant_entry(const int8_t* xp, const void* wmap_bytes,
   p.pad_y = pad_h;
   p.pad_x = pad_w;
   dim3 grid(B * p.tiles_x * p.tiles_y, (N + bn - 1) / bn);
-  return launch<true, true, INT4>(amap, wmap, omap, p, grid, bk, bn,
-                                  smem_extra, stream);
+  return launch<true, REQUANT, INT4>(amap, wmap, omap, p, grid, bk, bn,
+                                     smem_extra, stream);
 }
 
 }  // namespace hawq_sm90

@@ -11,8 +11,8 @@ The plain versions compute the int32 accumulator exactly through float64
 (every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
 op; the int4 forms unpack the weights with :func:`unpack_int4` first.
 
-``int8_matmul_requant`` and ``int8_matmul_acc`` (and ``int8_conv_requant`` /
-``int4w_conv_requant`` in kernels/conv.py) run on a second core written for
+``int8_matmul_requant`` and ``int8_matmul_acc`` (and the four convs of
+kernels/conv.py) run on a second core written for
 Hopper (csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma) wherever
 :func:`sm90_route` admits the shape, and on csrc/gemm_s8.cuh elsewhere.
 That core reads the weights K-major: :func:`prepare_weights` (and
@@ -132,22 +132,27 @@ class PreparedWeights:
     """(K, N) int8 weights laid out for the Hopper core: ``wt`` is (N,
     taps·cpad) K-major, each tap's ``cin`` rows zero-padded to ``cpad``, a
     multiple of 64.  Accepted by ``int8_matmul_requant``,
-    ``int8_matmul_acc`` and ``int8_conv_requant`` in place of the (K, N)
-    tensor.  With ``int4`` (:func:`prepare_weights_int4`, accepted by
-    ``int4w_conv_requant``) the weights stay nibble-packed: ``wt`` is (N,
-    taps·cpad/2) bytes, and inside every ``tile_k``-channel chunk byte i
-    holds channel c0 + i in its low nibble and channel c0 + tile_k/2 + i in
-    its high nibble, so that the kernel unpacks 16 packed bytes into two
-    whole 16-byte units of its int8 tile.  On a CUDA device the handle also
-    keeps the encoded TMA tensor map of ``wt`` per tile shape."""
+    ``int8_matmul_acc``, ``int8_conv_requant`` and ``int8_conv_acc`` in
+    place of the (K, N) tensor.  With ``int4`` (:func:`prepare_weights_int4`,
+    accepted by ``int4w_conv_requant`` and ``int4w_conv_acc``) the weights
+    stay nibble-packed: ``wt`` is (N, taps·cpad/2) bytes, and inside every
+    ``tile_k``-channel chunk byte i holds channel c0 + i in its low nibble
+    and channel c0 + tile_k/2 + i in its high nibble, so that the kernel
+    unpacks 16 packed bytes into two whole 16-byte units of its int8 tile.
+    With ``row_taps`` > 1 (a conv's, ``conv.prepare_conv_weights``) each of
+    the kernel's ``taps`` is a row of ``row_taps`` conv taps, read as one
+    pixel of ``cin`` = row_taps·C channels.  On a CUDA device the handle
+    also keeps the encoded TMA tensor map of ``wt`` per tile shape."""
 
-    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', 'int4', '_maps')
+    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', 'int4', 'row_taps',
+                 '_maps')
 
     def __init__(self, wt: torch.Tensor, taps: int, cin: int, cpad: int,
-                 int4: bool = False):
+                 int4: bool = False, row_taps: int = 1):
         self.wt, self.taps, self.cin, self.cpad = wt, taps, cin, cpad
         self.n = wt.shape[0]
         self.int4 = int4
+        self.row_taps = row_taps
         self._maps: Dict[Tuple[int, int], ctypes.Array] = {}
 
     @property
@@ -163,9 +168,10 @@ class PreparedWeights:
         """Raise unless the weights were prepared for ``taps`` taps of
         ``cin`` channels (a matmul: one tap of K), packed for an ``int4w_*``
         kernel and not packed for an ``int8_*`` one."""
-        if (self.taps, self.cin) != (taps, cin):
-            raise ValueError(f'{name}: weights prepared for {self.taps} '
-                             f'tap(s) of {self.cin}, the call has {taps} '
+        real = (self.taps * self.row_taps, self.cin // self.row_taps)
+        if real != (taps, cin):
+            raise ValueError(f'{name}: weights prepared for {real[0]} '
+                             f'tap(s) of {real[1]}, the call has {taps} '
                              f'of {cin}')
         if self.int4 != name.startswith('int4w'):
             raise ValueError(f'{name}: the handle holds '
@@ -202,24 +208,33 @@ class PreparedWeights:
         return self._maps[key]
 
 
-def prepare_weights(w_flat: torch.Tensor, taps: int = 1) -> PreparedWeights:
+def _row_geometry(name: str, k: int, taps: int, row_taps: int):
+    """(kernel taps, channels of a kernel tap, cpad) of ``taps`` taps of
+    equal C over K rows, ``row_taps`` of them to a kernel tap."""
+    if k % taps or taps % row_taps:
+        raise ValueError(f'{name}: K = {k} is not {taps} taps of equal C in '
+                         f'rows of {row_taps}')
+    cin = k // taps * row_taps
+    return taps // row_taps, cin, -(-cin // SM90_K_ALIGN) * SM90_K_ALIGN
+
+
+def prepare_weights(w_flat: torch.Tensor, taps: int = 1,
+                    row_taps: int = 1) -> PreparedWeights:
     """(taps·C, N) int8 weights (a matmul's (K, N) is one tap) → their
     K-major layout for the Hopper core, on ``w_flat``'s device:
     wt[n, t·cpad + c] = w_flat[t·C + c, n], zeros for C ≤ c < cpad, cpad = C
-    rounded up to a multiple of 64."""
+    rounded up to a multiple of 64.  With ``row_taps`` each kernel tap t is
+    ``row_taps`` consecutive taps (a kernel row), C = row_taps·C."""
     k, n = w_flat.shape
-    if k % taps:
-        raise ValueError(f'prepare_weights: K = {k} is not {taps} taps of '
-                         f'equal C')
-    cin = k // taps
-    cpad = -(-cin // SM90_K_ALIGN) * SM90_K_ALIGN
+    taps, cin, cpad = _row_geometry('prepare_weights', k, taps, row_taps)
     if taps == 1 and cpad == cin:          # a matmul with nothing to pad
-        return PreparedWeights(w_flat.t().contiguous(), 1, cin, cin)
+        return PreparedWeights(w_flat.t().contiguous(), 1, cin, cin,
+                               row_taps=row_taps)
     wt = w_flat.reshape(taps, cin, n).permute(2, 0, 1)
     if cpad != cin:
         wt = F.pad(wt, (0, cpad - cin))
     return PreparedWeights(wt.contiguous().reshape(n, taps * cpad), taps, cin,
-                           cpad)
+                           cpad, row_taps=row_taps)
 
 
 def pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -228,27 +243,28 @@ def pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return b.to(torch.uint8).view(torch.int8)
 
 
-def prepare_weights_int4(w_packed: torch.Tensor,
-                         taps: int = 1) -> PreparedWeights:
+def prepare_weights_int4(w_packed: torch.Tensor, taps: int = 1,
+                         row_taps: int = 1) -> PreparedWeights:
     """(taps·C/2, N) nibble-packed weights (``conv.pack_int4_conv``: per
     tap, byte[c] = W[c + C/2] << 4 | W[c] & 0xF) → their packed K-major
     handle for the Hopper core, on ``w_packed``'s device: (N, taps·cpad/2)
     bytes, cpad as in :func:`prepare_weights`, each ``tile_k``-channel chunk
     split into its low-nibble and high-nibble halves (see
-    :class:`PreparedWeights`)."""
+    :class:`PreparedWeights`); ``row_taps`` as in :func:`prepare_weights`."""
     kh, n = w_packed.shape
     if kh % taps:
         raise ValueError(f'prepare_weights_int4: {kh} packed rows are not '
                          f'{taps} taps of equal C/2')
-    cin = 2 * kh // taps
     w = unpack_int4(w_packed.reshape(taps, kh // taps, n))    # (taps, C, N)
-    cpad = -(-cin // SM90_K_ALIGN) * SM90_K_ALIGN
-    wt = F.pad(w.permute(2, 0, 1), (0, cpad - cin))           # (N, taps, cpad)
+    taps, cin, cpad = _row_geometry('prepare_weights_int4', 2 * kh, taps,
+                                    row_taps)
+    wt = F.pad(w.reshape(taps, cin, n).permute(2, 0, 1),
+               (0, cpad - cin))                               # (N, taps, cpad)
     tile_k = 128 if cpad % 128 == 0 else 64
     halves = wt.reshape(n, taps * cpad // tile_k, 2, tile_k // 2)
     packed = pack_nibbles(halves[:, :, 0], halves[:, :, 1])
     return PreparedWeights(packed.reshape(n, taps * cpad // 2).contiguous(),
-                           taps, cin, cpad, int4=True)
+                           taps, cin, cpad, int4=True, row_taps=row_taps)
 
 
 def unprepare_weights(prepared: PreparedWeights) -> torch.Tensor:
@@ -257,11 +273,12 @@ def unprepare_weights(prepared: PreparedWeights) -> torch.Tensor:
     ``conv.pack_int4_conv``."""
     p = prepared
     wt = p.kmajor_int8().reshape(p.n, p.taps, p.cpad)[:, :, :p.cin]
-    w = wt.permute(1, 2, 0)                                   # (taps, C, N)
+    w = wt.permute(1, 2, 0).reshape(p.taps * p.row_taps, -1,
+                                    p.n)                      # (taps, C, N)
     if p.int4:
-        half = p.cin // 2
+        half = w.shape[1] // 2
         return pack_nibbles(w[:, :half], w[:, half:]).reshape(
-            p.taps * half, p.n).contiguous()
+            p.k // 2, p.n).contiguous()
     return w.reshape(p.k, p.n).contiguous()
 
 
@@ -270,17 +287,18 @@ def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
     None where the Hopper core takes it, else the clause that excludes it.
 
     TMA needs every row stride and base pointer to be a multiple of 16
-    bytes.  ``kind`` 'matmul' (``int8_matmul_acc``: x (M, K) int8 at
-    ``ptr``, int32 output rows of N): K % 16, N % 4.  ``kind``
-    'matmul_requant' (``int8_matmul_requant``: the same x, int8 output rows
-    of N): K % 16, N % 16.  ``kind`` 'conv' (``int8_conv_requant`` and
-    ``int4w_conv_requant``: slab pixels of ``k`` = C channels at ``ptr``,
-    int8 output rows of N): C % 16, N % 16."""
-    if kind not in ('matmul', 'matmul_requant', 'conv'):
+    bytes: the input's rows of ``k`` int8 at ``ptr`` (x (M, K) for a
+    matmul, the slab's pixels of C channels for a conv), and the output's
+    rows of N, int32 (4 N bytes) for an accumulator, int8 after a requant.
+    ``kind`` 'matmul' (``int8_matmul_acc``): K % 16, N % 4;
+    'matmul_requant' (``int8_matmul_requant``): K % 16, N % 16; 'conv'
+    (``int8_conv_requant``, ``int4w_conv_requant``): C % 16, N % 16;
+    'conv_acc' (``int8_conv_acc``, ``int4w_conv_acc``): C % 16, N % 4."""
+    if kind not in ('matmul', 'matmul_requant', 'conv', 'conv_acc'):
         raise ValueError(f'sm90_route: kind {kind!r}')
     if k % 16:
-        return 'C % 16' if kind == 'conv' else 'K % 16'
-    n_align = 4 if kind == 'matmul' else 16
+        return 'C % 16' if kind.startswith('conv') else 'K % 16'
+    n_align = 4 if kind in ('matmul', 'conv_acc') else 16
     if n % n_align:
         return f'N % {n_align}'
     if ptr % 16:

@@ -145,13 +145,16 @@ def _int_conv_acc(x8: torch.Tensor, w8: torch.Tensor, b32: torch.Tensor,
                   strides: Tuple[int, int], pad) -> torch.Tensor:
     """int8 NHWC × int8 HWIO + int32 bias → int32 NHWC through the
     accumulator kernels (their plain versions on the CPU): a 1×1 conv is a
-    strided slice and ``int8_matmul_acc``; a k×k conv the padded slab and
-    ``int8_conv_acc``, stride 2 through the space-to-depth rewrite."""
+    strided slice and ``int8_matmul_acc``; a k×k conv ``int8_conv_acc``,
+    stride 1 with a symmetric border on the unpadded activations (``pad=``:
+    the Hopper core's TMA supplies the border), stride 2 through the
+    space-to-depth rewrite."""
     kh, kw, cin, cout = w8.shape
     sh, sw = strides
-    x8 = _pad_nhwc(x8, pad)
-    b = x8.shape[0]
+    (t, bo), (l, r) = pad
+    b, h, w = x8.shape[:3]
     if (kh, kw) == (1, 1):
+        x8 = _pad_nhwc(x8, pad)
         if (sh, sw) != (1, 1):
             x8 = x8[:, ::sh, ::sw, :]
         x8 = x8.contiguous()
@@ -159,12 +162,22 @@ def _int_conv_acc(x8: torch.Tensor, w8: torch.Tensor, b32: torch.Tensor,
         acc = km.int8_matmul_acc(x8.reshape(b * oh * ow, cin),
                                  w8.reshape(cin, cout).contiguous(), b32)
         return acc.reshape(b, oh, ow, cout)
-    h, w = x8.shape[1:3]
-    if (sh, sw) == (1, 1):
-        oh, ow = h - kh + 1, w - kw + 1
+    border = (0, 0)
+    if (sh, sw) == (1, 1) and t == bo and l == r:
+        oh, ow = h + 2 * t - kh + 1, w + 2 * l - kw + 1
+        xp, border = x8.contiguous().reshape(b, h, w * cin), (t, l)
+    elif (sh, sw) == (1, 1):
+        x8 = _pad_nhwc(x8, pad)
+        oh, ow = x8.shape[1] - kh + 1, x8.shape[2] - kw + 1
         xp = kc.prepare_conv_input(x8, (0, 0))
     elif (sh, sw) == (2, 2):
-        oh, ow = kc.s2d_output_hw(h, w, kh, kw, 0)
+        # C zero-filled to a multiple of 4, so that the rewrite's 4·C meets
+        # the Hopper core's C % 16 (the RGB init: 3 → 4); zero activations
+        # meet zero weights
+        dc = -cin % 4
+        x8 = F.pad(x8, (0, dc, l, r, t, bo))
+        w8 = F.pad(w8, (0, 0, 0, dc))
+        oh, ow = kc.s2d_output_hw(h + t + bo, w + l + r, kh, kw, 0)
         w8 = kc.s2d_kernel_torch(w8)
         # an even kernel size gains a zero tap in the rewrite, and with it
         # one more (zero) row or column of input
@@ -178,7 +191,7 @@ def _int_conv_acc(x8: torch.Tensor, w8: torch.Tensor, b32: torch.Tensor,
             f'space-to-depth)')
     taps, c_eff = tuple(w8.shape[:2]), w8.shape[2]
     acc = kc.int8_conv_acc(xp, kc.flatten_conv_kernel_torch(w8), b32,
-                           taps=taps, out_hw=(oh, ow), cin=c_eff)
+                           taps=taps, out_hw=(oh, ow), cin=c_eff, pad=border)
     return acc.reshape(b, oh, ow, cout)
 
 

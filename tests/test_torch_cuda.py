@@ -346,6 +346,54 @@ def test_qat_forward_cuda_equals_cpu(dev, arch, scheme):
                                atol=0)
 
 
+def test_qat_train_step_cuda_equals_cpu(dev):
+    """One folded train step of tiny18 (every int8_conv_acc call at widths
+    the Hopper core takes: the channel-padded 7×7/s2 init, the 3×3 convs,
+    the 3×3/s2 through space-to-depth) on the card == on the CPU: every
+    q_int and range bit-equal, the loss and the gradients within rtol 1e-3
+    (cuDNN / cuBLAS against the CPU's float convolutions)."""
+    from hawq_tpu_torch.models.resnet import qat_from_numpy, qat_to_numpy
+    from hawq_tpu_torch.train.train import (TrainState, make_train_step,
+                                            sgd_with_step_decay)
+    cfg = get_bit_config('tiny18', 'uniform8')
+    rng = np.random.RandomState(4)
+    images = rng.randn(2, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, 10, (2,))
+    cpu = QResNet('tiny18', cfg, 10, seed=0)
+    with torch.no_grad():
+        for _ in range(2):
+            cpu(torch.from_numpy(images), folded=True, update_stats=True)
+    card = qat_from_numpy(QResNet('tiny18', cfg, 10, seed=1).to(dev),
+                          qat_to_numpy(cpu))
+    out = {}
+    for name, model, device in (('cpu', cpu, 'cpu'), ('card', card, dev)):
+        state = TrainState.create(model, sgd_with_step_decay(model, 1e-4))
+        batch = {'image': torch.from_numpy(images).to(device),
+                 'label': torch.from_numpy(labels).to(device)}
+        _build.reset_launches()
+        with L.capture_q_int(model) as q:
+            _, metrics = make_train_step(model, folded=True)(state, batch)
+        out[name] = dict(
+            q={k: v.cpu() for k, v in q.items()},
+            ranges={k: v.cpu() for k, v in model.named_buffers()
+                    if k.endswith(('x_min', 'x_max'))},
+            grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+            loss=float(metrics['loss']))
+    assert _core_counts()['int8_conv_acc@sm90'] == 7      # init + six 3×3
+    assert 'int8_conv_acc@mma' not in _core_counts()
+    for kind in ('q', 'ranges'):
+        assert sorted(out['card'][kind]) == sorted(out['cpu'][kind])
+        for k, want in out['cpu'][kind].items():
+            torch.testing.assert_close(out['card'][kind][k], want, rtol=0,
+                                       atol=0, msg=f'{kind} {k}')
+    assert abs(out['card']['loss'] - out['cpu']['loss']) <= 1e-5 * abs(
+        out['cpu']['loss'])
+    for k, want in out['cpu']['grads'].items():
+        torch.testing.assert_close(out['card']['grads'][k], want, rtol=1e-3,
+                                   atol=1e-3 * float(want.abs().max()),
+                                   msg=k)
+
+
 # ---------------------------------------------------------------------------
 # the Hopper GEMM core (csrc/gemm_s8_sm90.cuh) under int8_matmul_acc,
 # int8_matmul_requant, int8_conv_requant and int4w_conv_requant
@@ -634,6 +682,92 @@ def test_sm90_int4w_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
         kc.int4w_conv_requant(xp, wp, bias, mult, pad=pad, **geo)
 
 
+# (B, H, W, C), N, taps, pad of the accumulator convs: the engine's folded
+# init at batch 8 (C = 48, on the slab), the QAT step's at batch 32 (the
+# channel-padded 7×7/s2 init's 4×4-tap rewrite, C = 16, and the four 3×3
+# stages of ResNet-50 with their border left to TMA), the four conv2 stages
+# of ResNet-18 at batch 8; then ragged calls: N % 4 but not % 16, images
+# smaller than a tile, B = 1 and 3, a 1×1 tap, a 2×2-tap stride-2 rewrite, C
+# between the K paddings, a border on one axis only
+_SM90_CONV_ACCS = [((8, 56, 56, 48), 256, (3, 3), (0, 0)),
+                   ((32, 112, 112, 16), 64, (4, 4), (0, 0)),
+                   ((32, 56, 56, 64), 64, (3, 3), (1, 1)),
+                   ((32, 28, 28, 128), 128, (3, 3), (1, 1)),
+                   ((32, 14, 14, 256), 256, (3, 3), (1, 1)),
+                   ((32, 7, 7, 512), 512, (3, 3), (1, 1)),
+                   ((8, 56, 56, 64), 64, (3, 3), (1, 1)),
+                   ((8, 28, 28, 128), 128, (3, 3), (1, 1)),
+                   ((8, 14, 14, 256), 256, (3, 3), (1, 1)),
+                   ((8, 7, 7, 512), 512, (3, 3), (1, 1)),
+                   ((2, 9, 7, 16), 20, (3, 3), (1, 1)),
+                   ((1, 5, 5, 16), 16, (3, 3), (0, 0)),
+                   ((3, 1, 1, 32), 44, (3, 3), (1, 1)),
+                   ((2, 9, 7, 48), 32, (1, 1), (0, 0)),
+                   ((1, 7, 7, 192), 1004, (2, 2), (0, 0)),
+                   ((1, 14, 14, 80), 80, (3, 3), (1, 0)),
+                   ((3, 33, 31, 64), 144, (3, 3), (1, 1))]
+
+
+@pytest.mark.parametrize('int4', [False, True])
+@pytest.mark.parametrize('shape,n,taps,pad', _SM90_CONV_ACCS)
+def test_sm90_conv_acc_equals_plain_and_first_core(dev, shape, n, taps, pad,
+                                                   int4):
+    """``int8_conv_acc`` / ``int4w_conv_acc`` on the Hopper core (the int32
+    epilogue through a 4-D map) == the plain version == its walk == the
+    first core, with a handle (a plain one, and where the call allows the
+    one that reads a kernel row as one tap) and with plain weights (laid
+    out at each call), at every tile width and with the border left to
+    TMA; the two cores in turns."""
+    rng = np.random.RandomState(sum(shape) + n + int4)
+    b, h, w, c = shape
+    kh, kw = taps
+    x = torch.tensor(rng.randint(-128, 128, (
+        b, h + kh - 1 - 2 * pad[0], (w + kw - 1 - 2 * pad[1]) * c)).astype(
+            np.int8), device=dev)
+    wf = (_w4(rng, (kh * kw * c, n)) if int4 else
+          rng.randint(-127, 128, (kh * kw * c, n)).astype(np.int8))
+    if c >= 256:                    # saturated operands: large |acc|
+        x[0] = -128
+        wf[:, 0], wf[:, 1] = (-8, 7) if int4 else (127, -127)
+    if int4:
+        weights = torch.tensor(kc.pack_int4_conv(wf, kh * kw), device=dev)
+        prepared = km.prepare_weights_int4(weights, kh * kw)
+        fn, name = kc.int4w_conv_acc, 'int4w_conv_acc'
+    else:
+        weights = torch.tensor(wf, device=dev)
+        prepared = km.prepare_weights(weights, kh * kw)
+        fn, name = kc.int8_conv_acc, 'int8_conv_acc'
+    _, _, bias, _ = _operands(rng, 1, 1, n, dev)
+    geo = dict(taps=taps, out_hw=(h, w), cin=c, pad=pad)
+    xp = kc.pad_conv_input(x, pad, **{k: geo[k] for k in
+                                      ('taps', 'out_hw', 'cin')})
+    flat = dict(taps=taps, out_hw=(h, w), cin=c)
+    handles = [prepared]
+    rows = kc.prepare_conv_weights(weights, taps, c, pad, int4)
+    if rows.row_taps > 1:
+        handles.append(rows)
+    want = kc.conv_acc_plain(xp, torch.tensor(wf, device=dev), bias, **flat)
+    _build.reset_launches()
+    for handle in handles:
+        torch.testing.assert_close(kc.conv_acc_tiled_plain(
+            xp, handle, bias, **flat), want, rtol=0, atol=0)
+        for tile_n in (None, 32, 64, 128):
+            torch.testing.assert_close(fn(x, handle, bias, tile_n=tile_n,
+                                          **geo), want, rtol=0, atol=0)
+    for core in ('mma', 'sm90', 'sm90', 'mma'):
+        torch.testing.assert_close(fn(x, weights, bias, core=core, **geo),
+                                   want, rtol=0, atol=0)
+    torch.testing.assert_close(fn(x, prepared, bias, smem_extra=4096, **geo),
+                               want, rtol=0, atol=0)
+    torch.testing.assert_close(fn(xp, weights, bias, **flat), want, rtol=0,
+                               atol=0)
+    assert _core_counts() == {f'{name}@sm90': 4 * len(handles) + 4,
+                              f'{name}@mma': 2}
+    if pad != (0, 0):
+        with pytest.raises(ValueError):         # the slab where x is expected
+            fn(xp, weights, bias, **geo)
+
+
 def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
     """One call per clause of ``sm90_route``: it runs on the first core,
     equals the plain version, and asking for the Hopper core raises."""
@@ -706,6 +840,27 @@ def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
         assert _core_counts() == {'int8_conv_requant@mma': 1}
         with pytest.raises(ValueError):
             kc.int8_conv_requant(xp, wf, bias, mult, core='sm90', **geo)
+    for (c, n, offset), clause in (((12, 16, 0), 'C % 16'),
+                                   ((16, 18, 0), 'N % 4'),
+                                   ((16, 20, 4), 'pointer % 16')):
+        bsz, h, w_ = 2, 6, 5
+        size = bsz * (h + 2) * (w_ + 2) * c
+        xp = big[offset:offset + size].view(bsz, h + 2, (w_ + 2) * c)
+        wf = _w4(rng, (9 * c, n))
+        wp = torch.tensor(kc.pack_int4_conv(wf, 9), device=dev)
+        wf = torch.tensor(wf, device=dev)
+        _, _, bias, _ = _operands(rng, 1, 1, n, dev)
+        geo = dict(taps=(3, 3), out_hw=(h, w_), cin=c)
+        assert km.sm90_route('conv_acc', k=c, n=n, ptr=xp.data_ptr()) == clause
+        want = kc.conv_acc_plain(xp, wf, bias, **geo)
+        for fn, weights, name in ((kc.int8_conv_acc, wf, 'int8_conv_acc'),
+                                  (kc.int4w_conv_acc, wp, 'int4w_conv_acc')):
+            _build.reset_launches()
+            torch.testing.assert_close(fn(xp, weights, bias, **geo), want,
+                                       rtol=0, atol=0)
+            assert _core_counts() == {f'{name}@mma': 1}
+            with pytest.raises(ValueError):
+                fn(xp, weights, bias, core='sm90', **geo)
 
 
 def test_sm90_oversized_shared_memory_request_raises(dev):
@@ -726,6 +881,12 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
     with pytest.raises(RuntimeError):
         kc.int4w_conv_requant(xp, wp, b, mult, taps=(3, 3), out_hw=(8, 8),
                               cin=64, smem_extra=1 << 20)
+    with pytest.raises(RuntimeError):
+        kc.int8_conv_acc(xp, wf, b, taps=(3, 3), out_hw=(8, 8), cin=64,
+                         smem_extra=1 << 20)
+    with pytest.raises(RuntimeError):
+        kc.int4w_conv_acc(xp, wp, b, taps=(3, 3), out_hw=(8, 8), cin=64,
+                          smem_extra=1 << 20)
     assert _core_counts() == {}
     # and the same calls go through afterwards
     torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
@@ -735,10 +896,10 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
 
 @pytest.mark.parametrize('scheme,want', [
     ('uniform8', {'int8_conv_requant@sm90': 16, 'int8_matmul_acc@sm90': 21,
-                  'int8_matmul_requant@sm90': 16, 'int8_conv_acc@mma': 1}),
+                  'int8_matmul_requant@sm90': 16, 'int8_conv_acc@sm90': 1}),
     ('uniform4', {'int4w_conv_requant@sm90': 16, 'int4w_matmul_requant@mma': 16,
                   'int4w_matmul_acc@mma': 20, 'int8_matmul_acc@sm90': 1,
-                  'int8_conv_acc@mma': 1})])
+                  'int8_conv_acc@sm90': 1})])
 def test_engine_cuda_runs_the_hopper_core(dev, scheme, want):
     """ResNet-50 widths at a small image: the engine's prepared weights go
     through the Hopper core and the logits equal the CPU engine's."""

@@ -53,7 +53,10 @@ _CONVS = [  # k, stride, padding, C, O, H
     (1, 1, 'VALID', 8, 16, 9), (1, 2, 'VALID', 8, 16, 9),
     (3, 1, ((1, 1), (1, 1)), 8, 16, 9), (3, 2, ((1, 1), (1, 1)), 8, 16, 9),
     (3, 2, ((1, 1), (1, 1)), 8, 16, 10), (7, 2, ((3, 3), (3, 3)), 3, 16, 32),
-    (3, 2, 'SAME', 4, 8, 10), (3, 1, 'SAME', 4, 8, 7)]
+    (3, 2, 'SAME', 4, 8, 10), (3, 1, 'SAME', 4, 8, 7),
+    # the ResNet-50 init's widths, and a C the space-to-depth path zero-fills
+    # to a multiple of 4 (3 → 4, 5 → 8) before the rewrite
+    (7, 2, ((3, 3), (3, 3)), 3, 64, 16), (3, 2, 'SAME', 5, 7, 10)]
 
 
 @pytest.mark.parametrize('k,s,pad,c,o,h', _CONVS)

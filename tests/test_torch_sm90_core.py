@@ -1,13 +1,15 @@
 """The Hopper GEMM core's host side and plain walk on the CPU.
 
-``int8_conv_requant``, ``int4w_conv_requant``, ``int8_matmul_requant`` and
+The four convs (``int8_conv_requant``, ``int4w_conv_requant``,
+``int8_conv_acc``, ``int4w_conv_acc``), ``int8_matmul_requant`` and
 ``int8_matmul_acc`` run on a second CUDA core on the card
 (csrc/gemm_s8_sm90.cuh).  What surrounds that kernel is Python and is tested
 here: the K-major weight layouts (``prepare_weights``, and
 ``prepare_weights_int4`` for weights that stay nibble-packed), the conv's
 plan of pixel-rectangle tiles, the plain versions of the kernel's own walk
-(``conv_requant_tiled_plain``, ``matmul_acc_kmajor_plain``,
-``matmul_requant_kmajor_plain``) against the first plain versions and
+(``conv_acc_tiled_plain`` and its requant ``conv_requant_tiled_plain``,
+``matmul_acc_kmajor_plain``, ``matmul_requant_kmajor_plain``) against the
+first plain versions and
 against the JAX package's Pallas kernels in interpret mode (same numpy
 inputs from a seed, tolerance 0), the rule that routes a call to one core or
 the other, and the engine's caches of prepared weights.  The kernel itself
@@ -18,6 +20,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from hawq_tpu.configs.bit_config import get_bit_config as jax_bit_config
@@ -33,6 +36,7 @@ from hawq_tpu_torch.inference.engine import build_resnet_engine
 from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
 from hawq_tpu_torch.kernels import conv as tkc
 from hawq_tpu_torch.kernels import matmul as tkm
+from hawq_tpu_torch.nn import layers as TL
 from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
 from tests.test_torch_engine import _port_fm, _reference_nodes
 
@@ -118,6 +122,38 @@ def test_prepare_weights_int4_layout_and_round_trip(taps, cin):
     np.testing.assert_array_equal(tkm.unprepare_weights(p).numpy(), packed)
 
 
+@pytest.mark.parametrize('int4', [False, True])
+@pytest.mark.parametrize('taps,cin,pad,rows', [
+    ((4, 4), 16, (0, 0), 4), ((3, 3), 48, (0, 0), 3), ((3, 3), 16, (1, 0), 3),
+    ((3, 3), 16, (1, 1), 1), ((3, 3), 64, (0, 0), 1), ((1, 1), 16, (0, 0), 1),
+    ((2, 2), 80, (0, 0), 2)])
+def test_prepare_conv_weights_reads_a_kernel_row_as_one_tap(taps, cin, pad,
+                                                            rows, int4):
+    """Where C is not a multiple of 64 and no border is left to TMA along x,
+    a kernel row of kw taps is one tap of kw·C channels: the handle is that
+    of the (kh, kw·C, N) weights, K padded to 64 once a row; it round-trips
+    to the flat weights (per-tap packed bytes for int4)."""
+    kh, kw = taps
+    n = 12
+    rng = np.random.RandomState(kh + cin + n)
+    w = _w4(rng, (kh * kw * cin, n))
+    flat = _t(tkc.pack_int4_conv(w, kh * kw)) if int4 else _t(w)
+    assert tkc.sm90_row_taps(taps, cin, pad) == rows
+    p = tkc.prepare_conv_weights(flat, taps, cin, pad, int4)
+    row_cin = rows * cin
+    assert (p.taps, p.cin, p.row_taps, p.k, p.int4) == (
+        kh * kw // rows, row_cin, rows, kh * kw * cin, int4)
+    assert p.cpad == -(-row_cin // 64) * 64
+    # the int8 K-major layout is that of the weights seen as (kh·kw/rows)
+    # taps of rows·C channels
+    np.testing.assert_array_equal(
+        p.kmajor_int8().numpy(),
+        tkm.prepare_weights(_t(w), kh * kw // rows).wt.numpy())
+    np.testing.assert_array_equal(tkm.unprepare_weights(p).numpy(),
+                                  flat.numpy())
+    p.check(kh * kw, cin, 'int4w_conv_acc' if int4 else 'int8_conv_acc')
+
+
 def test_prepare_weights_int4_rejects_uneven_taps():
     with pytest.raises(ValueError):
         tkm.prepare_weights_int4(torch.zeros((10, 4), dtype=torch.int8), 3)
@@ -190,6 +226,7 @@ def test_conv_tiled_plain_matches_plain_and_pallas(shape, n, taps, case):
     bias, mult = _vectors(rng, n, half=case == 'half')
     geo = dict(taps=taps, out_hw=(h, w), cin=c)
     prepared = tkm.prepare_weights(_t(wf), kh * kw)
+    rows = tkc.prepare_conv_weights(_t(wf), taps, c)
     for out_bits, signed, relu in [(8, True, False), (8, True, True),
                                    (4, False, True)]:
         epi = dict(out_bits=out_bits, signed=signed, relu=relu)
@@ -199,6 +236,9 @@ def test_conv_tiled_plain_matches_plain_and_pallas(shape, n, taps, case):
         tiled = tkc.conv_requant_tiled_plain(_t(xp), prepared, _t(bias),
                                              _t(mult), lo=lo, hi=hi,
                                              **geo).numpy()
+        np.testing.assert_array_equal(tkc.conv_requant_tiled_plain(
+            _t(xp), rows, _t(bias), _t(mult), lo=lo, hi=hi, **geo).numpy(),
+            tiled, err_msg=str(epi))
         # the wrapper takes the walk's plain version for a prepared handle
         wrapped = tkc.int8_conv_requant(_t(xp), prepared, _t(bias), _t(mult),
                                         **geo, **epi).numpy()
@@ -334,6 +374,70 @@ def test_int4w_conv_tiled_plain_matches_plain_and_pallas(shape, n, taps, pad,
         assert (acc[..., ::2] % 2 != 0).any()
 
 
+# (B, H, W, C), N, taps, pad, case of the accumulator walk: ragged N (N % 4
+# only) with the border left to TMA, the folded init (C = 48, N = 256), the
+# channel-padded RGB init's 4×4-tap space-to-depth rewrite (C = 16), a 2×2-tap
+# stride-2 rewrite, and saturated operands whose sums pass 2**24 (for the
+# int4 weights at C = 2048)
+_WALK_CONVS_ACC = [((2, 9, 7, 16), 20, (3, 3), (1, 1), 'random'),
+                   ((1, 8, 8, 48), 256, (3, 3), (0, 0), 'random'),
+                   ((2, 10, 10, 16), 64, (4, 4), (0, 0), 'random'),
+                   ((3, 5, 5, 64), 32, (2, 2), (0, 0), 'random'),
+                   ((1, 8, 8, 128), 8, (3, 3), (1, 1), 'saturated'),
+                   ((1, 3, 3, 2048), 8, (3, 3), (1, 1), 'saturated')]
+
+
+@pytest.mark.parametrize('int4', [False, True])
+@pytest.mark.parametrize('shape,n,taps,pad,case', _WALK_CONVS_ACC)
+def test_conv_acc_tiled_plain_matches_plain_and_pallas(shape, n, taps, pad,
+                                                       case, int4):
+    """``int8_conv_acc`` / ``int4w_conv_acc`` with the handle (the Hopper
+    core's walk, packed nibbles unpacked chunk by chunk) == with the flat
+    (or ``pack_int4_conv``) weights == ``conv_acc_plain`` == the Pallas
+    kernel; with ``pad`` the wrappers are handed the activations without
+    their zero border."""
+    rng = np.random.RandomState(sum(shape) + n + int4)
+    b, h, w, c = shape
+    kh, kw = taps
+    x = rng.randint(-128, 128, (b, h + kh - 1 - 2 * pad[0],
+                                (w + kw - 1 - 2 * pad[1]) * c)).astype(np.int8)
+    wf = (_w4(rng, (kh * kw * c, n)) if int4 else
+          rng.randint(-127, 128, (kh * kw * c, n)).astype(np.int8))
+    if case == 'saturated':
+        x[:] = -128
+        wf[:, 0], wf[:, 1] = (7, -8) if int4 else (127, -127)
+    bias = rng.randint(-2 ** 14, 2 ** 14, n).astype(np.int32)
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    xp = tkc.pad_conv_input(_t(x), pad, **geo)
+    if int4:
+        weights = _t(tkc.pack_int4_conv(wf, kh * kw))
+        prepared = tkm.prepare_weights_int4(weights, kh * kw)
+        fn, jfn = tkc.int4w_conv_acc, jkc.int4w_conv_acc
+    else:
+        weights = _t(wf)
+        prepared = tkm.prepare_weights(weights, kh * kw)
+        fn, jfn = tkc.int8_conv_acc, jkc.int8_conv_acc
+    # the handle the wrapper itself lays out: a kernel row read as one tap
+    # where the call allows (the two init convs)
+    rows = tkc.prepare_conv_weights(weights, taps, c, pad, int4)
+    assert rows.row_taps == (kw if c % 64 and pad == (0, 0) else 1)
+    plain = tkc.conv_acc_plain(xp, _t(wf), _t(bias), **geo).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jfn(jnp.asarray(xp.numpy()),
+                                jnp.asarray(weights.numpy()),
+                                jnp.asarray(bias), **geo))
+    np.testing.assert_array_equal(plain, pallas)
+    for handle in (prepared, rows):
+        tiled = tkc.conv_acc_tiled_plain(xp, handle, _t(bias), **geo).numpy()
+        assert tiled.dtype == np.int32 and tiled.shape == (b, h * w, n)
+        np.testing.assert_array_equal(tiled, plain)
+    for wts in (prepared, rows, weights):
+        np.testing.assert_array_equal(
+            fn(_t(x), wts, _t(bias), pad=pad, **geo).numpy(), plain)
+    if case == 'saturated' and (not int4 or c == 2048):
+        assert np.abs(plain - bias).max() > 2 ** 24
+
+
 _WALK_REQUANT_MATMULS = [(37, 48, 16, 'random'), (64, 64, 64, 'random'),
                          (130, 80, 80, 'random'), (8, 2048, 32, 'saturated'),
                          (256, 192, 48, 'random'), (65, 32, 16, 'half'),
@@ -395,6 +499,17 @@ def test_wrappers_reject_a_handle_of_another_shape():
     with pytest.raises(ValueError):
         tkm.int8_matmul_requant(torch.zeros((4, 32), dtype=torch.int8), p,
                                 bias, mult)
+    # a handle that reads a kernel row as one tap needs the whole row in the
+    # slab: no border left to TMA along x
+    w16 = torch.zeros((9 * 16, 8), dtype=torch.int8)
+    rows = tkc.prepare_conv_weights(w16, (3, 3), 16)
+    assert rows.row_taps == 3
+    geo3 = dict(taps=(3, 3), out_hw=(4, 4), cin=16)
+    tkc.int8_conv_acc(torch.zeros((1, 6, 6 * 16), dtype=torch.int8), rows,
+                      bias, **geo3)
+    with pytest.raises(ValueError):
+        tkc.int8_conv_acc(torch.zeros((1, 4, 4 * 16), dtype=torch.int8), rows,
+                          bias, pad=(1, 1), **geo3)
     # packed weights only through the int4w kernel, int8 ones only through
     # the int8 kernels
     p4 = tkm.prepare_weights_int4(torch.zeros((4 * 8, 8), dtype=torch.int8), 4)
@@ -413,13 +528,16 @@ def test_wrappers_reject_a_handle_of_another_shape():
 
 def _resnet50_gemm_shapes(batch, size=224):
     """(kind, M or pixels, K or C, N) of every ``int8_matmul_requant``
-    (kind 'matmul_requant'), ``int8_conv_requant`` and ``int8_matmul_acc``
-    call of a ResNet-50 uniform8 engine forward (the 'conv' entries are
-    also the ``int4w_conv_requant`` calls of the uniform4 engine), and of
-    every ``int8_matmul_acc`` call of a QAT forward (all 1×1 convs and the
-    FC), at ``batch`` × ``size``²."""
-    engine, train = [], []
+    (kind 'matmul_requant'), ``int8_conv_requant``, ``int8_conv_acc``
+    (kind 'conv_acc': the folded init) and ``int8_matmul_acc`` call of a
+    ResNet-50 uniform8 engine forward (the 'conv' entries are also the
+    ``int4w_conv_requant`` calls of the uniform4 engine), and of every
+    ``int8_matmul_acc`` (all 1×1 convs and the FC) and ``int8_conv_acc``
+    call (the channel-padded 7×7/s2 init's 4×4-tap rewrite, C = 16, and
+    the 3×3 convs) of a QAT forward, at ``batch`` × ``size``²."""
     hw = size // 4
+    engine = [('conv_acc', batch * hw * hw, 48, 256)]
+    train = [('conv_acc', batch * 4 * hw * hw, 16, 64)]
     cin = 64
     for stage, units in enumerate(RESNET_UNITS['resnet50']):
         mid, out = 64 * 2 ** stage, 256 * 2 ** stage
@@ -431,6 +549,7 @@ def _resnet50_gemm_shapes(batch, size=224):
             engine.append(('matmul_requant', m_out, cin, mid))
             # conv2: 3×3 stride 1, or its 2×2-tap space-to-depth rewrite
             engine.append(('conv', m_out, mid * stride * stride, mid))
+            train.append(('conv_acc', m_out, mid, mid))     # 3×3, stride 1
             engine.append(('matmul', m_out, mid, out))           # conv3
             train.append(('matmul', m_out, mid, out))
             if unit == 0:                                        # identity
@@ -463,7 +582,9 @@ def test_resnet50_shape_lists_have_the_launch_counts():
     assert sum(s[0] == 'conv' for s in _ENGINE_SHAPES) == 16
     assert sum(s[0] == 'matmul_requant' for s in _ENGINE_SHAPES) == 16
     assert sum(s[0] == 'matmul' for s in _ENGINE_SHAPES) == 21
-    assert len(_TRAIN_SHAPES) == 37
+    assert sum(s[0] == 'conv_acc' for s in _ENGINE_SHAPES) == 1
+    assert sum(s[0] == 'matmul' for s in _TRAIN_SHAPES) == 37
+    assert sum(s[0] == 'conv_acc' for s in _TRAIN_SHAPES) == 17
 
 
 @pytest.mark.parametrize('kind,k,n,ptr,clause', [
@@ -474,7 +595,10 @@ def test_resnet50_shape_lists_have_the_launch_counts():
     ('conv', 10, 16, 512, 'C % 16'), ('matmul_requant', 45, 16, 512, 'K % 16'),
     ('matmul_requant', 48, 20, 512, 'N % 16'),
     ('matmul_requant', 48, 1000, 512, 'N % 16'),
-    ('matmul_requant', 48, 16, 520, 'pointer % 16')])
+    ('matmul_requant', 48, 16, 520, 'pointer % 16'),
+    ('conv_acc', 12, 64, 512, 'C % 16'), ('conv_acc', 3, 64, 512, 'C % 16'),
+    ('conv_acc', 16, 18, 512, 'N % 4'), ('conv_acc', 48, 1002, 512, 'N % 4'),
+    ('conv_acc', 16, 20, 520, 'pointer % 16')])
 def test_rule_names_the_clause_that_excludes(kind, k, n, ptr, clause):
     assert tkm.sm90_route(kind, k=k, n=n, ptr=ptr) == clause
     with pytest.raises(ValueError):
@@ -486,10 +610,51 @@ def test_pick_core_follows_the_rule_unless_asked():
     args = dict(k=64, n=64, ptr=0)
     assert tkm.pick_core('conv', 'test', None, **args) == 'sm90'
     assert tkm.pick_core('conv', 'test', 'mma', **args) == 'mma'
+    # an int32 output row of N = 20 is 80 bytes: the accumulator form takes it
+    assert tkm.sm90_route('conv_acc', k=16, n=20, ptr=0) is None
+    assert tkm.sm90_route('conv', k=16, n=20, ptr=0) == 'N % 16'
     with pytest.raises(ValueError):
         tkm.pick_core('conv', 'test', 'wgmma', **args)
     with pytest.raises(ValueError):
         tkm.sm90_route('pool', **args)
+
+
+@pytest.mark.parametrize('k,s,pad,c,o,h', [
+    (3, 1, ((1, 1), (1, 1)), 64, 64, 6), (7, 2, ((3, 3), (3, 3)), 3, 64, 12),
+    (3, 2, 'SAME', 5, 16, 10)])
+def test_qat_convs_reach_the_rule_with_its_widths(monkeypatch, k, s, pad, c,
+                                                  o, h):
+    """``int_conv2d`` at ResNet-50 widths: a 3×3 / pad 1 conv hands
+    ``int8_conv_acc`` the unpadded activations with ``pad`` (1, 1); a
+    stride-2 conv its space-to-depth rewrite with C zero-filled to a
+    multiple of 4 first (the RGB init: 3 → 4, C = 16 after the rewrite), so
+    that ``sm90_route('conv_acc')`` admits the call; the result equals a
+    float64 convolution (exact for these integers)."""
+    calls = []
+    real = tkc.int8_conv_acc
+
+    def record(xp, w, bias, **kw):
+        calls.append((tuple(xp.shape), kw))
+        return real(xp, w, bias, **kw)
+    monkeypatch.setattr(tkc, 'int8_conv_acc', record)
+    rng = np.random.RandomState(k + c)
+    x = rng.randint(-128, 128, (2, h, h, c)).astype(np.float32)
+    w = rng.randint(-127, 128, (k, k, c, o)).astype(np.float32)
+    b = rng.randint(-2 ** 20, 2 ** 20, (o,)).astype(np.float32)
+    got = TL.int_conv2d(_t(x), _t(w), _t(b), (s, s), pad)
+    (shape, kw), = calls
+    assert tkm.sm90_route('conv_acc', k=kw['cin'], n=o, ptr=512) is None
+    if s == 1:
+        assert kw['pad'] == (1, 1) and shape == (2, h, h * c)
+    else:
+        assert kw['cin'] == 4 * (c + -c % 4) and kw['pad'] == (0, 0)
+    (t, bo), (l, r) = TL.resolve_padding(pad, (h, h), (k, k), (s, s))
+    xt = F.pad(torch.tensor(x, dtype=torch.float64).permute(0, 3, 1, 2),
+               (l, r, t, bo))
+    want = F.conv2d(xt, torch.tensor(w, dtype=torch.float64).permute(
+        3, 2, 0, 1), torch.tensor(b, dtype=torch.float64), stride=s)
+    np.testing.assert_array_equal(
+        got.numpy(), want.permute(0, 2, 3, 1).numpy().astype(np.float32))
 
 
 @pytest.mark.parametrize('m_tiles,n,k_tiles,want', [
@@ -525,10 +690,11 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     """tiny50's stage-2 widths are multiples of 16, so its CPU engine keeps
     K-major handles for every conv of that stage (conv1 feeds
     ``int8_matmul_requant``, conv2 ``int8_conv_requant``, conv3 / identity
-    ``int8_matmul_acc``) and runs the plain walk; the 8-wide convs of stage
-    1, the init conv and the 10-class FC (N % 4) stay plain tensors, as
-    does everything where the rule excludes every width.  Both give the
-    same logits."""
+    ``int8_matmul_acc``) and for the init conv (``int8_conv_acc`` over the
+    channel-padded 4×4-tap rewrite, C = 16) and runs the plain walk; the
+    8-wide convs of stage 1 and the 10-class FC (N % 4) stay plain
+    tensors, as does everything where the rule excludes every width.  Both
+    give the same logits."""
     fm = synthetic_frozen_resnet('tiny50', get_bit_config('tiny50',
                                                           'uniform8'),
                                  num_classes=10, seed=3)
@@ -545,7 +711,9 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     assert kinds['stage1.unit1.quant_convbn1'] is torch.Tensor   # N = 8
     assert kinds['quant_output'] is torch.Tensor
     assert not any(eng._w[k][0].int4 for k in prepared)
-    assert kinds['init'] is torch.Tensor
+    assert kinds['init'] is tkm.PreparedWeights
+    init = eng._w['init'][0]                 # 4 rows of 4 taps of C = 16
+    assert (init.taps, init.cin, init.row_taps) == (4, 64, 4)
     rule = tkm.sm90_route
     tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
     try:
@@ -561,11 +729,13 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
 @pytest.mark.parametrize('arch,scheme,input_mode', [
     ('tiny18', 'uniform8', 'float32'), ('tiny18', 'uniform4', 'folded_float32'),
     ('tiny50', 'uniform8', 'folded_float32'), ('tiny50', 'uniform4', 'float32'),
-    ('wide50', 'uniform4', 'float32')])
+    ('wide50', 'uniform4', 'float32'), ('tiny18', 'uniform8', 'folded_float32'),
+    ('tiny18', 'uniform4', 'float32'), ('tiny50', 'uniform8', 'float32'),
+    ('tiny50', 'uniform4', 'folded_float32')])
 def test_engine_with_cached_handles_matches_reference(arch, scheme,
                                                       input_mode):
-    """The CPU engine keeps handles for the requant 1×1 convs (int8) and for
-    the 4-bit 3×3 requant convs (packed), runs their plain walks, and its
+    """The CPU engine keeps handles for the 1×1 convs (int8), the 3×3 convs
+    (packed where 4-bit) and the init conv, runs their plain walks, and its
     logits and every capture node equal the JAX engine's."""
     fm = jax_synthetic_frozen_resnet(arch, jax_bit_config(arch, scheme),
                                      num_classes=10, seed=11)
@@ -584,18 +754,23 @@ def test_engine_with_cached_handles_matches_reference(arch, scheme,
                if isinstance(v[0], tkm.PreparedWeights)}
     int4 = scheme == 'uniform4'
     bottleneck = arch != 'tiny18'
-    # the requant convs: conv1 (1×1 of a bottleneck, else 3×3) and conv2 of
-    # a bottleneck; 4-bit 1×1 weights stay plain packed tensors
+    # conv1 (1×1 of a bottleneck, else 3×3) and conv2 (3×3 of a bottleneck,
+    # the int32 3×3 of a basic block); 4-bit 1×1 weights stay plain packed
+    # tensors; the init conv's are int8, a kernel row read as one tap: the
+    # fold (3×3 of C = 48) or the 4×4-tap rewrite of the channel-padded
+    # 7×7/s2 conv (C = 16)
     conv1 = [h for k, h in handles.items() if k.endswith('quant_convbn1')]
     conv2 = [h for k, h in handles.items() if k.endswith('quant_convbn2')]
+    assert conv2 and all(h.int4 == int4 and h.taps in (4, 9) for h in conv2)
     if bottleneck:
-        assert bool(conv1) == (not int4) and conv2
-        assert all(h.int4 == int4 and h.taps in (4, 9) for h in conv2)
+        assert bool(conv1) == (not int4)
         assert not any(h.int4 for h in conv1)
     else:
         assert conv1 and all(h.int4 == int4 and h.taps in (4, 9)
                              for h in conv1)
-        assert not conv2                  # feeds int8_conv_acc / int4w_conv_acc
+    init = handles['init']
+    assert not init.int4 and (init.taps, init.cin, init.row_taps) == (
+        (3, 144, 3) if input_mode == 'folded_float32' else (4, 64, 4))
     nodes = _reference_nodes(fm, x, **jkw)
     for node, ref in nodes.items():
         port = build_resnet_engine(_port_fm(fm), capture=node, **tkw)(x)
