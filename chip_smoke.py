@@ -15,22 +15,21 @@ non-zero exit and no result line:
     host-folded input, int16 residual carrier — each with the launch counts
     set to 0 just before it and read just after, and held against the
     counts its bit config predicts, per kernel and per GEMM core (every
-    launch of the four convs, ``int8_matmul_requant`` and
-    ``int8_matmul_acc`` on the Hopper core csrc/gemm_s8_sm90.cuh, the
-    ``int4w_*`` matmuls on csrc/gemm_s8.cuh).
+    launch of the four convs and the four matmuls on the Hopper core
+    csrc/gemm_s8_sm90.cuh).
     Every kernel call of those runs is recorded; each is then repeated on
     the same inputs and held against its plain PyTorch version, bit for bit
     (tolerance 0), as are ragged shapes, among them the Hopper core's (M
     off the tile, 7×7 and 14×14 images, N = 1000, B = 1, 1×1 and 2×2 taps,
     C = 16, saturated operands, requant inputs on a .5 boundary, packed
-    int4 handles) and one call per clause of its shape rule, checked to
-    have run on the core the rule names; then each call of the path a
-    kernel is reported on is timed (kernel, plain version, library call)
-    and set beside its bound — the six kernels on the Hopper core on both
-    cores in turns (old, new, new, old), both equal to the plain version,
-    with the wrapper's host time per call on each, and the packed
-    ``int4w_conv_*`` also beside their ``int8_conv_*`` twins on the same
-    weights unpacked once to int8;
+    int4 handles, 128-row tiles of the packed matmuls) and one call per
+    clause of its shape rule, checked to have run on the core the rule
+    names; then each call of the path a kernel is reported on is timed
+    (kernel, plain version, library call) and set beside its bound — the
+    eight kernels on the Hopper core on both cores in turns (old, new, new,
+    old), both equal to the plain version, with the wrapper's host time per
+    call on each, and the packed ``int4w_*`` also beside their ``int8_*``
+    twins on the same weights unpacked once to int8;
  4. the engine at full width: ResNet-50 uniform8 and uniform4, on folded
     input with the int16 carrier and on raw float32 input with the int32
     carrier, ResNet-50 bops_0.5 and ResNet-18 uniform4 on folded input, and
@@ -104,9 +103,10 @@ KERNELS = {
                         'hawq_tpu/kernels/matmul.py:189'),
     'maxpool_folded': ('hawq_tpu_torch/kernels/csrc/pool.cu',
                        'hawq_tpu/kernels/pool.py:69'),
-    'int4w_matmul_requant': ('hawq_tpu_torch/kernels/csrc/matmul.cu',
-                             'hawq_tpu/kernels/matmul.py:134'),
-    'int4w_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul.cu',
+    'int4w_matmul_requant': (
+        'hawq_tpu_torch/kernels/csrc/matmul_int4_sm90.cu',
+        'hawq_tpu/kernels/matmul.py:134'),
+    'int4w_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul_int4_sm90.cu',
                          'hawq_tpu/kernels/matmul.py:234'),
     'int4w_conv_requant': ('hawq_tpu_torch/kernels/csrc/conv_int4_sm90.cu',
                            'hawq_tpu/kernels/conv.py:254'),
@@ -126,7 +126,8 @@ TRAIN_BATCH = 32
 # (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
 # beside the new one
 SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
-                'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc')
+                'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
+                'int4w_matmul_requant', 'int4w_matmul_acc')
 GEMM_KERNELS = [k for k in KERNELS if k not in ('maxpool_folded',
                                                 'minmax_1pass')]
 
@@ -320,7 +321,8 @@ def hopper_core_weights(name, w, kw):
         return kc.prepare_conv_weights(w, kw['taps'], kw['cin'],
                                        kw.get('pad', (0, 0)),
                                        name.startswith('int4w'))
-    return km.prepare_weights(w)
+    return (km.prepare_weights_int4(w) if name.startswith('int4w')
+            else km.prepare_weights(w))
 
 
 def plain_call(name, args, kw, stack=True):
@@ -393,17 +395,21 @@ def library_call(name, args, kw):
     """One PyTorch call over the same inputs as the yardstick, where one
     exists: torch._int_mm (int8 → int32 product, without bias or requant;
     int4 weights unpacked to int8 before the timing) under its shape
-    rules, torch.aminmax for the min/max.  None elsewhere (PyTorch has no
-    int8 conv and no folded-layout pool)."""
+    rules, M ≤ 16 (the FC's 8 rows) with x zero-padded to 32 rows, whose
+    first M rows of the product are the same integers; torch.aminmax for
+    the min/max.  None elsewhere (PyTorch has no int8 conv and no
+    folded-layout pool)."""
     if name == MINMAX:
         return lambda: torch.aminmax(args[0])
     if '_matmul' not in name:
         return None
     x, w = args[0], unpacked_weights(name, args, kw)
     (m, k), n = x.shape, w.shape[1]
-    if m > 16 and k % 8 == 0 and n % 8 == 0 and k >= 16:
-        return lambda: torch._int_mm(x, w)
-    return None
+    if k % 8 or n % 8 or k < 16:
+        return None
+    if m <= 16:
+        x = torch.cat([x, x.new_zeros((32 - m, k))])
+    return lambda: torch._int_mm(x, w)
 
 
 def ragged_calls(dev):
@@ -504,7 +510,7 @@ def ragged_calls(dev):
 
 
 def sm90_calls(dev):
-    """Calls of the six kernels on the Hopper core beside the paths' →
+    """Calls of the eight kernels on the Hopper core beside the paths' →
     (calls its rule admits, [(call, excluding clause)]).
 
     Admitted: M off the 64-row tile, K below and between the K paddings,
@@ -516,8 +522,11 @@ def sm90_calls(dev):
     (odd accumulators sit exactly on a .5 boundary); for the packed int4
     conv the same conv shapes (C = 16 to 512, nibbles -8 and 7) with plain
     packed bytes and with their handle; for the accumulator convs N off 16,
-    the 4×4 taps of the RGB init's rewrite and the rest as above.
-    Excluded: one call per clause of ``sm90_route`` for each of the six
+    the 4×4 taps of the RGB init's rewrite and the rest as above; for the
+    packed matmuls M off the 64- and 128-row tiles, K = 48 and 80, M = 1,
+    N = 1000 (accumulator form), saturated operands, ``pack_int4``'s bytes
+    and their handle, 128-row tiles asked for.
+    Excluded: one call per clause of ``sm90_route`` for each of the eight
     kernels (the CIFAR init's C = 3 among them)."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
@@ -549,6 +558,20 @@ def sm90_calls(dev):
         if epi:
             return ('int8_matmul_requant', (x, w) + vec(n), epi)
         return ('int8_matmul_acc', (x, w, vec(n)[0]), {})
+
+    def matmul4(m, k, n, offset=0, saturate=False, **epi):
+        """``int4w_matmul_acc``, or with an epilogue ``int4w_matmul_requant``,
+        on ``pack_int4``'s bytes."""
+        x = i8(m, k, offset=offset)
+        w = rng.randint(-8, 8, (k, n)).astype(np.int8)
+        w.reshape(-1)[:2] = (-8, 7)
+        if saturate:
+            x[0, :] = -128
+            w[:, 0], w[:, 1] = 7, -8
+        wp = torch.tensor(km.pack_int4(w), device=dev)
+        if epi:
+            return ('int4w_matmul_requant', (x, wp) + vec(n), epi)
+        return ('int4w_matmul_acc', (x, wp, vec(n)[0]), {})
 
     def conv(shape, n, taps, offset=0, saturate=False, pad=(0, 0),
              int4=False, acc=False, **epi):
@@ -653,6 +676,21 @@ def sm90_calls(dev):
     name, args, kw = admitted[-2]
     admitted.append((name, (args[0], km.prepare_weights(args[1])) + args[2:],
                      kw))
+    # the packed matmuls, their handles, and 128-row tiles asked for
+    n_before = len(admitted)
+    admitted += [matmul4(37, 48, 16, relu=True), matmul4(300, 80, 48, **u4),
+                 matmul4(1, 16, 16, **u4),
+                 matmul4(392, 2048, 512, saturate=True, signed=True),
+                 matmul4(37, 48, 20), matmul4(300, 80, 1000),
+                 matmul4(1, 16, 4), matmul4(1000, 2048, 1000, saturate=True),
+                 matmul4(130, 80, 72)]
+    for i in (0, 1, 5, 6):
+        name, args, kw = admitted[n_before + i]
+        admitted.append((name, (args[0], km.prepare_weights_int4(args[1]))
+                         + args[2:], kw))
+    for i in (1, 3, 5, 7):
+        name, args, kw = admitted[n_before + i]
+        admitted.append((name, args, dict(kw, tile_m=128)))
     excluded = [(matmul(40, 45, 20), 'K % 16'), (matmul(40, 48, 18), 'N % 4'),
                 (matmul(40, 48, 20, offset=8), 'pointer % 16'),
                 (matmul(40, 45, 16, relu=True), 'K % 16'),
@@ -677,6 +715,12 @@ def sm90_calls(dev):
                            acc=True), 'pointer % 16')]
     excluded.append((conv((1, 8, 8, 3), 64, (3, 3), pad=(1, 1), acc=True),
                      'C % 16'))
+    excluded += [(matmul4(40, 46, 20), 'K % 16'),
+                 (matmul4(40, 48, 18), 'N % 4'),
+                 (matmul4(40, 48, 20, offset=8), 'pointer % 16'),
+                 (matmul4(40, 46, 16, relu=True), 'K % 16'),
+                 (matmul4(40, 48, 24, relu=True), 'N % 16'),
+                 (matmul4(40, 48, 16, offset=8, relu=True), 'pointer % 16')]
     return admitted, excluded
 
 
@@ -779,14 +823,17 @@ def sm90_tiles(name, args, kw):
         if w.row_taps > 1:
             shape += f', {w.row_taps} taps a row read as one'
     else:
-        m_tiles, shape = -(-args[0].shape[0] // km.SM90_TILE_M), '64'
-        tile_n = km.sm90_tile_n(m_tiles, n, w.cpad // w.tile_k, sms)
+        m, k_tiles = args[0].shape[0], w.cpad // w.tile_k
+        rows = km.sm90_tile_m(m, n, k_tiles, sms) if w.int4 else 64
+        m_tiles, shape = -(-m // rows), str(rows)
+        tile_n = km.sm90_tile_n(-(-m // km.SM90_TILE_M), n, k_tiles, sms,
+                                km.SM90_INT4_MATMUL_WIDEST if w.int4 else 128)
     return f'{m_tiles}x{-(-n // tile_n)} tiles of {shape} x {tile_n}'
 
 
 def twin_name(name):
-    """The int8 kernel beside a packed int4w conv: the same call on weights
-    unpacked once to int8."""
+    """The int8 kernel beside a packed int4w kernel: the same call on
+    weights unpacked once to int8."""
     return name.replace('int4w', 'int8')
 
 
@@ -794,7 +841,7 @@ def time_both_cores(name, args, kw):
     """One call of a kernel of the Hopper core on both cores, in turns (old,
     new, new, old; CUDA-graph replay), both held against the plain version
     → dict(ms, old_ms, host_us, old_host_us, prep_ms: laying out the
-    weights; for the packed ``int4w_conv_*`` also int8_twin_ms).  The
+    weights; for the packed ``int4w_*`` also int8_twin_ms).  The
     kernels are timed on inputs each core reads as they are: (K, N) weights
     (packed (K/2, N) bytes for an int4w kernel) and the padded slab for the
     first core, the K-major handle (and the unpadded activations, where the
@@ -803,9 +850,9 @@ def time_both_cores(name, args, kw):
     the wrapper lays them out on the device at each call: that glue is
     timed on its own, and is part of the host time, which is taken with the
     arguments as the path passed them.
-    ``int8_twin_ms`` is the ``int8_conv_*`` twin on the Hopper core over
-    the same call with the weights unpacked once to int8: what streaming
-    them packed, and unpacking them in the kernel, saves or costs."""
+    ``int8_twin_ms`` is the ``int8_*`` twin on the Hopper core over the
+    same call with the weights unpacked once to int8: what streaming them
+    packed, and unpacking them in the kernel, saves or costs."""
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.kernels import conv as kc
     plain_w = unpacked_weights(name, args, kw)
@@ -827,12 +874,13 @@ def time_both_cores(name, args, kw):
                                        dict(old_kw, core='mma')),
             'sm90': lambda: kernel_call(name, new_args,
                                         dict(kw, core='sm90'))}
-    if name.startswith('int4w_conv'):
-        twin_args = (args[0], kc.prepare_conv_weights(
-            plain_w, kw['taps'], kw['cin'], kw.get('pad', (0, 0)))) \
-            + tuple(args[2:])
-        runs['twin'] = lambda: kernel_call(name.replace('int4w', 'int8'),
-                                           twin_args, dict(kw, core='sm90'))
+    if name.startswith('int4w'):
+        twin_w = (kc.prepare_conv_weights(plain_w, kw['taps'], kw['cin'],
+                                          kw.get('pad', (0, 0)))
+                  if '_conv' in name else km.prepare_weights(plain_w))
+        twin_args = (args[0], twin_w) + tuple(args[2:])
+        runs['twin'] = lambda: kernel_call(twin_name(name), twin_args,
+                                           dict(kw, core='sm90'))
     for core, run in runs.items():
         check(same(run(), want), f'{name} on the {core} core differs from '
               f'its plain version at {call_key(name, args, kw)[1]} {kw}')
@@ -920,7 +968,7 @@ def time_calls(calls, totals):
                 f"{t['library_calls']} calls it takes {t['library_ms']:.4f} ms"
                 + (f"; {twin_name(name)} on the same calls with the weights "
                    f"unpacked once to int8 {t['int8_twin_ms']:.4f} ms"
-                   if name.startswith('int4w_conv') else ''))
+                   if name.startswith('int4w') else ''))
 
 
 # ---------------------------------------------------------------------------
@@ -1684,7 +1732,7 @@ def main():
             if not t['library_ok'] and t['library_calls']:
                 entry.update(library_partial_ms=t['library_ms'],
                              library_partial_calls=t['library_calls'])
-            if name.startswith('int4w_conv'):
+            if name.startswith('int4w'):
                 entry[f'{twin_name(name)}_on_unpacked_weights_ms'] = t[
                     'int8_twin_ms']
         if name != MINMAX and name in train_totals:

@@ -21,7 +21,14 @@ csrc/gemm_s8_sm90.cuh, each by CUDA-graph replay (``chip_smoke.graph_ms``):
     init of a batch-8 forward and at every call of a batch-32 QAT step of
     ResNet-50 (the channel-padded init's 4 x 4-tap rewrite, the 3 x 3s),
     and ``int8_conv_acc`` / ``int4w_conv_acc`` at the four conv2 shapes of
-    a batch-8 ResNet-18 forward.
+    a batch-8 ResNet-18 forward;
+ 5. the packed matmuls ``int4w_matmul_requant`` and ``int4w_matmul_acc`` at
+    every shape of a batch-8 ResNet-50 uniform4 forward (and ResNet-18's
+    identity convs): tile widths 32, 64 and 128 with 64-row tiles, then with
+    128-row tiles (two consumer warpgroups), the widths and rows the rules
+    pick marked ``*`` (``sm90_tile_n`` with ``SM90_INT4_MATMUL_WIDEST``,
+    ``sm90_tile_m``), each result first held against the plain version;
+    the two row counts are timed in turns (64, 128, 128, 64).
 
 Needs a GPU and nvcc (it builds the kernels); exits non-zero without one.
 """
@@ -56,6 +63,12 @@ ACC_CONVS = [(8, 56, 48, 256, 3, 0, False), (32, 112, 16, 64, 4, 0, False),
              (32, 14, 256, 256, 3, 1, False), (32, 7, 512, 512, 3, 1, False),
              (8, 56, 64, 64, 3, 1, True), (8, 28, 128, 128, 3, 1, True),
              (8, 14, 256, 256, 3, 1, True), (8, 7, 512, 512, 3, 1, True)]
+# M, K, N of int4w_matmul_requant, then int4w_matmul_acc, at batch 8
+INT4_REQUANT_MATMULS = REQUANT_MATMULS
+INT4_MATMULS = [(25088, 64, 256), (6272, 128, 512), (6272, 256, 512),
+                (1568, 256, 1024), (1568, 512, 1024), (392, 512, 2048),
+                (392, 1024, 2048), (6272, 64, 128), (1568, 128, 256),
+                (392, 256, 512)]
 
 
 def main():
@@ -156,6 +169,50 @@ def main():
     for b, h, c, n, side, pad, packed in ACC_CONVS:
         conv_row(b, h, c, n, side, pad, (False, True) if packed else (False,),
                  False)
+
+    def int4_matmul_row(m, k, n, requant):
+        x = i8(m, k)
+        w = rng.randint(-8, 8, (k, n)).astype(np.int8)
+        prepared = km.prepare_weights_int4(torch.tensor(km.pack_int4(w),
+                                                        device=dev))
+        w = torch.tensor(w, device=dev)
+        bias = torch.zeros(n, dtype=torch.int32, device=dev)
+        if requant:
+            mult = torch.full((n,), 2.0 ** -10, device=dev)
+            fn = lambda **kw: km.int4w_matmul_requant(x, prepared, bias, mult,
+                                                      **kw)
+            want = km.matmul_requant_plain(x, w, bias, mult, -128, 127)
+        else:
+            fn = lambda **kw: km.int4w_matmul_acc(x, prepared, bias, **kw)
+            want = km.matmul_acc_plain(x, w, bias)
+        k_tiles = -(-k // prepared.tile_k)
+        pick_n = km.sm90_tile_n(-(-m // 64), n, k_tiles, sms,
+                                km.SM90_INT4_MATMUL_WIDEST)
+        pick_m = km.sm90_tile_m(m, n, k_tiles, sms)
+        us = {}
+        for rows in (64, 128, 128, 64):
+            for t in km.SM90_TILE_NS[::-1]:
+                run = lambda: fn(tile_n=t, tile_m=rows)
+                if (rows, t) not in us:
+                    assert torch.equal(run(), want)
+                    us[rows, t] = []
+                us[rows, t].append(graph_ms(run, 50) * 1e3)
+        cells = {key: sum(v) / len(v) for key, v in us.items()}
+        rows_txt = [' / '.join(
+            f"{cells[rows, t]:.2f}"
+            f"{'*' if (rows, t) == (pick_m, pick_n) else ''}"
+            for t in km.SM90_TILE_NS[::-1]) for rows in (64, 128)]
+        best = min(cells, key=cells.get)
+        name = 'int4w_matmul_requant' if requant else 'int4w_matmul_acc'
+        print(f'  {name} M{m} K{k} N{n}: 64 rows {rows_txt[0]} | 128 rows '
+              f'{rows_txt[1]} | fastest {best[0]} x {best[1]}')
+
+    print('int4w_matmul_requant, then int4w_matmul_acc  M K N: us at tile 32 '
+          '/ 64 / 128, with 64-row and with 128-row tiles (mean of two turns)')
+    for m, k, n in INT4_REQUANT_MATMULS:
+        int4_matmul_row(m, k, n, True)
+    for m, k, n in INT4_MATMULS:
+        int4_matmul_row(m, k, n, False)
     return 0
 
 

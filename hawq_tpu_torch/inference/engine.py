@@ -29,13 +29,13 @@ CPU device the kernels' plain versions run instead):
     integers are below 2²⁴);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
     be exact);
-  * the weights of every conv and int8 matmul call whose widths the Hopper
-    GEMM core takes (``kernels.matmul.sm90_route``; the init conv's too) are
+  * the weights of every conv and matmul call whose widths the Hopper GEMM
+    core takes (``kernels.matmul.sm90_route``; the init conv's too) are
     cached in that core's K-major layout (``prepare_weights``; the 4-bit
-    convs' ``prepare_weights_int4``, still nibble-packed), on a CPU device
-    too, where the wrappers then run the plain versions of that core's
-    walk; the stride-1 3×3 convs among them take unpadded activations (TMA
-    supplies the zero border).
+    convs' and 1×1 convs' ``prepare_weights_int4``, still nibble-packed),
+    on a CPU device too, where the wrappers then run the plain versions of
+    that core's walk; the stride-1 3×3 convs among them take unpadded
+    activations (TMA supplies the zero border).
 
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
 the logits: 'input', 'init', '<stage>.<unit>.input' / '.conv1' / '.conv2' /
@@ -132,17 +132,18 @@ class ResnetEngine:
 
     def _matmul_w(self, key: str, int4: bool = False, acc: bool = False):
         """(Cin, Cout) weights — (Cin/2, Cout) packed with ``int4`` — and
-        bias of a 1×1 conv or the FC.  The int8 ones (they feed
-        ``int8_matmul_acc`` with ``acc``, else ``int8_matmul_requant``) are
-        prepared for the Hopper core where its rule takes the widths."""
+        bias of a 1×1 conv or the FC.  They (feeding the ``*_matmul_acc``
+        kernels with ``acc``, else the ``*_matmul_requant`` ones) are
+        prepared for the Hopper core where its rule takes the widths, the
+        packed ones still packed."""
         if key not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
             w = w.reshape(w.shape[-2], w.shape[-1])
             wd = self._dev(km.pack_int4(w) if int4 else w)
-            if not int4 and km.sm90_route(
-                    'matmul' if acc else 'matmul_requant', k=w.shape[0],
-                    n=w.shape[1], ptr=0) is None:
-                wd = km.prepare_weights(wd)
+            if km.sm90_route('matmul' if acc else 'matmul_requant',
+                             k=w.shape[0], n=w.shape[1], ptr=0) is None:
+                wd = (km.prepare_weights_int4(wd) if int4
+                      else km.prepare_weights(wd))
             self._w[key] = (wd, self._dev(self.fm[key + '.bias_int']))
         return self._w[key]
 

@@ -36,6 +36,14 @@
 //    their bytes: the int32 output is 4 bytes per output against 1 per
 //    input.  The conv producer with int8_matmul_acc's epilogue, stored
 //    through a 4-D int32 map in whole 128-byte lines.
+//  * int4w_matmul_requant (!CONV, REQUANT, INT4) and int4w_matmul_acc
+//    (!CONV, !REQUANT, INT4): replace hawq_tpu/kernels/matmul.py
+//    int4w_matmul_requant (matmul.py:134) and int4w_matmul_acc
+//    (matmul.py:234), the 1x1 convs of a bottleneck whose weights are 4-bit.
+//    Bound by their bytes like their int8 twins (M K + K N / 2 + M N for the
+//    requant, the int32 output for the accumulator), with half the weight
+//    bytes: the matmul producer loads the packed box at column kt * BK / 2,
+//    and the consumers unpack it as for the conv.
 //
 // What the design does about that:
 //
@@ -50,9 +58,10 @@
 //    128, else 64 (64-byte swizzle).  (A deeper ring was tried on the H100
 //    and was no faster at any ResNet-50 shape, and slower where it cost
 //    resident blocks: one block alone takes in a 12 KB stage per 0.16 us,
-//    78 GB/s (chip_sweep_sm90.py), which is the SM's rate, not the ring's.)  Warp 4's lane 0 is the producer: it
+//    78 GB/s (chip_sweep_sm90.py), which is the SM's rate, not the ring's.)
+//    The lane 0 of the warp after the consumers' is the producer: it
 //    waits on empty[s], arms full[s] with the stage's bytes and starts two
-//    TMA tensor loads; the four consumer warps wait on full[s], start the
+//    TMA tensor loads; the consumer warps wait on full[s], start the
 //    BK / 32 wgmmas of the stage, keep one wgmma group in flight and release
 //    the previous stage through empty[s].  No __syncthreads in the K loop.
 //  * Matmul A: a 2-D tensor map over x (M, K); ragged M and K are zero-filled
@@ -102,8 +111,17 @@
 // and B from the buffer.  The wait stands before the bar.sync so that every
 // warp's group kt - 1 has finished before any warp, one iteration later,
 // rewrites the buffer that group read: the unpack of stage kt overlaps the
-// wgmmas of stage kt - 1.  The wrapper keeps BN at 64 or 32 for this form
-// (sm90_tile_n): what the unpack moves through shared memory grows with BN.
+// wgmmas of stage kt - 1.  The wrapper keeps BN at 64 or 32 for the packed
+// conv (sm90_tile_n): what the unpack moves through shared memory grows with
+// BN.  Every 64-row tile unpacks the whole weight matrix again, so the packed
+// matmul may also run WG = 2 consumer warpgroups on a 128-row tile: all 256
+// consumer threads unpack each B tile once into the shared buffer and both
+// warpgroups issue their wgmmas on it, each on its own 64 rows of A (half
+// the unpack work and weight bytes per output row, half the blocks).  On
+// the H100 it is the faster where N >= 1024 (by up to 22 % at the ResNet-50
+// shapes) and for a single K step on a large grid, slower elsewhere: the
+// wrapper picks it there (sm90_tile_m), and the packed matmul's BN stops
+// at 64 too.
 // Tried on the H100 and dropped, each bit-equal and none faster over the
 // 3x3 convs of ResNet-50 at batch 8: four dedicated unpack warps feeding the
 // consumers through a second pair of mbarriers (two or three buffers), and
@@ -127,10 +145,14 @@
 
 namespace hawq_sm90 {
 
-constexpr int BM = 64;
+constexpr int BM = 64;                // rows of one consumer warpgroup's tile
 constexpr int STAGES = 4;
-constexpr int CONSUMER_THREADS = 128;
-constexpr int THREADS = CONSUMER_THREADS + 32;
+constexpr int CONSUMER_THREADS = 128;  // one warpgroup
+// threads of a block with WG consumer warpgroups and the producer warp
+template <int WG>
+__host__ __device__ constexpr int threads() {
+  return WG * CONSUMER_THREADS + 32;
+}
 constexpr int ENCODE_ERROR = 10000;   // + CUresult, for a failed map encode
 
 struct Args {
@@ -251,8 +273,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void consumer_sync() {   // the four consumer warps
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+template <int WG>
+__device__ __forceinline__ void consumer_sync() {   // the consumer warps
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WG * CONSUMER_THREADS) : "memory");
 }
 
 // Shared-memory matrix descriptor of a K-major tile whose rows are BK bytes,
@@ -278,38 +301,38 @@ __device__ __forceinline__ int swizzled(int off) {
 }
 
 // The packed BN x BK/2 tile at ``packed`` -> the int8 BN x BK tile at ``dst``,
-// both swizzled, by the 128 consumer threads.  Item i is the 16-byte packed
+// both swizzled, by the NT consumer threads.  Item i is the 16-byte packed
 // unit u of row r, with i % 8 the row inside an 8-row group, so that the
 // eight lanes of a quarter warp hit eight different bank groups on the load
 // and on both stores.
-template <int BK, int BN>
+template <int BK, int BN, int NT>
 __device__ __forceinline__ void unpack_b_tile(const uint8_t* __restrict__ packed,
                                               uint8_t* __restrict__ dst,
                                               int tid) {
   constexpr int PB = BK / 2;          // packed bytes per row
   constexpr int UNITS = PB / 16;      // 16-byte units per packed row
   constexpr int ITEMS = BN * UNITS;
-  constexpr int PER_THREAD = (ITEMS + CONSUMER_THREADS - 1) / CONSUMER_THREADS;
+  constexpr int PER_THREAD = (ITEMS + NT - 1) / NT;
   // every load first, then the arithmetic and the stores: the loads of one
   // item do not wait behind the stores of the item before
   uint4 v[PER_THREAD];
 #pragma unroll
   for (int it = 0; it < PER_THREAD; ++it) {
-    const int i = it * CONSUMER_THREADS + tid;
+    const int i = it * NT + tid;
     const int g = i >> 3;
     const int r = (g / UNITS) * 8 + (i & 7);
     const int u = g % UNITS;
-    if (ITEMS % CONSUMER_THREADS == 0 || i < ITEMS)
+    if (ITEMS % NT == 0 || i < ITEMS)
       v[it] = *reinterpret_cast<const uint4*>(
           packed + swizzled<PB>(r * PB + u * 16));
   }
 #pragma unroll
   for (int it = 0; it < PER_THREAD; ++it) {
-    const int i = it * CONSUMER_THREADS + tid;
+    const int i = it * NT + tid;
     const int g = i >> 3;
     const int r = (g / UNITS) * 8 + (i & 7);
     const int u = g % UNITS;
-    if (ITEMS % CONSUMER_THREADS == 0 || i < ITEMS) {
+    if (ITEMS % NT == 0 || i < ITEMS) {
       uint4 lo, hi;
       lo.x = hawq::sext_nibbles(v[it].x, false);
       lo.y = hawq::sext_nibbles(v[it].y, false);
@@ -413,37 +436,43 @@ __device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64], uint64_t da,
 // the kernel
 // ---------------------------------------------------------------------------
 
-// Bytes of one ring stage: the A tile and the B tile, packed with INT4.
-template <int BK, int BN, bool INT4>
+// Bytes of one ring stage: the A tile of WG * 64 rows and the B tile,
+// packed with INT4.
+template <int BK, int BN, bool INT4, int WG>
 __host__ __device__ constexpr int stage_bytes() {
-  return BM * BK + (INT4 ? BN * BK / 2 : BN * BK);
+  return WG * BM * BK + (INT4 ? BN * BK / 2 : BN * BK);
 }
 
 // Dynamic shared memory of one block: the ring, with INT4 the two unpack
 // buffers, 1024 bytes of slack to align it (the swizzle patterns repeat every
 // 1024 bytes), and the 2 * STAGES barriers.  The epilogue's staging tile
-// reuses the ring.
-template <int BK, int BN, bool INT4>
+// reuses the ring and the unpack buffers behind it.
+template <int BK, int BN, bool INT4, int WG>
 constexpr int smem_bytes() {
-  return STAGES * stage_bytes<BK, BN, INT4>() + (INT4 ? 2 * BN * BK : 0) +
+  return STAGES * stage_bytes<BK, BN, INT4, WG>() + (INT4 ? 2 * BN * BK : 0) +
          1024 + 2 * STAGES * 8;
 }
 
-template <bool CONV, bool REQUANT, bool INT4, int BK, int BN>
-__global__ void __launch_bounds__(THREADS)
+// One WG * 64 x BN output tile per block: WG consumer warpgroups, each with
+// its own 64 rows of A and its own accumulators, on one B tile.
+template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG>
+__global__ void __launch_bounds__(threads<WG>())
 gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ CUtensorMap omap, const Args p) {
-  static_assert(!INT4 || CONV, "packed weights: only the conv producer");
-  constexpr int A_BYTES = BM * BK;
-  constexpr int STAGE_BYTES = stage_bytes<BK, BN, INT4>();
+  static_assert(WG == 1 || (!CONV && INT4),
+                "two consumer warpgroups: only the packed matmul");
+  constexpr int TM = WG * BM;                    // rows of the block's tile
+  constexpr int CONSUMERS = WG * CONSUMER_THREADS;
+  constexpr int A_BYTES = TM * BK;
+  constexpr int STAGE_BYTES = stage_bytes<BK, BN, INT4, WG>();
   constexpr int UNPACK_BYTES = INT4 ? BN * BK : 0;
-  // the staged output: int8 as one dense 64 x BN box, int32 as 64 x 32
+  // the staged output: int8 as one dense TM x BN box, int32 as TM x 32
   // chunks in the 128-byte swizzle
   constexpr int CHUNK_COLS = REQUANT ? BN : 32;
   constexpr int CHUNKS = BN / CHUNK_COLS;
-  constexpr int CHUNK_BYTES = BM * CHUNK_COLS * (REQUANT ? 1 : 4);
-  static_assert(CHUNKS * CHUNK_BYTES <= STAGES * STAGE_BYTES,
+  constexpr int CHUNK_BYTES = TM * CHUNK_COLS * (REQUANT ? 1 : 4);
+  static_assert(CHUNKS * CHUNK_BYTES <= STAGES * STAGE_BYTES + 2 * UNPACK_BYTES,
                 "the staged output tile must fit in the ring");
   constexpr int CHAINS = 2;
 
@@ -459,7 +488,7 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int n0 = blockIdx.y * BN;
-  int m0 = blockIdx.x * BM;          // matmul: first row of the tile
+  int m0 = blockIdx.x * TM;          // matmul: first row of the tile
   int b = 0, oy0 = 0, ox0 = 0;       // conv: image and corner of the rectangle
   if (CONV) {
     const int per = p.tiles_x * p.tiles_y;
@@ -470,7 +499,7 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
     ox0 = (r - ty * p.tiles_x) * p.tw;
   }
 
-  if (tid == CONSUMER_THREADS) {     // the producer lane: descriptors on their way
+  if (tid == CONSUMERS) {            // the producer lane: descriptors on their way
     tma_prefetch_map(&amap);
     tma_prefetch_map(&wmap);
     tma_prefetch_map(&omap);
@@ -479,13 +508,13 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + s * 8, 1);    // the producer's arrive + the bytes
-      mbar_init(empty + s * 8, 4);   // one lane of each consumer warp
+      mbar_init(empty + s * 8, 4 * WG);   // one lane of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == CONSUMER_THREADS / 32) {
+  if (warp == CONSUMERS / 32) {
     // ---- producer: one lane keeps the ring full ----
     if (lane == 0) {
       uint32_t stage = 0, parity = 1;     // the first pass finds every stage empty
@@ -510,7 +539,8 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
           }
         } else {
           tma_load_2d(a_s, &amap, bar, kt * BK, m0);
-          tma_load_2d(a_s + A_BYTES, &wmap, bar, kt * BK, n0);
+          tma_load_2d(a_s + A_BYTES, &wmap, bar, INT4 ? kt * BK / 2 : kt * BK,
+                      n0);
         }
         if (++stage == STAGES) {
           stage = 0;
@@ -522,6 +552,8 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   }
 
   // ---- consumers: wgmma over the stages as they land ----
+  // Each warpgroup multiplies its own 64 rows of the A tile.
+  const uint32_t a_rows = (tid / CONSUMER_THREADS) * BM * BK;
   // The BK / 32 wgmmas of a stage alternate between CHAINS accumulator
   // sets, summed in the epilogue: wgmmas into one set wait for each other,
   // wgmmas into different sets overlap (on the H100 two sets were faster
@@ -542,17 +574,17 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
         // wgmmas of the stage before run; then that group is waited for, so
         // that after the bar.sync no warp is still reading the other buffer
         const int off = STAGE_BYTES * STAGES + (kt & 1) * UNPACK_BYTES;
-        unpack_b_tile<BK, BN>(ring_ptr + stage * STAGE_BYTES + A_BYTES,
-                              ring_ptr + off, tid);
+        unpack_b_tile<BK, BN, CONSUMERS>(
+            ring_ptr + stage * STAGE_BYTES + A_BYTES, ring_ptr + off, tid);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         if (kt > 0) {
           wgmma_wait<0>();
           if (lane == 0) mbar_arrive(empty + prev * 8);
         }
-        consumer_sync();
+        consumer_sync<WG>();
         b_s = ring + off;
       }
-      const uint64_t da = make_desc<BK>(a_s);
+      const uint64_t da = make_desc<BK>(a_s + a_rows);
       const uint64_t db = make_desc<BK>(b_s);
       wgmma_fence();
 #pragma unroll
@@ -571,7 +603,7 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
     }
     wgmma_wait<0>();
   }
-  consumer_sync();                  // every warp is done reading the ring
+  consumer_sync<WG>();              // every warp is done reading the ring
 
   // ---- epilogue: registers -> staged tile -> TMA store ----
   const int row0 = warp * 16 + (lane >> 2);
@@ -611,7 +643,7 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  consumer_sync();
+  consumer_sync<WG>();
   if (tid == 0) {
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
@@ -694,7 +726,7 @@ inline int encode_weight_map(CUtensorMap* map, const int8_t* wt, int N,
                     box, k_swizzle(box_bytes));
 }
 
-template <bool CONV, bool REQUANT, bool INT4, int BK, int BN>
+template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG>
 inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
                       const CUtensorMap& omap, const Args& p, dim3 grid,
                       int smem_extra, cudaStream_t stream) {
@@ -702,8 +734,8 @@ inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
   // instantiation, device and size
   constexpr int MAX_DEVICES = 64;
   static int configured[MAX_DEVICES] = {};
-  const int smem = smem_bytes<BK, BN, INT4>() + smem_extra;
-  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN>;
+  const int smem = smem_bytes<BK, BN, INT4, WG>() + smem_extra;
+  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN, WG>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -716,18 +748,18 @@ inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
     }
     if (device < MAX_DEVICES) configured[device] = smem;
   }
-  kernel<<<grid, THREADS, smem, stream>>>(amap, wmap, omap, p);
+  kernel<<<grid, threads<WG>(), smem, stream>>>(amap, wmap, omap, p);
   return (int)cudaGetLastError();
 }
 
-template <bool CONV, bool REQUANT, bool INT4 = false>
+template <bool CONV, bool REQUANT, bool INT4, int WG = 1>
 inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
                   const CUtensorMap& omap, const Args& p, dim3 grid, int bk,
                   int bn, int smem_extra, cudaStream_t stream) {
-#define HAWQ_SM90_CASE(K, N)                                               \
-  if (bk == K && bn == N)                                                  \
-    return launch_one<CONV, REQUANT, INT4, K, N>(amap, wmap, omap, p, grid, \
-                                                 smem_extra, stream);
+#define HAWQ_SM90_CASE(K, N)                                                 \
+  if (bk == K && bn == N)                                                    \
+    return launch_one<CONV, REQUANT, INT4, K, N, WG>(amap, wmap, omap, p,    \
+                                                     grid, smem_extra, stream);
   HAWQ_SM90_CASE(64, 32)
   HAWQ_SM90_CASE(64, 64)
   HAWQ_SM90_CASE(64, 128)
@@ -742,20 +774,23 @@ inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
 // the entry points' bodies
 // ---------------------------------------------------------------------------
 
-// x (M, K) int8 row-major times the prepared weights behind ``wmap_bytes``:
-// the int32 accumulator + bias (out int32, 64 x 32 boxes in the 128-byte
-// swizzle), or with REQUANT its requant (out int8, one dense 64 x BN box).
-template <bool REQUANT>
+// x (M, K) int8 row-major times the prepared weights behind ``wmap_bytes``
+// (with INT4 their nibble-packed handle): the int32 accumulator + bias (out
+// int32, bm x 32 boxes in the 128-byte swizzle), or with REQUANT its requant
+// (out int8, one dense bm x BN box).  bm, the rows of a block's tile, is 64,
+// or 128 (two consumer warpgroups) with INT4.
+template <bool REQUANT, bool INT4>
 inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
                         const int32_t* bias, const float* mult, void* out,
                         int M, int K, int N, int lo, int hi, int bk, int bn,
-                        int smem_extra, cudaStream_t stream) {
+                        int bm, int smem_extra, cudaStream_t stream) {
+  if (bm != BM && !(INT4 && bm == 2 * BM)) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, wmap, omap;
   std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
   {
     const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
     const cuuint64_t strides[1] = {(cuuint64_t)K};
-    const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)BM};
+    const cuuint32_t box[2] = {(cuuint32_t)bk, (cuuint32_t)bm};
     int code = encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, dims,
                           strides, box, k_swizzle(bk));
     if (code) return code;
@@ -764,7 +799,7 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
     const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
     const cuuint64_t strides[1] = {(cuuint64_t)N * (REQUANT ? 1 : 4)};
     const cuuint32_t box[2] = {(cuuint32_t)(REQUANT ? bn : 32),
-                               (cuuint32_t)BM};
+                               (cuuint32_t)bm};
     int code = encode_map(&omap,
                           REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                   : CU_TENSOR_MAP_DATA_TYPE_INT32,
@@ -780,9 +815,14 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
   p.lo = lo;
   p.hi = hi;
   p.k_tiles = (K + bk - 1) / bk;
-  dim3 grid((M + BM - 1) / BM, (N + bn - 1) / bn);
-  return launch<false, REQUANT>(amap, wmap, omap, p, grid, bk, bn, smem_extra,
-                                stream);
+  dim3 grid((M + bm - 1) / bm, (N + bn - 1) / bn);
+  if constexpr (INT4) {
+    if (bm == 2 * BM)
+      return launch<false, REQUANT, true, 2>(amap, wmap, omap, p, grid, bk, bn,
+                                             smem_extra, stream);
+  }
+  return launch<false, REQUANT, INT4>(amap, wmap, omap, p, grid, bk, bn,
+                                      smem_extra, stream);
 }
 
 // The stride-1 conv over xp: the zero-padded (B, Hp, Wp*C) slab, or with

@@ -13,6 +13,8 @@ extern "C" int hawq_int8_matmul_requant_sm90(
     const int8_t* x, const void* wmap_bytes, const int32_t* bias,
     const float* mult, int8_t* out, int M, int K, int N, int lo, int hi,
     int bk, int bn, int smem_extra, cudaStream_t stream) {
-  return hawq_sm90::matmul_entry<true>(x, wmap_bytes, bias, mult, out, M, K,
-                                       N, lo, hi, bk, bn, smem_extra, stream);
+  return hawq_sm90::matmul_entry<true, false>(x, wmap_bytes, bias, mult, out,
+                                              M, K, N, lo, hi, bk, bn,
+                                              hawq_sm90::BM, smem_extra,
+                                              stream);
 }

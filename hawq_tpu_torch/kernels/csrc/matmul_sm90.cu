@@ -24,7 +24,8 @@ extern "C" int hawq_int8_matmul_sm90(const int8_t* x, const void* wmap_bytes,
                                      const int32_t* bias, int32_t* out, int M,
                                      int K, int N, int bk, int bn,
                                      int smem_extra, cudaStream_t stream) {
-  return hawq_sm90::matmul_entry<false>(x, wmap_bytes, bias, nullptr, out, M,
-                                        K, N, 0, 0, bk, bn, smem_extra,
-                                        stream);
+  return hawq_sm90::matmul_entry<false, false>(x, wmap_bytes, bias, nullptr,
+                                               out, M, K, N, 0, 0, bk, bn,
+                                               hawq_sm90::BM, smem_extra,
+                                               stream);
 }

@@ -11,15 +11,15 @@ The plain versions compute the int32 accumulator exactly through float64
 (every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
 op; the int4 forms unpack the weights with :func:`unpack_int4` first.
 
-``int8_matmul_requant`` and ``int8_matmul_acc`` (and the four convs of
-kernels/conv.py) run on a second core written for
-Hopper (csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma) wherever
-:func:`sm90_route` admits the shape, and on csrc/gemm_s8.cuh elsewhere.
-That core reads the weights K-major: :func:`prepare_weights` (and
-:func:`prepare_weights_int4` for nibble-packed weights, which stay packed
-and are unpacked inside the kernel) lays them out once (the engine caches
-the handle); a wrapper handed plain weights lays them out on the device at
-each call.  :data:`_build.CORE_LAUNCHES` counts the launches of each core.
+``int8_matmul_requant``, ``int8_matmul_acc``, their int4 forms (and the
+four convs of kernels/conv.py) run on a second core written for Hopper
+(csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma) wherever :func:`sm90_route`
+admits the shape, and on csrc/gemm_s8.cuh elsewhere.  That core reads the
+weights K-major: :func:`prepare_weights` (and :func:`prepare_weights_int4`
+for nibble-packed weights, which stay packed and are unpacked inside the
+kernel) lays them out once (the engine caches the handle); a wrapper handed
+plain weights lays them out on the device at each call.
+:data:`_build.CORE_LAUNCHES` counts the launches of each core.
 """
 
 from __future__ import annotations
@@ -111,12 +111,11 @@ def matmul_acc_kmajor_plain(x, prepared: 'PreparedWeights', bias,
 
 
 def matmul_requant_kmajor_plain(x, prepared: 'PreparedWeights', bias, mult,
-                                lo, hi):
+                                lo, hi, name: str = 'int8_matmul_requant'):
     """:func:`matmul_requant_plain` by the Hopper core's walk: the requant
     of :func:`matmul_acc_kmajor_plain`."""
-    return requant_epilogue(
-        matmul_acc_kmajor_plain(x, prepared, bias, 'int8_matmul_requant'),
-        mult, lo, hi)
+    return requant_epilogue(matmul_acc_kmajor_plain(x, prepared, bias, name),
+                            mult, lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +133,8 @@ class PreparedWeights:
     multiple of 64.  Accepted by ``int8_matmul_requant``,
     ``int8_matmul_acc``, ``int8_conv_requant`` and ``int8_conv_acc`` in
     place of the (K, N) tensor.  With ``int4`` (:func:`prepare_weights_int4`,
-    accepted by ``int4w_conv_requant`` and ``int4w_conv_acc``) the weights
-    stay nibble-packed: ``wt`` is (N, taps·cpad/2) bytes, and inside every
+    accepted by the four ``int4w_*`` kernels) the weights stay
+    nibble-packed: ``wt`` is (N, taps·cpad/2) bytes, and inside every
     ``tile_k``-channel chunk byte i holds channel c0 + i in its low nibble
     and channel c0 + tile_k/2 + i in its high nibble, so that the kernel
     unpacks 16 packed bytes into two whole 16-byte units of its int8 tile.
@@ -246,7 +245,8 @@ def pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 def prepare_weights_int4(w_packed: torch.Tensor, taps: int = 1,
                          row_taps: int = 1) -> PreparedWeights:
     """(taps·C/2, N) nibble-packed weights (``conv.pack_int4_conv``: per
-    tap, byte[c] = W[c + C/2] << 4 | W[c] & 0xF) → their packed K-major
+    tap, byte[c] = W[c + C/2] << 4 | W[c] & 0xF; with one tap the (K/2, N)
+    bytes of :func:`pack_int4`) → their packed K-major
     handle for the Hopper core, on ``w_packed``'s device: (N, taps·cpad/2)
     bytes, cpad as in :func:`prepare_weights`, each ``tile_k``-channel chunk
     split into its low-nibble and high-nibble halves (see
@@ -270,7 +270,7 @@ def prepare_weights_int4(w_packed: torch.Tensor, taps: int = 1,
 def unprepare_weights(prepared: PreparedWeights) -> torch.Tensor:
     """Inverse of :func:`prepare_weights`: the (taps·C, N) weights; of
     :func:`prepare_weights_int4`: the (taps·C/2, N) bytes of
-    ``conv.pack_int4_conv``."""
+    ``conv.pack_int4_conv`` (of :func:`pack_int4` for one tap)."""
     p = prepared
     wt = p.kmajor_int8().reshape(p.n, p.taps, p.cpad)[:, :, :p.cin]
     w = wt.permute(1, 2, 0).reshape(p.taps * p.row_taps, -1,
@@ -290,8 +290,9 @@ def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
     bytes: the input's rows of ``k`` int8 at ``ptr`` (x (M, K) for a
     matmul, the slab's pixels of C channels for a conv), and the output's
     rows of N, int32 (4 N bytes) for an accumulator, int8 after a requant.
-    ``kind`` 'matmul' (``int8_matmul_acc``): K % 16, N % 4;
-    'matmul_requant' (``int8_matmul_requant``): K % 16, N % 16; 'conv'
+    ``kind`` 'matmul' (``int8_matmul_acc``, ``int4w_matmul_acc``): K % 16,
+    N % 4; 'matmul_requant' (``int8_matmul_requant``,
+    ``int4w_matmul_requant``): K % 16, N % 16; 'conv'
     (``int8_conv_requant``, ``int4w_conv_requant``): C % 16, N % 16;
     'conv_acc' (``int8_conv_acc``, ``int4w_conv_acc``): C % 16, N % 4."""
     if kind not in ('matmul', 'matmul_requant', 'conv', 'conv_acc'):
@@ -322,10 +323,11 @@ def sm90_tile_n(m_tiles: int, n: int, k_tiles: int, sm_count: int,
     and a one-step call is all epilogue, where the narrower tile's smaller
     staging lets more blocks overlap their stores (M = 25088 and 100352,
     K = 64, N = 256: 11.4 against 12.8 µs and 48.7 against 54.5 at 64).
-    The packed int4 conv passes ``widest`` = 64: its consumers unpack every
-    B tile through shared memory, which costs a 128-wide tile more than
-    the A re-reads it saves (at every 3×3 and 2×2-tap conv of ResNet-50 at
-    batch 8 the 64- or 32-wide tile is the faster)."""
+    The packed int4 conv and matmul pass ``widest`` = 64: their consumers
+    unpack every B tile through shared memory, which costs a 128-wide tile
+    more than the A re-reads it saves (at every 3×3 and 2×2-tap conv and
+    every 1×1 conv of ResNet-50 at batch 8 the 64- or 32-wide tile is the
+    faster: M = 6272, K = 256, N = 512, 9.0 against 10.6 µs at 128)."""
     for tile_n in SM90_TILE_NS[:2]:
         if tile_n > widest or (tile_n == 128 and k_tiles == 1):
             continue
@@ -335,6 +337,29 @@ def sm90_tile_n(m_tiles: int, n: int, k_tiles: int, sm_count: int,
         if 2 * n > tile_n and full:
             return tile_n
     return SM90_TILE_NS[2]
+
+
+# widest tile of the packed matmul (sm90_tile_n's ``widest``)
+SM90_INT4_MATMUL_WIDEST = 64
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_tile_m(m: int, n: int, k_tiles: int, sm_count: int) -> int:
+    """Rows of the packed matmul's output tile on the Hopper core: 128 (two
+    consumer warpgroups that share each unpacked B tile: half the unpack
+    work per output row, half the blocks) where N is at least 1024, or
+    where K is a single step and the 128-row grid still has an M tile for
+    every SM; else 64 (one warpgroup).  Measured on the H100 at the
+    ResNet-50 b8 shapes at the width :func:`sm90_tile_n` picks
+    (chip_sweep_sm90.py): M = 1568, N = 1024, K = 256 and 512: 5.2 and 6.3
+    against 6.6 and 8.1 µs; M = 392, N = 2048: 4.7 and 6.3 against 4.8 and
+    6.5; M = 25088, K = 64, N = 64 and 256: 5.2 and 12.2 against 5.4 and
+    12.6.  Everywhere else the 64-row tile is the faster, by up to 23 %
+    (M = 392, K = 2048, N = 512: 6.7 against 8.2 µs), as the grid loses
+    half its blocks (M = 6272, K = 128, N = 512: 7.6 against 8.0)."""
+    if n >= 1024 or (k_tiles == 1 and -(-m // (2 * SM90_TILE_M)) >= sm_count):
+        return 2 * SM90_TILE_M
+    return SM90_TILE_M
 
 
 _SM_COUNT: Dict[torch.device, int] = {}
@@ -364,39 +389,57 @@ def pick_core(kind: str, name: str, core: Optional[str], *, k: int, n: int,
 # kernels
 # ---------------------------------------------------------------------------
 
+def _matmul_name(requant: bool, int4: bool) -> str:
+    return (('int4w' if int4 else 'int8') + '_matmul_'
+            + ('requant' if requant else 'acc'))
+
+
 def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
-                 requant: bool, tile_n: Optional[int],
+                 requant: bool, tile_n: Optional[int], tile_m: Optional[int],
                  smem_extra: int) -> torch.Tensor:
-    """``int8_matmul_requant`` / ``int8_matmul_acc`` on the Hopper core."""
-    name = 'int8_matmul_requant' if requant else 'int8_matmul_acc'
+    """The four matmuls on the Hopper core: int8 or packed int4 weights
+    (``prepared.int4``), with ``requant`` the requant forms (int8 out), else
+    the accumulator forms (int32 out)."""
+    int4 = prepared.int4
+    name = _matmul_name(requant, int4)
     m, k = x.shape
     n = prepared.n
     dev = _build.kernel_device(x)
     _build.require(x, 'x', torch.int8, (m, k), dev)
     prepared.check(1, k, name)
     _build.require(prepared.wt, 'prepared.wt', torch.int8,
-                   (n, prepared.cpad), dev)
+                   (n, prepared.row_bytes), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
     if requant:
         _build.require(mult, 'mult', torch.float32, (n,), dev)
     if m < 1:
         raise ValueError(f'{name}: empty x')
+    k_tiles = -(-k // prepared.tile_k)
+    if tile_m is None:
+        tile_m = (sm90_tile_m(m, n, k_tiles, sm_count(dev)) if int4
+                  else SM90_TILE_M)
+    if tile_m not in ((SM90_TILE_M, 2 * SM90_TILE_M) if int4
+                      else (SM90_TILE_M,)):
+        raise ValueError(f'{name}: tile_m {tile_m}')
     if tile_n is None:
-        tile_n = sm90_tile_n(-(-m // SM90_TILE_M), n,
-                             -(-k // prepared.tile_k), sm_count(dev))
+        tile_n = sm90_tile_n(-(-m // SM90_TILE_M), n, k_tiles, sm_count(dev),
+                             SM90_INT4_MATMUL_WIDEST if int4 else 128)
     out = torch.empty((m, n), dtype=torch.int8 if requant else torch.int32,
                       device=dev)
+    lib = _build.lib()
+    head = (x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr())
+    tail = (prepared.tile_k, tile_n) + ((tile_m,) if int4 else ()) + (
+        smem_extra, _build.stream_ptr(dev))
     with torch.cuda.device(dev):
         if requant:
-            code = _build.lib().hawq_int8_matmul_requant_sm90(
-                x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
-                mult.data_ptr(), out.data_ptr(), m, k, n, lo, hi,
-                prepared.tile_k, tile_n, smem_extra, _build.stream_ptr(dev))
+            entry = (lib.hawq_int4w_matmul_sm90 if int4
+                     else lib.hawq_int8_matmul_requant_sm90)
+            code = entry(*head, mult.data_ptr(), out.data_ptr(), m, k, n, lo,
+                         hi, *tail)
         else:
-            code = _build.lib().hawq_int8_matmul_sm90(
-                x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr(),
-                out.data_ptr(), m, k, n, prepared.tile_k, tile_n, smem_extra,
-                _build.stream_ptr(dev))
+            entry = (lib.hawq_int4w_matmul_acc_sm90 if int4
+                     else lib.hawq_int8_matmul_sm90)
+            code = entry(*head, out.data_ptr(), m, k, n, *tail)
     _build.check(code, f'{name} (sm90 core)')
     _build.count(name, 'sm90')
     return out
@@ -419,8 +462,7 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool,
                       device=dev)
     vec_a = int(k % 16 == 0 and x.data_ptr() % 16 == 0)
     vec_b = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
-    name = (('int4w' if int4 else 'int8') + '_matmul_'
-            + ('requant' if requant else 'acc'))
+    name = _matmul_name(requant, int4)
     with torch.cuda.device(dev):
         code = _build.lib().hawq_int8_matmul(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(),
@@ -432,37 +474,38 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool,
     return out
 
 
-def _int8_matmul(x, w, bias, mult, lo, hi, requant: bool,
-                 core: Optional[str], tile_n: Optional[int],
-                 smem_extra: int) -> torch.Tensor:
-    """The int8 matmul with either epilogue: the plain version (of the
-    Hopper core's walk for a handle) on a CPU tensor, else the core the
-    rule, or ``core``, names."""
-    name = 'int8_matmul_requant' if requant else 'int8_matmul_acc'
+def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
+            core: Optional[str], tile_n: Optional[int],
+            tile_m: Optional[int], smem_extra: int) -> torch.Tensor:
+    """The four matmuls: the plain version (of the Hopper core's walk for a
+    handle) on a CPU tensor, else the core the rule, or ``core``, names."""
+    name = _matmul_name(requant, int4)
     prepared = w if isinstance(w, PreparedWeights) else None
     if prepared is not None:
         prepared.check(1, x.shape[1], name)
     if x.device.type == 'cpu':
-        if requant and prepared is not None:
-            return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo,
-                                               hi)
+        if prepared is None:
+            w = unpack_int4(w) if int4 else w
+            return (matmul_requant_plain(x, w, bias, mult, lo, hi) if requant
+                    else matmul_acc_plain(x, w, bias))
         if requant:
-            return matmul_requant_plain(x, w, bias, mult, lo, hi)
-        if prepared is not None:
-            return matmul_acc_kmajor_plain(x, prepared, bias)
-        return matmul_acc_plain(x, w, bias)
+            return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo, hi,
+                                               name)
+        return matmul_acc_kmajor_plain(x, prepared, bias, name)
+    k = x.shape[1]
     n = prepared.n if prepared is not None else w.shape[1]
     core = pick_core('matmul_requant' if requant else 'matmul', name, core,
-                     k=x.shape[1], n=n, ptr=x.data_ptr())
+                     k=k, n=n, ptr=x.data_ptr())
     if core == 'mma':
         if prepared is not None:
             w = unprepare_weights(prepared)
-        return _launch(x, w, bias, mult, lo, hi, requant, False)
+        return _launch(x, w, bias, mult, lo, hi, requant, int4)
     if prepared is None:
-        _build.require(w, 'w', torch.int8, (x.shape[1], n), x.device)
-        prepared = prepare_weights(w)
+        _build.require(w, 'w_packed' if int4 else 'w', torch.int8,
+                       (k // 2 if int4 else k, n), x.device)
+        prepared = prepare_weights_int4(w) if int4 else prepare_weights(w)
     return _launch_sm90(x, prepared, bias, mult, lo, hi, requant, tile_n,
-                        smem_extra)
+                        tile_m, smem_extra)
 
 
 def int8_matmul_requant(x: torch.Tensor, w, bias: torch.Tensor,
@@ -478,8 +521,8 @@ def int8_matmul_requant(x: torch.Tensor, w, bias: torch.Tensor,
     clamps the low end at 0.  ``core``, ``tile_n`` and ``smem_extra`` as in
     :func:`int8_matmul_acc`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    return _int8_matmul(x, w, bias, mult, lo, hi, True, core, tile_n,
-                        smem_extra)
+    return _matmul(x, w, bias, mult, lo, hi, True, False, core, tile_n, None,
+                   smem_extra)
 
 
 def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
@@ -494,29 +537,36 @@ def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
     'mma') overrides the rule, ``tile_n`` the Hopper core's tile width, and
     ``smem_extra`` adds to its shared-memory request (timing and tests).
     The result does not depend on any of them."""
-    return _int8_matmul(x, w, bias, None, 0, 0, False, core, tile_n,
-                        smem_extra)
+    return _matmul(x, w, bias, None, 0, 0, False, False, core, tile_n, None,
+                   smem_extra)
 
 
-def int4w_matmul_requant(x: torch.Tensor, w_packed: torch.Tensor,
-                         bias: torch.Tensor, mult: torch.Tensor, *,
-                         out_bits: int = 8, signed: bool = True,
-                         relu: bool = False) -> torch.Tensor:
+def int4w_matmul_requant(x: torch.Tensor, w_packed, bias: torch.Tensor,
+                         mult: torch.Tensor, *, out_bits: int = 8,
+                         signed: bool = True, relu: bool = False,
+                         core: Optional[str] = None,
+                         tile_n: Optional[int] = None,
+                         tile_m: Optional[int] = None,
+                         smem_extra: int = 0) -> torch.Tensor:
     """:func:`int8_matmul_requant` with nibble-packed int4 weights: w_packed
-    (K/2, N) from :func:`pack_int4`; K even."""
+    (K/2, N) from :func:`pack_int4` (K even), or its
+    :func:`prepare_weights_int4` handle.  ``tile_m`` is the rows of the
+    Hopper core's output tile, 64 or 128 (:func:`sm90_tile_m`); the other
+    keywords as in :func:`int8_matmul_acc`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    if x.device.type == 'cpu':
-        return matmul_requant_plain(x, unpack_int4(w_packed), bias, mult,
-                                    lo, hi)
-    return _launch(x, w_packed, bias, mult, lo, hi, True, True)
+    return _matmul(x, w_packed, bias, mult, lo, hi, True, True, core, tile_n,
+                   tile_m, smem_extra)
 
 
-def int4w_matmul_acc(x: torch.Tensor, w_packed: torch.Tensor,
-                     bias: torch.Tensor) -> torch.Tensor:
-    """:func:`int8_matmul_acc` with nibble-packed int4 weights."""
-    if x.device.type == 'cpu':
-        return matmul_acc_plain(x, unpack_int4(w_packed), bias)
-    return _launch(x, w_packed, bias, None, 0, 0, False, True)
+def int4w_matmul_acc(x: torch.Tensor, w_packed, bias: torch.Tensor, *,
+                     core: Optional[str] = None,
+                     tile_n: Optional[int] = None,
+                     tile_m: Optional[int] = None,
+                     smem_extra: int = 0) -> torch.Tensor:
+    """:func:`int8_matmul_acc` with nibble-packed int4 weights (or their
+    handle), as in :func:`int4w_matmul_requant`."""
+    return _matmul(x, w_packed, bias, None, 0, 0, False, True, core, tile_n,
+                   tile_m, smem_extra)
 
 
 def default_k_splits(m: int, k: int, n: int, sm_count: int) -> int:

@@ -395,8 +395,8 @@ def test_qat_train_step_cuda_equals_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# the Hopper GEMM core (csrc/gemm_s8_sm90.cuh) under int8_matmul_acc,
-# int8_matmul_requant, int8_conv_requant and int4w_conv_requant
+# the Hopper GEMM core (csrc/gemm_s8_sm90.cuh) under the four matmuls and
+# the four convs
 # ---------------------------------------------------------------------------
 
 def _core_counts():
@@ -768,6 +768,147 @@ def test_sm90_conv_acc_equals_plain_and_first_core(dev, shape, n, taps, pad,
             fn(xp, weights, bias, **geo)
 
 
+# (kind, M, K, N) of the packed matmuls: every int4w_matmul_requant
+# ('matmul_requant') and int4w_matmul_acc ('matmul') shape of ResNet-50
+# uniform4 at batch 8 (bops_0.5's five int4w_matmul_acc calls are among
+# them), ResNet-18 uniform4's three identity convs, then ragged ones: M off
+# the 64- and 128-row tiles, K = 48 and 80 (padded to 64 and 128), M = 1,
+# N = 1000 and N % 4 only for the accumulator form
+_SM90_INT4_MATMULS = [
+    ('matmul_requant', 25088, 64, 64), ('matmul_requant', 25088, 256, 64),
+    ('matmul_requant', 6272, 256, 128), ('matmul_requant', 6272, 512, 128),
+    ('matmul_requant', 1568, 512, 256), ('matmul_requant', 1568, 1024, 256),
+    ('matmul_requant', 392, 1024, 512), ('matmul_requant', 392, 2048, 512),
+    ('matmul', 25088, 64, 256), ('matmul', 6272, 256, 512),
+    ('matmul', 6272, 128, 512), ('matmul', 1568, 512, 1024),
+    ('matmul', 1568, 256, 1024), ('matmul', 392, 1024, 2048),
+    ('matmul', 392, 512, 2048), ('matmul', 6272, 64, 128),
+    ('matmul', 1568, 128, 256), ('matmul', 392, 256, 512),
+    ('matmul_requant', 37, 48, 16), ('matmul_requant', 300, 80, 48),
+    ('matmul_requant', 1, 16, 16), ('matmul', 37, 48, 20),
+    ('matmul', 300, 80, 1000), ('matmul', 1, 16, 4),
+    ('matmul', 130, 2048, 1000)]
+
+
+@pytest.mark.parametrize('kind,m,k,n', _SM90_INT4_MATMULS)
+def test_sm90_int4w_matmul_equals_plain_int8_form_and_first_core(dev, kind, m,
+                                                                 k, n):
+    """The packed matmul on the Hopper core == the plain version on the
+    unpacked weights == its walk == the int8 form of the same core on those
+    weights == the first core, with the handle and with ``pack_int4``'s
+    bytes (laid out at each call), at every tile width and with 64- and
+    128-row tiles; the two cores in turns."""
+    rng = np.random.RandomState(m + k + n)
+    _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+    mult[::3] = 0.5          # odd accumulators land exactly on a .5 boundary
+    x = torch.tensor(rng.randint(-128, 128, (m, k)).astype(np.int8),
+                     device=dev)
+    w = _w4(rng, (k, n))
+    if k >= 1024:                   # saturated operands: large |acc|
+        x[0, :] = -128
+        w[:, 0], w[:, 1] = -8, 7
+    wp = torch.tensor(km.pack_int4(w), device=dev)
+    w8 = torch.tensor(w, device=dev)
+    prepared = km.prepare_weights_int4(wp)
+    torch.testing.assert_close(km.unprepare_weights(prepared), wp, rtol=0,
+                               atol=0)
+    requant = kind == 'matmul_requant'
+    name = 'int4w_matmul_requant' if requant else 'int4w_matmul_acc'
+    epilogues = _EPILOGUES if requant else [None]
+    _build.reset_launches()
+    for epi in epilogues:
+        if requant:
+            lo, hi = km.epilogue_bounds(*epi)
+            kw = dict(zip(('out_bits', 'signed', 'relu'), epi))
+            want = km.matmul_requant_plain(x, w8, bias, mult, lo, hi)
+            walk = km.matmul_requant_kmajor_plain(x, prepared, bias, mult, lo,
+                                                  hi, name)
+            fn = lambda wts, **o: km.int4w_matmul_requant(x, wts, bias, mult,
+                                                          **kw, **o)
+            twin = km.int8_matmul_requant(x, w8, bias, mult, core='sm90',
+                                          **kw)
+        else:
+            want = km.matmul_acc_plain(x, w8, bias)
+            walk = km.matmul_acc_kmajor_plain(x, prepared, bias, name)
+            fn = lambda wts, **o: km.int4w_matmul_acc(x, wts, bias, **o)
+            twin = km.int8_matmul_acc(x, w8, bias, core='sm90')
+        torch.testing.assert_close(walk, want, rtol=0, atol=0)
+        torch.testing.assert_close(twin, want, rtol=0, atol=0)
+        for tile_m in (None, 64, 128):
+            for tile_n in (None, 32, 64, 128):
+                torch.testing.assert_close(
+                    fn(prepared, tile_n=tile_n, tile_m=tile_m), want, rtol=0,
+                    atol=0, msg=f'{epi} tile {tile_m} x {tile_n}')
+        for core in ('mma', 'sm90', 'sm90', 'mma'):
+            torch.testing.assert_close(fn(wp, core=core), want, rtol=0,
+                                       atol=0)
+        torch.testing.assert_close(fn(prepared, smem_extra=4096), want,
+                                   rtol=0, atol=0)
+    e = len(epilogues)
+    assert _core_counts() == {f'{name}@sm90': 15 * e, f'{name}@mma': 2 * e,
+                              f'{name.replace("int4w", "int8")}@sm90': e}
+
+
+@pytest.mark.parametrize('k,n', [(64, 32), (128, 128), (192, 80), (16, 16),
+                                 (256, 256), (48, 64)])
+def test_sm90_int4w_matmul_places_every_nibble(dev, k, n):
+    """A handle of known values times rows that each hold a single 1 at
+    channel c0 + row: the output is W[c0 + row, :], so a nibble unpacked to
+    the wrong unit, row or half of the swizzled tile shows up by position;
+    every tile width, 64- and 128-row tiles."""
+    kk, nn = np.meshgrid(np.arange(k), np.arange(n), indexing='ij')
+    w = ((kk * 7 + nn * 3 + kk // 16) % 16 - 8).astype(np.int8)
+    prepared = km.prepare_weights_int4(torch.tensor(km.pack_int4(w),
+                                                    device=dev))
+    bias = torch.zeros(n, dtype=torch.int32, device=dev)
+    x = torch.zeros((200, k), dtype=torch.int8, device=dev)
+    rows = torch.arange(200, device=dev)
+    x[rows, rows % k] = 1
+    want = torch.tensor(w, device=dev).to(torch.int32)[rows % k]
+    for tile_m in (64, 128):
+        for tile_n in (32, 64, 128):
+            got = km.int4w_matmul_acc(x, prepared, bias, tile_m=tile_m,
+                                      tile_n=tile_n)
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       msg=f'tile {tile_m} x {tile_n}')
+
+
+def test_sm90_rule_routes_int4w_matmul_exclusions_to_the_first_core(dev):
+    """One call of each packed matmul per clause of ``sm90_route``: it runs
+    on the first core with the packed bytes (from a handle too), equals the
+    plain version, and asking for the Hopper core raises."""
+    rng = np.random.RandomState(3)
+    big = torch.tensor(rng.randint(-128, 128, 1 << 16).astype(np.int8),
+                       device=dev)
+    for requant, cases in (
+            (False, (((40, 46, 20, 0), 'K % 16'), ((40, 48, 18, 0), 'N % 4'),
+                     ((40, 48, 20, 8), 'pointer % 16'))),
+            (True, (((40, 46, 16, 0), 'K % 16'), ((40, 48, 24, 0), 'N % 16'),
+                    ((40, 48, 16, 8), 'pointer % 16')))):
+        kind = 'matmul_requant' if requant else 'matmul'
+        name = 'int4w_matmul_requant' if requant else 'int4w_matmul_acc'
+        for (m, k, n, offset), clause in cases:
+            x = big[offset:offset + m * k].view(m, k)
+            w = torch.tensor(_w4(rng, (k, n)), device=dev)
+            wp = torch.tensor(km.pack_int4(w.cpu().numpy()), device=dev)
+            _, _, b, _ = _operands(rng, 1, 1, n, dev)
+            mult = torch.full((n,), 2.0 ** -9, device=dev)
+            assert km.sm90_route(kind, k=k, n=n, ptr=x.data_ptr()) == clause
+            if requant:
+                fn = lambda wts, **o: km.int4w_matmul_requant(x, wts, b, mult,
+                                                              **o)
+                want = km.matmul_requant_plain(x, w, b, mult, -128, 127)
+            else:
+                fn = lambda wts, **o: km.int4w_matmul_acc(x, wts, b, **o)
+                want = km.matmul_acc_plain(x, w, b)
+            for wts in (wp, km.prepare_weights_int4(wp)):
+                _build.reset_launches()
+                torch.testing.assert_close(fn(wts), want, rtol=0, atol=0)
+                assert _core_counts() == {f'{name}@mma': 1}
+                with pytest.raises(ValueError):
+                    fn(wts, core='sm90')
+
+
 def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
     """One call per clause of ``sm90_route``: it runs on the first core,
     equals the plain version, and asking for the Hopper core raises."""
@@ -887,6 +1028,13 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
     with pytest.raises(RuntimeError):
         kc.int4w_conv_acc(xp, wp, b, taps=(3, 3), out_hw=(8, 8), cin=64,
                           smem_extra=1 << 20)
+    wpm = torch.tensor(km.pack_int4(_w4(rng, (64, 64))), device=dev)
+    for tile_m in (64, 128):
+        with pytest.raises(RuntimeError):
+            km.int4w_matmul_requant(x, wpm, b, mult, tile_m=tile_m,
+                                    smem_extra=1 << 20)
+        with pytest.raises(RuntimeError):
+            km.int4w_matmul_acc(x, wpm, b, tile_m=tile_m, smem_extra=1 << 20)
     assert _core_counts() == {}
     # and the same calls go through afterwards
     torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
@@ -897,14 +1045,23 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
 @pytest.mark.parametrize('scheme,want', [
     ('uniform8', {'int8_conv_requant@sm90': 16, 'int8_matmul_acc@sm90': 21,
                   'int8_matmul_requant@sm90': 16, 'int8_conv_acc@sm90': 1}),
-    ('uniform4', {'int4w_conv_requant@sm90': 16, 'int4w_matmul_requant@mma': 16,
-                  'int4w_matmul_acc@mma': 20, 'int8_matmul_acc@sm90': 1,
-                  'int8_conv_acc@sm90': 1})])
+    ('uniform4', {'int4w_conv_requant@sm90': 16, 'int4w_matmul_requant@sm90': 16,
+                  'int4w_matmul_acc@sm90': 20, 'int8_matmul_acc@sm90': 1,
+                  'int8_conv_acc@sm90': 1}),
+    ('bops_0.5', {'int8_conv_acc@sm90': 1, 'int8_matmul_acc@sm90': 16,
+                  'int8_matmul_requant@sm90': 16, 'int8_conv_requant@sm90': 2,
+                  'int4w_conv_requant@sm90': 14, 'int4w_matmul_acc@sm90': 5}),
+    ('resnet18-uniform4', {'int8_conv_acc@sm90': 1, 'int8_matmul_acc@sm90': 1,
+                           'int4w_conv_requant@sm90': 8,
+                           'int4w_conv_acc@sm90': 8,
+                           'int4w_matmul_acc@sm90': 3})])
 def test_engine_cuda_runs_the_hopper_core(dev, scheme, want):
-    """ResNet-50 widths at a small image: the engine's prepared weights go
-    through the Hopper core and the logits equal the CPU engine's."""
-    fm = synthetic_frozen_resnet('resnet50', get_bit_config('resnet50',
-                                                            scheme),
+    """ResNet widths at a small image: the engine's prepared weights (the
+    packed ones of the 4-bit layers too) go through the Hopper core and the
+    logits equal the CPU engine's."""
+    arch, scheme = (scheme.split('-') if '-' in scheme
+                    else ('resnet50', scheme))
+    fm = synthetic_frozen_resnet(arch, get_bit_config(arch, scheme),
                                  num_classes=1000, seed=2)
     x = fold4_images(np.random.RandomState(5).randn(2, 64, 64, 3).astype(
         np.float32))

@@ -1,19 +1,20 @@
 """The Hopper GEMM core's host side and plain walk on the CPU.
 
 The four convs (``int8_conv_requant``, ``int4w_conv_requant``,
-``int8_conv_acc``, ``int4w_conv_acc``), ``int8_matmul_requant`` and
-``int8_matmul_acc`` run on a second CUDA core on the card
-(csrc/gemm_s8_sm90.cuh).  What surrounds that kernel is Python and is tested
-here: the K-major weight layouts (``prepare_weights``, and
-``prepare_weights_int4`` for weights that stay nibble-packed), the conv's
-plan of pixel-rectangle tiles, the plain versions of the kernel's own walk
-(``conv_acc_tiled_plain`` and its requant ``conv_requant_tiled_plain``,
-``matmul_acc_kmajor_plain``, ``matmul_requant_kmajor_plain``) against the
-first plain versions and
+``int8_conv_acc``, ``int4w_conv_acc``) and the four matmuls
+(``int8_matmul_requant``, ``int8_matmul_acc`` and their packed int4 forms)
+run on a second CUDA core on the card (csrc/gemm_s8_sm90.cuh).  What
+surrounds that kernel is Python and is tested here: the K-major weight
+layouts (``prepare_weights``, and ``prepare_weights_int4`` for weights that
+stay nibble-packed), the conv's plan of pixel-rectangle tiles, the plain
+versions of the kernel's own walk (``conv_acc_tiled_plain`` and its requant
+``conv_requant_tiled_plain``, ``matmul_acc_kmajor_plain``,
+``matmul_requant_kmajor_plain``) against the first plain versions and
 against the JAX package's Pallas kernels in interpret mode (same numpy
 inputs from a seed, tolerance 0), the rule that routes a call to one core or
-the other, and the engine's caches of prepared weights.  The kernel itself
-is held against these plain versions on the card (tests/test_torch_cuda.py).
+the other, the tile rules, and the engine's caches of prepared weights.
+The kernel itself is held against these plain versions on the card
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -119,6 +120,28 @@ def test_prepare_weights_int4_layout_and_round_trip(taps, cin):
     # what the kernel's unpack rebuilds is the int8 handle of the same weights
     np.testing.assert_array_equal(
         p.kmajor_int8().numpy(), tkm.prepare_weights(_t(w), taps).wt.numpy())
+    np.testing.assert_array_equal(tkm.unprepare_weights(p).numpy(), packed)
+
+
+@pytest.mark.parametrize('k', [48, 64, 80, 256])
+@pytest.mark.parametrize('n', [16, 19, 64])
+def test_prepare_weights_int4_of_pack_int4_bytes(k, n):
+    """A matmul's handle, built from the engine's ``pack_int4`` bytes (whose
+    split-K order is not the handle's: every tile_k-channel chunk is split
+    into its low and high nibbles), unpacks to ``unpack_int4``'s matrix,
+    K-major and zero-padded, and gives the same bytes back."""
+    rng = np.random.RandomState(k + n)
+    w = _w4(rng, (k, n))
+    packed = tkm.pack_int4(w)
+    p = tkm.prepare_weights_int4(_t(packed))
+    cpad = -(-k // 64) * 64
+    assert (p.taps, p.cin, p.cpad, p.n, p.int4) == (1, k, cpad, n, True)
+    assert p.wt.shape == (n, cpad // 2) and p.row_bytes == cpad // 2
+    unpacked = tkm.unpack_int4(_t(packed))
+    np.testing.assert_array_equal(unpacked.numpy(), w)
+    kmajor = p.kmajor_int8().numpy()
+    np.testing.assert_array_equal(kmajor[:, :k], unpacked.numpy().T)
+    assert not kmajor[:, k:].any()
     np.testing.assert_array_equal(tkm.unprepare_weights(p).numpy(), packed)
 
 
@@ -482,6 +505,99 @@ def test_matmul_requant_kmajor_plain_matches_plain_and_pallas(m, k, n, case):
         assert (acc[..., ::2] % 2 != 0).any()
 
 
+# M, K, N, case of the packed matmuls: M off the 64-row tile, K below and
+# between the paddings, M = 1, sums beyond 2**24 (K = 16448 at |x·w| = 1024),
+# requant inputs on a .5 boundary; the Pallas grid is M // min(256, M), so
+# M = 300 is held against the plain version alone
+_WALK_INT4_MATMULS = [(37, 48, 16, 'random'), (64, 64, 64, 'random'),
+                      (256, 80, 48, 'random'), (8, 16448, 16, 'saturated'),
+                      (65, 32, 16, 'half'), (1, 16, 16, 'random'),
+                      (130, 256, 19, 'random'), (512, 128, 32, 'random'),
+                      (300, 64, 32, 'random')]
+
+
+@pytest.mark.parametrize('m,k,n,case', _WALK_INT4_MATMULS)
+def test_int4w_matmul_kmajor_plain_matches_plain_and_pallas(m, k, n, case):
+    """``int4w_matmul_requant`` / ``int4w_matmul_acc`` with the packed handle
+    (the Hopper core's walk, its nibbles unpacked chunk by chunk) == with
+    ``pack_int4``'s bytes == the plain version on the unpacked weights ==
+    the Pallas kernels on those bytes, in all three epilogues."""
+    rng = np.random.RandomState(m + k + n)
+    x = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    w = _w4(rng, (k, n))
+    if case == 'saturated':
+        x[0, :] = -128
+        w[:, 0], w[:, 1] = -8, 7
+    if case == 'half':
+        x = rng.randint(-3, 4, x.shape).astype(np.int8)
+        w = rng.randint(-3, 4, w.shape).astype(np.int8)
+    bias, mult = _vectors(rng, n, half=case == 'half')
+    wp = tkm.pack_int4(w)
+    prepared = tkm.prepare_weights_int4(_t(wp))
+    pallas_ok = m <= 256 or m % 256 == 0
+    jx, jw, jb, jm = map(jnp.asarray, (x, wp, bias, mult))
+    for out_bits, signed, relu in [(8, True, False), (8, True, True),
+                                   (4, False, True)]:
+        epi = dict(out_bits=out_bits, signed=signed, relu=relu)
+        lo, hi = tkm.epilogue_bounds(out_bits, signed, relu)
+        plain = tkm.matmul_requant_plain(_t(x), _t(w), _t(bias), _t(mult),
+                                         lo, hi).numpy()
+        kmajor = tkm.matmul_requant_kmajor_plain(
+            _t(x), prepared, _t(bias), _t(mult), lo, hi,
+            'int4w_matmul_requant').numpy()
+        assert kmajor.dtype == np.int8 and kmajor.shape == (m, n)
+        np.testing.assert_array_equal(kmajor, plain, err_msg=str(epi))
+        for wts in (prepared, _t(wp)):
+            np.testing.assert_array_equal(tkm.int4w_matmul_requant(
+                _t(x), wts, _t(bias), _t(mult), **epi).numpy(), plain,
+                err_msg=str(epi))
+        if pallas_ok:
+            with pltpu.force_tpu_interpret_mode():
+                pallas = np.asarray(jkm.int4w_matmul_requant(jx, jw, jb, jm,
+                                                             **epi))
+            np.testing.assert_array_equal(kmajor, pallas, err_msg=str(epi))
+    acc = tkm.matmul_acc_plain(_t(x), _t(w), _t(bias)).numpy()
+    kmajor = tkm.matmul_acc_kmajor_plain(_t(x), prepared, _t(bias),
+                                         'int4w_matmul_acc').numpy()
+    assert kmajor.dtype == np.int32
+    np.testing.assert_array_equal(kmajor, acc)
+    for wts in (prepared, _t(wp)):
+        np.testing.assert_array_equal(
+            tkm.int4w_matmul_acc(_t(x), wts, _t(bias)).numpy(), acc)
+    if pallas_ok:
+        with pltpu.force_tpu_interpret_mode():
+            pallas = np.asarray(jkm.int4w_matmul_acc(jx, jw, jb))
+        np.testing.assert_array_equal(kmajor, pallas)
+    if case == 'saturated':
+        assert np.abs(acc - bias).max() > 2 ** 24
+    if case == 'half':
+        assert (acc[..., ::2] % 2 != 0).any()
+
+
+@pytest.mark.parametrize('requant', [False, True])
+def test_matmuls_refuse_a_handle_of_the_other_weight_width(requant):
+    """An int8 handle is refused by the ``int4w_*`` matmuls, a packed one by
+    the ``int8_*`` matmuls, on either walk."""
+    x = torch.zeros((4, 64), dtype=torch.int8)
+    bias, mult = torch.zeros(16, dtype=torch.int32), torch.ones(16)
+    p8 = tkm.prepare_weights(torch.zeros((64, 16), dtype=torch.int8))
+    p4 = tkm.prepare_weights_int4(torch.zeros((32, 16), dtype=torch.int8))
+    epi = (mult,) if requant else ()
+    int8_fn = tkm.int8_matmul_requant if requant else tkm.int8_matmul_acc
+    int4_fn = tkm.int4w_matmul_requant if requant else tkm.int4w_matmul_acc
+    int8_fn(x, p8, bias, *epi)
+    int4_fn(x, p4, bias, *epi)
+    with pytest.raises(ValueError, match='int4w.*int8 weights'):
+        int4_fn(x, p8, bias, *epi)
+    with pytest.raises(ValueError, match='int8.*packed int4'):
+        int8_fn(x, p4, bias, *epi)
+    name = 'int4w_matmul_requant' if requant else 'int4w_matmul_acc'
+    with pytest.raises(ValueError):
+        tkm.matmul_acc_kmajor_plain(x, p8, bias, name)
+    with pytest.raises(ValueError):
+        tkm.matmul_requant_kmajor_plain(x, p4, bias, mult, -128, 127)
+
+
 def test_wrappers_reject_a_handle_of_another_shape():
     """A handle prepared for other taps or another K is refused, not
     zero-filled up to its padded K."""
@@ -578,7 +694,26 @@ def test_rule_takes_every_train_shape_of_resnet50_b32(kind, m, k, n):
     assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
 
 
+# the int4w_matmul_requant ('matmul_requant') and int4w_matmul_acc
+# ('matmul') calls of a ResNet-50 uniform4 forward at batch 8: every unit 1×1
+# conv (the FC keeps int8 weights)
+_INT4W_MATMUL_SHAPES = [s for s in _ENGINE_SHAPES
+                        if s[0] in ('matmul', 'matmul_requant')
+                        and s[1:] != (8, 2048, 1000)]
+
+
+@pytest.mark.parametrize('kind,m,k,n', sorted(set(_INT4W_MATMUL_SHAPES)))
+def test_rule_takes_every_int4w_matmul_shape_of_resnet50_b8(kind, m, k, n):
+    assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
+    k_tiles = -(-k // (128 if k % 128 == 0 else 64))
+    assert tkm.sm90_tile_n(-(-m // 64), n, k_tiles, 132,
+                           tkm.SM90_INT4_MATMUL_WIDEST) in tkm.SM90_TILE_NS
+    assert tkm.sm90_tile_m(m, n, k_tiles, 132) in (64, 128)
+
+
 def test_resnet50_shape_lists_have_the_launch_counts():
+    assert sum(s[0] == 'matmul_requant' for s in _INT4W_MATMUL_SHAPES) == 16
+    assert sum(s[0] == 'matmul' for s in _INT4W_MATMUL_SHAPES) == 20
     assert sum(s[0] == 'conv' for s in _ENGINE_SHAPES) == 16
     assert sum(s[0] == 'matmul_requant' for s in _ENGINE_SHAPES) == 16
     assert sum(s[0] == 'matmul' for s in _ENGINE_SHAPES) == 21
@@ -682,6 +817,34 @@ def test_tile_width_rule_of_the_packed_conv_stops_at_64(m_tiles, n, k_tiles,
     assert tkm.sm90_tile_n(m_tiles, n, k_tiles, 132, 64) == want
 
 
+@pytest.mark.parametrize('m_tiles,n,k_tiles,want', [
+    # int4w_matmul_requant of ResNet-50 at batch 8 (conv1 of stages 1 to 4),
+    # then int4w_matmul_acc (conv3 and the identity convs)
+    (392, 64, 1, 64), (392, 64, 2, 64), (98, 128, 2, 64), (98, 128, 4, 64),
+    (25, 256, 4, 64), (25, 256, 8, 64), (7, 512, 8, 32), (7, 512, 16, 32),
+    (392, 256, 1, 64), (98, 512, 1, 64), (98, 512, 2, 64), (25, 1024, 2, 64),
+    (25, 1024, 4, 64), (7, 2048, 4, 64), (7, 2048, 8, 64)])
+def test_tile_width_rule_of_the_packed_matmul_stops_at_64(m_tiles, n, k_tiles,
+                                                          want):
+    assert tkm.sm90_tile_n(m_tiles, n, k_tiles, 132,
+                           tkm.SM90_INT4_MATMUL_WIDEST) == want
+
+
+@pytest.mark.parametrize('m,n,k_tiles,want', [
+    # the packed matmuls of ResNet-50 uniform4 at batch 8: 128 rows for the
+    # wide weight matrices and the single-step stage-1 calls
+    (25088, 64, 1, 128), (25088, 64, 2, 64), (6272, 128, 2, 64),
+    (6272, 128, 4, 64), (1568, 256, 4, 64), (1568, 256, 8, 64),
+    (392, 512, 8, 64), (392, 512, 16, 64), (25088, 256, 1, 128),
+    (6272, 512, 1, 64), (6272, 512, 2, 64), (1568, 1024, 2, 128),
+    (1568, 1024, 4, 128), (392, 2048, 4, 128), (392, 2048, 8, 128),
+    # ResNet-18's identity convs, ragged calls
+    (6272, 128, 1, 64), (1568, 256, 1, 64), (392, 512, 2, 64),
+    (1, 16, 1, 64), (300, 1000, 1, 64), (130, 1024, 16, 128)])
+def test_tile_rows_rule_of_the_packed_matmul(m, n, k_tiles, want):
+    assert tkm.sm90_tile_m(m, n, k_tiles, 132) == want
+
+
 # ---------------------------------------------------------------------------
 # the engine keeps prepared weights, on the CPU too
 # ---------------------------------------------------------------------------
@@ -726,17 +889,58 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize('arch,scheme', [('tiny50', 'uniform4'),
+                                         ('resnet50', 'bops_0.5')])
+def test_engine_caches_packed_matmul_handles(arch, scheme):
+    """Every 1×1 conv with 4-bit weights whose widths the rule takes keeps a
+    packed handle (``int4``, one tap) for ``int4w_matmul_requant`` /
+    ``int4w_matmul_acc``, every 8-bit one an int8 handle, the excluded
+    widths plain tensors (the FC's int8 weights: a handle where N
+    % 4 allows); the logits equal those of the engine
+    with the rule switched off (plain packed bytes, first plain versions)."""
+    cfg = get_bit_config(arch, scheme)
+    fm = synthetic_frozen_resnet(arch, cfg, num_classes=16, seed=9)
+    x = np.random.RandomState(10).randn(1, 32, 32, 3).astype(np.float32)
+    eng = build_resnet_engine(fm, device='cpu')
+    got = eng(x)
+    n4 = 0
+    for key, (w, _) in ((k, v[:2]) for k, v in eng._w.items()
+                        if isinstance(k, str) and k != 'init'):
+        wi = np.asarray(fm[key + '.weight_int'])
+        cin, cout = wi.shape[-2:]
+        kind = ('matmul_requant' if key.endswith('quant_convbn1')
+                else 'matmul')
+        admitted = tkm.sm90_route(kind, k=cin, n=cout, ptr=0) is None
+        four = key != 'quant_output' and cfg.weight_bits(key) == 4
+        if admitted:
+            assert isinstance(w, tkm.PreparedWeights), key
+            assert w.int4 == four and w.taps == 1 and w.k == cin, key
+            n4 += four
+        else:
+            assert isinstance(w, torch.Tensor), key
+            assert w.shape == ((cin // 2 if four else cin), cout), key
+    assert n4 > 0
+    rule = tkm.sm90_route
+    tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
+    try:
+        want = build_resnet_engine(fm, device='cpu')(x)
+    finally:
+        tkm.sm90_route = rule
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize('arch,scheme,input_mode', [
     ('tiny18', 'uniform8', 'float32'), ('tiny18', 'uniform4', 'folded_float32'),
     ('tiny50', 'uniform8', 'folded_float32'), ('tiny50', 'uniform4', 'float32'),
     ('wide50', 'uniform4', 'float32'), ('tiny18', 'uniform8', 'folded_float32'),
     ('tiny18', 'uniform4', 'float32'), ('tiny50', 'uniform8', 'float32'),
-    ('tiny50', 'uniform4', 'folded_float32')])
+    ('tiny50', 'uniform4', 'folded_float32'),
+    ('wide50', 'uniform4', 'folded_float32')])
 def test_engine_with_cached_handles_matches_reference(arch, scheme,
                                                       input_mode):
-    """The CPU engine keeps handles for the 1×1 convs (int8), the 3×3 convs
-    (packed where 4-bit) and the init conv, runs their plain walks, and its
-    logits and every capture node equal the JAX engine's."""
+    """The CPU engine keeps handles for the 1×1 and the 3×3 convs (packed
+    where 4-bit) and the init conv, runs their plain walks, and its logits
+    and every capture node equal the JAX engine's."""
     fm = jax_synthetic_frozen_resnet(arch, jax_bit_config(arch, scheme),
                                      num_classes=10, seed=11)
     x = np.random.RandomState(12).randn(1, 32, 32, 3).astype(np.float32)
@@ -755,16 +959,18 @@ def test_engine_with_cached_handles_matches_reference(arch, scheme,
     int4 = scheme == 'uniform4'
     bottleneck = arch != 'tiny18'
     # conv1 (1×1 of a bottleneck, else 3×3) and conv2 (3×3 of a bottleneck,
-    # the int32 3×3 of a basic block); 4-bit 1×1 weights stay plain packed
-    # tensors; the init conv's are int8, a kernel row read as one tap: the
-    # fold (3×3 of C = 48) or the 4×4-tap rewrite of the channel-padded
-    # 7×7/s2 conv (C = 16)
+    # the int32 3×3 of a basic block), the bottleneck's conv3 and identity
+    # conv (1×1), all packed where 4-bit; the init conv's are int8, a kernel
+    # row read as one tap: the fold (3×3 of C = 48) or the 4×4-tap rewrite
+    # of the channel-padded 7×7/s2 conv (C = 16)
     conv1 = [h for k, h in handles.items() if k.endswith('quant_convbn1')]
     conv2 = [h for k, h in handles.items() if k.endswith('quant_convbn2')]
     assert conv2 and all(h.int4 == int4 and h.taps in (4, 9) for h in conv2)
     if bottleneck:
-        assert bool(conv1) == (not int4)
-        assert not any(h.int4 for h in conv1)
+        unit1x1 = conv1 + [h for k, h in handles.items() if k.endswith(
+            ('quant_convbn3', 'quant_identity_convbn'))]
+        assert conv1 and unit1x1
+        assert all(h.int4 == int4 and h.taps == 1 for h in unit1x1)
     else:
         assert conv1 and all(h.int4 == int4 and h.taps in (4, 9)
                              for h in conv1)
