@@ -16,7 +16,8 @@ non-zero exit and no result line:
     set to 0 just before it and read just after, and held against the
     counts its bit config predicts, per kernel and per GEMM core (every
     launch of the four convs and the four matmuls on the Hopper core
-    csrc/gemm_s8_sm90.cuh).
+    csrc/gemm_s8_sm90.cuh; the folded init's requant and pool in one
+    ``maxpool_folded_requant``).
     Every kernel call of those runs is recorded; each is then repeated on
     the same inputs and held against its plain PyTorch version, bit for bit
     (tolerance 0), as are ragged shapes, among them the Hopper core's (M
@@ -24,8 +25,14 @@ non-zero exit and no result line:
     C = 16, saturated operands, requant inputs on a .5 boundary, packed
     int4 handles, 128-row tiles of the packed matmuls) and one call per
     clause of its shape rule, checked to have run on the core the rule
-    names; then each call of the path a kernel is reported on is timed
-    (kernel, plain version, library call) and set beside its bound — the
+    names; the standalone ``maxpool_folded`` (on no path: the engine pools
+    through ``maxpool_folded_requant``) held, timed and driven once at the
+    main path's pre-pool tensor (its init accumulator requantized by the
+    plain version); both channel-vector widths of the two pools (ragged N
+    and unaligned inputs take one channel a thread) among the ragged calls;
+    then each call of the path a kernel is reported on is timed
+    (kernel, plain version, library call) and set beside its bound (the
+    pools also with their input streamed from device memory) — the
     eight kernels on the Hopper core on both cores in turns (old, new, new,
     old), both equal to the plain version, with the wrapper's host time per
     call on each, and the packed ``int4w_*`` also beside their ``int8_*``
@@ -38,17 +45,23 @@ non-zero exit and no result line:
     (plain) engine's, finite, launch counts as the bit config predicts,
     milliseconds per batch; the ResNet-50 uniform8 (main path) and uniform4
     engines on the first core and on the Hopper core in turns; a profiler
-    trace of both forwards on both cores;
+    trace of both forwards on both cores, and on the Hopper core also with
+    the init block's former sequence (requant as PyTorch glue, then
+    ``maxpool_folded``): kernels per forward and glue time before and after;
  5. serving: DynamicBatchers over the uniform8 engine (folded input) and
     the bops_0.5 engine (folded_int8 input, quantized on the host) answer
     12 single-image requests each, each equal to its row of a batched
     engine call;
- 6. the split-K matmul ``int8_matmul_requant_kblocked`` (on no path of the
-    package: the reference has it beside its matmul kernel) on the 16
-    recorded ``int8_matmul_requant`` calls of the ResNet-50 uniform8 path
-    and on ragged shapes, equal to its plain version and to that kernel's
-    output, timed beside it; then those 16 calls once more as its own path,
-    counted;
+ 6. the K-blocked matmul ``int8_matmul_requant_kblocked`` (on no path of
+    the package: the reference has it beside its matmul kernel) on the 16
+    recorded ``int8_matmul_requant`` calls of the ResNet-50 uniform8 path:
+    on the engine's prepared handles on the Hopper core (K in one block,
+    ``int8_matmul_requant``'s kernel) and on plain weights as the first
+    core's split-K, both equal to its plain version and to that kernel's
+    output, timed on both cores in turns beside it and set beside the
+    core's smallest launch (its ragged calls and the calls its rule
+    excludes run in phase 3); then those 16 calls once more as its own
+    path, counted;
  7. QAT training through the Trainer: ResNet-50 uniform8 at full width and
     depth, 224×224, 1000 classes, batch 32, synthetic data, seed 0 — 2
     calibration batches, 4 steps with ``fix_bn_threshold=2`` (two unfolded,
@@ -103,6 +116,8 @@ KERNELS = {
                         'hawq_tpu/kernels/matmul.py:189'),
     'maxpool_folded': ('hawq_tpu_torch/kernels/csrc/pool.cu',
                        'hawq_tpu/kernels/pool.py:69'),
+    'maxpool_folded_requant': ('hawq_tpu_torch/kernels/csrc/pool.cu',
+                               'hawq_tpu/kernels/pool.py:69'),
     'int4w_matmul_requant': (
         'hawq_tpu_torch/kernels/csrc/matmul_int4_sm90.cu',
         'hawq_tpu/kernels/matmul.py:134'),
@@ -113,23 +128,25 @@ KERNELS = {
     'int4w_conv_acc': ('hawq_tpu_torch/kernels/csrc/conv_int4_sm90.cu',
                        'hawq_tpu/kernels/conv.py:265'),
     'int8_matmul_requant_kblocked': (
-        'hawq_tpu_torch/kernels/csrc/matmul_kblocked.cu',
+        'hawq_tpu_torch/kernels/csrc/matmul_requant_sm90.cu',
         'hawq_tpu/kernels/matmul.py:322'),
     'minmax_1pass': ('hawq_tpu_torch/kernels/csrc/reduce.cu',
                      'hawq_tpu/kernels/reduce.py:63'),
 }
-# the two kernels that no serving path launches: phases 6 and 7 drive them
+# the three kernels that no serving path launches: phase 3 (the standalone
+# pool, at the main path's pre-pool tensor), 6 and 7 drive them
 KBLOCKED, MINMAX = 'int8_matmul_requant_kblocked', 'minmax_1pass'
-SERVING_KERNELS = [k for k in KERNELS if k not in (KBLOCKED, MINMAX)]
+POOL, POOL_REQUANT = 'maxpool_folded', 'maxpool_folded_requant'
+SERVING_KERNELS = [k for k in KERNELS if k not in (KBLOCKED, MINMAX, POOL)]
 TRAIN_BATCH = 32
 # the kernels on the Hopper core (csrc/gemm_s8_sm90.cuh); the first core
 # (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
 # beside the new one
 SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
-                'int4w_matmul_requant', 'int4w_matmul_acc')
-GEMM_KERNELS = [k for k in KERNELS if k not in ('maxpool_folded',
-                                                'minmax_1pass')]
+                'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED)
+POOLS = (POOL, POOL_REQUANT)
+GEMM_KERNELS = [k for k in KERNELS if k not in POOLS + (MINMAX,)]
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -189,21 +206,42 @@ def graph_ms(fn, reps):
     return ms
 
 
+def cold_ms(fn, args, reps):
+    """Device time of ``fn(*args)`` with its inputs streamed from device
+    memory, not L2: copies of the tensor arguments that together fill twice
+    the L2 (at least two), one call on each in turn, ``reps`` rounds
+    captured into one CUDA graph (:func:`graph_ms`), per call."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    l2 = getattr(torch.cuda.get_device_properties(tensors[0].device),
+                 'L2_cache_size', 50 << 20)
+    copies = max(2, -(-2 * l2 // nbytes))
+    sets = [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in args) for _ in range(copies)]
+
+    def each():
+        for one in sets:
+            fn(*one)
+    ms = graph_ms(each, reps) / copies
+    del sets
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phase 3 helpers: recording, plain versions, bounds
 # ---------------------------------------------------------------------------
 
 def expected_launches(arch, cfg, input_mode):
     """Kernel launches of one engine forward, from the arch and the bit
-    config: the init conv (int8), the folded pool, each unit conv by its
-    place in the unit and its weight bits (``int4w_*`` for 4-bit weights),
-    and the FC (int8)."""
+    config: the init conv (int8), the folded init's requant + pool, each
+    unit conv by its place in the unit and its weight bits (``int4w_*`` for
+    4-bit weights), and the FC (int8)."""
     from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
                                                    resnet_layer_keys)
     bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
     counts = {'int8_conv_acc': 1, 'int8_matmul_acc': 1}
     if input_mode.startswith('folded'):
-        counts['maxpool_folded'] = 1
+        counts[POOL_REQUANT] = 1
     for key in resnet_layer_keys(arch):
         conv = key.rsplit('.', 1)[-1]
         if not key.startswith('stage') or 'convbn' not in conv:
@@ -237,9 +275,12 @@ def sm90_rule(name, args, kw):
     if '_conv' in name:
         return km.sm90_route('conv_acc' if name.endswith('acc') else 'conv',
                              k=kw['cin'], n=n, ptr=args[0].data_ptr())
-    kind = 'matmul_requant' if name.endswith('requant') else 'matmul'
-    return km.sm90_route(kind, k=args[0].shape[1], n=n,
-                         ptr=args[0].data_ptr())
+    kind = 'matmul_requant' if '_requant' in name else 'matmul'
+    reason = km.sm90_route(kind, k=args[0].shape[1], n=n,
+                           ptr=args[0].data_ptr())
+    if name == KBLOCKED and reason is None and (kw.get('k_splits') or 1) > 1:
+        return 'k_splits > 1'
+    return reason
 
 
 @contextlib.contextmanager
@@ -257,7 +298,7 @@ def first_core():
 
 def kernel_modules():
     from hawq_tpu_torch.kernels import conv, matmul, pool, reduce
-    return {name: (pool if name == 'maxpool_folded' else
+    return {name: (pool if name in POOLS else
                    reduce if name == MINMAX else
                    conv if '_conv' in name else matmul) for name in KERNELS}
 
@@ -327,11 +368,13 @@ def hopper_core_weights(name, w, kw):
 
 def plain_call(name, args, kw, stack=True):
     from hawq_tpu_torch.inference.fold import maxpool_3x3s2p1_folded
-    from hawq_tpu_torch.kernels import conv as kc
-    from hawq_tpu_torch.kernels import matmul as km
+    from hawq_tpu_torch.kernels import pool as kp
     from hawq_tpu_torch.kernels import reduce as kr
-    if name == 'maxpool_folded':
+    if name == POOL:
         return maxpool_3x3s2p1_folded(*args)
+    if name == POOL_REQUANT:
+        return kp.maxpool_folded_requant_plain(
+            *args, kw['out_bits'], kw['signed'], kw['relu'], kw['out_dtype'])
     if name == MINMAX:
         out = kr.minmax_plain(*args)
         return torch.stack(out) if stack else out
@@ -373,7 +416,7 @@ def work(name, args, kw, out):
     nbytes = sum(t.numel() * t.element_size() for t in args
                  if isinstance(t, torch.Tensor))
     nbytes += out.numel() * out.element_size()
-    if name in ('maxpool_folded', MINMAX):
+    if name in POOLS + (MINMAX,):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
     if isinstance(args[1], PreparedWeights):   # counted unpadded, as passed
         n = args[1].n                          # to the reference: (K, N), or
@@ -438,6 +481,13 @@ def ragged_calls(dev):
             (rng.rand(n) * 2e-4 + 1e-5).astype(np.float32)), device=dev)
         return b, m
     calls = []
+
+    def unaligned(t):
+        """``t``'s values one element into an allocation: a pointer off
+        16-byte alignment."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
     for m, k, n in ((37, 45, 19), (1000, 2048, 1000), (3, 5, 2)):
         b, mu = vec(n)
         calls.append(('int8_matmul_requant', (i8(m, k), i8(k, n), b, mu),
@@ -473,7 +523,31 @@ def ragged_calls(dev):
     for dt in (torch.int32, torch.float32, torch.int16):
         xf = torch.tensor(rng.randint(-2 ** 14, 2 ** 14, (2, 7, 9, 20)),
                           device=dev).to(dt)
-        calls.append(('maxpool_folded', (xf,), {}))
+        calls.append((POOL, (xf,), {}))
+        xf = torch.tensor(rng.randint(-2 ** 14, 2 ** 14, (1, 3, 17, 64)),
+                          device=dev).to(dt)
+        calls.append((POOL, (xf,), {}))
+        calls.append((POOL, (unaligned(xf),), {}))
+    # the requant-in-front pool: N off the 4-channel vector, both carriers,
+    # 8- and 16-bit bounds, with and without the ReLU, Wq off the 4-column
+    # run, one channel a thread on unaligned inputs; saturated and
+    # .5-boundary requant inputs
+    for shape, out_dtype, bits, signed, relu in (
+            ((2, 7, 9, 20), torch.int16, 16, True, True),
+            ((2, 7, 9, 20), torch.int32, 8, False, False),
+            ((1, 3, 17, 64), torch.int32, 16, True, True),
+            ((3, 5, 6, 16), torch.int16, 8, True, False)):
+        acc = rng.randint(-2 ** 20, 2 ** 20, shape).astype(np.int32)
+        acc[..., ::3] = rng.randint(-99, 100, acc[..., ::3].shape) * 2 + 1
+        acc[0, 0, 0], acc[-1, -1, -1] = 2 ** 22, -2 ** 22
+        mult = np_dyadic_multiplier((rng.rand(shape[3]) * 2e-3 + 1e-5).astype(
+            np.float32))
+        mult[::3] = 0.5
+        args = (torch.tensor(acc, device=dev), torch.tensor(mult, device=dev))
+        kw = dict(out_bits=bits, signed=signed, relu=relu, out_dtype=out_dtype)
+        calls.append((POOL_REQUANT, args, kw))
+        calls.append((POOL_REQUANT, (unaligned(args[0]), args[1]), kw))
+        calls.append((POOL_REQUANT, (args[0], unaligned(args[1])), kw))
     for m, k, n in ((37, 46, 19), (1000, 2048, 1000), (3, 6, 2),
                     (130, 200, 72)):
         wp = torch.tensor(km.pack_int4(w4(k, n)), device=dev)
@@ -526,8 +600,12 @@ def sm90_calls(dev):
     packed matmuls M off the 64- and 128-row tiles, K = 48 and 80, M = 1,
     N = 1000 (accumulator form), saturated operands, ``pack_int4``'s bytes
     and their handle, 128-row tiles asked for.
-    Excluded: one call per clause of ``sm90_route`` for each of the eight
-    kernels (the CIFAR init's C = 3 among them)."""
+    For the K-blocked matmul: M off the tile and M = 1, K off the 64- and
+    128-deep steps, K in one piece asked for or not, plain weights and the
+    handle.
+    Excluded: one call per clause of ``sm90_route`` for each of the nine
+    kernels (the CIFAR init's C = 3 among them), and a K-blocked call that
+    asks for K in pieces."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
@@ -691,6 +769,14 @@ def sm90_calls(dev):
     for i in (1, 3, 5, 7):
         name, args, kw = admitted[n_before + i]
         admitted.append((name, args, dict(kw, tile_m=128)))
+    # the K-blocked matmul: K in one block of the Hopper core
+    for m, k, n in ((37, 1008, 48), (130, 208, 80), (1, 4096, 16),
+                    (392, 2048, 512)):
+        name, args, kw = matmul(m, k, n, saturate=m == 392, relu=True)
+        for splits in (None, 1):
+            admitted.append((KBLOCKED, args, dict(kw, k_splits=splits)))
+        admitted.append((KBLOCKED, (args[0], km.prepare_weights(args[1]))
+                         + args[2:], kw))
     excluded = [(matmul(40, 45, 20), 'K % 16'), (matmul(40, 48, 18), 'N % 4'),
                 (matmul(40, 48, 20, offset=8), 'pointer % 16'),
                 (matmul(40, 45, 16, relu=True), 'K % 16'),
@@ -715,6 +801,13 @@ def sm90_calls(dev):
                            acc=True), 'pointer % 16')]
     excluded.append((conv((1, 8, 8, 3), 64, (3, 3), pad=(1, 1), acc=True),
                      'C % 16'))
+    for call, clause in ((matmul(40, 45, 16, relu=True), 'K % 16'),
+                         (matmul(40, 48, 24, relu=True), 'N % 16'),
+                         (matmul(40, 48, 16, offset=8, relu=True),
+                          'pointer % 16'),
+                         (matmul(40, 1024, 16, relu=True), 'k_splits > 1')):
+        excluded.append(((KBLOCKED, call[1], dict(call[2], k_splits=(
+            9 if clause == 'k_splits > 1' else None))), clause))
     excluded += [(matmul4(40, 46, 20), 'K % 16'),
                  (matmul4(40, 48, 18), 'N % 4'),
                  (matmul4(40, 48, 20, offset=8), 'pointer % 16'),
@@ -915,6 +1008,9 @@ def time_calls(calls, totals):
                 ms = extra.pop('ms')
             else:
                 ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
+            if name in POOLS:
+                extra['cold_ms'] = cold_ms(
+                    lambda *a: kernel_call(name, a, kw, False), args, 10)
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
             plain_ms = graph_ms(lambda: plain_call(name, args, kw, False), 3)
             lib = library_call(name, args, kw)
@@ -930,9 +1026,10 @@ def time_calls(calls, totals):
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
             library_ok=True, library_calls=0,
             bytes=0, ops=0, old_ms=0.0, host_us=0.0, old_host_us=0.0,
-            prep_ms=0.0, int8_twin_ms=0.0))
+            prep_ms=0.0, int8_twin_ms=0.0, cold_ms=0.0))
         for k in ('ms', 'plain_ms', 'bound_ms', 'bytes', 'ops', 'old_ms',
-                  'host_us', 'old_host_us', 'prep_ms', 'int8_twin_ms'):
+                  'host_us', 'old_host_us', 'prep_ms', 'int8_twin_ms',
+                  'cold_ms'):
             t[k] += row.get(k, 0.0) * row['n']
         if row['library_ms'] is None:
             t['library_ok'] = False
@@ -942,6 +1039,9 @@ def time_calls(calls, totals):
         lib = ('-' if row['library_ms'] is None
                else f"{row['library_ms']:.5f}")
         both = ''
+        if 'cold_ms' in row:
+            both = (f" | input streamed from device memory "
+                    f"{row['cold_ms']:.5f} ms")
         if 'old_ms' in row:
             both = (f" | first core {row['old_ms']:.5f} ms, x"
                     f"{row['old_ms'] / row['ms']:.2f}; {row['tiles']}; host "
@@ -1117,10 +1217,11 @@ _SM90_TEMPLATE = (
 def port_kernel(name):
     """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, there
     ' requant' for the matmul with the requant epilogue, ' acc' for the
-    conv with the int32 one; ' int4' with
-    packed weights, ' split-K') / 'port: pool' / 'port: minmax' for the
-    port's kernels in a trace (demangled or mangled names), None for any
-    other kernel."""
+    conv with the int32 one; ' int4' with packed weights; ' split-K' on the
+    first core) /
+    'port: pool' / 'port: pool requant' / 'port: minmax' for the port's
+    kernels in a trace (demangled or mangled names), None for any other
+    kernel."""
     for pattern in _SM90_TEMPLATE:
         m = pattern.search(name)
         if m:
@@ -1137,6 +1238,8 @@ def port_kernel(name):
                     + (' int4' if int4 else ''))
     if 'gemm_s8_splitk_kernel' in name:
         return 'port: matmul split-K'
+    if 'maxpool_folded_requant_kernel' in name:
+        return 'port: pool requant'
     if 'maxpool_folded_kernel' in name:
         return 'port: pool'
     if 'minmax_partial_kernel' in name or 'minmax_finish_kernel' in name:
@@ -1178,12 +1281,13 @@ def busy_and_timeline(kernels):
 def trace_breakdown(eng, x, label):
     """Device-side breakdown of one forward from a torch.profiler trace:
     kernel time of the port's kernels and of the rest, and the share of the
-    device timeline with no kernel running."""
+    device timeline with no kernel running → (kernels, port ms, other ms),
+    None without a trace."""
     kernels = device_kernels(lambda: eng(x))
     if not kernels:
         log(f'phase 4: {label}: the profiler trace holds no device kernels; '
             f'device busy share not measured')
-        return
+        return None
     busy, timeline = busy_and_timeline(kernels)
     by_name = {}
     for e in kernels:
@@ -1199,6 +1303,44 @@ def trace_breakdown(eng, x, label):
         f'{(total_us - port_us) / 1e3:.3f} ms')
     for k, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:9]:
         log(f'  {t / 1e3:8.4f} ms  x{c:<4d} {k}')
+    return len(kernels), port_us / 1e3, (total_us - port_us) / 1e3
+
+
+@contextlib.contextmanager
+def unfused_init_pool():
+    """Inside, the folded engines run their init block as before the
+    requant-in-front pool: the requant and ReLU as PyTorch elementwise
+    passes, then ``maxpool_folded``."""
+    from hawq_tpu_torch.kernels import pool as kp
+    from hawq_tpu_torch.quant.ops import requant_int32
+    fused = kp.maxpool_folded_requant
+
+    def unfused(acc, mult, *, out_bits, signed, relu, out_dtype, **_):
+        x = requant_int32(acc, mult, out_bits, signed, out_dtype)
+        return kp.maxpool_folded(torch.clamp_min(x, 0) if relu else x)
+    kp.maxpool_folded_requant = unfused
+    try:
+        yield
+    finally:
+        kp.maxpool_folded_requant = fused
+
+
+def init_block_before_after(eng, x, label):
+    """The folded forward traced with the init block's former sequence
+    (requant glue + ``maxpool_folded``) and with ``maxpool_folded_requant``:
+    equal logits, kernels per forward and glue time of each."""
+    want = eng(x)
+    with unfused_init_pool():
+        check(torch.equal(eng(x), want), f'{label}: the unfused init block '
+              f'changes the logits')
+        before = trace_breakdown(eng, x, f'{label} with the init requant as '
+                                 f'glue and maxpool_folded')
+    after = trace_breakdown(eng, x, f'{label} with maxpool_folded_requant')
+    if before and after:
+        log(f'phase 4: {label}: init block before / after the requant-in-'
+            f'front pool: {before[0]} / {after[0]} kernels per forward, glue '
+            f'(non-port kernels) {before[2]:.4f} / {after[2]:.4f} ms, port '
+            f'kernels {before[1]:.4f} / {after[1]:.4f} ms')
 
 
 def serving_phase(eng, host_transform, label, dev):
@@ -1227,42 +1369,84 @@ def serving_phase(eng, host_transform, label, dev):
         f'each equal to its row of a batched call')
 
 
+def pool_phase(main_calls, errs, totals):
+    """The standalone ``maxpool_folded`` at the main path's pre-pool tensor:
+    the recorded ``maxpool_folded_requant`` call's accumulator requantized
+    by the plain version, held against the plain pool, timed, then driven
+    once as its own path → its launch count."""
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.quant.ops import requant_int32
+    fused = [c for c in main_calls if c[0] == POOL_REQUANT]
+    check(len(fused) == 1, f'{len(fused)} {POOL_REQUANT} calls on the main '
+          f'path, expected 1')
+    _, (acc, mult), kw = fused[0]
+    x = requant_int32(acc, mult, kw['out_bits'], kw['signed'], kw['out_dtype'])
+    calls = [(POOL, (torch.clamp_min(x, 0) if kw['relu'] else x,), {})]
+    check_calls(calls, errs, f'phase 3: {POOL} at the main path\'s pre-pool '
+                f'tensor {tuple(calls[0][1][0].shape)}')
+    log(f'phase 3: timed {POOL} at the main path\'s pre-pool tensor:')
+    time_calls(calls, totals)
+    _build.reset_launches()
+    kernel_call(*calls[0])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(counts == {POOL: 1}, f'phase 3: {POOL} launches {counts}')
+    return 1
+
+
 def kblocked_phase(conv1_calls, errs, totals):
-    """Phase 6: the split-K matmul on the recorded ``int8_matmul_requant``
-    calls of the ResNet-50 uniform8 path → its launch count when those
-    calls are driven once through it."""
+    """Phase 6: the K-blocked matmul on the recorded
+    ``int8_matmul_requant`` calls of the ResNet-50 uniform8 path, on the
+    engine's prepared handles (the Hopper core: K in one block) and on
+    plain weights (the first core's split-K) in turns, set beside the
+    core's smallest launch → its launch count when those calls are driven
+    once through it."""
     from hawq_tpu_torch.kernels import _build
     from hawq_tpu_torch.kernels import matmul as km
     check(len(conv1_calls) == 16, f'{len(conv1_calls)} recorded '
           f'int8_matmul_requant calls on resnet50 uniform8, expected 16')
-    # the split-K kernel reads (K, N) weights: out of the engine's handles
-    calls = [(KBLOCKED, (args[0], first_core_weights(args[1])) + args[2:], kw)
-             for _, args, kw in conv1_calls]
-    check_calls(calls, errs, 'phase 6: int8_matmul_requant_kblocked on the '
-                '16 recorded int8_matmul_requant calls')
+    calls = [(KBLOCKED, args, kw) for _, args, kw in conv1_calls]
+    first = [(KBLOCKED, (args[0], first_core_weights(args[1])) + args[2:],
+              dict(kw, core='mma')) for _, args, kw in calls]
+    _build.reset_launches()
+    check_calls(calls + first, errs, f'phase 6: {KBLOCKED} on the 16 recorded '
+                f'int8_matmul_requant calls, on both cores')
+    check(core_launches() == {f'{KBLOCKED}@sm90': 16, f'{KBLOCKED}@mma': 16},
+          f'phase 6: launches per core {core_launches()}')
     for (_, args, kw) in calls:
         check(torch.equal(kernel_call(KBLOCKED, args, kw),
                           km.int8_matmul_requant(*args, **kw)),
               f'{KBLOCKED} differs from int8_matmul_requant at '
-              f'{[tuple(a.shape) for a in args]}')
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = [km.default_k_splits(a[0].shape[0], a[0].shape[1], a[1].shape[1],
-                                  sm) for _, a, _ in calls]
-    log(f'phase 6: equal to int8_matmul_requant on all 16; K splits chosen '
-        f'on {sm} SMs: {splits}; timed:')
+              f'{[tuple(a.shape) for a in args[:1]]}')
+    sm = km.sm_count(calls[0][1][0].device)
+    splits = [km.default_k_splits(a[0].shape[0], a[0].shape[1], a[1].n, sm)
+              for _, a, _ in calls]
+    log(f'phase 6: equal to int8_matmul_requant on all 16; the first core\'s '
+        f'K splits on {sm} SMs: {splits}; timed (Hopper core on the handles, '
+        f'first core on plain weights, in turns):')
     time_calls(calls, totals)
+    # the core's smallest launch: one 64 x 32 tile, one 64-deep K step
+    x, w = calls[0][1][0][:64, :64].contiguous(), calls[0][1][1]
+    w = km.prepare_weights(first_core_weights(w)[:64, :32].contiguous())
+    b, mult = calls[0][1][2][:32], calls[0][1][3][:32]
+    floor = graph_ms(lambda: km.int8_matmul_requant(x, w, b, mult), 50)
+    t = totals[KBLOCKED]
     beside = totals['int8_matmul_requant']       # the same calls, phase 3
-    log(f"phase 6: over the 16 calls {KBLOCKED} {totals[KBLOCKED]['ms']:.4f} "
-        f"ms; int8_matmul_requant in phase 3 of this run {beside['ms']:.4f} "
-        f"ms on the Hopper core, {beside['old_ms']:.4f} ms on the first (a "
-        f"reading, not a claim)")
+    log(f"phase 6: over the 16 calls {KBLOCKED} {t['ms']:.4f} ms on the "
+        f"Hopper core, {t['old_ms']:.4f} ms on the first; bound "
+        f"{t['bound_ms']:.4f} ms; the core's smallest launch {floor:.5f} ms, "
+        f"x16 = {16 * floor:.4f} ms; int8_matmul_requant in phase 3 of this "
+        f"run {beside['ms']:.4f} ms on the Hopper core, {beside['old_ms']:.4f}"
+        f" ms on the first (a reading, not a claim)")
     _build.reset_launches()
     for name, args, kw in calls:
         kernel_call(name, args, kw)
     torch.cuda.synchronize()
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-    check(counts == {KBLOCKED: 16}, f'phase 6: launches {counts}')
-    return 16
+    check(counts == {KBLOCKED: 16} and core_launches() == {
+        f'{KBLOCKED}@sm90': 16}, f'phase 6: launches {counts}, per core '
+        f'{core_launches()}')
+    return 16, floor
 
 
 def expected_train_launches(arch, cfg):
@@ -1656,6 +1840,8 @@ def main():
                    totals)
     calls_kept = sum(len(recorded[p][0]) for p in PATHS)
     launches = {name: recorded[path][1][name] for name, path in report.items()}
+    launches[POOL] = pool_phase(recorded['resnet50', 'uniform8'][0], errs,
+                                totals)
     conv1_calls = [c for c in recorded['resnet50', 'uniform8'][0]
                    if c[0] == 'int8_matmul_requant']
     del recorded
@@ -1682,8 +1868,8 @@ def main():
             trace_breakdown(old_engine, folded, f'resnet50 {scheme} '
                             f'folded_float32 int16 on the first core')
         del old_engine
-        trace_breakdown(eng, folded,
-                        f'resnet50 {scheme} folded_float32 int16')
+        init_block_before_after(eng, folded,
+                                f'resnet50 {scheme} folded_float32 int16')
 
     # ---- phase 5 ----
     serving_phase(engines['resnet50', 'uniform8', 'folded_float32'],
@@ -1696,7 +1882,8 @@ def main():
                   'resnet50 bops_0.5 folded_int8', dev)
 
     # ---- phase 6 ----
-    launches[KBLOCKED] = kblocked_phase(conv1_calls, errs, totals)
+    launches[KBLOCKED], launch_floor = kblocked_phase(conv1_calls, errs,
+                                                      totals)
     del conv1_calls
 
     # ---- phase 7 ----
@@ -1710,6 +1897,11 @@ def main():
     labels[KBLOCKED] = (f'the 16 int8_matmul_requant calls of resnet50 '
                         f'uniform8 b{BATCH}, driven once through it (on no '
                         f'path of the package)')
+    labels[POOL] = (f'the pre-pool tensor of resnet50 uniform8 '
+                    f'folded_float32 int16 b{BATCH} {SIZE}x{SIZE} (its init '
+                    f'accumulator requantized by the plain version), driven '
+                    f'once through it (the folded engine runs {POOL_REQUANT} '
+                    f'in its place)')
     labels[MINMAX] = train_label
 
     # ---- phase 8 ----
@@ -1735,6 +1927,10 @@ def main():
             if name.startswith('int4w'):
                 entry[f'{twin_name(name)}_on_unpacked_weights_ms'] = t[
                     'int8_twin_ms']
+        if name in POOLS:       # ms: the input L2-resident between launches
+            entry['cold_ms'] = t['cold_ms']
+        if name == KBLOCKED:
+            entry['smallest_launch_ms'] = launch_floor
         if name != MINMAX and name in train_totals:
             # the accumulator kernels' second path: one QAT train step
             tt = train_totals[name]

@@ -28,7 +28,14 @@ csrc/gemm_s8_sm90.cuh, each by CUDA-graph replay (``chip_smoke.graph_ms``):
     128-row tiles (two consumer warpgroups), the widths and rows the rules
     pick marked ``*`` (``sm90_tile_n`` with ``SM90_INT4_MATMUL_WIDEST``,
     ``sm90_tile_m``), each result first held against the plain version;
-    the two row counts are timed in turns (64, 128, 128, 64).
+    the two row counts are timed in turns (64, 128, 128, 64);
+ 6. the folded pool (``maxpool_folded``, int16) and its requant-in-front
+    form (``maxpool_folded_requant``, int32 in, int16 out) at the main
+    path's shape (8, 56, 56, 256): with the input in L2 (the same input at
+    every launch) and streamed from device memory (``chip_smoke.cold_ms``:
+    a launch per copy over copies that fill twice the L2), each with
+    16-byte channel vectors and with one channel a thread (the input one
+    element off 16-byte alignment), against the bytes bound at 3.35 TB/s.
 
 Needs a GPU and nvcc (it builds the kernels); exits non-zero without one.
 """
@@ -69,12 +76,10 @@ INT4_MATMULS = [(25088, 64, 256), (6272, 128, 512), (6272, 256, 512),
                 (1568, 256, 1024), (1568, 512, 1024), (392, 512, 2048),
                 (392, 1024, 2048), (6272, 64, 128), (1568, 128, 256),
                 (392, 256, 512)]
-
-
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_sweep_sm90: needs an NVIDIA GPU')
-    from chip_smoke import graph_ms
+    from chip_smoke import cold_ms, graph_ms
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     dev = torch.device('cuda')
@@ -213,6 +218,41 @@ def main():
         int4_matmul_row(m, k, n, True)
     for m, k, n in INT4_MATMULS:
         int4_matmul_row(m, k, n, False)
+
+    from hawq_tpu_torch.kernels import pool as kp
+    print('maxpool_folded (int16) and maxpool_folded_requant (int32 -> int16) '
+          'at (8, 56, 56, 256): us with the input in L2 / streamed from '
+          'device memory; 16-byte channel vectors | one channel (the input '
+          'one element off 16-byte alignment)')
+
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    xf = torch.tensor(rng.randint(-2 ** 14, 2 ** 14, (8, 56, 56, 256)),
+                      dtype=torch.int16, device=dev)
+    acc = torch.tensor(rng.randint(-2 ** 20, 2 ** 20, (8, 56, 56, 256)),
+                       dtype=torch.int32, device=dev)
+    pmult = torch.full((256,), 2.0 ** -8, device=dev)
+    requant = lambda a: kp.maxpool_folded_requant(
+        a, pmult, out_bits=16, signed=True, relu=True, out_dtype=torch.int16)
+    forms = {
+        'maxpool_folded': (kp.maxpool_folded, xf,
+                           kp.maxpool_3x3s2p1_folded(xf),
+                           xf.numel() * 2 + xf.numel() // 4 * 2),
+        'maxpool_folded_requant': (
+            requant, acc,
+            kp.maxpool_folded_requant_plain(acc, pmult, 16, True, True,
+                                            torch.int16),
+            acc.numel() * 4 + 256 * 4 + acc.numel() // 4 * 2)}
+    for name, (fn, x, want, nbytes) in forms.items():
+        cells = []
+        for inp in (x, unaligned(x)):
+            assert torch.equal(fn(inp), want)
+            cells.append(f'{graph_ms(lambda: fn(inp), 50) * 1e3:.2f} / '
+                         f'{cold_ms(fn, (inp,), 10) * 1e3:.2f}')
+        print(f'  {name}: {cells[0]} | {cells[1]}; bound '
+              f'{nbytes / 3.35e12 * 1e6:.2f} us')
     return 0
 
 

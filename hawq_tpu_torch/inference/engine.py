@@ -20,8 +20,9 @@ CPU device the kernels' plain versions run instead):
     (``pack_int4`` / ``pack_int4_conv``); the init conv and the FC always
     take the int8 kernels, as in the reference;
   * the folded init (``input_mode='folded_float32'`` or ``'folded_int8'``)
-    → ``int8_conv_acc`` over the 3×3, C=48, N=4·64 fold, requant + ReLU in
-    the folded layout, then ``maxpool_folded``;
+    → ``int8_conv_acc`` over the 3×3, C=48, N=4·64 fold, then
+    ``maxpool_folded_requant``: requant + ReLU in the folded layout and the
+    max-pool in one kernel;
   * the raw 7×7/s2 init (``input_mode='float32'`` or ``'uint8'``) →
     ``int8_conv_acc`` over its space-to-depth 4×4 rewrite, with the image's
     3 channels and the weights' zero-padded to 4 (C=16 after the rewrite);
@@ -301,14 +302,18 @@ class ResnetEngine:
         acc = kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
                                cin=cin).reshape(b, oh, ow, -1)
         # requant + ReLU before the pool (monotone, so it commutes with the
-        # training graph's pool → requant → relu order)
+        # training graph's pool → requant → relu order); on the folded path
+        # one kernel requantizes each value of a window, then takes the max
         mult = self.requant_mult('init_requant', s_init, s16)
-        x = torch.clamp_min(
-            qops.requant_int32(acc, mult, b16, signed16, self.res_dt), 0)
         if self.folded:
-            x = kp.maxpool_folded(x)
-        elif not self.cifar:
-            x = _maxpool_int(x)
+            x = kp.maxpool_folded_requant(acc, mult, out_bits=b16,
+                                          signed=signed16, relu=True,
+                                          out_dtype=self.res_dt)
+        else:
+            x = torch.clamp_min(
+                qops.requant_int32(acc, mult, b16, signed16, self.res_dt), 0)
+            if not self.cifar:
+                x = _maxpool_int(x)
         emit('init', x)
         prev_scale = np.float32(s16)
 

@@ -50,7 +50,8 @@ _SIGNATURES = {
     'hawq_int4w_conv_sm90': [_P, _P, _P, _P, _P] + [_I] * 18 + [_P],
     'hawq_int8_conv_acc_sm90': [_P, _P, _P, _P] + [_I] * 16 + [_P],
     'hawq_int4w_conv_acc_sm90': [_P, _P, _P, _P] + [_I] * 16 + [_P],
-    'hawq_maxpool_folded': [_P, _P] + [_I] * 5 + [_P],
+    'hawq_maxpool_folded': [_P, _P] + [_I] * 6 + [_P],
+    'hawq_maxpool_folded_requant': [_P] * 3 + [_I] * 8 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }

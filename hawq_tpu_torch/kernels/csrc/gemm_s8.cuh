@@ -30,6 +30,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "requant.cuh"
+
 namespace hawq {
 
 constexpr int BM = 64;
@@ -276,11 +278,9 @@ __device__ __forceinline__ void gemm_s8_mainloop(const GemmArgs& p, int m0, int 
 }
 
 // clip(floor(f32(v) * mult + 0.5), lo, hi) as int8: a rounded multiply, then
-// a rounded add (see the note at the top of this file).
+// a rounded add (see the note at the top of this file; requant.cuh).
 __device__ __forceinline__ int8_t requant_s8(int32_t v, float mult, int lo, int hi) {
-  float f = __fadd_rn(__fmul_rn(__int2float_rn(v), mult), 0.5f);
-  f = fminf(fmaxf(floorf(f), (float)lo), (float)hi);
-  return (int8_t)__float2int_rz(f);
+  return (int8_t)__float2int_rz(requant_f32(v, mult, (float)lo, (float)hi));
 }
 
 template <bool CONV, bool REQUANT, bool INT4>

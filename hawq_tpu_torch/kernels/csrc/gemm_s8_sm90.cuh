@@ -44,6 +44,12 @@
 //    requant, the int32 output for the accumulator), with half the weight
 //    bytes: the matmul producer loads the packed box at column kt * BK / 2,
 //    and the consumers unpack it as for the conv.
+//  * int8_matmul_requant_kblocked: replaces hawq_tpu/kernels/matmul.py
+//    int8_matmul_requant_kblocked (matmul.py:322) as the int8_matmul_requant
+//    form itself.  The TPU kernel keeps its int32 accumulator in on-chip
+//    scratch across a sequential K grid and requantizes at the last K step;
+//    here one block's register accumulators walk the whole K through the
+//    ring and requantize once (kernels/matmul.py kblocked_core).
 //
 // What the design does about that:
 //

@@ -7,6 +7,10 @@
 // by its bytes (M K + K N + M N).  x is (M, K) row-major; the weights arrive
 // as the map of their prepared (N, Kpad) K-major copy; the int8 tile leaves
 // through shared memory as one dense 64 x BN TMA box.
+//
+// The same entry runs hawq_tpu/kernels/matmul.py int8_matmul_requant_kblocked
+// (matmul.py:322) on this core: its K accumulated on chip, one requant at
+// the end, is what one block's K loop does here.
 #include "gemm_s8_sm90.cuh"
 
 extern "C" int hawq_int8_matmul_requant_sm90(

@@ -6,13 +6,15 @@ and the host packer for those weights.
 
 On a CUDA tensor each wrapper launches the hand-written tensor-core kernel
 (csrc/matmul.cu and csrc/matmul_kblocked.cu over csrc/gemm_s8.cuh, any M, K
-and N; the int4 forms need an even K); on a CPU tensor it runs the plain PyTorch version beside it.
+and N; the int4 forms need an even K); on a CPU tensor it runs the plain
+PyTorch version beside it.
 The plain versions compute the int32 accumulator exactly through float64
 (every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
 op; the int4 forms unpack the weights with :func:`unpack_int4` first.
 
-``int8_matmul_requant``, ``int8_matmul_acc``, their int4 forms (and the
-four convs of kernels/conv.py) run on a second core written for Hopper
+``int8_matmul_requant``, ``int8_matmul_acc``, their int4 forms, the
+K-blocked matmul (as ``int8_matmul_requant``'s kernel) and the four convs of
+kernels/conv.py run on a second core written for Hopper
 (csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma) wherever :func:`sm90_route`
 admits the shape, and on csrc/gemm_s8.cuh elsewhere.  That core reads the
 weights K-major: :func:`prepare_weights` (and :func:`prepare_weights_int4`
@@ -376,7 +378,12 @@ def pick_core(kind: str, name: str, core: Optional[str], *, k: int, n: int,
               ptr: int) -> str:
     """'sm90' or 'mma' for a call: by :func:`sm90_route`, or as ``core``
     asks; asking for 'sm90' where the rule excludes the shape raises."""
-    reason = sm90_route(kind, k=k, n=n, ptr=ptr)
+    return _core_for(name, core, sm90_route(kind, k=k, n=n, ptr=ptr))
+
+
+def _core_for(name: str, core: Optional[str], reason: Optional[str]) -> str:
+    """'sm90' where no clause (``reason``) excludes the call, else 'mma';
+    or ``core``, where the call allows it."""
     if core not in (None, 'sm90', 'mma'):
         raise ValueError(f'{name}: core {core!r} not in (None, sm90, mma)')
     if core == 'sm90' and reason is not None:
@@ -396,12 +403,13 @@ def _matmul_name(requant: bool, int4: bool) -> str:
 
 def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
                  requant: bool, tile_n: Optional[int], tile_m: Optional[int],
-                 smem_extra: int) -> torch.Tensor:
+                 smem_extra: int, name: Optional[str] = None) -> torch.Tensor:
     """The four matmuls on the Hopper core: int8 or packed int4 weights
     (``prepared.int4``), with ``requant`` the requant forms (int8 out), else
-    the accumulator forms (int32 out)."""
+    the accumulator forms (int32 out); counted as ``name`` (the K-blocked
+    matmul runs the int8 requant form)."""
     int4 = prepared.int4
-    name = _matmul_name(requant, int4)
+    name = name or _matmul_name(requant, int4)
     m, k = x.shape
     n = prepared.n
     dev = _build.kernel_device(x)
@@ -569,6 +577,18 @@ def int4w_matmul_acc(x: torch.Tensor, w_packed, bias: torch.Tensor, *,
                    tile_m, smem_extra)
 
 
+def kblocked_core(core: Optional[str], k_splits: Optional[int], *, k: int,
+                  n: int, ptr: int) -> str:
+    """'sm90' or 'mma' for ``int8_matmul_requant_kblocked``: the Hopper
+    core where :func:`sm90_route` admits the call as a ``'matmul_requant'``
+    and it asks for K in one piece (``k_splits`` None or 1), else the first
+    core's split-K; ``core`` as in :func:`pick_core`."""
+    reason = sm90_route('matmul_requant', k=k, n=n, ptr=ptr)
+    if reason is None and k_splits is not None and k_splits > 1:
+        reason = 'k_splits > 1'
+    return _core_for('int8_matmul_requant_kblocked', core, reason)
+
+
 def default_k_splits(m: int, k: int, n: int, sm_count: int) -> int:
     """Pieces of K for the split-K kernel: enough that output tiles × splits
     reach about two blocks per SM, with at least four 64-wide K tiles in a
@@ -578,29 +598,47 @@ def default_k_splits(m: int, k: int, n: int, sm_count: int) -> int:
     return max(1, min(2 * sm_count // tiles, k_tiles // 4))
 
 
-def int8_matmul_requant_kblocked(x: torch.Tensor, w: torch.Tensor,
-                                 bias: torch.Tensor, mult: torch.Tensor, *,
-                                 out_bits: int = 8, signed: bool = True,
-                                 relu: bool = False,
-                                 k_splits: Optional[int] = None
-                                 ) -> torch.Tensor:
-    """:func:`int8_matmul_requant`'s function with K accumulated in pieces
-    through an int32 workspace and a single requant at the end (split-K; see
-    csrc/matmul_kblocked.cu).  Any K (the last piece is masked).
+def int8_matmul_requant_kblocked(x: torch.Tensor, w, bias: torch.Tensor,
+                                 mult: torch.Tensor, *, out_bits: int = 8,
+                                 signed: bool = True, relu: bool = False,
+                                 k_splits: Optional[int] = None,
+                                 core: Optional[str] = None) -> torch.Tensor:
+    """:func:`int8_matmul_requant`'s function with K accumulated on chip and
+    a single requant at the end.  Any K.
 
-    ``k_splits`` is the number of pieces, at most ⌈K/64⌉; None picks it from
-    the shape and the card's SM count (:func:`default_k_splits`).  The
-    result does not depend on it."""
+    ``w`` is the (K, N) int8 tensor or its :func:`prepare_weights` handle.
+    On a CUDA tensor the call runs, by :func:`kblocked_core`, on the Hopper
+    core as :func:`int8_matmul_requant`'s kernel (one block walks the whole
+    K in its register accumulators and requantizes once,
+    csrc/matmul_requant_sm90.cu), or on the first core as split-K through
+    an int32 workspace (csrc/matmul_kblocked.cu).  ``k_splits`` is the
+    number of pieces of K, at most ⌈K/64⌉; more than one asks for the
+    split-K, and None lets the first core pick (:func:`default_k_splits`).
+    ``core`` as in :func:`int8_matmul_acc`.  The result does not depend on
+    either."""
+    name = 'int8_matmul_requant_kblocked'
     lo, hi = epilogue_bounds(out_bits, signed, relu)
     m, k = x.shape
-    n = w.shape[1]
+    prepared = w if isinstance(w, PreparedWeights) else None
+    n = prepared.n if prepared is not None else w.shape[1]
     k_tiles = -(-k // 64)
     if k_splits is not None and not 1 <= k_splits <= k_tiles:
         raise ValueError(f'k_splits {k_splits} not in [1, {k_tiles}] for '
                          f'K = {k}')
     if x.device.type == 'cpu':
-        return matmul_requant_plain(x, w, bias, mult, lo, hi)
+        if prepared is None:
+            return matmul_requant_plain(x, w, bias, mult, lo, hi)
+        return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo, hi,
+                                           name)
     dev = _build.kernel_device(x)
+    if kblocked_core(core, k_splits, k=k, n=n, ptr=x.data_ptr()) == 'sm90':
+        if prepared is None:
+            _build.require(w, 'w', torch.int8, (k, n), dev)
+            prepared = prepare_weights(w)
+        return _launch_sm90(x, prepared, bias, mult, lo, hi, True, None, None,
+                            0, name)
+    if prepared is not None:
+        w = unprepare_weights(prepared)
     _build.require(x, 'x', torch.int8, (m, k), dev)
     _build.require(w, 'w', torch.int8, (k, n), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
@@ -624,5 +662,5 @@ def int8_matmul_requant_kblocked(x: torch.Tensor, w: torch.Tensor,
             out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n,
             lo, hi, k_splits, vec_a, vec_b, _build.stream_ptr(dev))
     _build.check(code, 'int8_matmul_requant_kblocked')
-    _build.count('int8_matmul_requant_kblocked')
+    _build.count('int8_matmul_requant_kblocked', 'mma')
     return out

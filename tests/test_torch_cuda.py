@@ -1,6 +1,7 @@
 """CUDA kernels == their plain PyTorch versions on the card, bit for bit
-(the int8 and the nibble-packed int4-weight forms, the split-K matmul and
-the one-pass min/max), and the engine, the integer conv of the QAT layers
+(the int8 and the nibble-packed int4-weight forms, the K-blocked matmul on
+both cores, the folded pool and its requant-in-front form, and the one-pass
+min/max), and the engine, the integer conv of the QAT layers
 and a QAT forward on the card == on the CPU.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
@@ -21,6 +22,7 @@ from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
 from hawq_tpu_torch.kernels import _build
 from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
+from hawq_tpu_torch.kernels import pool as kp
 from hawq_tpu_torch.kernels.pool import maxpool_folded
 from hawq_tpu_torch.kernels.reduce import minmax_1pass, minmax_plain
 from hawq_tpu_torch.models.resnet import QResNet
@@ -234,7 +236,8 @@ def test_kblocked_kernel_equals_plain_and_matmul_kernel(dev, m, k, n):
             if splits is not None and splits > k_tiles:
                 continue
             got = km.int8_matmul_requant_kblocked(x, w, b, mult,
-                                                  k_splits=splits, **kw)
+                                                  k_splits=splits, core='mma',
+                                                  **kw)
             torch.testing.assert_close(got, want, rtol=0, atol=0)
         torch.testing.assert_close(km.int8_matmul_requant(x, w, b, mult, **kw),
                                    want, rtol=0, atol=0)
@@ -1071,3 +1074,143 @@ def test_engine_cuda_runs_the_hopper_core(dev, scheme, want):
     got = build_resnet_engine(fm, device=dev, **kw)(x)
     assert _core_counts() == want
     torch.testing.assert_close(got.cpu(), logits, rtol=0, atol=0)
+
+
+def _unaligned(t):
+    """``t``'s values one element into an allocation: a pointer that is not
+    16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    out = flat[1:].view(t.shape)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize('dtype', [torch.int16, torch.int32, torch.float32])
+def test_pool_kernel_walks_equal_plain(dev, dtype):
+    """Both channel-vector widths: 16-byte vectors where N · element size
+    and the pointer allow, one channel on a ragged N or an unaligned input;
+    Wq off the 4-column run."""
+    rng = np.random.RandomState(2)
+    for shape in ((2, 7, 9, 20), (8, 56, 56, 256), (1, 3, 17, 64)):
+        xf = torch.tensor(rng.randint(-2 ** 14, 2 ** 14, shape),
+                          device=dev).to(dtype)
+        want = maxpool_3x3s2p1_folded(xf)
+        for x in (xf, _unaligned(xf)):
+            torch.testing.assert_close(maxpool_folded(x), want, rtol=0,
+                                       atol=0)
+
+
+def _requant_acc(rng, shape, out_bits, dev):
+    b, hq, wq, n4 = shape
+    acc = rng.randint(-2 ** 20, 2 ** 20, shape).astype(np.int32)
+    acc[..., ::5] = rng.randint(-99, 100, acc[..., ::5].shape) * 2 + 1
+    acc[0, 0, 0, :] = 2 ** (out_bits + 2)
+    acc[-1, -1, -1, :] = -2 ** (out_bits + 2)
+    mult = np_dyadic_multiplier(
+        (rng.rand(n4) * 2 ** (3 - out_bits) + 1e-5).astype(np.float32))
+    mult[::5] = 0.5
+    mult[n4 // 4:n4 // 2] *= 3
+    mult[0], mult[-1] = 4.0, 4.0
+    return (torch.tensor(acc, device=dev),
+            torch.tensor(mult.astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize('out_dtype,out_bits,signed', [
+    (torch.int16, 16, True), (torch.int32, 16, True), (torch.int16, 8, False),
+    (torch.int32, 8, True)])
+def test_pool_requant_kernel_equals_plain(dev, out_dtype, out_bits, signed):
+    """maxpool_folded_requant == requant, ReLU, pool (the engine's former
+    sequence): 4-channel vectors, and one channel on a ragged N or on
+    unaligned accumulators or multipliers; with and without the ReLU."""
+    rng = np.random.RandomState(out_bits)
+    for shape in ((2, 7, 9, 20), (8, 56, 56, 256), (1, 3, 17, 64)):
+        acc, mult = _requant_acc(rng, shape, out_bits, dev)
+        for relu in (True, False):
+            kw = dict(out_bits=out_bits, signed=signed, relu=relu,
+                      out_dtype=out_dtype)
+            want = kp.maxpool_folded_requant_plain(acc, mult, out_bits, signed,
+                                                   relu, out_dtype)
+            for a, m in ((acc, mult), (_unaligned(acc), mult),
+                         (acc, _unaligned(mult))):
+                got = kp.maxpool_folded_requant(a, m, **kw)
+                assert got.dtype == out_dtype
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError):                # 16-bit values in int16
+        kp.maxpool_folded_requant(acc, mult, out_bits=16, signed=False,
+                                  relu=True, out_dtype=torch.int16)
+
+
+@pytest.mark.parametrize('arch,mode', [('tiny50', 'folded_float32'),
+                                       ('resnet50', 'folded_int8')])
+def test_folded_engine_launches_the_fused_pool(dev, arch, mode):
+    """The folded engine launches maxpool_folded_requant once a forward and
+    maxpool_folded never; its 'init' node and logits equal the CPU
+    engine's."""
+    fm = synthetic_frozen_resnet(arch, get_bit_config(arch, 'uniform8'),
+                                 num_classes=10, seed=3)
+    x = fold4_images(np.random.RandomState(4).randn(2, 64, 64, 3).astype(
+        np.float32))
+    if mode == 'folded_int8':
+        x = quantize_int8(x, fm.act_scale('quant_input'))
+    kw = dict(input_mode=mode, residual_dtype=torch.int16)
+    for capture in ('init', None):
+        want = build_resnet_engine(fm, device='cpu', capture=capture, **kw)(x)
+        eng = build_resnet_engine(fm, device=dev, capture=capture, **kw)
+        _build.reset_launches()
+        got = eng(x)
+        assert _build.LAUNCHES.get('maxpool_folded_requant') == 1
+        assert _build.LAUNCHES.get('maxpool_folded', 0) == 0
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# the shapes of test_kblocked_kernel_equals_plain_and_matmul_kernel, and
+# ones the Hopper core's rule admits with K and M off its tiles
+_KBLOCKED_SHAPES = [(37, 45, 19), (8, 2048, 1000), (392, 2048, 512),
+                    (392, 512, 2048), (3, 5, 2), (130, 200, 72), (64, 64, 64),
+                    (130, 208, 80), (37, 1008, 48), (1568, 1024, 256),
+                    (1, 4096, 16)]
+
+
+@pytest.mark.parametrize('m,k,n', _KBLOCKED_SHAPES)
+def test_kblocked_hopper_equals_plain_and_matmul_kernel(dev, m, k, n):
+    """#5 on the Hopper core (K in one piece, on a handle and on plain
+    weights) == #1 == the plain version, counted on that core; a split of K
+    goes to the first core, and raises when asked onto the Hopper core, as
+    does a call the rule sends to the first core."""
+    rng = np.random.RandomState(m + k + n)
+    x, w, b, mult = _operands(rng, m, k, n, dev)
+    reason = km.sm90_route('matmul_requant', k=k, n=n, ptr=x.data_ptr())
+    if reason is not None:
+        with pytest.raises(ValueError):
+            km.int8_matmul_requant_kblocked(x, w, b, mult, core='sm90')
+        _build.reset_launches()
+        km.int8_matmul_requant_kblocked(x, w, b, mult)
+        assert _core_counts() == {'int8_matmul_requant_kblocked@mma': 1}
+        return
+    prepared = km.prepare_weights(w)
+    for out_bits, signed, relu in _EPILOGUES:
+        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
+        kw = dict(out_bits=out_bits, signed=signed, relu=relu)
+        want = km.matmul_requant_plain(x, w, b, mult, lo, hi)
+        torch.testing.assert_close(km.int8_matmul_requant(x, prepared, b,
+                                                          mult, **kw),
+                                   want, rtol=0, atol=0)
+        for splits in (None, 1):
+            for weights in (prepared, w):
+                _build.reset_launches()
+                got = km.int8_matmul_requant_kblocked(x, weights, b, mult,
+                                                      k_splits=splits, **kw)
+                assert _core_counts() == {
+                    'int8_matmul_requant_kblocked@sm90': 1}
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if k > 64:
+        _build.reset_launches()
+        got = km.int8_matmul_requant_kblocked(x, prepared, b, mult,
+                                              k_splits=2)
+        assert _core_counts() == {'int8_matmul_requant_kblocked@mma': 1}
+        torch.testing.assert_close(got, km.matmul_requant_plain(
+            x, w, b, mult, -128, 127), rtol=0, atol=0)
+        with pytest.raises(ValueError):
+            km.int8_matmul_requant_kblocked(x, prepared, b, mult, k_splits=2,
+                                            core='sm90')
