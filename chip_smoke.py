@@ -48,6 +48,9 @@ non-zero exit and no result line:
     trace of both forwards on both cores, and on the Hopper core also with
     the init block's former sequence (requant as PyTorch glue, then
     ``maxpool_folded``): kernels per forward and glue time before and after;
+    the raw-input engines' integer max-pool beside its float32 form on the
+    pool's input (kernels, device ms, host µs per call) and those engines'
+    kernels per forward;
  5. serving: DynamicBatchers over the uniform8 engine (folded input) and
     the bops_0.5 engine (folded_int8 input, quantized on the host) answer
     12 single-image requests each, each equal to its row of a batched
@@ -81,12 +84,37 @@ non-zero exit and no result line:
     on the card, its logits equal as integers to the trainer's QAT eval
     logits; ms per step, images/s, peak memory and a profiler trace of one
     step;
- 8. one JSON line with the kernels' numbers, then the result line.
+ 8. MobileNetV2 w1 serving at full width, 224², batch 8, synthetic weights
+    (seed 0): uniform8 on host-folded input with the int16 carrier (this
+    family's main path: its launch counts set to 0 just before it, read
+    just after, against the prediction from the model's widths per kernel
+    and per core — D1 on its own, '@cuda' — every kernel call recorded),
+    uniform8 on float32 input with int32, uniform4 and bops_0.5 folded;
+    logits and the 'final' and 'fc_input' nodes for the first two images
+    equal the CPU engine's;
+    ms per batch; every recorded call and 28 ragged calls of D1 (the
+    depthwise conv, ``int8_dwconv_requant`` / ``int8_dwconv_acc``) held
+    against the plain version, bit for bit; D1 timed on the main path
+    beside its bound, its plain version and cuDNN's float32 grouped
+    conv, in L2 and streamed from device memory; a trace of the forward;
+ 9. ResNet-50 v2 uniform8 serving, 224², batch 8, float32 input: the same
+    checks against the CPU engine and the predicted launches, every call
+    against its plain version, a trace;
+10. QAT training through the Trainer on MobileNetV2 w1 (b32, 2 calibration
+    batches, 2 unfolded and 2 folded steps) and ResNet-50 v2 (b32, 1 + 1
+    steps) as in phase 7: losses finite, launches per step and per core
+    as the model's layers predict, the frozen artifact through the
+    family's engine equal as integers to the QAT eval logits, every
+    distinct kernel call of a step against its plain version (D1's
+    accumulator form timed), one folded step at b2 64² on the card
+    against the CPU, step times and a trace;
+11. one JSON line with the kernels' numbers, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -132,13 +160,32 @@ KERNELS = {
         'hawq_tpu/kernels/matmul.py:322'),
     'minmax_1pass': ('hawq_tpu_torch/kernels/csrc/reduce.cu',
                      'hawq_tpu/kernels/reduce.py:63'),
+    # D1: the TPU package has no Pallas kernel for the depthwise conv; it
+    # runs XLA's grouped int8 conv or these nine shifted multiply-adds
+    'int8_dwconv_requant': ('hawq_tpu_torch/kernels/csrc/depthwise.cu',
+                            'hawq_tpu/inference/engine_mobilenet.py:42'),
+    'int8_dwconv_acc': ('hawq_tpu_torch/kernels/csrc/depthwise.cu',
+                        'hawq_tpu/inference/engine_mobilenet.py:42'),
 }
 # the three kernels that no serving path launches: phase 3 (the standalone
 # pool, at the main path's pre-pool tensor), 6 and 7 drive them
 KBLOCKED, MINMAX = 'int8_matmul_requant_kblocked', 'minmax_1pass'
 POOL, POOL_REQUANT = 'maxpool_folded', 'maxpool_folded_requant'
-SERVING_KERNELS = [k for k in KERNELS if k not in (KBLOCKED, MINMAX, POOL)]
+# D1's two forms: the MobileNetV2 engine's (phase 8) and the QAT forward's
+# (phase 10)
+DW_REQUANT, DW_ACC = 'int8_dwconv_requant', 'int8_dwconv_acc'
+DW = (DW_REQUANT, DW_ACC)
+SERVING_KERNELS = [k for k in KERNELS
+                   if k not in (KBLOCKED, MINMAX, POOL) + DW]
 TRAIN_BATCH = 32
+# the phase that trains each arch through the Trainer
+TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10}
+# MobileNetV2 w1 serving (phase 8), 224², batch 8: (scheme, input mode,
+# carrier); the first is this family's main path
+MNV2_PATHS = (('uniform8', 'folded_float32', torch.int16),
+              ('uniform8', 'float32', torch.int32),
+              ('uniform4', 'folded_float32', torch.int16),
+              ('bops_0.5', 'folded_float32', torch.int16))
 # the kernels on the Hopper core (csrc/gemm_s8_sm90.cuh); the first core
 # (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
 # beside the new one
@@ -146,7 +193,7 @@ SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
                 'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED)
 POOLS = (POOL, POOL_REQUANT)
-GEMM_KERNELS = [k for k in KERNELS if k not in POOLS + (MINMAX,)]
+GEMM_KERNELS = [k for k in KERNELS if k not in POOLS + DW + (MINMAX,)]
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -266,6 +313,63 @@ def core_launches():
     return {k: v for k, v in _build.CORE_LAUNCHES.items() if v}
 
 
+class Launches:
+    """Predicted launches per kernel and per core ('name@core': for a GEMM
+    kernel the core the Hopper core's rule names for the call's widths,
+    'cuda' for D1)."""
+
+    def __init__(self):
+        self.counts, self.cores = {}, {}
+
+    def add(self, name, kind=None, k=0, n=0):
+        from hawq_tpu_torch.kernels import matmul as km
+        self.counts[name] = self.counts.get(name, 0) + 1
+        core = ('cuda' if name in DW else None if kind is None else
+                'sm90' if km.sm90_route(kind, k=k, n=n, ptr=0) is None
+                else 'mma')
+        if core is not None:
+            key = f'{name}@{core}'
+            self.cores[key] = self.cores.get(key, 0) + 1
+        return self
+
+
+def expected_mobilenet_launches(fm, input_mode):
+    """Launches of one MobileNetV2 engine forward, from the frozen model's
+    widths: the init conv (the fold's C = 48, N = 4·32, or the raw image's
+    space-to-depth C = 16), every 1×1 conv (conv1, conv3, the final block,
+    the head) through ``int8_matmul_acc``, every depthwise conv2 through
+    D1's requant form."""
+    n = fm['init_block.weight_int'].shape[-1]
+    out = Launches().add('int8_conv_acc', 'conv_acc',
+                         *((48, 4 * n) if input_mode.startswith('folded')
+                           else (16, n)))
+    for key, w in fm.tensors.items():
+        if key.endswith('.conv2.weight_int'):
+            out.add(DW_REQUANT)
+        elif key.endswith('.weight_int') and key != 'init_block.weight_int':
+            out.add('int8_matmul_acc', 'matmul', w.shape[2], w.shape[3])
+    return out
+
+
+def expected_v2_launches(fm):
+    """Launches of one bottleneck ResNet v2 engine forward (the one this
+    script drives), from the frozen model's widths: the init conv
+    (space-to-depth, C = 16); each unit's conv1 through
+    ``int8_matmul_requant``, its 3×3 through ``int8_conv_requant``, conv3
+    and the identity conv through ``int8_matmul_acc``; the FC."""
+    kernel = {'quant_conv1': ('int8_matmul_requant', 'matmul_requant'),
+              'quant_conv2': ('int8_conv_requant', 'conv'),
+              'quant_conv3': ('int8_matmul_acc', 'matmul'),
+              'quant_identity_conv': ('int8_matmul_acc', 'matmul')}
+    out = Launches().add('int8_conv_acc', 'conv_acc', 16,
+                         fm['quant_init_conv.weight_int'].shape[-1])
+    for key, w in fm.tensors.items():
+        if key.startswith('stage') and key.endswith('.weight_int'):
+            out.add(*kernel[key.split('.')[2]], w.shape[2], w.shape[3])
+    w = fm['quant_output.weight_int']
+    return out.add('int8_matmul_acc', 'matmul', w.shape[0], w.shape[1])
+
+
 def sm90_rule(name, args, kw):
     """The clause of the Hopper core's shape rule that excludes a call of
     one of its kernels, None where the core takes it."""
@@ -283,6 +387,18 @@ def sm90_rule(name, args, kw):
     return reason
 
 
+def cores_by_rule(calls):
+    """Launches per core that the rule names for recorded calls (D1 has
+    its own)."""
+    out = {}
+    for name, args, kw in calls:
+        if name in GEMM_KERNELS + list(DW):
+            core = ('cuda' if name in DW else 'sm90' if name in SM90_KERNELS
+                    and sm90_rule(name, args, kw) is None else 'mma')
+            out[f'{name}@{core}'] = out.get(f'{name}@{core}', 0) + 1
+    return out
+
+
 @contextlib.contextmanager
 def first_core():
     """Inside, the Hopper core's rule excludes every call, so engines built
@@ -297,9 +413,10 @@ def first_core():
 
 
 def kernel_modules():
-    from hawq_tpu_torch.kernels import conv, matmul, pool, reduce
+    from hawq_tpu_torch.kernels import conv, depthwise, matmul, pool, reduce
     return {name: (pool if name in POOLS else
                    reduce if name == MINMAX else
+                   depthwise if name in DW else
                    conv if '_conv' in name else matmul) for name in KERNELS}
 
 
@@ -368,6 +485,7 @@ def hopper_core_weights(name, w, kw):
 
 def plain_call(name, args, kw, stack=True):
     from hawq_tpu_torch.inference.fold import maxpool_3x3s2p1_folded
+    from hawq_tpu_torch.kernels import depthwise as kd
     from hawq_tpu_torch.kernels import pool as kp
     from hawq_tpu_torch.kernels import reduce as kr
     if name == POOL:
@@ -378,6 +496,11 @@ def plain_call(name, args, kw, stack=True):
     if name == MINMAX:
         out = kr.minmax_plain(*args)
         return torch.stack(out) if stack else out
+    if name == DW_ACC:
+        return kd.dwconv_acc_plain(*args, kw['stride'])
+    if name == DW_REQUANT:
+        return kd.dwconv_requant_plain(*args, kw['stride'], kw['lo'],
+                                       kw['hi'])
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
     return plain_gemm_call(name, args, kw)
 
@@ -418,6 +541,10 @@ def work(name, args, kw, out):
     nbytes += out.numel() * out.element_size()
     if name in POOLS + (MINMAX,):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
+    if name in DW:                  # 9 multiply-adds an output
+        b, h, w, c = args[0].shape
+        return (nbytes, 2 * 9 * out.numel(),
+                f'B{b} {h}x{w} C{c} stride {kw["stride"]}')
     if isinstance(args[1], PreparedWeights):   # counted unpadded, as passed
         n = args[1].n                          # to the reference: (K, N), or
         nbytes += args[1].k * n // (2 if args[1].int4 else 1)   # (K/2, N)
@@ -441,9 +568,13 @@ def library_call(name, args, kw):
     rules, M ≤ 16 (the FC's 8 rows) with x zero-padded to 32 rows, whose
     first M rows of the product are the same integers; torch.aminmax for
     the min/max.  None elsewhere (PyTorch has no int8 conv and no
-    folded-layout pool)."""
+    folded-layout pool); for D1 cuDNN's float32 grouped convolution (groups
+    = C, TF32 off) on the same values, converted before the timing, which
+    is exact here (|acc| < 9·128·128 + |bias| ≪ 2²⁴)."""
     if name == MINMAX:
         return lambda: torch.aminmax(args[0])
+    if name in DW:
+        return cudnn_depthwise(args[0], args[1], args[2], kw['stride'])
     if '_matmul' not in name:
         return None
     x, w = args[0], unpacked_weights(name, args, kw)
@@ -453,6 +584,24 @@ def library_call(name, args, kw):
     if m <= 16:
         x = torch.cat([x, x.new_zeros((32 - m, k))])
     return lambda: torch._int_mm(x, w)
+
+
+def cudnn_depthwise(x8, w8, bias, stride):
+    """cuDNN's float32 grouped conv over D1's inputs (NHWC in memory, TF32
+    off): the yardstick call, and its result as int32."""
+    from hawq_tpu_torch.nn.layers import faithful_float_math
+    c = x8.shape[3]
+    xf = x8.permute(0, 3, 1, 2).float().contiguous(
+        memory_format=torch.channels_last)
+    wf = w8.permute(3, 2, 0, 1).float().contiguous(
+        memory_format=torch.channels_last)
+    bf = bias.float()
+
+    def run():
+        with faithful_float_math():
+            return torch.nn.functional.conv2d(xf, wf, bf, stride=stride,
+                                              padding=1, groups=c)
+    return run
 
 
 def ragged_calls(dev):
@@ -1008,7 +1157,7 @@ def time_calls(calls, totals):
                 ms = extra.pop('ms')
             else:
                 ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
-            if name in POOLS:
+            if name in POOLS + DW:
                 extra['cold_ms'] = cold_ms(
                     lambda *a: kernel_call(name, a, kw, False), args, 10)
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
@@ -1096,12 +1245,7 @@ def record_path(fm, x, dev):
     check(launches == want, f'{label}: launches {launches}, expected {want}')
     # per core: what the rule says of each recorded call, which at these
     # widths is the Hopper core for every call of its kernels
-    by_rule = {}
-    for name, args, kw in calls:
-        if name in GEMM_KERNELS:
-            core = ('sm90' if name in SM90_KERNELS
-                    and sm90_rule(name, args, kw) is None else 'mma')
-            by_rule[f'{name}@{core}'] = by_rule.get(f'{name}@{core}', 0) + 1
+    by_rule = cores_by_rule(calls)
     check(cores == by_rule == core_split(want), f'{label}: launches per core '
           f'{cores}, by the rule {by_rule}, expected {core_split(want)}')
     check(bool(torch.isfinite(logits).all()), f'{label}: logits not finite')
@@ -1121,45 +1265,101 @@ def engine_input(fm, mode, raw, raw_u8, dev):
     return torch.from_numpy(x).to(dev)
 
 
-def engine_phase(fm, x, mode, residual, dev):
-    from hawq_tpu_torch.inference.engine import build_resnet_engine
+def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
+                 calls=None):
+    """One engine at full width: built by ``build(device=...)``, launch
+    counts (set to 0 just before a forward, read just after) against the
+    prediction per kernel and per GEMM core, logits and the capture
+    ``nodes`` for the first two images equal the CPU (plain) engine's,
+    ms/batch → (the engine, the counted forward's launches per kernel).
+    With ``calls`` (a list), the counted forward's kernel calls are
+    recorded into it, and the per-core counts are also held against what
+    the rule says of each recorded call."""
     from hawq_tpu_torch.kernels import _build
-    label = f'{fm.arch} {fm.cfg.name} {mode} {residual}'
-    eng = build_resnet_engine(fm, input_mode=mode, residual_dtype=residual,
-                              device=dev)
+    eng = build(device=dev)
     eng(x)                                   # uploads weights, warms up
     torch.cuda.synchronize()
-    _build.reset_launches()
-    logits = eng(x)
-    torch.cuda.synchronize()
-    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-    want = expected_launches(fm.arch, fm.cfg, mode)
+    with recording(calls if calls is not None else []):
+        _build.reset_launches()
+        logits = eng(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cores = core_launches()
     check(counts == want, f'{label}: launches {counts}, expected {want}')
-    check(core_launches() == core_split(want), f'{label}: launches per core '
-          f'{core_launches()}, expected {core_split(want)}')
+    check(cores == want_cores, f'{label}: launches per core {cores}, '
+          f'expected {want_cores}')
+    if calls is not None:
+        by_rule = cores_by_rule(calls)
+        check(by_rule == cores, f'{label}: launches per core {cores}, by '
+              f'the rule {by_rule}')
     out = logits.cpu()
     check(out.shape == (BATCH, 1000) and bool(torch.isfinite(out).all()),
           f'{label}: logits {tuple(out.shape)} not finite/shaped')
-    ref = build_resnet_engine(fm, input_mode=mode, residual_dtype=residual,
-                              device='cpu')(x[:2].cpu())
+    ref = build(device='cpu')(x[:2].cpu())
     check(torch.equal(out[:2], ref), f'{label}: CUDA logits differ from the '
           f'CPU engine: max |err| {float((out[:2] - ref).abs().max())}')
     # synthetic weights can saturate the head (uniform4 logits may not
-    # depend on the image), so the pooled features are compared as well
-    kw = dict(capture='avg_pool', input_mode=mode, residual_dtype=residual)
-    got = build_resnet_engine(fm, device=dev, **kw)(x).cpu()
-    ref = build_resnet_engine(fm, device='cpu', **kw)(x[:2].cpu())
-    check(torch.equal(got[:2], ref), f'{label}: avg_pool differs')
+    # depend on the image), so inner nodes are compared as well
+    for node in nodes:
+        got = build(capture=node, device=dev)(x).cpu()
+        ref = build(capture=node, device='cpu')(x[:2].cpu())
+        check(torch.equal(got[:2], ref), f'{label}: {node} differs')
     ms = cuda_ms(lambda: eng(x), 20)
     t0 = time.perf_counter()
     for _ in range(10):
         eng(x)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 10 * 1e3
-    log(f'phase 4: {label}: logits and avg_pool == CPU engine (2 images), '
-        f'launches {counts}, {ms:.3f} ms/batch CUDA-event-timed, '
-        f'{wall:.3f} ms/batch host-timed (batch {BATCH}, {SIZE}x{SIZE})')
-    return eng
+    log(f'{phase}: {label}: logits and {", ".join(nodes)} == CPU engine (2 '
+        f'images), launches {counts}, per core {cores}, {ms:.3f} ms/batch '
+        f'CUDA-event-timed, {wall:.3f} ms/batch host-timed (batch {BATCH}, '
+        f'{SIZE}x{SIZE})')
+    return eng, counts
+
+
+def engine_phase(fm, x, mode, residual, dev):
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    want = expected_launches(fm.arch, fm.cfg, mode)
+    return engine_check(
+        functools.partial(build_resnet_engine, fm, input_mode=mode,
+                          residual_dtype=residual), x, want,
+        core_split(want), ('avg_pool',),
+        f'{fm.arch} {fm.cfg.name} {mode} {residual}', dev, 'phase 4')[0]
+
+
+def raw_pool_cost(engines, fms, raw, raw_u8, dev):
+    """Phase 4: the raw-input ResNet engines' max-pool, ``maxpool_int``
+    (four strided integer maxima, exact at any magnitude), beside the
+    float32 ``max_pool2d`` form (exact only below 2²⁴) on the pool's input:
+    device kernels, device ms and host µs per call of each; and the raw
+    engines' kernels per forward."""
+    import torch.nn.functional as F
+    from hawq_tpu_torch.inference.engine import maxpool_int
+
+    def float_pool(x):
+        y = F.max_pool2d(x.permute(0, 3, 1, 2).to(torch.float32), 3, 2, 1)
+        return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dtype in (torch.int32, torch.int16):
+        x = torch.randint(0, 2 ** 15, (BATCH, SIZE // 2, SIZE // 2, 64),
+                          generator=gen, device=dev).to(dtype)
+        check(torch.equal(maxpool_int(x), float_pool(x)),
+              f'maxpool_int differs from the float32 pool on {dtype}')
+        log(f'phase 4: the raw-input pool on {tuple(x.shape)} {dtype}: '
+            + '; '.join(
+                f'{label} {len(device_kernels(lambda: fn(x)))} device '
+                f'kernels, {cuda_ms(lambda: fn(x), 50):.4f} ms device, '
+                f'{host_us(lambda: fn(x), 50):.1f} µs host per call'
+                for label, fn in (('maxpool_int', maxpool_int),
+                                  ('float32 max_pool2d', float_pool))))
+    for scheme, mode in (('uniform8', 'float32'), ('uniform4', 'float32'),
+                         ('uniform4', 'uint8')):
+        eng = engines['resnet50', scheme, mode]
+        x = engine_input(fms['resnet50', scheme], mode, raw, raw_u8, dev)
+        log(f'phase 4: resnet50 {scheme} {mode}: '
+            f'{len(device_kernels(lambda: eng(x)))} device kernels per '
+            f'forward')
 
 
 def engine_both_cores(fm, x, eng, dev):
@@ -1214,6 +1414,10 @@ _SM90_TEMPLATE = (
     re.compile(r'gemm_s8_sm90_kernelILb(\d)ELb(\d)ELb(\d)E'))
 
 
+_DW_TEMPLATE = re.compile(
+    r'dwconv_kernel(?:<\d+, (\w+)>|ILi\d+ELb(\d)E)')
+
+
 def port_kernel(name):
     """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, there
     ' requant' for the matmul with the requant epilogue, ' acc' for the
@@ -1238,6 +1442,10 @@ def port_kernel(name):
                     + (' int4' if int4 else ''))
     if 'gemm_s8_splitk_kernel' in name:
         return 'port: matmul split-K'
+    m = _DW_TEMPLATE.search(name)
+    if m:
+        requant = m.group(1) in ('true', '1') or m.group(2) in ('true', '1')
+        return 'port: depthwise ' + ('requant' if requant else 'acc')
     if 'maxpool_folded_requant_kernel' in name:
         return 'port: pool requant'
     if 'maxpool_folded_kernel' in name:
@@ -1278,14 +1486,14 @@ def busy_and_timeline(kernels):
     return busy, spans[-1][1] - spans[0][0]
 
 
-def trace_breakdown(eng, x, label):
+def trace_breakdown(eng, x, label, phase='phase 4'):
     """Device-side breakdown of one forward from a torch.profiler trace:
     kernel time of the port's kernels and of the rest, and the share of the
-    device timeline with no kernel running → (kernels, port ms, other ms),
-    None without a trace."""
+    device timeline with no kernel running → (kernels, port ms, other ms,
+    {name: (count, µs)}), None without a trace."""
     kernels = device_kernels(lambda: eng(x))
     if not kernels:
-        log(f'phase 4: {label}: the profiler trace holds no device kernels; '
+        log(f'{phase}: {label}: the profiler trace holds no device kernels; '
             f'device busy share not measured')
         return None
     busy, timeline = busy_and_timeline(kernels)
@@ -1296,14 +1504,14 @@ def trace_breakdown(eng, x, label):
         by_name[key] = (c + 1, t + float(e['dur']))
     port_us = sum(t for k, (c, t) in by_name.items() if k.startswith('port'))
     total_us = sum(t for c, t in by_name.values())
-    log(f'phase 4: trace of one {label} forward: {len(kernels)} kernels, '
+    log(f'{phase}: trace of one {label} forward: {len(kernels)} kernels, '
         f'device busy {busy / 1e3:.3f} ms of a {timeline / 1e3:.3f} ms device '
         f'timeline (idle share {1 - busy / timeline:.3f}); port kernels '
         f'{port_us / 1e3:.3f} ms, other kernels '
         f'{(total_us - port_us) / 1e3:.3f} ms')
     for k, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:9]:
         log(f'  {t / 1e3:8.4f} ms  x{c:<4d} {k}')
-    return len(kernels), port_us / 1e3, (total_us - port_us) / 1e3
+    return len(kernels), port_us / 1e3, (total_us - port_us) / 1e3, by_name
 
 
 @contextlib.contextmanager
@@ -1449,27 +1657,32 @@ def kblocked_phase(conv1_calls, errs, totals):
     return 16, floor
 
 
-def expected_train_launches(arch, cfg):
+def expected_train_launches(model):
     """Kernel launches of one QAT forward (a train, calibration or eval
-    step; ``minmax_1pass`` only where the ranges update), from the arch:
-    one ``minmax_1pass`` per activation quantizer, the init conv and every
-    3×3 conv through ``int8_conv_acc``, every 1×1 conv and the FC through
-    ``int8_matmul_acc``."""
-    from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
-                                                   resnet_layer_keys)
-    bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
-    counts = {'int8_conv_acc': 0, 'int8_matmul_acc': 1, MINMAX: 0}
-    for key in resnet_layer_keys(arch):
-        leaf = key.rsplit('.', 1)[-1]
-        if leaf == 'quant_input' or leaf.startswith('quant_act'):
-            counts[MINMAX] += int(cfg.settings.act_percentile == 0)
-        elif leaf.startswith('quant_init'):
-            counts['int8_conv_acc'] += 1
-        elif 'convbn' in leaf:
-            three = (leaf == 'quant_convbn2' if bottleneck
-                     else leaf != 'quant_identity_convbn')
-            counts['int8_conv_acc' if three else 'int8_matmul_acc'] += 1
-    return counts
+    step; ``minmax_1pass`` only where the ranges update), from the model's
+    layers: one ``minmax_1pass`` per activation quantizer, every 1×1 conv
+    and the FC through ``int8_matmul_acc``, every depthwise conv through
+    ``int8_dwconv_acc``, every other conv through ``int8_conv_acc`` (4·C
+    after the space-to-depth of a stride 2, C zero-filled to a multiple of
+    4) → Launches."""
+    from hawq_tpu_torch.nn import layers as L
+    out = Launches()
+    for m in model.modules():
+        if isinstance(m, (L.QuantAct, L.QuantBnAct)):
+            if getattr(m, 'percentile', 0) == 0:
+                out.add(MINMAX)
+        elif isinstance(m, L.QuantLinear):
+            out.add('int8_matmul_acc', 'matmul', *m.kernel.shape)
+        elif isinstance(m, (L.QuantConvBn, L.QuantConv2d)):
+            kh, kw, c, n = m.kernel.shape
+            if m.groups > 1:
+                out.add(DW_ACC)
+            elif (kh, kw) == (1, 1):
+                out.add('int8_matmul_acc', 'matmul', c, n)
+            else:
+                c = c if m.strides == (1, 1) else 4 * (c + -c % 4)
+                out.add('int8_conv_acc', 'conv_acc', c, n)
+    return out
 
 
 def synthesize(args, dev, gen):
@@ -1504,14 +1717,14 @@ _LIBRARY_KERNEL = re.compile(
     r'implicit|winograd|nchw|nhwc|sm\d\d_|ampere|hopper', re.I)
 
 
-def train_trace_breakdown(step, label):
+def train_trace_breakdown(step, label, phase=7):
     """Device-side breakdown of one train step from a profiler trace: the
     port's kernels, the library's (cuDNN / cuBLAS: the float backward),
     PyTorch's elementwise and reduction glue, and the idle share."""
     kernels = device_kernels(step)
     if not kernels:
-        log(f'phase 7: {label}: the profiler trace holds no device kernels; '
-            f'breakdown not measured')
+        log(f'phase {phase}: {label}: the profiler trace holds no device '
+            f'kernels; breakdown not measured')
         return None
     busy, timeline = busy_and_timeline(kernels)
     groups, by_name = {}, {}
@@ -1526,7 +1739,8 @@ def train_trace_breakdown(step, label):
         by_name[key] = (c + 1, t + float(e['dur']))
     parts = ', '.join(f'{g} {t / 1e3:.3f} ms x{c}'
                       for g, (c, t) in sorted(groups.items()))
-    log(f'phase 7: trace of one {label}: {len(kernels)} kernels, device busy '
+    log(f'phase {phase}: trace of one {label}: {len(kernels)} kernels, '
+        f'device busy '
         f'{busy / 1e3:.3f} ms of a {timeline / 1e3:.3f} ms device timeline '
         f'(idle share {1 - busy / timeline:.3f}); {parts} (port = this '
         f"package's kernels, library = cuDNN/cuBLAS, glue = PyTorch "
@@ -1536,14 +1750,33 @@ def train_trace_breakdown(step, label):
     return groups
 
 
-def run_trainer(batch_size, dev):
-    """Phase 7, the Trainer run at one batch size → what it measured."""
+def serving_engine(fm, dev):
+    """The frozen artifact's family engine on float32 input → (engine, its
+    predicted Launches, the key of its output weight scale)."""
     from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    from hawq_tpu_torch.inference.engine_v2 import build_resnet_v2_engine
+    if fm.arch == 'mobilenetv2':
+        return (build_mobilenetv2_engine(fm, input_hw=(SIZE, SIZE),
+                                         device=dev),
+                expected_mobilenet_launches(fm, 'float32'), 'output')
+    if fm.arch.endswith('v2'):
+        return (build_resnet_v2_engine(fm, device=dev),
+                expected_v2_launches(fm), 'quant_output')
+    want = expected_launches(fm.arch, fm.cfg, 'float32')
+    out = Launches()
+    out.counts, out.cores = want, core_split(want)
+    return build_resnet_engine(fm, device=dev), out, 'quant_output'
+
+
+def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
+    """The Trainer run at one batch size → what it measured."""
     from hawq_tpu_torch.kernels import _build
     from hawq_tpu_torch.train import trainer as tt
     from hawq_tpu_torch.train.data import synthetic_batches
     from hawq_tpu_torch.utils.checkpoint import load_frozen
-    steps, specs = [], []
+    records, specs = [], []
     real = tt.make_train_step
 
     def instrumented(model, *, folded, **kw):
@@ -1567,54 +1800,57 @@ def run_trainer(batch_size, dev):
             cores = {k: v - cores_before.get(k, 0)
                      for k, v in _build.CORE_LAUNCHES.items()
                      if v - cores_before.get(k, 0)}
-            steps.append(dict(step=state.step - 1, folded=folded,
-                              ms=t0.elapsed_time(t1), counts=counts,
-                              cores=cores,
-                              loss=float(out[1]['loss'])))
+            records.append(dict(step=state.step - 1, folded=folded,
+                                ms=t0.elapsed_time(t1), counts=counts,
+                                cores=cores, loss=float(out[1]['loss'])))
             return out
         return run
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = tt.TrainerConfig(
-            arch='resnet50', scheme='uniform8', num_classes=1000,
+            arch=arch, scheme='uniform8', num_classes=1000,
             image_size=SIZE, batch_size=batch_size, epochs=1,
-            steps_per_epoch=4, fix_bn_threshold=2, calib_batches=2,
-            eval_batches=1, seed=0, save_path=tmp, device='cuda')
+            steps_per_epoch=steps, fix_bn_threshold=fix_bn_threshold,
+            calib_batches=calib, eval_batches=1, seed=0, save_path=tmp,
+            device='cuda')
         tt.make_train_step = instrumented
         try:
             trainer = tt.Trainer(cfg)
-            want = expected_train_launches(cfg.arch, trainer.bit_cfg)
+            want = expected_train_launches(trainer.model)
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
             t0 = time.perf_counter()
-            trainer.run()       # calibrate, 4 steps, evaluate, checkpoint
+            trainer.run()      # calibrate, the steps, evaluate, checkpoint
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             total = {k: v for k, v in _build.LAUNCHES.items() if v}
         finally:
             tt.make_train_step = real
-        label = f'resnet50 uniform8 b{batch_size} {SIZE}x{SIZE}'
-        check([s['folded'] for s in steps] == [False, False, True, True],
-              f'fix-BN schedule ran {[s["folded"] for s in steps]}')
-        for s in steps:
+        label = f'{arch} uniform8 b{batch_size} {SIZE}x{SIZE}'
+        schedule = [i >= fix_bn_threshold for i in range(steps)]
+        check([s['folded'] for s in records] == schedule,
+              f'fix-BN schedule ran {[s["folded"] for s in records]}')
+        for s in records:
             check(np.isfinite(s['loss']), f'step {s["step"]}: loss '
                   f'{s["loss"]}')
-            check(s['counts'] == want, f'step {s["step"]}: launches '
-                  f'{s["counts"]}, expected {want}')
-            check(s['cores'] == core_split(want), f'step {s["step"]}: '
-                  f'launches per core {s["cores"]}, expected '
-                  f'{core_split(want)}')
-        # 2 calibration passes and 4 steps update the ranges, the eval
+            check(s['counts'] == want.counts, f'step {s["step"]}: launches '
+                  f'{s["counts"]}, expected {want.counts}')
+            check(s['cores'] == want.cores, f'step {s["step"]}: launches per '
+                  f'core {s["cores"]}, expected {want.cores}')
+        # the calibration passes and the steps update the ranges, the eval
         # batch does not
-        want_total = {k: v * (7 if k != MINMAX else 6) for k, v in want.items()}
+        want_total = {k: v * (calib + steps + (k != MINMAX))
+                      for k, v in want.counts.items()}
         check(total == want_total, f'{label}: launches of the whole run '
               f'{total}, expected {want_total}')
-        log(f'phase 7: Trainer on {label}: 2 calibration batches, steps '
-            + ', '.join(f"{s['step']} ({'folded' if s['folded'] else 'unfolded'}"
-                        f" BN) loss {s['loss']:.4f} {s['ms']:.1f} ms"
-                        for s in steps)
+        log(f'phase {TRAIN_PHASE[arch]}: Trainer on {label}: {calib} '
+            f'calibration batches, steps '
+            + ', '.join(f"{s['step']} "
+                        f"({'folded' if s['folded'] else 'unfolded'} BN) "
+                        f"loss {s['loss']:.4f} {s['ms']:.1f} ms"
+                        for s in records)
             + f', 1 eval batch, checkpoint; {wall:.1f} s in all; launches '
-            f'per step {want} (per core {core_split(want)}), whole run '
+            f'per step {want.counts} (per core {want.cores}), whole run '
             f'{total}')
         for name in ('checkpoint.npz', 'checkpoint.npz.meta.json',
                      'quantized_checkpoint.npz',
@@ -1623,23 +1859,22 @@ def run_trainer(batch_size, dev):
         fm = load_frozen(os.path.join(tmp, 'quantized_checkpoint.npz'))
 
     # the parity contract on the card: the frozen checkpoint through the
-    # integer engine == the trainer's QAT eval logits, as integers
+    # family's integer engine == the trainer's QAT eval logits, as integers
     images = torch.from_numpy(next(synthetic_batches(
         batch_size, SIZE, 1000, 1, seed=10_000))['image']).to(dev)
     with torch.no_grad():
         qat = trainer.model(images, folded=True, update_stats=False)
-    eng = build_resnet_engine(fm, device=dev)
+    eng, want_eng, head = serving_engine(fm, dev)
     _build.reset_launches()
     logits = eng(images)
     torch.cuda.synchronize()
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-    want_eng = expected_launches(fm.arch, fm.cfg, 'float32')
-    check(counts == want_eng, f'engine on the frozen checkpoint: launches '
-          f'{counts}, expected {want_eng}')
-    check(core_launches() == core_split(want_eng), f'engine on the frozen '
+    check(counts == want_eng.counts, f'engine on the frozen checkpoint: '
+          f'launches {counts}, expected {want_eng.counts}')
+    check(core_launches() == want_eng.cores, f'engine on the frozen '
           f'checkpoint: launches per core {core_launches()}, expected '
-          f'{core_split(want_eng)}')
-    scale = (torch.from_numpy(fm['quant_output.weight_scale']).to(dev).double()
+          f'{want_eng.cores}')
+    scale = (torch.from_numpy(fm[head + '.weight_scale']).to(dev).double()
              * float(fm.act_scale('quant_act_output')))
     qat_int = torch.round(qat.double() / scale)
     eng_int = torch.round(logits.double() / scale)
@@ -1648,8 +1883,8 @@ def run_trainer(batch_size, dev):
     check(torch.equal(qat_int, eng_int), f'engine logits differ from the QAT '
           f'eval logits as integers on {int((qat_int != eng_int).sum())} of '
           f'{qat_int.numel()}')
-    log(f'phase 7: quantized_checkpoint.npz → load_frozen → '
-        f'build_resnet_engine on the card: integer logits equal the '
+    log(f'phase {TRAIN_PHASE[arch]}: quantized_checkpoint.npz → load_frozen '
+        f'→ {type(eng).__name__} on the card: integer logits equal the '
         f"trainer's QAT eval logits on all {qat_int.numel()} "
         f'(launches {counts})')
 
@@ -1662,36 +1897,36 @@ def run_trainer(batch_size, dev):
         run = lambda: step(trainer.state, batch)
         timed[folded] = cuda_ms(run, 3)
     peak = torch.cuda.max_memory_allocated()
-    log(f'phase 7: {label}: {timed[False]:.2f} ms per unfolded step, '
-        f'{timed[True]:.2f} ms per folded step (CUDA events around 3 whole '
-        f'steps after a warm-up), {batch_size / timed[True] * 1e3:.1f} '
-        f'images/s folded, peak memory allocated {peak / 2 ** 30:.2f} GiB')
+    log(f'phase {TRAIN_PHASE[arch]}: {label}: {timed[False]:.2f} ms per '
+        f'unfolded step, {timed[True]:.2f} ms per folded step (CUDA events '
+        f'around 3 whole steps after a warm-up), '
+        f'{batch_size / timed[True] * 1e3:.1f} images/s folded, peak memory '
+        f'allocated {peak / 2 ** 30:.2f} GiB')
     step = real(trainer.model, folded=True)
     groups = train_trace_breakdown(lambda: step(trainer.state, batch),
-                                   f'folded step of {label}')
-    return dict(batch=batch_size, want=want, specs=list(specs), timed=timed,
-                peak=peak, groups=groups)
+                                   f'folded step of {label}',
+                                   TRAIN_PHASE[arch])
+    return dict(batch=batch_size, counts=records[-1]['counts'],
+                specs=list(specs), timed=timed, peak=peak, groups=groups)
 
 
-def card_vs_cpu_step(dev):
-    """One folded train step of ResNet-50 at batch 2, 64×64 on the card
-    against the same step on the CPU from the same state."""
-    from hawq_tpu_torch.configs.bit_config import get_bit_config
-    from hawq_tpu_torch.models.resnet import (QResNet, qat_from_numpy,
-                                              qat_to_numpy)
+def card_vs_cpu_step(arch, dev):
+    """One folded train step of ``arch`` (uniform8) at batch 2, 64×64 on
+    the card against the same step on the CPU from the same state."""
+    from hawq_tpu_torch.models.resnet import qat_from_numpy, qat_to_numpy
     from hawq_tpu_torch.nn.layers import capture_q_int
     from hawq_tpu_torch.train.train import (TrainState, make_train_step,
                                             sgd_with_step_decay)
-    cfg = get_bit_config('resnet50', 'uniform8')
+    from hawq_tpu_torch.train.trainer import TrainerConfig, build_model
     rng = np.random.RandomState(4)
     images = rng.randn(2, 64, 64, 3).astype(np.float32)
     labels = rng.randint(0, 1000, (2,))
-    cpu = QResNet('resnet50', cfg, 1000, seed=0)
+    cpu, _ = build_model(TrainerConfig(arch=arch, seed=0))
     with torch.no_grad():
         for _ in range(2):
             cpu(torch.from_numpy(images), folded=True, update_stats=True)
-    card = qat_from_numpy(QResNet('resnet50', cfg, 1000, seed=1).to(dev),
-                          qat_to_numpy(cpu))
+    card = qat_from_numpy(build_model(TrainerConfig(arch=arch, seed=1))[0]
+                          .to(dev), qat_to_numpy(cpu))
     out = {}
     for name, model, device in (('cpu', cpu, 'cpu'), ('card', card, dev)):
         state = TrainState.create(model, sgd_with_step_decay(model, 1e-4))
@@ -1709,7 +1944,8 @@ def card_vs_cpu_step(dev):
         for k, want in out['cpu'][kind].items():
             check(torch.equal(out['card'][kind][k], want),
                   f'card step: {kind} {k} differs from the CPU step')
-    rel = abs(out['card']['loss'] - out['cpu']['loss']) / abs(out['cpu']['loss'])
+    rel = (abs(out['card']['loss'] - out['cpu']['loss'])
+           / abs(out['cpu']['loss']))
     check(rel <= 1e-5, f'card step: loss {out["card"]["loss"]} vs CPU '
           f'{out["cpu"]["loss"]}')
     worst = 0.0
@@ -1722,25 +1958,31 @@ def card_vs_cpu_step(dev):
               f'card step: gradient {k} differs from the CPU step')
         worst = max(worst, float((got - want).abs().max()
                                  / (want.abs().max() + 1e-30)))
-    log(f"phase 7: one folded step of resnet50 uniform8 b2 64x64 on the card "
-        f"== on the CPU: {len(out['cpu']['q'])} q_int tensors and "
-        f"{len(out['cpu']['ranges'])} ranges bit-equal, loss "
+    log(f"phase {TRAIN_PHASE[arch]}: one folded step of {arch} uniform8 b2 "
+        f"64x64 on the card == on the CPU: {len(out['cpu']['q'])} q_int "
+        f"tensors and {len(out['cpu']['ranges'])} ranges bit-equal, loss "
         f"{out['card']['loss']:.6f} vs {out['cpu']['loss']:.6f}, "
         f"{len(out['cpu']['grads'])} gradient leaves within rtol 1e-3 "
         f"(worst |err| / max|g| {worst:.2e})")
 
 
-def training_phase(errs, totals, dev):
-    """Phase 7 → (launches per step of the kernels it drives, its totals
-    per kernel over one step, the batch it ran at)."""
+def training_phase(arch, errs, dev, timed=None, steps=4, fix_bn_threshold=2,
+                   calib=2):
+    """Phases 7 and 10: the Trainer on ``arch``, every distinct kernel call
+    of its last folded step held against the plain version, those of the
+    kernels in ``timed`` (all, if None) timed, one card step against a CPU
+    step → (launches per step as counted in the last step, totals per
+    kernel over one step, the batch it ran at)."""
+    phase = f'phase {TRAIN_PHASE[arch]}'
     batch = TRAIN_BATCH
     while True:
         try:
-            run = run_trainer(batch, dev)
+            run = run_trainer(arch, batch, dev, steps, fix_bn_threshold,
+                              calib)
             break
         except torch.cuda.OutOfMemoryError as e:
-            check(batch > 1, f'phase 7: out of memory at batch 1: {e}')
-            log(f'phase 7: batch {batch} does not fit in the card\'s memory '
+            check(batch > 1, f'{phase}: out of memory at batch 1: {e}')
+            log(f'{phase}: batch {batch} does not fit in the card\'s memory '
                 f'in eager mode ({str(e).splitlines()[0]}); halving it')
             batch //= 2
             torch.cuda.empty_cache()
@@ -1754,17 +1996,128 @@ def training_phase(errs, totals, dev):
             distinct[key] = (name, synthesize(args, dev, gen), kw)
     calls = [distinct[call_key(*spec)] for spec in run['specs']]
     shapes = {k for k in distinct if k[0] == MINMAX}
-    edges = minmax_edge_calls(dev, gen)
+    edges = minmax_edge_calls(dev, gen) if timed is None else []
     check_calls(list(distinct.values()) + edges, errs,
-                f'phase 7: the {len(distinct)} distinct kernel calls of a '
-                f'step ({len(shapes)} minmax_1pass shapes) and '
+                f'{phase}: the {len(distinct)} distinct kernel calls of a '
+                f'step of {arch} ({len(shapes)} minmax_1pass shapes) and '
                 f'{len(edges)} minmax_1pass edge inputs')
     train_totals = {}
-    log(f'phase 7: timed at the shapes of one step (batch {batch}):')
-    time_calls(calls, train_totals)
-    totals[MINMAX] = train_totals[MINMAX]
-    card_vs_cpu_step(dev)
-    return run['want'], train_totals, batch
+    log(f'{phase}: timed at the shapes of one step of {arch} (batch '
+        f'{batch}):')
+    time_calls([c for c in calls if timed is None or c[0] in timed],
+               train_totals)
+    card_vs_cpu_step(arch, dev)
+    return run['counts'], train_totals, batch
+
+
+def dw_ragged_calls(dev):
+    """D1 beside the paths' shapes: C = 8, 24 and 40 (one channel a thread)
+    and 16 / 32 (vectors, also on an unaligned input); 7×7, odd and 1×1
+    images; B = 1; both strides; saturated operands; requant multipliers of
+    0.5 (odd accumulators on a .5 boundary); ReLU6 bounds that bind on some
+    channels and not on others; 8- and 4-bit, signed and unsigned bounds."""
+    from hawq_tpu_torch.inference.engine_mobilenet import relu6_bound
+    from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
+    rng = np.random.RandomState(13)
+    calls = []
+    for (b, h, w, c), stride in (((2, 7, 7, 8), 1), ((1, 9, 13, 24), 2),
+                                 ((1, 7, 7, 40), 1), ((2, 15, 11, 16), 2),
+                                 ((1, 1, 1, 32), 1), ((3, 14, 14, 32), 2),
+                                 ((1, 5, 6, 16), 1)):
+        x = rng.randint(-128, 128, (b, h, w, c)).astype(np.int8)
+        wt = rng.randint(-127, 128, (3, 3, 1, c)).astype(np.int8)
+        if c == 40:                            # saturated
+            x[:], wt[:] = -128, -127
+        bias = rng.randint(-2 ** 18, 2 ** 18, c).astype(np.int32)
+        acc_scale = (rng.rand(c) * 3e-4 + 2e-5).astype(np.float32)
+        acc_scale[::2] = 6.0 / 40.0            # hi6 = 40 binds here
+        mult = np_dyadic_multiplier((rng.rand(c) * 0.02 + 1e-3)
+                                    .astype(np.float32))
+        mult[1::3] = 0.5
+        args = [torch.tensor(a, device=dev) for a in (x, wt, bias)]
+        if c == 16 and h == 5:                 # x one byte off alignment
+            flat = torch.empty(x.size + 1, dtype=torch.int8, device=dev)
+            flat[1:] = args[0].reshape(-1)
+            args[0] = flat[1:].view(x.shape)
+        calls.append((DW_ACC, tuple(args), dict(stride=stride)))
+        vecs = (torch.tensor(relu6_bound(acc_scale), device=dev),
+                torch.tensor(mult, device=dev))
+        for lo, hi in ((-128, 127), (0, 15), (-8, 7)):
+            calls.append((DW_REQUANT, tuple(args) + vecs,
+                          dict(stride=stride, lo=lo, hi=hi)))
+    return calls
+
+
+def mobilenet_phase(raw, dev, errs, totals):
+    """Phase 8: MobileNetV2 w1 serving at full width, 224², batch 8, on
+    synthetic weights (seed 0): the paths of ``MNV2_PATHS``, each against
+    the CPU engine and its predicted launches; every kernel call of the
+    first (the main path) and D1's ragged calls held against their plain
+    versions; D1 timed on the main path; a trace of its forward → D1's
+    launches in the main path's counted forward."""
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
+    from hawq_tpu_torch.inference.synthetic import synthetic_frozen_mobilenet
+    images = {'float32': torch.from_numpy(raw).to(dev),
+              'folded_float32': torch.from_numpy(
+                  fold4_images_3x3s2(raw, 1)).to(dev)}
+    fms, main = {}, None
+    for scheme, mode, residual in MNV2_PATHS:
+        if scheme not in fms:
+            fms[scheme] = synthetic_frozen_mobilenet(
+                get_bit_config('mobilenetv2_w1', scheme), seed=0)
+        fm = fms[scheme]
+        want = expected_mobilenet_launches(fm, mode)
+        label = f'mobilenetv2_w1 {scheme} {mode} {residual}'
+        calls = [] if main is None else None
+        eng, counts = engine_check(
+            functools.partial(build_mobilenetv2_engine, fm, input_mode=mode,
+                              residual_dtype=residual, input_hw=(SIZE, SIZE)),
+            images[mode], want.counts, want.cores, ('final', 'fc_input'),
+            label, dev, 'phase 8', calls)
+        if main is None:
+            main = (eng, images[mode], calls, want.counts, counts, label)
+    eng, x, calls, want, counts, label = main
+    check(want[DW_REQUANT] == 17 and want['int8_matmul_acc'] == 36
+          and want['int8_conv_acc'] == 1, f'{label}: predicted {want}')
+    ragged = dw_ragged_calls(dev)
+    check_calls(calls + ragged, errs, f'phase 8: all {len(calls)} recorded '
+                f'calls of {label} and {len(ragged)} ragged D1 calls')
+    log(f'phase 8: timed {DW_REQUANT} on {label}:')
+    time_calls([c for c in calls if c[0] == DW_REQUANT], totals)
+    trace = trace_breakdown(eng, x, label, 'phase 8')
+    if trace:
+        port = {k: v for k, v in trace[3].items() if k.startswith('port')}
+        log(f'phase 8: {label}: {trace[0]} kernels per forward, port kernels '
+            + ', '.join(f'{k[6:]} x{c} {t / 1e3:.4f} ms'
+                        for k, (c, t) in sorted(port.items()))
+            + f'; glue (non-port kernels) {trace[2]:.4f} ms')
+    return counts[DW_REQUANT]
+
+
+def resnet_v2_phase(raw, dev, errs):
+    """Phase 9: ResNet-50 v2 uniform8 serving at full width, 224², batch 8,
+    float32 input, on synthetic weights (seed 0): against the CPU engine
+    and its predicted launches, every kernel call held against its plain
+    version, a trace of the forward."""
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.inference.engine_v2 import build_resnet_v2_engine
+    from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet_v2
+    fm = synthetic_frozen_resnet_v2(
+        'resnet50v2', get_bit_config('resnet50v2', 'uniform8'), seed=0)
+    want = expected_v2_launches(fm)
+    x = torch.from_numpy(raw).to(dev)
+    label = 'resnet50v2 uniform8 float32 int32'
+    calls = []
+    eng, _ = engine_check(functools.partial(build_resnet_v2_engine, fm), x,
+                          want.counts, want.cores,
+                          ('fc_input', 'stage4.unit3.quant_act_int32'),
+                          label, dev, 'phase 9', calls)
+    check_calls(calls, errs, f'phase 9: all {len(calls)} recorded calls of '
+                f'{label}')
+    trace_breakdown(eng, x, label, 'phase 9')
 
 
 def main():
@@ -1860,6 +2213,7 @@ def main():
         fm = fms[arch, scheme]
         engines[arch, scheme, mode] = engine_phase(
             fm, engine_input(fm, mode, raw, raw_u8, dev), mode, residual, dev)
+    raw_pool_cost(engines, fms, raw, raw_u8, dev)
     for scheme in ('uniform8', 'uniform4'):     # W8A8 and W4A4 serving
         eng = engines['resnet50', scheme, 'folded_float32']
         old_engine = engine_both_cores(fms['resnet50', scheme], folded, eng,
@@ -1887,9 +2241,24 @@ def main():
     del conv1_calls
 
     # ---- phase 7 ----
-    train_launches, train_totals, train_batch = training_phase(errs, totals,
-                                                               dev)
+    train_launches, train_totals, train_batch = training_phase(
+        'resnet50', errs, dev)
     launches[MINMAX] = train_launches[MINMAX]
+    totals[MINMAX] = train_totals[MINMAX]
+
+    # ---- phase 8: MobileNetV2 serving, D1 ----
+    launches[DW_REQUANT] = mobilenet_phase(raw, dev, errs, totals)
+
+    # ---- phase 9: ResNet-50 v2 serving ----
+    resnet_v2_phase(raw, dev, errs)
+
+    # ---- phase 10: MobileNetV2 and ResNet-50 v2 training ----
+    mnv2_launches, mnv2_totals, mnv2_batch = training_phase(
+        'mobilenetv2_w1', errs, dev, timed=(DW_ACC,))
+    launches[DW_ACC] = mnv2_launches[DW_ACC]
+    totals[DW_ACC] = mnv2_totals[DW_ACC]
+    training_phase('resnet50v2', errs, dev, timed=(), steps=2,
+                   fix_bn_threshold=1, calib=1)
     train_label = f'QAT train step resnet50 uniform8 b{train_batch} ' \
                   f'{SIZE}x{SIZE}'
     labels = {name: f'{arch} {scheme} folded_float32 int16 b{BATCH} '
@@ -1903,8 +2272,12 @@ def main():
                     f'once through it (the folded engine runs {POOL_REQUANT} '
                     f'in its place)')
     labels[MINMAX] = train_label
+    labels[DW_REQUANT] = (f'mobilenetv2_w1 uniform8 folded_float32 int16 '
+                          f'b{BATCH} {SIZE}x{SIZE}')
+    labels[DW_ACC] = (f'QAT train step mobilenetv2_w1 uniform8 '
+                      f'b{mnv2_batch} {SIZE}x{SIZE}')
 
-    # ---- phase 8 ----
+    # ---- phase 11 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -1927,7 +2300,7 @@ def main():
             if name.startswith('int4w'):
                 entry[f'{twin_name(name)}_on_unpacked_weights_ms'] = t[
                     'int8_twin_ms']
-        if name in POOLS:       # ms: the input L2-resident between launches
+        if name in POOLS + DW:  # ms: the input L2-resident between launches
             entry['cold_ms'] = t['cold_ms']
         if name == KBLOCKED:
             entry['smallest_launch_ms'] = launch_floor
@@ -1944,7 +2317,8 @@ def main():
                 entry.update(train_old_ms=tt['old_ms'],
                              train_weight_layout_ms=tt['prep_ms'])
         kernels.append(entry)
-    log(f'phase 8: all phases passed in {time.perf_counter() - t_start:.1f} s '
+    log(f'phase 11: all phases passed in '
+        f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '
         f'the path named in each entry)')

@@ -26,8 +26,8 @@ CPU device the kernels' plain versions run instead):
   * the raw 7×7/s2 init (``input_mode='float32'`` or ``'uint8'``) →
     ``int8_conv_acc`` over its space-to-depth 4×4 rewrite, with the image's
     3 channels and the weights' zero-padded to 4 (C=16 after the rewrite);
-    its max-pool is a plain float32 ``max_pool2d`` (exact: the pooled
-    integers are below 2²⁴);
+    its max-pool is :func:`maxpool_int`, four strided integer maxima
+    after a pad (ResNet v2 pools its raw int32 accumulator the same way);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
     be exact);
   * the weights of every conv and matmul call whose widths the Hopper GEMM
@@ -68,23 +68,43 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def _maxpool_int(x: torch.Tensor) -> torch.Tensor:
-    """3×3/s2/p1 max-pool of an NHWC integer tensor, run in float32 (exact
-    for |v| < 2²⁴; the border acts as the dtype minimum)."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2).to(torch.float32), 3, 2, 1)
-    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+def maxpool_int(x: torch.Tensor) -> torch.Tensor:
+    """3×3/s2/p1 max-pool of an NHWC integer tensor, exactly at any
+    magnitude: the maximum over a window's three columns, then over its
+    three rows, of strided slices, the border the dtype minimum (the
+    reference's ``reduce_window`` init)."""
+    b, h, w, c = x.shape
+    oh, ow = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=torch.iinfo(x.dtype).min)
+    cols = xp[:, :, 0:2 * ow - 1:2]
+    for dx in (1, 2):
+        cols = torch.maximum(cols, xp[:, :, dx:dx + 2 * ow - 1:2])
+    out = cols[:, 0:2 * oh - 1:2]
+    for dy in (1, 2):
+        out = torch.maximum(out, cols[:, dy:dy + 2 * oh - 1:2])
+    return out.contiguous()
 
 
-class ResnetEngine:
-    """Callable integer ResNet; see :func:`build_resnet_engine`."""
+def engine_device(device) -> torch.device:
+    """The device an engine runs on; a bare 'cuda' means the current card."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+class IntEngine:
+    """What the integer engines share: the frozen model and its device
+    constants (weights laid out for the kernels, dyadic multipliers), the
+    1×1 and 3×3 conv routes, the raw init conv through space-to-depth, and
+    the checks of a call.  Subclasses define ``_forward``."""
 
     def __init__(self, fm: FrozenModel, capture: Optional[str],
-                 residual_dtype: torch.dtype, input_mode: str,
-                 input_mean: np.ndarray, input_std: np.ndarray,
+                 input_modes, input_mode: str, residual_dtype: torch.dtype,
                  device: torch.device):
-        if input_mode not in INPUT_MODES:
+        if input_mode not in input_modes:
             raise ValueError(f'input_mode {input_mode!r} not in '
-                             f'{tuple(INPUT_MODES)}')
+                             f'{tuple(input_modes)}')
         if residual_dtype not in (torch.int32, torch.int16):
             raise ValueError(f'residual_dtype {residual_dtype} must be '
                              f'torch.int32 or torch.int16')
@@ -93,23 +113,8 @@ class ResnetEngine:
         self.res_dt = residual_dtype
         self.input_mode = input_mode
         self.device = device
-        arch = fm.arch
-        self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
-        self.conv1_stride = arch == 'resnet50'
-        self.cifar = arch in RESNET_CIFAR_ARCHS
-        self.init_key = ('quant_init_convbn' if self.bottleneck
-                         else 'quant_init_block_convbn')
-        self.folded = input_mode.startswith('folded')
-        if self.folded and fm[self.init_key + '.weight_int'].shape[:2] != (7, 7):
-            raise ValueError('folded input needs the 7×7/s2 init conv')
-        self.units = [(si, u) for si, n in enumerate(RESNET_UNITS[arch], 1)
-                      for u in range(1, n + 1)]
         self._mult: Dict[str, torch.Tensor] = {}
         self._w: Dict[Tuple, tuple] = {}
-        # uint8 input: the host preprocessing u8/255 → (v − mean)/std,
-        # replayed on the device in the same float32 op order
-        self._u8_mean = self._dev(np.asarray(input_mean, np.float32))
-        self._u8_std = np.asarray(input_std, np.float32)
 
     # -- host-side constants ----------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -128,8 +133,32 @@ class ResnetEngine:
                 cfg.act_mode(key) == 'symmetric')
 
     def _int4(self, key: str) -> bool:
-        """Whether a unit conv streams nibble-packed int4 weights."""
-        return self.fm.cfg.weight_bits(key) == 4
+        """Whether a unit conv streams nibble-packed int4 weights: never,
+        unless an engine has a packed route (the ResNet v1 engine)."""
+        return False
+
+    def _scale(self, key: str, act_scale) -> np.ndarray:
+        """weight scale × input activation scale of a conv, float32."""
+        return (self.fm[key + '.weight_scale'].astype(np.float32)
+                * np.float32(act_scale))
+
+    @staticmethod
+    def _avg_pool(x: torch.Tensor) -> torch.Tensor:
+        """Integer global average pool of an NHWC integer tensor, truncating
+        (trunc(sum/hw + 0.01), a true division) → float32 (B, C)."""
+        pooled = torch.sum(x, dim=(1, 2), dtype=torch.int32)
+        return torch.trunc(qops.exact_div(pooled.to(torch.float32),
+                                          x.shape[1] * x.shape[2]) + 0.01)
+
+    def _head(self, f8: torch.Tensor, key: str, act_scale) -> torch.Tensor:
+        """The FC (or 1×1 head) on the int8 pooled vector through
+        ``int8_matmul_acc`` (a float product of 2048·127·127 would not be
+        exact) → float32 logits."""
+        w, bias = self._matmul_w(key, acc=True)
+        acc = km.int8_matmul_acc(f8, w, bias)
+        if 'out_scale' not in self._mult:
+            self._mult['out_scale'] = self._dev(self._scale(key, act_scale))
+        return acc.to(torch.float32) * self._mult['out_scale']
 
     def _matmul_w(self, key: str, int4: bool = False, acc: bool = False):
         """(Cin, Cout) weights — (Cin/2, Cout) packed with ``int4`` — and
@@ -179,21 +208,33 @@ class ResnetEngine:
             wd = kc.prepare_conv_weights(wd, taps, w.shape[2], pad, int4)
         return wd, taps, w.shape[2], self._dev(bias)
 
-    def _init_w(self):
-        """Init conv weights: the 3×3 fold (folded input), the 4×4
-        space-to-depth rewrite of the 7×7/s2 conv with its input channels
-        zero-padded from 3 to 4 (so that the rewrite's C = 16 meets the
-        Hopper core's rule; zero activations meet zero weights), or the
-        CIFAR 3×3 (C = 3: the rule leaves it on the first core)."""
+    def _init_s2d(self, x8: torch.Tensor, key: str, k: int,
+                  pad: int) -> torch.Tensor:
+        """The k×k/s2 init conv (pad ``pad``) on raw int8 images → int32
+        accumulator + bias, through its space-to-depth rewrite: the image's
+        3 channels and the weights' zero-padded to 4, so that the rewrite's
+        C = 16 meets the Hopper core's rule (zero activations meet zero
+        weights)."""
         if 'init' not in self._w:
-            w = np.asarray(self.fm[self.init_key + '.weight_int'])
-            b = np.asarray(self.fm[self.init_key + '.bias_int'])
-            if self.folded:
-                w, b = _fold.fold4_kernel(w), np.tile(b, 4)
-            elif not self.cifar:
-                w = kc.s2d_kernel(np.pad(w, ((0, 0), (0, 0), (0, 1), (0, 0))))
-            self._w['init'] = self._conv_weights(w, b, 'conv_acc', (0, 0))
-        return self._w['init']
+            w = np.asarray(self.fm[key + '.weight_int'])
+            w = kc.s2d_kernel(np.pad(w, ((0, 0), (0, 0), (0, 1), (0, 0))))
+            self._w['init'] = self._conv_weights(w, self.fm[key + '.bias_int'],
+                                                 'conv_acc', (0, 0))
+        wf, taps, cin, bias = self._w['init']
+        b, h, w, _ = x8.shape
+        oh, ow = kc.s2d_output_hw(h, w, k, k, pad)
+        xp = kc.prepare_conv_input(kc.s2d_input(F.pad(x8, (0, 1)), pad),
+                                   (0, 0))
+        return kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
+                                cin=cin).reshape(b, oh, ow, -1)
+
+    def _quantize_float(self, images: torch.Tensor) -> torch.Tensor:
+        """float32 images (or a folded layout) → the int8 input integers,
+        floor(v/s_in + 0.5) with a true division; the fold's pad zeros
+        quantize to 0, like the conv's padding."""
+        s_in = self.fm.act_scale('quant_input')
+        return torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
+                           -128, 127).to(torch.int8)
 
     # -- layers -------------------------------------------------------------
     def _conv3x3(self, x8, key, stride, mult=None, bits=8, signed=True):
@@ -252,7 +293,60 @@ class ResnetEngine:
         if images.dtype != want:
             raise ValueError(f'input_mode {self.input_mode!r} takes {want} '
                              f'images, got {images.dtype}')
-        return self._forward(images)
+        captured = {}
+
+        def emit(name, value):
+            if name == self.capture:
+                captured['value'] = value
+        logits = self._forward(images, emit)
+        if self.capture is None:
+            return logits
+        if 'value' not in captured:
+            raise KeyError(f'no capture node {self.capture!r}')
+        return captured['value']
+
+
+class ResnetEngine(IntEngine):
+    """Callable integer ResNet; see :func:`build_resnet_engine`."""
+
+    def __init__(self, fm: FrozenModel, capture: Optional[str],
+                 residual_dtype: torch.dtype, input_mode: str,
+                 input_mean: np.ndarray, input_std: np.ndarray,
+                 device: torch.device):
+        super().__init__(fm, capture, INPUT_MODES, input_mode, residual_dtype,
+                         device)
+        arch = fm.arch
+        self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
+        self.conv1_stride = arch == 'resnet50'
+        self.cifar = arch in RESNET_CIFAR_ARCHS
+        self.init_key = ('quant_init_convbn' if self.bottleneck
+                         else 'quant_init_block_convbn')
+        self.folded = input_mode.startswith('folded')
+        init_k = fm[self.init_key + '.weight_int'].shape[:2]
+        if self.folded and init_k != (7, 7):
+            raise ValueError('folded input needs the 7×7/s2 init conv')
+        self.units = [(si, u) for si, n in enumerate(RESNET_UNITS[arch], 1)
+                      for u in range(1, n + 1)]
+        # uint8 input: the host preprocessing u8/255 → (v − mean)/std,
+        # replayed on the device in the same float32 op order
+        self._u8_mean = self._dev(np.asarray(input_mean, np.float32))
+        self._u8_std = np.asarray(input_std, np.float32)
+
+    def _int4(self, key: str) -> bool:
+        """Whether a unit conv streams nibble-packed int4 weights."""
+        return self.fm.cfg.weight_bits(key) == 4
+
+    def _init_w(self):
+        """Weights of the init conv that does not take the space-to-depth
+        route: the 3×3 fold (folded input) or the CIFAR 3×3 (C = 3: the
+        rule leaves it on the first core)."""
+        if 'init' not in self._w:
+            w = np.asarray(self.fm[self.init_key + '.weight_int'])
+            b = np.asarray(self.fm[self.init_key + '.bias_int'])
+            if self.folded:
+                w, b = _fold.fold4_kernel(w), np.tile(b, 4)
+            self._w['init'] = self._conv_weights(w, b, 'conv_acc', (0, 0))
+        return self._w['init']
 
     def _quantize_input(self, images: torch.Tensor) -> torch.Tensor:
         """Images → the int8 input integers (true divisions throughout:
@@ -263,44 +357,32 @@ class ResnetEngine:
             images = qops.exact_div(
                 qops.exact_div(images.to(torch.float32), 255.0)
                 - self._u8_mean, self._u8_std)
-        # folded input: the pad zeros quantize to 0, like the conv's padding
-        s_in = self.fm.act_scale('quant_input')
-        return torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
-                           -128, 127).to(torch.int8)
+        return self._quantize_float(images)
 
-    def _forward(self, images: torch.Tensor) -> torch.Tensor:
-        fm, capture = self.fm, self.capture
-        captured = {}
-
-        def emit(name, value):
-            if name == capture:
-                captured['value'] = value
+    def _forward(self, images: torch.Tensor, emit) -> torch.Tensor:
+        fm = self.fm
 
         # ---- input quantization and init block ----
         s_in = fm.act_scale('quant_input')
         x8 = self._quantize_input(images)
         emit('input', x8)
         s16, b16, signed16 = self.act_info('quant_act_int32')
-        s_init = (fm[self.init_key + '.weight_scale'].astype(np.float32)
-                  * np.float32(s_in))
-        wf, taps, cin, bias = self._init_w()
-        b, h, w, _ = x8.shape
-        if self.folded:
-            # per-channel vectors tiled over the 4 stride-2 origins, in the
-            # fold's (py, px, n) channel order
-            s_init = np.tile(s_init, 4)
-            oh, ow = h - 2, w - 2
-            xp = kc.prepare_conv_input(x8, (0, 0))
-        elif self.cifar:
-            oh, ow = h, w
-            xp = kc.prepare_conv_input(x8, (1, 1))
+        s_init = self._scale(self.init_key, s_in)
+        if self.folded or self.cifar:
+            wf, taps, cin, bias = self._init_w()
+            b, h, w, _ = x8.shape
+            if self.folded:
+                # per-channel vectors tiled over the 4 stride-2 origins, in
+                # the fold's (py, px, n) channel order
+                s_init = np.tile(s_init, 4)
+                oh, ow, pad = h - 2, w - 2, (0, 0)
+            else:
+                oh, ow, pad = h, w, (1, 1)
+            acc = kc.int8_conv_acc(kc.prepare_conv_input(x8, pad), wf, bias,
+                                   taps=taps, out_hw=(oh, ow),
+                                   cin=cin).reshape(b, oh, ow, -1)
         else:
-            oh, ow = kc.s2d_output_hw(h, w, 7, 7, 3)
-            # the fourth, zero, input channel of the init weights
-            xp = kc.prepare_conv_input(kc.s2d_input(F.pad(x8, (0, 1)), 3),
-                                       (0, 0))
-        acc = kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
-                               cin=cin).reshape(b, oh, ow, -1)
+            acc = self._init_s2d(x8, self.init_key, 7, 3)
         # requant + ReLU before the pool (monotone, so it commutes with the
         # training graph's pool → requant → relu order); on the folded path
         # one kernel requantizes each value of a window, then takes the max
@@ -313,7 +395,7 @@ class ResnetEngine:
             x = torch.clamp_min(
                 qops.requant_int32(acc, mult, b16, signed16, self.res_dt), 0)
             if not self.cifar:
-                x = _maxpool_int(x)
+                x = maxpool_int(x)
         emit('init', x)
         prev_scale = np.float32(s16)
 
@@ -328,20 +410,16 @@ class ResnetEngine:
 
             id_key = f'{p}.quant_identity_convbn'
             if id_key + '.weight_int' in fm.tensors:
-                id_scale = (fm[id_key + '.weight_scale'].astype(np.float32)
-                            * np.float32(sa))
+                id_scale = self._scale(id_key, sa)
                 id_acc = self._conv1x1(xa, id_key, stride)
             else:
                 id_acc, id_scale = x, prev_scale
 
             key1 = f'{p}.quant_convbn1'
             sa1, ba1, sg1 = self.act_info(f'{p}.quant_act1')
-            mult = self.requant_mult(
-                f'{p}.a1', fm[key1 + '.weight_scale'].astype(np.float32)
-                * np.float32(sa), sa1)
+            mult = self.requant_mult(f'{p}.a1', self._scale(key1, sa), sa1)
             key2 = f'{p}.quant_convbn2'
-            acc_scale = (fm[key2 + '.weight_scale'].astype(np.float32)
-                         * np.float32(sa1))
+            acc_scale = self._scale(key2, sa1)
             if self.bottleneck:
                 s1, s2 = (stride, 1) if self.conv1_stride else (1, stride)
                 h = self._conv1x1(xa, key1, s1, mult, ba1, sg1)
@@ -351,8 +429,7 @@ class ResnetEngine:
                 h = self._conv3x3(h, key2, s2, mult, ba2, sg2)
                 emit(f'{p}.conv2', h)
                 key3 = f'{p}.quant_convbn3'
-                acc_scale = (fm[key3 + '.weight_scale'].astype(np.float32)
-                             * np.float32(sa2))
+                acc_scale = self._scale(key3, sa2)
                 acc = self._conv1x1(h, key3, 1)
             else:
                 h = self._conv3x3(xa, key1, stride, mult, ba1, sg1)
@@ -373,28 +450,15 @@ class ResnetEngine:
             emit(f'{p}.quant_act_int32', x)
 
         # ---- head: integer average pool with truncation, then the FC ----
-        hw = x.shape[1] * x.shape[2]
-        pooled = torch.sum(x, dim=(1, 2), dtype=torch.int32)
-        pooled = torch.trunc(qops.exact_div(pooled.to(torch.float32), hw)
-                             + 0.01)
+        pooled = self._avg_pool(x)
         emit('avg_pool', pooled)
         s_fc, b_fc, sg_fc = self.act_info('quant_act_output')
         mult = self.requant_mult('fc_in', prev_scale, s_fc)
         f8 = qops.requant_int32(pooled.to(torch.int32), mult, b_fc, sg_fc)
         emit('fc_input', f8)
-        w_fc, bias_fc = self._matmul_w('quant_output', acc=True)
-        acc = km.int8_matmul_acc(f8, w_fc, bias_fc)
-        if 'out_scale' not in self._mult:
-            self._mult['out_scale'] = self._dev(
-                fm['quant_output.weight_scale'].astype(np.float32)
-                * np.float32(s_fc))
-        logits = acc.to(torch.float32) * self._mult['out_scale']
+        logits = self._head(f8, 'quant_output', s_fc)
         emit('fc_output', logits)
-        if capture is None:
-            return logits
-        if 'value' not in captured:
-            raise KeyError(f'no capture node {capture!r}')
-        return captured['value']
+        return logits
 
 
 def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
@@ -417,8 +481,5 @@ def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
     ``residual_dtype`` is the carrier between units: torch.int32, or
     torch.int16 (clamps sums above 2¹⁵−1).  With ``capture``, the engine
     returns the raw tensor at that node instead of the logits."""
-    device = torch.device(device)
-    if device.type == 'cuda' and device.index is None:
-        device = torch.device('cuda', torch.cuda.current_device())
     return ResnetEngine(fm, capture, residual_dtype, input_mode, input_mean,
-                        input_std, device)
+                        input_std, engine_device(device))

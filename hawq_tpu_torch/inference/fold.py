@@ -8,7 +8,9 @@ The host folds 4×4 pixel blocks into channels,
 
 and the 7×7/s2 conv becomes a 3×3/s1 conv with C=48, N=4·64 over the folded
 grid, each output pixel holding the 2×2 stride-2 origins of its block in
-channel order (py, px, n).  Bit-exact: the same int8 products and int32
+channel order (py, px, n).  MobileNetV2's 3×3/s2 init folds the same way
+into a 2×2/s1 conv with C=48, N=4·32 (:func:`fold4_images_3x3s2`,
+:func:`fold4_kernel_3x3s2`).  Bit-exact: the same int8 products and int32
 sums, reassociated.  The 3×3/s2/p1 max-pool then runs directly on that
 layout (:func:`maxpool_3x3s2p1_folded`, the plain version of the CUDA pool
 kernel in kernels/pool.py).
@@ -67,11 +69,62 @@ def fold4_kernel(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(3, 3, 16 * c, 4 * n))
 
 
-def depth_to_space_2x2(acc: np.ndarray) -> np.ndarray:
-    """(B, H/4, W/4, 4N) folded conv output → (B, H/2, W/2, N)."""
+def fold4_3x3s2_geometry(h: int, p0: int) -> Tuple[int, int, int]:
+    """Geometry of the 4×4 fold of a 3×3/stride-2 conv with pad ``p0``:
+    (out_pixels, folded_rows, padded_size).  The conv gives ``out`` pixels;
+    the host pads to ``padded`` (p0 before, the rest after) and folds to
+    ``folded`` block rows; the device runs a 2×2/s1 conv over them →
+    ``folded − 1`` block outputs of 2 stride-2 origins each (then
+    depth-to-space and the slice to ``out``)."""
+    out = (h + 2 * p0 - 3) // 2 + 1
+    folded = (out + 1) // 2 + 1
+    return out, folded, 4 * folded
+
+
+def fold4_images_3x3s2(x: np.ndarray, p0: int) -> np.ndarray:
+    """(B, H, W, C) → (B, fh, fw, 16C): the host's 4×4 fold for a
+    3×3/stride-2 init conv (MobileNetV2: p0 = 1)."""
+    b, h, w, c = x.shape
+    _, fh, hp = fold4_3x3s2_geometry(h, p0)
+    _, fw, wp = fold4_3x3s2_geometry(w, p0)
+    xp = np.pad(x, ((0, 0), (p0, hp - h - p0), (p0, wp - w - p0), (0, 0)))
+    xf = xp.reshape(b, fh, 4, fw, 4, c).transpose(0, 1, 3, 2, 4, 5)
+    return np.ascontiguousarray(xf.reshape(b, fh, fw, 16 * c))
+
+
+def fold4_kernel_3x3s2(w: np.ndarray) -> np.ndarray:
+    """(3, 3, C, N) stride-2 kernel → (2, 2, 16C, 4N) stride-1 over the
+    fold: output channel (py, px, n) is the stride-2 origin (2py, 2px) in
+    the block; tap dy = 4·By + ry − 2·py ∈ [0, 3) spans two blocks."""
+    kh, kw, c, n = w.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f'fold4_kernel_3x3s2 takes a 3×3 kernel, got '
+                         f'{(kh, kw)}')
+    out = np.zeros((2, 2, 4, 4, c, 2, 2, n), w.dtype)
+    for by in range(2):
+        for ry in range(4):
+            for py in range(2):
+                dy = 4 * by + ry - 2 * py
+                if not 0 <= dy < kh:
+                    continue
+                for bx in range(2):
+                    for rx in range(4):
+                        for px in range(2):
+                            dx = 4 * bx + rx - 2 * px
+                            if not 0 <= dx < kw:
+                                continue
+                            out[by, bx, ry, rx, :, py, px, :] = w[dy, dx]
+    return np.ascontiguousarray(out.reshape(2, 2, 16 * c, 4 * n))
+
+
+def depth_to_space_2x2(acc):
+    """(B, H/4, W/4, 4N) folded conv output → (B, H/2, W/2, N), of a numpy
+    array or a tensor."""
     b, hq, wq, n4 = acc.shape
     n = n4 // 4
-    y = acc.reshape(b, hq, wq, 2, 2, n).transpose(0, 1, 3, 2, 4, 5)
+    y = acc.reshape(b, hq, wq, 2, 2, n)
+    order = (0, 1, 3, 2, 4, 5)
+    y = y.permute(order) if isinstance(y, torch.Tensor) else y.transpose(order)
     return y.reshape(b, 2 * hq, 2 * wq, n)
 
 

@@ -1,13 +1,15 @@
-"""Deployable integer checkpoint, and the freeze of a trained QAT ResNet
-into one (port of hawq_tpu/inference/freeze.py).
+"""Deployable integer checkpoint, and the freeze of a trained QAT ResNet or
+MobileNetV2 into one (port of hawq_tpu/inference/freeze.py; the ResNet v2
+freezer is in inference/engine_v2.py, as in the reference).
 
 The artifact is a flat dict of numpy arrays (layer-key → weight_int int8 /
 bias_int int32 / weight_scale f32[C] / act_scale f32[]) plus the BitConfig.
 The engine (inference/engine.py) uploads what it needs to the device at
 build time; utils/checkpoint.py serializes it.
 
-:func:`freeze_resnet` replicates the folded QAT path (nn/layers.py
-QuantConvBn, folded branch) in **float32 numpy with the same op order**:
+:func:`freeze_resnet` and :func:`freeze_mobilenetv2` replicate the folded
+QAT path (nn/layers.py QuantConvBn, folded branch) in **float32 numpy with
+the same op order**:
 IEEE float32 elementwise ops are deterministic and identical between numpy
 and PyTorch, so the frozen integers and scales are bit for bit the ones the
 training graph uses.  (Float64 here would be wrong: double rounding flips
@@ -190,6 +192,65 @@ def freeze_resnet(variables: Mapping, arch: str, cfg: BitConfig,
     for k, v in lin.items():
         tensors[f'quant_output.{k}'] = v
     return FrozenModel(arch=arch, cfg=cfg, tensors=tensors,
+                       num_classes=num_classes)
+
+
+def freeze_mobilenetv2(variables: Mapping, cfg: BitConfig, stages,
+                       num_classes: int = 1000) -> FrozenModel:
+    """QMobileNetV2 QAT variables → FrozenModel.  ``stages`` is the channel
+    structure the model was built with (``models.mobilenetv2``
+    ``MOBILENETV2_STAGES`` or the tiny variant)."""
+    params = variables['params']
+    bstats = variables.get('batch_stats', {})
+    qstats = variables['quant_stats']
+    st = cfg.settings
+    tensors: Dict[str, np.ndarray] = {}
+
+    def act(key: str, module_path) -> np.float32:
+        node = qstats
+        for part in module_path:
+            node = node[part]
+        s = _act_scale_from_stats(node, cfg.act_bits(key), cfg.act_mode(key))
+        tensors[key + '.act_scale'] = np.float32(s)
+        return s
+
+    def convbn(key: str, module_path, in_scale: np.float32):
+        p, b = params, bstats
+        for part in module_path:
+            p = p[part]
+            b = b[part]
+        out = _freeze_convbn(p, b, cfg.weight_bits(key), st.bias_bit,
+                             in_scale, st.per_channel)
+        for k, v in out.items():
+            tensors[f'{key}.{k}'] = v
+
+    in_scale = act('quant_input', ('quant_input',))
+    convbn('init_block', ('init_block',), in_scale)
+    act('quant_act_int32', ('quant_act_int32',))
+
+    for i, stage in enumerate(stages, start=1):
+        for j, _ in enumerate(stage, start=1):
+            p = f'features.stage{i}.unit{j}'
+            mod = f'stage{i}_unit{j}'
+            a = act(f'{p}.quant_act', (mod, 'quant_act'))
+            convbn(f'{p}.conv1', (mod, 'conv1'), a)
+            a1 = act(f'{p}.quant_act1', (mod, 'quant_act1'))
+            convbn(f'{p}.conv2', (mod, 'conv2'), a1)
+            a2 = act(f'{p}.quant_act2', (mod, 'quant_act2'))
+            convbn(f'{p}.conv3', (mod, 'conv3'), a2)
+            act(f'{p}.quant_act_int32', (mod, 'quant_act_int32'))
+
+    a = act('quant_act_before_final_block', ('quant_act_before_final_block',))
+    convbn('features.final_block', ('final_block',), a)
+    act('quant_act_int32_final', ('quant_act_int32_final',))
+    out_sc = act('quant_act_output', ('quant_act_output',))
+
+    # the output head: a bare 1×1 QuantConv2d with bias
+    head = _freeze_linear(params['output'], cfg.weight_bits('output'),
+                          st.bias_bit, out_sc, st.per_channel)
+    for k, v in head.items():
+        tensors[f'output.{k}'] = v
+    return FrozenModel(arch='mobilenetv2', cfg=cfg, tensors=tensors,
                        num_classes=num_classes)
 
 

@@ -1,5 +1,5 @@
-"""Synthetic frozen ResNets for latency runs and compile checks (port of
-hawq_tpu/inference/synthetic.py ``synthetic_frozen_resnet``).
+"""Synthetic frozen models for latency runs and compile checks (port of
+hawq_tpu/inference/synthetic.py: ResNet v1 and v2, MobileNetV2).
 
 Random integer weights and plausible scales from a numpy seed; the same
 seed gives tensors identical to the reference's.
@@ -46,34 +46,45 @@ def _gauss_weight_ints(rng, n: int, shape) -> np.ndarray:
     return np.clip(w, -n, n).astype(np.int8)
 
 
+class _TensorGen:
+    """The random tensor emitters the synthetic builders share, drawing from
+    one numpy RandomState in the reference's order."""
+
+    def __init__(self, cfg: BitConfig, seed: int):
+        self.cfg = cfg
+        self.rng = np.random.RandomState(seed)
+        self.tensors: Dict[str, np.ndarray] = {}
+
+    def act(self, key: str):
+        self.tensors[key + '.act_scale'] = np.float32(
+            0.05 * (1.0 + 0.1 * self.rng.rand()))
+
+    def conv(self, key: str, kh, kw, cin, cout):
+        self.dense(key, cin, cout, shape=(kh, kw, cin, cout))
+
+    def dense(self, key: str, cin, cout, shape=None):
+        n = 2 ** (self.cfg.weight_bits(key) - 1) - 1
+        self.tensors[key + '.weight_int'] = _gauss_weight_ints(
+            self.rng, n, (cin, cout) if shape is None else shape)
+        self.tensors[key + '.bias_int'] = self.rng.randint(
+            -2 ** 16, 2 ** 16, (cout,)).astype(np.int32)
+        self.tensors[key + '.weight_scale'] = (
+            0.002 * (0.5 + self.rng.rand(cout))).astype(np.float32)
+
+
 def synthetic_frozen_resnet(arch: str, cfg: BitConfig,
                             num_classes: int = 1000,
                             seed: int = 0) -> FrozenModel:
-    rng = np.random.RandomState(seed)
-    tensors: Dict[str, np.ndarray] = {}
+    g = _TensorGen(cfg, seed)
     bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
     mids, outs = _STAGE_CHANNELS[arch]
 
-    def act(key: str):
-        tensors[key + '.act_scale'] = np.float32(
-            0.05 * (1.0 + 0.1 * rng.rand()))
-
-    def conv(key: str, kh, kw, cin, cout):
-        bits = cfg.weight_bits(key)
-        n = 2 ** (bits - 1) - 1
-        tensors[key + '.weight_int'] = _gauss_weight_ints(
-            rng, n, (kh, kw, cin, cout))
-        tensors[key + '.bias_int'] = rng.randint(
-            -2 ** 16, 2 ** 16, (cout,)).astype(np.int32)
-        tensors[key + '.weight_scale'] = (
-            0.002 * (0.5 + rng.rand(cout))).astype(np.float32)
-
-    act('quant_input')
+    g.act('quant_input')
     init_feats = _INIT_FEATURES.get(arch, 64)
     init_key = 'quant_init_convbn' if bottleneck else 'quant_init_block_convbn'
     init_k = 3 if arch in RESNET_CIFAR_ARCHS else 7
-    conv(init_key, init_k, init_k, 3, init_feats)
-    act('quant_act_int32')
+    g.conv(init_key, init_k, init_k, 3, init_feats)
+    g.act('quant_act_int32')
 
     in_ch = init_feats
     for s, n_units in enumerate(RESNET_UNITS[arch], start=1):
@@ -82,32 +93,111 @@ def synthetic_frozen_resnet(arch: str, cfg: BitConfig,
             stride = 2 if (u == 1 and s > 1) else 1
             out_ch = outs[s - 1]
             resize = (u == 1) and (in_ch != out_ch or stride != 1)
-            act(f'{p}.quant_act')
+            g.act(f'{p}.quant_act')
             if resize:
-                conv(f'{p}.quant_identity_convbn', 1, 1, in_ch, out_ch)
+                g.conv(f'{p}.quant_identity_convbn', 1, 1, in_ch, out_ch)
             if bottleneck:
                 mid = mids[s - 1]
-                conv(f'{p}.quant_convbn1', 1, 1, in_ch, mid)
-                act(f'{p}.quant_act1')
-                conv(f'{p}.quant_convbn2', 3, 3, mid, mid)
-                act(f'{p}.quant_act2')
-                conv(f'{p}.quant_convbn3', 1, 1, mid, out_ch)
+                g.conv(f'{p}.quant_convbn1', 1, 1, in_ch, mid)
+                g.act(f'{p}.quant_act1')
+                g.conv(f'{p}.quant_convbn2', 3, 3, mid, mid)
+                g.act(f'{p}.quant_act2')
+                g.conv(f'{p}.quant_convbn3', 1, 1, mid, out_ch)
             else:
-                conv(f'{p}.quant_convbn1', 3, 3, in_ch, out_ch)
-                act(f'{p}.quant_act1')
-                conv(f'{p}.quant_convbn2', 3, 3, out_ch, out_ch)
-            act(f'{p}.quant_act_int32')
+                g.conv(f'{p}.quant_convbn1', 3, 3, in_ch, out_ch)
+                g.act(f'{p}.quant_act1')
+                g.conv(f'{p}.quant_convbn2', 3, 3, out_ch, out_ch)
+            g.act(f'{p}.quant_act_int32')
             in_ch = out_ch
 
-    act('quant_act_output')
-    bits = cfg.weight_bits('quant_output')
-    n = 2 ** (bits - 1) - 1
-    tensors['quant_output.weight_int'] = _gauss_weight_ints(
-        rng, n, (in_ch, num_classes))
-    tensors['quant_output.bias_int'] = rng.randint(
-        -2 ** 16, 2 ** 16, (num_classes,)).astype(np.int32)
-    tensors['quant_output.weight_scale'] = (
-        0.002 * (0.5 + rng.rand(num_classes))).astype(np.float32)
+    g.act('quant_act_output')
+    g.dense('quant_output', in_ch, num_classes)
+    return FrozenModel(arch=arch, cfg=cfg, tensors=g.tensors,
+                       num_classes=num_classes)
 
-    return FrozenModel(arch=arch, cfg=cfg, tensors=tensors,
+
+def synthetic_frozen_resnet_v2(arch: str, cfg: BitConfig,
+                               num_classes: int = 1000,
+                               seed: int = 0) -> FrozenModel:
+    """Random-integer FrozenModel in freeze_resnet_v2's namespace
+    (``arch`` e.g. 'resnet50v2')."""
+    base = arch[:-2]
+    g = _TensorGen(cfg, seed)
+    bottleneck = RESNET_CONVS_PER_UNIT[base] == 3
+    mids, outs = _STAGE_CHANNELS[base]
+    init_feats = _INIT_FEATURES.get(base, 64)
+
+    g.act('quant_input')
+    g.conv('quant_init_conv', 7, 7, 3, init_feats)
+    g.act('quant_act_int32')
+
+    in_ch = init_feats
+    for s, n_units in enumerate(RESNET_UNITS[base], start=1):
+        for u in range(1, n_units + 1):
+            p = f'stage{s}.unit{u}'
+            stride = 2 if (u == 1 and s > 1) else 1
+            out_ch = outs[s - 1]
+            # the standalone integer BN on the residual stream
+            g.tensors[f'{p}.quant_bn.bn_factor'] = (
+                0.5 + g.rng.rand(in_ch)).astype(np.float32)
+            g.tensors[f'{p}.quant_bn.bn_bias'] = (
+                g.rng.randn(in_ch) * 0.1).astype(np.float32)
+            g.act(f'{p}.quant_act')
+            if (in_ch != out_ch) or stride != 1:
+                g.conv(f'{p}.quant_identity_conv', 1, 1, in_ch, out_ch)
+            if bottleneck:
+                mid = mids[s - 1]
+                g.conv(f'{p}.quant_conv1', 1, 1, in_ch, mid)
+                g.act(f'{p}.quant_act1')
+                g.conv(f'{p}.quant_conv2', 3, 3, mid, mid)
+                g.act(f'{p}.quant_act2')
+                g.conv(f'{p}.quant_conv3', 1, 1, mid, out_ch)
+            else:
+                g.conv(f'{p}.quant_conv1', 3, 3, in_ch, out_ch)
+                g.act(f'{p}.quant_act1')
+                g.conv(f'{p}.quant_conv2', 3, 3, out_ch, out_ch)
+            g.act(f'{p}.quant_act_int32')
+            in_ch = out_ch
+
+    g.act('quant_act_output')
+    g.dense('quant_output', in_ch, num_classes)
+    return FrozenModel(arch=arch, cfg=cfg, tensors=g.tensors,
+                       num_classes=num_classes)
+
+
+def synthetic_frozen_mobilenet(cfg: BitConfig, num_classes: int = 1000,
+                               seed: int = 0, stages=None, init_ch=None,
+                               final_ch=None) -> FrozenModel:
+    """Random-integer FrozenModel in freeze_mobilenetv2's namespace; the
+    full-width MobileNetV2 unless ``stages`` / ``init_ch`` / ``final_ch``
+    say otherwise."""
+    from hawq_tpu_torch.models.mobilenetv2 import (MOBILENETV2_STAGES,
+                                                   MOBILENETV2_INIT_CH,
+                                                   MOBILENETV2_FINAL_CH)
+    stages = MOBILENETV2_STAGES if stages is None else stages
+    init_ch = MOBILENETV2_INIT_CH if init_ch is None else init_ch
+    final_ch = MOBILENETV2_FINAL_CH if final_ch is None else final_ch
+    g = _TensorGen(cfg, seed)
+    g.act('quant_input')
+    g.conv('init_block', 3, 3, 3, init_ch)
+    g.act('quant_act_int32')
+    in_ch = init_ch
+    for i, stage in enumerate(stages, start=1):
+        for j, out_ch in enumerate(stage, start=1):
+            p = f'features.stage{i}.unit{j}'
+            mid = in_ch * (1 if (i == 1 and j == 1) else 6)
+            g.act(f'{p}.quant_act')
+            g.conv(f'{p}.conv1', 1, 1, in_ch, mid)
+            g.act(f'{p}.quant_act1')
+            g.conv(f'{p}.conv2', 3, 3, 1, mid)         # depthwise HWIO
+            g.act(f'{p}.quant_act2')
+            g.conv(f'{p}.conv3', 1, 1, mid, out_ch)
+            g.act(f'{p}.quant_act_int32')
+            in_ch = out_ch
+    g.act('quant_act_before_final_block')
+    g.conv('features.final_block', 1, 1, in_ch, final_ch)
+    g.act('quant_act_int32_final')
+    g.act('quant_act_output')
+    g.conv('output', 1, 1, final_ch, num_classes)      # the 1×1 conv head
+    return FrozenModel(arch='mobilenetv2', cfg=cfg, tensors=g.tensors,
                        num_classes=num_classes)

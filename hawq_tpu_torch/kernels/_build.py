@@ -52,13 +52,15 @@ _SIGNATURES = {
     'hawq_int4w_conv_acc_sm90': [_P, _P, _P, _P] + [_I] * 16 + [_P],
     'hawq_maxpool_folded': [_P, _P] + [_I] * 6 + [_P],
     'hawq_maxpool_folded_requant': [_P] * 3 + [_I] * 8 + [_P],
+    'hawq_dwconv_acc': [_P] * 4 + [_I] * 6 + [_P],
+    'hawq_dwconv_requant': [_P] * 6 + [_I] * 8 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }
 
-# Launch counts per wrapper, and per wrapper and GEMM core ('name@sm90' for
-# csrc/gemm_s8_sm90.cuh, 'name@mma' for csrc/gemm_s8.cuh); reset with
-# reset_launches().
+# Launch counts per wrapper, and per wrapper and core ('name@sm90' for
+# csrc/gemm_s8_sm90.cuh, 'name@mma' for csrc/gemm_s8.cuh, 'name@cuda' for
+# D1's own kernel in csrc/depthwise.cu); reset with reset_launches().
 LAUNCHES: Dict[str, int] = {}
 CORE_LAUNCHES: Dict[str, int] = {}
 
@@ -74,7 +76,7 @@ def reset_launches() -> None:
 
 
 def count(name: str, core: Optional[str] = None) -> None:
-    """One launch of wrapper ``name``; for the GEMM kernels on ``core``."""
+    """One launch of wrapper ``name``; on ``core`` where it has one."""
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     if core is not None:
         key = f'{name}@{core}'

@@ -264,17 +264,23 @@ class QResNet(nn.Module):
 # ---------------------------------------------------------------------------
 
 class _Conv(nn.Module):
-    def __init__(self, in_ch, feats, kernel, strides, pad, generator):
+    """flax ``nn.Conv`` (HWIO ``kernel``, NHWC), bias-free unless asked."""
+
+    def __init__(self, in_ch, feats, kernel, strides, pad, generator,
+                 groups=1, use_bias=False):
         super().__init__()
         kh, kw = kernel
-        self.strides, self.pad = strides, pad
-        self.kernel = nn.Parameter(torch.empty(kh, kw, in_ch, feats))
-        L._he_normal_(self.kernel, kh * kw * in_ch, 1.0, generator)
+        self.strides, self.pad, self.groups = strides, pad, groups
+        self.kernel = nn.Parameter(torch.empty(kh, kw, in_ch // groups, feats))
+        L._he_normal_(self.kernel, kh * kw * in_ch // groups, 1.0, generator)
+        self.bias = nn.Parameter(torch.zeros(feats)) if use_bias else None
 
     def forward(self, x):        # NHWC in and out
         y = F.conv2d(x.permute(0, 3, 1, 2), self.kernel.permute(3, 2, 0, 1),
-                     stride=self.strides, padding=self.pad)
-        return y.permute(0, 2, 3, 1)
+                     stride=self.strides, padding=self.pad,
+                     groups=self.groups)
+        y = y.permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias
 
 
 class _BatchNorm(nn.Module):

@@ -23,8 +23,9 @@ How the port differs from the flax modules it mirrors:
     these to XLA);
   * ``QuantAct`` keeps its integer tensor only on request
     (:func:`capture_q_int`), where the flax module sows it always;
-  * grouped convolutions (``groups > 1``) raise ``NotImplementedError``: the
-    depthwise integer kernel comes with the MobileNetV2 slice.
+  * of the grouped convolutions (``groups > 1``) the depthwise 3×3 (one
+    channel a group, pad 1, stride 1 or 2: MobileNetV2's) runs through
+    ``int8_dwconv_acc``; any other grouping raises ``NotImplementedError``.
 
 The forward is written for eager execution (see quant/ops.py on
 ``exact()``); keep it out of ``torch.compile``.
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hawq_tpu_torch.kernels import conv as kc
+from hawq_tpu_torch.kernels import depthwise as kd
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.quant import ops as qops
 
@@ -195,25 +197,62 @@ def _int_conv_acc(x8: torch.Tensor, w8: torch.Tensor, b32: torch.Tensor,
     return acc.reshape(b, oh, ow, cout)
 
 
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` with its gradient: a maximum and then a
+    minimum, which split the gradient evenly where ``x`` meets a bound
+    (``torch.clamp`` passes all of it).  Integer-valued tensors meet their
+    bounds often, so the QAT graph's clamps of them take this form."""
+    if lo is not None:
+        if not isinstance(lo, torch.Tensor):
+            lo = qops._constant(float(lo), x.dtype, x.device)
+        x = torch.maximum(x, lo)
+    if hi is not None:
+        if not isinstance(hi, torch.Tensor):
+            hi = qops._constant(float(hi), x.dtype, x.device)
+        x = torch.minimum(x, hi)
+    return x
+
+
 def _round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return qops.round_half_up(t).to(dtype)
 
 
+def _check_groups(x_shape, w_shape, strides, pad, groups: int) -> None:
+    """Raise unless ``groups`` is 1 or the depthwise 3×3 that
+    ``int8_dwconv_acc`` runs: one input and one output channel a group, pad
+    1 on every side, equal strides of 1 or 2."""
+    if groups == 1:
+        return
+    kh, kw, cin_g, cout = w_shape
+    if not (cin_g == 1 and groups == x_shape[3] == cout and (kh, kw) == (3, 3)
+            and pad == ((1, 1), (1, 1)) and strides in ((1, 1), (2, 2))):
+        raise NotImplementedError(
+            f'int_conv2d: {groups} groups with a {tuple(w_shape)} kernel, '
+            f'strides {strides}, padding {pad}: of the grouped convolutions '
+            f'only the depthwise 3×3, pad 1, stride 1 or 2 has an integer '
+            f'kernel')
+
+
 class _IntConv2d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_int, w_int, bias_int, strides, pad):
-        acc = _int_conv_acc(_round_to(x_int, torch.int8),
-                            _round_to(w_int, torch.int8),
-                            _round_to(bias_int, torch.int32), strides, pad)
+    def forward(ctx, x_int, w_int, bias_int, strides, pad, groups):
+        x8 = _round_to(x_int, torch.int8)
+        w8 = _round_to(w_int, torch.int8)
+        b32 = _round_to(bias_int, torch.int32)
+        if groups == 1:
+            acc = _int_conv_acc(x8, w8, b32, strides, pad)
+        else:
+            acc = kd.int8_dwconv_acc(x8.contiguous(), w8.contiguous(), b32,
+                                     stride=strides[0])
         ctx.save_for_backward(_store(x_int), _store(w_int))
-        ctx.geometry = (strides, pad)
+        ctx.geometry = (strides, pad, groups)
         ctx.grad_dtype = getattr(_BACKWARD, 'grad', None)
         return acc.to(torch.float32)        # one rounding, after acc + bias
 
     @staticmethod
     def backward(ctx, g):
         x_int, w_int = ctx.saved_tensors
-        strides, pad = ctx.geometry
+        strides, pad, groups = ctx.geometry
         # narrow residuals, or an explicit gradient dtype, run the gradient
         # convolutions narrow; float32 (float64) residuals stay faithful
         dt = x_int.dtype if x_int.dtype in _NARROW else ctx.grad_dtype
@@ -230,16 +269,16 @@ class _IntConv2d(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = torch.nn.grad.conv2d_input(x.shape, w, gd, stride=strides,
-                                            padding=padding)
+                                            padding=padding, groups=groups)
             if not symmetric:
                 dx = dx[:, :, t:dx.shape[2] - b, l:dx.shape[3] - r]
             dx = dx.permute(0, 2, 3, 1).to(g.dtype)
         if ctx.needs_input_grad[1]:
             dw = torch.nn.grad.conv2d_weight(x, w.shape, gd, stride=strides,
-                                             padding=padding)
+                                             padding=padding, groups=groups)
             dw = dw.permute(2, 3, 1, 0).to(g.dtype)
         db = g.sum(dim=(0, 1, 2)) if ctx.needs_input_grad[2] else None
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
@@ -254,14 +293,15 @@ def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
     int32 before the float32 cast**, so the result is exactly f32(acc + b),
     the same single rounding the frozen engine performs, even for
     accumulators beyond 2**24.  The backward treats the op as the ordinary
-    float convolution (straight-through) on the saved x_int, w_int."""
-    if feature_group_count != 1:
-        raise NotImplementedError(
-            'int_conv2d: grouped convolutions need the depthwise integer '
-            'kernel, which is not ported yet')
+    float convolution (straight-through) on the saved x_int, w_int, with
+    ``feature_group_count`` groups.  Of the grouped convolutions only the
+    depthwise 3×3 (pad 1, stride 1 or 2) has an integer kernel
+    (``int8_dwconv_acc``); any other grouping raises."""
     strides = (int(strides[0]), int(strides[1]))
     pad = resolve_padding(padding, x_int.shape[1:3], w_int.shape[:2], strides)
-    return _IntConv2d.apply(x_int, w_int, bias_int, strides, pad)
+    _check_groups(x_int.shape, w_int.shape, strides, pad, feature_group_count)
+    return _IntConv2d.apply(x_int, w_int, bias_int, strides, pad,
+                            feature_group_count)
 
 
 class _IntMatmul(torch.autograd.Function):
@@ -701,9 +741,8 @@ class QuantBnAct(nn.Module):
         b1 = qops.ste_round((self.beta - self.mean * bn_factor) / scale)
         q = qops.requant_core_ste(x_int, a_scale, scale, None, signed) + b1
         if self.relu:
-            q = torch.clamp_min(q, 0.0)
-        lo, hi = qops.requant_clip_bounds(self.bits, signed)
-        q = torch.clamp(q, lo, hi)
+            q = clip(q, 0.0)
+        q = clip(q, *qops.requant_clip_bounds(self.bits, signed))
         _sow(self, q)
         return q * scale, scale
 

@@ -74,6 +74,13 @@ def exact_div(x: torch.Tensor, denom) -> torch.Tensor:
     return x / d
 
 
+def exact_rdiv(num: float, x: torch.Tensor) -> torch.Tensor:
+    """True IEEE division of a constant by a float tensor: ``num / x`` with
+    a Python scalar numerator is a reciprocal and a multiply in PyTorch; a
+    0-dim numerator on ``x``'s device divides elementwise."""
+    return _constant(float(num), x.dtype, x.device) / x
+
+
 def bn_inv_factor(gamma: torch.Tensor, var: torch.Tensor,
                   eps: float) -> torch.Tensor:
     """γ / √(var + ε), a square root and then a true division as written

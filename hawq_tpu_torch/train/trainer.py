@@ -29,11 +29,18 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from hawq_tpu_torch.configs.bit_config import (BitConfig, RESNET_UNITS,
-                                               get_bit_config)
-from hawq_tpu_torch.inference.freeze import freeze_resnet
+from hawq_tpu_torch.configs.bit_config import (BitConfig, QuantSettings,
+                                               RESNET_UNITS, get_bit_config)
+from hawq_tpu_torch.inference.engine_v2 import freeze_resnet_v2
+from hawq_tpu_torch.inference.freeze import (FrozenModel, freeze_mobilenetv2,
+                                             freeze_resnet)
+from hawq_tpu_torch.models.mobilenetv2 import (QMobileNetV2,
+                                               TINY_MNV2_FINAL_CH,
+                                               TINY_MNV2_INIT_CH,
+                                               TINY_MNV2_STAGES)
 from hawq_tpu_torch.models.resnet import (FloatResNet, QResNet,
                                           qat_from_numpy)
+from hawq_tpu_torch.models.resnet_v2 import QResNetV2
 from hawq_tpu_torch.train import data as data_lib
 from hawq_tpu_torch.train.train import (TrainState, make_train_step,
                                         make_eval_step,
@@ -115,21 +122,43 @@ def _apply_quant_overrides(cfg: TrainerConfig, bit_cfg: BitConfig
 
 
 def build_model(cfg: TrainerConfig):
-    """→ (model on the CPU, its BitConfig).  The ResNet v1 family is ported;
-    the other families raise with the ROADMAP item that brings them."""
-    if cfg.arch in RESNET_UNITS:
-        bit_cfg = _apply_quant_overrides(
-            cfg, get_bit_config(cfg.arch, cfg.scheme))
-        return QResNet(cfg.arch, bit_cfg, cfg.num_classes,
-                       seed=cfg.seed), bit_cfg
-    if cfg.arch in ('mobilenetv2_w1', 'tiny_mnv2', 'inceptionv3',
-                    'tiny_inceptionv3') or (
-                        cfg.arch.endswith('v2')
-                        and cfg.arch[:-2] in RESNET_UNITS):
+    """→ (model on the CPU, its BitConfig).  ResNet v1 and v2 and
+    MobileNetV2 are ported (``tiny_mnv2``, the test-size variant, takes the
+    uniform 8-bit table whatever the scheme, as in the reference);
+    InceptionV3 raises with the ROADMAP item that brings it."""
+    if cfg.arch == 'tiny_mnv2':
+        bit_cfg = _apply_quant_overrides(cfg, BitConfig(
+            name=f'tiny_mnv2_{cfg.scheme}', table={},
+            settings=QuantSettings()))
+        return QMobileNetV2(bit_cfg, cfg.num_classes, TINY_MNV2_STAGES,
+                            TINY_MNV2_INIT_CH, TINY_MNV2_FINAL_CH,
+                            seed=cfg.seed), bit_cfg
+    if cfg.arch in ('inceptionv3', 'tiny_inceptionv3'):
         raise ValueError(
             f'arch {cfg.arch}: this model family is not ported yet '
             f'(ROADMAP.md queue 1, "The other families")')
-    raise ValueError(f'unknown arch {cfg.arch}')
+    v2 = cfg.arch.endswith('v2') and cfg.arch[:-2] in RESNET_UNITS
+    if not (v2 or cfg.arch in RESNET_UNITS or cfg.arch == 'mobilenetv2_w1'):
+        raise ValueError(f'unknown arch {cfg.arch}')
+    bit_cfg = _apply_quant_overrides(cfg, get_bit_config(cfg.arch,
+                                                         cfg.scheme))
+    if cfg.arch == 'mobilenetv2_w1':
+        return QMobileNetV2(bit_cfg, cfg.num_classes, seed=cfg.seed), bit_cfg
+    family = QResNetV2 if v2 else QResNet
+    return family(cfg.arch, bit_cfg, cfg.num_classes, seed=cfg.seed), bit_cfg
+
+
+def freeze_model(model, variables, cfg: TrainerConfig,
+                 bit_cfg: BitConfig) -> FrozenModel:
+    """The frozen integer artifact of a trained model, through its family's
+    freezer."""
+    if isinstance(model, QMobileNetV2):
+        return freeze_mobilenetv2(variables, bit_cfg, model.stages,
+                                  cfg.num_classes)
+    if isinstance(model, QResNetV2):
+        return freeze_resnet_v2(variables, cfg.arch, bit_cfg,
+                                cfg.num_classes)
+    return freeze_resnet(variables, cfg.arch, bit_cfg, cfg.num_classes)
 
 
 def _batches(cfg: TrainerConfig, train: bool, epoch: int) -> Iterator[dict]:
@@ -235,8 +264,7 @@ class Trainer:
             shutil.copy(self._ckpt_path('checkpoint.npz.meta.json'),
                         self._ckpt_path('model_best.npz.meta.json'))
         # frozen integer artifact: the deployment hand-off
-        fm = freeze_resnet(variables, self.cfg.arch, self.bit_cfg,
-                           self.cfg.num_classes)
+        fm = freeze_model(self.model, variables, self.cfg, self.bit_cfg)
         ckpt.save_frozen(self._ckpt_path('quantized_checkpoint.npz'), fm)
 
     def _resume(self, path: str, quantized: bool):

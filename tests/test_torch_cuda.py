@@ -1214,3 +1214,149 @@ def test_kblocked_hopper_equals_plain_and_matmul_kernel(dev, m, k, n):
         with pytest.raises(ValueError):
             km.int8_matmul_requant_kblocked(x, prepared, b, mult, k_splits=2,
                                             core='sm90')
+
+
+# ---------------------------------------------------------------------------
+# D1, the depthwise conv, and the MobileNetV2 / ResNet v2 families
+# ---------------------------------------------------------------------------
+
+def _counts():
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+_DW_SHAPES = [((2, 7, 7, 8), 1), ((1, 9, 13, 24), 2), ((1, 7, 7, 40), 1),
+              ((2, 15, 11, 16), 2), ((1, 1, 1, 32), 1), ((8, 56, 56, 144), 2),
+              ((8, 112, 112, 32), 1), ((2, 14, 14, 960), 1)]
+
+
+@pytest.mark.parametrize('shape,stride', _DW_SHAPES)
+def test_dwconv_kernel_equals_plain(dev, shape, stride):
+    """Both forms of D1 against their plain versions, bit for bit: one
+    channel a thread (C off 16, an unaligned input) and 16 (vectors);
+    saturated operands, .5 requant boundaries, ReLU6 bounds binding on some
+    channels."""
+    from hawq_tpu_torch.inference.engine_mobilenet import relu6_bound
+    from hawq_tpu_torch.kernels import depthwise as kd
+    rng = np.random.RandomState(sum(shape) + stride)
+    c = shape[3]
+    x = torch.tensor(rng.randint(-128, 128, shape).astype(np.int8),
+                     device=dev)
+    w = torch.tensor(rng.randint(-127, 128, (3, 3, 1, c)).astype(np.int8),
+                     device=dev)
+    b = torch.tensor(rng.randint(-2 ** 18, 2 ** 18, c).astype(np.int32),
+                     device=dev)
+    acc_scale = (rng.rand(c) * 3e-4 + 2e-5).astype(np.float32)
+    acc_scale[::2] = 6.0 / 40.0
+    mult = np_dyadic_multiplier((rng.rand(c) * 0.02 + 1e-3).astype(
+        np.float32))
+    mult[1::3] = 0.5
+    hi6 = torch.tensor(relu6_bound(acc_scale), device=dev)
+    mult = torch.tensor(mult, device=dev)
+    sat = (torch.full_like(x, -128), torch.full_like(w, -127))
+    for xx, ww in ((x, w), sat, (_unaligned(x), w)):
+        _build.reset_launches()
+        got = kd.int8_dwconv_acc(xx, ww, b, stride=stride)
+        torch.testing.assert_close(got, kd.dwconv_acc_plain(xx, ww, b,
+                                                             stride),
+                                   rtol=0, atol=0)
+        for lo, hi in ((-128, 127), (0, 15)):
+            got = kd.int8_dwconv_requant(xx, ww, b, hi6, mult,
+                                         stride=stride, lo=lo, hi=hi)
+            torch.testing.assert_close(got, kd.dwconv_requant_plain(
+                xx, ww, b, hi6, mult, stride, lo, hi), rtol=0, atol=0)
+        assert _counts() == {'int8_dwconv_acc': 1, 'int8_dwconv_requant': 2}
+        assert _core_counts() == {'int8_dwconv_acc@cuda': 1,
+                                  'int8_dwconv_requant@cuda': 2}
+    with pytest.raises(ValueError):
+        kd.int8_dwconv_acc(x, w, b, stride=3)
+    with pytest.raises(ValueError):              # a CPU weight on the card
+        kd.int8_dwconv_acc(x, w.cpu(), b, stride=1)
+
+
+@pytest.mark.parametrize('mode,residual', [('folded_float32', torch.int16),
+                                           ('float32', torch.int32)])
+def test_mobilenet_engine_cuda_equals_cpu(dev, mode, residual):
+    """Full-width MobileNetV2 at 64×64: logits and every unit's nodes equal
+    the CPU engine's; D1 17 times, the 1×1 convs on the core the rule names
+    for their widths (K = 24 on the first)."""
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
+    from hawq_tpu_torch.inference.synthetic import synthetic_frozen_mobilenet
+    fm = synthetic_frozen_mobilenet(get_bit_config('mobilenetv2_w1',
+                                                   'uniform8'), seed=2)
+    x = np.random.RandomState(5).randn(2, 64, 64, 3).astype(np.float32)
+    if mode == 'folded_float32':
+        x = fold4_images_3x3s2(x, 1)
+    kw = dict(input_mode=mode, residual_dtype=residual, input_hw=(64, 64))
+    want = build_mobilenetv2_engine(fm, device='cpu', **kw)(x)
+    _build.reset_launches()
+    got = build_mobilenetv2_engine(fm, device=dev, **kw)(x)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert _counts() == {'int8_conv_acc': 1, 'int8_matmul_acc': 36,
+                         'int8_dwconv_requant': 17}
+    assert _core_counts() == {'int8_conv_acc@sm90': 1,
+                              'int8_matmul_acc@sm90': 34,
+                              'int8_matmul_acc@mma': 2,
+                              'int8_dwconv_requant@cuda': 17}
+    for node in ('init', 'features.stage2.unit2.conv2',
+                 'features.stage4.unit5.quant_act_int32', 'final'):
+        torch.testing.assert_close(
+            build_mobilenetv2_engine(fm, capture=node, device=dev, **kw)(
+                x).cpu(),
+            build_mobilenetv2_engine(fm, capture=node, device='cpu', **kw)(
+                x), rtol=0, atol=0, msg=node)
+
+
+def test_resnet_v2_engine_cuda_equals_cpu(dev):
+    from hawq_tpu_torch.inference.engine_v2 import build_resnet_v2_engine
+    from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet_v2
+    fm = synthetic_frozen_resnet_v2(
+        'resnet50v2', get_bit_config('resnet50v2', 'uniform8'), seed=2)
+    x = np.random.RandomState(5).randn(2, 64, 64, 3).astype(np.float32)
+    want = build_resnet_v2_engine(fm, device='cpu')(x)
+    _build.reset_launches()
+    got = build_resnet_v2_engine(fm, device=dev)(x)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert _core_counts() == {'int8_conv_acc@sm90': 1,
+                              'int8_matmul_requant@sm90': 16,
+                              'int8_conv_requant@sm90': 16,
+                              'int8_matmul_acc@sm90': 21}
+    for node in ('init', 'stage2.unit1.pre', 'stage4.unit3.quant_act_int32',
+                 'fc_input'):
+        torch.testing.assert_close(
+            build_resnet_v2_engine(fm, capture=node, device=dev)(x).cpu(),
+            build_resnet_v2_engine(fm, capture=node, device='cpu')(x),
+            rtol=0, atol=0, msg=node)
+
+
+@pytest.mark.parametrize('arch', ['tiny_mnv2', 'tiny50v2'])
+def test_family_qat_forward_cuda_equals_cpu(dev, arch):
+    """Calibration passes and a frozen-range forward of the tiny MobileNetV2
+    (the depthwise convs through D1's accumulator form) and ResNet v2 on
+    the card: ranges, every q_int and the logits equal the CPU's."""
+    from hawq_tpu_torch.train.trainer import TrainerConfig, build_model
+    x = np.random.RandomState(4).randn(2, 32, 32, 3).astype(np.float32)
+    results = {}
+    for name, device in (('cpu', torch.device('cpu')), ('cuda', dev)):
+        model = build_model(TrainerConfig(arch=arch, num_classes=10,
+                                          seed=3))[0].to(device)
+        xt = torch.tensor(x, device=device)
+        _build.reset_launches()
+        with torch.no_grad(), L.capture_q_int(model) as q:
+            for _ in range(2):
+                model(xt, folded=True, update_stats=True)
+            logits = model(xt, folded=True, update_stats=False)
+        results[name] = ({k: v.cpu() for k, v in q.items()},
+                         {k: v.cpu() for k, v in model.named_buffers()},
+                         logits.cpu())
+    if arch == 'tiny_mnv2':
+        assert _counts()['int8_dwconv_acc'] == 3 * 3
+        assert _core_counts()['int8_dwconv_acc@cuda'] == 3 * 3
+    for got, want in zip(results['cuda'][:2], results['cpu'][:2]):
+        assert sorted(got) == sorted(want)
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0,
+                                       msg=key)
+    torch.testing.assert_close(results['cuda'][2], results['cpu'][2], rtol=0,
+                               atol=0)

@@ -50,9 +50,10 @@ class _RecordAll(str):
     __hash__ = str.__hash__
 
 
-def _reference_nodes(fm, x, **kw):
+def _reference_nodes(fm, x, build=jax_engine, **kw):
+    """Every capture node of the reference engine that ``build`` makes."""
     rec = _RecordAll()
-    engine = jax_engine(fm, capture=rec, **kw)
+    engine = build(fm, capture=rec, **kw)
     rec.slot = inspect.getclosurevars(engine.__wrapped__).nonlocals['captured']
     with jax.disable_jit():
         engine(jnp.asarray(x))

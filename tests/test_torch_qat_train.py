@@ -525,7 +525,7 @@ def test_trainer_cli_and_refusals(tmp_path):
     assert mine.pop('device') == 'cuda'
     assert mine == theirs
     base = dict(device='cpu', save_path=str(tmp_path / 'c'))
-    for arch in ('mobilenetv2_w1', 'inceptionv3', 'resnet50v2'):
+    for arch in ('inceptionv3', 'tiny_inceptionv3'):
         with pytest.raises(ValueError, match='ROADMAP'):
             ttrainer.Trainer(ttrainer.TrainerConfig(arch=arch, **base))
     with pytest.raises(ValueError, match='unknown arch'):
