@@ -92,11 +92,15 @@ non-zero exit and no result line:
     uniform8 on float32 input with int32, uniform4 and bops_0.5 folded;
     logits and the 'final' and 'fc_input' nodes for the first two images
     equal the CPU engine's;
-    ms per batch; every recorded call and 28 ragged calls of D1 (the
-    depthwise conv, ``int8_dwconv_requant`` / ``int8_dwconv_acc``) held
-    against the plain version, bit for bit; D1 timed on the main path
-    beside its bound, its plain version and cuDNN's float32 grouped
-    conv, in L2 and streamed from device memory; a trace of the forward;
+    ms per batch; every recorded call and 44 ragged calls of D1 (the
+    depthwise conv, ``int8_dwconv_requant`` / ``int8_dwconv_acc``; every
+    form of its kernel: 4 channels a thread with 16- or 4-byte staging
+    copies, one channel a thread) held against the plain version, bit for
+    bit; D1 timed on the main path beside its bound, its plain version and
+    cuDNN's float32 grouped conv, in L2 and streamed from device memory, a
+    per-call table with the tile the rule chose, and each call at the
+    rule's tile and at its alternatives (pixels a thread, rows, copy width,
+    channels a thread) in turns; a trace of the forward;
  9. ResNet-50 v2 uniform8 serving, 224², batch 8, float32 input: the same
     checks against the CPU engine and the predicted launches, every call
     against its plain version, a trace;
@@ -106,7 +110,8 @@ non-zero exit and no result line:
     as the model's layers predict, the frozen artifact through the
     family's engine equal as integers to the QAT eval logits, every
     distinct kernel call of a step against its plain version (D1's
-    accumulator form timed), one folded step at b2 64² on the card
+    accumulator form timed, per call and at its alternative tiles, as in
+    phase 8), one folded step at b2 64² on the card
     against the CPU, step times and a trace;
 11. one JSON line with the kernels' numbers, then the result line.
 
@@ -1160,6 +1165,8 @@ def time_calls(calls, totals):
             if name in POOLS + DW:
                 extra['cold_ms'] = cold_ms(
                     lambda *a: kernel_call(name, a, kw, False), args, 10)
+            if name in DW:
+                extra['tiles'] = dw_tile(args, kw, out)[1]
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
             plain_ms = graph_ms(lambda: plain_call(name, args, kw, False), 3)
             lib = library_call(name, args, kw)
@@ -1206,6 +1213,9 @@ def time_calls(calls, totals):
             f"ms {row['ms']:.5f} host-bound {row['host_ms']:.5f} "
             f"plain {row['plain_ms']:.4f} "
             f"bound {row['bound_ms']:.5f} library {lib}{both}")
+    dw_rows = [r for r in seen.values() if r['name'] in DW]
+    if dw_rows:
+        dw_call_table(dw_rows)
     for name in SM90_KERNELS:
         if name in totals and any(r['name'] == name for r in seen.values()):
             t = totals[name]
@@ -1414,8 +1424,7 @@ _SM90_TEMPLATE = (
     re.compile(r'gemm_s8_sm90_kernelILb(\d)ELb(\d)ELb(\d)E'))
 
 
-_DW_TEMPLATE = re.compile(
-    r'dwconv_kernel(?:<\d+, (\w+)>|ILi\d+ELb(\d)E)')
+_DW_TEMPLATE = re.compile(r'dwconv_kernel(?:<(\w+),|ILb(\d)E)')
 
 
 def port_kernel(name):
@@ -2006,16 +2015,22 @@ def training_phase(arch, errs, dev, timed=None, steps=4, fix_bn_threshold=2,
         f'{batch}):')
     time_calls([c for c in calls if timed is None or c[0] in timed],
                train_totals)
+    if timed and DW_ACC in timed:
+        dw_plan_sweep([c for c in calls if c[0] == DW_ACC], phase)
     card_vs_cpu_step(arch, dev)
     return run['counts'], train_totals, batch
 
 
 def dw_ragged_calls(dev):
-    """D1 beside the paths' shapes: C = 8, 24 and 40 (one channel a thread)
-    and 16 / 32 (vectors, also on an unaligned input); 7×7, odd and 1×1
-    images; B = 1; both strides; saturated operands; requant multipliers of
-    0.5 (odd accumulators on a .5 boundary); ReLU6 bounds that bind on some
-    channels and not on others; 8- and 4-bit, signed and unsigned bounds."""
+    """D1 beside the paths' shapes: C = 3, 8, 24 and 40 and inputs one byte
+    off alignment (one channel a thread), C = 12 and 20 and an input 4
+    bytes off 16-byte alignment (4 channels a thread, 4-byte staging
+    copies), 16 / 32 (16-byte copies); output widths that are not a
+    multiple of the pixels a thread takes; 7×7, odd, 1×1 and 2-row (at
+    stride 2) images; B = 1; both strides; saturated operands; requant
+    multipliers of 0.5 (odd accumulators on a .5 boundary); ReLU6 bounds
+    that bind on some channels and not on others; 8- and 4-bit, signed and
+    unsigned bounds."""
     from hawq_tpu_torch.inference.engine_mobilenet import relu6_bound
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
     rng = np.random.RandomState(13)
@@ -2023,7 +2038,9 @@ def dw_ragged_calls(dev):
     for (b, h, w, c), stride in (((2, 7, 7, 8), 1), ((1, 9, 13, 24), 2),
                                  ((1, 7, 7, 40), 1), ((2, 15, 11, 16), 2),
                                  ((1, 1, 1, 32), 1), ((3, 14, 14, 32), 2),
-                                 ((1, 5, 6, 16), 1)):
+                                 ((1, 5, 6, 16), 1), ((2, 5, 9, 3), 1),
+                                 ((1, 2, 6, 12), 2), ((2, 9, 10, 20), 1),
+                                 ((1, 6, 7, 16), 1)):
         x = rng.randint(-128, 128, (b, h, w, c)).astype(np.int8)
         wt = rng.randint(-127, 128, (3, 3, 1, c)).astype(np.int8)
         if c == 40:                            # saturated
@@ -2035,10 +2052,11 @@ def dw_ragged_calls(dev):
                                     .astype(np.float32))
         mult[1::3] = 0.5
         args = [torch.tensor(a, device=dev) for a in (x, wt, bias)]
-        if c == 16 and h == 5:                 # x one byte off alignment
-            flat = torch.empty(x.size + 1, dtype=torch.int8, device=dev)
-            flat[1:] = args[0].reshape(-1)
-            args[0] = flat[1:].view(x.shape)
+        off = {5: 1, 6: 4}.get(h, 0) if c == 16 else 0
+        if off:                                # x 1 or 4 bytes off 16
+            flat = torch.empty(x.size + off, dtype=torch.int8, device=dev)
+            flat[off:] = args[0].reshape(-1)
+            args[0] = flat[off:].view(x.shape)
         calls.append((DW_ACC, tuple(args), dict(stride=stride)))
         vecs = (torch.tensor(relu6_bound(acc_scale), device=dev),
                 torch.tensor(mult, device=dev))
@@ -2046,6 +2064,87 @@ def dw_ragged_calls(dev):
             calls.append((DW_REQUANT, tuple(args) + vecs,
                           dict(stride=stride, lo=lo, hi=hi)))
     return calls
+
+
+def dw_tile(args, kw, out):
+    """(the plan D1's wrapper launches for a call, a short label of it)."""
+    from hawq_tpu_torch.kernels import depthwise as kd
+    plan = kd.call_plan(args[0], args[1], out, kw['stride'])
+    b, h, w, c = args[0].shape
+    return plan, (f'{plan.vec}ch/thr copy{plan.copy} P{plan.p} '
+                  f'{plan.rows}x{plan.ng * plan.p}px x{plan.cs * plan.vec}ch '
+                  f'{kd.dw_grid(plan, b, h, w, c, kw["stride"])}blk '
+                  f'{plan.cs * plan.ng * plan.rows}thr')
+
+
+def dw_call_table(rows):
+    """D1's per-call table: µs by graph replay in L2 and streamed from
+    device memory, the bound, the share of it, the tile, cuDNN's µs."""
+    log(f"  D1 per call ({rows[0]['name']}): shape | launches | us in L2 | "
+        f"us streamed | bound us | share | cuDNN us | tile")
+    for r in rows:
+        log(f"    {r['shape']:26s} x{r['n']:<2d} {r['ms'] * 1e3:7.2f} "
+            f"{r['cold_ms'] * 1e3:7.2f} {r['bound_ms'] * 1e3:7.3f} "
+            f"{r['bound_ms'] / r['ms']:6.1%} {r['library_ms'] * 1e3:8.2f}  "
+            f"{r['tiles']}")
+
+
+def dw_alternatives(plan, args, kw):
+    """Plans beside the rule's for one D1 call: p = 2, half and twice the
+    rows, 4-byte staging copies, one channel a thread — those the shape
+    and the pointers allow."""
+    from hawq_tpu_torch.kernels import depthwise as kd
+    b, h, w, c = args[0].shape
+    oh = kd.dw_output_hw(h, w, kw['stride'])[0]
+    alts = [plan._replace(p=2), plan._replace(rows=max(1, plan.rows // 2)),
+            plan._replace(rows=min(oh, 2 * plan.rows))]
+    if plan.copy == 16:
+        alts.append(plan._replace(copy=4))
+    if plan.vec == 4:
+        one = kd.dw_plan(b, h, w, c, kw['stride'], vec=1, copy=1)
+        alts.append(one._replace(ng=plan.ng, rows=min(
+            plan.rows, kd.DW_THREADS // (one.cs * plan.ng))))
+    seen, out = {plan}, []
+    for a in alts:
+        if a not in seen and a.cs * a.ng * a.rows <= kd.DW_THREADS:
+            seen.add(a)
+            out.append(a)
+    return out
+
+
+def dw_plan_sweep(calls, phase):
+    """Each distinct D1 call of a path at the rule's plan and at its
+    alternatives (:func:`dw_alternatives`), each held against the plain
+    version, then timed in turns (rule, alternatives, alternatives in
+    reverse, rule) by graph replay → the sums over the path's launches."""
+    seen = {}
+    for name, args, kw in calls:
+        key = call_key(name, args, kw)
+        seen.setdefault(key, [name, args, kw, 0])[3] += 1
+    rule_sum, best_sum = 0.0, 0.0
+    log(f'{phase}: D1 tile choices, us by graph replay (rule first):')
+    for name, args, kw, n in seen.values():
+        out = kernel_call(name, args, kw)
+        plan, label = dw_tile(args, kw, out)
+        want = plain_call(name, args, kw)
+        plans = [plan] + dw_alternatives(plan, args, kw)
+        for p in plans[1:]:
+            check(same(kernel_call(name, args, dict(kw, plan=p)), want),
+                  f'{name} at {p} differs from its plain version')
+        ms = {p: [] for p in plans}
+        for p in plans + plans[:0:-1] + [plan]:
+            ms[p].append(graph_ms(
+                lambda: kernel_call(name, args, dict(kw, plan=p), False), 20))
+        mean = {p: sum(v) / len(v) for p, v in ms.items()}
+        rule_sum += mean[plan] * n
+        best_sum += min(mean.values()) * n
+        b, h, w, c = args[0].shape
+        log(f'  B{b} {h}x{w} C{c} s{kw["stride"]} x{n}: rule {label} '
+            f'{mean[plan] * 1e3:.2f}; ' + '; '.join(
+                f'v{p.vec} copy{p.copy} P{p.p} rows{p.rows} ng{p.ng} '
+                f'{mean[p] * 1e3:.2f}' for p in plans[1:]))
+    log(f'{phase}: D1 over the path\'s launches: rule {rule_sum:.4f} ms, '
+        f'the fastest plan of each call {best_sum:.4f} ms')
 
 
 def mobilenet_phase(raw, dev, errs, totals):
@@ -2087,6 +2186,7 @@ def mobilenet_phase(raw, dev, errs, totals):
                 f'calls of {label} and {len(ragged)} ragged D1 calls')
     log(f'phase 8: timed {DW_REQUANT} on {label}:')
     time_calls([c for c in calls if c[0] == DW_REQUANT], totals)
+    dw_plan_sweep([c for c in calls if c[0] == DW_REQUANT], 'phase 8')
     trace = trace_breakdown(eng, x, label, 'phase 8')
     if trace:
         port = {k: v for k, v in trace[3].items() if k.startswith('port')}

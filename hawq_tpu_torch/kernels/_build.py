@@ -52,8 +52,8 @@ _SIGNATURES = {
     'hawq_int4w_conv_acc_sm90': [_P, _P, _P, _P] + [_I] * 16 + [_P],
     'hawq_maxpool_folded': [_P, _P] + [_I] * 6 + [_P],
     'hawq_maxpool_folded_requant': [_P] * 3 + [_I] * 8 + [_P],
-    'hawq_dwconv_acc': [_P] * 4 + [_I] * 6 + [_P],
-    'hawq_dwconv_requant': [_P] * 6 + [_I] * 8 + [_P],
+    'hawq_dwconv_acc': [_P] * 4 + [_I] * 11 + [_P],
+    'hawq_dwconv_requant': [_P] * 6 + [_I] * 13 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }

@@ -1226,15 +1226,36 @@ def _counts():
 
 _DW_SHAPES = [((2, 7, 7, 8), 1), ((1, 9, 13, 24), 2), ((1, 7, 7, 40), 1),
               ((2, 15, 11, 16), 2), ((1, 1, 1, 32), 1), ((8, 56, 56, 144), 2),
-              ((8, 112, 112, 32), 1), ((2, 14, 14, 960), 1)]
+              ((8, 112, 112, 32), 1), ((2, 14, 14, 960), 1),
+              ((2, 5, 9, 3), 1), ((1, 2, 6, 12), 2), ((2, 9, 10, 20), 1)]
+
+
+def _dw_plans(shape, stride, ptrs):
+    """The rule's plan for these pointers, then every form they allow (4
+    channels a thread with 16- and 4-byte staging copies, one channel) at
+    each pixels-a-thread choice, with tiles that leave ragged edges."""
+    from hawq_tpu_torch.kernels import depthwise as kd
+    b, h, w, c = shape
+    vec, copy = kd.dw_form(c, *ptrs)
+    plans = [kd.dw_plan(b, h, w, c, stride, vec=vec, copy=copy)]
+    forms = [(1, 1)] + ([(4, 4)] if vec == 4 else []) + (
+        [(4, 16)] if copy == 16 else [])
+    for v, cp in forms:
+        cs = kd.dw_plan(b, h, w, c, stride, vec=v, copy=cp).cs
+        for p in ((2, 4) if v == 4 else (4 // stride,)):
+            for ng, rows in ((1, 1), (3, 2)):
+                plans.append(kd.DwPlan(v, cp, p, cs, ng, rows))
+    return plans
 
 
 @pytest.mark.parametrize('shape,stride', _DW_SHAPES)
 def test_dwconv_kernel_equals_plain(dev, shape, stride):
-    """Both forms of D1 against their plain versions, bit for bit: one
-    channel a thread (C off 16, an unaligned input) and 16 (vectors);
-    saturated operands, .5 requant boundaries, ReLU6 bounds binding on some
-    channels."""
+    """Both forms of D1 against their plain versions, bit for bit, at the
+    rule's tile and at every form and pixels-a-thread choice the pointers
+    allow, with ragged tile edges: 4 channels a thread (16- and 4-byte
+    staging copies) and one (C off 4, an input one byte off alignment);
+    an input 4 bytes off 16-byte alignment; saturated operands, .5
+    requant boundaries, ReLU6 bounds binding on some channels."""
     from hawq_tpu_torch.inference.engine_mobilenet import relu6_bound
     from hawq_tpu_torch.kernels import depthwise as kd
     rng = np.random.RandomState(sum(shape) + stride)
@@ -1253,24 +1274,40 @@ def test_dwconv_kernel_equals_plain(dev, shape, stride):
     hi6 = torch.tensor(relu6_bound(acc_scale), device=dev)
     mult = torch.tensor(mult, device=dev)
     sat = (torch.full_like(x, -128), torch.full_like(w, -127))
-    for xx, ww in ((x, w), sat, (_unaligned(x), w)):
-        _build.reset_launches()
-        got = kd.int8_dwconv_acc(xx, ww, b, stride=stride)
-        torch.testing.assert_close(got, kd.dwconv_acc_plain(xx, ww, b,
-                                                             stride),
-                                   rtol=0, atol=0)
-        for lo, hi in ((-128, 127), (0, 15)):
-            got = kd.int8_dwconv_requant(xx, ww, b, hi6, mult,
-                                         stride=stride, lo=lo, hi=hi)
-            torch.testing.assert_close(got, kd.dwconv_requant_plain(
-                xx, ww, b, hi6, mult, stride, lo, hi), rtol=0, atol=0)
-        assert _counts() == {'int8_dwconv_acc': 1, 'int8_dwconv_requant': 2}
-        assert _core_counts() == {'int8_dwconv_acc@cuda': 1,
-                                  'int8_dwconv_requant@cuda': 2}
+    flat = torch.empty(x.numel() + 4, dtype=torch.int8, device=dev)
+    flat[4:] = x.reshape(-1)
+    off4 = flat[4:].view(x.shape)               # 4 bytes off 16
+    big = shape[1] * shape[3] > 4000
+    for xx, ww in ((x, w), sat, (_unaligned(x), w), (off4, w)):
+        want = kd.dwconv_acc_plain(xx, ww, b, stride)
+        wantq = {(lo, hi): kd.dwconv_requant_plain(xx, ww, b, hi6, mult,
+                                                   stride, lo, hi)
+                 for lo, hi in ((-128, 127), (0, 15))}
+        plans = _dw_plans(shape, stride, (xx.data_ptr(), ww.data_ptr(), 0))
+        for plan in plans[:1] if big else plans:
+            _build.reset_launches()
+            kw = dict(stride=stride, plan=plan)
+            torch.testing.assert_close(kd.int8_dwconv_acc(xx, ww, b, **kw),
+                                       want, rtol=0, atol=0)
+            for (lo, hi), wq in wantq.items():
+                got = kd.int8_dwconv_requant(xx, ww, b, hi6, mult, lo=lo,
+                                             hi=hi, **kw)
+                torch.testing.assert_close(got, wq, rtol=0, atol=0)
+            assert _counts() == {'int8_dwconv_acc': 1,
+                                 'int8_dwconv_requant': 2}
+            assert _core_counts() == {'int8_dwconv_acc@cuda': 1,
+                                      'int8_dwconv_requant@cuda': 2}
+        # the rule's own plan, as the wrappers pick it
+        torch.testing.assert_close(kd.int8_dwconv_acc(xx, ww, b,
+                                                      stride=stride),
+                                   want, rtol=0, atol=0)
     with pytest.raises(ValueError):
         kd.int8_dwconv_acc(x, w, b, stride=3)
     with pytest.raises(ValueError):              # a CPU weight on the card
         kd.int8_dwconv_acc(x, w.cpu(), b, stride=1)
+    with pytest.raises(ValueError):              # 4 channels a thread, but
+        kd.int8_dwconv_acc(_unaligned(x), w, b, stride=stride,   # unaligned
+                           plan=kd.DwPlan(4, 4, 2, 1, 1, 1))
 
 
 @pytest.mark.parametrize('mode,residual', [('folded_float32', torch.int16),
