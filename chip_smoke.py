@@ -113,7 +113,31 @@ non-zero exit and no result line:
     accumulator form timed, per call and at its alternative tiles, as in
     phase 8), one folded step at b2 64² on the card
     against the CPU, step times and a trace;
-11. one JSON line with the kernels' numbers, then the result line.
+11. InceptionV3 w1 serving at full width and depth, 299², batch 8,
+    synthetic weights (seed 0): uniform8 on host-folded input
+    (``fold4_images_3x3s2(x, 0)``) with the int32 wide container (this
+    family's main path: its launch counts set to 0 just before it, read
+    just after, against ``expected_inception_launches`` from the model's
+    widths and bit config, per kernel and per core — A1 on its own,
+    '@cuda' — every kernel call recorded), uniform8 on float32 input,
+    uniform8 folded with the int16 container, uniform4 folded; logits and
+    the 'init' node (on the main path also a stage-2 unit's output) for
+    the first two images equal the CPU engine's; ms per batch; every
+    recorded call and 102 ragged calls of A1 (the integer 3×3 average pool
+    with its requant, ``int_avgpool3x3_requant``: int32, int16 and int8
+    inputs, both forms of its kernel) held against the plain version, bit
+    for bit; A1 timed beside its bound, its plain version and
+    ``F.avg_pool2d`` on float32, in L2 and streamed from device memory;
+    #1 / #2 / #6 / #7 timed at this path's calls on both cores in turns; a
+    trace of the forward;
+12. QAT training through the Trainer on InceptionV3 uniform8 at full
+    width, 299², b32 (1 calibration batch, one unfolded and one folded
+    step) as in phase 7: launches per step and per core as the model's
+    layers predict, the frozen artifact through the engine equal as
+    integers to the QAT eval logits, every distinct kernel call of a step
+    against its plain version, one folded step at b2 75² on the card
+    against the CPU, step times and a trace;
+13. one JSON line with the kernels' numbers, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -171,6 +195,10 @@ KERNELS = {
                             'hawq_tpu/inference/engine_mobilenet.py:42'),
     'int8_dwconv_acc': ('hawq_tpu_torch/kernels/csrc/depthwise.cu',
                         'hawq_tpu/inference/engine_mobilenet.py:42'),
+    # A1: no Pallas kernel either; XLA's reduce_window, the truncating
+    # division by 9 and the requant after it
+    'int_avgpool3x3_requant': ('hawq_tpu_torch/kernels/csrc/avgpool.cu',
+                               'hawq_tpu/inference/engine_inception.py:336'),
 }
 # the three kernels that no serving path launches: phase 3 (the standalone
 # pool, at the main path's pre-pool tensor), 6 and 7 drive them
@@ -180,11 +208,29 @@ POOL, POOL_REQUANT = 'maxpool_folded', 'maxpool_folded_requant'
 # (phase 10)
 DW_REQUANT, DW_ACC = 'int8_dwconv_requant', 'int8_dwconv_acc'
 DW = (DW_REQUANT, DW_ACC)
+# A1, the InceptionV3 engine's integer average pool (phase 11)
+AVGPOOL = 'int_avgpool3x3_requant'
+# the kernels on no ResNet serving path
 SERVING_KERNELS = [k for k in KERNELS
-                   if k not in (KBLOCKED, MINMAX, POOL) + DW]
+                   if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL) + DW]
 TRAIN_BATCH = 32
 # the phase that trains each arch through the Trainer
-TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10}
+TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10,
+               'inceptionv3': 12}
+# image sizes other than SIZE: InceptionV3 takes 299² (its card-against-CPU
+# step 75², the smallest its reductions allow)
+TRAIN_SIZE = {'inceptionv3': 299}
+CARD_STEP_SIZE = {'inceptionv3': 75}
+# InceptionV3 w1 serving (phase 11), 299², batch 8: (scheme, input mode,
+# wide container); the first is this family's main path
+INC_SIZE = 299
+INC_PATHS = (('uniform8', 'folded_float32', torch.int32),
+             ('uniform8', 'float32', torch.int32),
+             ('uniform8', 'folded_float32', torch.int16),
+             ('uniform4', 'folded_float32', torch.int32))
+# the GEMM kernels the InceptionV3 engine runs
+INC_GEMMS = ('int8_matmul_requant', 'int8_matmul_acc', 'int8_conv_requant',
+             'int8_conv_acc')
 # MobileNetV2 w1 serving (phase 8), 224², batch 8: (scheme, input mode,
 # carrier); the first is this family's main path
 MNV2_PATHS = (('uniform8', 'folded_float32', torch.int16),
@@ -198,7 +244,10 @@ SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
                 'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED)
 POOLS = (POOL, POOL_REQUANT)
-GEMM_KERNELS = [k for k in KERNELS if k not in POOLS + DW + (MINMAX,)]
+GEMM_KERNELS = [k for k in KERNELS
+                if k not in POOLS + DW + (MINMAX, AVGPOOL)]
+# the kernels of their own (no GEMM core): launches counted on '@cuda'
+OWN_CORE = DW + (AVGPOOL,)
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -223,6 +272,155 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def expected_inception_launches(fm, input_mode):
+    """Launches of one InceptionV3 engine forward, from the frozen model's
+    widths and its bit config: each conv (the graph's walk,
+    ``engine_inception.conv_input_nodes``) through the requant form where
+    its ``q_activ`` has at most 8 bits, else the accumulator form — a 1×1
+    through the matmul, a k×k through the conv (4·C, C filled to a multiple
+    of 4, after a stride 2's space-to-depth); the folded stem's q_conv1
+    through ``int8_conv_acc`` over the fold (C = 48, N = 4·32); A1 once for
+    each pool branch; the FC through ``int8_matmul_acc``."""
+    from hawq_tpu_torch.inference.engine_inception import (
+        conv_input_nodes, width_div_from_frozen)
+    from hawq_tpu_torch.models import inceptionv3 as mi
+    width_div = width_div_from_frozen(fm)
+    stem = 'features.q_init_block.q_conv1'
+    strides = {f'features.q_init_block.q_conv{c}': s
+               for c, (_, _, s, _) in enumerate(mi.INIT_CONVS, start=1)}
+    out = Launches()
+    for _, _, unit in mi.units(width_div):
+        for name, kind, kw in unit.branch_defs:
+            bp = f'{unit.prefix}.branches.{name}'
+            if kind == mi.AVG_POOL:
+                out.add(AVGPOOL)
+            for c, stride in enumerate(kw.get('strides', ()), start=1):
+                strides[f'{bp}.q_conv_list.q_conv{c}'] = stride
+    for key, _ in conv_input_nodes(width_div):
+        if key == 'output.q_fc':
+            out.add('int8_matmul_acc', 'matmul',
+                    *fm[key + '.weight_int'].shape)
+            continue
+        kh, kw_, c, n = fm[key + '.q_convbn.weight_int'].shape
+        acc = fm.cfg.act_bits(key + '.q_activ') > 8
+        if key == stem and input_mode == 'folded_float32':
+            out.add('int8_conv_acc', 'conv_acc', 48, 4 * n)
+        elif (kh, kw_) == (1, 1):
+            out.add('int8_matmul_acc' if acc else 'int8_matmul_requant',
+                    'matmul' if acc else 'matmul_requant', c, n)
+        else:
+            if strides.get(key, 1) == 2:
+                c = 4 * (c + -c % 4)
+            out.add('int8_conv_acc' if acc else 'int8_conv_requant',
+                    'conv_acc' if acc else 'conv', c, n)
+    return out
+
+
+def avgpool_ragged_calls(dev):
+    """A1 beside the path's shapes: H, W in {1, 2, 3, 5, 8, 17, 35} with C
+    cycling through {1, 3, 4, 12, 32, 288}; int32, int16 and int8 inputs;
+    inputs one element off alignment (one channel a thread); per-tensor and
+    per-channel multipliers; 8-bit signed and 4-bit unsigned bounds;
+    saturated ±32767; a constant −9 field (negative sums that are multiples
+    of 9); odd quotients times 0.5 (requant products on a .5 boundary)."""
+    from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
+    rng = np.random.RandomState(17)
+    hws, cs = (1, 2, 3, 5, 8, 17, 35), (1, 3, 4, 12, 32, 288)
+    dtypes = ((torch.int32, 32768), (torch.int16, 32768), (torch.int8, 128))
+    calls = []
+
+    def call(x, mult, bits=8, signed=True):
+        calls.append((AVGPOOL, (x, torch.tensor(np.asarray(mult, np.float32),
+                                                device=dev)),
+                      dict(out_bits=bits, signed=signed)))
+    for i, h in enumerate(hws):
+        for j, w in enumerate(hws):
+            c = cs[(i + j) % len(cs)]
+            dtype, hi = dtypes[(i + 2 * j) % 3]
+            x = torch.tensor(rng.randint(-hi, hi, (2, h, w, c)), dtype=dtype,
+                             device=dev)
+            scale = 64.0 if dtype == torch.int8 else 1.0
+            call(x, np_dyadic_multiplier(np.float32(
+                scale * (rng.rand() * 0.01 + 0.002))))
+            if (i + j) % 2:                    # one element off alignment
+                flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+                flat[1:] = x.reshape(-1)
+                x = flat[1:].view(x.shape)
+            call(x, np_dyadic_multiplier((scale * (
+                rng.rand(c) * 0.01 + 0.002)).astype(np.float32)), 4, False)
+    x = torch.full((2, 5, 7, 8), -32767, dtype=torch.int32, device=dev)
+    x[:, 2, 3, ::2] = 32767
+    call(x, np.float32(2 ** -12))
+    call(x.to(torch.int16), np.float32(2 ** -8))
+    call(torch.full((1, 4, 5, 4), -9, dtype=torch.int32, device=dev),
+         np.float32(1.0))
+    p = torch.arange(1, 128, 2, dtype=torch.int16, device=dev)
+    call(p.expand(1, 3, 3, p.numel()).contiguous(), np.float32(0.5))
+    return calls
+
+
+def inception_phase(dev, errs, totals):
+    """Phase 11: InceptionV3 w1 serving at full width, 299², batch 8, on
+    synthetic weights (seed 0): the paths of ``INC_PATHS``, each against the
+    CPU engine and its predicted launches; every kernel call of the first
+    (the main path) and A1's ragged calls held against their plain
+    versions; A1 timed on the main path (into ``totals``) in L2 and streamed
+    from device memory, beside its bound, its plain version and
+    ``F.avg_pool2d``; the four GEMM kernels timed on the main path; a trace
+    of its forward → (the main path's launches per kernel, the GEMM kernels'
+    totals on it)."""
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
+    from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
+    from hawq_tpu_torch.inference.synthetic import synthetic_frozen_inception
+    raw = np.random.RandomState(3).randn(BATCH, INC_SIZE, INC_SIZE, 3).astype(
+        np.float32)
+    images = {'float32': torch.from_numpy(raw).to(dev),
+              'folded_float32': torch.from_numpy(
+                  fold4_images_3x3s2(raw, 0)).to(dev)}
+    fms, main = {}, None
+    for scheme, mode, wide in INC_PATHS:
+        if scheme not in fms:
+            fms[scheme] = synthetic_frozen_inception(
+                get_bit_config('inceptionv3', scheme), seed=0)
+        fm = fms[scheme]
+        want = expected_inception_launches(fm, mode)
+        label = f'inceptionv3 {scheme} {mode} {wide}'
+        calls = [] if main is None else None
+        nodes = (('init', 'features.stage2.unit1.q_rescaling_activ')
+                 if main is None else ('init',))
+        eng, counts = engine_check(
+            functools.partial(build_inceptionv3_engine, fm, input_mode=mode,
+                              wide_dtype=wide,
+                              input_hw=(INC_SIZE, INC_SIZE)),
+            images[mode], want.counts, want.cores, nodes, label, dev,
+            'phase 11', calls)
+        if main is None:
+            main = (eng, images[mode], calls, want, counts, label)
+    eng, x, calls, want, counts, label = main
+    check(want.counts[AVGPOOL] == 9
+          and sum(want.counts.values()) == 9 + 95
+          and not [k for k in want.cores if k.endswith('@mma')],
+          f'{label}: predicted {want.counts}, per core {want.cores}')
+    ragged = avgpool_ragged_calls(dev)
+    check_calls(calls + ragged, errs, f'phase 11: all {len(calls)} recorded '
+                f'calls of {label} and {len(ragged)} ragged A1 calls')
+    log(f'phase 11: timed {AVGPOOL} on {label}:')
+    time_calls([c for c in calls if c[0] == AVGPOOL], totals)
+    gemm_totals = {}
+    log(f'phase 11: timed the GEMM kernels on {label}:')
+    time_calls([c for c in calls if c[0] in INC_GEMMS], gemm_totals)
+    trace = trace_breakdown(eng, x, label, 'phase 11')
+    if trace:
+        port = {k: v for k, v in trace[3].items() if k.startswith('port')}
+        log(f'phase 11: {label}: {trace[0]} kernels per forward, port '
+            f'kernels ' + ', '.join(f'{k[6:]} x{c} {t / 1e3:.4f} ms'
+                                    for k, (c, t) in sorted(port.items()))
+            + f'; glue (non-port kernels) {trace[2]:.4f} ms')
+    return counts, gemm_totals
 
 
 def cuda_ms(fn, reps):
@@ -321,7 +519,7 @@ def core_launches():
 class Launches:
     """Predicted launches per kernel and per core ('name@core': for a GEMM
     kernel the core the Hopper core's rule names for the call's widths,
-    'cuda' for D1)."""
+    'cuda' for D1 and A1)."""
 
     def __init__(self):
         self.counts, self.cores = {}, {}
@@ -329,7 +527,7 @@ class Launches:
     def add(self, name, kind=None, k=0, n=0):
         from hawq_tpu_torch.kernels import matmul as km
         self.counts[name] = self.counts.get(name, 0) + 1
-        core = ('cuda' if name in DW else None if kind is None else
+        core = ('cuda' if name in OWN_CORE else None if kind is None else
                 'sm90' if km.sm90_route(kind, k=k, n=n, ptr=0) is None
                 else 'mma')
         if core is not None:
@@ -393,12 +591,13 @@ def sm90_rule(name, args, kw):
 
 
 def cores_by_rule(calls):
-    """Launches per core that the rule names for recorded calls (D1 has
-    its own)."""
+    """Launches per core that the rule names for recorded calls (D1 and A1
+    have their own)."""
     out = {}
     for name, args, kw in calls:
-        if name in GEMM_KERNELS + list(DW):
-            core = ('cuda' if name in DW else 'sm90' if name in SM90_KERNELS
+        if name in GEMM_KERNELS + list(OWN_CORE):
+            core = ('cuda' if name in OWN_CORE else 'sm90'
+                    if name in SM90_KERNELS
                     and sm90_rule(name, args, kw) is None else 'mma')
             out[f'{name}@{core}'] = out.get(f'{name}@{core}', 0) + 1
     return out
@@ -418,8 +617,10 @@ def first_core():
 
 
 def kernel_modules():
-    from hawq_tpu_torch.kernels import conv, depthwise, matmul, pool, reduce
+    from hawq_tpu_torch.kernels import (avgpool, conv, depthwise, matmul,
+                                        pool, reduce)
     return {name: (pool if name in POOLS else
+                   avgpool if name == AVGPOOL else
                    reduce if name == MINMAX else
                    depthwise if name in DW else
                    conv if '_conv' in name else matmul) for name in KERNELS}
@@ -506,6 +707,9 @@ def plain_call(name, args, kw, stack=True):
     if name == DW_REQUANT:
         return kd.dwconv_requant_plain(*args, kw['stride'], kw['lo'],
                                        kw['hi'])
+    if name == AVGPOOL:
+        from hawq_tpu_torch.kernels.avgpool import avgpool3x3_requant_plain
+        return avgpool3x3_requant_plain(*args, kw['out_bits'], kw['signed'])
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
     return plain_gemm_call(name, args, kw)
 
@@ -546,6 +750,9 @@ def work(name, args, kw, out):
     nbytes += out.numel() * out.element_size()
     if name in POOLS + (MINMAX,):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
+    if name == AVGPOOL:             # 9 adds, a division, the requant
+        return nbytes, 0, ('x' + 'x'.join(map(str, args[0].shape)) + ' '
+                           + str(args[0].dtype).replace('torch.', ''))
     if name in DW:                  # 9 multiply-adds an output
         b, h, w, c = args[0].shape
         return (nbytes, 2 * 9 * out.numel(),
@@ -571,13 +778,22 @@ def library_call(name, args, kw):
     exists: torch._int_mm (int8 → int32 product, without bias or requant;
     int4 weights unpacked to int8 before the timing) under its shape
     rules, M ≤ 16 (the FC's 8 rows) with x zero-padded to 32 rows, whose
-    first M rows of the product are the same integers; torch.aminmax for
+    first M rows of the product are the same integers, and None where
+    cuBLASLt refuses the shape; torch.aminmax for
     the min/max.  None elsewhere (PyTorch has no int8 conv and no
     folded-layout pool); for D1 cuDNN's float32 grouped convolution (groups
     = C, TF32 off) on the same values, converted before the timing, which
-    is exact here (|acc| < 9·128·128 + |bias| ≪ 2²⁴)."""
+    is exact here (|acc| < 9·128·128 + |bias| ≪ 2²⁴); for A1
+    ``F.avg_pool2d`` with ``divisor_override=1`` (the window sum, without
+    the division and requant) on float32, converted before the timing,
+    exact here (|sum| ≤ 9·32767 < 2²⁴)."""
     if name == MINMAX:
         return lambda: torch.aminmax(args[0])
+    if name == AVGPOOL:
+        xf = args[0].permute(0, 3, 1, 2).float().contiguous(
+            memory_format=torch.channels_last)
+        return lambda: torch.nn.functional.avg_pool2d(xf, 3, 1, 1,
+                                                      divisor_override=1)
     if name in DW:
         return cudnn_depthwise(args[0], args[1], args[2], kw['stride'])
     if '_matmul' not in name:
@@ -588,7 +804,14 @@ def library_call(name, args, kw):
         return None
     if m <= 16:
         x = torch.cat([x, x.new_zeros((32 - m, k))])
-    return lambda: torch._int_mm(x, w)
+
+    def run():
+        return torch._int_mm(x, w)
+    try:
+        run()
+    except RuntimeError:        # cuBLASLt refuses some shapes (K 64, N 80)
+        return None
+    return run
 
 
 def cudnn_depthwise(x8, w8, bias, stride):
@@ -1162,7 +1385,7 @@ def time_calls(calls, totals):
                 ms = extra.pop('ms')
             else:
                 ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
-            if name in POOLS + DW:
+            if name in POOLS + OWN_CORE:
                 extra['cold_ms'] = cold_ms(
                     lambda *a: kernel_call(name, a, kw, False), args, 10)
             if name in DW:
@@ -1322,8 +1545,8 @@ def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
     wall = (time.perf_counter() - t0) / 10 * 1e3
     log(f'{phase}: {label}: logits and {", ".join(nodes)} == CPU engine (2 '
         f'images), launches {counts}, per core {cores}, {ms:.3f} ms/batch '
-        f'CUDA-event-timed, {wall:.3f} ms/batch host-timed (batch {BATCH}, '
-        f'{SIZE}x{SIZE})')
+        f'CUDA-event-timed, {wall:.3f} ms/batch host-timed (input '
+        f'{tuple(x.shape)} {str(x.dtype).replace("torch.", "")})')
     return eng, counts
 
 
@@ -1432,7 +1655,8 @@ def port_kernel(name):
     ' requant' for the matmul with the requant epilogue, ' acc' for the
     conv with the int32 one; ' int4' with packed weights; ' split-K' on the
     first core) /
-    'port: pool' / 'port: pool requant' / 'port: minmax' for the port's
+    'port: pool' / 'port: pool requant' / 'port: avgpool' / 'port: minmax'
+    / 'port: depthwise ...' for the port's
     kernels in a trace (demangled or mangled names), None for any other
     kernel."""
     for pattern in _SM90_TEMPLATE:
@@ -1455,6 +1679,8 @@ def port_kernel(name):
     if m:
         requant = m.group(1) in ('true', '1') or m.group(2) in ('true', '1')
         return 'port: depthwise ' + ('requant' if requant else 'acc')
+    if 'avgpool3x3_requant_kernel' in name:
+        return 'port: avgpool'
     if 'maxpool_folded_requant_kernel' in name:
         return 'port: pool requant'
     if 'maxpool_folded_kernel' in name:
@@ -1761,22 +1987,32 @@ def train_trace_breakdown(step, label, phase=7):
 
 def serving_engine(fm, dev):
     """The frozen artifact's family engine on float32 input → (engine, its
-    predicted Launches, the key of its output weight scale)."""
+    predicted Launches, the key of its output weight scale, the key of the
+    activation that feeds the head)."""
     from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
     from hawq_tpu_torch.inference.engine_mobilenet import (
         build_mobilenetv2_engine)
     from hawq_tpu_torch.inference.engine_v2 import build_resnet_v2_engine
     if fm.arch == 'mobilenetv2':
         return (build_mobilenetv2_engine(fm, input_hw=(SIZE, SIZE),
                                          device=dev),
-                expected_mobilenet_launches(fm, 'float32'), 'output')
+                expected_mobilenet_launches(fm, 'float32'), 'output',
+                'quant_act_output')
+    if fm.arch == 'inceptionv3':
+        return (build_inceptionv3_engine(fm, input_hw=(INC_SIZE, INC_SIZE),
+                                         device=dev),
+                expected_inception_launches(fm, 'float32'), 'output.q_fc',
+                'features.q_concat_activ')
     if fm.arch.endswith('v2'):
         return (build_resnet_v2_engine(fm, device=dev),
-                expected_v2_launches(fm), 'quant_output')
+                expected_v2_launches(fm), 'quant_output', 'quant_act_output')
     want = expected_launches(fm.arch, fm.cfg, 'float32')
     out = Launches()
     out.counts, out.cores = want, core_split(want)
-    return build_resnet_engine(fm, device=dev), out, 'quant_output'
+    return (build_resnet_engine(fm, device=dev), out, 'quant_output',
+            'quant_act_output')
 
 
 def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
@@ -1785,6 +2021,7 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
     from hawq_tpu_torch.train import trainer as tt
     from hawq_tpu_torch.train.data import synthetic_batches
     from hawq_tpu_torch.utils.checkpoint import load_frozen
+    size = TRAIN_SIZE.get(arch, SIZE)
     records, specs = [], []
     real = tt.make_train_step
 
@@ -1818,7 +2055,7 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
     with tempfile.TemporaryDirectory() as tmp:
         cfg = tt.TrainerConfig(
             arch=arch, scheme='uniform8', num_classes=1000,
-            image_size=SIZE, batch_size=batch_size, epochs=1,
+            image_size=size, batch_size=batch_size, epochs=1,
             steps_per_epoch=steps, fix_bn_threshold=fix_bn_threshold,
             calib_batches=calib, eval_batches=1, seed=0, save_path=tmp,
             device='cuda')
@@ -1835,7 +2072,7 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
             total = {k: v for k, v in _build.LAUNCHES.items() if v}
         finally:
             tt.make_train_step = real
-        label = f'{arch} uniform8 b{batch_size} {SIZE}x{SIZE}'
+        label = f'{arch} uniform8 b{batch_size} {size}x{size}'
         schedule = [i >= fix_bn_threshold for i in range(steps)]
         check([s['folded'] for s in records] == schedule,
               f'fix-BN schedule ran {[s["folded"] for s in records]}')
@@ -1870,10 +2107,10 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
     # the parity contract on the card: the frozen checkpoint through the
     # family's integer engine == the trainer's QAT eval logits, as integers
     images = torch.from_numpy(next(synthetic_batches(
-        batch_size, SIZE, 1000, 1, seed=10_000))['image']).to(dev)
+        batch_size, size, 1000, 1, seed=10_000))['image']).to(dev)
     with torch.no_grad():
         qat = trainer.model(images, folded=True, update_stats=False)
-    eng, want_eng, head = serving_engine(fm, dev)
+    eng, want_eng, head, head_act = serving_engine(fm, dev)
     _build.reset_launches()
     logits = eng(images)
     torch.cuda.synchronize()
@@ -1884,7 +2121,7 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
           f'checkpoint: launches per core {core_launches()}, expected '
           f'{want_eng.cores}')
     scale = (torch.from_numpy(fm[head + '.weight_scale']).to(dev).double()
-             * float(fm.act_scale('quant_act_output')))
+             * float(fm.act_scale(head_act)))
     qat_int = torch.round(qat.double() / scale)
     eng_int = torch.round(logits.double() / scale)
     check(qat.shape == (batch_size, 1000) and bool(torch.isfinite(qat).all()),
@@ -1899,7 +2136,7 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
 
     # steadier step times: a fixed batch, one warm-up, CUDA events
     batch = trainer._device_batch(next(synthetic_batches(
-        batch_size, SIZE, 1000, 1, seed=0)))
+        batch_size, size, 1000, 1, seed=0)))
     timed = {}
     for folded in (False, True):
         step = real(trainer.model, folded=folded)
@@ -1920,15 +2157,17 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
 
 
 def card_vs_cpu_step(arch, dev):
-    """One folded train step of ``arch`` (uniform8) at batch 2, 64×64 on
-    the card against the same step on the CPU from the same state."""
+    """One folded train step of ``arch`` (uniform8) at batch 2, 64×64
+    (InceptionV3: 75×75, its head dropout off) on the card against the same
+    step on the CPU from the same state."""
     from hawq_tpu_torch.models.resnet import qat_from_numpy, qat_to_numpy
-    from hawq_tpu_torch.nn.layers import capture_q_int
+    from hawq_tpu_torch.nn.layers import QuantDropout, capture_q_int
     from hawq_tpu_torch.train.train import (TrainState, make_train_step,
                                             sgd_with_step_decay)
     from hawq_tpu_torch.train.trainer import TrainerConfig, build_model
     rng = np.random.RandomState(4)
-    images = rng.randn(2, 64, 64, 3).astype(np.float32)
+    size = CARD_STEP_SIZE.get(arch, 64)
+    images = rng.randn(2, size, size, 3).astype(np.float32)
     labels = rng.randint(0, 1000, (2,))
     cpu, _ = build_model(TrainerConfig(arch=arch, seed=0))
     with torch.no_grad():
@@ -1936,6 +2175,10 @@ def card_vs_cpu_step(arch, dev):
             cpu(torch.from_numpy(images), folded=True, update_stats=True)
     card = qat_from_numpy(build_model(TrainerConfig(arch=arch, seed=1))[0]
                           .to(dev), qat_to_numpy(cpu))
+    for model in (cpu, card):       # InceptionV3's head dropout off: the
+        for m in model.modules():   # two devices' generators draw other masks
+            if isinstance(m, QuantDropout):
+                m.rate = 0.0
     out = {}
     for name, model, device in (('cpu', cpu, 'cpu'), ('card', card, dev)):
         state = TrainState.create(model, sgd_with_step_decay(model, 1e-4))
@@ -1968,7 +2211,8 @@ def card_vs_cpu_step(arch, dev):
         worst = max(worst, float((got - want).abs().max()
                                  / (want.abs().max() + 1e-30)))
     log(f"phase {TRAIN_PHASE[arch]}: one folded step of {arch} uniform8 b2 "
-        f"64x64 on the card == on the CPU: {len(out['cpu']['q'])} q_int "
+        f"{size}x{size} on the card == on the CPU: "
+        f"{len(out['cpu']['q'])} q_int "
         f"tensors and {len(out['cpu']['ranges'])} ranges bit-equal, loss "
         f"{out['card']['loss']:.6f} vs {out['cpu']['loss']:.6f}, "
         f"{len(out['cpu']['grads'])} gradient leaves within rtol 1e-3 "
@@ -2359,6 +2603,15 @@ def main():
     totals[DW_ACC] = mnv2_totals[DW_ACC]
     training_phase('resnet50v2', errs, dev, timed=(), steps=2,
                    fix_bn_threshold=1, calib=1)
+
+    # ---- phase 11: InceptionV3 serving, A1 ----
+    inc_counts, inc_totals = inception_phase(dev, errs, totals)
+    launches[AVGPOOL] = inc_counts[AVGPOOL]
+
+    # ---- phase 12: InceptionV3 training ----
+    inc_train_launches, _, inc_batch = training_phase(
+        'inceptionv3', errs, dev, timed=(), steps=2, fix_bn_threshold=1,
+        calib=1)
     train_label = f'QAT train step resnet50 uniform8 b{train_batch} ' \
                   f'{SIZE}x{SIZE}'
     labels = {name: f'{arch} {scheme} folded_float32 int16 b{BATCH} '
@@ -2376,8 +2629,13 @@ def main():
                           f'b{BATCH} {SIZE}x{SIZE}')
     labels[DW_ACC] = (f'QAT train step mobilenetv2_w1 uniform8 '
                       f'b{mnv2_batch} {SIZE}x{SIZE}')
+    labels[AVGPOOL] = (f'inceptionv3 {INC_PATHS[0][0]} {INC_PATHS[0][1]} '
+                       f'int32 b{BATCH} {INC_SIZE}x{INC_SIZE}')
+    inc_train_label = (f'QAT train step inceptionv3 uniform8 b{inc_batch} '
+                       f'{TRAIN_SIZE["inceptionv3"]}x'
+                       f'{TRAIN_SIZE["inceptionv3"]}')
 
-    # ---- phase 11 ----
+    # ---- phase 13 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -2400,8 +2658,22 @@ def main():
             if name.startswith('int4w'):
                 entry[f'{twin_name(name)}_on_unpacked_weights_ms'] = t[
                     'int8_twin_ms']
-        if name in POOLS + DW:  # ms: the input L2-resident between launches
+        if name in POOLS + OWN_CORE:  # ms: the input L2-resident
             entry['cold_ms'] = t['cold_ms']
+        if name in INC_GEMMS:
+            # the InceptionV3 engine's main path (phase 11)
+            it = inc_totals[name]
+            entry.update(inception_path=labels[AVGPOOL],
+                         inception_launches=inc_counts[name],
+                         inception_ms=it['ms'],
+                         inception_plain_ms=it['plain_ms'],
+                         inception_bound_ms=it['bound_ms'],
+                         inception_library_ms=(it['library_ms']
+                                               if it['library_ok'] else None),
+                         inception_old_ms=it['old_ms'])
+        if name in ('int8_conv_acc', 'int8_matmul_acc', MINMAX):
+            entry.update(inception_train_path=inc_train_label,
+                         inception_train_launches=inc_train_launches[name])
         if name == KBLOCKED:
             entry['smallest_launch_ms'] = launch_floor
         if name != MINMAX and name in train_totals:
@@ -2417,7 +2689,7 @@ def main():
                 entry.update(train_old_ms=tt['old_ms'],
                              train_weight_layout_ms=tt['prep_ms'])
         kernels.append(entry)
-    log(f'phase 11: all phases passed in '
+    log(f'phase 13: all phases passed in '
         f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '

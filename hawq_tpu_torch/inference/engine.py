@@ -12,8 +12,10 @@ CPU device the kernels' plain versions run instead):
 
   * 1×1 convs → ``int8_matmul_requant`` / ``int8_matmul_acc``; stride 2 is a
     slice, made contiguous, then the matmul;
-  * 3×3 convs → ``int8_conv_requant`` / ``int8_conv_acc``; stride 2 through
-    the space-to-depth rewrite;
+  * 3×3 convs → ``int8_conv_requant`` / ``int8_conv_acc`` by the geometry
+    of ``kernels.conv.conv_call`` (``IntEngine._conv_kxk``, which takes any
+    k×k kernel and per-axis border); stride 2 through the space-to-depth
+    rewrite;
   * every unit conv whose weights are 4-bit (``cfg.weight_bits(key) == 4``,
     the reference's rule with ``routing=None``) takes the ``int4w_*`` form of
     the same kernel instead, with its weights nibble-packed once on the host
@@ -35,7 +37,7 @@ CPU device the kernels' plain versions run instead):
     cached in that core's K-major layout (``prepare_weights``; the 4-bit
     convs' and 1×1 convs' ``prepare_weights_int4``, still nibble-packed),
     on a CPU device too, where the wrappers then run the plain versions of
-    that core's walk; the stride-1 3×3 convs among them take unpadded
+    that core's walk; the stride-1 k×k convs among them take unpadded
     activations (TMA supplies the zero border).
 
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
@@ -68,14 +70,17 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def maxpool_int(x: torch.Tensor) -> torch.Tensor:
-    """3×3/s2/p1 max-pool of an NHWC integer tensor, exactly at any
-    magnitude: the maximum over a window's three columns, then over its
-    three rows, of strided slices, the border the dtype minimum (the
-    reference's ``reduce_window`` init)."""
+def maxpool_int(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+    """3×3/s2 max-pool of an NHWC integer tensor with a border of ``pad``
+    (1, or 0 for VALID), exactly at any magnitude: the maximum over a
+    window's three columns, then over its three rows, of strided slices,
+    the border the dtype minimum (the reference's ``reduce_window`` init)."""
     b, h, w, c = x.shape
-    oh, ow = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=torch.iinfo(x.dtype).min)
+    oh, ow = (h + 2 * pad - 3) // 2 + 1, (w + 2 * pad - 3) // 2 + 1
+    xp = x
+    if pad:
+        xp = F.pad(x, (0, 0, pad, pad, pad, pad),
+                   value=torch.iinfo(x.dtype).min)
     cols = xp[:, :, 0:2 * ow - 1:2]
     for dx in (1, 2):
         cols = torch.maximum(cols, xp[:, :, dx:dx + 2 * ow - 1:2])
@@ -96,8 +101,9 @@ def engine_device(device) -> torch.device:
 class IntEngine:
     """What the integer engines share: the frozen model and its device
     constants (weights laid out for the kernels, dyadic multipliers), the
-    1×1 and 3×3 conv routes, the raw init conv through space-to-depth, and
-    the checks of a call.  Subclasses define ``_forward``."""
+    1×1 and k×k conv routes (the raw init convs through space-to-depth
+    among them), and the checks of a call.  Subclasses define
+    ``_forward``."""
 
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  input_modes, input_mode: str, residual_dtype: torch.dtype,
@@ -177,21 +183,22 @@ class IntEngine:
             self._w[key] = (wd, self._dev(self.fm[key + '.bias_int']))
         return self._w[key]
 
-    def _conv_w(self, key: str, stride: int, int4: bool, requant: bool):
-        """Flattened conv weights (space-to-depth for stride 2; per-tap
-        nibble-packed with ``int4``), taps, cin, bias.  They are prepared
-        for the Hopper core, the packed ones still packed, where its rule
-        takes the widths (kind 'conv' for the weights of
-        ``int8_conv_requant`` / ``int4w_conv_requant``, with ``requant``,
-        else 'conv_acc')."""
+    def _conv_w(self, key: str, stride: int, pad: Tuple[int, int],
+                int4: bool, requant: bool):
+        """Flattened conv weights (rewritten for ``stride`` by
+        ``kernels.conv.conv_call_kernel``; per-tap nibble-packed with
+        ``int4``), taps, cin, bias.  They are prepared for the Hopper core,
+        the packed ones still packed, where its rule takes the widths (kind
+        'conv' for the weights of ``int8_conv_requant`` /
+        ``int4w_conv_requant``, with ``requant``, else 'conv_acc'), for
+        calls with ``pad``, the border :func:`kernels.conv.conv_call` leaves
+        to the kernel."""
         if (key, stride) not in self._w:
-            w = np.asarray(self.fm[key + '.weight_int'])
-            if stride == 2:
-                w = kc.s2d_kernel(w)
-            # the stride-1 convs leave their border to TMA (``_conv3x3``)
+            w = kc.conv_call_kernel(np.asarray(self.fm[key + '.weight_int']),
+                                    (stride, stride))
             self._w[key, stride] = self._conv_weights(
                 w, self.fm[key + '.bias_int'], 'conv' if requant else
-                'conv_acc', (1, 1) if stride == 1 else (0, 0), int4)
+                'conv_acc', pad, int4)
         return self._w[key, stride]
 
     def _conv_weights(self, w: np.ndarray, bias: np.ndarray, kind: str,
@@ -208,25 +215,27 @@ class IntEngine:
             wd = kc.prepare_conv_weights(wd, taps, w.shape[2], pad, int4)
         return wd, taps, w.shape[2], self._dev(bias)
 
-    def _init_s2d(self, x8: torch.Tensor, key: str, k: int,
-                  pad: int) -> torch.Tensor:
-        """The k×k/s2 init conv (pad ``pad``) on raw int8 images → int32
-        accumulator + bias, through its space-to-depth rewrite: the image's
-        3 channels and the weights' zero-padded to 4, so that the rewrite's
-        C = 16 meets the Hopper core's rule (zero activations meet zero
-        weights)."""
+    def _fold3x3s2_acc(self, x8: torch.Tensor, key: str) -> torch.Tensor:
+        """The 3×3/s2 conv ``key`` over host-folded images
+        (``inference.fold.fold4_images_3x3s2``; ``self.fold_hw`` their
+        folded size) as its 2×2/s1 rewrite through ``int8_conv_acc`` (C =
+        48, 4·N outputs) → the int32 accumulator + bias in the fold's (py,
+        px, n) channel order."""
+        b = x8.shape[0]
+        fh, fw = self.fold_hw
+        if tuple(x8.shape[1:3]) != (fh, fw):
+            raise ValueError(f'folded input {tuple(x8.shape[1:3])} does not '
+                             f'match input_hw: expected {(fh, fw)} folded '
+                             f'rows')
         if 'init' not in self._w:
             w = np.asarray(self.fm[key + '.weight_int'])
-            w = kc.s2d_kernel(np.pad(w, ((0, 0), (0, 0), (0, 1), (0, 0))))
-            self._w['init'] = self._conv_weights(w, self.fm[key + '.bias_int'],
-                                                 'conv_acc', (0, 0))
+            self._w['init'] = self._conv_weights(
+                _fold.fold4_kernel_3x3s2(w),
+                _fold.tile4(self.fm[key + '.bias_int']), 'conv_acc', (0, 0))
         wf, taps, cin, bias = self._w['init']
-        b, h, w, _ = x8.shape
-        oh, ow = kc.s2d_output_hw(h, w, k, k, pad)
-        xp = kc.prepare_conv_input(kc.s2d_input(F.pad(x8, (0, 1)), pad),
-                                   (0, 0))
-        return kc.int8_conv_acc(xp, wf, bias, taps=taps, out_hw=(oh, ow),
-                                cin=cin).reshape(b, oh, ow, -1)
+        return kc.int8_conv_acc(kc.prepare_conv_input(x8, (0, 0)), wf, bias,
+                                taps=taps, out_hw=(fh - 1, fw - 1),
+                                cin=cin).reshape(b, fh - 1, fw - 1, -1)
 
     def _quantize_float(self, images: torch.Tensor) -> torch.Tensor:
         """float32 images (or a folded layout) → the int8 input integers,
@@ -237,22 +246,20 @@ class IntEngine:
                            -128, 127).to(torch.int8)
 
     # -- layers -------------------------------------------------------------
-    def _conv3x3(self, x8, key, stride, mult=None, bits=8, signed=True):
-        """3×3/pad-1 conv: requant+ReLU to int8, or (mult None) int32 acc."""
-        b, h, w, c = x8.shape
+    def _conv_kxk(self, x8, key, stride, mult=None, bits=8, signed=True, *,
+                  pad=1):
+        """k×k conv (the taps of the frozen weights) with stride 1 or 2 and
+        ``pad`` rows and columns of zero border (an int, or (ph, pw)), by
+        the geometry of ``kernels.conv.conv_call``: requant+ReLU to int8,
+        or (mult None) the int32 accumulator + bias."""
+        b = x8.shape[0]
+        ph, pw = (pad, pad) if isinstance(pad, int) else pad
+        kh, kw = self.fm[key + '.weight_int'].shape[:2]
+        xp, geo = kc.conv_call(x8, (kh, kw), (stride, stride),
+                               ((ph, ph), (pw, pw)))
         int4 = self._int4(key)
-        wf, taps, cin, bias = self._conv_w(key, stride, int4,
+        wf, taps, cin, bias = self._conv_w(key, stride, geo['pad'], int4,
                                            requant=mult is not None)
-        oh, ow, pad = h, w, (0, 0)
-        if stride == 1 and isinstance(wf, km.PreparedWeights):
-            # the Hopper core's conv: TMA supplies the zero border
-            xp, pad = x8.contiguous().reshape(b, h, w * c), (1, 1)
-        elif stride == 2:
-            oh, ow = kc.s2d_output_hw(h, w, 3, 3, 1)
-            xp = kc.prepare_conv_input(kc.s2d_input(x8, 1), (0, 0))
-        else:
-            xp = kc.prepare_conv_input(x8, (1, 1))
-        geo = dict(taps=taps, out_hw=(oh, ow), cin=cin, pad=pad)
         if mult is None:
             fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
             y = fn(xp, wf, bias, **geo)
@@ -260,7 +267,7 @@ class IntEngine:
             fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
             y = fn(xp, wf, bias, mult, out_bits=bits, signed=signed,
                    relu=True, **geo)
-        return y.reshape(b, oh, ow, -1)
+        return y.reshape(b, *geo['out_hw'], -1)
 
     def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
         """1×1 conv as a matmul: requant+ReLU to int8, or int32 acc."""
@@ -382,7 +389,7 @@ class ResnetEngine(IntEngine):
                                    taps=taps, out_hw=(oh, ow),
                                    cin=cin).reshape(b, oh, ow, -1)
         else:
-            acc = self._init_s2d(x8, self.init_key, 7, 3)
+            acc = self._conv_kxk(x8, self.init_key, 2, pad=3)
         # requant + ReLU before the pool (monotone, so it commutes with the
         # training graph's pool → requant → relu order); on the folded path
         # one kernel requantizes each value of a window, then takes the max
@@ -426,15 +433,15 @@ class ResnetEngine(IntEngine):
                 emit(f'{p}.conv1', h)
                 sa2, ba2, sg2 = self.act_info(f'{p}.quant_act2')
                 mult = self.requant_mult(f'{p}.a2', acc_scale, sa2)
-                h = self._conv3x3(h, key2, s2, mult, ba2, sg2)
+                h = self._conv_kxk(h, key2, s2, mult, ba2, sg2)
                 emit(f'{p}.conv2', h)
                 key3 = f'{p}.quant_convbn3'
                 acc_scale = self._scale(key3, sa2)
                 acc = self._conv1x1(h, key3, 1)
             else:
-                h = self._conv3x3(xa, key1, stride, mult, ba1, sg1)
+                h = self._conv_kxk(xa, key1, stride, mult, ba1, sg1)
                 emit(f'{p}.conv1', h)
-                acc = self._conv3x3(h, key2, 1)
+                acc = self._conv_kxk(h, key2, 1)
 
             # residual requant-add at 16-bit precision; the unclamped sum
             # stays int32 until the ReLU and the int16 clamp

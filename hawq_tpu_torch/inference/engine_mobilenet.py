@@ -41,7 +41,6 @@ import torch
 from hawq_tpu_torch.inference import fold as _fold
 from hawq_tpu_torch.inference.engine import IntEngine, engine_device
 from hawq_tpu_torch.inference.freeze import FrozenModel
-from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import depthwise as kd
 from hawq_tpu_torch.models.mobilenetv2 import unit_plan
 from hawq_tpu_torch.quant import ops as qops
@@ -70,12 +69,6 @@ def stages_from_frozen(fm: FrozenModel):
     return tuple(tuple(units[i, j] for j in sorted(j for i2, j in units
                                                    if i2 == i))
                  for i in sorted({i for i, _ in units}))
-
-
-def _t4(a) -> np.ndarray:
-    """A per-channel vector tiled over the fold's 4 stride-2 origins."""
-    a = np.asarray(a)
-    return np.tile(a, 4) if a.size > 1 else a
 
 
 class MobilenetEngine(IntEngine):
@@ -111,30 +104,16 @@ class MobilenetEngine(IntEngine):
     def _init_block(self, x8: torch.Tensor, acc_scale, s16, b16, sg16):
         """The init conv, ReLU6 and requant to the carrier."""
         if not self.folded:
-            acc = self._init_s2d(x8, 'init_block', 3, 1)
+            acc = self._conv_kxk(x8, 'init_block', 2)
             acc = self._relu6(acc, 'init', acc_scale)
             return qops.requant_int32(
                 acc, self.requant_mult('init_rq', acc_scale, s16), b16, sg16,
                 self.res_dt)
-        b = x8.shape[0]
-        fh, fw = self.fold_hw
-        if tuple(x8.shape[1:3]) != (fh, fw):
-            raise ValueError(f'folded input {tuple(x8.shape[1:3])} does not '
-                             f'match input_hw: expected {(fh, fw)} folded '
-                             f'rows')
-        if 'init' not in self._w:
-            w = np.asarray(self.fm['init_block.weight_int'])
-            self._w['init'] = self._conv_weights(
-                _fold.fold4_kernel_3x3s2(w),
-                _t4(self.fm['init_block.bias_int']), 'conv_acc', (0, 0))
-        wf, taps, cin, bias = self._w['init']
-        acc = kc.int8_conv_acc(kc.prepare_conv_input(x8, (0, 0)), wf, bias,
-                               taps=taps, out_hw=(fh - 1, fw - 1),
-                               cin=cin).reshape(b, fh - 1, fw - 1, -1)
-        acc = self._relu6(acc, 'init', _t4(acc_scale))
+        acc = self._fold3x3s2_acc(x8, 'init_block')
+        acc = self._relu6(acc, 'init', _fold.tile4(acc_scale))
         xq = qops.requant_int32(
-            acc, self.requant_mult('init_rq_f', _t4(acc_scale), s16), b16,
-            sg16, self.res_dt)
+            acc, self.requant_mult('init_rq_f', _fold.tile4(acc_scale), s16),
+            b16, sg16, self.res_dt)
         oh, ow = self.out_hw
         return _fold.depth_to_space_2x2(xq)[:, :oh, :ow, :].contiguous()
 

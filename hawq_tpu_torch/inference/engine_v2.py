@@ -169,7 +169,8 @@ class ResnetV2Engine(IntEngine):
         x8 = self._quantize_float(images)
         emit('input', x8)
 
-        acc = torch.clamp_min(self._init_s2d(x8, 'quant_init_conv', 7, 3), 0)
+        acc = torch.clamp_min(
+            self._conv_kxk(x8, 'quant_init_conv', 2, pad=3), 0)
         acc = maxpool_int(acc)
         s16, b16, sg16 = self.act_info('quant_act_int32')
         mult = self.requant_mult('init_rq', self._scale('quant_init_conv',
@@ -200,19 +201,19 @@ class ResnetV2Engine(IntEngine):
             key1, key2 = f'{p}.quant_conv1', f'{p}.quant_conv2'
             sa1, ba1, sg1 = self.act_info(f'{p}.quant_act1')
             mult = self.requant_mult(f'{p}.a1', self._scale(key1, sa), sa1)
-            conv1 = self._conv1x1 if self.bottleneck else self._conv3x3
+            conv1 = self._conv1x1 if self.bottleneck else self._conv_kxk
             h = conv1(pre, key1, stride, mult, ba1, sg1)
             emit(f'{p}.conv1', h)
             acc_scale = self._scale(key2, sa1)
             if self.bottleneck:
                 sa2, ba2, sg2 = self.act_info(f'{p}.quant_act2')
                 mult = self.requant_mult(f'{p}.a2', acc_scale, sa2)
-                h = self._conv3x3(h, key2, 1, mult, ba2, sg2)
+                h = self._conv_kxk(h, key2, 1, mult, ba2, sg2)
                 key3 = f'{p}.quant_conv3'
                 acc = self._conv1x1(h, key3, 1)
                 acc_scale = self._scale(key3, sa2)
             else:
-                acc = self._conv3x3(h, key2, 1)
+                acc = self._conv_kxk(h, key2, 1)
 
             s_out = self.act_info(f'{p}.quant_act_int32')[0]
             x = qops.requant_add_int32(

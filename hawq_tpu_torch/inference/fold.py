@@ -117,6 +117,13 @@ def fold4_kernel_3x3s2(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(2, 2, 16 * c, 4 * n))
 
 
+def tile4(a) -> np.ndarray:
+    """A per-channel vector tiled over the fold's 4 stride-2 origins (a
+    scalar as it is): the bias and multipliers of a folded 3×3/s2 conv."""
+    a = np.asarray(a)
+    return np.tile(a, 4) if a.size > 1 else a
+
+
 def depth_to_space_2x2(acc):
     """(B, H/4, W/4, 4N) folded conv output → (B, H/2, W/2, N), of a numpy
     array or a tensor."""

@@ -1,5 +1,6 @@
 """Synthetic frozen models for latency runs and compile checks (port of
-hawq_tpu/inference/synthetic.py: ResNet v1 and v2, MobileNetV2).
+hawq_tpu/inference/synthetic.py: ResNet v1 and v2, MobileNetV2,
+InceptionV3).
 
 Random integer weights and plausible scales from a numpy seed; the same
 seed gives tensors identical to the reference's.
@@ -200,4 +201,55 @@ def synthetic_frozen_mobilenet(cfg: BitConfig, num_classes: int = 1000,
     g.act('quant_act_output')
     g.conv('output', 1, 1, final_ch, num_classes)      # the 1×1 conv head
     return FrozenModel(arch='mobilenetv2', cfg=cfg, tensors=g.tensors,
+                       num_classes=num_classes)
+
+
+def synthetic_frozen_inception(cfg: BitConfig, num_classes: int = 1000,
+                               width_div: int = 1,
+                               seed: int = 0) -> FrozenModel:
+    """Random-integer FrozenModel in freeze_inceptionv3's namespace,
+    walking the branch specifications of ``models.inceptionv3.build_unit``
+    that the model, the freezer and the engine share."""
+    from hawq_tpu_torch.models import inceptionv3 as mi
+    g = _TensorGen(cfg, seed)
+
+    def incept_conv(prefix, kh, kw, cin, cout):
+        g.conv(f'{prefix}.q_convbn', kh, kw, cin, cout)
+        g.act(f'{prefix}.q_activ')
+
+    ip = 'features.q_init_block'
+    g.act(f'{ip}.q_input_activ')
+    cin = 3
+    for c, (ch, (_, k, _, _)) in enumerate(
+            zip(mi.init_channels(width_div), mi.INIT_CONVS), start=1):
+        incept_conv(f'{ip}.q_conv{c}', k, k, cin, ch)
+        cin = ch
+
+    in_ch = cin
+    for _, _, unit in mi.units(width_div):
+        for name, kind, kwargs in unit.branch_defs:
+            bp = f'{unit.prefix}.branches.{name}'
+            g.act(f'{bp}.q_input_act')
+            if kind == mi.AVG_POOL:
+                g.act(f'{bp}.q_pool_act')
+            if kind in (mi.CONV1X1, mi.AVG_POOL):
+                incept_conv(f'{bp}.q_conv', 1, 1, in_ch, kwargs['features'])
+            elif kind in (mi.CONV_SEQ, mi.CONV_SEQ_3X3):
+                c_in = in_ch
+                for c, (oc, kz) in enumerate(
+                        zip(kwargs['out_channels'], kwargs['kernels']),
+                        start=1):
+                    incept_conv(f'{bp}.q_conv_list.q_conv{c}',
+                                *mi._ksize(kz), c_in, oc)
+                    c_in = oc
+                if kind == mi.CONV_SEQ_3X3:
+                    incept_conv(f'{bp}.q_conv1x3', 1, 3, c_in, c_in)
+                    incept_conv(f'{bp}.q_conv3x1', 3, 1, c_in, c_in)
+                    g.act(f'{bp}.q_rescaling_activ')
+        g.act(f'{unit.prefix}.q_rescaling_activ')
+        in_ch = mi.unit_out_channels(unit, in_ch)
+
+    g.act('features.q_concat_activ')
+    g.dense('output.q_fc', in_ch, num_classes)
+    return FrozenModel(arch='inceptionv3', cfg=cfg, tensors=g.tensors,
                        num_classes=num_classes)

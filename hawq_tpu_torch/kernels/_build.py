@@ -54,13 +54,15 @@ _SIGNATURES = {
     'hawq_maxpool_folded_requant': [_P] * 3 + [_I] * 8 + [_P],
     'hawq_dwconv_acc': [_P] * 4 + [_I] * 11 + [_P],
     'hawq_dwconv_requant': [_P] * 6 + [_I] * 13 + [_P],
+    'hawq_avgpool3x3_requant': [_P] * 3 + [_I] * 9 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }
 
 # Launch counts per wrapper, and per wrapper and core ('name@sm90' for
 # csrc/gemm_s8_sm90.cuh, 'name@mma' for csrc/gemm_s8.cuh, 'name@cuda' for
-# D1's own kernel in csrc/depthwise.cu); reset with reset_launches().
+# D1's own kernel in csrc/depthwise.cu and A1's in csrc/avgpool.cu); reset
+# with reset_launches().
 LAUNCHES: Dict[str, int] = {}
 CORE_LAUNCHES: Dict[str, int] = {}
 

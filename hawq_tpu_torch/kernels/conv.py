@@ -135,6 +135,75 @@ def s2d_output_hw(h: int, w: int, kh: int, kw: int, pad: int
     return ((h + 2 * pad - kh) // 2 + 1, (w + 2 * pad - kw) // 2 + 1)
 
 
+def pad_nhwc(x: torch.Tensor, pad, value=0) -> torch.Tensor:
+    """Pad an NHWC tensor by ((top, bottom), (left, right)) with ``value``
+    (zero by default)."""
+    (t, b), (l, r) = pad
+    if t or b or l or r:
+        return F.pad(x, (0, 0, l, r, t, b), value=value)
+    return x
+
+
+def conv_call(x8: torch.Tensor, taps: Tuple[int, int],
+              strides: Tuple[int, int], pad):
+    """How the stride-1 conv kernels run a k×k int8 conv of the NHWC
+    ``x8`` with a ``taps`` = (kh, kw) kernel, ``strides`` and ``pad`` =
+    ((top, bottom), (left, right)) → (xp, geometry), the geometry being the
+    keywords ``taps``, ``out_hw``, ``cin`` and ``pad`` of ``int8_conv_*``
+    for the weights :func:`conv_call_kernel` rewrites:
+
+      * stride 1 with a symmetric border on each axis: the unpadded
+        activations, the border passed on as ``pad`` (TMA's zero fill on
+        the Hopper core; elsewhere the wrapper pads a copy);
+      * stride 1 otherwise: the padded slab;
+      * stride 2: the space-to-depth rewrite of the padded input, its C
+        zero-filled to a multiple of 4 first, so that the rewrite's 4·C
+        meets the Hopper core's C % 16 (zero activations meet zero
+        weights; the RGB image's 3 → 4), cut or zero-extended to the rows
+        and columns the rewritten kernel reads (an even kernel size gains a
+        zero tap, and with it one more zero row or column of input).
+
+    The engines and the QAT layers' integer conv both take this route."""
+    kh, kw = taps
+    (t, bo), (l, r) = pad
+    b, h, w, c = x8.shape
+    sh, sw = strides
+    if (sh, sw) == (1, 1):
+        oh, ow = h + t + bo - kh + 1, w + l + r - kw + 1
+        if t == bo and l == r:
+            return (x8.contiguous().reshape(b, h, w * c),
+                    dict(taps=(kh, kw), out_hw=(oh, ow), cin=c, pad=(t, l)))
+        return (prepare_conv_input(pad_nhwc(x8, pad), (0, 0)),
+                dict(taps=(kh, kw), out_hw=(oh, ow), cin=c, pad=(0, 0)))
+    if (sh, sw) != (2, 2):
+        raise NotImplementedError(
+            f'conv_call: strides {strides} with a {kh}×{kw} kernel (the '
+            f'integer conv kernels run stride 1, and stride 2 through '
+            f'space-to-depth)')
+    dc = -c % 4
+    oh, ow = s2d_output_hw(h + t + bo, w + l + r, kh, kw, 0)
+    a, b2 = (kh + 2) // 2, (kw + 2) // 2
+    xs = s2d_input(F.pad(x8, (0, dc, l, r, t, bo)), 0)
+    xs = xs[:, :oh + a - 1, :ow + b2 - 1]
+    xs = pad_nhwc(xs, ((0, oh + a - 1 - xs.shape[1]),
+                        (0, ow + b2 - 1 - xs.shape[2])))
+    return (prepare_conv_input(xs, (0, 0)),
+            dict(taps=(a, b2), out_hw=(oh, ow), cin=4 * (c + dc),
+                 pad=(0, 0)))
+
+
+def conv_call_kernel(w, strides: Tuple[int, int]):
+    """The HWIO kernel (numpy or torch, on its own device) rewritten for
+    :func:`conv_call`'s geometry: as it is at stride 1; at stride 2 its C
+    zero-filled to a multiple of 4, then the space-to-depth rewrite."""
+    if tuple(strides) == (1, 1):
+        return w
+    dc = -w.shape[2] % 4
+    if isinstance(w, np.ndarray):
+        return s2d_kernel(np.pad(w, ((0, 0), (0, 0), (0, dc), (0, 0))))
+    return s2d_kernel_torch(F.pad(w, (0, 0, 0, dc)))
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------

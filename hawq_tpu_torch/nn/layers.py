@@ -130,71 +130,29 @@ def resolve_padding(padding: Any, in_hw: Tuple[int, int],
     return (int(t), int(b)), (int(l), int(r))
 
 
-def _pad_nhwc(x: torch.Tensor, pad, value=0) -> torch.Tensor:
-    (t, b), (l, r) = pad
-    if t or b or l or r:
-        return F.pad(x, (0, 0, l, r, t, b), value=value)
-    return x
-
-
-def _fit_hw(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Crop or zero-pad an NHWC tensor at the end to (h, w)."""
-    x = x[:, :h, :w, :]
-    return _pad_nhwc(x, ((0, h - x.shape[1]), (0, w - x.shape[2])))
-
-
 def _int_conv_acc(x8: torch.Tensor, w8: torch.Tensor, b32: torch.Tensor,
                   strides: Tuple[int, int], pad) -> torch.Tensor:
     """int8 NHWC × int8 HWIO + int32 bias → int32 NHWC through the
     accumulator kernels (their plain versions on the CPU): a 1×1 conv is a
-    strided slice and ``int8_matmul_acc``; a k×k conv ``int8_conv_acc``,
-    stride 1 with a symmetric border on the unpadded activations (``pad=``:
-    the Hopper core's TMA supplies the border), stride 2 through the
-    space-to-depth rewrite."""
+    strided slice and ``int8_matmul_acc``; a k×k conv ``int8_conv_acc`` by
+    the geometry of ``kernels.conv.conv_call`` (stride 1 with a symmetric
+    border on the unpadded activations, the Hopper core's TMA supplying the
+    border; stride 2 through the space-to-depth rewrite)."""
     kh, kw, cin, cout = w8.shape
-    sh, sw = strides
-    (t, bo), (l, r) = pad
-    b, h, w = x8.shape[:3]
+    b = x8.shape[0]
     if (kh, kw) == (1, 1):
-        x8 = _pad_nhwc(x8, pad)
-        if (sh, sw) != (1, 1):
-            x8 = x8[:, ::sh, ::sw, :]
+        x8 = kc.pad_nhwc(x8, pad)
+        if tuple(strides) != (1, 1):
+            x8 = x8[:, ::strides[0], ::strides[1], :]
         x8 = x8.contiguous()
         oh, ow = x8.shape[1:3]
         acc = km.int8_matmul_acc(x8.reshape(b * oh * ow, cin),
                                  w8.reshape(cin, cout).contiguous(), b32)
         return acc.reshape(b, oh, ow, cout)
-    border = (0, 0)
-    if (sh, sw) == (1, 1) and t == bo and l == r:
-        oh, ow = h + 2 * t - kh + 1, w + 2 * l - kw + 1
-        xp, border = x8.contiguous().reshape(b, h, w * cin), (t, l)
-    elif (sh, sw) == (1, 1):
-        x8 = _pad_nhwc(x8, pad)
-        oh, ow = x8.shape[1] - kh + 1, x8.shape[2] - kw + 1
-        xp = kc.prepare_conv_input(x8, (0, 0))
-    elif (sh, sw) == (2, 2):
-        # C zero-filled to a multiple of 4, so that the rewrite's 4·C meets
-        # the Hopper core's C % 16 (the RGB init: 3 → 4); zero activations
-        # meet zero weights
-        dc = -cin % 4
-        x8 = F.pad(x8, (0, dc, l, r, t, bo))
-        w8 = F.pad(w8, (0, 0, 0, dc))
-        oh, ow = kc.s2d_output_hw(h + t + bo, w + l + r, kh, kw, 0)
-        w8 = kc.s2d_kernel_torch(w8)
-        # an even kernel size gains a zero tap in the rewrite, and with it
-        # one more (zero) row or column of input
-        xp = kc.prepare_conv_input(
-            _fit_hw(kc.s2d_input(x8, 0), oh + w8.shape[0] - 1,
-                    ow + w8.shape[1] - 1), (0, 0))
-    else:
-        raise NotImplementedError(
-            f'int_conv2d: strides {strides} with a {kh}×{kw} kernel (the '
-            f'integer conv kernel runs stride 1, and stride 2 through '
-            f'space-to-depth)')
-    taps, c_eff = tuple(w8.shape[:2]), w8.shape[2]
-    acc = kc.int8_conv_acc(xp, kc.flatten_conv_kernel_torch(w8), b32,
-                           taps=taps, out_hw=(oh, ow), cin=c_eff, pad=border)
-    return acc.reshape(b, oh, ow, cout)
+    xp, geo = kc.conv_call(x8, (kh, kw), strides, pad)
+    w8 = kc.conv_call_kernel(w8, strides)
+    acc = kc.int8_conv_acc(xp, kc.flatten_conv_kernel_torch(w8), b32, **geo)
+    return acc.reshape(b, *geo['out_hw'], cout)
 
 
 def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
@@ -261,7 +219,7 @@ class _IntConv2d(torch.autograd.Function):
         (t, b), (l, r) = pad
         symmetric = t == b and l == r
         # NHWC storage seen as NCHW channels_last: no layout copy
-        x = (x_int if symmetric else _pad_nhwc(x_int, pad)).to(dt).permute(
+        x = (x_int if symmetric else kc.pad_nhwc(x_int, pad)).to(dt).permute(
             0, 3, 1, 2)
         w = w_int.to(dt).permute(3, 2, 0, 1)
         gd = g.to(dt).permute(0, 3, 1, 2)
@@ -779,7 +737,7 @@ class QuantDropout(nn.Module):
 
 def _pool_nhwc(fn, x, window, strides, padding, pad_value):
     pad = resolve_padding(padding, x.shape[1:3], window, strides)
-    y = fn(_pad_nhwc(x, pad, pad_value).permute(0, 3, 1, 2), tuple(window),
+    y = fn(kc.pad_nhwc(x, pad, pad_value).permute(0, 3, 1, 2), tuple(window),
            tuple(strides))
     return y.permute(0, 2, 3, 1)
 

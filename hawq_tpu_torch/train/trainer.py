@@ -31,9 +31,11 @@ import torch
 
 from hawq_tpu_torch.configs.bit_config import (BitConfig, QuantSettings,
                                                RESNET_UNITS, get_bit_config)
+from hawq_tpu_torch.inference.engine_inception import freeze_inceptionv3
 from hawq_tpu_torch.inference.engine_v2 import freeze_resnet_v2
 from hawq_tpu_torch.inference.freeze import (FrozenModel, freeze_mobilenetv2,
                                              freeze_resnet)
+from hawq_tpu_torch.models.inceptionv3 import QInceptionV3
 from hawq_tpu_torch.models.mobilenetv2 import (QMobileNetV2,
                                                TINY_MNV2_FINAL_CH,
                                                TINY_MNV2_INIT_CH,
@@ -122,26 +124,28 @@ def _apply_quant_overrides(cfg: TrainerConfig, bit_cfg: BitConfig
 
 
 def build_model(cfg: TrainerConfig):
-    """→ (model on the CPU, its BitConfig).  ResNet v1 and v2 and
-    MobileNetV2 are ported (``tiny_mnv2``, the test-size variant, takes the
-    uniform 8-bit table whatever the scheme, as in the reference);
-    InceptionV3 raises with the ROADMAP item that brings it."""
-    if cfg.arch == 'tiny_mnv2':
+    """→ (model on the CPU, its BitConfig): ResNet v1 and v2, MobileNetV2
+    and InceptionV3.  The test-size variants ``tiny_mnv2`` and
+    ``tiny_inceptionv3`` (width_div 16) take the uniform 8-bit table
+    whatever the scheme, as in the reference."""
+    if cfg.arch in ('tiny_mnv2', 'tiny_inceptionv3'):
         bit_cfg = _apply_quant_overrides(cfg, BitConfig(
-            name=f'tiny_mnv2_{cfg.scheme}', table={},
+            name=f'{cfg.arch}_{cfg.scheme}', table={},
             settings=QuantSettings()))
+        if cfg.arch == 'tiny_inceptionv3':
+            return QInceptionV3(bit_cfg, cfg.num_classes, width_div=16,
+                                seed=cfg.seed), bit_cfg
         return QMobileNetV2(bit_cfg, cfg.num_classes, TINY_MNV2_STAGES,
                             TINY_MNV2_INIT_CH, TINY_MNV2_FINAL_CH,
                             seed=cfg.seed), bit_cfg
-    if cfg.arch in ('inceptionv3', 'tiny_inceptionv3'):
-        raise ValueError(
-            f'arch {cfg.arch}: this model family is not ported yet '
-            f'(ROADMAP.md queue 1, "The other families")')
     v2 = cfg.arch.endswith('v2') and cfg.arch[:-2] in RESNET_UNITS
-    if not (v2 or cfg.arch in RESNET_UNITS or cfg.arch == 'mobilenetv2_w1'):
+    if not (v2 or cfg.arch in RESNET_UNITS
+            or cfg.arch in ('mobilenetv2_w1', 'inceptionv3')):
         raise ValueError(f'unknown arch {cfg.arch}')
     bit_cfg = _apply_quant_overrides(cfg, get_bit_config(cfg.arch,
                                                          cfg.scheme))
+    if cfg.arch == 'inceptionv3':
+        return QInceptionV3(bit_cfg, cfg.num_classes, seed=cfg.seed), bit_cfg
     if cfg.arch == 'mobilenetv2_w1':
         return QMobileNetV2(bit_cfg, cfg.num_classes, seed=cfg.seed), bit_cfg
     family = QResNetV2 if v2 else QResNet
@@ -155,6 +159,9 @@ def freeze_model(model, variables, cfg: TrainerConfig,
     if isinstance(model, QMobileNetV2):
         return freeze_mobilenetv2(variables, bit_cfg, model.stages,
                                   cfg.num_classes)
+    if isinstance(model, QInceptionV3):
+        return freeze_inceptionv3(variables, bit_cfg, cfg.num_classes,
+                                  model.width_div)
     if isinstance(model, QResNetV2):
         return freeze_resnet_v2(variables, cfg.arch, bit_cfg,
                                 cfg.num_classes)

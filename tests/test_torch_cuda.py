@@ -1,8 +1,9 @@
 """CUDA kernels == their plain PyTorch versions on the card, bit for bit
 (the int8 and the nibble-packed int4-weight forms, the K-blocked matmul on
-both cores, the folded pool and its requant-in-front form, and the one-pass
-min/max), and the engine, the integer conv of the QAT layers
-and a QAT forward on the card == on the CPU.
+both cores, the folded pool and its requant-in-front form, the one-pass
+min/max, D1's depthwise conv and A1's average pool), and the engines, the
+integer conv of the QAT layers and a QAT forward on the card == on the
+CPU.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -20,6 +21,7 @@ from hawq_tpu_torch.inference.engine import build_resnet_engine
 from hawq_tpu_torch.inference.fold import fold4_images, maxpool_3x3s2p1_folded
 from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
 from hawq_tpu_torch.kernels import _build
+from hawq_tpu_torch.kernels import avgpool as ka
 from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
@@ -1367,13 +1369,16 @@ def test_resnet_v2_engine_cuda_equals_cpu(dev):
             rtol=0, atol=0, msg=node)
 
 
-@pytest.mark.parametrize('arch', ['tiny_mnv2', 'tiny50v2'])
+@pytest.mark.parametrize('arch', ['tiny_mnv2', 'tiny50v2',
+                                  'tiny_inceptionv3'])
 def test_family_qat_forward_cuda_equals_cpu(dev, arch):
     """Calibration passes and a frozen-range forward of the tiny MobileNetV2
-    (the depthwise convs through D1's accumulator form) and ResNet v2 on
-    the card: ranges, every q_int and the logits equal the CPU's."""
+    (the depthwise convs through D1's accumulator form), ResNet v2 and
+    InceptionV3 (75², its smallest size) on the card: ranges, every q_int
+    and the logits equal the CPU's."""
     from hawq_tpu_torch.train.trainer import TrainerConfig, build_model
-    x = np.random.RandomState(4).randn(2, 32, 32, 3).astype(np.float32)
+    size = 75 if 'inception' in arch else 32
+    x = np.random.RandomState(4).randn(2, size, size, 3).astype(np.float32)
     results = {}
     for name, device in (('cpu', torch.device('cpu')), ('cuda', dev)):
         model = build_model(TrainerConfig(arch=arch, num_classes=10,
@@ -1397,3 +1402,173 @@ def test_family_qat_forward_cuda_equals_cpu(dev, arch):
                                        msg=key)
     torch.testing.assert_close(results['cuda'][2], results['cpu'][2], rtol=0,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# InceptionV3: A1, the conv geometries, the engine
+# ---------------------------------------------------------------------------
+
+def _avgpool_check(x, mult, bits=8, signed=True, vec=None):
+    want = ka.avgpool3x3_requant_plain(x.cpu(), mult.cpu(), bits, signed)
+    got = ka.int_avgpool3x3_requant(x, mult, out_bits=bits, signed=signed)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    return want
+
+
+@pytest.mark.parametrize('dtype', [torch.int32, torch.int16, torch.int8])
+def test_avgpool_kernel_equals_plain(dev, dtype):
+    """A1 over the ragged set: every H, W in {1, 2, 3, 5, 8, 17, 35} with C
+    cycling through {1, 3, 4, 12, 32, 288}, per-tensor and per-channel
+    multipliers, both forms (4 channels a thread; one, for C % 4 or an
+    unaligned input), saturated inputs, negative multiples of 9, and
+    requant products on a .5 boundary; one launch each, counted on
+    '@cuda'."""
+    rng = np.random.RandomState(7)
+    hi = 128 if dtype == torch.int8 else 32768
+    hws = (1, 2, 3, 5, 8, 17, 35)
+    cs = (1, 3, 4, 12, 32, 288)
+    _build.reset_launches()
+    n = 0
+    for i, h in enumerate(hws):
+        for j, w in enumerate(hws):
+            c = cs[(i + j) % len(cs)]
+            x = torch.tensor(rng.randint(-hi, hi, (2, h, w, c)),
+                             dtype=dtype, device=dev)
+            scale = 64.0 if dtype == torch.int8 else 1.0
+            per_t = torch.tensor(np_dyadic_multiplier(np.float32(
+                scale * (rng.rand() * 0.01 + 0.002))), device=dev)
+            per_c = torch.tensor(np_dyadic_multiplier((scale * (
+                rng.rand(c) * 0.01 + 0.002)).astype(np.float32)), device=dev)
+            _avgpool_check(x, per_t)
+            _avgpool_check(_unaligned(x), per_c, 4, False)
+            n += 2
+    x = torch.full((2, 5, 7, 8), -hi + 1, dtype=dtype, device=dev)
+    x[:, 2, 3, ::2] = hi - 1                     # saturated
+    _avgpool_check(x, torch.tensor(np.float32(2 ** -12), device=dev))
+    x = torch.full((1, 4, 5, 4), -9, dtype=dtype, device=dev)
+    assert _avgpool_check(x, torch.tensor(np.float32(1.0), device=dev))[
+        0, 1, 1, 0] == -8                         # trunc(-9 + 0.01)
+    p = torch.arange(1, 128, 2, dtype=dtype, device=dev)
+    x = p.expand(1, 3, 3, p.numel()).contiguous()
+    want = _avgpool_check(x, torch.tensor(np.float32(0.5), device=dev))
+    torch.testing.assert_close(want[0, 1, 1], torch.floor(
+        p.cpu().float() * 0.5 + 0.5).clamp(-128, 127).to(torch.int8))
+    n += 3
+    assert _counts() == {'int_avgpool3x3_requant': n}
+    assert _core_counts() == {'int_avgpool3x3_requant@cuda': n}
+    x = torch.zeros((1, 3, 3, 4), dtype=dtype, device=dev)
+    one = torch.tensor(np.float32(1.0), device=dev)
+    with pytest.raises(ValueError):                  # 16 bits into int8
+        ka.int_avgpool3x3_requant(x, one, out_bits=16, signed=True)
+    with pytest.raises(ValueError):                  # a CPU multiplier
+        ka.int_avgpool3x3_requant(x, one.cpu(), out_bits=8, signed=True)
+    with pytest.raises(ValueError):                  # (C,) of another C
+        ka.int_avgpool3x3_requant(x, one.expand(3).contiguous(), out_bits=8,
+                                  signed=True)
+    with pytest.raises(ValueError):
+        ka.int_avgpool3x3_requant(x.float(), one, out_bits=8, signed=True)
+
+
+# InceptionV3's conv geometries on the Hopper core: (B, H, W, C), N, taps,
+# stride, pad (ph, pw); tests/test_torch_inception_walk.py holds the walk
+# at the same calls against the reference conv on the CPU
+_INCEPTION_CONVS = [
+    ((2, 17, 17, 32), 48, (1, 7), 1, (0, 3)),
+    ((2, 17, 17, 32), 16, (7, 1), 1, (3, 0)),
+    ((2, 17, 15, 16), 32, (1, 7), 1, (0, 3)),
+    ((2, 8, 8, 64), 32, (1, 3), 1, (0, 1)),
+    ((1, 8, 8, 48), 64, (3, 1), 1, (1, 0)),
+    ((2, 9, 9, 16), 32, (5, 5), 1, (2, 2)),
+    ((2, 17, 19, 32), 48, (3, 3), 1, (0, 0)),
+    ((1, 10, 10, 80), 192, (3, 3), 1, (0, 0)),
+    ((2, 35, 35, 16), 32, (3, 3), 2, (0, 0)),
+    ((1, 17, 17, 32), 48, (3, 3), 2, (0, 0)),
+    ((1, 35, 35, 3), 32, (3, 3), 2, (0, 0)),
+    ((8, 17, 17, 768), 192, (1, 7), 1, (0, 3)),
+    ((8, 17, 17, 160), 160, (7, 1), 1, (3, 0)),
+    ((8, 8, 8, 448), 384, (3, 3), 1, (1, 1)),
+    ((8, 8, 8, 384), 384, (1, 3), 1, (0, 1)),
+    ((8, 35, 35, 48), 64, (5, 5), 1, (2, 2)),
+    ((8, 73, 73, 80), 192, (3, 3), 1, (0, 0)),
+    ((8, 147, 147, 32), 64, (3, 3), 1, (1, 1)),
+    ((8, 149, 149, 32), 32, (3, 3), 1, (0, 0)),
+    ((8, 299, 299, 3), 32, (3, 3), 2, (0, 0)),
+    ((8, 35, 35, 288), 384, (3, 3), 2, (0, 0)),
+    ((8, 17, 17, 192), 320, (3, 3), 2, (0, 0)),
+]
+
+
+@pytest.mark.parametrize('shape,n,taps,stride,pad', _INCEPTION_CONVS)
+def test_sm90_conv_at_inception_geometries(dev, shape, n, taps, stride, pad):
+    """#6 and #7 at InceptionV3's geometries (ragged and full-width shapes)
+    on the Hopper core, by ``kernels.conv.conv_call``'s geometry with the
+    border left to TMA, equal to the core's walk on the CPU
+    (``conv_acc_tiled_plain`` / ``conv_requant_tiled_plain``)."""
+    rng = np.random.RandomState(sum(shape) + n + sum(taps))
+    x = torch.tensor(rng.randint(-128, 128, shape).astype(np.int8),
+                     device=dev)
+    w = rng.randint(-127, 128, (*taps, shape[3], n)).astype(np.int8)
+    _, _, bias, mult = _operands(rng, 1, 1, n, dev)
+    padding = ((pad[0], pad[0]), (pad[1], pad[1]))
+    xp, geo = kc.conv_call(x, taps, (stride, stride), padding)
+    wf = torch.tensor(kc.flatten_conv_kernel(kc.conv_call_kernel(
+        w, (stride, stride))), device=dev)
+    prepared = kc.prepare_conv_weights(wf, geo['taps'], geo['cin'],
+                                       geo['pad'])
+    walk = {k: geo[k] for k in ('taps', 'out_hw', 'cin')}
+    slab = kc.pad_conv_input(xp.cpu(), geo['pad'], **walk)
+    host = kc.prepare_conv_weights(wf.cpu(), geo['taps'], geo['cin'],
+                                   geo['pad'])
+    want_acc = kc.conv_acc_tiled_plain(slab, host, bias.cpu(), **walk)
+    want_q = kc.conv_requant_tiled_plain(slab, host, bias.cpu(), mult.cpu(),
+                                         lo=0, hi=127, **walk)
+    _build.reset_launches()
+    for weights in (prepared, wf):
+        torch.testing.assert_close(
+            kc.int8_conv_acc(xp, weights, bias, **geo).cpu(), want_acc,
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            kc.int8_conv_requant(xp, weights, bias, mult, relu=True,
+                                 **geo).cpu(), want_q, rtol=0, atol=0)
+    assert _core_counts() == {'int8_conv_acc@sm90': 2,
+                              'int8_conv_requant@sm90': 2}
+
+
+@pytest.mark.parametrize('width_div,scheme,mode,wide', [
+    (16, 'uniform8', 'folded_float32', torch.int16),
+    (1, 'uniform8', 'folded_float32', torch.int32),
+    (1, 'uniform4', 'float32', torch.int16)])
+def test_inception_engine_cuda_equals_cpu(dev, width_div, scheme, mode,
+                                          wide):
+    """InceptionV3 at 75² on the card: logits and the capture nodes equal
+    the CPU engine's; A1 nine times; at full width every conv on the
+    Hopper core."""
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
+    from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
+    from hawq_tpu_torch.inference.synthetic import synthetic_frozen_inception
+    fm = synthetic_frozen_inception(get_bit_config('inceptionv3', scheme),
+                                    width_div=width_div, seed=2)
+    x = np.random.RandomState(5).randn(2, 75, 75, 3).astype(np.float32)
+    if mode == 'folded_float32':
+        x = fold4_images_3x3s2(x, 0)
+    kw = dict(input_mode=mode, wide_dtype=wide, input_hw=(75, 75))
+    want = build_inceptionv3_engine(fm, device='cpu', **kw)(x)
+    _build.reset_launches()
+    got = build_inceptionv3_engine(fm, device=dev, **kw)(x)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    cores = _core_counts()
+    assert cores['int_avgpool3x3_requant@cuda'] == 9
+    if width_div == 1:
+        assert not [k for k in cores if k.endswith('@mma')], cores
+        assert sum(cores.values()) == 9 + 95
+    for node in ('init', 'features.stage1.unit3.q_rescaling_activ',
+                 'features.stage2.unit1.q_rescaling_activ',
+                 'features.stage2.unit5.q_rescaling_activ',
+                 'features.stage3.unit1.q_rescaling_activ', 'fc_input'):
+        torch.testing.assert_close(
+            build_inceptionv3_engine(fm, capture=node, device=dev, **kw)(
+                x).cpu(),
+            build_inceptionv3_engine(fm, capture=node, device='cpu', **kw)(
+                x), rtol=0, atol=0, msg=node)
+

@@ -525,9 +525,14 @@ def test_trainer_cli_and_refusals(tmp_path):
     assert mine.pop('device') == 'cuda'
     assert mine == theirs
     base = dict(device='cpu', save_path=str(tmp_path / 'c'))
-    for arch in ('inceptionv3', 'tiny_inceptionv3'):
-        with pytest.raises(ValueError, match='ROADMAP'):
-            ttrainer.Trainer(ttrainer.TrainerConfig(arch=arch, **base))
+    # InceptionV3 is ported: its entries build (tests/test_torch_inception.py
+    # trains, freezes and serves the tiny one)
+    from hawq_tpu_torch.models.inceptionv3 import QInceptionV3
+    for arch, width_div in (('inceptionv3', 1), ('tiny_inceptionv3', 16)):
+        model, _ = ttrainer.build_model(ttrainer.TrainerConfig(
+            arch=arch, num_classes=10))
+        assert isinstance(model, QInceptionV3)
+        assert model.width_div == width_div
     with pytest.raises(ValueError, match='unknown arch'):
         ttrainer.Trainer(ttrainer.TrainerConfig(arch='vgg', **base))
     with pytest.raises(NotImplementedError):

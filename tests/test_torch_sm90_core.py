@@ -874,8 +874,9 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     assert kinds['stage1.unit1.quant_convbn1'] is torch.Tensor   # N = 8
     assert kinds['quant_output'] is torch.Tensor
     assert not any(eng._w[k][0].int4 for k in prepared)
-    assert kinds['init'] is tkm.PreparedWeights
-    init = eng._w['init'][0]                 # 4 rows of 4 taps of C = 16
+    # the raw init conv is cached by the k×k route, under (key, stride)
+    assert kinds['quant_init_convbn', 2] is tkm.PreparedWeights
+    init = eng._w['quant_init_convbn', 2][0]  # 4 rows of 4 taps of C = 16
     assert (init.taps, init.cin, init.row_taps) == (4, 64, 4)
     rule = tkm.sm90_route
     tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
@@ -974,7 +975,9 @@ def test_engine_with_cached_handles_matches_reference(arch, scheme,
     else:
         assert conv1 and all(h.int4 == int4 and h.taps in (4, 9)
                              for h in conv1)
-    init = handles['init']
+    # the fold's weights are cached as 'init', the raw init conv's by the
+    # k×k route under its key
+    init = handles['init' if input_mode == 'folded_float32' else eng.init_key]
     assert not init.int4 and (init.taps, init.cin, init.row_taps) == (
         (3, 144, 3) if input_mode == 'folded_float32' else (4, 64, 4))
     nodes = _reference_nodes(fm, x, **jkw)
