@@ -123,13 +123,20 @@ non-zero exit and no result line:
     uniform8 folded with the int16 container, uniform4 folded; logits and
     the 'init' node (on the main path also a stage-2 unit's output) for
     the first two images equal the CPU engine's; ms per batch; every
-    recorded call and 102 ragged calls of A1 (the integer 3×3 average pool
-    with its requant, ``int_avgpool3x3_requant``: int32, int16 and int8
-    inputs, both forms of its kernel) held against the plain version, bit
+    recorded call and 213 ragged calls of A1 (the integer 3×3 average pool
+    with its requant, ``int_avgpool3x3_requant``, on the main path with the
+    pool branch's input requant fused in front: int32, int16 and int8
+    inputs, every form of its kernel, with and without the requant in
+    front, one that saturates 16 bits) held against the plain version, bit
     for bit; A1 timed beside its bound, its plain version and
-    ``F.avg_pool2d`` on float32, in L2 and streamed from device memory;
-    #1 / #2 / #6 / #7 timed at this path's calls on both cores in turns; a
-    trace of the forward;
+    ``F.avg_pool2d`` on float32, in L2 and streamed from device memory, a
+    per-call table with the tile the rule chose; each call as the fused
+    call, the unfused pair (``requant_int32``, then A1), the plain version,
+    ``F.avg_pool2d`` and ``x.to(torch.int8)`` in turns; each call at the rule's tile and at its
+    alternatives in turns; #1 / #2 / #6 / #7 timed at this path's calls on
+    both cores in turns; a trace of the forward, and one with the pool
+    branches unfused (kernels per forward before and after), ms per batch
+    fused and unfused in turns;
 12. QAT training through the Trainer on InceptionV3 uniform8 at full
     width, 299², b32 (1 calibration batch, one unfolded and one folded
     step) as in phase 7: launches per step and per core as the model's
@@ -324,41 +331,251 @@ def avgpool_ragged_calls(dev):
     inputs one element off alignment (one channel a thread); per-tensor and
     per-channel multipliers; 8-bit signed and 4-bit unsigned bounds;
     saturated ±32767; a constant −9 field (negative sums that are multiples
-    of 9); odd quotients times 0.5 (requant products on a .5 boundary)."""
+    of 9); odd quotients times 0.5 (requant products on a .5 boundary).
+    Each of the H, W calls also with the requant in front (to 16 bits
+    signed and unsigned, to 8 bits; per-tensor and per-channel), and a
+    requant in front that drives every input to the ends of 16 bits (sums
+    up to 9·65535, the bound of the kernel's integer quotient)."""
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
     rng = np.random.RandomState(17)
     hws, cs = (1, 2, 3, 5, 8, 17, 35), (1, 3, 4, 12, 32, 288)
     dtypes = ((torch.int32, 32768), (torch.int16, 32768), (torch.int8, 128))
+    fronts = ((16, True), (16, False), (8, True))
     calls = []
 
-    def call(x, mult, bits=8, signed=True):
+    def call(x, mult, bits=8, signed=True, front=None):
+        kw = dict(out_bits=bits, signed=signed)
+        if front is not None:
+            in_mult, in_bits, in_signed = front
+            kw.update(in_mult=torch.tensor(np.asarray(in_mult, np.float32),
+                                           device=dev),
+                      in_bits=in_bits, in_signed=in_signed)
         calls.append((AVGPOOL, (x, torch.tensor(np.asarray(mult, np.float32),
-                                                device=dev)),
-                      dict(out_bits=bits, signed=signed)))
+                                                device=dev)), kw))
     for i, h in enumerate(hws):
         for j, w in enumerate(hws):
             c = cs[(i + j) % len(cs)]
             dtype, hi = dtypes[(i + 2 * j) % 3]
+            in_bits, in_signed = fronts[(i + j) % 3]
             x = torch.tensor(rng.randint(-hi, hi, (2, h, w, c)), dtype=dtype,
                              device=dev)
             scale = 64.0 if dtype == torch.int8 else 1.0
-            call(x, np_dyadic_multiplier(np.float32(
-                scale * (rng.rand() * 0.01 + 0.002))))
+            base = (100.0 if dtype == torch.int8 else 1.0) * (
+                1 / 64 if in_bits == 8 else 1.0)
+            rescale = np.float32((16.0 if in_bits == 8 else 1.0) / scale)
+            per_t = np_dyadic_multiplier(np.float32(
+                scale * (rng.rand() * 0.01 + 0.002)))
+            call(x, per_t)
+            call(x, per_t * rescale, front=(np_dyadic_multiplier(
+                np.float32(base * (rng.rand() * 1.5 + 0.25))), in_bits,
+                in_signed))
             if (i + j) % 2:                    # one element off alignment
                 flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
                 flat[1:] = x.reshape(-1)
                 x = flat[1:].view(x.shape)
-            call(x, np_dyadic_multiplier((scale * (
-                rng.rand(c) * 0.01 + 0.002)).astype(np.float32)), 4, False)
+            per_c = np_dyadic_multiplier((scale * (
+                rng.rand(c) * 0.01 + 0.002)).astype(np.float32))
+            call(x, per_c, 4, False)
+            call(x, per_c * rescale, 4, False,
+                 (np_dyadic_multiplier((base * (rng.rand(c) * 1.5 + 0.25))
+                                       .astype(np.float32)), in_bits,
+                  in_signed))
     x = torch.full((2, 5, 7, 8), -32767, dtype=torch.int32, device=dev)
     x[:, 2, 3, ::2] = 32767
     call(x, np.float32(2 ** -12))
     call(x.to(torch.int16), np.float32(2 ** -8))
     call(torch.full((1, 4, 5, 4), -9, dtype=torch.int32, device=dev),
          np.float32(1.0))
+    call(torch.full((1, 4, 5, 4), -9, dtype=torch.int32, device=dev),
+         np.float32(1.0), front=(np.float32(1.0), 16, True))
     p = torch.arange(1, 128, 2, dtype=torch.int16, device=dev)
     call(p.expand(1, 3, 3, p.numel()).contiguous(), np.float32(0.5))
+    for dtype in (torch.int32, torch.int16, torch.int8):
+        top = torch.iinfo(dtype).max
+        x = torch.full((2, 5, 7, 12), top, dtype=dtype, device=dev)
+        x[:, 2, 3, ::2] = -top
+        x[1] = -x[1]
+        sat = np.float32(2 ** 20 / min(top, 32767))
+        for in_signed in (True, False):
+            call(x, np.float32(2 ** -9), front=(sat, 16, in_signed))
+            call(x, np.float32(2 ** -13), 4, False, (np.where(
+                np.arange(12) % 2, sat, np.float32(0.5)).astype(np.float32),
+                16, in_signed))
     return calls
+
+
+def avgpool_front(kw):
+    """The keyword arguments of A1's requant in front in ``kw``."""
+    return {k: kw[k] for k in ('in_mult', 'in_bits', 'in_signed') if k in kw}
+
+
+def avgpool_tile(args, kw=None):
+    """(the plan A1's wrapper launches for a call, a short label of it)."""
+    from hawq_tpu_torch.kernels import avgpool as ka
+    plan = ka.call_plan(args[0], (kw or {}).get('plan'))
+    b, h, w, c = args[0].shape
+    return plan, (f'{plan.vec}ch/thr copy{plan.copy} {plan.th}x{plan.tw}px '
+                  f'x{plan.cs * plan.vec}ch '
+                  f'{ka.avgpool_grid(plan, b, h, w, c)}tiles '
+                  f'{plan.cs * plan.tw}thr '
+                  f'{ka.avgpool_smem(plan, args[0].dtype) // 1024}KB')
+
+
+def avgpool_call_table(rows):
+    """A1's per-call table: µs by graph replay in L2 and streamed from
+    device memory, the bound, the share of it, ``F.avg_pool2d``'s µs, the
+    tile."""
+    log('  A1 per call: shape | launches | us in L2 | us streamed | bound us '
+        '| share | F.avg_pool2d us | tile')
+    for r in rows:
+        log(f"    {r['shape']:24s} x{r['n']:<2d} {r['ms'] * 1e3:7.2f} "
+            f"{r['cold_ms'] * 1e3:7.2f} {r['bound_ms'] * 1e3:7.3f} "
+            f"{r['bound_ms'] / r['ms']:6.1%} {r['library_ms'] * 1e3:8.2f}  "
+            f"{r['tiles']}")
+
+
+def unfused_avgpool(args, kw):
+    """A1's call as the engine made it before the fusion: the requant in
+    front as ``requant_int32`` into the engine's container (x's dtype, int8
+    for 8 bits), then A1 without it."""
+    from hawq_tpu_torch.kernels import avgpool as ka
+    from hawq_tpu_torch.quant.ops import requant_int32
+    front = avgpool_front(kw)
+    x = requant_int32(args[0], front['in_mult'], front['in_bits'],
+                      front['in_signed'], torch.int8
+                      if front['in_bits'] <= 8 else args[0].dtype)
+    return ka.int_avgpool3x3_requant(x, args[1], out_bits=kw['out_bits'],
+                                     signed=kw['signed'])
+
+
+@contextlib.contextmanager
+def unfused_pool_branch():
+    """Inside, the InceptionV3 engine runs its pool branches as before the
+    fusion (:func:`unfused_avgpool`)."""
+    from hawq_tpu_torch.kernels import avgpool as ka
+    fused = ka.int_avgpool3x3_requant
+
+    def unfused(x, mult, **kw):
+        ka.int_avgpool3x3_requant = fused
+        try:
+            return unfused_avgpool((x, mult), kw)
+        finally:
+            ka.int_avgpool3x3_requant = unfused
+    ka.int_avgpool3x3_requant = unfused
+    try:
+        yield
+    finally:
+        ka.int_avgpool3x3_requant = fused
+
+
+def avgpool_fusion_turns(calls, phase):
+    """Each distinct A1 call of the path (requant in front) timed in turns
+    by graph replay — the fused call, the unfused pair, the plain version,
+    ``F.avg_pool2d`` (the sum only) and ``x.to(torch.int8)`` (PyTorch's
+    elementwise pass over the same bytes: x read once, a byte an element
+    written), then the same in reverse — the pair held equal to the fused
+    call → the sums over the path's launches."""
+    seen = {}
+    for name, args, kw in calls:
+        seen.setdefault(call_key(name, args, kw), [args, kw, 0])[2] += 1
+    runs = ('fused', 'unfused', 'plain', 'library', 'elementwise')
+    total = dict.fromkeys(runs, 0.0)
+    log(f'{phase}: A1 fused / unfused pair / plain / F.avg_pool2d / '
+        f'x.to(int8), us by graph replay in turns:')
+    for args, kw, n in seen.values():
+        check(same(unfused_avgpool(args, kw), kernel_call(AVGPOOL, args, kw)),
+              f'{AVGPOOL}: the unfused pair differs from the fused call')
+        fns = {'fused': lambda: kernel_call(AVGPOOL, args, kw, False),
+               'unfused': lambda: unfused_avgpool(args, kw),
+               'plain': lambda: plain_call(AVGPOOL, args, kw, False),
+               'library': library_call(AVGPOOL, args, kw),
+               'elementwise': lambda: args[0].to(torch.int8)}
+        ms = {r: [] for r in runs}
+        for r in runs + runs[::-1]:
+            ms[r].append(graph_ms(fns[r], 3 if r == 'plain' else 20))
+        mean = {r: sum(v) / len(v) for r, v in ms.items()}
+        for r in runs:
+            total[r] += mean[r] * n
+        log(f'  {work(AVGPOOL, args, kw, fns["fused"]())[2]:24s} x{n}: '
+            + ', '.join(f'{r} {mean[r] * 1e3:.2f}' for r in runs))
+    log(f'{phase}: A1 over the path\'s launches: ' + ', '.join(
+        f'{r} {total[r]:.4f} ms' for r in runs))
+    return total
+
+
+def avgpool_alternatives(plan, args):
+    """Plans beside the rule's for one A1 call: the whole height, half and
+    twice the rule's rows, the whole width, half and twice the channel
+    slab, copies of one word, one channel a thread, and a grid of column
+    shares (whole, half), row shares (whole, 1/2, 1/3, 1/4, 4 and 2 rows)
+    and slabs (64–512 threads) — those the shape, the pointer and the
+    kernel's limits allow."""
+    from hawq_tpu_torch.kernels import avgpool as ka
+    x = args[0]
+    b, h, w, c = x.shape
+    es = x.element_size()
+    alts = [plan._replace(th=h), plan._replace(th=max(1, plan.th // 2)),
+            plan._replace(th=min(h, 2 * plan.th)),
+            plan._replace(tw=w, cs=max(1, plan.cs * plan.tw // w)),
+            plan._replace(cs=plan.cs // 2), plan._replace(cs=plan.cs * 2)]
+    if plan.vec == 4 and plan.copy == 16 and es < 4:
+        alts.append(plan._replace(copy=4 * es))
+    if plan.vec == 4:
+        alts.append(plan._replace(vec=1, copy=es, cs=plan.cs * 4,
+                                  tw=max(1, plan.tw // 4)))
+    if plan.vec == 4:
+        units = c // 4
+        for tw in sorted({w, -(-w // 2)}):
+            slabs = [d for d in range(1, units + 1)
+                     if units % d == 0 and 64 <= tw * d <= ka.AP_THREADS]
+            for cs in slabs[::max(1, len(slabs) // 4)]:
+                for th in sorted({h, -(-h // 2), -(-h // 3), -(-h // 4),
+                                  min(h, 4), min(h, 2)}):
+                    alts.append(plan._replace(cs=cs, tw=tw, th=th))
+    seen, out = {plan}, []
+    for a in alts:
+        wpc = a.copy // (4 * es) if a.vec == 4 else 1
+        units = c // a.vec
+        if (a not in seen and a.cs >= 1 and units % a.cs == 0
+                and a.cs % wpc == 0 and a.cs * a.tw <= ka.AP_THREADS
+                and ka.avgpool_smem(a, x.dtype) <= ka.AP_SMEM):
+            seen.add(a)
+            out.append(a)
+    return out
+
+
+def avgpool_plan_sweep(calls, phase):
+    """Each distinct A1 call of a path at the rule's plan and at its
+    alternatives (:func:`avgpool_alternatives`), each held against the
+    plain version, then timed in turns (rule, alternatives, alternatives in
+    reverse, rule) by graph replay; logs the sums over the path's launches
+    at the rule's plans and at the fastest plan of each call."""
+    seen = {}
+    for name, args, kw in calls:
+        seen.setdefault(call_key(name, args, kw), [args, kw, 0])[2] += 1
+    rule_sum, best_sum = 0.0, 0.0
+    log(f'{phase}: A1 tile choices, us by graph replay (rule first):')
+    for args, kw, n in seen.values():
+        plan, label = avgpool_tile(args)
+        want = plain_call(AVGPOOL, args, kw)
+        plans = [plan] + avgpool_alternatives(plan, args)
+        for p in plans[1:]:
+            check(same(kernel_call(AVGPOOL, args, dict(kw, plan=p)), want),
+                  f'{AVGPOOL} at {p} differs from its plain version')
+        ms = {p: [] for p in plans}
+        for p in plans + plans[:0:-1] + [plan]:
+            ms[p].append(graph_ms(
+                lambda: kernel_call(AVGPOOL, args, dict(kw, plan=p), False),
+                20))
+        mean = {p: sum(v) / len(v) for p, v in ms.items()}
+        rule_sum += mean[plan] * n
+        best_sum += min(mean.values()) * n
+        b, h, w, c = args[0].shape
+        log(f'  B{b} {h}x{w} C{c} x{n}: rule {label} {mean[plan] * 1e3:.2f}; '
+            + '; '.join(f'v{p.vec} copy{p.copy} cs{p.cs} tw{p.tw} th{p.th} '
+                        f'{mean[p] * 1e3:.2f}' for p in plans[1:]))
+    log(f'{phase}: A1 over the path\'s launches: rule {rule_sum:.4f} ms, '
+        f'the fastest plan of each call {best_sum:.4f} ms')
 
 
 def inception_phase(dev, errs, totals):
@@ -408,8 +625,13 @@ def inception_phase(dev, errs, totals):
     ragged = avgpool_ragged_calls(dev)
     check_calls(calls + ragged, errs, f'phase 11: all {len(calls)} recorded '
                 f'calls of {label} and {len(ragged)} ragged A1 calls')
+    a1 = [c for c in calls if c[0] == AVGPOOL]
+    check(all('in_mult' in kw for _, _, kw in a1), f'{label}: a pool branch '
+          f'without its requant in front')
     log(f'phase 11: timed {AVGPOOL} on {label}:')
-    time_calls([c for c in calls if c[0] == AVGPOOL], totals)
+    time_calls(a1, totals)
+    totals[AVGPOOL].update(avgpool_fusion_turns(a1, 'phase 11'))
+    avgpool_plan_sweep(a1, 'phase 11')
     gemm_totals = {}
     log(f'phase 11: timed the GEMM kernels on {label}:')
     time_calls([c for c in calls if c[0] in INC_GEMMS], gemm_totals)
@@ -420,7 +642,44 @@ def inception_phase(dev, errs, totals):
             f'kernels ' + ', '.join(f'{k[6:]} x{c} {t / 1e3:.4f} ms'
                                     for k, (c, t) in sorted(port.items()))
             + f'; glue (non-port kernels) {trace[2]:.4f} ms')
+        totals[AVGPOOL]['kernels_per_forward'] = trace[0]
+    pool_branch_before_after(eng, x, label, trace, totals[AVGPOOL])
     return counts, gemm_totals
+
+
+def pool_branch_before_after(eng, x, label, after, a1_totals):
+    """The main path with its pool branches as before the fusion (the
+    input requant as PyTorch glue, then A1) and as they are: equal logits,
+    kernels per forward and glue time from a trace of each, ms per batch of
+    each in turns (fused, unfused, unfused, fused; CUDA events / host
+    clock)."""
+    want = eng(x)
+    with unfused_pool_branch():
+        check(torch.equal(eng(x), want), f'{label}: the unfused pool branch '
+              f'changes the logits')
+        before = trace_breakdown(eng, x, f'{label} with the pool branch\'s '
+                                 f'input requant as glue', 'phase 11')
+    if before and after:
+        a1_totals['kernels_per_forward_unfused'] = before[0]
+        log(f'phase 11: {label}: pool branches before / after the fusion: '
+            f'{before[0]} / {after[0]} kernels per forward, glue (non-port '
+            f'kernels) {before[2]:.4f} / {after[2]:.4f} ms, port kernels '
+            f'{before[1]:.4f} / {after[1]:.4f} ms')
+
+    def ms_per_batch():
+        event = cuda_ms(lambda: eng(x), 20)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            eng(x)
+        torch.cuda.synchronize()
+        return event, (time.perf_counter() - t0) / 10 * 1e3
+    rows = []
+    for form in ('fused', 'unfused', 'unfused', 'fused'):
+        with (unfused_pool_branch() if form == 'unfused'
+              else contextlib.nullcontext()):
+            rows.append((form,) + ms_per_batch())
+    log(f'phase 11: {label}: ms/batch (CUDA events / host clock) in turns: '
+        + ', '.join(f'{f} {e:.3f} / {h:.3f}' for f, e, h in rows))
 
 
 def cuda_ms(fn, reps):
@@ -709,7 +968,8 @@ def plain_call(name, args, kw, stack=True):
                                        kw['hi'])
     if name == AVGPOOL:
         from hawq_tpu_torch.kernels.avgpool import avgpool3x3_requant_plain
-        return avgpool3x3_requant_plain(*args, kw['out_bits'], kw['signed'])
+        return avgpool3x3_requant_plain(*args, kw['out_bits'], kw['signed'],
+                                        **avgpool_front(kw))
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
     return plain_gemm_call(name, args, kw)
 
@@ -745,14 +1005,15 @@ def work(name, args, kw, out):
     the operations over the unpacked K (taps·C for the conv, x's K for the
     matmul)."""
     from hawq_tpu_torch.kernels.matmul import PreparedWeights
-    nbytes = sum(t.numel() * t.element_size() for t in args
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *kw.values())
                  if isinstance(t, torch.Tensor))
     nbytes += out.numel() * out.element_size()
     if name in POOLS + (MINMAX,):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
-    if name == AVGPOOL:             # 9 adds, a division, the requant
+    if name == AVGPOOL:             # 9 adds, a division, the requants
         return nbytes, 0, ('x' + 'x'.join(map(str, args[0].shape)) + ' '
-                           + str(args[0].dtype).replace('torch.', ''))
+                           + str(args[0].dtype).replace('torch.', '')
+                           + (' +front' if 'in_mult' in kw else ''))
     if name in DW:                  # 9 multiply-adds an output
         b, h, w, c = args[0].shape
         return (nbytes, 2 * 9 * out.numel(),
@@ -1261,7 +1522,9 @@ def call_key(name, args, kw):
                    if isinstance(a, PreparedWeights)
                    else (tuple(a.shape), str(a.dtype)) for a in args
                    if isinstance(a, (torch.Tensor, PreparedWeights)))
-    return (name, shapes, tuple(sorted((k, str(v)) for k, v in kw.items())))
+    return (name, shapes, tuple(sorted(
+        (k, (tuple(v.shape), str(v.dtype)) if isinstance(v, torch.Tensor)
+         else str(v)) for k, v in kw.items())))
 
 
 def host_us(fn, reps=1000):
@@ -1390,6 +1653,8 @@ def time_calls(calls, totals):
                     lambda *a: kernel_call(name, a, kw, False), args, 10)
             if name in DW:
                 extra['tiles'] = dw_tile(args, kw, out)[1]
+            if name == AVGPOOL:
+                extra['tiles'] = avgpool_tile(args, kw)[1]
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
             plain_ms = graph_ms(lambda: plain_call(name, args, kw, False), 3)
             lib = library_call(name, args, kw)
@@ -1439,6 +1704,9 @@ def time_calls(calls, totals):
     dw_rows = [r for r in seen.values() if r['name'] in DW]
     if dw_rows:
         dw_call_table(dw_rows)
+    avg_rows = [r for r in seen.values() if r['name'] == AVGPOOL]
+    if avg_rows:
+        avgpool_call_table(avg_rows)
     for name in SM90_KERNELS:
         if name in totals and any(r['name'] == name for r in seen.values()):
             t = totals[name]
@@ -2660,6 +2928,12 @@ def main():
                     'int8_twin_ms']
         if name in POOLS + OWN_CORE:  # ms: the input L2-resident
             entry['cold_ms'] = t['cold_ms']
+        if name == AVGPOOL:           # phase 11: the fusion in turns
+            entry.update({f'{k}_turns_ms': t[k] for k in (
+                'fused', 'unfused', 'plain', 'library', 'elementwise')})
+            entry.update({k: t[k] for k in (
+                'kernels_per_forward', 'kernels_per_forward_unfused')
+                if k in t})
         if name in INC_GEMMS:
             # the InceptionV3 engine's main path (phase 11)
             it = inc_totals[name]

@@ -24,8 +24,9 @@ plain versions on a CPU device):
     ``inference.fold.fold4_images_3x3s2(x, 0)``) → ``int8_conv_acc`` over
     the 2×2/s1 rewrite of the 3×3/s2 q_conv1 (C = 48, N = 4·32), ReLU and
     the requant with the fourfold multipliers, depth-to-space and the slice;
-  * the 3×3/s1/p1 average pool of the pool branches with its ``q_pool_act``
-    requant → ``int_avgpool3x3_requant`` (A1, csrc/avgpool.cu);
+  * the pool branches' ``q_input_act`` requant, their 3×3/s1/p1 average
+    pool and its ``q_pool_act`` requant → one ``int_avgpool3x3_requant``
+    on the unit input (A1, csrc/avgpool.cu, the requant fused in front);
   * the 3×3/s2 VALID max-pools → ``engine.maxpool_int`` (integer maxima);
   * the head: an int32 sum, ``trunc(sum / hw + 0.01)``, the requant, then
     the FC through ``int8_matmul_acc``.
@@ -260,16 +261,20 @@ class InceptionEngine(IntEngine):
 
     def _branch(self, x, s, bp: str, kind: str, kwargs):
         """One branch on the unit input ``x`` at scale ``s`` → (its integer
-        output, its scale)."""
+        output, its scale).  A pool branch hands ``x`` to A1 with its input
+        requant fused in front of the pool."""
+        if kind == mi.AVG_POOL:
+            a, a_bits, a_sg = self.act_info(f'{bp}.q_input_act')
+            sp, bp_bits, sgp = self.act_info(f'{bp}.q_pool_act')
+            h = ka.int_avgpool3x3_requant(
+                x, self.requant_mult(f'{bp}.pool', np.float32(a), sp),
+                out_bits=bp_bits, signed=sgp,
+                in_mult=self.requant_mult(f'{bp}.in', s, a), in_bits=a_bits,
+                in_signed=a_sg)
+            return self._incept_conv(h, np.float32(sp), f'{bp}.q_conv')
         h, a = self._requant_to(x, s, f'{bp}.q_input_act', f'{bp}.in')
         if kind == mi.MAX_POOL:
             return maxpool_int(h, pad=0), a
-        if kind == mi.AVG_POOL:
-            sp, bp_bits, sgp = self.act_info(f'{bp}.q_pool_act')
-            h = ka.int_avgpool3x3_requant(
-                h, self.requant_mult(f'{bp}.pool', a, sp), out_bits=bp_bits,
-                signed=sgp)
-            return self._incept_conv(h, np.float32(sp), f'{bp}.q_conv')
         if kind == mi.CONV1X1:
             return self._incept_conv(h, a, f'{bp}.q_conv')
         for c, (st, pd) in enumerate(zip(kwargs['strides'],

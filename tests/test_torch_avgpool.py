@@ -8,7 +8,10 @@ and C in {1, 3, 4, 12, 32, 288}, int32, int16 and int8 inputs, per-tensor
 and per-channel multipliers, and the inputs where the arithmetic is
 delicate: saturated ±32767, negative sums that are multiples of 9 (where
 +0.01 turns −k into −(k−1)), sums next to a multiple of 9, and requant
-products on a .5 boundary.
+products on a .5 boundary.  The fused form (the branch's input requant in
+front, ``in_mult``) likewise, against ``requant_int32`` to the
+``q_input_act`` bits before those ops: 16 bits signed and unsigned, 8 bits,
+and a requant in front that saturates 16 bits.
 """
 
 import numpy as np
@@ -131,3 +134,69 @@ def test_requant_on_a_half():
         np.testing.assert_array_equal(
             out[0, 1, 1], np.clip(np.floor(q * mult + 0.5), -128, 127))
     _check(x, np.where(np.arange(p.size) % 2, 0.5, 1.5).astype(np.float32))
+
+
+# The fused form: the pool branch's input requant (``requant_int32`` to the
+# ``q_input_act`` bits, into int32) in front of the pool, as
+# ``int_avgpool3x3_requant(..., in_mult=, in_bits=, in_signed=)`` takes it
+_FRONTS = ((16, True), (16, False), (8, True))
+
+
+def _fused_check(x, in_mult, in_bits, in_signed, mult, bits=8, signed=True):
+    in_mult = np.asarray(in_mult, np.float32)
+    mult = np.asarray(mult, np.float32)
+    h = jops.requant_int32(jnp.asarray(x), jnp.asarray(in_mult), in_bits,
+                           in_signed, jnp.int32)
+    want = np.asarray(jops.requant_int32(_pool(h), jnp.asarray(mult), bits,
+                                         signed, jnp.int8))
+    got = ka.int_avgpool3x3_requant(
+        torch.from_numpy(x), torch.from_numpy(mult), out_bits=bits,
+        signed=signed, in_mult=torch.from_numpy(in_mult), in_bits=in_bits,
+        in_signed=in_signed)
+    assert got.dtype == torch.int8 and tuple(got.shape) == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize('h', _HW)
+@pytest.mark.parametrize('front', _FRONTS)
+def test_fused_plain_equals_reference_ops(h, front):
+    """Every W at this H, C and the input dtype cycled (int32, int16, int8),
+    the requant in front to 16 bits signed or unsigned or to 8 bits, per
+    tensor and per channel, in front and after."""
+    in_bits, in_signed = front
+    rng = np.random.RandomState(100 + h + in_bits + in_signed)
+    dtypes = ((np.int32, 32768), (np.int16, 32768), (np.int8, 128))
+    for i, w in enumerate(_HW):
+        c = _C[(i + h) % len(_C)]
+        dt, hi = dtypes[(i + h) % 3]
+        x = rng.randint(-hi, hi, (2, h, w, c)).astype(dt)
+        base = (100.0 if dt == np.int8 else 1.0) / (64 if in_bits == 8
+                                                      else 1)
+        per_channel = i % 2 == 1
+        ratio = (rng.rand(c) if per_channel else rng.rand()) * 1.5 + 0.25
+        in_mult = np_dyadic_multiplier(np.asarray(base * ratio, np.float32))
+        mult = _mult(rng, c, not per_channel)
+        if in_bits == 8:
+            mult = mult * np.float32(16)
+        _fused_check(x, in_mult, in_bits, in_signed, mult)
+
+
+@pytest.mark.parametrize('in_signed', [True, False])
+def test_fused_saturated(in_signed):
+    """A requant in front that saturates 16 bits: window sums up to 9·32767
+    and 9·65535; a constant −9 field through a multiplier of 1 (unsigned:
+    clipped to 0 in front)."""
+    for dt in (np.int32, np.int16, np.int8):
+        top = np.iinfo(dt).max
+        x = np.full((2, 5, 7, 8), top, dt)
+        x[:, 2, 3, ::2] = -top
+        x[1] = -x[1]
+        sat = np.float32(2 ** 20 / min(top, 32767))
+        _fused_check(x, sat, 16, in_signed, np.float32(2 ** -9))
+        _fused_check(x, np.where(np.arange(8) % 2, sat, 0.5).astype(
+            np.float32), 16, in_signed, np.float32(2 ** -13), 4, False)
+    x = np.full((1, 4, 5, 4), -9, np.int32)
+    assert _fused_check(x, np.float32(1.0), 16, in_signed,
+                        np.float32(1.0))[0, 1, 1, 0] == (-8 if in_signed
+                                                         else 0)

@@ -1,7 +1,8 @@
 """CUDA kernels == their plain PyTorch versions on the card, bit for bit
 (the int8 and the nibble-packed int4-weight forms, the K-blocked matmul on
 both cores, the folded pool and its requant-in-front form, the one-pass
-min/max, D1's depthwise conv and A1's average pool), and the engines, the
+min/max, D1's depthwise conv and A1's average pool, with and without the
+requant in front), and the engines, the
 integer conv of the QAT layers and a QAT forward on the card == on the
 CPU.
 
@@ -1467,6 +1468,110 @@ def test_avgpool_kernel_equals_plain(dev, dtype):
                                   signed=True)
     with pytest.raises(ValueError):
         ka.int_avgpool3x3_requant(x.float(), one, out_bits=8, signed=True)
+
+
+def _fused_check(x, mult, in_mult, in_bits, in_signed, bits=8, signed=True,
+                 plan=None):
+    want = ka.avgpool3x3_requant_plain(
+        x.cpu(), mult.cpu(), bits, signed, in_mult=in_mult.cpu(),
+        in_bits=in_bits, in_signed=in_signed)
+    got = ka.int_avgpool3x3_requant(x, mult, out_bits=bits, signed=signed,
+                                    in_mult=in_mult, in_bits=in_bits,
+                                    in_signed=in_signed, plan=plan)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                               msg=f'{tuple(x.shape)} {x.dtype} {plan}')
+    return want
+
+
+@pytest.mark.parametrize('dtype', [torch.int32, torch.int16, torch.int8])
+def test_avgpool_fused_kernel_equals_plain(dev, dtype):
+    """A1 with the requant in front over the ragged set (every H, W in {1,
+    2, 3, 5, 8, 17, 35}, C cycling through {1, 3, 4, 12, 32, 288}, aligned
+    and unaligned inputs), into 16 bits signed and unsigned and into 8
+    bits, per-tensor and per-channel multipliers in front and after; every
+    form of the kernel at ragged tiles (16-byte copies, one-word copies,
+    one channel a thread) of 1 to 9 rows; one launch each, counted on
+    '@cuda'."""
+    rng = np.random.RandomState(11)
+    hi = 128 if dtype == torch.int8 else 32768
+    base = 100.0 if dtype == torch.int8 else 1.0
+    hws = (1, 2, 3, 5, 8, 17, 35)
+    cs = (1, 3, 4, 12, 32, 288)
+    fronts = ((16, True), (16, False), (8, True))
+    _build.reset_launches()
+    n = 0
+    for i, h in enumerate(hws):
+        for j, w in enumerate(hws):
+            c = cs[(i + j) % len(cs)]
+            in_bits, in_signed = fronts[(i + 2 * j) % 3]
+            x = torch.tensor(rng.randint(-hi, hi, (2, h, w, c)),
+                             dtype=dtype, device=dev)
+            small = 1 / 64 if in_bits == 8 else 1.0
+            in_t = torch.tensor(np_dyadic_multiplier(np.float32(
+                base * small * (rng.rand() * 1.5 + 0.25))), device=dev)
+            in_c = torch.tensor(np_dyadic_multiplier((base * small * (
+                rng.rand(c) * 1.5 + 0.25)).astype(np.float32)), device=dev)
+            per_t = torch.tensor(np_dyadic_multiplier(np.float32(
+                rng.rand() * 0.01 + 0.002)), device=dev)
+            per_c = torch.tensor(np_dyadic_multiplier((
+                rng.rand(c) * 0.01 + 0.002).astype(np.float32)), device=dev)
+            _fused_check(x, per_t, in_c, in_bits, in_signed)
+            _fused_check(_unaligned(x), per_c, in_t, in_bits, in_signed, 4,
+                         False)
+            n += 2
+    x = torch.tensor(rng.randint(-hi, hi, (2, 9, 11, 32)), dtype=dtype,
+                     device=dev)
+    in_m = torch.tensor(np.float32(base), device=dev)
+    m = torch.tensor(np.float32(2 ** -7), device=dev)
+    es = x.element_size()
+    for plan in (ka.AvgPlan(4, 16, 16 // (4 * es), 3, 2),
+                 ka.AvgPlan(4, 4 * es, 2 if es == 4 else 4, 11, 1),
+                 ka.AvgPlan(4, 16, 8, 2, 9), ka.AvgPlan(4, 16, 8, 11, 4),
+                 ka.AvgPlan(1, es, 32, 4, 3), ka.AvgPlan(1, es, 4, 11, 9)):
+        _fused_check(x, m, in_m, 16, True, plan=plan)
+        n += 1
+    assert _counts() == {'int_avgpool3x3_requant': n}
+    assert _core_counts() == {'int_avgpool3x3_requant@cuda': n}
+    one = torch.tensor(np.float32(1.0), device=dev)
+    with pytest.raises(ValueError):                  # 17 bits in front
+        ka.int_avgpool3x3_requant(x, one, out_bits=8, signed=True,
+                                  in_mult=one, in_bits=17, in_signed=True)
+    with pytest.raises(ValueError):                  # a CPU multiplier
+        ka.int_avgpool3x3_requant(x, one, out_bits=8, signed=True,
+                                  in_mult=one.cpu(), in_bits=16,
+                                  in_signed=True)
+
+
+@pytest.mark.parametrize('dtype', [torch.int32, torch.int16, torch.int8])
+def test_avgpool_fused_saturating_equals_plain(dev, dtype):
+    """A requant in front that drives every input to the ends of 16 bits
+    (±32767, and 65535 unsigned: window sums up to 9·65535, the integer
+    quotient's bound), on int32 also inputs beyond 2²⁴; a constant −9
+    field through a multiplier of 1 (trunc(−9 + 0.01) = −8); at the main
+    path's shapes too."""
+    top = torch.iinfo(dtype).max
+    for shape in ((2, 5, 7, 8), (2, 5, 7, 3), (8, 17, 17, 768),
+                  (8, 8, 8, 2048)):
+        x = torch.full(shape, top, dtype=dtype, device=dev)
+        x[:, 2, 3, ::2] = -top
+        x[1] = -x[1]
+        if dtype == torch.int32:
+            x[0, 0, 0] = 2 ** 30 + 1
+        for in_signed in (True, False):
+            m_sat = torch.tensor(np.float32(2 ** 20 / min(top, 32767)),
+                                 device=dev)
+            half = torch.tensor(np.where(
+                np.arange(shape[3]) % 2, 2 ** 20 / min(top, 32767),
+                0.5).astype(np.float32), device=dev)
+            for in_mult in (m_sat, half):
+                _fused_check(x, torch.tensor(np.float32(2 ** -9), device=dev),
+                             in_mult, 16, in_signed)
+                _fused_check(x, torch.tensor(np.float32(2 ** -13),
+                                             device=dev),
+                             in_mult, 16, in_signed, 4, False)
+    x = torch.full((1, 4, 5, 4), -9, dtype=dtype, device=dev)
+    one = torch.tensor(np.float32(1.0), device=dev)
+    assert _fused_check(x, one, one, 16, True)[0, 1, 1, 0] == -8
 
 
 # InceptionV3's conv geometries on the Hopper core: (B, H, W, C), N, taps,
