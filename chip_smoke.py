@@ -144,16 +144,38 @@ non-zero exit and no result line:
     integers to the QAT eval logits, every distinct kernel call of a step
     against its plain version, one folded step at b2 75² on the card
     against the CPU, step times and a trace;
-13. one JSON line with the kernels' numbers, then the result line.
+13. the reference-checkpoint replay (``requant_mode='reference'``, the
+    reference's 31-bit float64 requant) at full width, batch 8, int32
+    carriers: ResNet-50 uniform8 on folded_float32 and float32 input,
+    ResNet-50 uniform4 folded, MobileNetV2 w1 uniform8 and InceptionV3 w1
+    uniform8 (299²) on float32, each model's synthetic weights (seed 0)
+    exported, written as ``quantized_checkpoint.pth.tar`` and read back
+    through ``load_reference_quantized``, on those weights and on a variant
+    with power-of-two scales (``dyadic_scales``, where native and reference
+    rounding differ: the logits must differ from the native engine's);
+    launches per kernel and per core against the prediction (the
+    accumulator forms, ``maxpool_folded`` on the folded ResNet path, D1's
+    ``int8_dwconv_acc``, A1's quotient form ``int_avgpool3x3``; no
+    fused-requant form), logits and an inner node for the first two images
+    equal to the CPU reference engine's, every recorded call and 55 ragged
+    calls of the quotient form against the plain versions; ms per batch of
+    both modes in turns, a trace of each (kernels per forward, the float64
+    glue's device time), the quotient form timed beside A1's fused form;
+    the QAT-eval-against-engine checks of phases 7, 10 and 12 keep both
+    checkpoints and walk the nodes of both sides on a mismatch
+    (:func:`parity_evidence`);
+14. one JSON line with the kernels' numbers, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import copy
 import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -163,6 +185,9 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the run-output directory that .gitignore lists: evidence a failed check
+# keeps (parity_evidence)
+OUT_DIR = os.path.join(REPO, 'chiprun_out')
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 BATCH, SIZE = 8, 224
@@ -206,6 +231,10 @@ KERNELS = {
     # division by 9 and the requant after it
     'int_avgpool3x3_requant': ('hawq_tpu_torch/kernels/csrc/avgpool.cu',
                                'hawq_tpu/inference/engine_inception.py:336'),
+    # A1's quotient form (no requant): the window sum and the truncating
+    # division alone, as the reference-checkpoint replay runs it
+    'int_avgpool3x3': ('hawq_tpu_torch/kernels/csrc/avgpool.cu',
+                       'hawq_tpu/inference/engine_inception.py:336'),
 }
 # the three kernels that no serving path launches: phase 3 (the standalone
 # pool, at the main path's pre-pool tensor), 6 and 7 drive them
@@ -215,11 +244,13 @@ POOL, POOL_REQUANT = 'maxpool_folded', 'maxpool_folded_requant'
 # (phase 10)
 DW_REQUANT, DW_ACC = 'int8_dwconv_requant', 'int8_dwconv_acc'
 DW = (DW_REQUANT, DW_ACC)
-# A1, the InceptionV3 engine's integer average pool (phase 11)
-AVGPOOL = 'int_avgpool3x3_requant'
+# A1, the InceptionV3 engine's integer average pool (phase 11), and its
+# quotient form, which the reference-checkpoint replay runs (phase 13)
+AVGPOOL, AVGPOOL_Q = 'int_avgpool3x3_requant', 'int_avgpool3x3'
 # the kernels on no ResNet serving path
 SERVING_KERNELS = [k for k in KERNELS
-                   if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL) + DW]
+                   if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL, AVGPOOL_Q)
+                   + DW]
 TRAIN_BATCH = 32
 # the phase that trains each arch through the Trainer
 TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10,
@@ -252,9 +283,23 @@ SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED)
 POOLS = (POOL, POOL_REQUANT)
 GEMM_KERNELS = [k for k in KERNELS
-                if k not in POOLS + DW + (MINMAX, AVGPOOL)]
+                if k not in POOLS + DW + (MINMAX, AVGPOOL, AVGPOOL_Q)]
 # the kernels of their own (no GEMM core): launches counted on '@cuda'
-OWN_CORE = DW + (AVGPOOL,)
+OWN_CORE = DW + (AVGPOOL, AVGPOOL_Q)
+# Reference-checkpoint replay (phase 13), batch 8, int32 carriers, 224²
+# (InceptionV3 299²): (arch, scheme, input modes, the inner node held
+# against the CPU engine); each model also with dyadic scales
+REF_PATHS = (('resnet50', 'uniform8', ('folded_float32', 'float32'),
+              'stage3.unit2.quant_act_int32'),
+             ('resnet50', 'uniform4', ('folded_float32',),
+              'stage3.unit2.quant_act_int32'),
+             ('mobilenetv2', 'uniform8', ('float32',), 'final'),
+             ('inceptionv3', 'uniform8', ('float32',),
+              'features.stage2.unit1.q_rescaling_activ'))
+# the forms that compute the native requant: none launches in reference mode
+FUSED_FORMS = ('int8_conv_requant', 'int4w_conv_requant',
+               'int8_matmul_requant', 'int4w_matmul_requant', POOL_REQUANT,
+               DW_REQUANT, AVGPOOL)
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -281,7 +326,7 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def expected_inception_launches(fm, input_mode):
+def expected_inception_launches(fm, input_mode, reference=False):
     """Launches of one InceptionV3 engine forward, from the frozen model's
     widths and its bit config: each conv (the graph's walk,
     ``engine_inception.conv_input_nodes``) through the requant form where
@@ -289,7 +334,9 @@ def expected_inception_launches(fm, input_mode):
     through the matmul, a k×k through the conv (4·C, C filled to a multiple
     of 4, after a stride 2's space-to-depth); the folded stem's q_conv1
     through ``int8_conv_acc`` over the fold (C = 48, N = 4·32); A1 once for
-    each pool branch; the FC through ``int8_matmul_acc``."""
+    each pool branch; the FC through ``int8_matmul_acc``.  With
+    ``reference`` (``requant_mode='reference'``) every conv takes the
+    accumulator form and every pool branch A1's quotient form."""
     from hawq_tpu_torch.inference.engine_inception import (
         conv_input_nodes, width_div_from_frozen)
     from hawq_tpu_torch.models import inceptionv3 as mi
@@ -302,7 +349,7 @@ def expected_inception_launches(fm, input_mode):
         for name, kind, kw in unit.branch_defs:
             bp = f'{unit.prefix}.branches.{name}'
             if kind == mi.AVG_POOL:
-                out.add(AVGPOOL)
+                out.add(AVGPOOL_Q if reference else AVGPOOL)
             for c, stride in enumerate(kw.get('strides', ()), start=1):
                 strides[f'{bp}.q_conv_list.q_conv{c}'] = stride
     for key, _ in conv_input_nodes(width_div):
@@ -311,7 +358,7 @@ def expected_inception_launches(fm, input_mode):
                     *fm[key + '.weight_int'].shape)
             continue
         kh, kw_, c, n = fm[key + '.q_convbn.weight_int'].shape
-        acc = fm.cfg.act_bits(key + '.q_activ') > 8
+        acc = reference or fm.cfg.act_bits(key + '.q_activ') > 8
         if key == stem and input_mode == 'folded_float32':
             out.add('int8_conv_acc', 'conv_acc', 48, 4 * n)
         elif (kh, kw_) == (1, 1):
@@ -740,23 +787,26 @@ def cold_ms(fn, args, reps):
 # phase 3 helpers: recording, plain versions, bounds
 # ---------------------------------------------------------------------------
 
-def expected_launches(arch, cfg, input_mode):
+def expected_launches(arch, cfg, input_mode, reference=False):
     """Kernel launches of one engine forward, from the arch and the bit
     config: the init conv (int8), the folded init's requant + pool, each
     unit conv by its place in the unit and its weight bits (``int4w_*`` for
-    4-bit weights), and the FC (int8)."""
+    4-bit weights), and the FC (int8).  With ``reference``
+    (``requant_mode='reference'``) every unit conv takes its accumulator
+    form and the folded init the standalone pool."""
     from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
                                                    resnet_layer_keys)
     bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
     counts = {'int8_conv_acc': 1, 'int8_matmul_acc': 1}
     if input_mode.startswith('folded'):
-        counts[POOL_REQUANT] = 1
+        counts[POOL if reference else POOL_REQUANT] = 1
     for key in resnet_layer_keys(arch):
         conv = key.rsplit('.', 1)[-1]
         if not key.startswith('stage') or 'convbn' not in conv:
             continue
+        form = _UNIT_CONV[bottleneck, conv]
         name = (('int4w_' if cfg.weight_bits(key) == 4 else 'int8_')
-                + _UNIT_CONV[bottleneck, conv])
+                + (form.replace('_requant', '_acc') if reference else form))
         counts[name] = counts.get(name, 0) + 1
     return counts
 
@@ -795,19 +845,19 @@ class Launches:
         return self
 
 
-def expected_mobilenet_launches(fm, input_mode):
+def expected_mobilenet_launches(fm, input_mode, reference=False):
     """Launches of one MobileNetV2 engine forward, from the frozen model's
     widths: the init conv (the fold's C = 48, N = 4·32, or the raw image's
     space-to-depth C = 16), every 1×1 conv (conv1, conv3, the final block,
     the head) through ``int8_matmul_acc``, every depthwise conv2 through
-    D1's requant form."""
+    D1's requant form (with ``reference``, its accumulator form)."""
     n = fm['init_block.weight_int'].shape[-1]
     out = Launches().add('int8_conv_acc', 'conv_acc',
                          *((48, 4 * n) if input_mode.startswith('folded')
                            else (16, n)))
     for key, w in fm.tensors.items():
         if key.endswith('.conv2.weight_int'):
-            out.add(DW_REQUANT)
+            out.add(DW_ACC if reference else DW_REQUANT)
         elif key.endswith('.weight_int') and key != 'init_block.weight_int':
             out.add('int8_matmul_acc', 'matmul', w.shape[2], w.shape[3])
     return out
@@ -879,7 +929,7 @@ def kernel_modules():
     from hawq_tpu_torch.kernels import (avgpool, conv, depthwise, matmul,
                                         pool, reduce)
     return {name: (pool if name in POOLS else
-                   avgpool if name == AVGPOOL else
+                   avgpool if name in (AVGPOOL, AVGPOOL_Q) else
                    reduce if name == MINMAX else
                    depthwise if name in DW else
                    conv if '_conv' in name else matmul) for name in KERNELS}
@@ -970,6 +1020,9 @@ def plain_call(name, args, kw, stack=True):
         from hawq_tpu_torch.kernels.avgpool import avgpool3x3_requant_plain
         return avgpool3x3_requant_plain(*args, kw['out_bits'], kw['signed'],
                                         **avgpool_front(kw))
+    if name == AVGPOOL_Q:
+        from hawq_tpu_torch.kernels.avgpool import avgpool3x3_plain
+        return avgpool3x3_plain(*args)
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
     return plain_gemm_call(name, args, kw)
 
@@ -1010,7 +1063,7 @@ def work(name, args, kw, out):
     nbytes += out.numel() * out.element_size()
     if name in POOLS + (MINMAX,):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
-    if name == AVGPOOL:             # 9 adds, a division, the requants
+    if name in (AVGPOOL, AVGPOOL_Q):   # 9 adds, a division, the requants
         return nbytes, 0, ('x' + 'x'.join(map(str, args[0].shape)) + ' '
                            + str(args[0].dtype).replace('torch.', '')
                            + (' +front' if 'in_mult' in kw else ''))
@@ -1050,13 +1103,15 @@ def library_call(name, args, kw):
     exact here (|sum| ≤ 9·32767 < 2²⁴)."""
     if name == MINMAX:
         return lambda: torch.aminmax(args[0])
-    if name == AVGPOOL:
+    if name in (AVGPOOL, AVGPOOL_Q):
         xf = args[0].permute(0, 3, 1, 2).float().contiguous(
             memory_format=torch.channels_last)
         return lambda: torch.nn.functional.avg_pool2d(xf, 3, 1, 1,
                                                       divisor_override=1)
     if name in DW:
         return cudnn_depthwise(args[0], args[1], args[2], kw['stride'])
+    if '_conv' in name:
+        return cudnn_conv(name, args, kw)
     if '_matmul' not in name:
         return None
     x, w = args[0], unpacked_weights(name, args, kw)
@@ -1072,6 +1127,33 @@ def library_call(name, args, kw):
         run()
     except RuntimeError:        # cuBLASLt refuses some shapes (K 64, N 80)
         return None
+    return run
+
+
+def cudnn_conv(name, args, kw):
+    """cuDNN's float32 convolution (TF32 off) over a conv kernel's inputs:
+    the padded slab (NHWC in memory) and the weights unpacked to int8 (N,
+    C, kh, kw), with the bias, converted before the timing — the product
+    alone, without the requant, as ``torch._int_mm`` stands beside the
+    matmuls.  Exact only while |acc| < 2²⁴ (a float32 sum); the yardstick
+    is its time, not its values."""
+    from hawq_tpu_torch.kernels import conv as kc
+    from hawq_tpu_torch.nn.layers import faithful_float_math
+    geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin')}
+    x = args[0]
+    if kw.get('pad', (0, 0)) != (0, 0):
+        x = kc.pad_conv_input(x, kw['pad'], **geo)
+    (kh, kw_), (h, w), cin = kw['taps'], kw['out_hw'], kw['cin']
+    xf = x.reshape(x.shape[0], h + kh - 1, w + kw_ - 1, cin).permute(
+        0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
+    wq = unpacked_weights(name, args, kw)
+    wf = wq.float().reshape(kh, kw_, cin, -1).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bf = args[2].float()
+
+    def run():
+        with faithful_float_math():
+            return torch.nn.functional.conv2d(xf, wf, bf)
     return run
 
 
@@ -1653,7 +1735,7 @@ def time_calls(calls, totals):
                     lambda *a: kernel_call(name, a, kw, False), args, 10)
             if name in DW:
                 extra['tiles'] = dw_tile(args, kw, out)[1]
-            if name == AVGPOOL:
+            if name in (AVGPOOL, AVGPOOL_Q):
                 extra['tiles'] = avgpool_tile(args, kw)[1]
             host_ms = cuda_ms(lambda: kernel_call(name, args, kw, False), 20)
             plain_ms = graph_ms(lambda: plain_call(name, args, kw, False), 3)
@@ -1704,7 +1786,7 @@ def time_calls(calls, totals):
     dw_rows = [r for r in seen.values() if r['name'] in DW]
     if dw_rows:
         dw_call_table(dw_rows)
-    avg_rows = [r for r in seen.values() if r['name'] == AVGPOOL]
+    avg_rows = [r for r in seen.values() if r['name'] in (AVGPOOL, AVGPOOL_Q)]
     if avg_rows:
         avgpool_call_table(avg_rows)
     for name in SM90_KERNELS:
@@ -1916,6 +1998,8 @@ _SM90_TEMPLATE = (
 
 
 _DW_TEMPLATE = re.compile(r'dwconv_kernel(?:<(\w+),|ILb(\d)E)')
+_AVG_TEMPLATE = re.compile(r'avgpool3x3_kernel(?:<[^<>]*?(true|false)>'
+                           r'|I\w*?Lb\dELb(\d)E)')
 
 
 def port_kernel(name):
@@ -1947,8 +2031,10 @@ def port_kernel(name):
     if m:
         requant = m.group(1) in ('true', '1') or m.group(2) in ('true', '1')
         return 'port: depthwise ' + ('requant' if requant else 'acc')
-    if 'avgpool3x3_requant_kernel' in name:
-        return 'port: avgpool'
+    m = _AVG_TEMPLATE.search(name)
+    if m:                 # the last template flag: the requant after it
+        return 'port: avgpool' + ('' if (m.group(1) or m.group(2)) in (
+            'true', '1') else ' quotient')
     if 'maxpool_folded_requant_kernel' in name:
         return 'port: pool requant'
     if 'maxpool_folded_kernel' in name:
@@ -1991,9 +2077,10 @@ def busy_and_timeline(kernels):
 
 def trace_breakdown(eng, x, label, phase='phase 4'):
     """Device-side breakdown of one forward from a torch.profiler trace:
-    kernel time of the port's kernels and of the rest, and the share of the
+    kernel time of the port's kernels and of the rest (and of those of the
+    rest whose names carry ``double``: float64 glue), and the share of the
     device timeline with no kernel running → (kernels, port ms, other ms,
-    {name: (count, µs)}), None without a trace."""
+    {name: (count, µs)}, float64 ms), None without a trace."""
     kernels = device_kernels(lambda: eng(x))
     if not kernels:
         log(f'{phase}: {label}: the profiler trace holds no device kernels; '
@@ -2007,14 +2094,18 @@ def trace_breakdown(eng, x, label, phase='phase 4'):
         by_name[key] = (c + 1, t + float(e['dur']))
     port_us = sum(t for k, (c, t) in by_name.items() if k.startswith('port'))
     total_us = sum(t for c, t in by_name.values())
+    f64_us = sum(float(e['dur']) for e in kernels
+                 if 'double' in e['name'] and not port_kernel(e['name']))
     log(f'{phase}: trace of one {label} forward: {len(kernels)} kernels, '
         f'device busy {busy / 1e3:.3f} ms of a {timeline / 1e3:.3f} ms device '
         f'timeline (idle share {1 - busy / timeline:.3f}); port kernels '
         f'{port_us / 1e3:.3f} ms, other kernels '
-        f'{(total_us - port_us) / 1e3:.3f} ms')
+        f'{(total_us - port_us) / 1e3:.3f} ms, of which float64 (names with '
+        f"'double') {f64_us / 1e3:.3f} ms")
     for k, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:9]:
         log(f'  {t / 1e3:8.4f} ms  x{c:<4d} {k}')
-    return len(kernels), port_us / 1e3, (total_us - port_us) / 1e3, by_name
+    return (len(kernels), port_us / 1e3, (total_us - port_us) / 1e3,
+            by_name, f64_us / 1e3)
 
 
 @contextlib.contextmanager
@@ -2372,31 +2463,32 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
             check(os.path.exists(os.path.join(tmp, name)), f'{name} missing')
         fm = load_frozen(os.path.join(tmp, 'quantized_checkpoint.npz'))
 
-    # the parity contract on the card: the frozen checkpoint through the
-    # family's integer engine == the trainer's QAT eval logits, as integers
-    images = torch.from_numpy(next(synthetic_batches(
-        batch_size, size, 1000, 1, seed=10_000))['image']).to(dev)
-    with torch.no_grad():
-        qat = trainer.model(images, folded=True, update_stats=False)
-    eng, want_eng, head, head_act = serving_engine(fm, dev)
-    _build.reset_launches()
-    logits = eng(images)
-    torch.cuda.synchronize()
-    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-    check(counts == want_eng.counts, f'engine on the frozen checkpoint: '
-          f'launches {counts}, expected {want_eng.counts}')
-    check(core_launches() == want_eng.cores, f'engine on the frozen '
-          f'checkpoint: launches per core {core_launches()}, expected '
-          f'{want_eng.cores}')
-    scale = (torch.from_numpy(fm[head + '.weight_scale']).to(dev).double()
-             * float(fm.act_scale(head_act)))
-    qat_int = torch.round(qat.double() / scale)
-    eng_int = torch.round(logits.double() / scale)
-    check(qat.shape == (batch_size, 1000) and bool(torch.isfinite(qat).all()),
-          'QAT eval logits not finite/shaped')
-    check(torch.equal(qat_int, eng_int), f'engine logits differ from the QAT '
-          f'eval logits as integers on {int((qat_int != eng_int).sum())} of '
-          f'{qat_int.numel()}')
+        # the parity contract on the card: the frozen checkpoint through the
+        # family's integer engine == the trainer's QAT eval logits, as integers
+        images = torch.from_numpy(next(synthetic_batches(
+            batch_size, size, 1000, 1, seed=10_000))['image']).to(dev)
+        with torch.no_grad():
+            qat = trainer.model(images, folded=True, update_stats=False)
+        eng, want_eng, head, head_act = serving_engine(fm, dev)
+        _build.reset_launches()
+        logits = eng(images)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(counts == want_eng.counts, f'engine on the frozen checkpoint: '
+              f'launches {counts}, expected {want_eng.counts}')
+        check(core_launches() == want_eng.cores, f'engine on the frozen '
+              f'checkpoint: launches per core {core_launches()}, expected '
+              f'{want_eng.cores}')
+        scale = (torch.from_numpy(fm[head + '.weight_scale']).to(
+            dev).double() * float(fm.act_scale(head_act)))
+        qat_int = torch.round(qat.double() / scale)
+        eng_int = torch.round(logits.double() / scale)
+        check(qat.shape == (batch_size, 1000)
+              and bool(torch.isfinite(qat).all()),
+              'QAT eval logits not finite/shaped')
+        if not torch.equal(qat_int, eng_int):
+            parity_evidence(tmp, arch, trainer.model, fm, images, qat_int,
+                            eng_int, dev)
     log(f'phase {TRAIN_PHASE[arch]}: quantized_checkpoint.npz → load_frozen '
         f'→ {type(eng).__name__} on the card: integer logits equal the '
         f"trainer's QAT eval logits on all {qat_int.numel()} "
@@ -2422,6 +2514,88 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
                                    TRAIN_PHASE[arch])
     return dict(batch=batch_size, counts=records[-1]['counts'],
                 specs=list(specs), timed=timed, peak=peak, groups=groups)
+
+
+def qat_node_names(node):
+    """The QAT quantizers (``capture_q_int`` names, one per family) whose
+    integers an engine capture node holds."""
+    fixed = {'input': ('quant_input', 'q_input_activ'),
+             'init': ('quant_act_int32',), 'final': ('quant_act_int32_final',),
+             'fc_input': ('quant_act_output', 'q_concat_activ')}
+    if node in fixed:
+        return fixed[node]
+    m = re.match(r'(?:features\.)?stage(\d+)\.unit(\d+)\.(\w+)$', node)
+    if not m:
+        return ()
+    leaf = {'input': 'quant_act', 'conv1': 'quant_act1', 'conv2': 'quant_act2',
+            'pre': 'quant_bn'}.get(m[3], m[3])
+    return (f'stage{m[1]}_unit{m[2]}.{leaf}',)
+
+
+def parity_evidence(tmp, arch, model, fm, images, qat_int, eng_int, dev):
+    """A QAT-eval-against-engine mismatch (phases 7, 10, 12): keep the
+    trainer's checkpoint and its frozen artifact (copied from ``tmp`` into a
+    directory under ``OUT_DIR``, its path printed), then walk both sides on
+    the card and on the CPU — the engine's capture nodes and the QAT
+    forward's integers at the matching quantizers — over the images whose
+    logits differ (at most 4); log the first node where the engine and the
+    QAT forward differ and which side moved between the CPU and the card;
+    then fail."""
+    from hawq_tpu_torch.nn.layers import capture_q_int
+    phase = f'phase {TRAIN_PHASE[arch]}'
+    keep = os.path.join(OUT_DIR, f"parity_{arch}_{time.strftime('%H%M%S')}")
+    os.makedirs(keep, exist_ok=True)
+    for name in os.listdir(tmp):
+        if name.startswith(('checkpoint.npz', 'quantized_checkpoint.npz')):
+            shutil.copy2(os.path.join(tmp, name), keep)
+    bad = (qat_int != eng_int).any(dim=1).nonzero().flatten()[:4]
+    log(f'{phase}: engine and QAT eval logits differ on '
+        f'{int((qat_int != eng_int).sum())} of {qat_int.numel()}, in images '
+        f'{bad.tolist()} and more; checkpoints kept in {keep}')
+    try:
+        x = images[bad.to(images.device)]
+        sides = {}
+        for where, device in (('card', dev), ('cpu', torch.device('cpu'))):
+            m = model if where == 'card' else copy.deepcopy(model).cpu()
+            nodes = {}
+            serving_engine(fm, device)[0]._forward(
+                x.to(device), lambda n, v: nodes.__setitem__(n, v.cpu()))
+            with torch.no_grad(), capture_q_int(m) as q:
+                m(x.to(device), folded=True, update_stats=False)
+            sides[where] = (nodes, {k: v.cpu() for k, v in q.items()})
+        walked = 0
+        for node, card_eng in sides['card'][0].items():
+            names = [n for n in qat_node_names(node) if n in sides['card'][1]
+                     and sides['card'][1][n].numel() == card_eng.numel()]
+            if not names:
+                continue
+            walked += 1
+            # a carrier's quantizer holds its integers before the ReLU that
+            # the engine has applied
+            relu = (lambda t: t.clamp_min(0)) if card_eng.min() >= 0 else (
+                lambda t: t)
+            card_q = relu(sides['card'][1][names[0]].reshape(card_eng.shape))
+            cpu_eng = sides['cpu'][0][node]
+            cpu_q = relu(sides['cpu'][1][names[0]].reshape(card_eng.shape))
+            if torch.equal(card_eng.double(), card_q.double()):
+                continue
+            log(f'{phase}: first differing node {node} (QAT {names[0]}): '
+                f'{int((card_eng.double() != card_q.double()).sum())} of '
+                f'{card_eng.numel()} on the card, '
+                f'{int((cpu_eng.double() != cpu_q.double()).sum())} on the '
+                f'CPU; engine card vs CPU '
+                f"{'equal' if torch.equal(card_eng, cpu_eng) else 'MOVED'}, "
+                f"QAT card vs CPU "
+                f"{'equal' if torch.equal(card_q, cpu_q) else 'MOVED'}")
+            break
+        else:
+            log(f'{phase}: all {walked} walked nodes agree; the logits alone '
+                f'differ')
+    except Exception as e:            # the walk is evidence, the check fails
+        log(f'{phase}: the node walk failed: {type(e).__name__}: {e}')
+    check(False, f'engine logits differ from the QAT eval logits as integers '
+          f'on {int((qat_int != eng_int).sum())} of {qat_int.numel()} '
+          f'(evidence in {keep})')
 
 
 def card_vs_cpu_step(arch, dev):
@@ -2732,6 +2906,195 @@ def resnet_v2_phase(raw, dev, errs):
     trace_breakdown(eng, x, label, 'phase 9')
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the reference-checkpoint replay
+# ---------------------------------------------------------------------------
+
+def reference_checkpoint(arch, scheme, dyadic, tmp):
+    """The synthetic model (seed 0) of ``arch`` at full width — with
+    ``dyadic``, its ``dyadic_scales`` variant — written as the reference's
+    ``quantized_checkpoint.pth.tar`` (``save_reference_quantized``) into
+    ``tmp`` and read back (``load_reference_quantized``): the FrozenModel
+    the replay serves, held equal to the one written."""
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.inference import synthetic as syn
+    from hawq_tpu_torch.utils.checkpoint import (load_reference_quantized,
+                                                 save_reference_quantized)
+    cfg = get_bit_config(arch, scheme)
+    fm = (syn.synthetic_frozen_mobilenet(cfg, seed=0) if arch == 'mobilenetv2'
+          else syn.synthetic_frozen_inception(cfg, seed=0)
+          if arch == 'inceptionv3'
+          else syn.synthetic_frozen_resnet(arch, cfg, seed=0))
+    if dyadic:
+        fm = syn.dyadic_scales(fm)
+    kind = 'dyadic' if dyadic else 'synthetic'
+    path = os.path.join(tmp, f'{arch}_{scheme}_{kind}.pth.tar')
+    save_reference_quantized(path, fm)
+    got = load_reference_quantized(path, fm.arch, cfg)
+    check(got.num_classes == fm.num_classes
+          and sorted(got.tensors) == sorted(fm.tensors)
+          and all(np.asarray(got[k]).dtype == np.asarray(v).dtype
+                  and np.array_equal(got[k], v)
+                  for k, v in fm.tensors.items()),
+          f'{os.path.basename(path)}: the checkpoint read back differs from '
+          f'the one written')
+    return got
+
+
+def reference_builder(fm, mode, requant_mode):
+    """The family's engine builder for ``fm`` on ``mode`` input, int32
+    carriers, in ``requant_mode``."""
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    if fm.arch == 'mobilenetv2':
+        return functools.partial(build_mobilenetv2_engine, fm,
+                                 input_mode=mode, input_hw=(SIZE, SIZE),
+                                 requant_mode=requant_mode)
+    if fm.arch == 'inceptionv3':
+        return functools.partial(build_inceptionv3_engine, fm,
+                                 input_mode=mode,
+                                 input_hw=(INC_SIZE, INC_SIZE),
+                                 requant_mode=requant_mode)
+    return functools.partial(build_resnet_engine, fm, input_mode=mode,
+                             requant_mode=requant_mode)
+
+
+def expected_reference_launches(fm, mode):
+    """Launches of one reference-mode forward of the family's engine, from
+    the model's widths (the accumulator forms throughout) → Launches."""
+    if fm.arch == 'mobilenetv2':
+        return expected_mobilenet_launches(fm, mode, reference=True)
+    if fm.arch == 'inceptionv3':
+        return expected_inception_launches(fm, mode, reference=True)
+    out = Launches()
+    out.counts = expected_launches(fm.arch, fm.cfg, mode, reference=True)
+    out.cores = core_split(out.counts)
+    return out
+
+
+def reference_timing(eng, native, x, label):
+    """ms per batch of the reference and the native engine in turns
+    (reference, native, native, reference; CUDA events), and a trace of a
+    forward of each (kernels per forward, the float64 glue)."""
+    ms = {'reference': [], 'native': []}
+    for mode in ('reference', 'native', 'native', 'reference'):
+        e = eng if mode == 'reference' else native
+        ms[mode].append(cuda_ms(lambda: e(x), 10))
+    log(f'phase 13: {label}: ms/batch in turns (reference, native, native, '
+        f'reference): ' + ', '.join(f'{a:.3f}' for a in (
+            ms['reference'][0], *ms['native'], ms['reference'][1])))
+    for mode, e in (('reference', eng), ('native', native)):
+        trace_breakdown(e, x, f'{label} in {mode} mode', 'phase 13')
+
+
+def avgpool_quotient_ragged_calls(dev):
+    """A1's quotient form beside the path's shapes: H, W in {1, 2, 3, 5, 8,
+    17, 35} with C cycling through {1, 3, 4, 12, 288} and the dtype through
+    int32, int16 and int8, every other call one element off alignment (one
+    channel a thread); per dtype a field of ± its largest value (int32:
+    2³¹/9, the largest whose sums fit) and a constant −9 one (negative
+    multiples of 9)."""
+    rng = np.random.RandomState(19)
+    hws, cs = (1, 2, 3, 5, 8, 17, 35), (1, 3, 4, 12, 288)
+    dtypes = (torch.int32, torch.int16, torch.int8)
+    calls = []
+    for i, h in enumerate(hws):
+        for j, w in enumerate(hws):
+            c = cs[(i + j) % len(cs)]
+            dtype = dtypes[(i + 2 * j) % 3]
+            top = min(torch.iinfo(dtype).max, 2 ** 31 // 9)
+            x = torch.tensor(rng.randint(-top, top + 1, (2, h, w, c)),
+                             dtype=dtype, device=dev)
+            if (i + j) % 2:
+                flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+                flat[1:] = x.reshape(-1)
+                x = flat[1:].view(x.shape)
+            calls.append((AVGPOOL_Q, (x,), {}))
+    for dtype in dtypes:
+        top = min(torch.iinfo(dtype).max, 2 ** 31 // 9)
+        x = torch.full((2, 5, 7, 12), top, dtype=dtype, device=dev)
+        x[:, 2, 3, ::2] = -top
+        x[1] = -x[1]
+        calls.append((AVGPOOL_Q, (x,), {}))
+        calls.append((AVGPOOL_Q, (torch.full((1, 4, 5, 4), -9, dtype=dtype,
+                                             device=dev),), {}))
+    return calls
+
+
+def reference_phase(raw, dev, errs, totals):
+    """Phase 13: the reference-checkpoint replay at full width, batch 8
+    (``REF_PATHS``): each model written as the reference's
+    ``quantized_checkpoint.pth.tar`` and read back, then served with
+    ``requant_mode='reference'`` — launches per kernel and per core against
+    the prediction, no fused-requant form, logits and an inner node for the
+    first two images equal to the CPU reference engine's, every recorded
+    call against its plain version — on its synthetic weights and on its
+    dyadic-scale variant, where the logits must differ from the native
+    engine's; on the synthetic weights ms per batch and a trace of both
+    modes; A1's quotient form held on its recorded and ragged calls and
+    timed → (launches per kernel per path, A1's quotient-form launches on
+    the InceptionV3 path, that path's label)."""
+    from hawq_tpu_torch.inference.fold import fold4_images
+    images = {'float32': torch.from_numpy(raw).to(dev),
+              'folded_float32': torch.from_numpy(fold4_images(raw)).to(dev)}
+    inc_x = torch.from_numpy(np.random.RandomState(3).randn(
+        BATCH, INC_SIZE, INC_SIZE, 3).astype(np.float32)).to(dev)
+    per_path, a1q = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, scheme, modes, node in REF_PATHS:
+            for dyadic in (False, True):
+                fm = reference_checkpoint(arch, scheme, dyadic, tmp)
+                for mode in modes:
+                    x = inc_x if arch == 'inceptionv3' else images[mode]
+                    label = (f"{arch} {scheme}{' dyadic' if dyadic else ''} "
+                             f'{mode} int32 b{BATCH} reference')
+                    want = expected_reference_launches(fm, mode)
+                    calls = []
+                    eng, counts = engine_check(
+                        reference_builder(fm, mode, 'reference'), x,
+                        want.counts, want.cores, (node,), label, dev,
+                        'phase 13', calls)
+                    check(not set(FUSED_FORMS) & set(counts),
+                          f'{label}: a fused-requant form launched: '
+                          f'{counts}')
+                    check_calls(calls, errs, f'phase 13: all {len(calls)} '
+                                f'recorded calls of {label}')
+                    native = reference_builder(fm, mode, 'native')(
+                        device=dev)
+                    n_diff = int((eng(x) != native(x)).sum())
+                    check(n_diff > 0 or not dyadic, f'{label}: the logits '
+                          f'equal the native engine\'s: the mode took no '
+                          f'effect')
+                    log(f'phase 13: {label}: {n_diff} of {BATCH * 1000} '
+                        f'logits differ from the native engine\'s')
+                    if not dyadic:
+                        for name, n in counts.items():
+                            per_path.setdefault(name, {})[label] = n
+                        if arch == 'inceptionv3':
+                            a1q = ([c for c in calls if c[0] == AVGPOOL_Q],
+                                   counts[AVGPOOL_Q], label)
+                        reference_timing(eng, native, x, label)
+                    del calls, eng, native
+    calls, n, label = a1q
+    ragged = avgpool_quotient_ragged_calls(dev)
+    check(n == 9 and len(calls) == 9, f'{label}: {n} {AVGPOOL_Q} launches')
+    check_calls(calls + ragged, errs, f'phase 13: the {len(calls)} recorded '
+                f'{AVGPOOL_Q} calls of {label} and {len(ragged)} ragged ones')
+    log(f'phase 13: timed {AVGPOOL_Q} on {label}:')
+    time_calls(calls, totals)
+    q, f = totals[AVGPOOL_Q], totals[AVGPOOL]
+    log(f"phase 13: {AVGPOOL_Q} over its {n} launches: {q['ms']:.4f} ms "
+        f"(streamed {q['cold_ms']:.4f}), bound {q['bound_ms']:.4f} ms "
+        f"({q['bound_ms'] / q['ms']:.1%} of it), plain {q['plain_ms']:.4f} "
+        f"ms, F.avg_pool2d {q['library_ms']:.4f} ms; beside it A1's fused "
+        f"form over the 9 launches of phase 11's path {f['ms']:.4f} ms, "
+        f"bound {f['bound_ms']:.4f} ms")
+    return per_path, n, label
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch.cuda.is_available() is false; this '
@@ -2903,7 +3266,11 @@ def main():
                        f'{TRAIN_SIZE["inceptionv3"]}x'
                        f'{TRAIN_SIZE["inceptionv3"]}')
 
-    # ---- phase 13 ----
+    # ---- phase 13: the reference-checkpoint replay ----
+    ref_launches, launches[AVGPOOL_Q], labels[AVGPOOL_Q] = reference_phase(
+        raw, dev, errs, totals)
+
+    # ---- phase 14 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -2950,6 +3317,8 @@ def main():
                          inception_train_launches=inc_train_launches[name])
         if name == KBLOCKED:
             entry['smallest_launch_ms'] = launch_floor
+        if name in ref_launches:     # phase 13's paths, synthetic weights
+            entry['reference_launches'] = ref_launches[name]
         if name != MINMAX and name in train_totals:
             # the accumulator kernels' second path: one QAT train step
             tt = train_totals[name]
@@ -2963,7 +3332,7 @@ def main():
                 entry.update(train_old_ms=tt['old_ms'],
                              train_weight_layout_ms=tt['prep_ms'])
         kernels.append(entry)
-    log(f'phase 13: all phases passed in '
+    log(f'phase 14: all phases passed in '
         f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '

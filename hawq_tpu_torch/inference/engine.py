@@ -1,11 +1,11 @@
 """Integer-only ResNet inference engine (port of hawq_tpu/inference/engine.py
-``build_resnet_engine``, native requant mode).
+``build_resnet_engine``, native and reference requant modes).
 
 A FrozenModel becomes a callable ``engine(images) -> logits``: int8
 activations, int8×int8→int32 convolutions with dyadic requant epilogues and
 int32 or int16 residual carriers, bit-identical to the reference engine on
 logits and on every capture node.  All multipliers are computed on the host
-in numpy float32 and uploaded once.
+in numpy (float32; float64 pairs in reference mode) and uploaded once.
 
 Routing (every integer conv and the FC go through the port's kernels; on a
 CPU device the kernels' plain versions run instead):
@@ -40,6 +40,18 @@ CPU device the kernels' plain versions run instead):
     that core's walk; the stride-1 k×k convs among them take unpadded
     activations (TMA supplies the zero border).
 
+``requant_mode='reference'`` replays an imported reference checkpoint
+(``utils.checkpoint.import_reference_quantized``) with the reference's own
+requant: 31-bit Decimal-rounded mantissas (``quant.reference_oracle``)
+evaluated in float64 on the engine's device, round-half-even
+(``quant.ops.requant_int32_ref`` / ``requant_add_int32_ref``).  No fused
+requant kernel computes that, so in this mode every conv takes its
+accumulator form (``int8_conv_acc`` / ``int4w_conv_acc``,
+``int8_matmul_acc`` / ``int4w_matmul_acc``), then ReLU and the float64
+requant as PyTorch ops; the folded init runs ``int8_conv_acc``, the
+requant, ReLU, then ``maxpool_folded`` on the int32 carrier.  Every input
+mode is accepted, and the int32 carrier only.
+
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
 the logits: 'input', 'init', '<stage>.<unit>.input' / '.conv1' / '.conv2' /
 '.quant_act_int32', 'avg_pool', 'fc_input', 'fc_output'.
@@ -62,12 +74,14 @@ from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
 from hawq_tpu_torch.quant import ops as qops
+from hawq_tpu_torch.quant import reference_oracle as ro
 
 # input mode → the dtype its images arrive in
 INPUT_MODES = {'float32': torch.float32, 'folded_float32': torch.float32,
                'uint8': torch.uint8, 'folded_int8': torch.int8}
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+REQUANT_MODES = ('native', 'reference')
 
 
 def maxpool_int(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
@@ -102,18 +116,34 @@ class IntEngine:
     """What the integer engines share: the frozen model and its device
     constants (weights laid out for the kernels, dyadic multipliers), the
     1×1 and k×k conv routes (the raw init convs through space-to-depth
-    among them), and the checks of a call.  Subclasses define
-    ``_forward``."""
+    among them), the requants of either mode, and the checks of a call.
+    Subclasses define ``_forward``.  ``reference_input_modes``: the input
+    modes that ``requant_mode='reference'`` takes."""
 
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  input_modes, input_mode: str, residual_dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, requant_mode: str = 'native',
+                 reference_input_modes=None):
         if input_mode not in input_modes:
             raise ValueError(f'input_mode {input_mode!r} not in '
                              f'{tuple(input_modes)}')
         if residual_dtype not in (torch.int32, torch.int16):
             raise ValueError(f'residual_dtype {residual_dtype} must be '
                              f'torch.int32 or torch.int16')
+        if requant_mode not in REQUANT_MODES:
+            raise ValueError(f'requant_mode {requant_mode!r} not in '
+                             f'{REQUANT_MODES}')
+        self.reference = requant_mode == 'reference'
+        if self.reference:
+            modes = tuple(reference_input_modes or input_modes)
+            if input_mode not in modes:
+                raise ValueError(f"requant_mode='reference' takes input_mode "
+                                 f"{' or '.join(map(repr, modes))}, not "
+                                 f"{input_mode!r}")
+            if residual_dtype != torch.int32:
+                raise ValueError(f"requant_mode='reference' takes the "
+                                 f"torch.int32 carrier only, not "
+                                 f"{residual_dtype}")
         self.fm = fm
         self.capture = capture
         self.res_dt = residual_dtype
@@ -124,14 +154,45 @@ class IntEngine:
 
     # -- host-side constants ----------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(np.asarray(a), device=self.device)
+        """A host array on the engine's device, in C order (a transposed
+        view, as an imported checkpoint holds, keeps its strides through
+        ``torch.tensor``; the kernels take contiguous tensors)."""
+        return torch.tensor(np.asarray(a, order='C'), device=self.device)
 
-    def requant_mult(self, name: str, acc_scale, out_scale) -> torch.Tensor:
+    def requant_mult(self, name: str, acc_scale, out_scale):
+        """The multiplier of requant site ``name`` (``acc_scale`` scalar or
+        per-channel) on the engine's device: in native mode one float32
+        23-bit dyadic multiplier; in reference mode the reference's float64
+        pair (m, 2⁻ᵉ), ``reference_oracle.decompose_ref``."""
         if name not in self._mult:
-            ratio = (np.asarray(acc_scale, np.float32)
-                     / np.float32(out_scale)).astype(np.float32)
-            self._mult[name] = self._dev(qops.np_dyadic_multiplier(ratio))
+            if self.reference:
+                self._mult[name] = tuple(
+                    self._dev(a) for a in ro.decompose_ref(acc_scale,
+                                                           out_scale))
+            else:
+                ratio = (np.asarray(acc_scale, np.float32)
+                         / np.float32(out_scale)).astype(np.float32)
+                self._mult[name] = self._dev(
+                    qops.np_dyadic_multiplier(ratio))
         return self._mult[name]
+
+    def _requant(self, acc, mult, bits: int, signed: bool,
+                 out_dtype=torch.int8) -> torch.Tensor:
+        """The requant of the engine's mode (``mult`` from
+        :meth:`requant_mult`)."""
+        if self.reference:
+            return qops.requant_int32_ref(acc, *mult, bits, signed,
+                                          out_dtype)
+        return qops.requant_int32(acc, mult, bits, signed, out_dtype)
+
+    def _requant_add(self, acc, mult_main, identity, mult_id,
+                     out_dtype=torch.int32) -> torch.Tensor:
+        """The residual requant-add of the engine's mode, unclamped."""
+        if self.reference:
+            return qops.requant_add_int32_ref(acc, *mult_main, identity,
+                                              *mult_id, out_dtype)
+        return qops.requant_add_int32(acc, mult_main, identity, mult_id,
+                                      out_dtype)
 
     def act_info(self, key: str) -> Tuple[np.float32, int, bool]:
         cfg = self.fm.cfg
@@ -251,18 +312,22 @@ class IntEngine:
         """k×k conv (the taps of the frozen weights) with stride 1 or 2 and
         ``pad`` rows and columns of zero border (an int, or (ph, pw)), by
         the geometry of ``kernels.conv.conv_call``: requant+ReLU to int8,
-        or (mult None) the int32 accumulator + bias."""
+        or (mult None) the int32 accumulator + bias.  In reference mode the
+        requant follows the accumulator form."""
         b = x8.shape[0]
         ph, pw = (pad, pad) if isinstance(pad, int) else pad
         kh, kw = self.fm[key + '.weight_int'].shape[:2]
         xp, geo = kc.conv_call(x8, (kh, kw), (stride, stride),
                                ((ph, ph), (pw, pw)))
         int4 = self._int4(key)
+        fused = mult is not None and not self.reference
         wf, taps, cin, bias = self._conv_w(key, stride, geo['pad'], int4,
-                                           requant=mult is not None)
-        if mult is None:
+                                           requant=fused)
+        if not fused:
             fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
             y = fn(xp, wf, bias, **geo)
+            if mult is not None:
+                y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
         else:
             fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
             y = fn(xp, wf, bias, mult, out_bits=bits, signed=signed,
@@ -270,16 +335,20 @@ class IntEngine:
         return y.reshape(b, *geo['out_hw'], -1)
 
     def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
-        """1×1 conv as a matmul: requant+ReLU to int8, or int32 acc."""
+        """1×1 conv as a matmul: requant+ReLU to int8, or int32 acc.  In
+        reference mode the requant follows the accumulator form."""
         if stride > 1:
             x8 = x8[:, ::stride, ::stride, :].contiguous()
         b, h, w, c = x8.shape
         int4 = self._int4(key)
-        wm, bias = self._matmul_w(key, int4, acc=mult is None)
+        fused = mult is not None and not self.reference
+        wm, bias = self._matmul_w(key, int4, acc=not fused)
         xm = x8.reshape(b * h * w, c)
-        if mult is None:
+        if not fused:
             fn = km.int4w_matmul_acc if int4 else km.int8_matmul_acc
             y = fn(xm, wm, bias)
+            if mult is not None:
+                y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
         else:
             fn = km.int4w_matmul_requant if int4 else km.int8_matmul_requant
             y = fn(xm, wm, bias, mult, out_bits=bits, signed=signed,
@@ -319,9 +388,9 @@ class ResnetEngine(IntEngine):
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  residual_dtype: torch.dtype, input_mode: str,
                  input_mean: np.ndarray, input_std: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, requant_mode: str = 'native'):
         super().__init__(fm, capture, INPUT_MODES, input_mode, residual_dtype,
-                         device)
+                         device, requant_mode)
         arch = fm.arch
         self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
         self.conv1_stride = arch == 'resnet50'
@@ -393,15 +462,18 @@ class ResnetEngine(IntEngine):
         # requant + ReLU before the pool (monotone, so it commutes with the
         # training graph's pool → requant → relu order); on the folded path
         # one kernel requantizes each value of a window, then takes the max
+        # (in reference mode the requant and ReLU run first, then the pool)
         mult = self.requant_mult('init_requant', s_init, s16)
-        if self.folded:
+        if self.folded and not self.reference:
             x = kp.maxpool_folded_requant(acc, mult, out_bits=b16,
                                           signed=signed16, relu=True,
                                           out_dtype=self.res_dt)
         else:
             x = torch.clamp_min(
-                qops.requant_int32(acc, mult, b16, signed16, self.res_dt), 0)
-            if not self.cifar:
+                self._requant(acc, mult, b16, signed16, self.res_dt), 0)
+            if self.folded:
+                x = kp.maxpool_folded(x)
+            elif not self.cifar:
                 x = maxpool_int(x)
         emit('init', x)
         prev_scale = np.float32(s16)
@@ -412,7 +484,7 @@ class ResnetEngine(IntEngine):
             stride = 2 if (u == 1 and si > 1) else 1
             sa, ba, signed_a = self.act_info(f'{p}.quant_act')
             mult = self.requant_mult(f'{p}.in', prev_scale, sa)
-            xa = qops.requant_int32(x, mult, ba, signed_a, torch.int8)
+            xa = self._requant(x, mult, ba, signed_a)
             emit(f'{p}.input', xa)
 
             id_key = f'{p}.quant_identity_convbn'
@@ -448,8 +520,8 @@ class ResnetEngine(IntEngine):
             s_out = self.act_info(f'{p}.quant_act_int32')[0]
             mult_main = self.requant_mult(f'{p}.res_main', acc_scale, s_out)
             mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out)
-            x_wide = torch.clamp_min(qops.requant_add_int32(
-                acc, mult_main, id_acc, mult_id, torch.int32), 0)
+            x_wide = torch.clamp_min(self._requant_add(
+                acc, mult_main, id_acc, mult_id), 0)
             if self.res_dt != torch.int32:
                 x_wide = torch.clamp(x_wide, 0, torch.iinfo(self.res_dt).max)
             x = x_wide.to(self.res_dt)
@@ -461,7 +533,7 @@ class ResnetEngine(IntEngine):
         emit('avg_pool', pooled)
         s_fc, b_fc, sg_fc = self.act_info('quant_act_output')
         mult = self.requant_mult('fc_in', prev_scale, s_fc)
-        f8 = qops.requant_int32(pooled.to(torch.int32), mult, b_fc, sg_fc)
+        f8 = self._requant(pooled.to(torch.int32), mult, b_fc, sg_fc)
         emit('fc_input', f8)
         logits = self._head(f8, 'quant_output', s_fc)
         emit('fc_output', logits)
@@ -473,6 +545,7 @@ def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
                         input_mode: str = 'float32',
                         input_mean: np.ndarray = IMAGENET_MEAN,
                         input_std: np.ndarray = IMAGENET_STD,
+                        requant_mode: str = 'native',
                         device='cuda') -> ResnetEngine:
     """Build ``engine(images_nhwc) -> logits_f32`` on ``device``.
 
@@ -486,7 +559,10 @@ def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
     int8, which the host also quantized (``utils.preproc.quantize_int8``
     with the model's input scale).
     ``residual_dtype`` is the carrier between units: torch.int32, or
-    torch.int16 (clamps sums above 2¹⁵−1).  With ``capture``, the engine
-    returns the raw tensor at that node instead of the logits."""
+    torch.int16 (clamps sums above 2¹⁵−1).  ``requant_mode``: 'native'
+    (the framework's 23-bit float32 requant) or 'reference' (the reference
+    checkpoint's own 31-bit float64 one; any input mode, the int32 carrier
+    only).  With ``capture``, the engine returns the raw tensor at that
+    node instead of the logits."""
     return ResnetEngine(fm, capture, residual_dtype, input_mode, input_mean,
-                        input_std, engine_device(device))
+                        input_std, engine_device(device), requant_mode)

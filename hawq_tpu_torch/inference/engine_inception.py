@@ -1,5 +1,6 @@
 """Freezer and integer inference engine for quantized InceptionV3 (port of
-hawq_tpu/inference/engine_inception.py, its plain int8 route), built from
+hawq_tpu/inference/engine_inception.py, its plain int8 route, in native and
+reference requant modes), built from
 the branch specifications the QAT model uses (``models.inceptionv3``
 ``build_unit``), so the graph's structure lives in one place.
 
@@ -36,12 +37,20 @@ branches, the last conv of each branch) live in ``wide_dtype``, torch.int32
 or torch.int16; every other node in int8.  The kernels take int8
 activations only, so a conv whose input node is wider than 8 bits raises
 ``NotImplementedError`` (W1 in ROADMAP.md; neither published config has
-one, :func:`conv_input_nodes`).  The reference's ``conv_mode``,
-``init_mode`` and ``routing`` (TPU layout choices and routing) are not
-ported; ``requant_mode='reference'`` raises until the reference-checkpoint
-replay is ported.  ``capture=<node>`` returns the raw integer tensor at a
-named node: 'input', 'init', '<unit prefix>.q_rescaling_activ',
-'fc_input'.
+one, :func:`conv_input_nodes`).
+
+``requant_mode='reference'`` replays an imported reference checkpoint with
+its own float64 requant (``engine.py`` notes), on float32 input with the
+int32 wide container only: every conv takes its accumulator form, then
+ReLU and the float64 requant, the concat requants likewise, and a pool
+branch runs in three steps — the requant to ``q_input_act`` into its
+container, :func:`kernels.avgpool.int_avgpool3x3` (A1's quotient form, no
+requant), the requant to ``q_pool_act``.
+
+The reference's ``conv_mode``, ``init_mode`` and ``routing`` (TPU layout
+choices and routing) are not ported.  ``capture=<node>`` returns the raw
+integer tensor at a named node: 'input', 'init', '<unit
+prefix>.q_rescaling_activ', 'fc_input'.
 """
 
 from __future__ import annotations
@@ -188,9 +197,9 @@ class InceptionEngine(IntEngine):
     def __init__(self, fm: FrozenModel, width_div: int,
                  capture: Optional[str], input_mode: str,
                  input_hw: Sequence[int], wide_dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, requant_mode: str = 'native'):
         super().__init__(fm, capture, INPUT_MODES, input_mode, wide_dtype,
-                         device)
+                         device, requant_mode, ('float32',))
         cfg = fm.cfg
         if wide_dtype == torch.int16:
             # an asymmetric >8-bit range [0, 2^b − 1] would not fit int16;
@@ -221,8 +230,7 @@ class InceptionEngine(IntEngine):
         """→ (the tensor requantized to node ``key``, its scale)."""
         s, b, sg = self.act_info(key)
         mult = self.requant_mult(name, from_scale, s)
-        return (qops.requant_int32(x, mult, b, sg, self._container(b)),
-                np.float32(s))
+        return self._requant(x, mult, b, sg, self._container(b)), np.float32(s)
 
     def _incept_conv(self, h, a_scale, kp: str, stride=1, pad=0):
         """conv+BN → ReLU → requant to ``<kp>.q_activ`` → (tensor, scale)."""
@@ -238,8 +246,8 @@ class InceptionEngine(IntEngine):
             return self._conv_kxk(h, key, stride, mult, b, sg, pad=pad), s
         acc = (self._conv1x1(h, key, stride) if one
                else self._conv_kxk(h, key, stride, pad=pad))
-        return qops.requant_int32(torch.clamp_min(acc, 0), mult, b, sg,
-                                  self.res_dt), s
+        return self._requant(torch.clamp_min(acc, 0), mult, b, sg,
+                             self.res_dt), s
 
     def _stem_conv1(self, x8, s_in):
         """The stem's 3×3/s2 q_conv1 → (tensor, scale): through
@@ -254,15 +262,21 @@ class InceptionEngine(IntEngine):
         s, bits, sg = self.act_info(f'{kp}.q_activ')
         mult = self.requant_mult(f'{kp}.rq_f',
                                  _fold.tile4(self._scale(key, s_in)), s)
-        xq = qops.requant_int32(torch.clamp_min(acc, 0), mult, bits, sg,
-                                self._container(bits))
+        xq = self._requant(torch.clamp_min(acc, 0), mult, bits, sg,
+                           self._container(bits))
         oh, ow = self.out_hw
         return _fold.depth_to_space_2x2(xq)[:, :oh, :ow, :].contiguous(), s
 
     def _branch(self, x, s, bp: str, kind: str, kwargs):
         """One branch on the unit input ``x`` at scale ``s`` → (its integer
         output, its scale).  A pool branch hands ``x`` to A1 with its input
-        requant fused in front of the pool."""
+        requant fused in front of the pool (in reference mode: the input
+        requant, A1's quotient form, the pool requant)."""
+        if kind == mi.AVG_POOL and self.reference:
+            h, a = self._requant_to(x, s, f'{bp}.q_input_act', f'{bp}.in')
+            h, sp = self._requant_to(ka.int_avgpool3x3(h), a,
+                                     f'{bp}.q_pool_act', f'{bp}.pool')
+            return self._incept_conv(h, sp, f'{bp}.q_conv')
         if kind == mi.AVG_POOL:
             a, a_bits, a_sg = self.act_info(f'{bp}.q_input_act')
             sp, bp_bits, sgp = self.act_info(f'{bp}.q_pool_act')
@@ -344,16 +358,10 @@ def build_inceptionv3_engine(fm: FrozenModel, width_div: Optional[int] = None,
     9–16-bit activation nodes, torch.int32 or torch.int16 (half the bytes;
     the values are clamped to the 16-bit range, so the narrowing is exact
     where those nodes are symmetric, which int16 requires).  With
-    ``capture``, the engine returns the raw tensor at that node instead of
-    the logits."""
-    if requant_mode == 'reference':
-        raise NotImplementedError(
-            "requant_mode='reference' (the reference checkpoint's own "
-            "fixed-point requant) is not ported yet (ROADMAP.md queue 1, "
-            "reference checkpoint import and replay)")
-    if requant_mode != 'native':
-        raise ValueError(f'requant_mode {requant_mode!r}')
+    ``requant_mode``: 'native', or 'reference' (float32 input and the
+    int32 container only).  With ``capture``, the engine returns the raw
+    tensor at that node instead of the logits."""
     if width_div is None:
         width_div = width_div_from_frozen(fm)
     return InceptionEngine(fm, width_div, capture, input_mode, input_hw,
-                           wide_dtype, engine_device(device))
+                           wide_dtype, engine_device(device), requant_mode)

@@ -8,6 +8,7 @@ seed gives tensors identical to the reference's.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -253,3 +254,25 @@ def synthetic_frozen_inception(cfg: BitConfig, num_classes: int = 1000,
     g.dense('output.q_fc', in_ch, num_classes)
     return FrozenModel(arch='inceptionv3', cfg=cfg, tensors=g.tensors,
                        num_classes=num_classes)
+
+
+def dyadic_scales(fm):
+    """A copy of a frozen model whose scales are powers of two (the integers
+    kept): every weight scale rounded to the nearest one, every activation
+    scale too, then doubled 0, 1 or 2 times by its key (the sum of the
+    key's characters mod 3, so neighbouring nodes differ).  Every requant
+    ratio is then a power of two, most of them below 1, and the
+    accumulators land on exact ties (odd multiples of half the ratio's
+    step), where the native requant rounds half-up and the reference
+    checkpoint's rounds half-even: the model on which the two requant modes
+    give different integers.  ``fm`` may be any dataclass with ``tensors``
+    (this package's FrozenModel or the JAX package's)."""
+    def pow2(key, v):
+        v = np.asarray(v)
+        e = np.round(np.log2(v.astype(np.float64)))
+        if key.endswith('.act_scale'):
+            e += sum(map(ord, key)) % 3
+        return np.exp2(e).astype(v.dtype)
+    return dataclasses.replace(fm, tensors={
+        k: pow2(k, v) if k.endswith(('.act_scale', '.weight_scale')) else v
+        for k, v in fm.tensors.items()})

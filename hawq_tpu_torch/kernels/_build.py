@@ -55,6 +55,7 @@ _SIGNATURES = {
     'hawq_dwconv_acc': [_P] * 4 + [_I] * 11 + [_P],
     'hawq_dwconv_requant': [_P] * 6 + [_I] * 13 + [_P],
     'hawq_avgpool3x3_requant': [_P] * 4 + [_I] * 16 + [_P],
+    'hawq_avgpool3x3': [_P, _P] + [_I] * 10 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }

@@ -9,6 +9,11 @@ true division (``engine_inception.py int_avgpool_3x3``), then the
 launches csrc/avgpool.cu, which does the last three in one pass and, given
 ``in_mult``, the first as well; on a CPU tensor it runs the plain version,
 :func:`avgpool3x3_requant_plain`: torch ops in the reference's order.
+:func:`int_avgpool3x3` is the same kernel's quotient form, with neither
+requant: the window sum and ``trunc(sum / 9 + 0.01)`` as int32, the exact
+counterpart of ``int_avgpool_3x3`` (the reference-checkpoint replay runs
+its requants in float64 around it); its plain version is
+:func:`avgpool3x3_plain`.
 
 The kernel walks output tiles (:func:`avgpool_plan` picks them), each
 staged once with its halo in shared memory and requantized there; a thread
@@ -109,18 +114,10 @@ def avgpool_plan(b: int, h: int, w: int, c: int, dtype: torch.dtype, *,
 # plain versions
 # ---------------------------------------------------------------------------
 
-def avgpool3x3_requant_plain(x: torch.Tensor, mult: torch.Tensor,
-                             out_bits: int, signed: bool, *,
-                             in_mult: Optional[torch.Tensor] = None,
-                             in_bits: Optional[int] = None,
-                             in_signed: Optional[bool] = None
-                             ) -> torch.Tensor:
-    """Plain version of :func:`int_avgpool3x3_requant`: given ``in_mult``,
-    ``requant_int32`` to ``in_bits`` first; the int32 sum of each 3×3
-    window over a zero border of 1 (nine slice adds), the truncating true
-    division by 9, then ``requant_int32`` to int8."""
-    if in_mult is not None:
-        x = qops.requant_int32(x, in_mult, in_bits, in_signed, torch.int32)
+def avgpool3x3_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int_avgpool3x3`: the int32 sum of each 3×3
+    window over a zero border of 1 (nine slice adds), then the truncating
+    true division by 9 → int32."""
     b, h, w, c = x.shape
     xp = F.pad(x.to(torch.int32), (0, 0, 1, 1, 1, 1))
     s = None
@@ -129,7 +126,21 @@ def avgpool3x3_requant_plain(x: torch.Tensor, mult: torch.Tensor,
             t = xp[:, dy:dy + h, dx:dx + w]
             s = t if s is None else s + t
     q = torch.trunc(qops.exact_div(s.to(torch.float32), 9.0) + 0.01)
-    return qops.requant_int32(q.to(torch.int32), mult, out_bits, signed,
+    return q.to(torch.int32)
+
+
+def avgpool3x3_requant_plain(x: torch.Tensor, mult: torch.Tensor,
+                             out_bits: int, signed: bool, *,
+                             in_mult: Optional[torch.Tensor] = None,
+                             in_bits: Optional[int] = None,
+                             in_signed: Optional[bool] = None
+                             ) -> torch.Tensor:
+    """Plain version of :func:`int_avgpool3x3_requant`: given ``in_mult``,
+    ``requant_int32`` to ``in_bits`` first; :func:`avgpool3x3_plain`, then
+    ``requant_int32`` to int8."""
+    if in_mult is not None:
+        x = qops.requant_int32(x, in_mult, in_bits, in_signed, torch.int32)
+    return qops.requant_int32(avgpool3x3_plain(x), mult, out_bits, signed,
                               torch.int8)
 
 
@@ -153,8 +164,8 @@ def _clip_floor(f: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.floor(torch.clamp(f, lo, hi)).to(torch.int32)
 
 
-def avgpool_walk_plain(x: torch.Tensor, mult: torch.Tensor, out_bits: int,
-                       signed: bool, *,
+def avgpool_walk_plain(x: torch.Tensor, mult: Optional[torch.Tensor],
+                       out_bits: int = 8, signed: bool = True, *,
                        in_mult: Optional[torch.Tensor] = None,
                        in_bits: Optional[int] = None,
                        in_signed: Optional[bool] = None,
@@ -166,7 +177,9 @@ def avgpool_walk_plain(x: torch.Tensor, mult: torch.Tensor, out_bits: int,
     requant's clip before its floor; per output column the row 3-sums of
     the staged rows and a 3-row window slid down them; the quotient as
     :func:`pool_quotient`; the requant after.  The channel slabs split no
-    arithmetic, so every channel of a tile is walked at once."""
+    arithmetic, so every channel of a tile is walked at once.  With
+    ``mult`` None (and no ``in_mult``), the quotient form
+    :func:`int_avgpool3x3`: the int32 quotients, no requant."""
     b, h, w, c = x.shape
     if plan is None:
         plan = avgpool_plan(b, h, w, c, x.dtype)
@@ -177,7 +190,8 @@ def avgpool_walk_plain(x: torch.Tensor, mult: torch.Tensor, out_bits: int,
     xp[:, 1:h + 1, 1:w + 1] = x
     bounded = in_mult is not None or x.dtype != torch.int32
     lo, hi = qops.requant_clip_bounds(out_bits, signed)
-    out = torch.empty((b, tiles_y * th, tiles_x * tw, c), dtype=torch.int8)
+    out = torch.empty((b, tiles_y * th, tiles_x * tw, c),
+                      dtype=torch.int8 if mult is not None else torch.int32)
     for ty in range(tiles_y):
         for tx in range(tiles_x):
             staged = xp[:, ty * th:ty * th + th + 2, tx * tw:tx * tw + tw + 2]
@@ -193,8 +207,9 @@ def avgpool_walk_plain(x: torch.Tensor, mult: torch.Tensor, out_bits: int,
             for y in range(th):
                 r0, r1, r2 = r1, r2, rs[:, y + 2]
                 q = pool_quotient(r0 + r1 + r2, bounded)
-                out[:, ty * th + y, tx * tw:(tx + 1) * tw] = _clip_floor(
-                    q * mult + 0.5, lo, hi).to(torch.int8)
+                out[:, ty * th + y, tx * tw:(tx + 1) * tw] = (
+                    q.to(torch.int32) if mult is None else
+                    _clip_floor(q * mult + 0.5, lo, hi).to(torch.int8))
     return out[:, :h, :w]
 
 
@@ -270,6 +285,34 @@ def int_avgpool3x3_requant(x: torch.Tensor, mult: torch.Tensor, *,
             x.data_ptr(), None if in_mult is None else in_mult.data_ptr(),
             mult.data_ptr(), out.data_ptr(), b, h, w, c, _IN_CODES[x.dtype],
             in_stride, int(in_lo), int(in_hi), mult_stride, int(lo), int(hi),
+            *plan, _build.stream_ptr(dev))
+    _build.check(code, name)
+    _build.count(name, 'cuda')
+    return out
+
+
+def int_avgpool3x3(x: torch.Tensor, *,
+                   plan: Optional[AvgPlan] = None) -> torch.Tensor:
+    """(B, H, W, C) int32, int16 or int8 NHWC → the 3×3/s1/p1 integer average
+    pool, ``trunc(f32(sum) / 9 + 0.01)`` of each window's sum over a zero
+    border (divisor 9 at the border too) → (B, H, W, C) int32, with neither
+    requant: A1's quotient form, the same kernel and tile rule as
+    :func:`int_avgpool3x3_requant`.  ``plan``: the kernel's tile, where not
+    :func:`avgpool_plan`'s (tests and timings)."""
+    name = 'int_avgpool3x3'
+    if x.device.type == 'cpu':
+        return avgpool3x3_plain(x)
+    dev = _build.kernel_device(x)
+    if x.dim() != 4 or x.dtype not in _IN_CODES:
+        raise ValueError(f'{name}: x must be (B, H, W, C) int32, int16 or '
+                         f'int8, got {x.dtype}{tuple(x.shape)}')
+    b, h, w, c = x.shape
+    _build.require(x, 'x', x.dtype, (b, h, w, c), dev)
+    out = torch.empty((b, h, w, c), dtype=torch.int32, device=dev)
+    plan = call_plan(x, plan)
+    with torch.cuda.device(dev):
+        code = _build.lib().hawq_avgpool3x3(
+            x.data_ptr(), out.data_ptr(), b, h, w, c, _IN_CODES[x.dtype],
             *plan, _build.stream_ptr(dev))
     _build.check(code, name)
     _build.count(name, 'cuda')

@@ -73,6 +73,14 @@
 //    also walks this kernel's tiles in torch (avgpool_walk_plain).
 // One channel a thread (V = 1: C % 4, or x not aligned to a word) stages
 // through registers, one element a load.
+//
+// The quotient form (hawq_avgpool3x3, kernels/avgpool.py int_avgpool3x3)
+// is the same kernel with both requants compiled out (OUT_RQ false): it
+// writes q as int32, the exact counterpart of engine_inception.py
+// int_avgpool_3x3 (XLA's reduce_window and the truncating division), for
+// the reference-checkpoint replay, which requantizes around it in float64.
+// Its bound is bytes too: the input read once, four bytes written per
+// element.
 #include <cstddef>
 #include <cstdint>
 
@@ -266,13 +274,14 @@ __device__ __forceinline__ Sum<V> row_sum(const int32_t* row, int cs) {
 }
 
 // Block (slab, tile column, image x tile row); thread (unit u =
-// threadIdx.x, column col = threadIdx.y).
-template <typename T, int V, int COPY, bool IN_RQ>
+// threadIdx.x, column col = threadIdx.y).  OUT_RQ: the requant after, int8
+// out; else the int32 quotient (then IN_RQ is false too).
+template <typename T, int V, int COPY, bool IN_RQ, bool OUT_RQ>
 __global__ void __launch_bounds__(MAX_THREADS)
-avgpool3x3_requant_kernel(const T* __restrict__ x,
-                          const float* __restrict__ in_mult,
-                          const float* __restrict__ mult,
-                          int8_t* __restrict__ out, const Tile t) {
+avgpool3x3_kernel(const T* __restrict__ x, const float* __restrict__ in_mult,
+                  const float* __restrict__ mult, void* __restrict__ out,
+                  const Tile t) {
+  static_assert(OUT_RQ || !IN_RQ, "the requant in front needs the one after");
   constexpr bool BOUNDED = IN_RQ || sizeof(T) < 4;
   extern __shared__ __align__(16) int32_t tile[];
   const int b = blockIdx.z / t.tiles_y;
@@ -288,36 +297,52 @@ avgpool3x3_requant_kernel(const T* __restrict__ x,
   const int c = blockIdx.x * t.cs * V + u * V;   // this thread's channel
   float m[V];
 #pragma unroll
-  for (int e = 0; e < V; ++e) m[e] = __ldg(mult + (c + e) * t.mult_stride);
+  for (int e = 0; e < V; ++e)
+    m[e] = OUT_RQ ? __ldg(mult + (c + e) * t.mult_stride) : 0.0f;
   const int row_words = t.cols_in * t.cs * V;
   const size_t out_row = (size_t)t.W * t.C;
   const int32_t* row = tile + (col * t.cs + u) * V;
-  int8_t* o = out + (((size_t)b * t.H + oy0) * t.W + ox) * t.C + c;
+  const size_t o0 = (((size_t)b * t.H + oy0) * t.W + ox) * t.C + c;
   Sum<V> r1 = row_sum<V>(row, t.cs);
   Sum<V> r2 = row_sum<V>(row + row_words, t.cs);
   row += 2 * row_words;
-  for (int y = 0; y < rows; ++y, row += row_words, o += out_row) {
+  for (int y = 0; y < rows; ++y, row += row_words) {
     const Sum<V> r0 = r1;
     r1 = r2;
     r2 = row_sum<V>(row, t.cs);
-    uint32_t word = 0;
+    const size_t o = o0 + y * out_row;
+    if constexpr (OUT_RQ) {
+      uint32_t word = 0;
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float q = pool_quotient<BOUNDED>(r0.v[e] + r1.v[e] + r2.v[e]);
-      word |= requant_out(q, m[e], t.lo, t.hi) << (8 * e);
-    }
-    if constexpr (V == 4) {
-      *reinterpret_cast<uint32_t*>(o) = word;
+      for (int e = 0; e < V; ++e) {
+        const float q = pool_quotient<BOUNDED>(r0.v[e] + r1.v[e] + r2.v[e]);
+        word |= requant_out(q, m[e], t.lo, t.hi) << (8 * e);
+      }
+      if constexpr (V == 4) {
+        *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) + o) = word;
+      } else {
+        static_cast<int8_t*>(out)[o] = (int8_t)word;
+      }
     } else {
-      *o = (int8_t)word;
+      int32_t q[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e)   // an integral float: converts exactly
+        q[e] = __float2int_rz(
+            pool_quotient<BOUNDED>(r0.v[e] + r1.v[e] + r2.v[e]));
+      if constexpr (V == 4) {
+        *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + o) =
+            make_int4(q[0], q[1], q[2], q[3]);
+      } else {
+        static_cast<int32_t*>(out)[o] = q[0];
+      }
     }
   }
 }
 
-template <typename T, int V, int COPY, bool IN_RQ>
+template <typename T, int V, int COPY, bool IN_RQ, bool OUT_RQ>
 int launch_tile(const void* x, const float* in_mult, const float* mult,
-                int8_t* out, const Tile& t, int smem, cudaStream_t stream) {
-  auto kernel = avgpool3x3_requant_kernel<T, V, COPY, IN_RQ>;
+                void* out, const Tile& t, int smem, cudaStream_t stream) {
+  auto kernel = avgpool3x3_kernel<T, V, COPY, IN_RQ, OUT_RQ>;
   if (smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -332,9 +357,10 @@ int launch_tile(const void* x, const float* in_mult, const float* mult,
   return (int)cudaGetLastError();
 }
 
+// mult null: the quotient form (in_mult null too)
 template <typename T>
 int launch(const void* x, const float* in_mult, const float* mult,
-           int8_t* out, Tile& t, int vec, int copy, cudaStream_t stream) {
+           void* out, Tile& t, int vec, int copy, cudaStream_t stream) {
   const int es = (int)sizeof(T);
   // vec 4: copies of 16 bytes (C * sizeof(T) % 16, cs a multiple of the
   // words a copy moves) or of one word; vec 1: through registers
@@ -354,10 +380,12 @@ int launch(const void* x, const float* in_mult, const float* mult,
   const bool rq = in_mult != nullptr;
 #define HAWQ_AP(V, COPY)                                                  \
   if (vec == V && (V == 1 || copy == COPY))                               \
-    return rq ? launch_tile<T, V, COPY, true>(x, in_mult, mult, out, t,   \
-                                              (int)smem, stream)          \
-              : launch_tile<T, V, COPY, false>(x, in_mult, mult, out, t,  \
-                                               (int)smem, stream);
+    return !mult ? launch_tile<T, V, COPY, false, false>(                 \
+                       x, in_mult, mult, out, t, (int)smem, stream)       \
+           : rq  ? launch_tile<T, V, COPY, true, true>(                   \
+                       x, in_mult, mult, out, t, (int)smem, stream)       \
+                 : launch_tile<T, V, COPY, false, true>(                  \
+                       x, in_mult, mult, out, t, (int)smem, stream);
   HAWQ_AP(4, 16)
   if constexpr (sizeof(T) < 4) {
     HAWQ_AP(4, 4 * sizeof(T))
@@ -385,8 +413,8 @@ extern "C" int hawq_avgpool3x3_requant(const void* x, const float* in_mult,
                                        int vec, int copy, int cs, int tw,
                                        int th, cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || cs < 1 || tw < 1 || th < 1
-      || cs * tw > MAX_THREADS || (in_mult && (in_lo < -32768
-                                               || in_hi > 65535)))
+      || cs * tw > MAX_THREADS || !mult || (in_mult && (in_lo < -32768
+                                                        || in_hi > 65535)))
     return (int)cudaErrorInvalidValue;
   Tile t{};
   t.B = B; t.H = H; t.W = W; t.C = C;
@@ -401,5 +429,26 @@ extern "C" int hawq_avgpool3x3_requant(const void* x, const float* in_mult,
     return launch<int16_t>(x, in_mult, mult, out, t, vec, copy, stream);
   if (in_code == 2)
     return launch<int8_t>(x, in_mult, mult, out, t, vec, copy, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The quotient form: x (B, H, W, C) as above, out (B, H, W, C) int32, q =
+// trunc(f32(s) / 9 + 0.01) of each window's sum, no requant.  The same
+// tile plan.  Returns cudaGetLastError() after the launch.
+extern "C" int hawq_avgpool3x3(const void* x, int32_t* out, int B, int H,
+                               int W, int C, int in_code, int vec, int copy,
+                               int cs, int tw, int th, cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || cs < 1 || tw < 1 || th < 1
+      || cs * tw > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  Tile t{};
+  t.B = B; t.H = H; t.W = W; t.C = C;
+  t.cs = cs; t.tw = tw; t.th = th;
+  if (in_code == 1)
+    return launch<int32_t>(x, nullptr, nullptr, out, t, vec, copy, stream);
+  if (in_code == 0)
+    return launch<int16_t>(x, nullptr, nullptr, out, t, vec, copy, stream);
+  if (in_code == 2)
+    return launch<int8_t>(x, nullptr, nullptr, out, t, vec, copy, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -387,3 +387,37 @@ def requant_add_int32(acc: torch.Tensor, acc_multiplier: torch.Tensor,
     a = round_half_up(acc.to(torch.float32) * acc_multiplier)
     b = round_half_up(identity.to(torch.float32) * id_multiplier)
     return (a + b).to(out_dtype)
+
+
+def requant_int32_ref(acc: torch.Tensor, m: torch.Tensor, inv2e: torch.Tensor,
+                      num_bits: int, signed: bool,
+                      out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Reference-exact replay requant (31-bit mantissa, float64), on
+    ``acc``'s device.
+
+    ``(m, inv2e)`` are float64 tensors (scalar or per-channel over the last
+    axis) from ``reference_oracle.decompose_ref``, the reference's
+    batch_frexp constants.  Evaluates its fixedpoint_fn case 0 exactly:
+    the float64 product acc·m, which rounds once it exceeds 2⁵³ as the
+    reference's does, then the exact 2⁻ᵉ factor, round-half-even
+    (``torch.round``), clamp, cast.  Eager PyTorch evaluates the two
+    products as written and does not reassociate them, so the JAX
+    package's optimization barrier has no counterpart here; never fold
+    m·inv2e into one constant."""
+    p = acc.to(torch.float64) * m
+    out = torch.round(p * inv2e)
+    lo, hi = requant_clip_bounds(num_bits, signed)
+    return torch.clamp(out, lo, hi).to(out_dtype)
+
+
+def requant_add_int32_ref(acc: torch.Tensor, m_acc: torch.Tensor,
+                          inv2e_acc: torch.Tensor, identity: torch.Tensor,
+                          m_id: torch.Tensor, inv2e_id: torch.Tensor,
+                          out_dtype: torch.dtype = torch.int32
+                          ) -> torch.Tensor:
+    """Reference-exact dual-branch residual requant-add (fixedpoint_fn case
+    1): each branch rounds half-even in float64 with its own 31-bit
+    (m, 2⁻ᵉ), as :func:`requant_int32_ref`; the sum is left unclamped."""
+    a = torch.round((acc.to(torch.float64) * m_acc) * inv2e_acc)
+    b = torch.round((identity.to(torch.float64) * m_id) * inv2e_id)
+    return (a + b).to(out_dtype)

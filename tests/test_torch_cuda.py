@@ -1677,3 +1677,163 @@ def test_inception_engine_cuda_equals_cpu(dev, width_div, scheme, mode,
             build_inceptionv3_engine(fm, capture=node, device='cpu', **kw)(
                 x), rtol=0, atol=0, msg=node)
 
+
+
+# ---------------------------------------------------------------------------
+# the reference-checkpoint replay: A1's quotient form, the float64 requant,
+# the engines in reference mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.int32, torch.int16, torch.int8])
+def test_avgpool_quotient_kernel_equals_plain(dev, dtype):
+    """A1's quotient form (no requant, int32 out) over the ragged set: every
+    H, W in {1, 2, 3, 5, 8, 17, 35} with C cycling through {1, 3, 4, 12,
+    288}, both forms (an unaligned input takes one channel a thread),
+    saturated inputs and a constant −9 field; one launch each, counted on
+    '@cuda'."""
+    rng = np.random.RandomState(11)
+    top = min(torch.iinfo(dtype).max, 2 ** 31 // 9)    # int32: no overflow
+    hws = (1, 2, 3, 5, 8, 17, 35)
+    cs = (1, 3, 4, 12, 288)
+    _build.reset_launches()
+    n = 0
+
+    def check(x):
+        got = ka.int_avgpool3x3(x)
+        assert got.dtype == torch.int32 and got.shape == x.shape
+        torch.testing.assert_close(got.cpu(), ka.avgpool3x3_plain(x.cpu()),
+                                   rtol=0, atol=0)
+    for i, h in enumerate(hws):
+        for j, w in enumerate(hws):
+            c = cs[(i + j) % len(cs)]
+            x = torch.tensor(rng.randint(-min(top, 2 ** 26), min(top, 2 ** 26),
+                                         (2, h, w, c)),
+                             dtype=dtype, device=dev)
+            check(x)
+            check(_unaligned(x))
+            n += 2
+    x = torch.full((2, 5, 7, 12), top, dtype=dtype, device=dev)
+    x[:, 2, 3, ::2] = -top
+    x[1] = -x[1]
+    check(x)                                    # saturating sums
+    check(torch.full((1, 4, 5, 4), -9, dtype=dtype, device=dev))
+    n += 2
+    assert _counts() == {'int_avgpool3x3': n}
+    assert _core_counts() == {'int_avgpool3x3@cuda': n}
+    with pytest.raises(ValueError):
+        ka.int_avgpool3x3(x.float())
+
+
+def test_reference_requant_cuda_equals_cpu(dev):
+    """requant_int32_ref / requant_add_int32_ref on the card (float64 on the
+    device) == on the CPU: on dyadic ratios with accumulators on ties, and
+    with mantissas near 2³¹ on |acc| up to 2³¹−1 (products above 2⁵³)."""
+    from hawq_tpu_torch.quant import ops as qops
+    from hawq_tpu_torch.quant import reference_oracle as ro
+    rng = np.random.RandomState(3)
+    c = 8
+    dyadic = np.exp2(-np.arange(1, c + 1)).astype(np.float32)
+    top = (np.float32(1.0) - rng.randint(1, 64, c).astype(np.float32)
+           * np.float32(2 ** -24))
+    ties = ((2 * rng.randint(-7000, 7000, (4, 5, 6, c)) + 1)
+            << np.arange(c)).astype(np.int32)
+    big = rng.randint(-2 ** 31 + 1, 2 ** 31, (4, 5, 6, c)).astype(np.int32)
+    for acc_scale, out_scale, acc in ((dyadic, np.float32(1.0), ties),
+                                      (top, np.float32(0.5), big)):
+        m, inv2e = (torch.from_numpy(np.asarray(a))
+                    for a in ro.decompose_ref(acc_scale, out_scale))
+        a = torch.from_numpy(acc)
+        for bits, signed in ((16, True), (8, True), (4, False)):
+            want = qops.requant_int32_ref(a, m, inv2e, bits, signed,
+                                          torch.int32)
+            got = qops.requant_int32_ref(a.to(dev), m.to(dev), inv2e.to(dev),
+                                         bits, signed, torch.int32)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+        half = a >> 3
+        want = qops.requant_add_int32_ref(half, m, inv2e, half.flip(0), m,
+                                          inv2e)
+        got = qops.requant_add_int32_ref(half.to(dev), m.to(dev),
+                                         inv2e.to(dev), half.flip(0).to(dev),
+                                         m.to(dev), inv2e.to(dev))
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def _every_node(engine, x):
+    nodes = {}
+    logits = engine._forward(x, lambda n, v: nodes.__setitem__(n, v.clone()))
+    return logits.cpu(), {k: v.cpu() for k, v in nodes.items()}
+
+
+_FUSED_FORMS = ('int8_conv_requant', 'int4w_conv_requant',
+                'int8_matmul_requant', 'int4w_matmul_requant',
+                'maxpool_folded_requant', 'int8_dwconv_requant',
+                'int_avgpool3x3_requant')
+
+
+@pytest.mark.parametrize('family,mode', [
+    ('tiny50', 'folded_float32'), ('tiny18', 'float32'),
+    ('tiny_mnv2', 'float32'), ('inceptionv3', 'float32')])
+def test_reference_engine_cuda_equals_cpu(dev, family, mode):
+    """Each family's reference-mode engine on its dyadic-scale synthetic
+    model on the card == on the CPU at every capture node and on the
+    logits; no fused-requant form launches; the dyadic model makes the
+    mode differ from native."""
+    from hawq_tpu_torch.configs.bit_config import BitConfig, QuantSettings
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    from hawq_tpu_torch.inference.synthetic import (
+        dyadic_scales, synthetic_frozen_inception, synthetic_frozen_mobilenet)
+    from hawq_tpu_torch.models import mobilenetv2 as tm
+    from hawq_tpu_torch.utils.checkpoint import (export_reference_quantized,
+                                                 import_reference_quantized)
+    size = 32
+    if family == 'tiny_mnv2':
+        fm = synthetic_frozen_mobilenet(
+            BitConfig(name='t', table={}, settings=QuantSettings()),
+            num_classes=10, seed=1, stages=tm.TINY_MNV2_STAGES,
+            init_ch=tm.TINY_MNV2_INIT_CH, final_ch=tm.TINY_MNV2_FINAL_CH)
+        build = lambda **kw: build_mobilenetv2_engine(fm, input_hw=(32, 32),
+                                                      **kw)
+        want_kernels = {'int8_dwconv_acc', 'int8_conv_acc', 'int8_matmul_acc'}
+    elif family == 'inceptionv3':
+        size = 75
+        fm = synthetic_frozen_inception(get_bit_config('inceptionv3',
+                                                       'uniform8'),
+                                        num_classes=10, width_div=16, seed=1)
+        build = lambda **kw: build_inceptionv3_engine(fm, input_hw=(75, 75),
+                                                      **kw)
+        want_kernels = {'int_avgpool3x3', 'int8_conv_acc', 'int8_matmul_acc'}
+    else:
+        fm = synthetic_frozen_resnet(family, get_bit_config(family,
+                                                            'uniform4'),
+                                     num_classes=10, seed=1)
+        build = lambda **kw: build_resnet_engine(fm, input_mode=mode, **kw)
+        want_kernels = {'int8_conv_acc', 'int4w_conv_acc', 'int8_matmul_acc'}
+        if mode.startswith('folded'):
+            want_kernels.add('maxpool_folded')
+    # through the reference's checkpoint format, as a replay reads it
+    fm = dyadic_scales(fm)
+    fm.tensors = import_reference_quantized(
+        export_reference_quantized(fm), fm.arch, fm.cfg).tensors
+    x = np.random.RandomState(5).randn(2, size, size, 3).astype(np.float32)
+    if mode == 'folded_float32':
+        x = fold4_images(x)
+    x = torch.from_numpy(x)
+    want, want_nodes = _every_node(build(requant_mode='reference',
+                                         device='cpu'), x)
+    eng = build(requant_mode='reference', device=dev)
+    eng(x.to(dev))
+    _build.reset_launches()
+    got, got_nodes = _every_node(eng, x.to(dev))
+    counts = _counts()
+    assert want_kernels <= set(counts) and not set(_FUSED_FORMS) & set(
+        counts), counts
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert sorted(got_nodes) == sorted(want_nodes)
+    for node, v in want_nodes.items():
+        torch.testing.assert_close(got_nodes[node], v, rtol=0, atol=0,
+                                   msg=node)
+    native = _every_node(build(device=dev), x.to(dev))[1]
+    assert any(not torch.equal(native[n], v) for n, v in got_nodes.items())

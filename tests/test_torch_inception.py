@@ -186,8 +186,9 @@ def test_engine_options_and_checks():
                    dict(routing={})):
         with pytest.raises(TypeError):          # TPU layout options
             tei.build_inceptionv3_engine(fm, device='cpu', **option)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='reference'):  # float32 input only
         tei.build_inceptionv3_engine(fm, requant_mode='reference',
+                                     input_mode='folded_float32',
                                      device='cpu')
     with pytest.raises(ValueError):
         tei.build_inceptionv3_engine(fm, input_mode='uint8', device='cpu')
