@@ -164,7 +164,35 @@ non-zero exit and no result line:
     the QAT-eval-against-engine checks of phases 7, 10 and 12 keep both
     checkpoints and walk the nodes of both sides on a mismatch
     (:func:`parity_evidence`);
-14. one JSON line with the kernels' numbers, then the result line.
+14. mixed-precision sensitivity at full width, b8, 224², through
+    ``sensitivity.pipeline.estimate_layer_costs``: first the HVP of
+    ResNet-50 (b2 64², a CPU-calibrated model copied to the card) on the
+    card against the CPU, per leaf within 1e-3 of the leaf's largest value;
+    then for ResNet-50 and MobileNetV2 w1 (uniform8, seed 0) one
+    calibration pass (``minmax_1pass`` per quantizer) and 4 Hutchinson
+    probes, reverse-over-reverse through the QAT forward (``int8_conv_acc``,
+    ``int8_matmul_acc``, D1's accumulator form), the launch counts set to 0
+    before the calibration and read after it and after each probe, against
+    the model's widths per kernel and per core; per probe ms, launches and
+    peak memory beside a folded b8 train step's; a profiler trace of one
+    probe; every distinct kernel call of a probe against its
+    plain version; ResNet-50's 52 stage-conv traces
+    and their Spearman rank correlation with the published ones; the ILP at
+    bops and model_size 0.5; the bops config's QAT model (the same weights)
+    calibrated on the card and frozen, served folded with the int16
+    carrier: launches as the config predicts (4-bit layers on the packed
+    int4 kernels), logits on the whole batch and an inner node equal to
+    the CPU engine's, every recorded call against its plain version,
+    ResNet-50's logits equal as integers to the QAT eval logits;
+15. export: QONNX files of ResNet-50 uniform8, phase 14's generated
+    config, ResNet-50 v2 uniform8, MobileNetV2 w1 and InceptionV3 w1
+    uniform8 (full width), read back, every checked initializer equal to
+    the FrozenModel tensor or the engine multiplier it came from, replayed
+    by the numpy int64 interpreter on one image (64², InceptionV3 75²)
+    bit-equal to the card engine's logits; the bundle of ResNet-50
+    uniform8, its (m, e) rebuilding the engine's multipliers, its npz the
+    model's tensors; export, load and replay times;
+16. one JSON line with the kernels' numbers, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -296,6 +324,14 @@ REF_PATHS = (('resnet50', 'uniform8', ('folded_float32', 'float32'),
              ('mobilenetv2', 'uniform8', ('float32',), 'final'),
              ('inceptionv3', 'uniform8', ('float32',),
               'features.stage2.unit1.q_rescaling_activ'))
+# Phase 14: Hutchinson probes per model at b8 224²; the card HVP against the
+# CPU HVP at this batch and image size
+HVP_PROBES = 4
+HVP_CHECK_BATCH, HVP_CHECK_SIZE = 2, 64
+# Phase 15: the QONNX replay's image size (numpy int64, one image; the full
+# size would take minutes), InceptionV3 the smallest its reductions allow
+REPLAY_DEFAULT = 64
+REPLAY_SIZE = {'inceptionv3': 75}
 # the forms that compute the native requant: none launches in reference mode
 FUSED_FORMS = ('int8_conv_requant', 'int4w_conv_requant',
                'int8_matmul_requant', 'int4w_matmul_requant', POOL_REQUANT,
@@ -2532,8 +2568,9 @@ def qat_node_names(node):
     return (f'stage{m[1]}_unit{m[2]}.{leaf}',)
 
 
-def parity_evidence(tmp, arch, model, fm, images, qat_int, eng_int, dev):
-    """A QAT-eval-against-engine mismatch (phases 7, 10, 12): keep the
+def parity_evidence(tmp, arch, model, fm, images, qat_int, eng_int, dev,
+                    phase=None):
+    """A QAT-eval-against-engine mismatch (phases 7, 10, 12, 14): keep the
     trainer's checkpoint and its frozen artifact (copied from ``tmp`` into a
     directory under ``OUT_DIR``, its path printed), then walk both sides on
     the card and on the CPU — the engine's capture nodes and the QAT
@@ -2542,7 +2579,7 @@ def parity_evidence(tmp, arch, model, fm, images, qat_int, eng_int, dev):
     QAT forward differ and which side moved between the CPU and the card;
     then fail."""
     from hawq_tpu_torch.nn.layers import capture_q_int
-    phase = f'phase {TRAIN_PHASE[arch]}'
+    phase = phase or f'phase {TRAIN_PHASE[arch]}'
     keep = os.path.join(OUT_DIR, f"parity_{arch}_{time.strftime('%H%M%S')}")
     os.makedirs(keep, exist_ok=True)
     for name in os.listdir(tmp):
@@ -3095,6 +3132,513 @@ def reference_phase(raw, dev, errs, totals):
     return per_path, n, label
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sensitivity → allocation → serve; phase 15: export
+# ---------------------------------------------------------------------------
+
+def spearman(a, b):
+    """Spearman's rank correlation of two sequences (no ties expected)."""
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    ra, rb = ra - ra.mean(), rb - rb.mean()
+    return float((ra * rb).sum() / np.sqrt((ra ** 2).sum() * (rb ** 2).sum()))
+
+
+@contextlib.contextmanager
+def probes_observed(records, specs):
+    """Inside, every ``sensitivity.hessian.hvp`` call (one Hutchinson
+    probe) is observed: CUDA events around it, its launches per kernel and
+    per core (counts read before and after), its peak allocated memory
+    above what was allocated before it, and the launches counted before
+    the first probe; the first probe's kernel calls are recorded (shapes
+    only) into ``specs``."""
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.sensitivity import hessian
+    real = hessian.hvp
+
+    def observed(loss_fn, params, v):
+        torch.cuda.synchronize()
+        before = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cores_before = core_launches()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        with recording([] if records else specs, keep=shapes_only):
+            out = real(loss_fn, params, v)
+        t1.record()
+        torch.cuda.synchronize()
+        records.append(dict(
+            ms=t0.elapsed_time(t1), before=before,
+            counts={k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                    if v - before.get(k, 0)},
+            cores={k: v - cores_before.get(k, 0)
+                   for k, v in core_launches().items()
+                   if v - cores_before.get(k, 0)},
+            peak=torch.cuda.max_memory_allocated() - base))
+        return out
+    hessian.hvp = observed
+    try:
+        yield
+    finally:
+        hessian.hvp = real
+
+
+def sensitivity_traces(arch, dev, errs):
+    """Phase 14's traces of ``arch`` at full width, b8, ``SIZE``²
+    (``pipeline.estimate_layer_costs``: the uniform8 QAT model of seed 0,
+    one calibration pass, ``HVP_PROBES`` probes), the launch counts set to 0
+    just before and read after the calibration pass and each probe, held
+    against the model's widths per kernel and per core; every distinct
+    kernel call of a probe against its plain version → (model, costs,
+    probe records)."""
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.sensitivity import pipeline as sp
+    records, specs = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with probes_observed(records, specs):
+        model, costs = sp.estimate_layer_costs(
+            arch, device=dev, batch=BATCH, image_size=SIZE,
+            probes=HVP_PROBES)
+    wall = time.perf_counter() - t0
+    label = f'{arch} uniform8 b{BATCH} {SIZE}x{SIZE}'
+    want = expected_train_launches(model)
+    check(len(records) == HVP_PROBES, f'{label}: {len(records)} probes')
+    check(records[0]['before'] == want.counts, f'{label}: calibration pass '
+          f'launches {records[0]["before"]}, expected {want.counts}')
+    per_probe = {k: v for k, v in want.counts.items() if k != MINMAX}
+    for i, r in enumerate(records):
+        check(r['counts'] == per_probe, f'{label}: probe {i} launches '
+              f'{r["counts"]}, expected {per_probe}')
+        check(r['cores'] == want.cores, f'{label}: probe {i} launches per '
+              f'core {r["cores"]}, expected {want.cores}')
+    check(all(np.isfinite(c.trace) and np.isfinite(c.delta_w4)
+              for c in costs), f'{label}: a trace is not finite')
+    log(f'phase 14: {label}: calibration pass launches {want.counts}; '
+        f'{HVP_PROBES} HVP probes, each launching {per_probe} (per core '
+        f'{want.cores}): ' + ', '.join(
+            f"{r['ms']:.1f} ms / peak +{r['peak'] / 2 ** 30:.2f} GiB"
+            for r in records) + f'; {wall:.1f} s in all (model build, '
+        f'calibration, probes, costs)')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    distinct = {}
+    for name, args, kw in specs:
+        distinct.setdefault(call_key(name, args, kw),
+                            (name, synthesize(args, dev, gen), kw))
+    check_calls(list(distinct.values()), errs, f'phase 14: the '
+                f'{len(distinct)} distinct kernel calls of a probe of {arch}')
+    return model, costs, records
+
+
+def train_step_beside(model, dev):
+    """One folded b8 train step on a copy of ``model`` at the calibration
+    batch, after a warm-up: (CUDA-event ms, peak allocated bytes above what
+    was allocated before it)."""
+    from hawq_tpu_torch.sensitivity import pipeline as sp
+    from hawq_tpu_torch.train.train import (TrainState, make_train_step,
+                                            sgd_with_step_decay)
+    m = copy.deepcopy(model)
+    x, y = sp.calibration_batch(BATCH, SIZE, 1000)
+    batch = {'image': torch.from_numpy(x).to(dev),
+             'label': torch.from_numpy(y).to(dev)}
+    state = TrainState.create(m, sgd_with_step_decay(m, 1e-4))
+    step = make_train_step(m, folded=True)
+    step(state, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), 1)
+    peak = torch.cuda.max_memory_allocated() - base
+    del m, state, step
+    return ms, peak
+
+
+def hvp_card_vs_cpu(arch, dev):
+    """The HVP of ``arch`` (full width, uniform8, seed 0, calibrated on the
+    CPU at b``HVP_CHECK_BATCH`` ``HVP_CHECK_SIZE``²) on the card against the
+    CPU for the same weights, ranges and probe: per leaf
+    max |card − cpu| ≤ 1e-3 · max |cpu| (cuDNN's float sums in another
+    order) → the worst leaf and its ratio."""
+    from hawq_tpu_torch.sensitivity import hessian as sh
+    from hawq_tpu_torch.sensitivity import pipeline as sp
+    cpu = sp.build_qat_model(arch)
+    x, y = (torch.from_numpy(a) for a in sp.calibration_batch(
+        HVP_CHECK_BATCH, HVP_CHECK_SIZE, 1000))
+    with torch.no_grad():
+        cpu(x, folded=True, update_stats=True)
+    card = copy.deepcopy(cpu).to(dev)
+    out, secs = {}, {}
+    for name, model, d in (('cpu', cpu, 'cpu'), ('card', card, dev)):
+        params = dict(model.named_parameters())
+        probe = sh.rademacher_like(params, torch.Generator().manual_seed(1))
+        t0 = time.perf_counter()
+        hv = sh.hvp(sp.qat_loss(model, x.to(d), y.to(d)), params, probe)
+        out[name] = {k: v.cpu() for k, v in hv.items()}
+        secs[name] = time.perf_counter() - t0
+    ratios = {}
+    for k, want in out['cpu'].items():
+        got = out['card'][k]
+        check(bool(torch.isfinite(got).all()), f'card HVP {k} not finite')
+        ratios[k] = float((got - want).abs().max()
+                          / (want.abs().max() + 1e-30))
+    worst = max(ratios, key=ratios.get)
+    check(ratios[worst] <= 1e-3, f'{arch}: card HVP leaf {worst} differs '
+          f'from the CPU HVP by {ratios[worst]:.2e} of its largest value')
+    log(f'phase 14: {arch} uniform8 b{HVP_CHECK_BATCH} {HVP_CHECK_SIZE}x'
+        f'{HVP_CHECK_SIZE}: card HVP == CPU HVP on all {len(ratios)} leaves '
+        f'within 1e-3 of each leaf\'s largest value (worst {worst}: '
+        f'{ratios[worst]:.2e}); {secs["card"]:.2f} s on the card, '
+        f'{secs["cpu"]:.2f} s on the CPU')
+    return worst, ratios[worst]
+
+
+def allocations(arch, costs):
+    """allocate_bits at 'bops' and 'model_size', fraction 0.5, expanded to
+    BitConfigs → {mode: BitConfig}."""
+    from hawq_tpu_torch.sensitivity import ilp
+    from hawq_tpu_torch.sensitivity import pipeline as sp
+    out = {}
+    for mode in ('bops', 'model_size'):
+        t0 = time.perf_counter()
+        alloc = ilp.allocate_bits(costs, mode, 0.5)
+        secs = time.perf_counter() - t0
+        n4 = sum(1 for b in alloc.bits.values() if b == 4)
+        check(0 < n4 < len(alloc.bits) and alloc.resource_used
+              <= alloc.resource_limit * (1 + 1e-9),
+              f'{arch} {mode} 0.5: {n4} of {len(alloc.bits)} layers at 4 '
+              f'bits, resource {alloc.resource_used} of '
+              f'{alloc.resource_limit}')
+        out[mode] = sp.to_bit_config(arch, alloc, f'{mode}_0.5_generated')
+        log(f'phase 14: {arch} {mode} 0.5: {n4} of {len(alloc.bits)} layers '
+            f'at 4 bits, resource {alloc.resource_used:.6g} of '
+            f'{alloc.resource_limit:.6g}, objective {alloc.objective:.6g} '
+            f'({secs * 1e3:.1f} ms); 4-bit: ' + ', '.join(
+                k for k, b in alloc.bits.items() if b == 4))
+    return out
+
+
+def generated_model(model8, cfg, x, dev):
+    """The QAT model at the generated config with ``model8``'s weights and
+    BN statistics, its ranges calibrated afresh on ``x`` on the card →
+    (model, its frozen artifact)."""
+    from hawq_tpu_torch.inference.freeze import (freeze_mobilenetv2,
+                                                 freeze_resnet)
+    from hawq_tpu_torch.models.mobilenetv2 import QMobileNetV2
+    from hawq_tpu_torch.models.resnet import (QResNet, qat_from_numpy,
+                                              qat_to_numpy)
+    v = qat_to_numpy(model8)
+    mobilenet = isinstance(model8, QMobileNetV2)
+    model = (QMobileNetV2(cfg, 1000) if mobilenet
+             else QResNet(model8.arch, cfg, 1000)).to(dev)
+    qat_from_numpy(model, {'params': v['params'],
+                           'batch_stats': v['batch_stats']})
+    with torch.no_grad():
+        model(x, folded=True, update_stats=True)
+    v = qat_to_numpy(model)
+    fm = (freeze_mobilenetv2(v, cfg, model.stages, 1000) if mobilenet
+          else freeze_resnet(v, model.arch, cfg, 1000))
+    return model, fm
+
+
+def qat_engine_parity(model, fm, eng, images, engine_images, dev, label):
+    """The generated model's QAT eval logits on ``images`` == the card
+    engine's on ``engine_images`` as integers (phase 7's contract); on a
+    mismatch the evidence is kept (:func:`parity_evidence`)."""
+    from hawq_tpu_torch.models.resnet import qat_to_numpy
+    from hawq_tpu_torch.utils.checkpoint import (save_frozen,
+                                                 save_train_checkpoint)
+    with torch.no_grad():
+        qat = model(images, folded=True, update_stats=False)
+    logits = eng(engine_images)
+    scale = (torch.from_numpy(fm['quant_output.weight_scale']).to(dev)
+             .double() * float(fm.act_scale('quant_act_output')))
+    qat_int = torch.round(qat.double() / scale)
+    eng_int = torch.round(logits.double() / scale)
+    if not torch.equal(qat_int, eng_int):
+        with tempfile.TemporaryDirectory() as tmp:
+            save_train_checkpoint(os.path.join(tmp, 'checkpoint.npz'),
+                                  qat_to_numpy(model))
+            save_frozen(os.path.join(tmp, 'quantized_checkpoint.npz'), fm)
+            parity_evidence(tmp, fm.arch, model, fm, images, qat_int,
+                            eng_int, dev, phase='phase 14')
+    log(f'phase 14: {label}: the engine\'s integer logits equal the QAT '
+        f'eval logits on all {qat_int.numel()}')
+
+
+def sensitivity_phase(dev, errs):
+    """Phase 14: ResNet-50 then MobileNetV2 w1 at full width, b8, 224²:
+    traces, the allocations, the generated config's QAT model calibrated
+    and frozen on the card, served folded with the int16 carrier against
+    the prediction and the CPU engine (ResNet-50 also against the QAT eval
+    logits) → (the generated ResNet-50 frozen model, launches of the
+    calibration pass and per probe {arch: counts}, path labels)."""
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    from hawq_tpu_torch.inference.fold import (fold4_images,
+                                               fold4_images_3x3s2)
+    from hawq_tpu_torch.sensitivity import hessian as sh
+    from hawq_tpu_torch.sensitivity import ilp
+    from hawq_tpu_torch.sensitivity import pipeline as sp
+    x_np, y_np = sp.calibration_batch(BATCH, SIZE, 1000)
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    worst = hvp_card_vs_cpu('resnet50', dev)
+    calib, per_probe, labels, out = {}, {}, {}, {}
+    for arch in ('resnet50', 'mobilenetv2'):
+        model8, costs, records = sensitivity_traces(arch, dev, errs)
+        calib[arch], per_probe[arch] = records[0]['before'], records[-1][
+            'counts']
+        labels[arch] = (f'{arch} uniform8 b{BATCH} {SIZE}x{SIZE}: the '
+                        f'calibration pass, and one Hutchinson probe (the '
+                        f'QAT eval forward, then two backward passes)')
+        step_ms, step_peak = train_step_beside(model8, dev)
+        later = [r['ms'] for r in records[1:]]     # the first warms cuDNN
+        log(f'phase 14: {arch}: ms per probe after the first '
+            f'{min(later):.1f}–{max(later):.1f} (median '
+            f'{np.median(later):.1f}; the first {records[0]["ms"]:.1f}) '
+            f'beside a folded b{BATCH} train step {step_ms:.1f} ms '
+            f'({np.median(later) / step_ms:.2f}×); peak allocated above the '
+            f'probe\'s start {max(r["peak"] for r in records) / 2 ** 30:.2f} '
+            f'GiB beside the step\'s {step_peak / 2 ** 30:.2f} GiB')
+        params = dict(model8.named_parameters())
+        probe = sh.rademacher_like(params, torch.Generator().manual_seed(0))
+        loss = sp.qat_loss(model8, x, y)
+        train_trace_breakdown(lambda: sh.hvp(loss, params, probe),
+                              f'HVP probe of {arch} uniform8 b{BATCH} '
+                              f'{SIZE}x{SIZE}', 14)
+        del params, probe, loss
+        if arch == 'resnet50':
+            pub = {c.key: c.trace for c in ilp.published_ilp_inputs(arch)}
+            check(len(costs) == 52 and sorted(c.key for c in costs)
+                  == sorted(pub), f'{arch}: {len(costs)} stage convs')
+            ours = [c.trace for c in costs]
+            rho = spearman(ours, [pub[c.key] for c in costs])
+            log(f'phase 14: {arch}: the 52 stage-conv traces (trace / '
+                f'#params, random weights): ' + ', '.join(
+                    f'{c.key.replace(".quant_", ".")}={c.trace:.4g}'
+                    for c in costs) + f'; Spearman against '
+                f'published_ilp_inputs: {rho:.4f} (not a gate)')
+        cfgs = allocations(arch, costs)
+        model, fm = generated_model(model8, cfgs['bops'], x, dev)
+        label = f'{fm.cfg.name} folded_float32 int16'
+        calls = []
+        if arch == 'resnet50':
+            want = expected_launches(arch, fm.cfg, 'folded_float32')
+            want_cores = core_split(want)
+            build = functools.partial(build_resnet_engine, fm,
+                                      input_mode='folded_float32',
+                                      residual_dtype=torch.int16)
+            images = torch.from_numpy(fold4_images(x_np)).to(dev)
+            check(any(k.startswith('int4w_') for k in want), f'{label}: no '
+                  f'4-bit layer: {want}')
+        else:
+            w = expected_mobilenet_launches(fm, 'folded_float32')
+            want, want_cores = w.counts, w.cores
+            build = functools.partial(build_mobilenetv2_engine, fm,
+                                      input_mode='folded_float32',
+                                      input_hw=(SIZE, SIZE),
+                                      residual_dtype=torch.int16)
+            images = torch.from_numpy(fold4_images_3x3s2(x_np, 1)).to(dev)
+        eng, _ = engine_check(build, images, want, want_cores,
+                              ('avg_pool' if arch == 'resnet50' else 'final',),
+                              label, dev, 'phase 14', calls)
+        check_calls(calls, errs, f'phase 14: all {len(calls)} recorded calls '
+                    f'of {label}')
+        logits = eng(images).cpu()
+        check(torch.equal(logits, build(device='cpu')(images.cpu())),
+              f'{label}: the card engine\'s logits differ from the CPU '
+              f'engine\'s on the batch')
+        log(f'phase 14: {label}: logits equal the CPU engine\'s on all '
+            f'{BATCH} images')
+        if arch == 'resnet50':
+            qat_engine_parity(model, fm, eng, x, images, dev, label)
+            out['fm'] = fm
+        del model8, model, eng, calls
+    log(f'phase 14: worst card HVP leaf {worst[0]} {worst[1]:.2e}')
+    return out['fm'], calib, per_probe, labels
+
+
+def replay_engine(fm, size, dev):
+    """The family's float32-input engine at ``size``² on ``dev``."""
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    from hawq_tpu_torch.inference.engine_v2 import build_resnet_v2_engine
+    if fm.arch == 'mobilenetv2':
+        return build_mobilenetv2_engine(fm, input_hw=(size, size),
+                                        device=dev)
+    if fm.arch == 'inceptionv3':
+        return build_inceptionv3_engine(fm, input_hw=(size, size),
+                                        device=dev)
+    if fm.arch.endswith('v2'):
+        return build_resnet_v2_engine(fm, device=dev)
+    return build_resnet_engine(fm, device=dev)
+
+
+# each family's FC, the activation that feeds it and the input quantizer
+_HEAD = {'mobilenetv2': 'output', 'inceptionv3': 'output.q_fc'}
+_HEAD_ACT = {'inceptionv3': 'features.q_concat_activ'}
+_INPUT_ACT = {'inceptionv3': 'features.q_init_block.q_input_activ'}
+
+
+def check_initializers(fm, m, eng, label):
+    """Every initializer of the QONNX file ``m`` read back against what it
+    came from: each Conv's weight, bias, weight scale and bits, the FC's
+    weight and bias, the input and output scales against the FrozenModel;
+    each dyadic multiplier against the engine's multiplier of the same site
+    (by name, else by value) → (initializers checked, of all, multipliers
+    matched by site, by value).  The rest (MobileNetV2's ReLU6 bounds,
+    ResNet v2's BN biases and head scales) are held by the replay."""
+    from hawq_tpu_torch.export import qonnx
+    inits = {t.name: qonnx._tensor_to_np(t) for t in m.graph.initializer}
+    done = set()
+
+    def equal(name, want):
+        got = inits[name]
+        check(got.shape == np.shape(want) and np.array_equal(got, want),
+              f'{label}: initializer {name} differs from the model')
+        done.add(name)
+    for node in m.graph.node:
+        if node.op_type == 'Conv':
+            key = node.name
+            equal(key + '.weight', fm[key + '.weight_int'])
+            equal(key + '.bias', fm[key + '.bias_int'])
+            equal(key + '.weight_scale', np.atleast_1d(
+                fm[key + '.weight_scale'].astype(np.float32)))
+            equal(key + '.weight_bits',
+                  np.asarray([fm.cfg.weight_bits(key)], np.int32))
+        elif node.op_type == 'MatMul':
+            head = _HEAD.get(fm.arch, 'quant_output')
+            w = fm[head + '.weight_int']
+            equal(node.input[1], w.reshape(w.shape[-2], w.shape[-1]))
+    head = _HEAD.get(fm.arch, 'quant_output')
+    equal(head.split('.')[0] + '.bias', fm[head + '.bias_int'])
+    equal('input.scale', np.float32(
+        fm.act_scale(_INPUT_ACT.get(fm.arch, 'quant_input'))).reshape(1))
+    equal('output.scale', np.atleast_1d(
+        fm[head + '.weight_scale'].astype(np.float32) * np.float32(
+            fm.act_scale(_HEAD_ACT.get(fm.arch, 'quant_act_output')))))
+    mults = {k: v.cpu().numpy() for k, v in eng._mult.items()}
+    by_name = by_value = 0
+    for name, got in inits.items():
+        if not name.endswith('.mult'):
+            continue
+        site = 'init_requant' if name == 'init.mult' else name[:-5]
+        if site in mults:
+            check(np.array_equal(got, np.atleast_1d(mults[site])),
+                  f'{label}: multiplier {name} differs from the engine\'s')
+            by_name += 1
+        else:
+            check(any(np.array_equal(got, np.atleast_1d(v))
+                      for v in mults.values()), f'{label}: multiplier '
+                  f'{name} is none of the engine\'s')
+            by_value += 1
+        done.add(name)
+    return len(done), len(inits), by_name, by_value
+
+
+def export_phase(fm_gen, dev):
+    """Phase 15: QONNX files of the full-width frozen models (synthetic,
+    seed 0, and phase 14's generated config), read back, every initializer
+    against its origin, replayed by the numpy int64 interpreter on one
+    image at a reduced size bit-equal to the card engine's logits; the
+    bundle of ResNet-50 uniform8, its (m, e) against the engine's
+    multipliers and its npz against the model."""
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.export import export as ex
+    from hawq_tpu_torch.export import qonnx
+    from hawq_tpu_torch.inference import synthetic as syn
+    fms = [syn.synthetic_frozen_resnet(
+               'resnet50', get_bit_config('resnet50', 'uniform8'), seed=0),
+           fm_gen,
+           syn.synthetic_frozen_resnet_v2(
+               'resnet50v2', get_bit_config('resnet50v2', 'uniform8'),
+               seed=0),
+           syn.synthetic_frozen_mobilenet(
+               get_bit_config('mobilenetv2', 'uniform8'), seed=0),
+           syn.synthetic_frozen_inception(
+               get_bit_config('inceptionv3', 'uniform8'), seed=0)]
+    engines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fm in fms:
+            label = fm.cfg.name
+            path = os.path.join(tmp, f'{fm.cfg.name}.onnx')
+            t0 = time.perf_counter()
+            qonnx.export_qonnx(fm, path)
+            t1 = time.perf_counter()
+            m = qonnx.load_qonnx(path)
+            t2 = time.perf_counter()
+            size = REPLAY_SIZE.get(fm.arch, REPLAY_DEFAULT)
+            img = np.random.RandomState(6).randn(1, size, size, 3).astype(
+                np.float32)
+            replay = qonnx.replay_qonnx(m, img)
+            t3 = time.perf_counter()
+            eng = replay_engine(fm, size, dev)
+            logits = eng(torch.from_numpy(img).to(dev)).cpu().numpy()
+            check(logits.shape == (1, 1000) and np.isfinite(logits).all(),
+                  f'{label}: engine logits {logits.shape} not finite')
+            check(np.array_equal(replay.astype(np.float32), logits),
+                  f'{label}: the QONNX replay differs from the card engine '
+                  f'on {int((replay.astype(np.float32) != logits).sum())} '
+                  f'of 1000 logits')
+            n, total, by_name, by_value = check_initializers(fm, m, eng,
+                                                             label)
+            log(f'phase 15: {label}: export_qonnx {(t1 - t0) * 1e3:.1f} ms '
+                f'({os.path.getsize(path) / 2 ** 20:.1f} MiB, '
+                f'{len(m.graph.node)} nodes), load_qonnx '
+                f'{(t2 - t1) * 1e3:.1f} ms, replay of one {size}x{size} '
+                f'image {t3 - t2:.2f} s bit-equal to the card engine; '
+                f'{n} of {total} initializers checked against the model '
+                f'and the engine ({by_name} multipliers by site, {by_value} '
+                f'by value)')
+            engines[fm.cfg.name] = eng
+        fm = fms[0]
+        eng = engines[fm.cfg.name]
+        path = os.path.join(tmp, 'bundle', 'resnet50_uniform8')
+        t0 = time.perf_counter()
+        ex.export_bundle(path, fm)
+        secs = time.perf_counter() - t0
+        with open(path + '.bundle.json') as f:
+            manifest = json.load(f)
+        check(manifest == ex.bundle_manifest(fm), 'the bundle manifest '
+              'read back differs')
+        with np.load(path + '.npz') as z:
+            check(sorted(z.files) == sorted(fm.tensors) and all(
+                np.array_equal(z[k], fm[k]) and z[k].dtype == fm[k].dtype
+                for k in z.files), 'the bundle npz differs from the model')
+        site = {'init_requant': 'init_requant', 'fc_requant': 'fc_in'}
+        n = 0
+        for node in manifest['graph']:
+            pairs = []
+            if node['op'] == 'requantize':
+                p = node['name'].rsplit('.', 1)
+                name = site.get(node['name']) or (
+                    f'{p[0]}.in' if p[1] == 'input_requant'
+                    else f'{p[0]}.a{p[1][-1]}')
+                pairs.append((name, node['m'], node['e']))
+            elif node['op'] == 'requantize_add':
+                p = node['name'].rsplit('.', 1)[0]
+                pairs += [(f'{p}.res_main', node['m_main'], node['e_main']),
+                          (f'{p}.res_id', node['m_identity'],
+                           node['e_identity'])]
+            for name, m_, e_ in pairs:
+                got = np.ldexp(np.asarray(m_, np.float32),
+                               -np.asarray(e_)).astype(np.float32)
+                want = np.atleast_1d(eng._mult[name].cpu().numpy())
+                check(np.array_equal(got, want), f'bundle: (m, e) of {name} '
+                      f'do not rebuild the engine\'s multiplier')
+                n += 1
+        log(f'phase 15: export_bundle of resnet50 uniform8 in {secs:.2f} s: '
+            f'the manifest\'s (m, e) rebuild all {n} of the engine\'s float32 '
+            f'multipliers, the npz equals the model\'s {len(fm.tensors)} '
+            f'tensors')
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch.cuda.is_available() is false; this '
@@ -3270,7 +3814,14 @@ def main():
     ref_launches, launches[AVGPOOL_Q], labels[AVGPOOL_Q] = reference_phase(
         raw, dev, errs, totals)
 
-    # ---- phase 14 ----
+    # ---- phase 14: sensitivity → allocation → serve ----
+    fm_gen, sens_calib, sens_probe, sens_labels = sensitivity_phase(dev, errs)
+
+    # ---- phase 15: export ----
+    export_phase(fm_gen, dev)
+    del fm_gen
+
+    # ---- phase 16 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -3319,6 +3870,12 @@ def main():
             entry['smallest_launch_ms'] = launch_floor
         if name in ref_launches:     # phase 13's paths, synthetic weights
             entry['reference_launches'] = ref_launches[name]
+        for arch in sens_probe:      # phase 14: calibration, HVP probes
+            if name in sens_probe[arch] or name in sens_calib[arch]:
+                entry.setdefault('sensitivity', []).append(dict(
+                    path=sens_labels[arch],
+                    calibration_launches=sens_calib[arch].get(name, 0),
+                    launches_per_probe=sens_probe[arch].get(name, 0)))
         if name != MINMAX and name in train_totals:
             # the accumulator kernels' second path: one QAT train step
             tt = train_totals[name]
@@ -3332,7 +3889,7 @@ def main():
                 entry.update(train_old_ms=tt['old_ms'],
                              train_weight_layout_ms=tt['prep_ms'])
         kernels.append(entry)
-    log(f'phase 14: all phases passed in '
+    log(f'phase 16: all phases passed in '
         f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '

@@ -3,8 +3,8 @@
 both cores, the folded pool and its requant-in-front form, the one-pass
 min/max, D1's depthwise conv and A1's average pool, with and without the
 requant in front), and the engines, the
-integer conv of the QAT layers and a QAT forward on the card == on the
-CPU.
+integer conv of the QAT layers, a QAT forward and the Hutchinson HVP on
+the card == on the CPU; a QONNX file's replay == the card engine.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -1837,3 +1837,57 @@ def test_reference_engine_cuda_equals_cpu(dev, family, mode):
                                    msg=node)
     native = _every_node(build(device=dev), x.to(dev))[1]
     assert any(not torch.equal(native[n], v) for n, v in got_nodes.items())
+
+
+def test_hvp_cuda_equals_cpu(dev):
+    """The Hutchinson HVP through tiny ResNet-18's QAT graph on the card
+    (#7 and #2 in the forward, cuDNN's double backward with TF32 off) ==
+    on the CPU for the same weights, ranges and probes, per leaf within
+    1e-3 of the leaf's largest value; the traces likewise."""
+    import copy
+    from hawq_tpu_torch.sensitivity import hessian as th
+    from hawq_tpu_torch.sensitivity.pipeline import qat_loss
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(2, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (2,)))
+    cpu = QResNet('tiny18', get_bit_config('tiny18', 'uniform8'), 10, seed=0)
+    with torch.no_grad():
+        cpu(x, folded=True, update_stats=True)
+    card = copy.deepcopy(cpu).to(dev)
+    out = {}
+    for name, model, d in (('cpu', cpu, 'cpu'), ('card', card, dev)):
+        params = dict(model.named_parameters())
+        probe = th.rademacher_like(params, torch.Generator().manual_seed(1))
+        _build.reset_launches()
+        hv = th.hvp(qat_loss(model, x.to(d), y.to(d)), params, probe)
+        counts = _counts()
+        traces = th.hutchinson_layer_traces(
+            qat_loss(model, x.to(d), y.to(d)), params, n_probes=2)
+        out[name] = ({k: v.cpu() for k, v in hv.items()}, traces, counts)
+    assert {'int8_conv_acc', 'int8_matmul_acc'} <= set(out['card'][2])
+    assert not out['cpu'][2]
+    for k, want in out['cpu'][0].items():
+        got = out['card'][0][k]
+        assert float((got - want).abs().max()) <= 1e-3 * float(
+            want.abs().max()), k
+    for k, want in out['cpu'][1].items():
+        assert abs(out['card'][1][k] - want) <= 1e-3 * abs(want) + 1e-12, k
+
+
+def test_qonnx_replay_equals_card_engine(dev, tmp_path):
+    """The QONNX file of a tiny ResNet-50 uniform4 model, replayed by the
+    numpy int64 interpreter, == the card engine's logits (the packed int4
+    kernels) on the same images."""
+    from hawq_tpu_torch.export import qonnx
+    fm = synthetic_frozen_resnet('tiny50', get_bit_config('tiny50',
+                                                          'uniform4'),
+                                 num_classes=10, seed=2)
+    path = str(tmp_path / 'm.onnx')
+    qonnx.export_qonnx(fm, path, image_size=32)
+    x = np.random.RandomState(3).randn(2, 32, 32, 3).astype(np.float32)
+    replay = qonnx.replay_qonnx(qonnx.load_qonnx(path), x)
+    _build.reset_launches()
+    eng = build_resnet_engine(fm, device=dev)(torch.from_numpy(x).to(dev))
+    assert any(k.startswith('int4w_') for k in _counts())
+    np.testing.assert_array_equal(replay.astype(np.float32),
+                                  eng.cpu().numpy())
