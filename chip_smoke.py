@@ -192,13 +192,37 @@ non-zero exit and no result line:
     bit-equal to the card engine's logits; the bundle of ResNet-50
     uniform8, its (m, e) rebuilding the engine's multipliers, its npz the
     model's tensors; export, load and replay times;
-16. one JSON line with the kernels' numbers, then the result line.
+16. the deployment surface: ``python -m hawq_tpu_torch.deploy`` in a
+    process of its own on ResNet-50 uniform8 b8 224² (synthetic weights,
+    the auto route): top-5 of all 8 images equal to the CPU engine's,
+    ``--time``, ``--export-onnx``; through ``deploy.main``, a capture of
+    ``stage2.unit1.quant_act_int32`` on the host fold saved and "100%
+    matched!" against the CPU engine's golden, MobileNetV2 w1 and
+    InceptionV3 w1 on their routes, InceptionV3 also on the native fold,
+    top-5 equal to the CPU engine's; the host preprocessing timed, native
+    and numpy in turns where a function has both (``native_available``
+    asserted); ``profile_engine`` on the main path and the bound of
+    ``engine_flops_and_bytes``; the production-route readings (float32
+    against folded_float32 input, b8 and b64, 20 runs a mode in turns);
+    ``autotune_routing`` on ResNet-50 uniform4 b8 and ``autotune_routing_1x1``
+    on MobileNetV2 w1 and InceptionV3 w1 uniform4 b8, the tables written
+    under chiprun_out/ and served (with every site 'int4w' too for the two
+    1×1 families): launches per kernel and per core as each table
+    predicts, logits equal to the CPU engine's and to the unrouted card
+    engine's, every recorded call against its plain version, each packed
+    call timed beside its int8 twin; each table also routing
+    ``image_dependent(fm)``, whose nodes all vary with the image: every node
+    equal to the unrouted card engine's and the CPU engine's;
+    ``deploy --frozen … --routing`` with a table; the seconds of each part;
+17. a JSON line with phase 16's numbers, one with the kernels' numbers,
+    then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import os
@@ -362,7 +386,8 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def expected_inception_launches(fm, input_mode, reference=False):
+def expected_inception_launches(fm, input_mode, reference=False,
+                                routing=None):
     """Launches of one InceptionV3 engine forward, from the frozen model's
     widths and its bit config: each conv (the graph's walk,
     ``engine_inception.conv_input_nodes``) through the requant form where
@@ -370,7 +395,9 @@ def expected_inception_launches(fm, input_mode, reference=False):
     through the matmul, a k×k through the conv (4·C, C filled to a multiple
     of 4, after a stride 2's space-to-depth); the folded stem's q_conv1
     through ``int8_conv_acc`` over the fold (C = 48, N = 4·32); A1 once for
-    each pool branch; the FC through ``int8_matmul_acc``.  With
+    each pool branch; the FC through ``int8_matmul_acc``.  With a
+    ``routing`` table a 1×1 with 4-bit weights and the requant form that
+    the table routes to 'int4w' takes ``int4w_matmul_requant``.  With
     ``reference`` (``requant_mode='reference'``) every conv takes the
     accumulator form and every pool branch A1's quotient form."""
     from hawq_tpu_torch.inference.engine_inception import (
@@ -398,8 +425,15 @@ def expected_inception_launches(fm, input_mode, reference=False):
         if key == stem and input_mode == 'folded_float32':
             out.add('int8_conv_acc', 'conv_acc', 48, 4 * n)
         elif (kh, kw_) == (1, 1):
-            out.add('int8_matmul_acc' if acc else 'int8_matmul_requant',
-                    'matmul' if acc else 'matmul_requant', c, n)
+            site = key + '.q_convbn'
+            if (not acc and routing is not None
+                    and routing.get(site) == 'int4w'
+                    and fm.cfg.weight_bits(site) == 4):
+                out.add('int4w_matmul_requant', 'matmul_requant',
+                        c + c % 2, n)
+            else:
+                out.add('int8_matmul_acc' if acc else 'int8_matmul_requant',
+                        'matmul' if acc else 'matmul_requant', c, n)
         else:
             if strides.get(key, 1) == 2:
                 c = 4 * (c + -c % 4)
@@ -823,11 +857,12 @@ def cold_ms(fn, args, reps):
 # phase 3 helpers: recording, plain versions, bounds
 # ---------------------------------------------------------------------------
 
-def expected_launches(arch, cfg, input_mode, reference=False):
+def expected_launches(arch, cfg, input_mode, reference=False, routing=None):
     """Kernel launches of one engine forward, from the arch and the bit
     config: the init conv (int8), the folded init's requant + pool, each
     unit conv by its place in the unit and its weight bits (``int4w_*`` for
-    4-bit weights), and the FC (int8).  With ``reference``
+    4-bit weights; with a ``routing`` table, for 4-bit weights the table
+    routes to 'int4w'), and the FC (int8).  With ``reference``
     (``requant_mode='reference'``) every unit conv takes its accumulator
     form and the folded init the standalone pool."""
     from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
@@ -841,7 +876,9 @@ def expected_launches(arch, cfg, input_mode, reference=False):
         if not key.startswith('stage') or 'convbn' not in conv:
             continue
         form = _UNIT_CONV[bottleneck, conv]
-        name = (('int4w_' if cfg.weight_bits(key) == 4 else 'int8_')
+        int4 = cfg.weight_bits(key) == 4 and (
+            routing is None or routing.get(key) == 'int4w')
+        name = (('int4w_' if int4 else 'int8_')
                 + (form.replace('_requant', '_acc') if reference else form))
         counts[name] = counts.get(name, 0) + 1
     return counts
@@ -881,12 +918,16 @@ class Launches:
         return self
 
 
-def expected_mobilenet_launches(fm, input_mode, reference=False):
+def expected_mobilenet_launches(fm, input_mode, reference=False,
+                                routing=None):
     """Launches of one MobileNetV2 engine forward, from the frozen model's
     widths: the init conv (the fold's C = 48, N = 4·32, or the raw image's
     space-to-depth C = 16), every 1×1 conv (conv1, conv3, the final block,
-    the head) through ``int8_matmul_acc``, every depthwise conv2 through
-    D1's requant form (with ``reference``, its accumulator form)."""
+    the head) through ``int8_matmul_acc`` — with a ``routing`` table, a
+    conv1 / conv3 / final block with 4-bit weights that it routes to
+    'int4w' through ``int4w_matmul_acc`` (K padded to even) — every
+    depthwise conv2 through D1's requant form (with ``reference``, its
+    accumulator form)."""
     n = fm['init_block.weight_int'].shape[-1]
     out = Launches().add('int8_conv_acc', 'conv_acc',
                          *((48, 4 * n) if input_mode.startswith('folded')
@@ -895,7 +936,13 @@ def expected_mobilenet_launches(fm, input_mode, reference=False):
         if key.endswith('.conv2.weight_int'):
             out.add(DW_ACC if reference else DW_REQUANT)
         elif key.endswith('.weight_int') and key != 'init_block.weight_int':
-            out.add('int8_matmul_acc', 'matmul', w.shape[2], w.shape[3])
+            site = key[:-len('.weight_int')]
+            k = w.shape[2]
+            if (routing is not None and routing.get(site) == 'int4w'
+                    and fm.cfg.weight_bits(site) == 4 and site != 'output'):
+                out.add('int4w_matmul_acc', 'matmul', k + k % 2, w.shape[3])
+            else:
+                out.add('int8_matmul_acc', 'matmul', k, w.shape[3])
     return out
 
 
@@ -1929,7 +1976,8 @@ def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
         eng(x)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 10 * 1e3
-    log(f'{phase}: {label}: logits and {", ".join(nodes)} == CPU engine (2 '
+    what = f'logits and {", ".join(nodes)}' if nodes else 'logits'
+    log(f'{phase}: {label}: {what} == CPU engine (2 '
         f'images), launches {counts}, per core {cores}, {ms:.3f} ms/batch '
         f'CUDA-event-timed, {wall:.3f} ms/batch host-timed (input '
         f'{tuple(x.shape)} {str(x.dtype).replace("torch.", "")})')
@@ -3639,6 +3687,594 @@ def export_phase(fm_gen, dev):
             f'tensors')
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the deployment surface — deploy CLI, host preprocessing, the
+# per-stage profile, production routes, the autotuned routing tables
+# ---------------------------------------------------------------------------
+
+DEPLOY_NODE = 'stage2.unit1.quant_act_int32'
+# production-route readings: batches, alternating runs per input mode
+ROUTE_BATCHES = (8, 64)
+ROUTE_RUNS = 20
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# the routed paths: (arch, input mode, carrier), 224² (InceptionV3 299²)
+ROUTED = (('resnet50', 'folded_float32', torch.int16),
+          ('mobilenetv2', 'folded_float32', torch.int16),
+          ('inceptionv3', 'folded_float32', torch.int32))
+
+
+def deploy_cli(args, what):
+    """``python -m hawq_tpu_torch.deploy`` in a process of its own, on the
+    card → its stdout lines."""
+    r = subprocess.run([sys.executable, '-m', 'hawq_tpu_torch.deploy',
+                        *args], cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f'phase 16: deploy {what}: rc {r.returncode}\n'
+          f'{r.stdout[-2000:]}\n{r.stderr[-3000:]}')
+    return r.stdout.splitlines()
+
+
+def deploy_main(args):
+    """``deploy.main(args)`` in this process → (rc, stdout lines)."""
+    import io
+    from hawq_tpu_torch import deploy
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = deploy.main(args)
+    return rc, buf.getvalue().splitlines()
+
+
+def topk_lines(logits, k=5):
+    top = np.argsort(logits.numpy(), axis=-1)[:, ::-1][:, :k]
+    return [f'image {i}: top-{k} classes {r.tolist()}'
+            for i, r in enumerate(top)]
+
+
+def deploy_cli_phase(tmp):
+    """The CLI as a user runs it, in a process of its own, on ResNet-50
+    uniform8 b8 224² (synthetic weights, seed 0, the auto route): top-5 of
+    all 8 images equal to the CPU engine's, ``--time``, ``--export-onnx``;
+    then, through ``deploy.main`` in this process, a capture on the host
+    fold (numpy, as ``utils.preproc`` runs it) saved and compared against
+    the CPU engine's golden, and MobileNetV2 w1 and InceptionV3 w1 b2 on
+    their routes and InceptionV3 also on the native fold, top-5 equal to
+    the CPU engine's → the ``--time`` reading."""
+    from hawq_tpu_torch import deploy
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.export.qonnx import load_qonnx
+    from hawq_tpu_torch.utils import preproc
+    fm = deploy.synthetic_frozen('resnet50',
+                                 get_bit_config('resnet50', 'uniform8'))
+    mode = deploy.PRODUCTION_ROUTE[0]
+    x = np.random.RandomState(0).rand(BATCH, SIZE, SIZE, 3).astype(
+        np.float32)
+    xin = preproc.fold4_images(x) if mode == 'folded_float32' else x
+    nodes = {}
+    t0 = time.perf_counter()
+    cpu = deploy.build_engine_for(fm, input_mode=mode, device='cpu')
+    logits = cpu._forward(torch.from_numpy(xin),
+                          lambda n, v: nodes.__setitem__(n, v))
+    cpu_s = time.perf_counter() - t0
+    golden = os.path.join(tmp, 'cpu_golden.npy')
+    np.save(golden, nodes[DEPLOY_NODE].numpy())
+    onnx = os.path.join(tmp, 'resnet50.onnx')
+    base = ['--arch', 'resnet50', '--scheme', 'uniform8', '--batch',
+            str(BATCH), '--image-size', str(SIZE)]
+    t0 = time.perf_counter()
+    out = deploy_cli(base + ['--time', '--export-onnx', onnx], 'classify')
+    cli_s = time.perf_counter() - t0
+    got = [l for l in out if l.startswith('image ')]
+    check(got == topk_lines(logits), f'phase 16: deploy top-5 {got} differ '
+          f'from the CPU engine\'s {topk_lines(logits)}')
+    check(('host_preprocessing=numpy' in out) == (mode == 'folded_float32'),
+          f'phase 16: deploy printed another host fold: {out[:3]}')
+    timed = json.loads(out[-1])
+    check(timed['batch'] == BATCH and timed['ms_per_batch'] > 0,
+          f'phase 16: --time printed {out[-1]}')
+    check(len(load_qonnx(onnx).graph.node) > 100, 'phase 16: the exported '
+          'ONNX graph is too small')
+    card = os.path.join(tmp, 'card.npy')
+    rc, out = deploy_main(base + ['--capture', DEPLOY_NODE, '--save-capture',
+                                  card, '--compare', golden, '--input-mode',
+                                  'folded_float32'])
+    check(rc == 0 and any(l.startswith('100% matched!') for l in out)
+          and 'host_preprocessing=numpy' in out,
+          f'phase 16: deploy --compare: {out}')
+    check(np.array_equal(np.load(card), np.load(golden)), 'phase 16: the '
+          'saved capture differs from the CPU golden')
+    log(f'phase 16: python -m hawq_tpu_torch.deploy resnet50 uniform8 '
+        f'b{BATCH} {SIZE}x{SIZE} (auto route {mode}): top-5 of all '
+        f'{BATCH} images == CPU engine ({cpu_s:.1f} s on the CPU), '
+        f'--time {json.dumps(timed)}, --export-onnx '
+        f'{os.path.getsize(onnx) / 1e6:.1f} MB, {cli_s:.1f} s in its own '
+        f'process; in this one {DEPLOY_NODE} on the host fold '
+        f'(folded_float32, numpy) "100% matched!" against the CPU golden')
+    for arch, size, mode in (('mobilenetv2', SIZE, None),
+                             ('inceptionv3', INC_SIZE, None),
+                             ('inceptionv3', INC_SIZE, 'folded_float32')):
+        fm = deploy.synthetic_frozen(arch, get_bit_config(arch, 'uniform8'))
+        args = ['--arch', arch, '--scheme', 'uniform8', '--batch', '2',
+                '--image-size', str(size)]
+        if mode is None:
+            mode = deploy.PRODUCTION_ROUTE[0]
+        else:
+            args += ['--input-mode', mode]
+        rc, out = deploy_main(args)
+        check(rc == 0, f'phase 16: deploy {arch}: rc {rc}')
+        x = np.random.RandomState(0).rand(2, size, size, 3).astype(
+            np.float32)
+        eng_kw = {'input_hw': (size, size)}
+        if mode == 'folded_float32':
+            x = preproc.fold4_images_3x3s2(x, 0)
+            check('host_preprocessing=native' in out,
+                  f'phase 16: deploy {arch} did not fold natively')
+        want = topk_lines(deploy.build_engine_for(
+            fm, input_mode=mode, device='cpu', **eng_kw)(x))
+        got = [l for l in out if l.startswith('image ')]
+        check(got == want, f'phase 16: deploy {arch} top-5 {got} differ '
+              f'from the CPU engine\'s {want}')
+        log(f'phase 16: deploy {arch} uniform8 b2 ({mode}): top-5 == CPU '
+            f'engine')
+    return timed
+
+
+@contextlib.contextmanager
+def numpy_preprocessing():
+    """Inside, ``utils.preproc`` takes its numpy paths."""
+    from hawq_tpu_torch.utils import preproc
+    load = preproc._load
+    preproc._load = lambda: None
+    try:
+        yield
+    finally:
+        preproc._load = load
+
+
+def host_prep_phase():
+    """Host ms per b8 batch of each function of ``utils.preproc`` that the
+    serving paths run, 5 rounds of 4 runs, the median; where it has a native
+    path (``preprocess_batch``, ``fold4_images_3x3s2``) that and the numpy
+    path in turns (native, numpy, numpy, native), the native results equal
+    to the numpy ones (``preprocess_batch``'s resizes differ)."""
+    from hawq_tpu_torch.utils import preproc
+    check(preproc.native_available(), 'phase 16: the native preprocessing '
+          'library did not build')
+    rng = np.random.RandomState(11)
+    x224 = rng.rand(BATCH, 224, 224, 3).astype(np.float32)
+    x299 = rng.rand(BATCH, 299, 299, 3).astype(np.float32)
+    u8 = rng.randint(0, 256, (BATCH, 256, 341, 3)).astype(np.uint8)
+    f224 = preproc.fold4_images(x224)
+    # label → (fn, whether it has a native path)
+    ops = {'fold4_images b8 224x224x3 f32':
+           (lambda: preproc.fold4_images(x224), False),
+           'fold4_images_3x3s2 p0 b8 299x299x3 f32':
+           (lambda: preproc.fold4_images_3x3s2(x299, 0), True),
+           'quantize_int8 b8 folded 224':
+           (lambda: preproc.quantize_int8(f224, 0.0517), False),
+           'preprocess_batch b8 uint8 256x341 -> 224':
+           (lambda: preproc.preprocess_batch(u8, 256, 224, IMAGENET_MEAN,
+                                             IMAGENET_STD), True)}
+    out = {}
+    for label, (fn, native) in ops.items():
+        paths = ('native', 'numpy', 'numpy', 'native') if native else (
+            'numpy',) * 4
+        if native:
+            got = fn()
+            with numpy_preprocessing():
+                plain = fn()
+            if label.startswith('preprocess_batch'):
+                check(got.shape == plain.shape
+                      and bool(np.isfinite(got).all()),
+                      f'phase 16: {label}: {got.shape} / {plain.shape}')
+            else:
+                check(np.array_equal(got, plain), f'phase 16: {label}: '
+                      f'native differs from numpy')
+        ms = {p: [] for p in paths}
+        for _ in range(5):
+            for path in paths:
+                with (numpy_preprocessing() if path == 'numpy'
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    fn()
+                    ms[path].append((time.perf_counter() - t0) * 1e3)
+        out[label] = {p: float(np.median(v)) for p, v in ms.items()}
+        log(f'phase 16: host {label}: ' + ', '.join(
+            f'{p} {v:.3f} ms' for p, v in out[label].items())
+            + f' per batch ({os.cpu_count()} host cores)')
+    return out
+
+
+def profile_phase(fm, x, dev):
+    """``profile_engine`` on the main path (cumulative and segment ms per
+    stage, CUDA events, 20 forwards a window), then the whole forward beside
+    the bound of ``engine_flops_and_bytes`` (its unit convs' int8 operations
+    and weight bytes, with the input read and the logits written once)."""
+    from hawq_tpu_torch.inference.profile import (engine_flops_and_bytes,
+                                                  profile_engine)
+    rows = profile_engine(fm, x, verbose=False, n_iters=20, device=dev,
+                          input_mode='folded_float32',
+                          residual_dtype=torch.int16)
+    for node, cum, seg in rows:
+        log(f'phase 16: profile {node:32s} cum {cum * 1e3:8.3f} ms   seg '
+            f'{seg * 1e3:8.3f} ms')
+    fb = engine_flops_and_bytes(fm, BATCH, SIZE)
+    nbytes = (fb['weight_bytes'] + x.numel() * x.element_size()
+              + BATCH * fm.num_classes * 4)
+    bound = max(nbytes / HBM_BYTES_PER_S, fb['int_ops'] / INT8_OPS_PER_S)
+    whole = rows[-1][1]
+    by = ('bytes' if nbytes / HBM_BYTES_PER_S > fb['int_ops'] / INT8_OPS_PER_S
+          else 'operations')
+    log(f"phase 16: the whole forward {whole * 1e3:.3f} ms; "
+        f"engine_flops_and_bytes {fb['int_ops'] / 1e9:.2f} G int8 ops, "
+        f"{fb['weight_bytes'] / 1e6:.2f} MB of weights: bound "
+        f"{bound * 1e3:.4f} ms ({by}), {bound / whole:.3f} of the forward")
+    return dict(rows=[(n, c * 1e3, s * 1e3) for n, c, s in rows],
+                bound_ms=bound * 1e3, **fb)
+
+
+def production_routes(dev):
+    """ms per batch of each family's float-image input modes where its
+    deploy accepts more than one (ResNet-50 and InceptionV3 w1 uniform8:
+    float32 and folded_float32), end to end as ``deploy`` runs a batch: the
+    native host fold, the upload, the forward, a sync (host clock);
+    ``ROUTE_RUNS`` runs a mode in alternating order, median and spread."""
+    from hawq_tpu_torch import deploy
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.utils import preproc
+    rows = {}
+    for arch, size in (('resnet50', SIZE), ('inceptionv3', INC_SIZE)):
+        fm = deploy.synthetic_frozen(arch, get_bit_config(arch, 'uniform8'))
+        for batch in ROUTE_BATCHES:
+            raw = np.random.RandomState(batch).rand(
+                batch, size, size, 3).astype(np.float32)
+            runs = {}
+            for mode in ('float32', 'folded_float32'):
+                kw = dict(input_mode=mode, device=dev)
+                if arch == 'inceptionv3':
+                    kw['input_hw'] = (size, size)
+                    if batch >= 32:
+                        kw['wide_dtype'] = torch.int16
+                eng = deploy.build_engine_for(fm, **kw)
+                fold = (None if mode == 'float32' else
+                        preproc.fold4_images if arch == 'resnet50' else
+                        (lambda a: preproc.fold4_images_3x3s2(a, 0)))
+
+                def run(eng=eng, fold=fold):
+                    t0 = time.perf_counter()
+                    x = raw if fold is None else fold(raw)
+                    t1 = time.perf_counter()
+                    eng(torch.from_numpy(x).to(dev))
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t0, t1 - t0
+                run()
+                runs[mode] = (run, [], [])
+            order = list(runs)
+            for i in range(ROUTE_RUNS):
+                for mode in (order if i % 2 == 0 else order[::-1]):
+                    total, fold_s = runs[mode][0]()
+                    runs[mode][1].append(total * 1e3)
+                    runs[mode][2].append(fold_s * 1e3)
+            row = {m: dict(median=float(np.median(t)), lo=float(min(t)),
+                           hi=float(max(t)), fold=float(np.median(f)))
+                   for m, (_, t, f) in runs.items()}
+            rows[f'{arch} b{batch}'] = row
+            log(f'phase 16: route {arch} uniform8 b{batch} {size}x{size}, '
+                f'{ROUTE_RUNS} runs a mode in turns (host fold + upload + '
+                f'forward + sync, host clock): ' + '; '.join(
+                    f"{m} median {r['median']:.3f} ms [{r['lo']:.3f}, "
+                    f"{r['hi']:.3f}] (host fold {r['fold']:.3f})"
+                    for m, r in row.items())
+                + f"; deploy's route {deploy.PRODUCTION_ROUTE[0]}")
+            del runs
+    return rows
+
+
+def routed_turns(calls, label):
+    """Each distinct packed call of a routed path (the calls on ``int4w_*``)
+    beside its int8 twin (the same call on the weights unpacked once to
+    int8, on the same core) in turns (packed, twin, twin, packed; CUDA-graph
+    replay), the twin held against the plain version → per kernel: launches,
+    launches per core, ms, twin ms and bound summed over the path."""
+    from hawq_tpu_torch.kernels import conv as kc
+    from hawq_tpu_torch.kernels import matmul as km
+    seen = {}
+    for name, args, kw in calls:
+        key = call_key(name, args, kw)
+        if key not in seen:
+            core = 'mma' if sm90_rule(name, args, kw) else 'sm90'
+            plain_w = unpacked_weights(name, args, kw)
+            twin_w = plain_w
+            if core == 'sm90':
+                twin_w = (kc.prepare_conv_weights(
+                    plain_w, kw['taps'], kw['cin'], kw.get('pad', (0, 0)))
+                    if '_conv' in name else km.prepare_weights(plain_w))
+            twin_args = (args[0], twin_w) + tuple(args[2:])
+            runs = (lambda: kernel_call(name, args, kw, False),
+                    lambda: kernel_call(twin_name(name), twin_args, kw,
+                                        False))
+            out = runs[0]()
+            check(same(runs[1](), plain_call(name, args, kw)),
+                  f'phase 16: {twin_name(name)} twin differs at {key[1]}')
+            ms = ([], [])
+            for i in (0, 1, 1, 0):
+                ms[i].append(graph_ms(runs[i], 20))
+            nbytes, ops, shape = work(name, args, kw, out)
+            seen[key] = dict(name=name, core=core, shape=shape, n=0,
+                             ms=sum(ms[0]) / 2, twin_ms=sum(ms[1]) / 2,
+                             bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                          ops / INT8_OPS_PER_S) * 1e3)
+        seen[key]['n'] += 1
+    totals = {}
+    for row in seen.values():
+        t = totals.setdefault(row['name'], dict(launches=0, cores={}, ms=0.0,
+                                                int8_twin_ms=0.0,
+                                                bound_ms=0.0))
+        t['launches'] += row['n']
+        t['cores'][row['core']] = t['cores'].get(row['core'], 0) + row['n']
+        for k in ('ms', 'bound_ms'):
+            t[k] += row[k] * row['n']
+        t['int8_twin_ms'] += row['twin_ms'] * row['n']
+    for name, t in totals.items():
+        log(f"phase 16: {label}: {name} x{t['launches']} (per core "
+            f"{t['cores']}) {t['ms']:.4f} ms, its int8 twin "
+            f"{t['int8_twin_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"summed over the path")
+    return totals
+
+
+def table_summary(table, default, routable):
+    """Sites, the choices, and µs saved per forward by the table over the
+    engine's rule without one (``default(key)``: 'int4w' or 'int8'), over
+    the sites the engine routes (``routable``)."""
+    keys = [k for k in table if not k.startswith('_')]
+    us = table['_us']
+    saved = sum(us[k][default(k)] - us[k][table[k]] for k in keys
+                if routable(k))
+    chose = {r: sum(table[k] == r for k in keys) for r in ('int8', 'int4w')}
+    return dict(sites=len(keys), routed=sum(map(routable, keys)),
+                chose=chose, saved_us=saved,
+                default_us=sum(us[k][default(k)] for k in keys
+                               if routable(k)))
+
+
+# the model the routed engines' nodes are held on (``image_dependent``):
+# 4-bit layers' weight scales times this, every bias shifted right by that
+ROUTED_WEIGHT_SCALE, ROUTED_BIAS_SHIFT = 32, 8
+
+
+def image_dependent(fm):
+    """``fm`` made to depend on its image at every node, for the routed
+    engines' node checks: its 4-bit activations at 8 bits, its 4-bit layers'
+    weight scales ×``ROUTED_WEIGHT_SCALE``, its biases shifted right by
+    ``ROUTED_BIAS_SHIFT``.  Synthetic uniform4 models (4-bit weights of
+    small magnitude against biases up to ±2^16, 4-bit activations) give the
+    same node for every image past ResNet-50's stage 2, MobileNetV2's first
+    unit and InceptionV3's init block (PERF.md §6), where a wrong route could
+    not show.  The routes read only the weights' bits and shapes, which
+    stay."""
+    from hawq_tpu_torch.configs.bit_config import BitConfig
+    acts = {k[:-len('.act_scale')] for k in fm.tensors
+            if k.endswith('.act_scale')}
+    cfg = BitConfig(f'{fm.cfg.name}_a8', {
+        k: 8 if k in acts and b == 4 else b for k, b in fm.cfg.table.items()},
+        fm.cfg.settings)
+    tensors = {}
+    for k, v in fm.tensors.items():
+        if k.endswith('.bias_int'):
+            v = v >> ROUTED_BIAS_SHIFT
+        elif (k.endswith('.weight_scale')
+              and cfg.weight_bits(k[:-len('.weight_scale')]) == 4):
+            v = v * np.float32(ROUTED_WEIGHT_SCALE)
+        tensors[k] = v
+    return dataclasses.replace(fm, cfg=cfg, tensors=tensors)
+
+
+def engine_nodes(eng, x):
+    """Every node ``eng``'s forward emits on ``x``, in order, and its
+    logits → {name: tensor on the engine's device}."""
+    nodes = {}
+    logits = eng._forward(x, lambda n, v: nodes.setdefault(n, v.clone()))
+    nodes['logits'] = logits
+    return nodes
+
+
+def routing_phase(dev, errs, tmp):
+    """``autotune_routing`` on ResNet-50 uniform4 b8 and
+    ``autotune_routing_1x1`` on MobileNetV2 w1 and InceptionV3 w1 uniform4 b8,
+    the tables written under chiprun_out/ and read back by ``load_routing``
+    (as ``deploy --routing`` reads them); each served folded (``ROUTED``):
+    launches per kernel and per core as the table predicts, logits equal to
+    the CPU engine's and the unrouted card engine's, every recorded call
+    against its plain version, the packed calls in turns beside their int8
+    twins; MobileNetV2 and InceptionV3 also with every site 'int4w'.  The
+    same table also routes ``image_dependent(fm)``: as many packed launches,
+    every node the forward emits equal to the unrouted card engine's (8
+    images) and the CPU engine's (2 images), and the logits different across
+    the images.  Then ``deploy --frozen`` of that ResNet-50 with ``--routing``
+    captures its deepest node that differs between two images, equal to the
+    capture without a table → ({path label: routed totals}, {arch: table
+    summary})."""
+    from hawq_tpu_torch import deploy
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.inference import autotune as at
+    from hawq_tpu_torch.inference import routing as rt
+    from hawq_tpu_torch.inference.fold import (fold4_images,
+                                               fold4_images_3x3s2)
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.utils.checkpoint import save_frozen
+    routed, summaries = {}, {}
+    for arch, mode, carrier in ROUTED:
+        size = INC_SIZE if arch == 'inceptionv3' else SIZE
+        cfg = get_bit_config('mobilenetv2_w1' if arch == 'mobilenetv2'
+                             else arch, 'uniform4')
+        fm = deploy.synthetic_frozen(arch, cfg)
+        fm_n = image_dependent(fm)
+        path = os.path.join(OUT_DIR, f'routing_{arch}_uniform4_b{BATCH}.json')
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        if arch == 'resnet50':
+            at.autotune_routing(fm, BATCH, size, verbose=False,
+                                checkpoint_path=path, device=dev)
+            default = lambda k: 'int4w' if cfg.weight_bits(k) == 4 else 'int8'
+            routable = lambda k: True
+        else:
+            sites = (rt.mobilenet_conv1x1_sites(image_size=size)
+                     if arch == 'mobilenetv2'
+                     else rt.inception_conv1x1_sites(size))
+            at.autotune_routing_1x1(sites, cfg.weight_bits, BATCH,
+                                    verbose=False, checkpoint_path=path,
+                                    device=dev)
+            default = lambda k: 'int8'
+            routable = ((lambda k: True) if arch == 'mobilenetv2' else
+                        (lambda k: cfg.act_bits(
+                            k[:-len('.q_convbn')] + '.q_activ') <= 8))
+        sweep_s = time.perf_counter() - t0
+        with open(path) as f:
+            raw_table = json.load(f)
+        summaries[arch] = dict(table_summary(raw_table, default, routable),
+                               sweep_s=sweep_s, file=os.path.relpath(
+                                   path, REPO))
+        log(f'phase 16: autotune {arch} uniform4 b{BATCH}: {sweep_s:.1f} s, '
+            f'{json.dumps(summaries[arch])}')
+        table = at.load_routing(path)
+        raw = np.random.RandomState(13).randn(BATCH, size, size, 3).astype(
+            np.float32)
+        if arch == 'resnet50':
+            x = torch.from_numpy(fold4_images(raw)).to(dev)
+        else:
+            x = torch.from_numpy(fold4_images_3x3s2(
+                raw, 1 if arch == 'mobilenetv2' else 0)).to(dev)
+        tables = [('autotuned', table)]
+        if arch != 'resnet50':
+            tables.append(('every site int4w',
+                           {k: 'int4w' for k in table}))
+        for what, tab in tables:
+            kw = dict(input_mode=mode)
+            if arch == 'resnet50':
+                kw['residual_dtype'] = carrier
+                counts = expected_launches('resnet50', cfg, mode, routing=tab)
+                want = (counts, core_split(counts))
+            else:
+                if arch == 'mobilenetv2':
+                    kw.update(residual_dtype=carrier, input_hw=(size, size))
+                    w = expected_mobilenet_launches(fm, mode, routing=tab)
+                else:
+                    kw.update(wide_dtype=carrier, input_hw=(size, size))
+                    w = expected_inception_launches(fm, mode, routing=tab)
+                want = (w.counts, w.cores)
+            label = (f'{arch} uniform4 {mode} '
+                     f'{str(carrier).replace("torch.", "")} b{BATCH}, '
+                     f'{what} table')
+            calls = []
+            t0 = time.perf_counter()
+            eng, counts = engine_check(
+                functools.partial(deploy.build_engine_for, fm, routing=tab,
+                                  **kw), x, *want, (),
+                label, dev, 'phase 16', calls)
+            plain = deploy.build_engine_for(fm, device=dev, **kw)
+            check(torch.equal(eng(x), plain(x)), f'phase 16: {label}: logits '
+                  f'differ from the unrouted engine\'s')
+            got = engine_nodes(eng, x)
+            vary4 = [n for n, v in got.items() if bool((v != v[:1]).any())]
+            del eng, plain, got
+            check_calls(calls, errs, f'phase 16: all {len(calls)} recorded '
+                        f'calls of {label}')
+            n4 = sum(v for k, v in counts.items() if k.startswith('int4w'))
+            eng = deploy.build_engine_for(fm_n, routing=tab, device=dev, **kw)
+            eng(x)
+            _build.reset_launches()
+            got = engine_nodes(eng, x)
+            torch.cuda.synchronize()
+            n4_n = sum(v for k, v in _build.LAUNCHES.items()
+                       if k.startswith('int4w'))
+            want_n = engine_nodes(deploy.build_engine_for(fm_n, device=dev,
+                                                          **kw), x)
+            cpu = engine_nodes(deploy.build_engine_for(
+                fm_n, routing=tab, device='cpu', **kw), x[:2].cpu())
+            check(n4_n == n4, f'phase 16: {label}: image_dependent model: '
+                  f'{n4_n} packed launches, the table gives {n4}')
+            check(list(got) == list(want_n) == list(cpu), f'phase 16: '
+                  f'{label}: the engines emit other nodes')
+            bad = [n for n, v in got.items() if not torch.equal(v, want_n[n])
+                   or not torch.equal(v[:2].cpu(), cpu[n])]
+            check(not bad, f'phase 16: {label}: {len(bad)} nodes differ from '
+                  f'the unrouted card engine or the CPU engine: {bad[:5]}')
+            varying = [n for n, v in got.items() if bool((v != v[:1]).any())]
+            check('logits' in varying, f'phase 16: {label}: the '
+                  f'image_dependent logits are the same for all {BATCH} '
+                  f'images ({len(varying)} of {len(got)} nodes vary)')
+            if arch == 'resnet50' and what == 'autotuned':
+                deploy_node = [n for n in varying if n != 'logits' and not
+                               torch.equal(got[n][0], got[n][1])][-1]
+                deploy_want = got[deploy_node][:2].cpu().numpy()
+            log(f'phase 16: {label}: logits == unrouted card engine, '
+                f'{n4} packed launches, {len(vary4)} of its {len(got)} nodes '
+                f'and logits vary across the {BATCH} images (the deepest '
+                f'{vary4[-1] if vary4 else None}); the table on '
+                f'image_dependent(fm): {n4_n} '
+                f'packed launches, logits and all {len(got) - 1} nodes == '
+                f'unrouted card engine ({BATCH} images) and CPU engine (2 '
+                f'images), {len(varying)} of {len(got)} vary; served and '
+                f'checked in {time.perf_counter() - t0:.1f} s')
+            del eng, got, want_n, cpu
+            routed[label] = routed_turns(
+                [c for c in calls if c[0].startswith('int4w')], label)
+            del calls
+        if arch == 'resnet50':
+            frozen = os.path.join(tmp, 'resnet50_image_dependent.npz')
+            save_frozen(frozen, fm_n)
+    node = deploy_node
+    img = os.path.join(tmp, 'routing_images.npy')
+    np.save(img, np.random.RandomState(13).randn(2, SIZE, SIZE, 3).astype(
+        np.float32))              # the first two images of the routed runs
+    args = ['--frozen', frozen, '--classify', img, '--image-size', str(SIZE),
+            '--input-mode', 'folded_float32', '--capture', node]
+    caps = [os.path.join(tmp, f'routing_{i}.npy') for i in range(2)]
+    rc, out = deploy_main(args + ['--save-capture', caps[0]])
+    rc2, out2 = deploy_main(args + ['--save-capture', caps[1], '--routing',
+                                    os.path.join(OUT_DIR, f'routing_resnet50_'
+                                                 f'uniform4_b{BATCH}.json')])
+    cap = [np.load(c) for c in caps]
+    check(rc == rc2 == 0 and np.array_equal(*cap)
+          and np.array_equal(cap[0], deploy_want),
+          f'phase 16: deploy --routing captures {node} otherwise: {out2} / '
+          f'{out}')
+    log(f'phase 16: deploy --frozen (resnet50 image_dependent) b2 --routing '
+        f'(the autotuned table): {node} equal to the capture without one and '
+        f'to the routed engine\'s, and differs between the 2 images')
+    return routed, summaries
+
+
+def deployment_phase(fm, folded, dev, errs):
+    """Phase 16 → the numbers of the JSON line ``deploy``, with the seconds
+    each part took."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix='deploy_', dir=OUT_DIR)
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f'phase 16: {name} took {seconds[name]:.1f} s')
+        return out
+    try:
+        timed = part('deploy_cli', deploy_cli_phase, tmp)
+        host = part('host_preprocessing', host_prep_phase)
+        prof = part('profile', profile_phase, fm, folded, dev)
+        routes = part('production_routes', production_routes, dev)
+        routed, tables = part('routing', routing_phase, dev, errs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f'phase 16: {sum(seconds.values()):.1f} s: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in seconds.items()))
+    return dict(deploy_time=timed, host_preprocessing_ms=host, profile=prof,
+                production_routes=routes, routing_tables=tables,
+                routed_paths=routed, seconds=seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch.cuda.is_available() is false; this '
@@ -3821,7 +4457,11 @@ def main():
     export_phase(fm_gen, dev)
     del fm_gen
 
-    # ---- phase 16 ----
+    # ---- phase 16: the deployment surface ----
+    deployment = deployment_phase(fms['resnet50', 'uniform8'], folded, dev,
+                                  errs)
+
+    # ---- phase 17 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -3868,6 +4508,10 @@ def main():
                          inception_train_launches=inc_train_launches[name])
         if name == KBLOCKED:
             entry['smallest_launch_ms'] = launch_floor
+        for label, totals_r in deployment['routed_paths'].items():
+            if name in totals_r:      # phase 16: routed by a table
+                entry.setdefault('routed_paths', []).append(
+                    dict(path=label, **totals_r[name]))
         if name in ref_launches:     # phase 13's paths, synthetic weights
             entry['reference_launches'] = ref_launches[name]
         for arch in sens_probe:      # phase 14: calibration, HVP probes
@@ -3889,7 +4533,9 @@ def main():
                 entry.update(train_old_ms=tt['old_ms'],
                              train_weight_layout_ms=tt['prep_ms'])
         kernels.append(entry)
-    log(f'phase 16: all phases passed in '
+    log(json.dumps({'deploy': {k: v for k, v in deployment.items()
+                               if k != 'routed_paths'}}))
+    log(f'phase 17: all phases passed in '
         f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '

@@ -19,8 +19,10 @@ CPU device the kernels' plain versions run instead):
   * every unit conv whose weights are 4-bit (``cfg.weight_bits(key) == 4``,
     the reference's rule with ``routing=None``) takes the ``int4w_*`` form of
     the same kernel instead, with its weights nibble-packed once on the host
-    (``pack_int4`` / ``pack_int4_conv``); the init conv and the FC always
-    take the int8 kernels, as in the reference;
+    (``pack_int4`` / ``pack_int4_conv``); with a routing table
+    (``inference.routing``: 'int8' / 'int4w' per unit conv) only the unit
+    convs it routes to 'int4w' do; the init conv and the FC always take the
+    int8 kernels, as in the reference;
   * the folded init (``input_mode='folded_float32'`` or ``'folded_int8'``)
     → ``int8_conv_acc`` over the 3×3, C=48, N=4·64 fold, then
     ``maxpool_folded_requant``: requant + ReLU in the folded layout and the
@@ -53,8 +55,10 @@ requant, ReLU, then ``maxpool_folded`` on the int32 carrier.  Every input
 mode is accepted, and the int32 carrier only.
 
 ``capture=<node>`` returns the raw integer tensor at a named node instead of
-the logits: 'input', 'init', '<stage>.<unit>.input' / '.conv1' / '.conv2' /
-'.quant_act_int32', 'avg_pool', 'fc_input', 'fc_output'.
+the logits, and the forward stops there (``inference.profile`` times the
+engine truncated at successive nodes): 'input', 'init', '<stage>.<unit>.input'
+/ '.conv1' / '.conv2' / '.quant_act_int32', 'avg_pool', 'fc_input',
+'fc_output'.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from hawq_tpu_torch.configs.bit_config import (RESNET_UNITS,
                                                RESNET_CIFAR_ARCHS)
 from hawq_tpu_torch.inference import fold as _fold
 from hawq_tpu_torch.inference.freeze import FrozenModel
+from hawq_tpu_torch.inference.routing import check_routing, make_router
 from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
@@ -112,18 +117,27 @@ def engine_device(device) -> torch.device:
     return device
 
 
+class _Truncated(Exception):
+    """An engine's capture node reached: its value ends the forward."""
+
+    def __init__(self, value: torch.Tensor):
+        super().__init__('capture')
+        self.value = value
+
+
 class IntEngine:
     """What the integer engines share: the frozen model and its device
     constants (weights laid out for the kernels, dyadic multipliers), the
     1×1 and k×k conv routes (the raw init convs through space-to-depth
     among them), the requants of either mode, and the checks of a call.
     Subclasses define ``_forward``.  ``reference_input_modes``: the input
-    modes that ``requant_mode='reference'`` takes."""
+    modes that ``requant_mode='reference'`` takes; ``routing``: a table of
+    ``inference.routing`` (native mode only)."""
 
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  input_modes, input_mode: str, residual_dtype: torch.dtype,
                  device: torch.device, requant_mode: str = 'native',
-                 reference_input_modes=None):
+                 reference_input_modes=None, routing=None):
         if input_mode not in input_modes:
             raise ValueError(f'input_mode {input_mode!r} not in '
                              f'{tuple(input_modes)}')
@@ -144,6 +158,10 @@ class IntEngine:
                 raise ValueError(f"requant_mode='reference' takes the "
                                  f"torch.int32 carrier only, not "
                                  f"{residual_dtype}")
+        self.routing = check_routing(routing)
+        if self.reference and self.routing is not None:
+            raise ValueError("requant_mode='reference' takes no routing "
+                             "table")
         self.fm = fm
         self.capture = capture
         self.res_dt = residual_dtype
@@ -151,6 +169,7 @@ class IntEngine:
         self.device = device
         self._mult: Dict[str, torch.Tensor] = {}
         self._w: Dict[Tuple, tuple] = {}
+        self._route = make_router(fm, device, self._w)
 
     # -- host-side constants ----------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -200,9 +219,24 @@ class IntEngine:
                 cfg.act_mode(key) == 'symmetric')
 
     def _int4(self, key: str) -> bool:
-        """Whether a unit conv streams nibble-packed int4 weights: never,
-        unless an engine has a packed route (the ResNet v1 engine)."""
+        """Whether conv ``key`` runs on nibble-packed int4 weights: with a
+        routing table, where the table routes it to 'int4w', its weights are
+        4-bit and the engine routes such a site (:meth:`_routable`); without
+        one, by the engine's own rule (:meth:`_default_int4`)."""
+        if self.routing is None:
+            return self._default_int4(key)
+        return (self.routing.get(key) == 'int4w'
+                and self.fm.cfg.weight_bits(key) == 4 and self._routable(key))
+
+    def _default_int4(self, key: str) -> bool:
+        """The engine's packed rule without a table: never, unless the
+        engine has one (the ResNet v1 engine)."""
         return False
+
+    def _routable(self, key: str) -> bool:
+        """Whether a routing table may send conv ``key`` to the packed
+        kernels: a 1×1 conv (the JAX package's ``make_router``)."""
+        return self.fm[key + '.weight_int'].shape[:2] == (1, 1)
 
     def _scale(self, key: str, act_scale) -> np.ndarray:
         """weight scale × input activation scale of a conv, float32."""
@@ -221,28 +255,10 @@ class IntEngine:
         """The FC (or 1×1 head) on the int8 pooled vector through
         ``int8_matmul_acc`` (a float product of 2048·127·127 would not be
         exact) → float32 logits."""
-        w, bias = self._matmul_w(key, acc=True)
-        acc = km.int8_matmul_acc(f8, w, bias)
+        acc = self._route(key, 'matmul', False).acc(f8)
         if 'out_scale' not in self._mult:
             self._mult['out_scale'] = self._dev(self._scale(key, act_scale))
         return acc.to(torch.float32) * self._mult['out_scale']
-
-    def _matmul_w(self, key: str, int4: bool = False, acc: bool = False):
-        """(Cin, Cout) weights — (Cin/2, Cout) packed with ``int4`` — and
-        bias of a 1×1 conv or the FC.  They (feeding the ``*_matmul_acc``
-        kernels with ``acc``, else the ``*_matmul_requant`` ones) are
-        prepared for the Hopper core where its rule takes the widths, the
-        packed ones still packed."""
-        if key not in self._w:
-            w = np.asarray(self.fm[key + '.weight_int'])
-            w = w.reshape(w.shape[-2], w.shape[-1])
-            wd = self._dev(km.pack_int4(w) if int4 else w)
-            if km.sm90_route('matmul' if acc else 'matmul_requant',
-                             k=w.shape[0], n=w.shape[1], ptr=0) is None:
-                wd = (km.prepare_weights_int4(wd) if int4
-                      else km.prepare_weights(wd))
-            self._w[key] = (wd, self._dev(self.fm[key + '.bias_int']))
-        return self._w[key]
 
     def _conv_w(self, key: str, stride: int, pad: Tuple[int, int],
                 int4: bool, requant: bool):
@@ -335,25 +351,21 @@ class IntEngine:
         return y.reshape(b, *geo['out_hw'], -1)
 
     def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
-        """1×1 conv as a matmul: requant+ReLU to int8, or int32 acc.  In
-        reference mode the requant follows the accumulator form."""
+        """1×1 conv as a matmul (``inference.routing.Routed1x1``, packed by
+        :meth:`_int4`): requant+ReLU to int8, or int32 acc.  In reference
+        mode the requant follows the accumulator form."""
         if stride > 1:
             x8 = x8[:, ::stride, ::stride, :].contiguous()
-        b, h, w, c = x8.shape
-        int4 = self._int4(key)
         fused = mult is not None and not self.reference
-        wm, bias = self._matmul_w(key, int4, acc=not fused)
-        xm = x8.reshape(b * h * w, c)
-        if not fused:
-            fn = km.int4w_matmul_acc if int4 else km.int8_matmul_acc
-            y = fn(xm, wm, bias)
-            if mult is not None:
-                y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
-        else:
-            fn = km.int4w_matmul_requant if int4 else km.int8_matmul_requant
-            y = fn(xm, wm, bias, mult, out_bits=bits, signed=signed,
-                   relu=True)
-        return y.reshape(b, h, w, -1)
+        site = self._route(key, 'matmul_requant' if fused else 'matmul',
+                           self._int4(key))
+        if fused:
+            return site.requant(x8, mult, out_bits=bits, signed=signed,
+                                relu=True)
+        y = site.acc(x8)
+        if mult is not None:
+            y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
+        return y
 
     # -- forward ------------------------------------------------------------
     def __call__(self, images) -> torch.Tensor:
@@ -369,17 +381,16 @@ class IntEngine:
         if images.dtype != want:
             raise ValueError(f'input_mode {self.input_mode!r} takes {want} '
                              f'images, got {images.dtype}')
-        captured = {}
-
         def emit(name, value):
             if name == self.capture:
-                captured['value'] = value
-        logits = self._forward(images, emit)
-        if self.capture is None:
-            return logits
-        if 'value' not in captured:
+                raise _Truncated(value)
+        try:
+            logits = self._forward(images, emit)
+        except _Truncated as t:          # the forward stops at the capture
+            return t.value
+        if self.capture is not None:
             raise KeyError(f'no capture node {self.capture!r}')
-        return captured['value']
+        return logits
 
 
 class ResnetEngine(IntEngine):
@@ -388,9 +399,10 @@ class ResnetEngine(IntEngine):
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  residual_dtype: torch.dtype, input_mode: str,
                  input_mean: np.ndarray, input_std: np.ndarray,
-                 device: torch.device, requant_mode: str = 'native'):
+                 device: torch.device, requant_mode: str = 'native',
+                 routing=None):
         super().__init__(fm, capture, INPUT_MODES, input_mode, residual_dtype,
-                         device, requant_mode)
+                         device, requant_mode, routing=routing)
         arch = fm.arch
         self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
         self.conv1_stride = arch == 'resnet50'
@@ -408,9 +420,15 @@ class ResnetEngine(IntEngine):
         self._u8_mean = self._dev(np.asarray(input_mean, np.float32))
         self._u8_std = np.asarray(input_std, np.float32)
 
-    def _int4(self, key: str) -> bool:
-        """Whether a unit conv streams nibble-packed int4 weights."""
+    def _default_int4(self, key: str) -> bool:
+        """Without a table a unit conv streams nibble-packed int4 weights
+        where they are 4-bit."""
         return self.fm.cfg.weight_bits(key) == 4
+
+    def _routable(self, key: str) -> bool:
+        """A table routes every unit conv, 1×1 and 3×3 (not the init
+        conv)."""
+        return key.startswith('stage')
 
     def _init_w(self):
         """Weights of the init conv that does not take the space-to-depth
@@ -546,6 +564,7 @@ def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
                         input_mean: np.ndarray = IMAGENET_MEAN,
                         input_std: np.ndarray = IMAGENET_STD,
                         requant_mode: str = 'native',
+                        routing: Optional[Dict[str, str]] = None,
                         device='cuda') -> ResnetEngine:
     """Build ``engine(images_nhwc) -> logits_f32`` on ``device``.
 
@@ -562,7 +581,10 @@ def build_resnet_engine(fm: FrozenModel, capture: Optional[str] = None,
     torch.int16 (clamps sums above 2¹⁵−1).  ``requant_mode``: 'native'
     (the framework's 23-bit float32 requant) or 'reference' (the reference
     checkpoint's own 31-bit float64 one; any input mode, the int32 carrier
-    only).  With ``capture``, the engine returns the raw tensor at that
-    node instead of the logits."""
+    only).  ``routing``: a table of ``inference.routing`` ('int8' /
+    'int4w' per unit conv; native mode only), in place of the rule that
+    packs every 4-bit unit conv.  With ``capture``, the engine returns the
+    raw tensor at that node instead of the logits."""
     return ResnetEngine(fm, capture, residual_dtype, input_mode, input_mean,
-                        input_std, engine_device(device), requant_mode)
+                        input_std, engine_device(device), requant_mode,
+                        routing)

@@ -14,7 +14,10 @@ Routing (every integer conv and the FC through the port's kernels, their
 plain versions on a CPU device):
 
   * a conv whose ``q_activ`` is at most 8 bits → the requant form with
-    ReLU (``int8_matmul_requant`` for a 1×1, ``int8_conv_requant`` for a
+    ReLU (``int8_matmul_requant`` for a 1×1 — ``int4w_matmul_requant`` on
+    nibble-packed weights where a routing table (``inference.routing``)
+    routes the site to 'int4w' and its weights are 4-bit —
+    ``int8_conv_requant`` for a
     k×k: 1×7, 7×1, 1×3, 3×1, 3×3 and 5×5 at stride 1, the border left to
     TMA where the Hopper core takes the call; the 3×3/s2 convs, the raw
     init among them, through space-to-depth, ``kernels.conv.conv_call``);
@@ -47,8 +50,8 @@ branch runs in three steps — the requant to ``q_input_act`` into its
 container, :func:`kernels.avgpool.int_avgpool3x3` (A1's quotient form, no
 requant), the requant to ``q_pool_act``.
 
-The reference's ``conv_mode``, ``init_mode`` and ``routing`` (TPU layout
-choices and routing) are not ported.  ``capture=<node>`` returns the raw
+The reference's ``conv_mode`` and ``init_mode`` (TPU layout choices) are
+not ported.  ``capture=<node>`` returns the raw
 integer tensor at a named node: 'input', 'init', '<unit
 prefix>.q_rescaling_activ', 'fc_input'.
 """
@@ -197,9 +200,10 @@ class InceptionEngine(IntEngine):
     def __init__(self, fm: FrozenModel, width_div: int,
                  capture: Optional[str], input_mode: str,
                  input_hw: Sequence[int], wide_dtype: torch.dtype,
-                 device: torch.device, requant_mode: str = 'native'):
+                 device: torch.device, requant_mode: str = 'native',
+                 routing=None):
         super().__init__(fm, capture, INPUT_MODES, input_mode, wide_dtype,
-                         device, requant_mode, ('float32',))
+                         device, requant_mode, ('float32',), routing)
         cfg = fm.cfg
         if wide_dtype == torch.int16:
             # an asymmetric >8-bit range [0, 2^b − 1] would not fit int16;
@@ -222,6 +226,12 @@ class InceptionEngine(IntEngine):
         if self.folded:
             self.out_hw, self.fold_hw = zip(*(
                 _fold.fold4_3x3s2_geometry(n, 0)[:2] for n in input_hw))
+
+    def _routable(self, key: str) -> bool:
+        """A table routes a 1×1 conv whose requant fuses: its ``q_activ``
+        at most 8 bits (the JAX package's rule)."""
+        node = key[:-len('.q_convbn')] + '.q_activ'
+        return super()._routable(key) and self.fm.cfg.act_bits(node) <= 8
 
     def _container(self, bits: int) -> torch.dtype:
         return torch.int8 if bits <= 8 else self.res_dt
@@ -345,6 +355,7 @@ def build_inceptionv3_engine(fm: FrozenModel, width_div: Optional[int] = None,
                              input_hw: Sequence[int] = (299, 299),
                              wide_dtype: torch.dtype = torch.int32,
                              requant_mode: str = 'native',
+                             routing: Optional[Dict[str, str]] = None,
                              device='cuda') -> InceptionEngine:
     """Build ``engine(images) -> logits f32`` of a frozen QInceptionV3 on
     ``device``.
@@ -359,9 +370,12 @@ def build_inceptionv3_engine(fm: FrozenModel, width_div: Optional[int] = None,
     the values are clamped to the 16-bit range, so the narrowing is exact
     where those nodes are symmetric, which int16 requires).  With
     ``requant_mode``: 'native', or 'reference' (float32 input and the
-    int32 container only).  With ``capture``, the engine returns the raw
-    tensor at that node instead of the logits."""
+    int32 container only).  ``routing``: a table of ``inference.routing``
+    for the 1×1 convs whose requant fuses (native mode only).  With
+    ``capture``, the engine returns the raw tensor at that node instead of
+    the logits."""
     if width_div is None:
         width_div = width_div_from_frozen(fm)
     return InceptionEngine(fm, width_div, capture, input_mode, input_hw,
-                           wide_dtype, engine_device(device), requant_mode)
+                           wide_dtype, engine_device(device), requant_mode,
+                           routing)

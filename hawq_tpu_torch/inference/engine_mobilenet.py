@@ -19,7 +19,10 @@ versions on a CPU device):
     depth-to-space and the slice to the output size;
   * every 1×1 conv (conv1, conv3, the final block, the head on the pooled
     vector) → ``int8_matmul_acc``, then the ReLU6 clamp and the requant as
-    PyTorch ops;
+    PyTorch ops; with a routing table (``inference.routing``) the conv1,
+    conv3 and final-block sites it routes to 'int4w' whose weights are 4-bit
+    → ``int4w_matmul_acc`` on nibble-packed weights, the same epilogue
+    after it;
   * the depthwise 3×3 conv2 → ``int8_dwconv_requant`` (D1), which takes in
     the bias, the ReLU6 clamp and the requant;
   * the residual add through ``requant_add_int32``, clamped to the int16
@@ -32,8 +35,8 @@ depthwise conv2 runs D1's ``int8_dwconv_acc``, then the clamp and the
 float64 requant as PyTorch ops (``int8_dwconv_requant`` computes the native
 requant).
 
-The reference's ``conv_mode``, ``init_mode``, ``dw_mode`` and ``routing``
-(TPU layout choices and routing) are not ported.  ``capture=<node>``
+The reference's ``conv_mode``, ``init_mode`` and ``dw_mode`` (TPU layout
+choices) are not ported.  ``capture=<node>``
 returns the raw integer tensor at a named node: 'input', 'init',
 '<unit>.conv1', '<unit>.conv2', '<unit>.quant_act_int32', 'final',
 'fc_input'.
@@ -41,7 +44,7 @@ returns the raw integer tensor at a named node: 'input', 'init',
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -96,9 +99,10 @@ class MobilenetEngine(IntEngine):
     def __init__(self, fm: FrozenModel,
                  capture: Optional[str], residual_dtype: torch.dtype,
                  input_mode: str, input_hw: Sequence[int],
-                 device: torch.device, requant_mode: str = 'native'):
+                 device: torch.device, requant_mode: str = 'native',
+                 routing=None):
         super().__init__(fm, capture, INPUT_MODES, input_mode, residual_dtype,
-                         device, requant_mode, ('float32',))
+                         device, requant_mode, ('float32',), routing)
         self.stages = stages_from_frozen(fm)
         self.folded = input_mode == 'folded_float32'
         if self.folded:
@@ -238,6 +242,7 @@ def build_mobilenetv2_engine(fm: FrozenModel,
                              input_mode: str = 'float32',
                              input_hw: Sequence[int] = (224, 224),
                              requant_mode: str = 'native',
+                             routing: Optional[Dict[str, str]] = None,
                              device='cuda') -> MobilenetEngine:
     """Build ``engine(images) -> logits f32`` of a frozen QMobileNetV2 on
     ``device``.
@@ -250,7 +255,9 @@ def build_mobilenetv2_engine(fm: FrozenModel,
     ``input_hw`` is the images' size before the fold.  ``residual_dtype``
     is the carrier between units, torch.int32 or torch.int16 (clamps).
     ``requant_mode``: 'native', or 'reference' (float32 input and the int32
-    carrier only).  With ``capture``, the engine returns the raw tensor at
-    that node instead of the logits."""
+    carrier only).  ``routing``: a table of ``inference.routing`` for the
+    1×1 convs (native mode only).  With ``capture``, the engine returns the
+    raw tensor at that node instead of the logits."""
     return MobilenetEngine(fm, capture, residual_dtype, input_mode,
-                           input_hw, engine_device(device), requant_mode)
+                           input_hw, engine_device(device), requant_mode,
+                           routing)

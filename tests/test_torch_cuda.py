@@ -1891,3 +1891,76 @@ def test_qonnx_replay_equals_card_engine(dev, tmp_path):
     assert any(k.startswith('int4w_') for k in _counts())
     np.testing.assert_array_equal(replay.astype(np.float32),
                                   eng.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the deployment surface: deploy, routed 1×1 sites, timing
+# ---------------------------------------------------------------------------
+
+def test_deploy_cuda_equals_cpu(dev, tmp_path, capsys):
+    """``deploy.main`` on the card prints what it prints on the CPU (top-k;
+    the capture's verdict and values)."""
+    from hawq_tpu_torch import deploy
+    from hawq_tpu_torch.utils.checkpoint import save_frozen
+    fm = synthetic_frozen_resnet('tiny18', get_bit_config('tiny18',
+                                                          'uniform4'),
+                                 num_classes=10, seed=4)
+    path = str(tmp_path / 'quantized_checkpoint.npz')
+    save_frozen(path, fm)
+    base = ['--frozen', path, '--image-size', '32', '--batch', '3']
+
+    def run(args, device):
+        assert deploy.main(base + args + ['--device', device]) == 0
+        return [l for l in capsys.readouterr().out.splitlines()
+                if not l.startswith('device=')]
+    assert run([], 'cuda') == run([], 'cpu')
+    node = ['--capture', 'stage2.unit1.quant_act_int32']
+    run(node + ['--save-capture', str(tmp_path / 'cpu.npy')], 'cpu')
+    got = run(node + ['--save-capture', str(tmp_path / 'card.npy'),
+                      '--compare', str(tmp_path / 'cpu.npy')], 'cuda')
+    assert any('100% matched!' in l for l in got)
+    np.testing.assert_array_equal(np.load(tmp_path / 'card.npy'),
+                                  np.load(tmp_path / 'cpu.npy'))
+
+
+@pytest.mark.parametrize('family', ['mobilenetv2', 'inceptionv3'])
+def test_routed_int4w_sites_equal_plain(dev, family):
+    """Every 1×1 site of MobileNetV2 w1 (#4, the accumulator form) and of
+    InceptionV3 w1 (#3 with ReLU) at b8 on nibble-packed 4-bit weights ==
+    the plain version (the same site on the CPU), tolerance 0, on whichever
+    core the rule names."""
+    from hawq_tpu_torch.inference import routing as rt
+    sites = (rt.mobilenet_conv1x1_sites() if family == 'mobilenetv2'
+             else rt.inception_conv1x1_sites())
+    rng = np.random.RandomState(len(sites))
+    cpu = torch.device('cpu')
+    for key, spatial, cin, cout, epi in sites:
+        w = rng.randint(-8, 8, (1, 1, cin, cout)).astype(np.int8)
+        b = rng.randint(-2 ** 15, 2 ** 15, cout).astype(np.int32)
+        x = torch.from_numpy(rng.randint(-128, 128, (
+            8, spatial, spatial, cin)).astype(np.int8))
+        kind = 'matmul' if epi == 'acc' else 'matmul_requant'
+        card = rt.Routed1x1.prepare(w, b, True, kind, dev)
+        plain = rt.Routed1x1.prepare(w, b, True, kind, cpu)
+        if epi == 'acc':
+            got, want = card.acc(x.to(dev)), plain.acc(x)
+        else:
+            mult = torch.tensor(np_dyadic_multiplier(
+                (rng.rand(cout) * 2e-4 + 1e-5).astype(np.float32)))
+            got = card.requant(x.to(dev), mult.to(dev), out_bits=8,
+                               signed=True, relu=True)
+            want = plain.requant(x, mult, out_bits=8, signed=True, relu=True)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                                   msg=key)
+
+
+def test_time_per_iter_on_a_cuda_engine(dev):
+    from hawq_tpu_torch.utils.timing import time_per_iter
+    fm = synthetic_frozen_resnet('tiny18', get_bit_config('tiny18',
+                                                          'uniform8'),
+                                 num_classes=10, seed=1)
+    eng = build_resnet_engine(fm, device=dev)
+    x = torch.randn(2, 32, 32, 3, device=dev)
+    for n in (5, None):
+        t = time_per_iter(eng, x, n_iters=n, max_iters=64)
+        assert 0 < t < 1 and np.isfinite(t)

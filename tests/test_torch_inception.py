@@ -182,10 +182,13 @@ class _AsymmetricConfig(BitConfig):
 def test_engine_options_and_checks():
     fm = synthetic_frozen_inception(tget('inceptionv3', 'uniform8'),
                                     num_classes=10, width_div=W, seed=3)
-    for option in (dict(conv_mode='f32'), dict(init_mode='f32cert'),
-                   dict(routing={})):
+    for option in (dict(conv_mode='f32'), dict(init_mode='f32cert')):
         with pytest.raises(TypeError):          # TPU layout options
             tei.build_inceptionv3_engine(fm, device='cpu', **option)
+    with pytest.raises(ValueError, match='TPU'):   # a TPU routing table
+        tei.build_inceptionv3_engine(
+            fm, device='cpu',
+            routing={'features.q_init_block.q_conv4.q_convbn': 'pallas4w'})
     with pytest.raises(ValueError, match='reference'):  # float32 input only
         tei.build_inceptionv3_engine(fm, requant_mode='reference',
                                      input_mode='folded_float32',
