@@ -43,7 +43,9 @@ non-zero exit and no result line:
     ResNet-50 uniform4 on uint8 and on host-quantized folded_int8 input —
     logits and pooled features for the first two images equal the CPU
     (plain) engine's, finite, launch counts as the bit config predicts,
-    milliseconds per batch; the ResNet-50 uniform8 (main path) and uniform4
+    milliseconds per batch; each uniform4 engine also on
+    ``image_dependent(fm)``, every node and the logits equal to the CPU
+    engine's and different across the images; the ResNet-50 uniform8 (main path) and uniform4
     engines on the first core and on the Hopper core in turns; a profiler
     trace of both forwards on both cores, and on the Hopper core also with
     the init block's former sequence (requant as PyTorch glue, then
@@ -91,7 +93,8 @@ non-zero exit and no result line:
     and per core — D1 on its own, '@cuda' — every kernel call recorded),
     uniform8 on float32 input with int32, uniform4 and bops_0.5 folded;
     logits and the 'final' and 'fc_input' nodes for the first two images
-    equal the CPU engine's;
+    equal the CPU engine's, and each engine on ``image_dependent(fm)``
+    every node and the logits, all of them different across the images;
     ms per batch; every recorded call and 44 ragged calls of D1 (the
     depthwise conv, ``int8_dwconv_requant`` / ``int8_dwconv_acc``; every
     form of its kernel: 4 channels a thread with 16- or 4-byte staging
@@ -214,8 +217,25 @@ non-zero exit and no result line:
     ``image_dependent(fm)``, whose nodes all vary with the image: every node
     equal to the unrouted card engine's and the CPU engine's;
     ``deploy --frozen … --routing`` with a table; the seconds of each part;
-17. a JSON line with phase 16's numbers, one with the kernels' numbers,
-    then the result line.
+17. parallel and serving across cards: (a) in a one-process ``nccl``
+    group, the ``ServingEngine`` over ResNet-50 uniform8 folded_int8 int16
+    b8 224² (one replica a visible card; its launches set to 0 just before
+    ``infer``, read just after, against the prediction per kernel and per
+    core), ``infer`` bit-equal to the engine's own call, a batcher built by
+    ``ServingEngine.batcher()`` answering 12 requests each equal to its
+    row, its images/s; the JAX dry run's Trainer (ResNet-50 uniform8, 64
+    classes, 32², global batch 8: calibrate, one counted step, evaluate,
+    checkpoint) in that process; (b) the same Trainer in two spawned ranks
+    that share the card over ``gloo`` at model_parallel 1 (data 2) and 2
+    (the head split): launches per step and rank against
+    ``expected_train_launches``, the collectives counted apart, the loss and
+    the checkpoint against (a)'s at the CPU tests' tolerances (the input
+    quantizer's range exact), the frozen model served by a ServingEngine on
+    each rank, its rows equal to one engine's; two ``nccl`` ranks on one
+    card (refused); with two or more cards one rank a card over ``nccl``;
+    a failing or hanging rank fails the run;
+18. a JSON line with phase 16's numbers, one with phase 17's, one with the
+    kernels' numbers, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1985,13 +2005,44 @@ def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
 
 
 def engine_phase(fm, x, mode, residual, dev):
+    """Phase 4's check of one ResNet engine (``engine_check``); a uniform4
+    one's nodes also on ``image_dependent(fm)`` (``image_dependent_check``):
+    the synthetic uniform4 model's nodes past stage 2 do not depend on the
+    image."""
     from hawq_tpu_torch.inference.engine import build_resnet_engine
     want = expected_launches(fm.arch, fm.cfg, mode)
-    return engine_check(
+    label = f'{fm.arch} {fm.cfg.name} {mode} {residual}'
+    eng = engine_check(
         functools.partial(build_resnet_engine, fm, input_mode=mode,
                           residual_dtype=residual), x, want,
-        core_split(want), ('avg_pool',),
-        f'{fm.arch} {fm.cfg.name} {mode} {residual}', dev, 'phase 4')[0]
+        core_split(want), ('avg_pool',), label, dev, 'phase 4')[0]
+    if fm.cfg.name.endswith('uniform4'):
+        image_dependent_check(
+            lambda f, **kw: build_resnet_engine(
+                f, input_mode=mode, residual_dtype=residual, **kw),
+            fm, x, label, dev, 'phase 4')
+    return eng
+
+
+def image_dependent_check(build, fm, x, label, dev, phase):
+    """``build(image_dependent(fm), device=...)``: every node its forward
+    emits, and its logits, on the card (all images) == the CPU engine's
+    (the first two), and every one of them differs across the images, so a
+    wrong kernel upstream of any node would show."""
+    fm_n = image_dependent(fm)
+    got = engine_nodes(build(fm_n, device=dev), x)
+    cpu = engine_nodes(build(fm_n, device='cpu'), x[:2].cpu())
+    check(list(got) == list(cpu), f'{phase}: {label}: image_dependent '
+          f'model: the engines emit other nodes')
+    bad = [n for n, v in got.items() if not torch.equal(v[:2].cpu(), cpu[n])]
+    check(not bad, f'{phase}: {label}: image_dependent model: {len(bad)} '
+          f'nodes differ from the CPU engine: {bad[:5]}')
+    same = [n for n, v in got.items() if not bool((v != v[:1]).any())]
+    check(not same, f'{phase}: {label}: image_dependent model: {len(same)} '
+          f'nodes are the same for all {x.shape[0]} images: {same[:5]}')
+    log(f'{phase}: {label}: on image_dependent(fm) all {len(got) - 1} nodes '
+        f'and the logits == CPU engine (2 images) and vary across the '
+        f'{x.shape[0]} images')
 
 
 def raw_pool_cost(engines, fms, raw, raw_u8, dev):
@@ -2947,6 +2998,12 @@ def mobilenet_phase(raw, dev, errs, totals):
                               residual_dtype=residual, input_hw=(SIZE, SIZE)),
             images[mode], want.counts, want.cores, ('final', 'fc_input'),
             label, dev, 'phase 8', calls)
+        # the synthetic model's nodes stop depending on the image early
+        image_dependent_check(
+            lambda f, **kw: build_mobilenetv2_engine(
+                f, input_mode=mode, residual_dtype=residual,
+                input_hw=(SIZE, SIZE), **kw),
+            fm, images[mode], label, dev, 'phase 8')
         if main is None:
             main = (eng, images[mode], calls, want.counts, counts, label)
     eng, x, calls, want, counts, label = main
@@ -4275,6 +4332,397 @@ def deployment_phase(fm, folded, dev, errs):
                 routed_paths=routed, seconds=seconds)
 
 
+# ---- phase 17: parallel and serving across cards ----
+
+# the JAX dry run's Trainer (``__graft_entry__.py _dryrun_one_mesh``): full
+# width, its own 32² images, 64 classes, a global batch of 8
+PAR_CFG = dict(arch='resnet50', scheme='uniform8', num_classes=64,
+               image_size=32, batch_size=8, epochs=1, lr=1e-3,
+               steps_per_epoch=1, calib_batches=1, eval_batches=1, seed=0)
+RANK_TIMEOUT = 300               # s for every rank of a run to finish
+PAR_STEPS = 3                    # steps timed after the counted one
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def sync(dev):
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def parallel_trainer(mp, save_path, dev, fix_bn=False):
+    """The dry run's path at one ``model_parallel`` in this process's group:
+    calibrate, one counted step (unfolded BN as the dry run's, or with
+    ``fix_bn`` folded; launches per kernel and per core against
+    ``expected_train_launches``, the collectives counted apart), evaluate,
+    the checkpoint (rank 0 writes, the head whole), then ``PAR_STEPS`` more
+    steps timed → (trainer, record)."""
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.parallel import collectives as coll
+    from hawq_tpu_torch.parallel import mesh as pmesh
+    from hawq_tpu_torch.train import trainer as tt
+    from hawq_tpu_torch.train.data import synthetic_batches
+    tr = tt.Trainer(tt.TrainerConfig(**PAR_CFG, model_parallel=mp,
+                                     fix_bn=fix_bn, device=str(dev),
+                                     save_path=save_path))
+    tr.calibrate()
+    sync(dev)
+    _build.reset_launches()
+    coll.reset_collectives()
+    loss = tr.train_epoch(0)
+    sync(dev)
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    cores = core_launches()
+    colls = dict(coll.COLLECTIVES)
+    want = expected_train_launches(tr.model)
+    label = (f'resnet50 uniform8 b{PAR_CFG["batch_size"]} 32x32 '
+             f'{"folded" if fix_bn else "unfolded"} model_parallel {mp}, mesh '
+             f'{pmesh.mesh_shape(tr.mesh) if tr.mesh else None}')
+    check(np.isfinite(loss), f'{label}: loss {loss}')
+    check(counts == want.counts, f'{label}: launches per step {counts}, '
+          f'expected {want.counts}')
+    check(cores == want.cores, f'{label}: launches per core {cores}, '
+          f'expected {want.cores}')
+    acc = tr.evaluate()
+    check(np.isfinite(acc), f'{label}: top-1 {acc}')
+    tr.save_checkpoint(1, False)
+    # step time: a fixed batch of this rank's rows, one warm-up
+    index, count = tr.shard
+    rows = PAR_CFG['batch_size'] // count
+    batch = tr._device_batch({k: v[index * rows:(index + 1) * rows]
+                              for k, v in next(synthetic_batches(
+                                  PAR_CFG['batch_size'], 32, 64, 1,
+                                  seed=0)).items()})
+    step = tt.make_train_step(tr.model, folded=fix_bn, mesh=tr.mesh)
+    step(tr.state, batch)
+    sync(dev)
+    coll.reset_collectives()
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        step(tr.state, batch)
+    sync(dev)
+    ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
+    # DistributedDataParallel reduces the first step's gradients in one
+    # bucket and rebuilds its buckets after it: the steady steps' counts
+    steady = {k: v / PAR_STEPS for k, v in coll.COLLECTIVES.items()}
+    return tr, dict(label=label, loss=float(loss), acc=float(acc),
+                    counts=counts, cores=cores, collectives=steady,
+                    first_step_collectives=colls, step_ms=ms, rows=rows)
+
+
+def parallel_images():
+    return np.random.RandomState(0).rand(
+        PAR_CFG['batch_size'], 32, 32, 3).astype(np.float32)
+
+
+def collective_ms(dev, group=None, reps=20):
+    """Host ms per ``all_reduce`` (synchronized) of a 25 MB float32 tensor
+    (DistributedDataParallel's bucket) and of a 2-float one (a range) on
+    ``dev``."""
+    import torch.distributed as dist
+    out = {}
+    for name, n in (('25MB', 25 * 2 ** 20 // 4), ('2floats', 2)):
+        t = torch.ones(n, device=dev)
+        dist.all_reduce(t, group=group)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(t, group=group)
+        sync(dev)
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def parallel_rank(rank, world, port, backend, tmp, device_type='cuda'):
+    """One rank of a run (a process of its own): the group on ``backend``,
+    the dry run at model_parallel 1 and, on an even world, 2; the frozen
+    model served by a ServingEngine on this rank's rows, equal to one
+    engine's rows of the whole batch; the record pickled under ``tmp``."""
+    import pickle
+    sys.path.insert(0, REPO)
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.parallel import distributed
+    from hawq_tpu_torch.parallel.serving import ServingEngine
+    from hawq_tpu_torch.utils.checkpoint import load_frozen
+    distributed.initialize(f'127.0.0.1:{port}', world, rank, backend=backend,
+                           device=device_type)
+    dev = distributed.local_device(device_type)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    images = parallel_images()
+    out = {}
+    for mp in (1, 2) if world % 2 == 0 else (1,):
+        path = os.path.join(tmp, f'{backend}{world}_mp{mp}')
+        _, rec = parallel_trainer(mp, path, dev)
+        torch.distributed.barrier()              # rank 0's checkpoint is out
+        fm = load_frozen(os.path.join(path, 'quantized_checkpoint.npz'))
+        serving = ServingEngine(functools.partial(build_resnet_engine, fm),
+                                batch_size=PAR_CFG['batch_size'],
+                                image_shape=(32, 32, 3), device=device_type)
+        host = serving.host_batch
+        mine = slice(rank * host, (rank + 1) * host)
+        single = build_resnet_engine(fm, device=dev)(images).cpu().numpy()
+        _build.reset_launches()
+        got = serving(images[mine])
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        want = expected_launches('resnet50', fm.cfg, 'float32')
+        check(counts == want, f'{rec["label"]}: ServingEngine launches '
+              f'{counts}, expected {want}')
+        check(np.array_equal(got, single[mine]), f'{rec["label"]}: rank '
+              f'{rank} served rows differ from one engine\'s')
+        b = serving.batcher(max_delay_ms=100.0)
+        try:
+            answers = np.stack([s.get(timeout=120) for s in
+                                [b.submit(im) for im in images[mine]]])
+        finally:
+            b.close()
+        check(np.array_equal(answers, single[mine]), f'{rec["label"]}: rank '
+              f'{rank} batcher answers differ from one engine\'s rows')
+        out[mp] = dict(rec, serve_launches=counts, host_batch=host)
+        _, out[mp, 'folded'] = parallel_trainer(
+            mp, os.path.join(tmp, f'{backend}{world}_mp{mp}_folded'), dev,
+            fix_bn=True)
+    out['collective_ms'] = collective_ms(dev)
+    with open(os.path.join(tmp, f'{backend}{world}_rank{rank}.pkl'),
+              'wb') as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def nccl_shared_card(rank, port, tmp):
+    """One of two ``nccl`` ranks on the same card: one all_reduce."""
+    sys.path.insert(0, REPO)
+    from hawq_tpu_torch.parallel import distributed
+    distributed.initialize(f'127.0.0.1:{port}', 2, rank, backend='nccl')
+    torch.cuda.set_device(0)
+    t = torch.ones(2, device='cuda:0')
+    torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+    with open(os.path.join(tmp, f'nccl_shared_{rank}.txt'), 'w') as f:
+        f.write(str(t.tolist()))
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(target, args_of, world, timeout=RANK_TIMEOUT):
+    """``world`` processes (spawned) of ``target(*args_of(rank))``, joined
+    within ``timeout`` s in all → (exit codes, the ranks still alive, which
+    are killed)."""
+    ctx = torch.multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=target, args=args_of(r))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return [p.exitcode for p in procs], hung
+
+
+def ckpt_against(got_path, want_path, what):
+    """A checkpoint of several ranks against one process's, at the
+    tolerances of tests/test_torch_parallel.py: parameters rtol 1e-5
+    (atol 1e-7); momentum (the step's gradients) rtol 1e-4 with a floor of
+    1e-6 × the largest; BN statistics and ranges rtol 1e-5; the input
+    quantizer's range exactly → the largest relative deviation."""
+    got, want = np.load(got_path), np.load(want_path)
+    check(sorted(got.files) == sorted(want.files), f'{what}: other leaves')
+    grads = [k for k in want.files if k.startswith('__opt__')]
+    floor = 1e-6 * max(float(np.abs(want[k]).max()) for k in grads)
+    worst = 0.0
+    for k in want.files:
+        g, w = got[k], want[k]
+        if k.startswith('quant_stats/quant_input/'):
+            check(np.array_equal(g, w), f'{what}: {k} {g} != {w}')
+            continue
+        rtol, atol = ((1e-4, max(floor, 1e-6)) if k in grads else
+                      (1e-5, 1e-7))
+        err = np.abs(g.astype(np.float64) - w)
+        check(bool((err <= atol + rtol * np.abs(w)).all()), f'{what}: {k} '
+              f'max |err| {float(err.max())}')
+        worst = max(worst, float((err / (np.abs(w) + atol)).max()))
+    return worst
+
+
+def parallel_phase(dev, fm, raw):
+    """Phase 17: parallel and serving across cards.  (a) a one-process
+    ``nccl`` group: the ServingEngine over ResNet-50 uniform8 folded_int8
+    int16 b8 (the main path's engine; its launches counted), ``infer`` ==
+    the engine's own call, a batcher's 12 answers == their rows, images/s;
+    the dry run's Trainer on one process.  (b) two ranks sharing the card
+    over ``gloo`` (spawned): the dry run at model_parallel 1 and 2, each
+    rank's served rows == one engine's, the checkpoints against (a)'s
+    Trainer; ``nccl`` refusing two ranks on one card; with two or more
+    cards, one rank a card over ``nccl`` (up to 4) → a record."""
+    import pickle
+    import torch.distributed as dist
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.fold import fold4_images
+    from hawq_tpu_torch.kernels import _build
+    from hawq_tpu_torch.parallel import distributed
+    from hawq_tpu_torch.parallel.serving import ServingEngine
+    from hawq_tpu_torch.utils.preproc import quantize_int8
+    t_phase = time.perf_counter()
+    rec = {}
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    distributed.initialize(f'127.0.0.1:{free_port()}', 1, 0, backend=backend,
+                           device=dev)
+    try:
+        check(dist.get_backend() == backend, f'backend {dist.get_backend()}')
+        s_in = fm.act_scale('quant_input')
+        transform = lambda b: quantize_int8(fold4_images(b), s_in)
+        build = functools.partial(build_resnet_engine, fm,
+                                  input_mode='folded_int8',
+                                  residual_dtype=torch.int16)
+        serving = ServingEngine(build, batch_size=BATCH,
+                                image_shape=(SIZE, SIZE, 3),
+                                host_transform=transform, device=dev.type)
+        n_rep = len(serving.replicas)
+        x = transform(raw)
+        parts = serving.to_device(x)
+        for eng, part in zip(serving.replicas, parts):
+            eng(part)                          # uploads weights, warms up
+        sync(dev)
+        _build.reset_launches()
+        out = serving.infer(parts)
+        sync(dev)
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cores = core_launches()
+        want = {k: v * n_rep for k, v in expected_launches(
+            'resnet50', fm.cfg, 'folded_int8').items()}
+        check(counts == want, f'phase 17: ServingEngine launches {counts}, '
+              f'expected {want}')
+        check(cores == core_split(want), f'phase 17: launches per core '
+              f'{cores}, expected {core_split(want)}')
+        got = serving.fetch(out)
+        single = build(device=parts[0].device)
+        ref = single(torch.from_numpy(x).to(parts[0].device)).cpu().numpy()
+        check(np.array_equal(got, ref), 'phase 17: ServingEngine.infer '
+              'differs from the engine\'s own call')
+        n_req = 12
+        reqs = np.random.RandomState(3).randn(n_req, SIZE, SIZE, 3).astype(
+            np.float32)
+        b = serving.batcher(max_delay_ms=20)
+        try:
+            answers = np.stack([s.get(timeout=120)
+                                for s in [b.submit(im) for im in reqs]])
+        finally:
+            b.close()
+        n_pad = -(-n_req // BATCH) * BATCH
+        padded = np.concatenate([reqs, np.zeros(
+            (n_pad - n_req, SIZE, SIZE, 3), np.float32)])
+        rows = np.concatenate([serving(padded[i:i + BATCH])
+                               for i in range(0, n_pad, BATCH)])[:n_req]
+        check(np.array_equal(answers, rows), 'phase 17: batcher answers '
+              'differ from their rows of a batched call')
+        ips = serving.throughput()
+        rec['serving'] = dict(launches=counts, replicas=n_rep,
+                              images_per_s=ips)
+        log(f'phase 17 (a): ServingEngine ({dist.get_backend()} group of 1, '
+            f'{n_rep} replica(s)) over resnet50 uniform8 folded_int8 int16 '
+            f'b{BATCH} {SIZE}x{SIZE}: infer == the engine\'s call, launches '
+            f'{counts}, per core {cores}; a batcher answered {n_req} '
+            f'requests, each == its row; {ips:.1f} images/s '
+            f'(utils/timing.py, CUDA events)')
+        with tempfile.TemporaryDirectory() as tmp:
+            for fix_bn in (False, True):
+                _, one = parallel_trainer(
+                    1, os.path.join(tmp, f'one_{fix_bn}'), dev, fix_bn)
+                rec[f'one_folded' if fix_bn else 'one'] = one
+                log(f'phase 17 (a): Trainer, one process, {one["label"]}: '
+                    f'loss {one["loss"]:.4f}, top-1 {one["acc"]:.4f}, '
+                    f'launches per step {one["counts"]} (per core '
+                    f'{one["cores"]}), collectives {one["collectives"]}, '
+                    f'{one["step_ms"]:.1f} ms per step')
+            one, one_f = rec['one'], rec['one_folded']
+            runs = [('gloo', 2)]
+            n_cards = torch.cuda.device_count() if dev.type == 'cuda' else 0
+            if n_cards >= 2:
+                runs.append(('nccl', min(n_cards, 4)))
+            for backend_r, world in runs:
+                port = free_port()
+                t0 = time.perf_counter()
+                codes, hung = run_ranks(
+                    parallel_rank,
+                    lambda r: (r, world, port, backend_r, tmp, dev.type),
+                    world)
+                check(codes == [0] * world and not hung, f'phase 17 (b): '
+                      f'{backend_r} ranks exited {codes}, hung {hung}')
+                ranks = []
+                for r in range(world):
+                    with open(os.path.join(tmp, f'{backend_r}{world}_rank'
+                                           f'{r}.pkl'), 'rb') as f:
+                        ranks.append(pickle.load(f))
+                for mp in (1, 2) if world % 2 == 0 else (1,):
+                    # the folded step against one process's: its forward
+                    # is exact (global ranges), its sums in another order
+                    worst = ckpt_against(
+                        os.path.join(tmp, f'{backend_r}{world}_mp{mp}_folded',
+                                     'checkpoint.npz'),
+                        os.path.join(tmp, 'one_True', 'checkpoint.npz'),
+                        f'{backend_r} world {world} model_parallel {mp}')
+                    for r, rr in enumerate(ranks):
+                        got = rr[mp, 'folded']['loss']
+                        check(abs(got - one_f['loss'])
+                              <= 1e-6 * abs(one_f['loss']), f'rank {r} '
+                              f'folded loss {got} against one process '
+                              f'{one_f["loss"]}')
+                    r0, f0 = ranks[0][mp], ranks[0][mp, 'folded']
+                    step_ms = [round(rr[mp]['step_ms'], 1) for rr in ranks]
+                    folded_ms = [round(rr[mp, 'folded']['step_ms'], 1)
+                                 for rr in ranks]
+                    rec[f'{backend_r}{world}_mp{mp}'] = dict(
+                        r0, folded=f0, worst_rel=worst,
+                        step_ms_ranks=step_ms, folded_step_ms_ranks=folded_ms)
+                    log(f'phase 17 (b): {world} ranks on {backend_r} '
+                        f'({"one card" if world > n_cards else "a card each"}'
+                        f'), {r0["label"]}: loss {r0["loss"]:.4f} (one '
+                        f'process {one["loss"]:.4f}: the moments summed in '
+                        f'another order), top-1 {r0["acc"]:.4f}; launches '
+                        f'per step and rank {r0["counts"]} == '
+                        f'expected_train_launches, collectives per step '
+                        f'{r0["collectives"]}; step ms per rank {step_ms} '
+                        f'(one process {one["step_ms"]:.1f}); each rank '
+                        f'served its {r0["host_batch"]} rows == one '
+                        f'engine\'s (launches {r0["serve_launches"]}); the '
+                        f'folded step: loss {f0["loss"]:.6f} (one process '
+                        f'{one_f["loss"]:.6f}), checkpoint within the CPU '
+                        f'tests\' tolerances, largest relative deviation '
+                        f'{worst:.3g}, step ms per rank {folded_ms} '
+                        f'(one process {one_f["step_ms"]:.1f}), collectives '
+                        f'{f0["collectives"]}')
+                per_call = [rr['collective_ms'] for rr in ranks]
+                rec[f'{backend_r}{world}_collective_ms'] = per_call
+                log(f'phase 17 (b): {backend_r} all_reduce host ms per call '
+                    f'on each rank: {per_call}; the run took '
+                    f'{time.perf_counter() - t0:.1f} s')
+            if dev.type == 'cuda':
+                port = free_port()
+                codes, hung = run_ranks(nccl_shared_card,
+                                        lambda r: (r, port, tmp), 2,
+                                        timeout=60)
+                rec['nccl_shared_card'] = dict(exit_codes=codes, hung=hung)
+                log(f'phase 17 (b): two nccl ranks on one card: exit codes '
+                    f'{codes}, hung (killed after 60 s) {hung}: '
+                    + ('refused, as expected' if codes != [0, 0] or hung
+                       else 'NOT refused'))
+    finally:
+        dist.destroy_process_group()
+    rec['seconds'] = time.perf_counter() - t_phase
+    log(f'phase 17: {rec["seconds"]:.1f} s')
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch.cuda.is_available() is false; this '
@@ -4461,7 +4909,10 @@ def main():
     deployment = deployment_phase(fms['resnet50', 'uniform8'], folded, dev,
                                   errs)
 
-    # ---- phase 17 ----
+    # ---- phase 17: parallel and serving across cards ----
+    parallel = parallel_phase(dev, fms['resnet50', 'uniform8'], raw)
+
+    # ---- phase 18 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -4514,6 +4965,11 @@ def main():
                     dict(path=label, **totals_r[name]))
         if name in ref_launches:     # phase 13's paths, synthetic weights
             entry['reference_launches'] = ref_launches[name]
+        if name in parallel['serving']['launches']:   # phase 17 (a)
+            entry['parallel_serving_launches'] = parallel['serving'][
+                'launches'][name]
+        if name in parallel['one']['counts']:   # phase 17: a step's
+            entry['parallel_train_launches'] = parallel['one']['counts'][name]
         for arch in sens_probe:      # phase 14: calibration, HVP probes
             if name in sens_probe[arch] or name in sens_calib[arch]:
                 entry.setdefault('sensitivity', []).append(dict(
@@ -4535,7 +4991,8 @@ def main():
         kernels.append(entry)
     log(json.dumps({'deploy': {k: v for k, v in deployment.items()
                                if k != 'routed_paths'}}))
-    log(f'phase 17: all phases passed in '
+    log(json.dumps({'parallel': parallel}, default=str))
+    log(f'phase 18: all phases passed in '
         f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '

@@ -25,7 +25,14 @@ How the port differs from the flax modules it mirrors:
     (:func:`capture_q_int`), where the flax module sows it always;
   * of the grouped convolutions (``groups > 1``) the depthwise 3×3 (one
     channel a group, pad 1, stride 1 or 2: MobileNetV2's) runs through
-    ``int8_dwconv_acc``; any other grouping raises ``NotImplementedError``.
+    ``int8_dwconv_acc``; any other grouping raises ``NotImplementedError``;
+  * the statistics sites (``QuantAct`` and ``QuantBnAct`` ranges, the BN
+    batch moments of ``QuantConvBn`` and ``QuantBnAct``) take an optional
+    ``data_group``: with one, a statistic is taken over the rows of every
+    rank of the group, as ``hawq_tpu``'s jitted step takes it over the
+    global batch; ``QuantLinear`` can split its output classes over a
+    ``model_group`` (:meth:`QuantLinear.shard_classes`).  Without a group
+    (the default) the code path is the single-process one.
 
 The forward is written for eager execution (see quant/ops.py on
 ``exact()``); keep it out of ``torch.compile``.
@@ -39,12 +46,14 @@ import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import depthwise as kd
 from hawq_tpu_torch.kernels import matmul as km
+from hawq_tpu_torch.parallel import collectives as coll
 from hawq_tpu_torch.quant import ops as qops
 
 
@@ -335,6 +344,33 @@ def _weight_range(w_flat: torch.Tensor, per_channel: bool):
     return torch.amin(w_flat), torch.amax(w_flat)
 
 
+def _observed_minmax(x: torch.Tensor, group) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """(min, max) of an activation tensor, over every rank of ``group``
+    where one is given: exactly the min and max of the global batch."""
+    cur_min, cur_max = qops.fused_minmax(x)
+    if group is None:
+        return cur_min, cur_max
+    return coll.min_max(cur_min, cur_max, group)
+
+
+def _batch_moments(x: torch.Tensor, group) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """BN batch statistics of an NHWC tensor over (N, H, W): the mean and
+    the unbiased variance.  Without a group ``torch.mean`` / ``torch.var``;
+    over a data group in two passes, each summed over the ranks (with its
+    gradient): Σx → mean, then Σ(x − mean)² → variance, over the global
+    count of rows × pixels."""
+    if group is None:
+        return (torch.mean(x, dim=(0, 1, 2)),
+                torch.var(x, dim=(0, 1, 2), unbiased=True))
+    n = x.shape[0] * x.shape[1] * x.shape[2] * dist.get_world_size(group)
+    mean = coll.sum_over(x.sum(dim=(0, 1, 2)), group) / n
+    d = x - mean
+    var = coll.sum_over((d * d).sum(dim=(0, 1, 2)), group) / (n - 1)
+    return mean, var
+
+
 def _he_normal_(t: torch.Tensor, fan_in: int, gain: float,
                 generator: Optional[torch.Generator]) -> None:
     """Truncated normal (±2σ) of variance gain / fan_in, flax's
@@ -375,6 +411,7 @@ class QuantAct(nn.Module):
         self.register_buffer('x_min', torch.zeros((), dtype=torch.float32))
         self.register_buffer('x_max', torch.zeros((), dtype=torch.float32))
         self._capture = None
+        self.data_group = None        # ranges over the group's ranks
 
     def _observe(self, x: torch.Tensor) -> None:
         # the ranges are buffers: no gradient may flow from the scales back
@@ -382,15 +419,19 @@ class QuantAct(nn.Module):
         with torch.no_grad():
             xd = x.detach()
             if self.percentile == 0:
-                cur_min, cur_max = qops.fused_minmax(xd)
-            elif self.quant_mode == 'symmetric':
-                cur_min, cur_max = qops.percentile_bounds(
-                    xd.reshape(-1), 100.0 - self.percentile, self.percentile)
+                cur_min, cur_max = _observed_minmax(xd, self.data_group)
             else:
+                xd = xd.reshape(-1)
+                if self.data_group is not None:
+                    # an order statistic needs every row: the ranks'
+                    # tensors gathered (the sort makes their order moot)
+                    xd = coll.cat_over(xd, self.data_group)
                 # asymmetric is always post-ReLU with zero point 0: lower
                 # bound pinned to 0
-                cur_min, cur_max = qops.percentile_bounds(
-                    xd.reshape(-1), 0.0, self.percentile)
+                lower = (100.0 - self.percentile
+                         if self.quant_mode == 'symmetric' else 0.0)
+                cur_min, cur_max = qops.percentile_bounds(xd, lower,
+                                                          self.percentile)
             _update_range(self.x_min, self.x_max, cur_min, cur_max,
                           self.momentum, running=self.momentum < 0)
 
@@ -487,6 +528,7 @@ class QuantConvBn(nn.Module):
         self.beta = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
+        self.data_group = None        # batch moments over the group's ranks
 
     def forward(self, x, pre_act_scale, *, folded: bool = True,
                 update_stats: bool = False):
@@ -505,8 +547,7 @@ class QuantConvBn(nn.Module):
                 x_int, w_int, torch.zeros_like(self.beta), self.strides,
                 self.padding, self.groups) * conv_scale * pre_act_scale
 
-            batch_mean = torch.mean(conv_out, dim=(0, 1, 2))
-            batch_var = torch.var(conv_out, dim=(0, 1, 2), unbiased=True)
+            batch_mean, batch_var = _batch_moments(conv_out, self.data_group)
             if update_stats:
                 with torch.no_grad():
                     self.mean.copy_(self.mean * self.bn_momentum
@@ -594,7 +635,17 @@ class QuantConv2d(nn.Module):
 
 
 class QuantLinear(nn.Module):
-    """Quantized dense head."""
+    """Quantized dense head.
+
+    :meth:`shard_classes` splits its output classes over a model group
+    (``hawq_tpu``'s ``P(None, 'model')`` kernel, ``P('model')`` bias): each
+    rank keeps ``kernel[:, classes]`` and ``bias[classes]``, its input passes
+    through :func:`collectives.copy_to` and its logits through
+    :func:`collectives.gather_from`, so every rank of the group returns the
+    full logits, bit-equal to the unsplit layer's, and computes the same
+    loss.  A per-channel weight scale is per class and stays local; a
+    per-tensor one takes its range over the whole kernel (``MAX`` over the
+    group)."""
 
     def __init__(self, in_features: int, features: int, weight_bit: int = 8,
                  bias_bit: int = 32, per_channel: bool = True,
@@ -606,9 +657,40 @@ class QuantLinear(nn.Module):
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         _he_normal_(self.kernel, in_features, 1.0, generator)
         self.bias = nn.Parameter(torch.zeros(features))
+        self.model_group = None
+        self.classes = slice(0, features)
+
+    def shard_classes(self, group, classes: slice) -> None:
+        """Keep the output ``classes`` (this rank's equal share, in the rank
+        order of ``group``) as new parameters; make the optimizer after
+        this."""
+        count, index = dist.get_world_size(group), dist.get_rank(group)
+        n = self.kernel.shape[1]
+        width = n // count
+        if (self.model_group is not None or n % count
+                or (classes.start, classes.stop) != (width * index,
+                                                     width * (index + 1))):
+            raise ValueError(f'QuantLinear.shard_classes: classes {classes} '
+                             f'of {n} at rank {index} of {count} (already '
+                             f'split: {self.model_group is not None})')
+        self.classes = classes
+        self.kernel = nn.Parameter(self.kernel.detach()[:, classes].clone())
+        self.bias = nn.Parameter(self.bias.detach()[classes].clone())
+        self.model_group = group
+
+    def shards(self):
+        """(parameter, axis of the classes) of a split layer, else ()."""
+        if self.model_group is None:
+            return ()
+        return ((self.kernel, 1), (self.bias, 0))
 
     def forward(self, x, pre_act_scale):
+        group = self.model_group
+        if group is not None:
+            x = coll.copy_to(x, group)
         w_min, w_max = _weight_range(self.kernel.detach(), self.per_channel)
+        if group is not None and not self.per_channel:
+            w_min, w_max = coll.min_max(w_min, w_max, group)
         weight_scale = qops.symmetric_quant_scale(self.weight_bit, w_min,
                                                   w_max)
         w_int = qops.quantize_symmetric(self.kernel, weight_scale,
@@ -616,7 +698,10 @@ class QuantLinear(nn.Module):
         bias_scale = weight_scale * pre_act_scale
         b_int = qops.quantize_symmetric(self.bias, bias_scale, self.bias_bit)
         x_int = x / pre_act_scale
-        return int_matmul(x_int, w_int, b_int) * bias_scale
+        logits = int_matmul(x_int, w_int, b_int) * bias_scale
+        if group is not None:
+            logits = coll.gather_from(logits, group)
+        return logits
 
 
 class QuantBnAct(nn.Module):
@@ -651,12 +736,12 @@ class QuantBnAct(nn.Module):
         self.register_buffer('x_min', torch.zeros((), dtype=torch.float32))
         self.register_buffer('x_max', torch.zeros((), dtype=torch.float32))
         self._capture = None
+        self.data_group = None        # ranges and moments over its ranks
 
     def forward(self, x, in_scale, *, x_int=None, folded: bool = True,
                 update_stats: bool = False):
         if not folded:
-            batch_mean = torch.mean(x, dim=(0, 1, 2))
-            batch_var = torch.var(x, dim=(0, 1, 2), unbiased=True)
+            batch_mean, batch_var = _batch_moments(x, self.data_group)
             if update_stats:
                 with torch.no_grad():
                     self.mean.copy_(self.mean * self.bn_momentum
@@ -676,7 +761,8 @@ class QuantBnAct(nn.Module):
 
         if update_stats:
             with torch.no_grad():
-                cur_min, cur_max = qops.fused_minmax(y.detach())
+                cur_min, cur_max = _observed_minmax(y.detach(),
+                                                    self.data_group)
                 _update_range(self.x_min, self.x_max, cur_min, cur_max,
                               self.momentum)
 

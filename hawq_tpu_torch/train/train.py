@@ -13,6 +13,15 @@ optimizer and the step counter, updated **in place** by the steps; the flax
 variables tree is a view of it (:meth:`TrainState.variables`).  Steps run
 eagerly on one device; they return loss and accuracy as 0-dim tensors on
 that device and never synchronize with the host themselves.
+
+Over a mesh (parallel/mesh.py; the model's layers given their groups by
+``mesh.distribute``) a train step runs the model under
+``DistributedDataParallel`` over the data group, which averages every
+gradient over it; its statistics are global already (nn/layers.py), so no
+buffer is broadcast.  A head split over the model group is gathered whole
+into :meth:`TrainState.variables` and :meth:`TrainState.opt_leaves`, and a
+checkpoint's whole head sliced back by :meth:`TrainState.load_opt_leaves`
+and :func:`shard_tree`.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from torch import nn
 
 from hawq_tpu_torch.models.resnet import qat_to_numpy
 from hawq_tpu_torch.nn import layers as L
+from hawq_tpu_torch.parallel import collectives as coll
+from hawq_tpu_torch.parallel import mesh as pmesh
 
 
 def _sorted_parameters(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
@@ -34,6 +45,46 @@ def _sorted_parameters(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
     every level): the order optimizer leaves are stored in checkpoints."""
     return sorted(model.named_parameters(),
                   key=lambda kv: tuple(kv[0].split('.')))
+
+
+def _shards(model: nn.Module):
+    """{id(parameter): (its layer's model group, class axis, classes)} of
+    every parameter split over a model group."""
+    return {id(p): (m.model_group, axis, m.classes)
+            for m in model.modules() if isinstance(m, L.QuantLinear)
+            for p, axis in m.shards()}
+
+
+def _whole(t: torch.Tensor, shard) -> torch.Tensor:
+    group, axis, _ = shard
+    return coll.cat_over(t.detach(), group, dim=axis)
+
+
+def _slice(a: np.ndarray, shard) -> np.ndarray:
+    _, axis, classes = shard
+    if a.ndim <= axis:            # not this parameter's leaf: left to fail
+        return a                  # the shape check
+    return a[(slice(None),) * axis + (classes,)]
+
+
+def _named_shards(model: nn.Module):
+    by_id = _shards(model)
+    for name, p in model.named_parameters():
+        if id(p) in by_id:
+            yield name.split('.'), p, by_id[id(p)]
+
+
+def shard_tree(model: nn.Module, params: Mapping) -> Mapping:
+    """A whole params tree (a checkpoint's) with the model's split
+    parameters sliced to this rank's classes (a new tree)."""
+    params = dict(params)
+    for path, _, shard in _named_shards(model):
+        node = params
+        for part in path[:-1]:
+            node[part] = dict(node[part])
+            node = node[part]
+        node[path[-1]] = _slice(np.asarray(node[path[-1]]), shard)
+    return params
 
 
 def sgd_with_step_decay(model: nn.Module, base_lr: float,
@@ -63,6 +114,7 @@ class TrainState:
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.step = step
+        self.ddp = None     # the model's DistributedDataParallel, once made
 
     @classmethod
     def create(cls, model: nn.Module, tx) -> 'TrainState':
@@ -70,25 +122,42 @@ class TrainState:
         return cls(model, optimizer, scheduler)
 
     def variables(self) -> Mapping:
-        """The flax variables tree of the model, as numpy copies."""
-        return qat_to_numpy(self.model)
+        """The flax variables tree of the model, as numpy copies; a head
+        split over a model group whole (a collective: every rank of the
+        group calls it)."""
+        tree = qat_to_numpy(self.model)
+        for path, p, shard in _named_shards(self.model):
+            node = tree['params']
+            for part in path[:-1]:
+                node = node[part]
+            node[path[-1]] = _whole(p, shard).cpu().numpy()
+        return tree
 
     def opt_leaves(self) -> List[np.ndarray]:
         """Optimizer state as the reference stores it positionally: one
         momentum trace per parameter in sorted tree order (zeros before the
         first step), then the schedule's step count."""
-        leaves = []
+        leaves, shards = [], _shards(self.model)
         for _, p in _sorted_parameters(self.model):
             buf = self.optimizer.state.get(p, {}).get('momentum_buffer')
-            leaves.append(np.zeros(tuple(p.shape), np.float32) if buf is None
-                          else buf.detach().cpu().numpy())
+            if buf is None:
+                buf = torch.zeros_like(p)
+            if id(p) in shards:          # the whole head (a collective)
+                buf = _whole(buf, shards[id(p)])
+            leaves.append(buf.detach().cpu().numpy())
         leaves.append(np.asarray(self.scheduler.last_epoch, np.int32))
         return leaves
 
     def load_opt_leaves(self, leaves) -> bool:
-        """Restore :meth:`opt_leaves`; False (and nothing restored) when the
+        """Restore :meth:`opt_leaves` (a split head's leaves whole, as
+        :meth:`opt_leaves` writes them); False (and nothing restored) when the
         leaves do not match this optimizer."""
         params = [p for _, p in _sorted_parameters(self.model)]
+        shards = _shards(self.model)
+        if len(leaves) == len(params) + 1:
+            leaves = [_slice(np.asarray(l), shards[id(p)])
+                      if id(p) in shards else l
+                      for l, p in zip(leaves, params)] + [leaves[-1]]
         if len(leaves) != len(params) + 1 or any(
                 np.shape(l) != tuple(p.shape)
                 for l, p in zip(leaves, params)):
@@ -132,11 +201,28 @@ def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
     return _DTYPES[name]
 
 
+def _data_parallel(model: nn.Module, state: TrainState, mesh) -> nn.Module:
+    """The module a step runs: ``model`` or, over a mesh whose data dim has
+    several ranks, the state's model's ``DistributedDataParallel`` over the
+    data group (one per state, made at its first step; its gradient
+    all-reduces counted, parallel/collectives.py)."""
+    group = pmesh.data_group(mesh)
+    if group is None:
+        return model
+    if state.ddp is None:
+        from torch.nn.parallel import DistributedDataParallel
+        state.ddp = DistributedDataParallel(
+            state.model, process_group=group, broadcast_buffers=False)
+        state.ddp.register_comm_hook(group, coll.counted_allreduce_hook)
+    return state.ddp
+
+
 def make_train_step(model: nn.Module, *, folded: bool,
                     distill_alpha: Optional[float] = None,
                     temperature: float = 6.0, rng_seed: int = 0,
                     matmul_precision: Optional[str] = None,
-                    residual_store_dtype: Optional[str] = None) -> Callable:
+                    residual_store_dtype: Optional[str] = None,
+                    mesh=None) -> Callable:
     """Build the QAT train step ``train_step(state, batch) → (state,
     metrics)``; ``state`` is updated in place and returned.
 
@@ -153,7 +239,13 @@ def make_train_step(model: nn.Module, *, folded: bool,
     convolutions in bfloat16 too.
 
     A model with dropout draws its masks from a ``torch.Generator`` seeded
-    from ``(rng_seed, step)``: deterministic and resume-stable."""
+    from ``(rng_seed, step)``: deterministic and resume-stable.
+
+    ``mesh``: the ``('data', 'model')`` mesh the model was distributed over
+    (``parallel.mesh.distribute``): the step then runs under
+    ``DistributedDataParallel`` over its data group, and its metrics are the
+    means over that group (each rank holds an equal share of the global
+    batch, so they are the global batch's)."""
     grad_dt = _dtype(matmul_precision)
     store_dt = _dtype(residual_store_dtype)
     has_dropout = any(isinstance(m, L.QuantDropout) and m.rate > 0
@@ -170,8 +262,8 @@ def make_train_step(model: nn.Module, *, folded: bool,
             ctx.enter_context(L.residual_store_dtype(store_dt))
             ctx.enter_context(L.gradient_conv_dtype(grad_dt))
             state.optimizer.zero_grad(set_to_none=True)
-            logits = model(batch['image'], folded=folded, update_stats=True,
-                           **kw)
+            logits = _data_parallel(model, state, mesh)(
+                batch['image'], folded=folded, update_stats=True, **kw)
             if distill_alpha is not None:
                 loss = kd_loss(logits, batch['teacher_logits'],
                                batch['label'], distill_alpha, temperature)
@@ -183,6 +275,9 @@ def make_train_step(model: nn.Module, *, folded: bool,
         state.step += 1
         with torch.no_grad():
             acc = (logits.argmax(-1) == batch['label']).float().mean()
+        group = pmesh.data_group(mesh)
+        if group is not None:
+            loss, acc = coll.mean_over(torch.stack([loss, acc]), group)
         return state, {'loss': loss.detach(), 'accuracy': acc}
 
     return train_step

@@ -8,10 +8,20 @@
 The fix-BN schedule is evaluated before every step (folded BN from step
 ``fix_bn_threshold`` on, also in the middle of an epoch).
 
-The run is eager PyTorch on one device: the card by default, ``device='cpu'``
-(``--device cpu``) on request.  Checkpoints are the reference's npz + JSON
-files (utils/checkpoint.py), so either package resumes the other's; the
-frozen artifact is the engine-ready FrozenModel.
+The run is eager PyTorch, one process per device: the card by default,
+``device='cpu'`` (``--device cpu``) on request.  Checkpoints are the
+reference's npz + JSON files (utils/checkpoint.py), so either package
+resumes the other's; the frozen artifact is the engine-ready FrozenModel.
+
+Several processes (``torchrun --nproc-per-node=N``, or the HAWQ_COORDINATOR
+/ HAWQ_NUM_PROCESSES / HAWQ_PROCESS_ID protocol of parallel/distributed.py)
+train one model over a ``('data', 'model')`` mesh of N / model_parallel ×
+model_parallel ranks: ``batch_size`` is the **global** batch, of which each
+data rank takes its equal share of rows (where ``hawq_tpu``'s hosts each
+yield ``batch_size`` rows); ranges and BN batch statistics are taken over
+the global batch, gradients averaged over the data group, the ResNet head
+split over the model group; evaluation is weighted over every rank; rank 0
+alone logs to the file and writes checkpoints, the head gathered whole.
 
 CLI: python -m hawq_tpu_torch.train.trainer --arch resnet50 --scheme uniform8 ...
 """
@@ -41,12 +51,14 @@ from hawq_tpu_torch.models.mobilenetv2 import (QMobileNetV2,
                                                TINY_MNV2_INIT_CH,
                                                TINY_MNV2_STAGES)
 from hawq_tpu_torch.models.resnet import (FloatResNet, QResNet,
-                                          qat_from_numpy)
+                                          qat_from_numpy, qat_to_numpy)
 from hawq_tpu_torch.models.resnet_v2 import QResNetV2
+from hawq_tpu_torch.parallel import distributed
+from hawq_tpu_torch.parallel import mesh as pmesh
 from hawq_tpu_torch.train import data as data_lib
 from hawq_tpu_torch.train.train import (TrainState, make_train_step,
                                         make_eval_step,
-                                        make_calibration_step,
+                                        make_calibration_step, shard_tree,
                                         sgd_with_step_decay)
 from hawq_tpu_torch.utils import checkpoint as ckpt
 
@@ -78,7 +90,7 @@ class TrainerConfig:
     resume_quantize: bool = False
     steps_per_epoch: Optional[int] = None    # cap (synthetic data)
     eval_batches: Optional[int] = None
-    use_mesh: bool = True            # data-parallel over all visible cards
+    use_mesh: bool = True            # data-parallel over all processes
     model_parallel: int = 1          # tensor-shard the classifier head
     evaluate_times: int = 0          # mid-epoch evals per epoch
     print_freq: int = 0              # per-step log interval
@@ -168,54 +180,76 @@ def freeze_model(model, variables, cfg: TrainerConfig,
     return freeze_resnet(variables, cfg.arch, bit_cfg, cfg.num_classes)
 
 
-def _batches(cfg: TrainerConfig, train: bool, epoch: int) -> Iterator[dict]:
+def _batches(cfg: TrainerConfig, train: bool, epoch: int,
+             shard=(0, 1)) -> Iterator[dict]:
+    """The batches of an epoch; ``shard`` = (index, count): this rank's
+    rows, the index-th of count equal shares of each global batch."""
+    index, count = shard
+    rows = cfg.batch_size // count
     if cfg.data_dir is None:
         n = cfg.steps_per_epoch or 10
-        yield from data_lib.synthetic_batches(
-            cfg.batch_size, cfg.image_size, cfg.num_classes, n,
-            seed=epoch if train else 10_000)
+        for batch in data_lib.synthetic_batches(
+                cfg.batch_size, cfg.image_size, cfg.num_classes, n,
+                seed=epoch if train else 10_000):
+            yield {k: v[index * rows:(index + 1) * rows]
+                   for k, v in batch.items()}
         return
     if cfg.dataset == 'cifar10':
         yield from data_lib.cifar10_batches(
-            cfg.data_dir, cfg.batch_size, train=train, seed=epoch,
-            data_percentage=cfg.data_percentage)
+            cfg.data_dir, rows, train=train, seed=epoch,
+            data_percentage=cfg.data_percentage, process_index=index,
+            process_count=count)
         return
     split = 'train' if train else 'val'
     loader = data_lib.ImageFolderLoader(
-        os.path.join(cfg.data_dir, split), cfg.batch_size, train=train,
+        os.path.join(cfg.data_dir, split), rows, train=train,
         image_size=cfg.image_size, data_percentage=cfg.data_percentage,
-        num_workers=cfg.workers, seed=cfg.seed)
+        num_workers=cfg.workers, seed=cfg.seed, process_index=index,
+        process_count=count)
     yield from loader.epoch(epoch)
 
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig):
+        # the process group first (a no-op for one process): the rank
+        # decides the device, the log and the mesh
+        distributed.initialize(device=cfg.device)
         self.cfg = cfg
-        self.device = torch.device(cfg.device)
-        if cfg.model_parallel > 1:
-            raise NotImplementedError(
-                'model_parallel > 1: the tensor-sharded head is not ported '
-                '(ROADMAP.md queue 1, parallel and serving)')
-        if (self.device.type == 'cuda' and cfg.use_mesh
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                f'{torch.cuda.device_count()} cards are visible and '
-                f'use_mesh is set, but data-parallel training is not ported '
-                f'(ROADMAP.md queue 1, parallel and serving); expose one '
-                f'card (CUDA_VISIBLE_DEVICES) to train on it alone')
+        self.device = distributed.local_device(cfg.device)
+        self.rank = distributed.process_index()
+        world = distributed.process_count()
         os.makedirs(cfg.save_path, exist_ok=True)
+        handlers = [logging.StreamHandler()]
+        if self.rank == 0:
+            handlers.append(logging.FileHandler(
+                os.path.join(cfg.save_path, 'log.log')))
         logging.basicConfig(
-            level=logging.INFO,
-            handlers=[logging.StreamHandler(),
-                      logging.FileHandler(
-                          os.path.join(cfg.save_path, 'log.log'))],
-            format='%(asctime)s %(message)s', force=True)
+            level=logging.INFO if self.rank == 0 else logging.WARNING,
+            handlers=handlers, format='%(asctime)s %(message)s', force=True)
         self.log = logging.getLogger('hawq_tpu_torch')
         self.model, self.bit_cfg = build_model(cfg)
         self.model.to(self.device)
         self.best_acc = 0.0
         self.start_epoch = cfg.start_epoch
         self._restored_quant_stats = False
+
+        # the mesh over every process: batch rows over 'data', the ResNet
+        # head's classes over 'model' (one process trains unsharded)
+        self.mesh = None
+        if cfg.use_mesh and world > 1 and cfg.batch_size % world == 0:
+            if world % cfg.model_parallel:
+                raise ValueError(f'model_parallel {cfg.model_parallel} does '
+                                 f'not divide the {world} processes')
+            self.mesh = pmesh.make_mesh(world // cfg.model_parallel,
+                                        cfg.model_parallel, self.device)
+            self.log.info('mesh: %s over %d processes (backend %s)',
+                          pmesh.mesh_shape(self.mesh), world,
+                          torch.distributed.get_backend())
+        elif cfg.use_mesh and world > 1:
+            self.log.warning('batch_size %d not divisible by %d processes — '
+                             'each trains alone', cfg.batch_size, world)
+        self.shard = pmesh.data_shard(self.mesh)
+        pmesh.distribute(self.model, self.mesh)
 
         steps_per_epoch = cfg.steps_per_epoch or 1000
         tx = sgd_with_step_decay(
@@ -225,6 +259,8 @@ class Trainer:
 
         if cfg.resume:
             self._resume(cfg.resume, cfg.resume_quantize)
+            if self.mesh is not None:
+                pmesh.replicate_state(self.mesh, self.model)
 
         # KD teacher: a float model applied per batch to produce soft targets
         self.teacher = None
@@ -242,12 +278,12 @@ class Trainer:
             self.teacher.to(self.device)
 
     def _device_batch(self, batch, with_teacher: bool = False):
-        """Host numpy batch → tensors on the trainer's device."""
-        out = {'image': torch.from_numpy(
-            np.asarray(batch['image'], np.float32)).to(self.device)}
+        """This rank's numpy rows → tensors on the trainer's device."""
+        host = {'image': np.asarray(batch['image'], np.float32)}
         if 'label' in batch:
-            out['label'] = torch.from_numpy(
-                np.asarray(batch['label'], np.int64)).to(self.device)
+            host['label'] = np.asarray(batch['label'], np.int64)
+        out = dict(distributed.global_batch_from_host_shards(
+            self.mesh, host, self.device))
         if with_teacher and self.teacher is not None:
             with torch.no_grad():
                 out['teacher_logits'] = self.teacher(out['image'])
@@ -258,13 +294,16 @@ class Trainer:
         return os.path.join(self.cfg.save_path, name)
 
     def save_checkpoint(self, epoch: int, is_best: bool):
+        # every rank gathers (a split head is whole in both); rank 0 writes
         variables = self.state.variables()
+        opt_leaves = self.state.opt_leaves()
+        if self.rank != 0:
+            return
         meta = {'epoch': epoch, 'arch': self.cfg.arch,
                 'scheme': self.cfg.scheme, 'best_acc': self.best_acc,
                 'step': int(self.state.step)}
         ckpt.save_train_checkpoint(self._ckpt_path('checkpoint.npz'),
-                                   variables, meta,
-                                   opt_leaves=self.state.opt_leaves())
+                                   variables, meta, opt_leaves=opt_leaves)
         if is_best:
             shutil.copy(self._ckpt_path('checkpoint.npz'),
                         self._ckpt_path('model_best.npz'))
@@ -280,7 +319,8 @@ class Trainer:
           model; activation ranges stay fresh and are recalibrated.
         ``resume_quantize``: quantized-training continuation: weights AND
           quantization state (ranges, BN stats) restore.
-        Both restore epoch/best/step/optimizer when present."""
+        Both restore epoch/best/step/optimizer when present; every rank
+        loads, a split head its own classes."""
         variables, meta, opt_leaves = ckpt.load_train_checkpoint(
             path, return_opt=True)
         self._restored_quant_stats = quantized and 'quant_stats' in variables
@@ -293,8 +333,10 @@ class Trainer:
                   if k in variables}
         if self._restored_quant_stats:
             merged['quant_stats'] = variables['quant_stats']
-        if 'params' not in merged:
-            merged['params'] = self.state.variables()['params']
+        if 'params' in merged:
+            merged['params'] = shard_tree(self.model, merged['params'])
+        else:
+            merged['params'] = qat_to_numpy(self.model)['params']
         qat_from_numpy(self.model, merged)
         if opt_leaves and not self.state.load_opt_leaves(opt_leaves):
             self.log.warning(
@@ -312,7 +354,7 @@ class Trainer:
     # -- phases -------------------------------------------------------------
     def calibrate(self):
         calib = make_calibration_step(self.model, folded=True)
-        for i, batch in enumerate(_batches(self.cfg, True, epoch=0)):
+        for i, batch in enumerate(_batches(self.cfg, True, 0, self.shard)):
             if i >= self.cfg.calib_batches:
                 break
             calib(self._device_batch({'image': batch['image']})['image'])
@@ -329,7 +371,8 @@ class Trainer:
                     distill_alpha=cfg.distill_alpha,
                     temperature=cfg.temperature, rng_seed=cfg.seed,
                     matmul_precision=cfg.grad_precision,
-                    residual_store_dtype=cfg.residual_store_dtype)
+                    residual_store_dtype=cfg.residual_store_dtype,
+                    mesh=self.mesh)
             return steps[folded]
 
         # mid-epoch evaluation
@@ -338,7 +381,7 @@ class Trainer:
             eval_every = max(cfg.steps_per_epoch // cfg.evaluate_times, 1)
         t0 = time.time()
         n, loss_sum, acc_sum, folded = 0, 0.0, 0.0, cfg.fix_bn
-        for i, batch in enumerate(_batches(cfg, True, epoch)):
+        for i, batch in enumerate(_batches(cfg, True, epoch, self.shard)):
             if cfg.steps_per_epoch and i >= cfg.steps_per_epoch:
                 break
             # the fix-BN schedule, owned by the trainer: folded BN from
@@ -373,7 +416,7 @@ class Trainer:
     def evaluate(self) -> float:
         eval_fn = make_eval_step(self.model)
         tops, n, n_samples = 0.0, 0, 0
-        for i, batch in enumerate(_batches(self.cfg, False, epoch=0)):
+        for i, batch in enumerate(_batches(self.cfg, False, 0, self.shard)):
             if self.cfg.eval_batches and i >= self.cfg.eval_batches:
                 break
             batch = self._device_batch(batch)
@@ -381,7 +424,10 @@ class Trainer:
             tops += float(eval_fn(batch)['top1']) * bsz
             n += 1
             n_samples += bsz
-        acc = tops / max(n_samples, 1)
+        # across processes weighted by their sample counts, so uneven final
+        # batches do not skew the mean
+        acc = distributed.psum_metrics({'top1': tops / max(n_samples, 1)},
+                                       count=n_samples)['top1']
         self.log.info('eval top-1 %.4f (%d batches)', acc, n)
         return acc
 

@@ -4,7 +4,9 @@ both cores, the folded pool and its requant-in-front form, the one-pass
 min/max, D1's depthwise conv and A1's average pool, with and without the
 requant in front), and the engines, the
 integer conv of the QAT layers, a QAT forward and the Hutchinson HVP on
-the card == on the CPU; a QONNX file's replay == the card engine.
+the card == on the CPU; a QONNX file's replay == the card engine; the
+ServingEngine in a one-process ``nccl`` group == the engine, and two
+``gloo`` ranks sharing the card == one process's train step.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -1964,3 +1966,135 @@ def test_time_per_iter_on_a_cuda_engine(dev):
     for n in (5, None):
         t = time_per_iter(eng, x, n_iters=n, max_iters=64)
         assert 0 < t < 1 and np.isfinite(t)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def test_serving_engine_nccl_world_1(dev):
+    """The ServingEngine in a one-process ``nccl`` group: its replicas'
+    logits (every visible card) == the engine's own call, bit for bit, from
+    ``infer`` and from its batcher; throughput positive."""
+    import functools
+    import torch.distributed as dist
+    from hawq_tpu_torch.parallel import distributed
+    from hawq_tpu_torch.parallel.serving import ServingEngine
+    fm = synthetic_frozen_resnet('tiny18', get_bit_config('tiny18',
+                                                          'uniform8'),
+                                 num_classes=10, seed=2)
+    distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0)
+    try:
+        assert dist.get_backend() == 'nccl'
+        n = torch.cuda.device_count()
+        serving = ServingEngine(functools.partial(build_resnet_engine, fm),
+                                batch_size=4 * n, image_shape=(32, 32, 3))
+        x = np.random.RandomState(0).rand(4 * n, 32, 32, 3).astype(
+            np.float32)
+        want = build_resnet_engine(fm, device=dev)(x).cpu().numpy()
+        np.testing.assert_array_equal(
+            serving.fetch(serving.infer(serving.to_device(x))), want)
+        b = serving.batcher(max_delay_ms=50.0)
+        try:
+            got = np.stack([s.get(timeout=60)
+                            for s in [b.submit(im) for im in x]])
+        finally:
+            b.close()
+        np.testing.assert_array_equal(got, want)
+        assert serving.throughput() > 0
+    finally:
+        dist.destroy_process_group()
+
+
+_CARD_RANK = r'''
+import pickle, sys
+import numpy as np
+import torch
+from hawq_tpu_torch.configs.bit_config import get_bit_config
+from hawq_tpu_torch.models.resnet import QResNet
+from hawq_tpu_torch.parallel import distributed
+from hawq_tpu_torch.parallel import mesh as pmesh
+from hawq_tpu_torch.train import train as ttrain
+distributed.initialize(backend='gloo')
+r = distributed.process_index()
+dev = distributed.local_device('cuda')
+batch = {k: torch.from_numpy(v[4 * r:4 * (r + 1)]).to(dev)
+         for k, v in np.load(sys.argv[1] + '/batch.npz').items()}
+model = QResNet('tiny18', get_bit_config('tiny18', 'uniform8'), 10).to(dev)
+mesh = pmesh.make_mesh(2, 1, dev)
+pmesh.distribute(model, mesh)
+ttrain.make_calibration_step(model)(batch['image'])
+state = ttrain.TrainState.create(model, ttrain.sgd_with_step_decay(model,
+                                                                   1e-2))
+state, m = ttrain.make_train_step(model, folded=True, mesh=mesh)(state,
+                                                                  batch)
+with open(sys.argv[1] + f'/rank{r}.pkl', 'wb') as f:
+    pickle.dump(dict(loss=float(m['loss']), after=state.variables()), f)
+torch.distributed.destroy_process_group()
+'''
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def test_two_ranks_share_the_card_gloo_train_step(dev, tmp_path):
+    """Two processes on one card over ``gloo`` (a data group of two):
+    calibration and a folded tiny18 step == one process's on the global
+    batch on the card: loss within 1e-5 relative, ranges exact, parameters
+    within rtol 1e-5."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from hawq_tpu_torch.models.resnet import qat_to_numpy
+    from hawq_tpu_torch.train import train as ttrain
+    rng = np.random.RandomState(3)
+    np.savez(tmp_path / 'batch.npz',
+             image=rng.randn(8, 32, 32, 3).astype(np.float32),
+             label=rng.randint(0, 10, 8))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', _CARD_RANK, str(tmp_path)], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo,
+                 HAWQ_COORDINATOR=f'127.0.0.1:{port}',
+                 HAWQ_NUM_PROCESSES='2', HAWQ_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail('a rank hung past 180 s')
+        assert p.returncode == 0, out[-3000:]
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in np.load(tmp_path / 'batch.npz').items()}
+    model = QResNet('tiny18', get_bit_config('tiny18', 'uniform8'),
+                    10).to(dev)
+    ttrain.make_calibration_step(model)(batch['image'])
+    state = ttrain.TrainState.create(model, ttrain.sgd_with_step_decay(
+        model, 1e-2))
+    state, m = ttrain.make_train_step(model, folded=True)(state, batch)
+    want = qat_to_numpy(model)
+    for r in range(2):
+        with open(tmp_path / f'rank{r}.pkl', 'rb') as f:
+            got = pickle.load(f)
+        assert abs(got['loss'] - float(m['loss'])) <= 1e-5 * abs(
+            float(m['loss']))
+        stats = dict(_leaves(got['after']['quant_stats']))
+        for path, w in _leaves(want['quant_stats']):
+            np.testing.assert_array_equal(stats[path], w, str(path))
+        params = dict(_leaves(got['after']['params']))
+        for path, w in _leaves(want['params']):
+            np.testing.assert_allclose(params[path], w, rtol=1e-5,
+                                       atol=1e-7, err_msg=str(path))

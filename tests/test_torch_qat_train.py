@@ -535,9 +535,14 @@ def test_trainer_cli_and_refusals(tmp_path):
         assert model.width_div == width_div
     with pytest.raises(ValueError, match='unknown arch'):
         ttrainer.Trainer(ttrainer.TrainerConfig(arch='vgg', **base))
-    with pytest.raises(NotImplementedError):
-        ttrainer.Trainer(ttrainer.TrainerConfig(
-            arch='tiny18', model_parallel=2, **base))
+    # model_parallel with one process: as hawq_tpu on one device, the head
+    # stays whole and the run trains unsharded
+    tr = ttrainer.Trainer(ttrainer.TrainerConfig(
+        arch='tiny18', model_parallel=2, num_classes=10, image_size=32,
+        batch_size=2, steps_per_epoch=1, fix_bn=True, **base))
+    assert tr.mesh is None and tr.model.quant_output.model_group is None
+    assert tuple(tr.model.quant_output.kernel.shape)[1] == 10
+    assert np.isfinite(tr.train_epoch(0))
     # knowledge distillation with a random float teacher
     tr = ttrainer.Trainer(ttrainer.TrainerConfig(
         arch='tiny18', teacher_arch='tiny18', distill_alpha=0.9,
