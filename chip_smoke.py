@@ -234,8 +234,28 @@ non-zero exit and no result line:
     each rank, its rows equal to one engine's; two ``nccl`` ranks on one
     card (refused); with two or more cards one rank a card over ``nccl``;
     a failing or hanging rank fails the run;
-18. a JSON line with phase 16's numbers, one with phase 17's, one with the
-    kernels' numbers, then the result line.
+18. the engine as a saved ``torch.export`` program: ``export_program`` of
+    ResNet-50 uniform8 (float32 images, int32 carrier) b8 224², saved to
+    bytes and loaded in this process and in a fresh ``python -c`` that
+    imports only hawq_tpu_torch, its logits bit-equal to the engine's, its
+    launches (set to 0 just before the call, read just after) per kernel
+    and per core as ``expected_launches`` predicts, the export and load
+    seconds, the archive's bytes, ms/batch of the program and the engine in
+    turns; then ``deploy.main`` with ``--dump-hlo`` on ResNet-50 uniform4
+    (folded input), MobileNetV2 w1 and InceptionV3 w1 uniform8 (299²), the
+    text's operator nodes as each family's prediction, and each family's
+    engine on ``image_dependent(fm)`` (ResNet-50 on folded_int8 int16)
+    exported, saved, loaded and held to the engine the same way;
+19. the ILP's latency LUT on the card: ResNet-18 through ``python -m
+    hawq_tpu_torch.sensitivity.latency_lut`` and ResNet-50 through
+    ``measure_latency_lut``, b8 224², written under chiprun_out/, every ILP
+    key present; the pipeline's latency mode at fraction 0.5 on the
+    published traces with each (ResNet-50 as ``python -m
+    hawq_tpu_torch.sensitivity.pipeline``), which must write a config; the
+    sums of lat4 and lat8;
+20. a JSON line with phase 16's numbers, one with phase 17's, one with
+    phases 18's and 19's, one with the kernels' numbers, then the result
+    line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -4723,6 +4743,348 @@ def parallel_phase(dev, fm, raw):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the engine as a saved torch.export program
+# ---------------------------------------------------------------------------
+
+PROGRAM_ROUNDS = 5        # turns of the loaded program and the engine
+PROGRAM_ITERS = 20        # calls in a timed window of either
+
+# A fresh process that imports nothing but hawq_tpu_torch: it loads the
+# saved program, runs it on the saved images once to warm it and once
+# counted, saves the logits and prints its launches and its imports.
+_FRESH_LOAD = r"""
+import json, sys, time
+import torch
+from hawq_tpu_torch.export.export import load_program
+from hawq_tpu_torch.kernels import _build
+with open(sys.argv[1], 'rb') as f:
+    blob = f.read()
+x = torch.load(sys.argv[2]).cuda()
+t0 = time.perf_counter()
+program = load_program(blob)
+load_s = time.perf_counter() - t0
+program(x)
+torch.cuda.synchronize()
+_build.reset_launches()
+out = program(x)
+torch.cuda.synchronize()
+torch.save(out.cpu(), sys.argv[3])
+print(json.dumps({
+    'load_s': load_s,
+    'launches': {k: v for k, v in _build.LAUNCHES.items() if v},
+    'cores': {k: v for k, v in _build.CORE_LAUNCHES.items() if v},
+    'foreign': sorted(m for m in sys.modules
+                      if m.split('.')[0] in ('jax', 'hawq_tpu'))}))
+"""
+
+
+def counted(fn, x):
+    """(fn(x), launches per kernel, launches per core), the counts set to
+    0 just before the call and read just after."""
+    from hawq_tpu_torch.kernels import _build
+    _build.reset_launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _build.LAUNCHES.items() if v}, \
+        core_launches()
+
+
+def program_check(label, engine, program, x, x2, want, want_cores):
+    """The loaded ``program`` against its ``engine`` on ``x``: logits
+    bit-equal, finite and of the batch's shape, and the launches of each
+    per kernel and per core as predicted (the loaded graph calls the
+    operators, not the wrappers, so only the counts see its launches).
+    Then on ``x2``, another batch of that shape: logits bit-equal to the
+    engine's and unlike those of ``x``, so that the program reads its
+    input and froze nothing of the batch it was traced on."""
+    engine(x)
+    program(x)                               # warm both
+    ref, counts, cores = counted(engine, x)
+    got, p_counts, p_cores = counted(program, x)
+    check(tuple(got.shape) == (x.shape[0], 1000)
+          and bool(torch.isfinite(got).all()),
+          f'phase 18: {label}: program logits {tuple(got.shape)} not finite')
+    check(torch.equal(got, ref), f'phase 18: {label}: the loaded program '
+          f'differs from the engine on {int((got != ref).sum())} logits')
+    check(counts == want and cores == want_cores, f'phase 18: {label}: '
+          f'engine launches {counts} per core {cores}, expected {want} '
+          f'{want_cores}')
+    check(p_counts == want and p_cores == want_cores, f'phase 18: {label}: '
+          f'program launches {p_counts} per core {p_cores}, expected '
+          f'{want} {want_cores}')
+    got2, ref2 = program(x2), engine(x2)
+    check(torch.equal(got2, ref2), f'phase 18: {label}: on a second batch '
+          f'the loaded program differs from the engine on '
+          f'{int((got2 != ref2).sum())} logits')
+    check(not torch.equal(got2, got), f'phase 18: {label}: a second batch '
+          f'gives the first batch\'s logits')
+    return got
+
+
+def turns_ms(fns, x, rounds=PROGRAM_ROUNDS):
+    """ms per call of each of ``fns`` (name → fn(x)), by
+    ``utils.timing.time_per_iter``, in turns (the order reversed every
+    round), the median."""
+    from hawq_tpu_torch.utils.timing import time_per_iter
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(rounds):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            times[k].append(time_per_iter(fns[k], x, n_iters=PROGRAM_ITERS)
+                            * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def saved_and_loaded(engine, x):
+    """``export_engine(engine, x)`` saved to bytes and loaded back →
+    (program, export s, bytes, load s)."""
+    import io
+    from hawq_tpu_torch.export import export as ex
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    torch.export.save(ex.export_engine(engine, x), buf)
+    t1 = time.perf_counter()
+    program = ex.load_program(buf.getvalue())
+    return (program, t1 - t0, len(buf.getvalue()),
+            time.perf_counter() - t1)
+
+
+def dumped_ops(path):
+    """Nodes of each ``hawq`` operator in a ``--dump-hlo`` text."""
+    with open(path) as f:
+        text = f.read()
+    out = {}
+    for op in re.findall(r'torch\.ops\.hawq\.(\w+)\.default\(', text):
+        out[op] = out.get(op, 0) + 1
+    return out, len(text)
+
+
+def program_phase(fms, raw, dev):
+    """Phase 18: ``export_program`` of ResNet-50 uniform8 (float32 images,
+    int32 carrier) at b8 224² on the card, saved to bytes and loaded in this
+    process and in a fresh ``python -c`` that imports only hawq_tpu_torch:
+    logits bit-equal to the engine's, launches per kernel and per core as
+    ``expected_launches`` predicts, ms/batch of the program and the engine
+    in turns.  Then, for ResNet-50 uniform4 (``deploy --input-mode
+    folded_float32``; exported on folded_int8 int16), MobileNetV2 w1
+    uniform8 and InceptionV3 w1 uniform8 299²: ``deploy.main`` with
+    ``--dump-hlo`` (the text's operator nodes as the family's prediction),
+    then the family's engine on ``image_dependent(fm)`` exported, saved,
+    loaded and held to it, on the traced batch and on another
+    (:func:`program_check`) → a record."""
+    from hawq_tpu_torch import deploy
+    from hawq_tpu_torch.configs.bit_config import get_bit_config
+    from hawq_tpu_torch.export import export as ex
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    from hawq_tpu_torch.inference.engine_inception import (
+        build_inceptionv3_engine)
+    from hawq_tpu_torch.inference.engine_mobilenet import (
+        build_mobilenetv2_engine)
+    t_phase = time.perf_counter()
+    rec = {}
+    fm = fms['resnet50', 'uniform8']
+    label = f'resnet50 uniform8 float32 int32 b{BATCH} {SIZE}x{SIZE}'
+    t0 = time.perf_counter()
+    blob = ex.export_program(fm, BATCH, SIZE, device=dev)
+    t1 = time.perf_counter()
+    program = ex.load_program(blob)
+    t2 = time.perf_counter()
+    engine = build_resnet_engine(fm, device=dev)
+    x = torch.from_numpy(raw).to(dev)
+    raw2 = np.random.RandomState(11).randn(*raw.shape).astype(np.float32)
+    want = expected_launches(fm.arch, fm.cfg, 'float32')
+    logits = program_check(label, engine, program, x,
+                           torch.from_numpy(raw2).to(dev), want,
+                           core_split(want))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ('program.pt2', 'x.pt',
+                                                'logits.pt')]
+        with open(paths[0], 'wb') as f:
+            f.write(blob)
+        torch.save(x.cpu(), paths[1])
+        t3 = time.perf_counter()
+        r = subprocess.run([sys.executable, '-c', _FRESH_LOAD, *paths],
+                           cwd=tmp, env={**os.environ, 'PYTHONPATH': REPO},
+                           capture_output=True, text=True, timeout=300)
+        fresh_s = time.perf_counter() - t3
+        check(r.returncode == 0, f'phase 18: the fresh process failed: rc '
+              f'{r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}')
+        fresh = json.loads(r.stdout.strip().splitlines()[-1])
+        fresh_logits = torch.load(paths[2])
+    check(torch.equal(fresh_logits, logits.cpu()), 'phase 18: the program '
+          'loaded in a fresh process differs from the engine')
+    check(fresh['launches'] == want and fresh['cores'] == core_split(want),
+          f'phase 18: fresh process launches {fresh["launches"]} per core '
+          f'{fresh["cores"]}, expected {want}')
+    check(not fresh['foreign'], f'phase 18: the fresh process imported '
+          f'{fresh["foreign"][:5]}')
+    ms = turns_ms({'program': program, 'engine': engine}, x)
+    rec[label] = dict(export_s=t1 - t0, bytes=len(blob), load_s=t2 - t1,
+                      fresh_process_s=fresh_s, fresh_load_s=fresh['load_s'],
+                      program_ms=ms['program'], engine_ms=ms['engine'],
+                      launches=sum(want.values()))
+    log(f'phase 18: {label}: export_program {t1 - t0:.2f} s '
+        f'({len(blob) / 2 ** 20:.1f} MiB), load_program {t2 - t1:.2f} s here '
+        f'and {fresh["load_s"]:.2f} s in a fresh process ({fresh_s:.1f} s '
+        f'with its start, imports: hawq_tpu_torch only); logits bit-equal '
+        f'to the engine in both (here on a second batch too), launches '
+        f'{want} per core '
+        f'{core_split(want)}; ms/batch in turns: program '
+        f'{ms["program"]:.3f}, engine {ms["engine"]:.3f}')
+    del program, engine, blob
+
+    s_raws = [np.random.RandomState(seed).randn(
+        BATCH, INC_SIZE, INC_SIZE, 3).astype(np.float32) for seed in (3, 13)]
+    families = (
+        ('resnet50', 'uniform4',
+         ['--input-mode', 'folded_float32'],
+         lambda fm_d: expected_launches('resnet50', fm_d.cfg,
+                                        'folded_float32'),
+         lambda fm_n: build_resnet_engine(fm_n, input_mode='folded_int8',
+                                          residual_dtype=torch.int16,
+                                          device=dev),
+         lambda fm_n, i: engine_input(fm_n, 'folded_int8', (raw, raw2)[i],
+                                      None, dev),
+         lambda fm_n: (lambda w: (w, core_split(w)))(expected_launches(
+             'resnet50', fm_n.cfg, 'folded_int8')),
+         f'resnet50 uniform4 folded_int8 int16 b{BATCH} {SIZE}x{SIZE}'),
+        ('mobilenetv2', 'uniform8', [],
+         lambda fm_d: expected_mobilenet_launches(fm_d, 'float32').counts,
+         lambda fm_n: build_mobilenetv2_engine(fm_n, device=dev),
+         lambda fm_n, i: torch.from_numpy((raw, raw2)[i]).to(dev),
+         lambda fm_n: (lambda w: (w.counts, w.cores))(
+             expected_mobilenet_launches(fm_n, 'float32')),
+         f'mobilenetv2_w1 uniform8 float32 int32 b{BATCH} {SIZE}x{SIZE}'),
+        ('inceptionv3', 'uniform8', ['--image-size', str(INC_SIZE)],
+         lambda fm_d: expected_inception_launches(fm_d, 'float32').counts,
+         lambda fm_n: build_inceptionv3_engine(fm_n, device=dev),
+         lambda fm_n, i: torch.from_numpy(s_raws[i]).to(dev),
+         lambda fm_n: (lambda w: (w.counts, w.cores))(
+             expected_inception_launches(fm_n, 'float32')),
+         f'inceptionv3 uniform8 float32 int32 b{BATCH} '
+         f'{INC_SIZE}x{INC_SIZE}'))
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, scheme, args, dumped, build, images, predict, label in \
+                families:
+            cfg = get_bit_config(arch, scheme)
+            fm_d = deploy.synthetic_frozen(arch, cfg)
+            path = os.path.join(tmp, f'{arch}.txt')
+            t0 = time.perf_counter()
+            rc, lines = deploy_main(['--arch', arch, '--scheme', scheme,
+                                     '--batch', str(BATCH), '--dump-hlo',
+                                     path] + args)
+            dump_s = time.perf_counter() - t0
+            ops, chars = dumped_ops(path)
+            check(rc == 0 and any(l.startswith('dumped exported program')
+                                  for l in lines),
+                  f'phase 18: deploy --dump-hlo {arch}: rc {rc}, '
+                  f'{lines[-3:]}')
+            check(ops == dumped(fm_d), f'phase 18: deploy --dump-hlo {arch}: '
+                  f'operator nodes {ops}, expected {dumped(fm_d)}')
+            fm_n = image_dependent(fm_d)
+            engine = build(fm_n)
+            x = images(fm_n, 0)
+            program, export_s, n_bytes, load_s = saved_and_loaded(engine, x)
+            want, want_cores = predict(fm_n)
+            program_check(label, engine, program, x, images(fm_n, 1), want,
+                          want_cores)
+            ms = turns_ms({'program': program, 'engine': engine}, x)
+            rec[label] = dict(dump_s=dump_s, dump_chars=chars,
+                              export_s=export_s, bytes=n_bytes, load_s=load_s,
+                              program_ms=ms['program'],
+                              engine_ms=ms['engine'],
+                              launches=sum(want.values()))
+            log(f'phase 18: deploy --dump-hlo '
+                f'{" ".join([arch, scheme] + args)}: {chars} chars, operator '
+                f'nodes {ops} as '
+                f'predicted ({dump_s:.1f} s with the run); {label} on '
+                f'image_dependent(fm): export {export_s:.2f} s '
+                f'({n_bytes / 2 ** 20:.1f} MiB), load {load_s:.2f} s, logits '
+                f'bit-equal to the engine on the traced batch and on '
+                f'another, launches as predicted per kernel '
+                f'and per core; ms/batch in turns: program '
+                f'{ms["program"]:.3f}, engine {ms["engine"]:.3f}')
+            del program, engine
+    log(f'phase 18: {time.perf_counter() - t_phase:.1f} s')
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the ILP's latency LUT measured on the card
+# ---------------------------------------------------------------------------
+
+def lut_phase(dev):
+    """Phase 19: the latency LUTs of ResNet-18 (the CLI, a process of its
+    own) and ResNet-50 (``measure_latency_lut`` here) at b8 224², written
+    under chiprun_out/: every ILP key, lat4 ≤ lat8, both finite and
+    positive; then the pipeline's latency mode at fraction 0.5 on the
+    published traces with each (ResNet-50 through ``python -m
+    hawq_tpu_torch.sensitivity.pipeline``) → a record."""
+    from hawq_tpu_torch.sensitivity import latency_lut as ll
+    from hawq_tpu_torch.sensitivity import pipeline
+    from hawq_tpu_torch.sensitivity.ilp import published_ilp_inputs
+    t_phase = time.perf_counter()
+    rec = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for arch in ('resnet18', 'resnet50'):
+        path = os.path.join(OUT_DIR, f'latency_lut_{arch}_b{BATCH}.json')
+        cfg_path = os.path.join(OUT_DIR, f'{arch}_latency_0.5_generated.json')
+        t0 = time.perf_counter()
+        if arch == 'resnet18':
+            r = subprocess.run(
+                [sys.executable, '-m', 'hawq_tpu_torch.sensitivity.'
+                 'latency_lut', '--arch', arch, '--batch', str(BATCH),
+                 '--image-size', str(SIZE), '--out', path], cwd=REPO,
+                capture_output=True, text=True, timeout=600)
+            check(r.returncode == 0, f'phase 19: the LUT CLI failed: rc '
+                  f'{r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}')
+        else:
+            ll.save_latency_lut(path, ll.measure_latency_lut(
+                arch, BATCH, SIZE, device=dev))
+        lut_s = time.perf_counter() - t0
+        with open(path) as f:
+            device = json.load(f)['_device']
+        lut = ll.load_latency_lut(path)
+        keys = [c.key for c in published_ilp_inputs(arch)]
+        check(sorted(lut) == sorted(keys), f'phase 19: {arch}: LUT keys '
+              f'{len(lut)}, the ILP has {len(keys)}')
+        check(all(np.isfinite(b) and 0 < a <= b for a, b in lut.values()),
+              f'phase 19: {arch}: LUT values out of order')
+        t0 = time.perf_counter()
+        args = ['--arch', arch, '--mode', 'latency', '--fraction', '0.5',
+                '--published-traces', '--latency-lut', path, '--out',
+                cfg_path]
+        if arch == 'resnet50':
+            r = subprocess.run([sys.executable, '-m',
+                                'hawq_tpu_torch.sensitivity.pipeline', *args],
+                               cwd=REPO, capture_output=True, text=True,
+                               timeout=300)
+            check(r.returncode == 0, f'phase 19: the latency mode failed: '
+                  f'rc {r.returncode}\n{r.stderr[-3000:]}')
+        else:
+            with contextlib.redirect_stdout(sys.stderr):
+                pipeline.main(args)
+        ilp_s = time.perf_counter() - t0
+        with open(cfg_path) as f:
+            table = json.load(f)['table']
+        n4 = sum(1 for k in keys if table[k] == 4)
+        lat4 = sum(v[0] for v in lut.values())
+        lat8 = sum(v[1] for v in lut.values())
+        won = sum(1 for a, b in lut.values() if a < b)
+        rec[arch] = dict(lut=os.path.relpath(path, REPO), device=device,
+                         keys=len(lut), sum_lat4_ms=lat4, sum_lat8_ms=lat8,
+                         int4w_faster=won, layers_at_4=n4, lut_s=lut_s,
+                         ilp_s=ilp_s)
+        log(f'phase 19: {arch} b{BATCH}: LUT of {len(lut)} layers on '
+            f'{device} in {lut_s:.1f} s → {os.path.relpath(path, REPO)}: '
+            f'sum lat4 {lat4:.4f} ms, sum lat8 {lat8:.4f} ms, int4w faster '
+            f'at {won} layers; latency 0.5 on the published traces: {n4} of '
+            f'{len(keys)} layers at 4 bits ({ilp_s:.1f} s)')
+    log(f'phase 19: {time.perf_counter() - t_phase:.1f} s')
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch.cuda.is_available() is false; this '
@@ -4912,7 +5274,13 @@ def main():
     # ---- phase 17: parallel and serving across cards ----
     parallel = parallel_phase(dev, fms['resnet50', 'uniform8'], raw)
 
-    # ---- phase 18 ----
+    # ---- phase 18: the engine as a saved torch.export program ----
+    programs = program_phase(fms, raw, dev)
+
+    # ---- phase 19: the ILP's latency LUT on the card ----
+    luts = lut_phase(dev)
+
+    # ---- phase 20 ----
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
@@ -4992,7 +5360,8 @@ def main():
     log(json.dumps({'deploy': {k: v for k, v in deployment.items()
                                if k != 'routed_paths'}}))
     log(json.dumps({'parallel': parallel}, default=str))
-    log(f'phase 18: all phases passed in '
+    log(json.dumps({'program': programs, 'latency_lut': luts}))
+    log(f'phase 20: all phases passed in '
         f'{time.perf_counter() - t_start:.1f} s '
         f'({calls_kept} recorded kernel calls; kernel ms, plain_ms, bound_ms '
         f'and library_ms are totals over one forward, or one train step, of '

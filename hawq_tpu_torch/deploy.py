@@ -5,15 +5,17 @@ artifact, or build one with synthetic weights, and drive it on the card.
       [--classify img.npy] [--time] [--batch 8] \\
       [--capture stage1.unit1.quant_act_int32 --save-capture out.npy] \\
       [--compare golden.npy] [--export-onnx model.onnx] \\
-      [--routing table.json] [--accuracy val_dir] [--device cpu]
+      [--routing table.json] [--accuracy val_dir] [--dump-hlo graph.txt] \\
+      [--device cpu]
 
 With no --frozen, --arch / --scheme build a synthetic-weight model (seed 0).
 The engine runs on the card unless ``--device cpu`` asks for the CPU.  The
 host folds of the folded input modes run ``utils.preproc`` (InceptionV3's
 native where the box has a C++ compiler, ResNet's numpy; the path is
-printed).  ``--conv-mode f32|bf16`` (TPU
-layout options) and ``--dump-hlo`` (the compiled program, which this package
-does not have yet) exit 2 and say why.
+printed).  ``--dump-hlo`` writes the text of the engine's ``torch.export``
+program (``export.export.export_engine``: the engine built here, on the
+batch prepared here), as the JAX package writes its compiled program's.
+``--conv-mode f32|bf16`` (TPU layout options) exit 2 and say why.
 """
 
 from __future__ import annotations
@@ -141,8 +143,8 @@ def main(argv=None) -> int:
     p.add_argument('--max-batches', type=int, default=None)
     p.add_argument('--print-freq', type=int, default=10)
     p.add_argument('--dump-hlo',
-                   help='(the JAX package\'s compiled-program dump; exits 2 '
-                        'here)')
+                   help="write the engine's torch.export graph (its kernels "
+                        "as torch.ops.hawq.* nodes) as text to this path")
     p.add_argument('--input-mode', default='auto',
                    choices=['auto', 'float32', 'folded_float32', 'uint8'],
                    help='engine input path; folded_* folds on host '
@@ -160,10 +162,6 @@ def main(argv=None) -> int:
         return _fail(f'--conv-mode {args.conv_mode} is a TPU layout option '
                      f'(float containers for the TPU\'s convolutions); this '
                      f'package runs its int8 kernels only')
-    if args.dump_hlo:
-        return _fail('--dump-hlo: this package has no compiled engine '
-                     'program yet; it waits for the torch.export program '
-                     '(ROADMAP.md, queue 1, item 5b)')
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         return _fail('no CUDA device: the engine runs on the card; pass '
@@ -249,6 +247,15 @@ def main(argv=None) -> int:
         x = fold_fn(x)
 
     engine = build_engine_for(fm, **kw)
+    xd = torch.from_numpy(np.ascontiguousarray(x)).to(engine.device)
+
+    if args.dump_hlo:
+        from hawq_tpu_torch.export.export import export_engine
+        text = str(export_engine(engine, xd))
+        with open(args.dump_hlo, 'w') as f:
+            f.write(text)
+        print(f'dumped exported program ({len(text)} chars) → '
+              f'{args.dump_hlo}')
 
     if args.accuracy:
         if args.input_mode == 'uint8':
@@ -279,7 +286,6 @@ def main(argv=None) -> int:
                           'images': seen}))
         return 0
 
-    xd = torch.from_numpy(np.ascontiguousarray(x)).to(engine.device)
     out = engine(xd).cpu().numpy()
 
     if args.capture:

@@ -1,5 +1,5 @@
-"""Deployment bundles of a frozen ResNet (port of the bundle half of
-hawq_tpu/export/export.py; numpy only).
+"""Deployment bundles of a frozen ResNet, and the integer engine as a saved
+``torch.export`` program (port of hawq_tpu/export/export.py).
 
 The reference exports trained models to QONNX ONNX graphs with custom
 Quant/Trunc ops for FPGA toolchains (utils/export/manager.py:111-142,
@@ -10,18 +10,32 @@ describing every node — op type, integer tensor refs, dyadic (m, e)
 requant parameters per edge — from which a consumer can reconstruct the
 exact integer computation without float arithmetic.
 
-``hawq_tpu``'s StableHLO export of the compiled engine has no counterpart
-here yet: a ``torch.export`` program would need every kernel wrapper
-registered as a ``torch.library`` custom op with a fake implementation.
+:func:`export_program` / :func:`load_program` stand for ``hawq_tpu``'s
+``export_stablehlo`` / ``load_stablehlo``: the ResNet engine's forward at a
+fixed batch, image size and input mode, traced by ``torch.export`` (every
+kernel an operator ``torch.ops.hawq.*``, ``kernels._build.define_op``) and
+written with ``torch.export.save``; :func:`export_engine` traces any built
+engine (``deploy --dump-hlo``).  Two differences from the StableHLO
+program:
+
+  * a loaded program calls the port's kernels, so ``hawq_tpu_torch``'s
+    kernel modules must be imported where it runs (:func:`load_program`
+    imports them);
+  * it runs as exported, op for op, with no ``run_decompositions()``,
+    ``torch.compile`` or AOTInductor: a compiler may contract the requant's
+    multiply and add into an FMA or turn the true divisions into
+    reciprocals, which flips borderline roundings.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 from typing import Dict
 
 import numpy as np
+import torch
 
 from hawq_tpu_torch.configs.bit_config import (RESNET_UNITS,
                                                RESNET_CONVS_PER_UNIT)
@@ -149,3 +163,57 @@ def export_bundle(path: str, fm: FrozenModel) -> None:
     np.savez(path, **fm.tensors)
     with open(path + '.bundle.json', 'w') as f:
         json.dump(bundle_manifest(fm), f, indent=1)
+
+
+class _EngineModule(torch.nn.Module):
+    """An engine's forward as a module, for ``torch.export``; the engine's
+    weights and multipliers become the program's constants."""
+
+    def __init__(self, engine):
+        super().__init__()
+        self.engine = engine
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.engine(images)
+
+
+def export_engine(engine, images: torch.Tensor
+                  ) -> torch.export.ExportedProgram:
+    """The built engine (any family, input mode, carrier and routing) traced
+    by ``torch.export`` (non-strict) at the shape, dtype and device of
+    ``images``.  The engine runs once on ``images`` first, so that the
+    weights and multipliers it builds at its first call are device tensors
+    before the trace takes them as constants."""
+    engine(images)
+    return torch.export.export(_EngineModule(engine), (images,), strict=False)
+
+
+def export_program(fm: FrozenModel, batch_size: int = 8,
+                   image_size: int = 224, *, device='cuda') -> bytes:
+    """The ResNet engine (``build_resnet_engine(fm)``: float32 images, the
+    int32 carrier, native requant) on ``device``, exported for
+    (batch_size, image_size, image_size, 3) images and saved with
+    ``torch.export.save``; :func:`load_program` loads it.  Stands for
+    ``hawq_tpu``'s ``export_stablehlo`` (module docstring)."""
+    from hawq_tpu_torch.inference.engine import build_resnet_engine
+    engine = build_resnet_engine(fm, device=device)
+    images = torch.zeros((batch_size, image_size, image_size, 3),
+                         dtype=torch.float32, device=engine.device)
+    buf = io.BytesIO()
+    torch.export.save(export_engine(engine, images), buf)
+    return buf.getvalue()
+
+
+def load_program(blob: bytes, device=None):
+    """A program of :func:`export_program` (or a saved
+    :func:`export_engine`) → ``program(images) -> logits``, on the device
+    it was exported on, or moved to ``device``.  Imports the port's kernel
+    modules, whose operators the program calls.  Stands for ``hawq_tpu``'s
+    ``load_stablehlo``."""
+    from hawq_tpu_torch.kernels import (avgpool, conv, depthwise,  # noqa: F401
+                                        matmul, pool)
+    program = torch.export.load(io.BytesIO(blob))
+    if device is not None:
+        from torch.export.passes import move_to_device_pass
+        program = move_to_device_pass(program, torch.device(device))
+    return program.module()

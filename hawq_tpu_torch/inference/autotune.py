@@ -120,12 +120,15 @@ def autotune_routing(fm: FrozenModel, batch: int = 8, image_size: int = 224,
                      verbose: bool = True,
                      checkpoint_path: Optional[str] = None,
                      device='cuda', n_iters: int = N_ITERS,
-                     rounds: int = ROUNDS) -> Dict:
+                     rounds: int = ROUNDS,
+                     timer: Optional[Callable] = None) -> Dict:
     """Time every routable unit conv of a ResNet v1 with each of its routes
     on ``device`` (the card by default), through the engine's own conv
     routes on random int8 inputs of the conv's shape at ``batch``; return
     the table (module docstring).  With ``checkpoint_path`` the table is
-    written after every site, and a table there already resumes the sweep."""
+    written after every site, and a table there already resumes the sweep.
+    ``timer(fns, x)`` → seconds per call of each route, in place of
+    :func:`time_candidates` (tests)."""
     from hawq_tpu_torch.configs.bit_config import RESNET_CONVS_PER_UNIT
     from hawq_tpu_torch.inference.engine import (build_resnet_engine,
                                                  engine_device)
@@ -135,6 +138,9 @@ def autotune_routing(fm: FrozenModel, batch: int = 8, image_size: int = 224,
                                       device=device)
                for r in ('int8', 'int4w')}
     bottleneck = RESNET_CONVS_PER_UNIT[fm.arch] == 3
+    if timer is None:
+        def timer(fns, x):
+            return time_candidates(fns, x, n_iters, rounds)
     rng = np.random.RandomState(0)
     table = _resume(checkpoint_path, device, batch)
     for key, h, stride, kh, cin, cout, bits in convs:
@@ -153,8 +159,7 @@ def autotune_routing(fm: FrozenModel, batch: int = 8, image_size: int = 224,
             return lambda xi: conv(xi, key, stride, mult)
         fns = {r: site(engines[r]) for r in (('int8', 'int4w') if bits == 4
                                              else ('int8',))}
-        _record(table, key, time_candidates(fns, x, n_iters, rounds),
-                checkpoint_path, verbose)
+        _record(table, key, timer(fns, x), checkpoint_path, verbose)
     return table
 
 

@@ -14,6 +14,18 @@ points (csrc/*_sm90.cu) also encode TMA tensor maps, with libcuda's
 the library links against the CUDA runtime alone.  The wrappers also count
 their launches in :data:`LAUNCHES`, so a run can show that a path (the
 engine's, the trainer's) went through the kernels.
+
+Each kernel that an engine launches is also a ``torch.library`` operator in
+the ``hawq`` namespace (:func:`define_op`; ``torch.ops.hawq.<wrapper name>``),
+so that ``torch.export`` can trace an engine and a saved program can call the
+kernels again (``export.export.export_program``).  An operator takes tensors,
+ints, floats and bools only; its CUDA implementation is the wrapper's launch
+(the core, the tile and the tensor map chosen there, from the real
+pointers), its CPU implementation the plain version, its fake implementation
+the output's shape and dtype.  An eager call on a plain CPU or CUDA tensor
+runs the implementation without the dispatcher's cost (:class:`Op`).
+Registering the operators builds nothing: the library is compiled at the
+first launch.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import time
 from typing import Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
@@ -67,6 +80,9 @@ _SIGNATURES = {
 LAUNCHES: Dict[str, int] = {}
 CORE_LAUNCHES: Dict[str, int] = {}
 
+# The ``hawq`` operator namespace; the operators live as long as this object.
+OPS = torch.library.Library('hawq', 'DEF')
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -84,6 +100,68 @@ def count(name: str, core: Optional[str] = None) -> None:
     if core is not None:
         key = f'{name}@{core}'
         CORE_LAUNCHES[key] = CORE_LAUNCHES.get(key, 0) + 1
+
+
+class Op:
+    """A ``hawq`` operator (``overload``, ``torch.ops.hawq.<name>.default``)
+    and its CPU and CUDA implementations.  A call whose first argument is a
+    plain CPU or CUDA tensor, with no dispatch mode active and nothing
+    compiling, runs the implementation directly: the dispatcher's trip
+    through Python kernels costs more host time than the launch itself
+    (PERF.md §6; ``chip_op_dispatch.py`` measures it).  Every other
+    call, a traced one among them, goes through the dispatcher, so that
+    ``torch.export`` records the operator."""
+
+    __slots__ = ('overload', 'cpu', 'cuda')
+
+    def __init__(self, overload, cpu, cuda):
+        self.overload, self.cpu, self.cuda = overload, cpu, cuda
+
+    def __call__(self, x, *args):
+        if (type(x) is torch.Tensor and not _dispatch_modes()
+                and not torch.compiler.is_compiling()):
+            if x.is_cuda:
+                return self.cuda(x, *args)
+            if x.is_cpu:
+                return self.cpu(x, *args)
+        return self.overload(x, *args)
+
+
+_dispatch_modes = torch._C._len_torch_dispatch_stack
+
+
+def define_op(schema: str, cpu, cuda, fake) -> Op:
+    """Define ``hawq::<schema>`` with its CPU, CUDA and fake implementations
+    and return it (:class:`Op`).  Every operator allocates its output (no
+    argument is mutated or aliased); its first argument is a tensor."""
+    name = schema.split('(', 1)[0]
+    OPS.define(schema)
+    OPS.impl(name, cpu, 'CPU')
+    OPS.impl(name, cuda, 'CUDA')
+
+    def traced(t, *args):
+        # the fake implementation also serves the meta device, and a meta
+        # tensor has no kernel, as any device but the CPU and the card
+        if not is_fake(t):
+            kernel_device(t)
+        return fake(t, *args)
+    torch.library.register_fake(f'hawq::{name}', traced, lib=OPS)
+    return Op(getattr(torch.ops.hawq, name).default, cpu, cuda)
+
+
+def opt_int(v: Optional[int]) -> int:
+    """An optional int as an operator argument: None is -1."""
+    return -1 if v is None else int(v)
+
+
+def from_opt_int(v: int) -> Optional[int]:
+    return None if v < 0 else v
+
+
+def opt_ints(values) -> list:
+    """An optional tuple of ints (a tile plan) as an operator argument: None
+    is []."""
+    return [] if values is None else [int(v) for v in values]
 
 
 def _nvcc() -> str:

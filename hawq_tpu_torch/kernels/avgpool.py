@@ -19,7 +19,10 @@ The kernel walks output tiles (:func:`avgpool_plan` picks them), each
 staged once with its halo in shared memory and requantized there; a thread
 owns one output column and 4 channels (or one) of a tile and slides a
 3-row window of row 3-sums down it.  :func:`avgpool_walk_plain` walks the
-same tiles in torch integer ops on the CPU.
+same tiles in torch integer ops on the CPU.  Both forms run as the
+operators ``torch.ops.hawq.<wrapper name>`` (:data:`OPS`;
+``_build.define_op``), the plan as ints, or none for the rule's, chosen at
+launch from the pointer.
 """
 
 from __future__ import annotations
@@ -241,26 +244,9 @@ def _check_mult(what, mult, c, dev):
     return int(per_channel)
 
 
-def int_avgpool3x3_requant(x: torch.Tensor, mult: torch.Tensor, *,
-                           out_bits: int, signed: bool,
-                           in_mult: Optional[torch.Tensor] = None,
-                           in_bits: Optional[int] = None,
-                           in_signed: Optional[bool] = None,
-                           plan: Optional[AvgPlan] = None) -> torch.Tensor:
-    """(B, H, W, C) int32, int16 or int8 NHWC → the 3×3/s1/p1 integer average
-    pool (divisor 9 at the border too), requantized with ``mult`` (a
-    float32 scalar or (C,) vector of dyadic multipliers) to ``out_bits``
-    ≤ 8 → (B, H, W, C) int8.  With ``in_mult`` (the same kinds), x is
-    first requantized to ``in_bits`` ≤ 16 (``in_signed``): the pool
-    branch's input requant, fused.  ``plan``: the kernel's tile, where not
-    :func:`avgpool_plan`'s (tests and timings)."""
+def _avgpool_requant_cuda(x, mult, out_bits, signed, in_mult, in_bits,
+                          in_signed, plan) -> torch.Tensor:
     name = 'int_avgpool3x3_requant'
-    if in_mult is not None and (in_bits is None or in_signed is None):
-        raise ValueError(f'{name}: in_mult needs in_bits and in_signed')
-    if x.device.type == 'cpu':
-        return avgpool3x3_requant_plain(x, mult, out_bits, signed,
-                                        in_mult=in_mult, in_bits=in_bits,
-                                        in_signed=in_signed)
     dev = _build.kernel_device(x)
     if x.dim() != 4 or x.dtype not in _IN_CODES:
         raise ValueError(f'{name}: x must be (B, H, W, C) int32, int16 or '
@@ -279,7 +265,7 @@ def int_avgpool3x3_requant(x: torch.Tensor, mult: torch.Tensor, *,
         in_stride = _check_mult('in_mult', in_mult, c, dev)
         in_lo, in_hi = qops.requant_clip_bounds(in_bits, in_signed)
     out = torch.empty((b, h, w, c), dtype=torch.int8, device=dev)
-    plan = call_plan(x, plan)
+    plan = call_plan(x, AvgPlan(*plan) if plan else None)
     with torch.cuda.device(dev):
         code = _build.lib().hawq_avgpool3x3_requant(
             x.data_ptr(), None if in_mult is None else in_mult.data_ptr(),
@@ -291,6 +277,68 @@ def int_avgpool3x3_requant(x: torch.Tensor, mult: torch.Tensor, *,
     return out
 
 
+def _avgpool_cuda(x, plan) -> torch.Tensor:
+    name = 'int_avgpool3x3'
+    dev = _build.kernel_device(x)
+    if x.dim() != 4 or x.dtype not in _IN_CODES:
+        raise ValueError(f'{name}: x must be (B, H, W, C) int32, int16 or '
+                         f'int8, got {x.dtype}{tuple(x.shape)}')
+    b, h, w, c = x.shape
+    _build.require(x, 'x', x.dtype, (b, h, w, c), dev)
+    out = torch.empty((b, h, w, c), dtype=torch.int32, device=dev)
+    plan = call_plan(x, AvgPlan(*plan) if plan else None)
+    with torch.cuda.device(dev):
+        code = _build.lib().hawq_avgpool3x3(
+            x.data_ptr(), out.data_ptr(), b, h, w, c, _IN_CODES[x.dtype],
+            *plan, _build.stream_ptr(dev))
+    _build.check(code, name)
+    _build.count(name, 'cuda')
+    return out
+
+
+def _avgpool_requant_plain(x, mult, out_bits, signed, in_mult, in_bits,
+                           in_signed, plan) -> torch.Tensor:
+    if in_mult is None:
+        in_bits = in_signed = None
+    return avgpool3x3_requant_plain(x, mult, out_bits, signed,
+                                    in_mult=in_mult, in_bits=in_bits,
+                                    in_signed=in_signed)
+
+
+OPS = {
+    'int_avgpool3x3_requant': _build.define_op(
+        'int_avgpool3x3_requant(Tensor x, Tensor mult, int out_bits, '
+        'bool signed, Tensor? in_mult, int in_bits, bool in_signed, '
+        'int[] plan) -> Tensor',
+        _avgpool_requant_plain, _avgpool_requant_cuda,
+        lambda x, *_: x.new_empty(x.shape, dtype=torch.int8)),
+    'int_avgpool3x3': _build.define_op(
+        'int_avgpool3x3(Tensor x, int[] plan) -> Tensor',
+        lambda x, plan: avgpool3x3_plain(x), _avgpool_cuda,
+        lambda x, plan: x.new_empty(x.shape, dtype=torch.int32))}
+
+
+def int_avgpool3x3_requant(x: torch.Tensor, mult: torch.Tensor, *,
+                           out_bits: int, signed: bool,
+                           in_mult: Optional[torch.Tensor] = None,
+                           in_bits: Optional[int] = None,
+                           in_signed: Optional[bool] = None,
+                           plan: Optional[AvgPlan] = None) -> torch.Tensor:
+    """(B, H, W, C) int32, int16 or int8 NHWC → the 3×3/s1/p1 integer average
+    pool (divisor 9 at the border too), requantized with ``mult`` (a
+    float32 scalar or (C,) vector of dyadic multipliers) to ``out_bits``
+    ≤ 8 → (B, H, W, C) int8.  With ``in_mult`` (the same kinds), x is
+    first requantized to ``in_bits`` ≤ 16 (``in_signed``): the pool
+    branch's input requant, fused.  ``plan``: the kernel's tile, where not
+    :func:`avgpool_plan`'s (tests and timings)."""
+    if in_mult is not None and (in_bits is None or in_signed is None):
+        raise ValueError('int_avgpool3x3_requant: in_mult needs in_bits and '
+                         'in_signed')
+    return OPS['int_avgpool3x3_requant'](
+        x, mult, int(out_bits), bool(signed), in_mult,
+        _build.opt_int(in_bits), bool(in_signed), _build.opt_ints(plan))
+
+
 def int_avgpool3x3(x: torch.Tensor, *,
                    plan: Optional[AvgPlan] = None) -> torch.Tensor:
     """(B, H, W, C) int32, int16 or int8 NHWC → the 3×3/s1/p1 integer average
@@ -299,21 +347,4 @@ def int_avgpool3x3(x: torch.Tensor, *,
     requant: A1's quotient form, the same kernel and tile rule as
     :func:`int_avgpool3x3_requant`.  ``plan``: the kernel's tile, where not
     :func:`avgpool_plan`'s (tests and timings)."""
-    name = 'int_avgpool3x3'
-    if x.device.type == 'cpu':
-        return avgpool3x3_plain(x)
-    dev = _build.kernel_device(x)
-    if x.dim() != 4 or x.dtype not in _IN_CODES:
-        raise ValueError(f'{name}: x must be (B, H, W, C) int32, int16 or '
-                         f'int8, got {x.dtype}{tuple(x.shape)}')
-    b, h, w, c = x.shape
-    _build.require(x, 'x', x.dtype, (b, h, w, c), dev)
-    out = torch.empty((b, h, w, c), dtype=torch.int32, device=dev)
-    plan = call_plan(x, plan)
-    with torch.cuda.device(dev):
-        code = _build.lib().hawq_avgpool3x3(
-            x.data_ptr(), out.data_ptr(), b, h, w, c, _IN_CODES[x.dtype],
-            *plan, _build.stream_ptr(dev))
-    _build.check(code, name)
-    _build.count(name, 'cuda')
-    return out
+    return OPS['int_avgpool3x3'](x, _build.opt_ints(plan))

@@ -25,6 +25,10 @@ slab, and the weights are the K-major layout of ``matmul.prepare_weights``
 each call); the int4 forms keep them nibble-packed in device memory and
 unpack them inside the kernel.  :func:`conv_acc_tiled_plain` is the plain
 version of that walk, :func:`conv_requant_tiled_plain` its requant.
+
+The four run as the operators ``torch.ops.hawq.<wrapper name>`` (:data:`OPS`,
+as ``matmul.OPS``): the core, the border's zero fill and the tile are chosen
+at launch, from the real pointers.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
-from hawq_tpu_torch.kernels.matmul import (SM90_K_ALIGN, SM90_TILE_M,
-                                           PreparedWeights,
-                                           epilogue_bounds, pack_int4,
-                                           pick_core, prepare_weights,
+from hawq_tpu_torch.kernels.matmul import (_CORE_NAMES, SM90_K_ALIGN,
+                                           SM90_TILE_M, PreparedWeights,
+                                           core_code, epilogue_bounds,
+                                           pack_int4, pick_core,
+                                           prepare_weights,
                                            prepare_weights_int4,
                                            requant_epilogue, sm90_tile_n,
                                            sm_count, unpack_int4,
@@ -430,52 +435,120 @@ def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
     return out
 
 
-def _conv(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi, pad,
-          core, tile_n, smem_extra):
-    """The four convs (``mult`` None for the accumulator forms): the plain
-    version (of the Hopper core's walk for a handle) on a CPU tensor, else
-    the core the rule, or ``core``, names."""
+def _handle(w, cpad, row_taps, taps, cin, int4) -> PreparedWeights:
+    """The handle whose ``wt`` is ``w``, for a call of ``taps`` taps of
+    ``cin`` channels read in rows of ``row_taps``."""
+    return PreparedWeights(w, taps[0] * taps[1] // row_taps, cin * row_taps,
+                           cpad, int4, row_taps)
+
+
+def _conv_plain(name, xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
+                out_hw, cin, pad) -> torch.Tensor:
+    """The four convs' CPU implementation (``mult`` None for the
+    accumulator forms): the plain version, or where ``cpad`` is not 0
+    (``w`` a handle's K-major ``wt``) that of the Hopper core's walk, on the
+    input padded first."""
+    int4 = name.startswith('int4w')
+    taps, out_hw, pad = tuple(taps), tuple(out_hw), tuple(pad)
+    if pad != (0, 0):
+        xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
+    geo = dict(taps=taps, out_hw=out_hw, cin=cin)
+    if cpad:
+        acc = conv_acc_tiled_plain(
+            xp, _handle(w, cpad, row_taps, taps, cin, int4), bias, **geo)
+    else:
+        if int4:
+            w = unpack_int4_conv(w, taps[0] * taps[1])
+        acc = conv_acc_plain(xp, w, bias, **geo)
+    return requant_epilogue(acc, mult, lo, hi) if mult is not None else acc
+
+
+def _conv_cuda(name, xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
+               out_hw, cin, pad, core, tile_n, smem_extra) -> torch.Tensor:
+    """The four convs' CUDA implementation: the core the rule, or ``core``,
+    names for these pointers; the first core on the input padded first, the
+    Hopper core on the handle's layout (``cpad`` not 0) or on plain weights
+    laid out here."""
     int4 = name.startswith('int4w')
     requant = mult is not None
-    n_taps = taps[0] * taps[1]
-    pad = (int(pad[0]), int(pad[1]))
-    prepared = weights if isinstance(weights, PreparedWeights) else None
-    if prepared is not None:
-        prepared.check(n_taps, cin, name)
-        if prepared.row_taps > 1 and (prepared.row_taps != taps[1] or pad[1]):
-            raise ValueError(f'{name}: weights prepared to read rows of '
-                             f'{prepared.row_taps} taps, the call has '
-                             f'{taps[1]} a row and a border of {pad[1]}')
-    core = None if xp.device.type == 'cpu' else pick_core(
-        'conv' if requant else 'conv_acc', name, core, k=cin,
-        n=prepared.n if prepared is not None else weights.shape[1],
-        ptr=xp.data_ptr())
+    taps, out_hw, pad = tuple(taps), tuple(out_hw), tuple(pad)
+    prepared = _handle(w, cpad, row_taps, taps, cin, int4) if cpad else None
+    core = pick_core('conv' if requant else 'conv_acc', name,
+                     _CORE_NAMES[core], k=cin,
+                     n=w.shape[0] if cpad else w.shape[1], ptr=xp.data_ptr())
     if pad != (0, 0) and core != 'sm90':
         xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
         pad = (0, 0)
-    if xp.device.type == 'cpu':
-        geo = dict(taps=taps, out_hw=out_hw, cin=cin)
-        if prepared is not None:
-            acc = conv_acc_tiled_plain(xp, prepared, bias, **geo)
-        else:
-            if int4:
-                weights = unpack_int4_conv(weights, n_taps)
-            acc = conv_acc_plain(xp, weights, bias, **geo)
-        return requant_epilogue(acc, mult, lo, hi) if requant else acc
     if core == 'mma':
         if prepared is not None:
-            weights = unprepare_weights(prepared)
-        return _launch(xp, weights, bias, mult, taps, out_hw, cin, lo, hi,
+            w = unprepare_weights(prepared)
+        return _launch(xp, w, bias, mult, taps, out_hw, cin, lo, hi,
                        requant, int4)
     if prepared is None:
         if int4 and cin % 2:
             raise ValueError(f'{name} needs an even C per tap, got {cin}')
-        _build.require(weights, 'w_packed' if int4 else 'w_flat', torch.int8,
-                       (n_taps * (cin // 2 if int4 else cin),
-                        weights.shape[1]), xp.device)
-        prepared = prepare_conv_weights(weights, taps, cin, pad, int4)
+        _build.require(w, 'w_packed' if int4 else 'w_flat', torch.int8,
+                       (taps[0] * taps[1] * (cin // 2 if int4 else cin),
+                        w.shape[1]), xp.device)
+        prepared = prepare_conv_weights(w, taps, cin, pad, int4)
     return _launch_sm90(name, xp, prepared, bias, mult, taps, out_hw, cin, lo,
-                        hi, pad, tile_n, smem_extra)
+                        hi, pad, _build.from_opt_int(tile_n), smem_extra)
+
+
+def _define_conv(name: str):
+    """``hawq::<name>(xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
+    out_hw, cin, pad, core, tile_n, smem_extra)``: ``cpad`` 0 for plain
+    weights, else with ``row_taps`` the handle whose ``wt`` is ``w``;
+    ``mult`` None (``lo``, ``hi`` 0) for the accumulator forms; ``core`` a
+    ``matmul.CORE_CODES`` value; ``tile_n`` −1 for the rule's."""
+    requant = name.endswith('_requant')
+
+    def cpu(xp, w, cpad, row_taps, bias, mult, lo, hi, taps, out_hw, cin,
+            pad, core, tile_n, smem_extra):
+        return _conv_plain(name, xp, w, cpad, row_taps, bias, mult, lo, hi,
+                           taps, out_hw, cin, pad)
+
+    def cuda(xp, w, cpad, row_taps, bias, mult, lo, hi, taps, out_hw, cin,
+             pad, core, tile_n, smem_extra):
+        return _conv_cuda(name, xp, w, cpad, row_taps, bias, mult, lo, hi,
+                          taps, out_hw, cin, pad, core, tile_n, smem_extra)
+
+    def fake(xp, w, cpad, row_taps, bias, mult, lo, hi, taps, out_hw, cin,
+             pad, core, tile_n, smem_extra):
+        return xp.new_empty((xp.shape[0], out_hw[0] * out_hw[1],
+                             w.shape[0] if cpad else w.shape[1]),
+                            dtype=torch.int8 if requant else torch.int32)
+    return _build.define_op(
+        f'{name}(Tensor xp, Tensor w, int cpad, int row_taps, Tensor bias, '
+        f'Tensor? mult, int lo, int hi, int[] taps, int[] out_hw, int cin, '
+        f'int[] pad, int core, int tile_n, int smem_extra) -> Tensor',
+        cpu, cuda, fake)
+
+
+OPS = {name: _define_conv(name) for name in (
+    'int8_conv_requant', 'int8_conv_acc', 'int4w_conv_requant',
+    'int4w_conv_acc')}
+
+
+def _conv(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi, pad,
+          core, tile_n, smem_extra):
+    """The four convs (``mult`` None for the accumulator forms) through
+    their operators: a handle taken apart into its ``wt``, padded C and row
+    taps, the geometry and options into ints."""
+    n_taps = taps[0] * taps[1]
+    pad = (int(pad[0]), int(pad[1]))
+    cpad, row_taps = 0, 1
+    if isinstance(weights, PreparedWeights):
+        weights.check(n_taps, cin, name)
+        if weights.row_taps > 1 and (weights.row_taps != taps[1] or pad[1]):
+            raise ValueError(f'{name}: weights prepared to read rows of '
+                             f'{weights.row_taps} taps, the call has '
+                             f'{taps[1]} a row and a border of {pad[1]}')
+        weights, cpad, row_taps = weights.wt, weights.cpad, weights.row_taps
+    return OPS[name](xp, weights, cpad, row_taps, bias, mult, lo, hi,
+                     [int(t) for t in taps], [int(v) for v in out_hw],
+                     int(cin), list(pad), core_code(name, core),
+                     _build.opt_int(tile_n), smem_extra)
 
 
 def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,

@@ -13,7 +13,10 @@ rectangle and its halo staged in shared memory; a thread takes 4 channels
 (one 32-bit word of a pixel) or one, and P output pixels along a row, and
 adds each kernel row's three taps with one ``dp4a`` over channel-transposed
 column words.  :func:`dwconv_walk_plain` walks the same tiles, byte
-selections and ``dp4a`` groupings in torch integer ops on the CPU.
+selections and ``dp4a`` groupings in torch integer ops on the CPU.  Both
+forms run as the operators ``torch.ops.hawq.<wrapper name>`` (:data:`OPS`;
+``_build.define_op``), the plan as six ints, or none for the rule's, chosen
+at launch from the pointers.
 
 Layouts are the frozen model's: x (B, H, W, C) int8 NHWC, w (3, 3, 1, C)
 int8 HWIO, bias (C,) int32; the output is (B, ⌊(H−1)/s⌋+1, ⌊(W−1)/s⌋+1, C).
@@ -297,21 +300,14 @@ def call_plan(x8: torch.Tensor, w8: torch.Tensor, out: torch.Tensor,
     return DwPlan(*plan)
 
 
-def int8_dwconv_acc(x8: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
-                    *, stride: int,
-                    plan: Optional[DwPlan] = None) -> torch.Tensor:
-    """Depthwise 3×3 conv, pad 1, → int32 accumulator + bias (the QAT
-    forward's grouped conv).  ``plan``: the kernel's tile, where not
-    :func:`dw_plan`'s (tests and timings)."""
-    if x8.device.type == 'cpu':
-        return dwconv_acc_plain(x8, w8, bias, stride)
+def _dwconv_acc_cuda(x8, w8, bias, stride, plan) -> torch.Tensor:
     name = 'int8_dwconv_acc'
     dev = _build.kernel_device(x8)
     c = _check(name, x8, w8, bias, stride, dev)
     b, h, w, _ = x8.shape
     out = torch.empty((b, *dw_output_hw(h, w, stride), c), dtype=torch.int32,
                       device=dev)
-    plan = call_plan(x8, w8, out, stride, plan)
+    plan = call_plan(x8, w8, out, stride, DwPlan(*plan) if plan else None)
     with torch.cuda.device(dev):
         code = _build.lib().hawq_dwconv_acc(
             x8.data_ptr(), w8.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
@@ -321,16 +317,8 @@ def int8_dwconv_acc(x8: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def int8_dwconv_requant(x8: torch.Tensor, w8: torch.Tensor,
-                        bias: torch.Tensor, hi6: torch.Tensor,
-                        mult: torch.Tensor, *, stride: int, lo: float,
-                        hi: float,
-                        plan: Optional[DwPlan] = None) -> torch.Tensor:
-    """The accumulator of :func:`int8_dwconv_acc` clamped to [0, hi6[c]]
-    (ReLU6 on the integer side; hi6 (C,) int32) and requantized to int8 with
-    mult (C,) float32: clip(floor(f32(acc)·mult + 0.5), lo, hi)."""
-    if x8.device.type == 'cpu':
-        return dwconv_requant_plain(x8, w8, bias, hi6, mult, stride, lo, hi)
+def _dwconv_requant_cuda(x8, w8, bias, hi6, mult, stride, lo, hi,
+                         plan) -> torch.Tensor:
     name = 'int8_dwconv_requant'
     dev = _build.kernel_device(x8)
     c = _check(name, x8, w8, bias, stride, dev)
@@ -341,7 +329,7 @@ def int8_dwconv_requant(x8: torch.Tensor, w8: torch.Tensor,
     b, h, w, _ = x8.shape
     out = torch.empty((b, *dw_output_hw(h, w, stride), c), dtype=torch.int8,
                       device=dev)
-    plan = call_plan(x8, w8, out, stride, plan)
+    plan = call_plan(x8, w8, out, stride, DwPlan(*plan) if plan else None)
     with torch.cuda.device(dev):
         code = _build.lib().hawq_dwconv_requant(
             x8.data_ptr(), w8.data_ptr(), bias.data_ptr(), hi6.data_ptr(),
@@ -350,3 +338,49 @@ def int8_dwconv_requant(x8: torch.Tensor, w8: torch.Tensor,
     _build.check(code, name)
     _build.count(name, 'cuda')
     return out
+
+
+def _dw_out(x8: torch.Tensor, stride: int, dtype: torch.dtype):
+    b, h, w, c = x8.shape
+    return x8.new_empty((b, *dw_output_hw(h, w, stride), c), dtype=dtype)
+
+
+OPS = {
+    'int8_dwconv_acc': _build.define_op(
+        'int8_dwconv_acc(Tensor x8, Tensor w8, Tensor bias, int stride, '
+        'int[] plan) -> Tensor',
+        lambda x8, w8, bias, stride, plan: dwconv_acc_plain(x8, w8, bias,
+                                                            stride),
+        _dwconv_acc_cuda,
+        lambda x8, w8, bias, stride, plan: _dw_out(x8, stride, torch.int32)),
+    'int8_dwconv_requant': _build.define_op(
+        'int8_dwconv_requant(Tensor x8, Tensor w8, Tensor bias, Tensor hi6, '
+        'Tensor mult, int stride, float lo, float hi, int[] plan) -> Tensor',
+        lambda x8, w8, bias, hi6, mult, stride, lo, hi, plan:
+        dwconv_requant_plain(x8, w8, bias, hi6, mult, stride, lo, hi),
+        _dwconv_requant_cuda,
+        lambda x8, w8, bias, hi6, mult, stride, lo, hi, plan:
+        _dw_out(x8, stride, torch.int8))}
+
+
+def int8_dwconv_acc(x8: torch.Tensor, w8: torch.Tensor, bias: torch.Tensor,
+                    *, stride: int,
+                    plan: Optional[DwPlan] = None) -> torch.Tensor:
+    """Depthwise 3×3 conv, pad 1, → int32 accumulator + bias (the QAT
+    forward's grouped conv).  ``plan``: the kernel's tile, where not
+    :func:`dw_plan`'s (tests and timings)."""
+    return OPS['int8_dwconv_acc'](x8, w8, bias, int(stride),
+                                  _build.opt_ints(plan))
+
+
+def int8_dwconv_requant(x8: torch.Tensor, w8: torch.Tensor,
+                        bias: torch.Tensor, hi6: torch.Tensor,
+                        mult: torch.Tensor, *, stride: int, lo: float,
+                        hi: float,
+                        plan: Optional[DwPlan] = None) -> torch.Tensor:
+    """The accumulator of :func:`int8_dwconv_acc` clamped to [0, hi6[c]]
+    (ReLU6 on the integer side; hi6 (C,) int32) and requantized to int8 with
+    mult (C,) float32: clip(floor(f32(acc)·mult + 0.5), lo, hi)."""
+    return OPS['int8_dwconv_requant'](x8, w8, bias, hi6, mult, int(stride),
+                                      float(lo), float(hi),
+                                      _build.opt_ints(plan))

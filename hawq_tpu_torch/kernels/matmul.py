@@ -22,12 +22,20 @@ for nibble-packed weights, which stay packed and are unpacked inside the
 kernel) lays them out once (the engine caches the handle); a wrapper handed
 plain weights lays them out on the device at each call.
 :data:`_build.CORE_LAUNCHES` counts the launches of each core.
+
+The four matmuls run as the operators ``torch.ops.hawq.<wrapper name>``
+(:data:`OPS`; ``_build.define_op``): the wrapper takes a handle apart into
+its ``wt`` and padded K and its options into ints, and the operator picks
+the core and the tile at launch.  The K-blocked matmul, on no engine's path,
+stays a plain call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -142,11 +150,12 @@ class PreparedWeights:
     unpacks 16 packed bytes into two whole 16-byte units of its int8 tile.
     With ``row_taps`` > 1 (a conv's, ``conv.prepare_conv_weights``) each of
     the kernel's ``taps`` is a row of ``row_taps`` conv taps, read as one
-    pixel of ``cin`` = row_taps·C channels.  On a CUDA device the handle
-    also keeps the encoded TMA tensor map of ``wt`` per tile shape."""
+    pixel of ``cin`` = row_taps·C channels.  A launch encodes the TMA
+    tensor map of ``wt`` (:func:`weight_map`, cached by pointer and
+    geometry), so the kernels' operators take the handle as ``wt`` and its
+    ints alone."""
 
-    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', 'int4', 'row_taps',
-                 '_maps')
+    __slots__ = ('wt', 'taps', 'cin', 'cpad', 'n', 'int4', 'row_taps')
 
     def __init__(self, wt: torch.Tensor, taps: int, cin: int, cpad: int,
                  int4: bool = False, row_taps: int = 1):
@@ -154,7 +163,6 @@ class PreparedWeights:
         self.n = wt.shape[0]
         self.int4 = int4
         self.row_taps = row_taps
-        self._maps: Dict[Tuple[int, int], ctypes.Array] = {}
 
     @property
     def k(self) -> int:
@@ -198,15 +206,39 @@ class PreparedWeights:
     def tensor_map(self, tile_n: int) -> ctypes.Array:
         """The 128-byte CUtensorMap of ``wt`` for boxes of tile_k channels ×
         tile_n rows."""
-        key = (self.tile_k, tile_n)
-        if key not in self._maps:
-            buf = ctypes.create_string_buffer(128)
-            code = _build.lib().hawq_sm90_weight_map(
-                buf, self.wt.data_ptr(), self.n, self.row_bytes,
-                self.tile_k // (2 if self.int4 else 1), tile_n)
-            _build.check(code, 'hawq_sm90_weight_map')
-            self._maps[key] = buf
-        return self._maps[key]
+        return weight_map(self.wt.data_ptr(), self.n, self.row_bytes,
+                          self.tile_k // (2 if self.int4 else 1), tile_n)
+
+
+# Encoded tensor maps by (pointer, rows, row bytes, box bytes, box rows),
+# everything a map holds: a map is the same for any tensor at that address
+# with that geometry, so a loaded program's weights and an engine's share
+# one.  The oldest are dropped past WEIGHT_MAPS_KEPT (a training step lays
+# out new weights at each call); a launch keeps its own reference to the
+# map it passes.
+_WEIGHT_MAPS: 'OrderedDict[Tuple[int, ...], ctypes.Array]' = OrderedDict()
+_WEIGHT_MAPS_LOCK = threading.Lock()
+WEIGHT_MAPS_KEPT = 4096
+
+
+def weight_map(ptr: int, n: int, row_bytes: int, box_k: int,
+               tile_n: int) -> ctypes.Array:
+    """The CUtensorMap of (n, row_bytes) K-major weights at ``ptr`` for
+    boxes of ``box_k`` bytes × ``tile_n`` rows, encoded at first use."""
+    key = (ptr, n, row_bytes, box_k, tile_n)
+    with _WEIGHT_MAPS_LOCK:
+        buf = _WEIGHT_MAPS.get(key)
+        if buf is not None:
+            _WEIGHT_MAPS.move_to_end(key)
+            return buf
+        buf = ctypes.create_string_buffer(128)
+        code = _build.lib().hawq_sm90_weight_map(buf, ptr, n, row_bytes,
+                                                 box_k, tile_n)
+        _build.check(code, 'hawq_sm90_weight_map')
+        _WEIGHT_MAPS[key] = buf
+        if len(_WEIGHT_MAPS) > WEIGHT_MAPS_KEPT:
+            _WEIGHT_MAPS.popitem(last=False)
+        return buf
 
 
 def _row_geometry(name: str, k: int, taps: int, row_taps: int):
@@ -482,28 +514,44 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool,
     return out
 
 
-def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
-            core: Optional[str], tile_n: Optional[int],
-            tile_m: Optional[int], smem_extra: int) -> torch.Tensor:
-    """The four matmuls: the plain version (of the Hopper core's walk for a
-    handle) on a CPU tensor, else the core the rule, or ``core``, names."""
-    name = _matmul_name(requant, int4)
-    prepared = w if isinstance(w, PreparedWeights) else None
-    if prepared is not None:
-        prepared.check(1, x.shape[1], name)
-    if x.device.type == 'cpu':
-        if prepared is None:
-            w = unpack_int4(w) if int4 else w
-            return (matmul_requant_plain(x, w, bias, mult, lo, hi) if requant
-                    else matmul_acc_plain(x, w, bias))
-        if requant:
-            return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo, hi,
-                                               name)
-        return matmul_acc_kmajor_plain(x, prepared, bias, name)
+# ``core`` as an operator argument
+CORE_CODES = {None: -1, 'mma': 0, 'sm90': 1}
+_CORE_NAMES = {v: k for k, v in CORE_CODES.items()}
+
+
+def core_code(name: str, core: Optional[str]) -> int:
+    if core not in CORE_CODES:
+        raise ValueError(f'{name}: core {core!r} not in (None, sm90, mma)')
+    return CORE_CODES[core]
+
+
+def _matmul_plain(name, x, w, cpad, bias, mult, lo, hi) -> torch.Tensor:
+    """The four matmuls' CPU implementation: the plain version, or where
+    ``cpad`` is not 0 (``w`` a handle's K-major ``wt``) that of the Hopper
+    core's walk."""
+    requant, int4 = name.endswith('_requant'), name.startswith('int4w')
+    if not cpad:
+        w = unpack_int4(w) if int4 else w
+        return (matmul_requant_plain(x, w, bias, mult, lo, hi) if requant
+                else matmul_acc_plain(x, w, bias))
+    prepared = PreparedWeights(w, 1, x.shape[1], cpad, int4)
+    if requant:
+        return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo, hi,
+                                           name)
+    return matmul_acc_kmajor_plain(x, prepared, bias, name)
+
+
+def _matmul_cuda(name, x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
+                 smem_extra) -> torch.Tensor:
+    """The four matmuls' CUDA implementation: the core the rule, or
+    ``core``, names for these pointers, on the handle's layout (``cpad``
+    not 0) or on plain weights, laid out here for the Hopper core."""
+    requant, int4 = name.endswith('_requant'), name.startswith('int4w')
     k = x.shape[1]
-    n = prepared.n if prepared is not None else w.shape[1]
-    core = pick_core('matmul_requant' if requant else 'matmul', name, core,
-                     k=k, n=n, ptr=x.data_ptr())
+    prepared = PreparedWeights(w, 1, k, cpad, int4) if cpad else None
+    n = w.shape[0] if cpad else w.shape[1]
+    core = pick_core('matmul_requant' if requant else 'matmul', name,
+                     _CORE_NAMES[core], k=k, n=n, ptr=x.data_ptr())
     if core == 'mma':
         if prepared is not None:
             w = unprepare_weights(prepared)
@@ -512,8 +560,56 @@ def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
         _build.require(w, 'w_packed' if int4 else 'w', torch.int8,
                        (k // 2 if int4 else k, n), x.device)
         prepared = prepare_weights_int4(w) if int4 else prepare_weights(w)
-    return _launch_sm90(x, prepared, bias, mult, lo, hi, requant, tile_n,
-                        tile_m, smem_extra)
+    return _launch_sm90(x, prepared, bias, mult, lo, hi, requant,
+                        _build.from_opt_int(tile_n),
+                        _build.from_opt_int(tile_m), smem_extra)
+
+
+def _define_matmul(name: str):
+    """``hawq::<name>(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
+    smem_extra)``: ``cpad`` 0 for plain weights, else the padded K of the
+    handle whose ``wt`` is ``w``; ``mult`` None (``lo``, ``hi`` 0) for the
+    accumulator forms; ``core`` a :data:`CORE_CODES` value; ``tile_n`` /
+    ``tile_m`` −1 for the rule's."""
+    requant = name.endswith('_requant')
+
+    def cpu(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
+            smem_extra):
+        return _matmul_plain(name, x, w, cpad, bias, mult, lo, hi)
+
+    def cuda(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
+             smem_extra):
+        return _matmul_cuda(name, x, w, cpad, bias, mult, lo, hi, core,
+                            tile_n, tile_m, smem_extra)
+
+    def fake(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
+             smem_extra):
+        return x.new_empty((x.shape[0], w.shape[0] if cpad else w.shape[1]),
+                           dtype=torch.int8 if requant else torch.int32)
+    return _build.define_op(
+        f'{name}(Tensor x, Tensor w, int cpad, Tensor bias, Tensor? mult, '
+        f'int lo, int hi, int core, int tile_n, int tile_m, int smem_extra) '
+        f'-> Tensor', cpu, cuda, fake)
+
+
+OPS = {name: _define_matmul(name) for name in (
+    'int8_matmul_requant', 'int8_matmul_acc', 'int4w_matmul_requant',
+    'int4w_matmul_acc')}
+
+
+def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
+            core: Optional[str], tile_n: Optional[int],
+            tile_m: Optional[int], smem_extra: int) -> torch.Tensor:
+    """The four matmuls through their operators: a handle taken apart into
+    its ``wt`` and padded K, the options into ints."""
+    name = _matmul_name(requant, int4)
+    cpad = 0
+    if isinstance(w, PreparedWeights):
+        w.check(1, x.shape[1], name)
+        w, cpad = w.wt, w.cpad
+    return OPS[name](x, w, cpad, bias, mult, lo, hi, core_code(name, core),
+                     _build.opt_int(tile_n), _build.opt_int(tile_m),
+                     smem_extra)
 
 
 def int8_matmul_requant(x: torch.Tensor, w, bias: torch.Tensor,

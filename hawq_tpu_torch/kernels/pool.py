@@ -8,7 +8,8 @@ runs the plain version: ``inference.fold.maxpool_3x3s2p1_folded``, and
 kernel walks runs of :data:`POOL_RUN` output columns per thread, each
 thread on one 16-byte vector of channels where the shape and pointers allow,
 one channel otherwise; :func:`maxpool_folded_walk_plain` walks the same way
-on the CPU.
+on the CPU.  Both run as the operators ``torch.ops.hawq.<wrapper name>``
+(:data:`OPS`; ``_build.define_op``), the output dtype as an int code.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from hawq_tpu_torch.quant.ops import requant_clip_bounds, requant_int32
 
 _DTYPE_CODES = {torch.int16: 0, torch.int32: 1, torch.float32: 2}
 _OUT_CODES = {torch.int16: 0, torch.int32: 1}
+_OUT_DTYPES = {v: k for k, v in _OUT_CODES.items()}
 POOL_RUN = 4      # output columns one thread walks (csrc/pool.cu RUN)
 
 
@@ -56,11 +58,7 @@ def maxpool_folded_walk_plain(xf: torch.Tensor,
     return out
 
 
-def maxpool_folded(xf: torch.Tensor) -> torch.Tensor:
-    """(B, Hq, Wq, 4N) folded conv output → (B, Hq, Wq, N) pooled, int16,
-    int32 or float32."""
-    if xf.device.type == 'cpu':
-        return maxpool_3x3s2p1_folded(xf)
+def _maxpool_folded_cuda(xf: torch.Tensor) -> torch.Tensor:
     dev = _build.kernel_device(xf)
     b, hq, wq, n4 = xf.shape
     if n4 % 4 or xf.dtype not in _DTYPE_CODES:
@@ -80,27 +78,14 @@ def maxpool_folded(xf: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def maxpool_folded_requant(acc: torch.Tensor, mult: torch.Tensor, *,
-                           out_bits: int, signed: bool, relu: bool,
-                           out_dtype: torch.dtype) -> torch.Tensor:
-    """The folded init's requant, ReLU and max-pool in one pass:
-    pool(relu(requant_int32(acc, mult, out_bits, signed, out_dtype))).
-
-    acc (B, Hq, Wq, 4N) int32 accumulator, mult (4N,) float32 dyadic
-    multipliers in the fold's (py, px, n) channel order, out_dtype int16 or
-    int32 (the engine's carrier) → (B, Hq, Wq, N).  The kernel requantizes
-    each of the nine values of a window with its own channel's multiplier
-    before the max, so the result equals the plain sequence for any
-    multipliers."""
-    if acc.device.type == 'cpu':
-        return maxpool_folded_requant_plain(acc, mult, out_bits, signed, relu,
-                                            out_dtype)
+def _maxpool_folded_requant_cuda(acc, mult, out_bits, signed, relu,
+                                 out_code) -> torch.Tensor:
     name = 'maxpool_folded_requant'
+    out_dtype = _OUT_DTYPES[out_code]
     dev = _build.kernel_device(acc)
     b, hq, wq, n4 = acc.shape
-    if n4 % 4 or out_dtype not in _OUT_CODES:
-        raise ValueError(f'{name}: channels {n4} must be a multiple of 4 and '
-                         f'out_dtype {out_dtype} int16 or int32')
+    if n4 % 4:
+        raise ValueError(f'{name}: channels {n4} must be a multiple of 4')
     _build.require(acc, 'acc', torch.int32, (b, hq, wq, n4), dev)
     _build.require(mult, 'mult', torch.float32, (n4,), dev)
     lo, hi = requant_clip_bounds(out_bits, signed)
@@ -116,8 +101,54 @@ def maxpool_folded_requant(acc: torch.Tensor, mult: torch.Tensor, *,
     with torch.cuda.device(dev):
         code = _build.lib().hawq_maxpool_folded_requant(
             acc.data_ptr(), mult.data_ptr(), out.data_ptr(), b, hq, wq, n,
-            int(lo), int(hi), _OUT_CODES[out_dtype], vec,
-            _build.stream_ptr(dev))
+            int(lo), int(hi), out_code, vec, _build.stream_ptr(dev))
     _build.check(code, name)
     _build.count(name)
     return out
+
+
+def _pooled(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    b, hq, wq, n4 = x.shape
+    return x.new_empty((b, hq, wq, n4 // 4), dtype=dtype)
+
+
+OPS = {
+    'maxpool_folded': _build.define_op(
+        'maxpool_folded(Tensor xf) -> Tensor',
+        maxpool_3x3s2p1_folded,
+        _maxpool_folded_cuda, lambda xf: _pooled(xf, xf.dtype)),
+    'maxpool_folded_requant': _build.define_op(
+        'maxpool_folded_requant(Tensor acc, Tensor mult, int out_bits, '
+        'bool signed, bool relu, int out_code) -> Tensor',
+        lambda acc, mult, out_bits, signed, relu, out_code:
+        maxpool_folded_requant_plain(acc, mult, out_bits, signed, relu,
+                                     _OUT_DTYPES[out_code]),
+        _maxpool_folded_requant_cuda,
+        lambda acc, mult, out_bits, signed, relu, out_code:
+        _pooled(acc, _OUT_DTYPES[out_code]))}
+
+
+def maxpool_folded(xf: torch.Tensor) -> torch.Tensor:
+    """(B, Hq, Wq, 4N) folded conv output → (B, Hq, Wq, N) pooled, int16,
+    int32 or float32."""
+    return OPS['maxpool_folded'](xf)
+
+
+def maxpool_folded_requant(acc: torch.Tensor, mult: torch.Tensor, *,
+                           out_bits: int, signed: bool, relu: bool,
+                           out_dtype: torch.dtype) -> torch.Tensor:
+    """The folded init's requant, ReLU and max-pool in one pass:
+    pool(relu(requant_int32(acc, mult, out_bits, signed, out_dtype))).
+
+    acc (B, Hq, Wq, 4N) int32 accumulator, mult (4N,) float32 dyadic
+    multipliers in the fold's (py, px, n) channel order, out_dtype int16 or
+    int32 (the engine's carrier) → (B, Hq, Wq, N).  The kernel requantizes
+    each of the nine values of a window with its own channel's multiplier
+    before the max, so the result equals the plain sequence for any
+    multipliers."""
+    if out_dtype not in _OUT_CODES:
+        raise ValueError(f'maxpool_folded_requant: out_dtype {out_dtype} '
+                         f'must be int16 or int32')
+    return OPS['maxpool_folded_requant'](acc, mult, int(out_bits),
+                                         bool(signed), bool(relu),
+                                         _OUT_CODES[out_dtype])

@@ -10,7 +10,9 @@ examples/generate_mixed_config.py).
   5. expand the allocation into a BitConfig.
 
 The latency mode needs a measured LUT {layer key: (ms at 4 bits, ms at 8
-bits)} for the card the config is meant for; none is shipped.
+bits)} for the card the config is meant for; none is shipped:
+``python -m hawq_tpu_torch.sensitivity.latency_lut`` measures one for a
+ResNet v1 on the card.
 
 Usage:
   python -m hawq_tpu_torch.sensitivity.pipeline --arch resnet50 --mode bops \\
@@ -21,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -189,15 +190,16 @@ def main(argv=None):
     p.add_argument('--latency-lut', default=None,
                    help='JSON {layer key: [ms at 4 bits, ms at 8 bits]} '
                         'measured on the target card (required by '
-                        '--mode latency)')
+                        '--mode latency; python -m hawq_tpu_torch.'
+                        'sensitivity.latency_lut writes one)')
     p.add_argument('--out', default=None)
     args = p.parse_args(argv)
     if args.mode == 'latency' and not args.latency_lut:
         p.error('--mode latency needs --latency-lut')
     lut = None
     if args.latency_lut:
-        with open(args.latency_lut) as f:
-            lut = {k: tuple(v) for k, v in json.load(f).items()}
+        from hawq_tpu_torch.sensitivity.latency_lut import load_latency_lut
+        lut = load_latency_lut(args.latency_lut)
     cfg = generate_mixed_config(
         args.arch, args.mode, args.fraction, device=args.device,
         batch=args.batch, image_size=args.image_size, probes=args.probes,

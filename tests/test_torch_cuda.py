@@ -5,8 +5,10 @@ min/max, D1's depthwise conv and A1's average pool, with and without the
 requant in front), and the engines, the
 integer conv of the QAT layers, a QAT forward and the Hutchinson HVP on
 the card == on the CPU; a QONNX file's replay == the card engine; the
-ServingEngine in a one-process ``nccl`` group == the engine, and two
-``gloo`` ranks sharing the card == one process's train step.
+ServingEngine in a one-process ``nccl`` group == the engine, two
+``gloo`` ranks sharing the card == one process's train step, and an
+engine's saved ``torch.export`` program == the engine, its launches per
+kernel and per core included.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -2098,3 +2100,119 @@ def test_two_ranks_share_the_card_gloo_train_step(dev, tmp_path):
         for path, w in _leaves(want['params']):
             np.testing.assert_allclose(params[path], w, rtol=1e-5,
                                        atol=1e-7, err_msg=str(path))
+
+
+# ---------------------------------------------------------------------------
+# the engine as a saved torch.export program
+# ---------------------------------------------------------------------------
+
+def _program_launches(fn, x):
+    """(output, launches per kernel, launches per core) of one ``fn(x)``,
+    the counts set to 0 just before it and read just after."""
+    _build.reset_launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    return out, _counts(), _core_counts()
+
+
+@pytest.mark.parametrize('arch,scheme,mode', [
+    ('tiny18', 'uniform8', 'float32'), ('tiny50', 'uniform4', 'float32'),
+    ('resnet18', 'uniform4', 'float32')])
+def test_loaded_program_equals_engine(dev, arch, scheme, mode):
+    """``load_program(export_program(fm))`` on the card: logits equal to the
+    engine's, and the same launches per kernel and per core, which are the
+    bit config's prediction."""
+    import chip_smoke
+    from hawq_tpu_torch.export.export import export_program, load_program
+    fm = synthetic_frozen_resnet(arch, get_bit_config(arch, scheme),
+                                 num_classes=10, seed=1)
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 32, 32, 3).astype(
+        np.float32)).to(dev)
+    engine = build_resnet_engine(fm, device=dev)
+    program = load_program(export_program(fm, 2, 32, device=dev))
+    want, counts, cores = _program_launches(engine, x)
+    got, got_counts, got_cores = _program_launches(program, x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got_counts == counts == chip_smoke.expected_launches(
+        arch, fm.cfg, mode)
+    assert got_cores == cores
+
+
+def test_card_program_loads_on_the_cpu(dev):
+    """A program exported on the card and loaded with ``device='cpu'``
+    (``load_program``'s move) runs the kernels' CPU implementations: logits
+    equal to the CPU engine's and to the card program's."""
+    from hawq_tpu_torch.export.export import export_program, load_program
+    fm = synthetic_frozen_resnet('tiny50', get_bit_config(
+        'tiny50', 'uniform4'), num_classes=10, seed=1)
+    x = np.random.RandomState(3).rand(2, 32, 32, 3).astype(np.float32)
+    blob = export_program(fm, 2, 32, device=dev)
+    on_card = load_program(blob)(torch.from_numpy(x).to(dev))
+    _build.reset_launches()
+    got = load_program(blob, device='cpu')(torch.from_numpy(x))
+    assert got.device.type == 'cpu' and not _counts()
+    want = build_resnet_engine(fm, device='cpu')(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(on_card.cpu(), want, rtol=0, atol=0)
+
+
+def _family_engine(family, dev):
+    """(engine on ``image_dependent(fm)``, two batches of its (2, …) input)
+    of a folded ResNet (int16 carrier), a full-width MobileNetV2 at 64² or
+    an InceptionV3 of width / 8 at 75² (normal images: at width / 16, or on
+    uniform ones, every image gives the same logits)."""
+    import chip_smoke
+    from hawq_tpu_torch.inference import synthetic as syn
+    from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
+    rngs = [np.random.RandomState(seed) for seed in (4, 5)]
+    if family == 'resnet_folded':
+        fm = synthetic_frozen_resnet('tiny50', get_bit_config(
+            'tiny50', 'uniform4'), num_classes=10, seed=1)
+        engine = build_resnet_engine(chip_smoke.image_dependent(fm),
+                                     input_mode='folded_float32',
+                                     residual_dtype=torch.int16, device=dev)
+        xs = [fold4_images(rng.rand(2, 32, 32, 3).astype(np.float32))
+              for rng in rngs]
+    elif family == 'mobilenetv2':
+        from hawq_tpu_torch.inference.engine_mobilenet import (
+            build_mobilenetv2_engine)
+        fm = syn.synthetic_frozen_mobilenet(get_bit_config(
+            'mobilenetv2_w1', 'uniform8'), seed=2)
+        engine = build_mobilenetv2_engine(chip_smoke.image_dependent(fm),
+                                          input_hw=(64, 64), device=dev)
+        xs = [rng.rand(2, 64, 64, 3).astype(np.float32) for rng in rngs]
+    else:
+        from hawq_tpu_torch.inference.engine_inception import (
+            build_inceptionv3_engine)
+        fm = syn.synthetic_frozen_inception(get_bit_config(
+            'inceptionv3', 'uniform8'), width_div=8, seed=2)
+        engine = build_inceptionv3_engine(
+            chip_smoke.image_dependent(fm), input_mode='folded_float32',
+            input_hw=(75, 75), device=dev)
+        xs = [fold4_images_3x3s2(rng.randn(2, 75, 75, 3).astype(
+            np.float32), 0) for rng in rngs]
+    return engine, [torch.from_numpy(x).to(dev) for x in xs]
+
+
+@pytest.mark.parametrize('family', ['resnet_folded', 'mobilenetv2',
+                                    'inceptionv3'])
+def test_exported_engine_equals_engine(dev, family):
+    """``export_engine`` of a folded ResNet (int16 carrier), a full-width
+    MobileNetV2 at 64² and an InceptionV3 of width / 8 at 75², on
+    ``image_dependent`` weights, saved and loaded: logits and launches per
+    kernel and per core equal the engine's on the traced batch, and on
+    another batch the logits equal the engine's and differ from the first
+    batch's (the program reads its input)."""
+    import io
+    from hawq_tpu_torch.export.export import export_engine, load_program
+    engine, (x, x2) = _family_engine(family, dev)
+    buf = io.BytesIO()
+    torch.export.save(export_engine(engine, x), buf)
+    program = load_program(buf.getvalue())
+    want, counts, cores = _program_launches(engine, x)
+    got, got_counts, got_cores = _program_launches(program, x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got_counts == counts and got_cores == cores
+    got2 = program(x2)
+    torch.testing.assert_close(got2, engine(x2), rtol=0, atol=0)
+    assert not torch.equal(got2, got)

@@ -3,7 +3,8 @@
 capture verdicts, accuracy meters; the port's own ``device=`` and
 ``host_preprocessing=`` lines aside), goldens that one package saves matched
 by the other, byte-equal QONNX files, the reference-checkpoint replay, the
-flags that stay TPU-only (exit 2) and the production-route table.
+flags that stay TPU-only (exit 2), the production-route table, and
+``--dump-hlo``'s exported program of each family.
 """
 
 import json
@@ -214,7 +215,6 @@ def test_import_reference_replay_inception(capsys, tmp_path):
 @pytest.mark.parametrize('args,says', [
     (['--conv-mode', 'bf16'], 'TPU layout'),
     (['--conv-mode', 'f32'], 'TPU layout'),
-    (['--dump-hlo', 'x.hlo'], 'torch.export'),
     (['--arch', 'tiny18v2', '--requant-mode', 'reference'], 'v2'),
     (['--routing', 'benchmarks/routing_resnet50_uniform4_b8.json'],
      'readings of a TPU'),
@@ -230,6 +230,58 @@ def test_what_stays_tpu_only_exits_2(frozen, capsys, args, says):
     assert tdeploy.main(base + ['--image-size', '32', '--batch', '2',
                                 '--device', 'cpu'] + args) == 2
     assert says in capsys.readouterr().err
+
+
+def _tiny_artifact(family, tmp_path):
+    """(path, image size, an operator its program must name) of a tiny
+    synthetic artifact of ``family``, saved by the port."""
+    from hawq_tpu_torch.inference import synthetic as tsyn
+    from hawq_tpu_torch.models import mobilenetv2 as tm
+    if family == 'mobilenetv2':
+        fm = tsyn.synthetic_frozen_mobilenet(
+            tget('mobilenetv2', 'uniform8'), num_classes=10, seed=2,
+            stages=tm.TINY_MNV2_STAGES, init_ch=tm.TINY_MNV2_INIT_CH,
+            final_ch=tm.TINY_MNV2_FINAL_CH)
+        size, op = 32, 'hawq.int8_dwconv_requant'
+    else:
+        fm = tsyn.synthetic_frozen_inception(tget('inceptionv3', 'uniform8'),
+                                             num_classes=10, width_div=16,
+                                             seed=2)
+        size, op = 75, 'hawq.int_avgpool3x3_requant'
+    path = str(tmp_path / f'{family}.npz')
+    tckpt.save_frozen(path, fm)
+    return path, size, op
+
+
+@pytest.mark.parametrize('case', ['resnet', 'resnet_folded',
+                                  'resnet_uint8', 'mobilenetv2',
+                                  'inceptionv3'])
+def test_dump_hlo_writes_the_exported_program(frozen, capsys, tmp_path, case):
+    """``--dump-hlo`` writes the engine's exported graph, whose kernels are
+    ``torch.ops.hawq`` nodes, and the run goes on to print the same top-k
+    as without it."""
+    if case.startswith('resnet'):
+        path, size, op = frozen[0], 32, 'hawq.int4w_conv_requant'
+        extra = {'resnet': [],
+                 'resnet_folded': ['--input-mode', 'folded_float32'],
+                 'resnet_uint8': ['--input-mode', 'uint8']}[case]
+    else:
+        (path, size, op), extra = _tiny_artifact(case, tmp_path), []
+    base = ['--frozen', path, '--image-size', str(size), '--batch', '2',
+            '--device', 'cpu', '--topk', '3'] + extra
+    rc, plain = _run(capsys, tdeploy.main, base)
+    assert rc == 0
+    graph = str(tmp_path / 'program.txt')
+    rc, out = _run(capsys, tdeploy.main, base + ['--dump-hlo', graph])
+    assert rc == 0
+    with open(graph) as f:
+        text = f.read()
+    assert f'dumped exported program ({len(text)} chars) → {graph}' in out
+    assert f'torch.ops.{op}.default' in text
+    assert 'torch.ops.hawq.int8_conv_acc.default' in text     # the init
+    tops = [l for l in out.splitlines() if l.startswith('image ')]
+    assert len(tops) == 2
+    assert tops == [l for l in plain.splitlines() if l.startswith('image ')]
 
 
 def test_routing_table_serves_equal_logits(frozen, capsys, tmp_path):
