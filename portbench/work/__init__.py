@@ -1,0 +1,4 @@
+"""A family's graph from its shapes alone, one module per family (named as
+the configuration's ``family``): ``layers(config, batch)``, the operations
+and bytes a forward needs, so that they read the same whatever implements
+the layers; and ``plan(config)``, the weight generator's walk."""
