@@ -59,6 +59,17 @@ the logits, and the forward stops there (``inference.profile`` times the
 engine truncated at successive nodes): 'input', 'init', '<stage>.<unit>.input'
 / '.conv1' / '.conv2' / '.quant_act_int32', 'avg_pool', 'fc_input',
 'fc_output'.
+
+Spans (``utils.tracing``, recorded only while a profiler records):
+``engine.forward``, every family's whole call; ``engine.conv``, each conv
+through :meth:`IntEngine._conv_kxk` / :meth:`IntEngine._conv1x1` and the
+folded or CIFAR init conv, with its own layout glue; and in the ResNet v1
+engine ``engine.input`` (normalization and quantization of the images),
+``engine.requant`` (each unit's entry requant and the FC's input) and
+``engine.residual`` (each unit's requant-add, ReLU, clamp and cast).  The
+pools and the head have none.  Only ``engine.forward`` takes a device time
+(two timing events a call); the sites' device times are their ranges in
+the profiler's trace.
 """
 
 from __future__ import annotations
@@ -80,6 +91,7 @@ from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
 from hawq_tpu_torch.quant import ops as qops
 from hawq_tpu_torch.quant import reference_oracle as ro
+from hawq_tpu_torch.utils.tracing import span
 
 # input mode → the dtype its images arrive in
 INPUT_MODES = {'float32': torch.float32, 'folded_float32': torch.float32,
@@ -310,9 +322,10 @@ class IntEngine:
                 _fold.fold4_kernel_3x3s2(w),
                 _fold.tile4(self.fm[key + '.bias_int']), 'conv_acc', (0, 0))
         wf, taps, cin, bias = self._w['init']
-        return kc.int8_conv_acc(kc.prepare_conv_input(x8, (0, 0)), wf, bias,
-                                taps=taps, out_hw=(fh - 1, fw - 1),
-                                cin=cin).reshape(b, fh - 1, fw - 1, -1)
+        with span('engine.conv'):
+            return kc.int8_conv_acc(kc.prepare_conv_input(x8, (0, 0)), wf,
+                                    bias, taps=taps, out_hw=(fh - 1, fw - 1),
+                                    cin=cin).reshape(b, fh - 1, fw - 1, -1)
 
     def _quantize_float(self, images: torch.Tensor) -> torch.Tensor:
         """float32 images (or a folded layout) → the int8 input integers,
@@ -333,39 +346,42 @@ class IntEngine:
         b = x8.shape[0]
         ph, pw = (pad, pad) if isinstance(pad, int) else pad
         kh, kw = self.fm[key + '.weight_int'].shape[:2]
-        xp, geo = kc.conv_call(x8, (kh, kw), (stride, stride),
-                               ((ph, ph), (pw, pw)))
-        int4 = self._int4(key)
-        fused = mult is not None and not self.reference
-        wf, taps, cin, bias = self._conv_w(key, stride, geo['pad'], int4,
-                                           requant=fused)
-        if not fused:
-            fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
-            y = fn(xp, wf, bias, **geo)
-            if mult is not None:
-                y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
-        else:
-            fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
-            y = fn(xp, wf, bias, mult, out_bits=bits, signed=signed,
-                   relu=True, **geo)
-        return y.reshape(b, *geo['out_hw'], -1)
+        with span('engine.conv'):
+            xp, geo = kc.conv_call(x8, (kh, kw), (stride, stride),
+                                   ((ph, ph), (pw, pw)))
+            int4 = self._int4(key)
+            fused = mult is not None and not self.reference
+            wf, taps, cin, bias = self._conv_w(key, stride, geo['pad'], int4,
+                                               requant=fused)
+            if not fused:
+                fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
+                y = fn(xp, wf, bias, **geo)
+                if mult is not None:
+                    y = self._requant(torch.clamp_min(y, 0), mult, bits,
+                                      signed)
+            else:
+                fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
+                y = fn(xp, wf, bias, mult, out_bits=bits, signed=signed,
+                       relu=True, **geo)
+            return y.reshape(b, *geo['out_hw'], -1)
 
     def _conv1x1(self, x8, key, stride, mult=None, bits=8, signed=True):
         """1×1 conv as a matmul (``inference.routing.Routed1x1``, packed by
         :meth:`_int4`): requant+ReLU to int8, or int32 acc.  In reference
         mode the requant follows the accumulator form."""
-        if stride > 1:
-            x8 = x8[:, ::stride, ::stride, :].contiguous()
-        fused = mult is not None and not self.reference
-        site = self._route(key, 'matmul_requant' if fused else 'matmul',
-                           self._int4(key))
-        if fused:
-            return site.requant(x8, mult, out_bits=bits, signed=signed,
-                                relu=True)
-        y = site.acc(x8)
-        if mult is not None:
-            y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
-        return y
+        with span('engine.conv'):
+            if stride > 1:
+                x8 = x8[:, ::stride, ::stride, :].contiguous()
+            fused = mult is not None and not self.reference
+            site = self._route(key, 'matmul_requant' if fused else 'matmul',
+                               self._int4(key))
+            if fused:
+                return site.requant(x8, mult, out_bits=bits, signed=signed,
+                                    relu=True)
+            y = site.acc(x8)
+            if mult is not None:
+                y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
+            return y
 
     # -- forward ------------------------------------------------------------
     def __call__(self, images) -> torch.Tensor:
@@ -385,7 +401,8 @@ class IntEngine:
             if name == self.capture:
                 raise _Truncated(value)
         try:
-            logits = self._forward(images, emit)
+            with span('engine.forward', self.device):
+                logits = self._forward(images, emit)
         except _Truncated as t:          # the forward stops at the capture
             return t.value
         if self.capture is not None:
@@ -458,7 +475,8 @@ class ResnetEngine(IntEngine):
 
         # ---- input quantization and init block ----
         s_in = fm.act_scale('quant_input')
-        x8 = self._quantize_input(images)
+        with span('engine.input'):
+            x8 = self._quantize_input(images)
         emit('input', x8)
         s16, b16, signed16 = self.act_info('quant_act_int32')
         s_init = self._scale(self.init_key, s_in)
@@ -472,9 +490,10 @@ class ResnetEngine(IntEngine):
                 oh, ow, pad = h - 2, w - 2, (0, 0)
             else:
                 oh, ow, pad = h, w, (1, 1)
-            acc = kc.int8_conv_acc(kc.prepare_conv_input(x8, pad), wf, bias,
-                                   taps=taps, out_hw=(oh, ow),
-                                   cin=cin).reshape(b, oh, ow, -1)
+            with span('engine.conv'):
+                acc = kc.int8_conv_acc(kc.prepare_conv_input(x8, pad), wf,
+                                       bias, taps=taps, out_hw=(oh, ow),
+                                       cin=cin).reshape(b, oh, ow, -1)
         else:
             acc = self._conv_kxk(x8, self.init_key, 2, pad=3)
         # requant + ReLU before the pool (monotone, so it commutes with the
@@ -502,7 +521,8 @@ class ResnetEngine(IntEngine):
             stride = 2 if (u == 1 and si > 1) else 1
             sa, ba, signed_a = self.act_info(f'{p}.quant_act')
             mult = self.requant_mult(f'{p}.in', prev_scale, sa)
-            xa = self._requant(x, mult, ba, signed_a)
+            with span('engine.requant'):
+                xa = self._requant(x, mult, ba, signed_a)
             emit(f'{p}.input', xa)
 
             id_key = f'{p}.quant_identity_convbn'
@@ -538,11 +558,13 @@ class ResnetEngine(IntEngine):
             s_out = self.act_info(f'{p}.quant_act_int32')[0]
             mult_main = self.requant_mult(f'{p}.res_main', acc_scale, s_out)
             mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out)
-            x_wide = torch.clamp_min(self._requant_add(
-                acc, mult_main, id_acc, mult_id), 0)
-            if self.res_dt != torch.int32:
-                x_wide = torch.clamp(x_wide, 0, torch.iinfo(self.res_dt).max)
-            x = x_wide.to(self.res_dt)
+            with span('engine.residual'):
+                x_wide = torch.clamp_min(self._requant_add(
+                    acc, mult_main, id_acc, mult_id), 0)
+                if self.res_dt != torch.int32:
+                    x_wide = torch.clamp(x_wide, 0,
+                                         torch.iinfo(self.res_dt).max)
+                x = x_wide.to(self.res_dt)
             prev_scale = np.float32(s_out)
             emit(f'{p}.quant_act_int32', x)
 
@@ -551,7 +573,8 @@ class ResnetEngine(IntEngine):
         emit('avg_pool', pooled)
         s_fc, b_fc, sg_fc = self.act_info('quant_act_output')
         mult = self.requant_mult('fc_in', prev_scale, s_fc)
-        f8 = self._requant(pooled.to(torch.int32), mult, b_fc, sg_fc)
+        with span('engine.requant'):
+            f8 = self._requant(pooled.to(torch.int32), mult, b_fc, sg_fc)
         emit('fc_input', f8)
         logits = self._head(f8, 'quant_output', s_fc)
         emit('fc_output', logits)

@@ -5,7 +5,10 @@ further, so timing the engine truncated at successive nodes gives the
 cumulative time to each and the time of each segment between them
 (``utils.timing.time_per_iter``: CUDA events on the card).
 ``engine_flops_and_bytes`` gives a ResNet v1's integer operations and weight
-bytes, the work a bound is computed from.
+bytes, the work a bound is computed from.  ``--trace DIR`` also profiles
+the full engine, writes the chrome trace and prints, from the engine's own
+spans (``utils.tracing``) and their ranges on the card in the trace, each
+site's calls, device ms and host ms a forward (:func:`span_table`).
 
     python -m hawq_tpu_torch.inference.profile --arch resnet50 \\
         --scheme uniform8 --batch 8 --input-mode folded_float32 \\
@@ -21,6 +24,7 @@ import torch
 
 from hawq_tpu_torch.configs.bit_config import RESNET_UNITS
 from hawq_tpu_torch.inference.freeze import FrozenModel
+from hawq_tpu_torch.utils import tracing
 from hawq_tpu_torch.utils.timing import time_per_iter
 
 
@@ -70,6 +74,31 @@ def profile_engine(fm: FrozenModel, x, points: Optional[Sequence[str]] = None,
                   f'{(t - prev) * 1e3:8.3f} ms', flush=True)
         prev = t
     return out
+
+
+def span_table(spans: Sequence[Dict], forwards: int,
+               trace_events: Sequence[Dict] = ()
+               ) -> List[Tuple[str, float, Optional[float], float]]:
+    """[(span name, calls, device ms, host ms)], each a forward over
+    ``forwards`` forwards, in the order the names first occur.  Calls and
+    host ms come from ``tracing.records().spans``; device ms from the
+    chrome trace's ``gpu_user_annotation`` ranges of the name (first kernel
+    to last kernel of each span), None where it has none (the CPU)."""
+    rows: Dict[str, list] = {}
+    for r in spans:
+        if r['t1_ns'] is None:
+            continue
+        row = rows.setdefault(r['name'], [0, 0.0])
+        row[0] += 1
+        row[1] += (r['t1_ns'] - r['t0_ns']) * 1e-6
+    device: Dict[str, float] = {}
+    for e in trace_events:
+        if e.get('cat') == 'gpu_user_annotation' and e.get('name') in rows:
+            device[e['name']] = device.get(e['name'], 0.0) + float(
+                e['dur']) * 1e-3
+    return [(name, n / forwards,
+             device[name] / forwards if name in device else None,
+             host / forwards) for name, (n, host) in rows.items()]
 
 
 def engine_flops_and_bytes(fm: FrozenModel, batch: int,
@@ -148,6 +177,7 @@ def main(argv=None) -> int:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if eng.device.type == 'cuda':
             acts.append(torch.profiler.ProfilerActivity.CUDA)
+        tracing.clear()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.trace_iters):
                 eng(xd)
@@ -157,6 +187,13 @@ def main(argv=None) -> int:
         path = os.path.join(args.trace, 'trace.json')
         prof.export_chrome_trace(path)
         print(f'trace written to {path}', flush=True)
+        with open(path) as f:
+            events = json.load(f).get('traceEvents', [])
+        for name, calls, dev, host in span_table(
+                tracing.records().spans, args.trace_iters, events):
+            dev = 'n/a' if dev is None else f'{dev:8.3f}'
+            print(f'span {name:16s} calls {calls:6.1f}   device ms {dev:>8s}'
+                  f'   host ms {host:8.3f}   a forward', flush=True)
     return 0
 
 

@@ -12,7 +12,10 @@ The state is the model itself (parameters and statistics buffers), its
 optimizer and the step counter, updated **in place** by the steps; the flax
 variables tree is a view of it (:meth:`TrainState.variables`).  Steps run
 eagerly on one device; they return loss and accuracy as 0-dim tensors on
-that device and never synchronize with the host themselves.
+that device and never synchronize with the host themselves.  A train step
+opens the span ``train.step`` and in it ``train.forward`` (the model and
+the loss), ``train.backward`` and ``train.optimizer`` (``utils.tracing``:
+recorded only while a profiler records).
 
 Over a mesh (parallel/mesh.py; the model's layers given their groups by
 ``mesh.distribute``) a train step runs the model under
@@ -38,6 +41,7 @@ from hawq_tpu_torch.models.resnet import qat_to_numpy
 from hawq_tpu_torch.nn import layers as L
 from hawq_tpu_torch.parallel import collectives as coll
 from hawq_tpu_torch.parallel import mesh as pmesh
+from hawq_tpu_torch.utils.tracing import span
 
 
 def _sorted_parameters(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
@@ -252,32 +256,40 @@ def make_train_step(model: nn.Module, *, folded: bool,
                       for m in model.modules())
 
     def train_step(state: TrainState, batch: Mapping):
-        kw = {}
-        if has_dropout:
-            device = next(model.parameters()).device
-            kw['generator'] = torch.Generator(device=device).manual_seed(
-                rng_seed * 1_000_003 + state.step)
-        with contextlib.ExitStack() as ctx:
-            ctx.enter_context(L.faithful_float_math())
-            ctx.enter_context(L.residual_store_dtype(store_dt))
-            ctx.enter_context(L.gradient_conv_dtype(grad_dt))
-            state.optimizer.zero_grad(set_to_none=True)
-            logits = _data_parallel(model, state, mesh)(
-                batch['image'], folded=folded, update_stats=True, **kw)
-            if distill_alpha is not None:
-                loss = kd_loss(logits, batch['teacher_logits'],
-                               batch['label'], distill_alpha, temperature)
-            else:
-                loss = cross_entropy(logits, batch['label'])
-            loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        with torch.no_grad():
-            acc = (logits.argmax(-1) == batch['label']).float().mean()
-        group = pmesh.data_group(mesh)
-        if group is not None:
-            loss, acc = coll.mean_over(torch.stack([loss, acc]), group)
+        device = batch['image'].device
+        with span('train.step'):
+            kw = {}
+            if has_dropout:
+                kw['generator'] = torch.Generator(
+                    device=next(model.parameters()).device).manual_seed(
+                        rng_seed * 1_000_003 + state.step)
+            with contextlib.ExitStack() as ctx:
+                ctx.enter_context(L.faithful_float_math())
+                ctx.enter_context(L.residual_store_dtype(store_dt))
+                ctx.enter_context(L.gradient_conv_dtype(grad_dt))
+                state.optimizer.zero_grad(set_to_none=True)
+                with span('train.forward', device):
+                    logits = _data_parallel(model, state, mesh)(
+                        batch['image'], folded=folded, update_stats=True,
+                        **kw)
+                    if distill_alpha is not None:
+                        loss = kd_loss(logits, batch['teacher_logits'],
+                                       batch['label'], distill_alpha,
+                                       temperature)
+                    else:
+                        loss = cross_entropy(logits, batch['label'])
+                with span('train.backward', device):
+                    loss.backward()
+            with span('train.optimizer', device):
+                state.optimizer.step()
+                state.scheduler.step()
+                state.step += 1
+                with torch.no_grad():
+                    acc = (logits.argmax(-1) == batch['label']).float().mean()
+                group = pmesh.data_group(mesh)
+                if group is not None:
+                    loss, acc = coll.mean_over(torch.stack([loss, acc]),
+                                               group)
         return state, {'loss': loss.detach(), 'accuracy': acc}
 
     return train_step
