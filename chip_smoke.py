@@ -45,7 +45,11 @@ non-zero exit and no result line:
     (plain) engine's, finite, launch counts as the bit config predicts,
     milliseconds per batch; each uniform4 engine also on
     ``image_dependent(fm)``, every node and the logits equal to the CPU
-    engine's and different across the images; the ResNet-50 uniform8 (main path) and uniform4
+    engine's and different across the images; the 16
+    ``int8_matmul_acc_residual`` calls of the ResNet-50 uniform8 int32
+    engine (each bottleneck's conv3 with the residual requant-add and ReLU
+    in its epilogue) held against their plain version, bit for bit, and
+    timed on both cores in turns beside their bound; the ResNet-50 uniform8 (main path) and uniform4
     engines on the first core and on the Hopper core in turns; a profiler
     trace of both forwards on both cores, and on the Hopper core also with
     the init block's former sequence (requant as PyTorch glue, then
@@ -295,6 +299,12 @@ KERNELS = {
         'hawq_tpu/kernels/matmul.py:68'),
     'int8_matmul_acc': ('hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
                         'hawq_tpu/kernels/matmul.py:189'),
+    # #2 with the unit's residual requant-add and ReLU (XLA ops after it in
+    # the TPU engine) in its epilogue: a bottleneck's conv3, int32 carrier
+    'int8_matmul_acc_residual': (
+        'hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
+        'hawq_tpu/kernels/matmul.py:189 + '
+        'hawq_tpu/inference/engine.py:725'),
     'maxpool_folded': ('hawq_tpu_torch/kernels/csrc/pool.cu',
                        'hawq_tpu/kernels/pool.py:69'),
     'maxpool_folded_requant': ('hawq_tpu_torch/kernels/csrc/pool.cu',
@@ -332,6 +342,8 @@ KERNELS = {
 # pool, at the main path's pre-pool tensor), 6 and 7 drive them
 KBLOCKED, MINMAX = 'int8_matmul_requant_kblocked', 'minmax_1pass'
 POOL, POOL_REQUANT = 'maxpool_folded', 'maxpool_folded_requant'
+# the residual form: on phase 4's int32-carrier paths, not phase 3's int16
+RESIDUAL = 'int8_matmul_acc_residual'
 # D1's two forms: the MobileNetV2 engine's (phase 8) and the QAT forward's
 # (phase 10)
 DW_REQUANT, DW_ACC = 'int8_dwconv_requant', 'int8_dwconv_acc'
@@ -341,8 +353,8 @@ DW = (DW_REQUANT, DW_ACC)
 AVGPOOL, AVGPOOL_Q = 'int_avgpool3x3_requant', 'int_avgpool3x3'
 # the kernels on no ResNet serving path
 SERVING_KERNELS = [k for k in KERNELS
-                   if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL, AVGPOOL_Q)
-                   + DW]
+                   if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL, AVGPOOL_Q,
+                                RESIDUAL) + DW]
 TRAIN_BATCH = 32
 # the phase that trains each arch through the Trainer
 TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10,
@@ -372,7 +384,8 @@ MNV2_PATHS = (('uniform8', 'folded_float32', torch.int16),
 # beside the new one
 SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
-                'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED)
+                'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED,
+                RESIDUAL)
 POOLS = (POOL, POOL_REQUANT)
 GEMM_KERNELS = [k for k in KERNELS
                 if k not in POOLS + DW + (MINMAX, AVGPOOL, AVGPOOL_Q)]
@@ -897,12 +910,15 @@ def cold_ms(fn, args, reps):
 # phase 3 helpers: recording, plain versions, bounds
 # ---------------------------------------------------------------------------
 
-def expected_launches(arch, cfg, input_mode, reference=False, routing=None):
+def expected_launches(arch, cfg, input_mode, reference=False, routing=None,
+                      residual_dtype=torch.int32):
     """Kernel launches of one engine forward, from the arch and the bit
     config: the init conv (int8), the folded init's requant + pool, each
     unit conv by its place in the unit and its weight bits (``int4w_*`` for
     4-bit weights; with a ``routing`` table, for 4-bit weights the table
-    routes to 'int4w'), and the FC (int8).  With ``reference``
+    routes to 'int4w'), and the FC (int8).  A bottleneck's int8 conv3 with
+    the int32 carrier (``residual_dtype``) takes the residual epilogue
+    (``int8_matmul_acc_residual``).  With ``reference``
     (``requant_mode='reference'``) every unit conv takes its accumulator
     form and the folded init the standalone pool."""
     from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
@@ -920,6 +936,9 @@ def expected_launches(arch, cfg, input_mode, reference=False, routing=None):
             routing is None or routing.get(key) == 'int4w')
         name = (('int4w_' if int4 else 'int8_')
                 + (form.replace('_requant', '_acc') if reference else form))
+        if (conv == 'quant_convbn3' and not int4 and not reference
+                and residual_dtype == torch.int32):
+            name = RESIDUAL
         counts[name] = counts.get(name, 0) + 1
     return counts
 
@@ -1159,6 +1178,10 @@ def plain_gemm_call(name, args, kw):
         args = (kc.pad_conv_input(args[0], kw['pad'], **geo),) + args[1:]
     if name.endswith('matmul_acc'):
         return km.matmul_acc_plain(*args)
+    if name == RESIDUAL:                      # x, w, bias, identity, mults
+        x, w, bias, identity, mult_main, mult_id = args
+        return km.residual_epilogue(km.matmul_acc_plain(x, w, bias),
+                                    mult_main, identity, mult_id)
     if name.endswith('conv_acc'):
         return kc.conv_acc_plain(*args, **geo)
     lo, hi = km.epilogue_bounds(kw.get('out_bits', 8), kw.get('signed', True),
@@ -1947,7 +1970,8 @@ def record_path(fm, x, dev):
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         cores = core_launches()
     label = f'{fm.arch} {fm.cfg.name}'
-    want = expected_launches(fm.arch, fm.cfg, 'folded_float32')
+    want = expected_launches(fm.arch, fm.cfg, 'folded_float32',
+                             residual_dtype=torch.int16)
     check(launches == want, f'{label}: launches {launches}, expected {want}')
     # per core: what the rule says of each recorded call, which at these
     # widths is the Hopper core for every call of its kernels
@@ -2024,13 +2048,32 @@ def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
     return eng, counts
 
 
+def residual_phase(eng, x, errs, totals):
+    """The residual form (``int8_matmul_acc_residual``: each bottleneck's
+    conv3 with the int32 carrier) on phase 4's int32 main path: the calls of
+    one forward of ``eng`` recorded, each held against its plain version,
+    then timed on both cores in turns beside its bound → its launches."""
+    calls = []
+    with recording(calls):
+        eng(x)
+        torch.cuda.synchronize()
+    calls = [c for c in calls if c[0] == RESIDUAL]
+    check(len(calls) == 16, f'phase 4: {len(calls)} {RESIDUAL} calls on '
+          f'resnet50 uniform8 float32 int32, expected 16')
+    check_calls(calls, errs, f'phase 4: the {len(calls)} {RESIDUAL} calls '
+                f'of resnet50 uniform8 float32 int32')
+    log(f'phase 4: timed {RESIDUAL} on resnet50 uniform8 float32 int32:')
+    time_calls(calls, totals)
+    return len(calls)
+
+
 def engine_phase(fm, x, mode, residual, dev):
     """Phase 4's check of one ResNet engine (``engine_check``); a uniform4
     one's nodes also on ``image_dependent(fm)`` (``image_dependent_check``):
     the synthetic uniform4 model's nodes past stage 2 do not depend on the
     image."""
     from hawq_tpu_torch.inference.engine import build_resnet_engine
-    want = expected_launches(fm.arch, fm.cfg, mode)
+    want = expected_launches(fm.arch, fm.cfg, mode, residual_dtype=residual)
     label = f'{fm.arch} {fm.cfg.name} {mode} {residual}'
     eng = engine_check(
         functools.partial(build_resnet_engine, fm, input_mode=mode,
@@ -2116,7 +2159,8 @@ def engine_both_cores(fm, x, eng, dev):
         logits = old(x)
         torch.cuda.synchronize()
         want = {f'{k}@mma': v for k, v in expected_launches(
-            fm.arch, fm.cfg, 'folded_float32').items() if k in GEMM_KERNELS}
+            fm.arch, fm.cfg, 'folded_float32',
+            residual_dtype=torch.int16).items() if k in GEMM_KERNELS}
         check(core_launches() == want, f'engine on the first core: launches '
               f'per core {core_launches()}, expected {want}')
     check(torch.equal(logits, eng(x)), 'engine logits on the first core '
@@ -3551,7 +3595,8 @@ def sensitivity_phase(dev, errs):
         label = f'{fm.cfg.name} folded_float32 int16'
         calls = []
         if arch == 'resnet50':
-            want = expected_launches(arch, fm.cfg, 'folded_float32')
+            want = expected_launches(arch, fm.cfg, 'folded_float32',
+                                     residual_dtype=torch.int16)
             want_cores = core_split(want)
             build = functools.partial(build_resnet_engine, fm,
                                       input_mode='folded_float32',
@@ -3611,6 +3656,16 @@ _HEAD_ACT = {'inceptionv3': 'features.q_concat_activ'}
 _INPUT_ACT = {'inceptionv3': 'features.q_init_block.q_input_activ'}
 
 
+def same_multiplier(got, engine):
+    """An exported multiplier against the engine's of its site: equal, or
+    one value that the engine repeats over the channels (a kernel's
+    per-channel operand: the residual epilogue's identity multiplier)."""
+    engine = np.atleast_1d(engine)
+    if got.size == 1:
+        got = np.broadcast_to(got, engine.shape)
+    return np.array_equal(got, engine)
+
+
 def check_initializers(fm, m, eng, label):
     """Every initializer of the QONNX file ``m`` read back against what it
     came from: each Conv's weight, bias, weight scale and bits, the FC's
@@ -3655,13 +3710,12 @@ def check_initializers(fm, m, eng, label):
             continue
         site = 'init_requant' if name == 'init.mult' else name[:-5]
         if site in mults:
-            check(np.array_equal(got, np.atleast_1d(mults[site])),
+            check(same_multiplier(got, mults[site]),
                   f'{label}: multiplier {name} differs from the engine\'s')
             by_name += 1
         else:
-            check(any(np.array_equal(got, np.atleast_1d(v))
-                      for v in mults.values()), f'{label}: multiplier '
-                  f'{name} is none of the engine\'s')
+            check(any(same_multiplier(got, v) for v in mults.values()),
+                  f'{label}: multiplier {name} is none of the engine\'s')
             by_value += 1
         done.add(name)
     return len(done), len(inits), by_name, by_value
@@ -3754,9 +3808,9 @@ def export_phase(fm_gen, dev):
             for name, m_, e_ in pairs:
                 got = np.ldexp(np.asarray(m_, np.float32),
                                -np.asarray(e_)).astype(np.float32)
-                want = np.atleast_1d(eng._mult[name].cpu().numpy())
-                check(np.array_equal(got, want), f'bundle: (m, e) of {name} '
-                      f'do not rebuild the engine\'s multiplier')
+                check(same_multiplier(got, eng._mult[name].cpu().numpy()),
+                      f'bundle: (m, e) of {name} do not rebuild the '
+                      f'engine\'s multiplier')
                 n += 1
         log(f'phase 15: export_bundle of resnet50 uniform8 in {secs:.2f} s: '
             f'the manifest\'s (m, e) rebuild all {n} of the engine\'s float32 '
@@ -4231,7 +4285,8 @@ def routing_phase(dev, errs, tmp):
             kw = dict(input_mode=mode)
             if arch == 'resnet50':
                 kw['residual_dtype'] = carrier
-                counts = expected_launches('resnet50', cfg, mode, routing=tab)
+                counts = expected_launches('resnet50', cfg, mode, routing=tab,
+                                           residual_dtype=carrier)
                 want = (counts, core_split(counts))
             else:
                 if arch == 'mobilenetv2':
@@ -4619,7 +4674,8 @@ def parallel_phase(dev, fm, raw):
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
         cores = core_launches()
         want = {k: v * n_rep for k, v in expected_launches(
-            'resnet50', fm.cfg, 'folded_int8').items()}
+            'resnet50', fm.cfg, 'folded_int8',
+            residual_dtype=torch.int16).items()}
         check(counts == want, f'phase 17: ServingEngine launches {counts}, '
               f'expected {want}')
         check(cores == core_split(want), f'phase 17: launches per core '
@@ -5178,6 +5234,10 @@ def main():
         fm = fms[arch, scheme]
         engines[arch, scheme, mode] = engine_phase(
             fm, engine_input(fm, mode, raw, raw_u8, dev), mode, residual, dev)
+    fm = fms['resnet50', 'uniform8']
+    launches[RESIDUAL] = residual_phase(
+        engines['resnet50', 'uniform8', 'float32'],
+        engine_input(fm, 'float32', raw, raw_u8, dev), errs, totals)
     raw_pool_cost(engines, fms, raw, raw_u8, dev)
     for scheme in ('uniform8', 'uniform4'):     # W8A8 and W4A4 serving
         eng = engines['resnet50', scheme, 'folded_float32']
@@ -5237,6 +5297,8 @@ def main():
                   f'{SIZE}x{SIZE}'
     labels = {name: f'{arch} {scheme} folded_float32 int16 b{BATCH} '
                     f'{SIZE}x{SIZE}' for name, (arch, scheme) in report.items()}
+    labels[RESIDUAL] = (f'resnet50 uniform8 float32 int32 b{BATCH} '
+                        f'{SIZE}x{SIZE}')
     labels[KBLOCKED] = (f'the 16 int8_matmul_requant calls of resnet50 '
                         f'uniform8 b{BATCH}, driven once through it (on no '
                         f'path of the package)')

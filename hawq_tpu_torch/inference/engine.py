@@ -34,6 +34,12 @@ CPU device the kernels' plain versions run instead):
     after a pad (ResNet v2 pools its raw int32 accumulator the same way);
   * the FC → ``int8_matmul_acc`` (a float product of 2048·127·127 would not
     be exact);
+  * a bottleneck's conv3 in native mode with the int32 carrier, where its
+    weights are int8 → ``int8_matmul_acc_residual``: the unit's residual
+    requant-add and ReLU in the matmul's epilogue, so that the conv leaves
+    as the carrier (:meth:`ResnetEngine._fused_residual`); every other unit
+    conv3 and every basic block's conv2 take the accumulator form, then the
+    requant-add, ReLU (and int16 clamp) as PyTorch ops;
   * the weights of every conv and matmul call whose widths the Hopper GEMM
     core takes (``kernels.matmul.sm90_route``; the init conv's too) are
     cached in that core's K-major layout (``prepare_weights``; the 4-bit
@@ -66,7 +72,9 @@ through :meth:`IntEngine._conv_kxk` / :meth:`IntEngine._conv1x1` and the
 folded or CIFAR init conv, with its own layout glue; and in the ResNet v1
 engine ``engine.input`` (normalization and quantization of the images),
 ``engine.requant`` (each unit's entry requant and the FC's input) and
-``engine.residual`` (each unit's requant-add, ReLU, clamp and cast).  The
+``engine.residual`` (each unit's requant-add, ReLU, clamp and cast; where
+conv3 takes the residual epilogue, that conv with them, in place of its
+``engine.conv``).  The
 pools and the head have none.  Only ``engine.forward`` takes a device time
 (two timing events a call); the sites' device times are their ranges in
 the profiler's trace.
@@ -190,11 +198,13 @@ class IntEngine:
         ``torch.tensor``; the kernels take contiguous tensors)."""
         return torch.tensor(np.asarray(a, order='C'), device=self.device)
 
-    def requant_mult(self, name: str, acc_scale, out_scale):
+    def requant_mult(self, name: str, acc_scale, out_scale,
+                     channels: Optional[int] = None):
         """The multiplier of requant site ``name`` (``acc_scale`` scalar or
         per-channel) on the engine's device: in native mode one float32
-        23-bit dyadic multiplier; in reference mode the reference's float64
-        pair (m, 2⁻ᵉ), ``reference_oracle.decompose_ref``."""
+        23-bit dyadic multiplier, with ``channels`` repeated to that many
+        (a kernel's per-channel operand); in reference mode the reference's
+        float64 pair (m, 2⁻ᵉ), ``reference_oracle.decompose_ref``."""
         if name not in self._mult:
             if self.reference:
                 self._mult[name] = tuple(
@@ -203,6 +213,8 @@ class IntEngine:
             else:
                 ratio = (np.asarray(acc_scale, np.float32)
                          / np.float32(out_scale)).astype(np.float32)
+                if channels is not None:
+                    ratio = np.broadcast_to(ratio, (channels,))
                 self._mult[name] = self._dev(
                     qops.np_dyadic_multiplier(ratio))
         return self._mult[name]
@@ -447,6 +459,13 @@ class ResnetEngine(IntEngine):
         conv)."""
         return key.startswith('stage')
 
+    def _fused_residual(self, key3: str) -> bool:
+        """Whether a bottleneck's conv3 ``key3`` takes the residual
+        epilogue: native requant, the int32 carrier and int8 weights (not
+        packed by the bit config's rule or the routing table)."""
+        return (not self.reference and self.res_dt == torch.int32
+                and not self._int4(key3))
+
     def _init_w(self):
         """Weights of the init conv that does not take the space-to-depth
         route: the 3×3 fold (folded input) or the CIFAR 3×3 (C = 3: the
@@ -537,6 +556,7 @@ class ResnetEngine(IntEngine):
             mult = self.requant_mult(f'{p}.a1', self._scale(key1, sa), sa1)
             key2 = f'{p}.quant_convbn2'
             acc_scale = self._scale(key2, sa1)
+            fused = False
             if self.bottleneck:
                 s1, s2 = (stride, 1) if self.conv1_stride else (1, stride)
                 h = self._conv1x1(xa, key1, s1, mult, ba1, sg1)
@@ -547,7 +567,9 @@ class ResnetEngine(IntEngine):
                 emit(f'{p}.conv2', h)
                 key3 = f'{p}.quant_convbn3'
                 acc_scale = self._scale(key3, sa2)
-                acc = self._conv1x1(h, key3, 1)
+                fused = self._fused_residual(key3)
+                if not fused:
+                    acc = self._conv1x1(h, key3, 1)
             else:
                 h = self._conv_kxk(xa, key1, stride, mult, ba1, sg1)
                 emit(f'{p}.conv1', h)
@@ -556,15 +578,21 @@ class ResnetEngine(IntEngine):
             # residual requant-add at 16-bit precision; the unclamped sum
             # stays int32 until the ReLU and the int16 clamp
             s_out = self.act_info(f'{p}.quant_act_int32')[0]
-            mult_main = self.requant_mult(f'{p}.res_main', acc_scale, s_out)
-            mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out)
+            n = id_acc.shape[-1] if fused else None
+            mult_main = self.requant_mult(f'{p}.res_main', acc_scale, s_out,
+                                          n)
+            mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out, n)
             with span('engine.residual'):
-                x_wide = torch.clamp_min(self._requant_add(
-                    acc, mult_main, id_acc, mult_id), 0)
-                if self.res_dt != torch.int32:
-                    x_wide = torch.clamp(x_wide, 0,
-                                         torch.iinfo(self.res_dt).max)
-                x = x_wide.to(self.res_dt)
+                if fused:     # conv3 leaves as the carrier
+                    x = self._route(key3, 'matmul', False).residual(
+                        h, id_acc, mult_main, mult_id)
+                else:
+                    x_wide = torch.clamp_min(self._requant_add(
+                        acc, mult_main, id_acc, mult_id), 0)
+                    if self.res_dt != torch.int32:
+                        x_wide = torch.clamp(x_wide, 0,
+                                             torch.iinfo(self.res_dt).max)
+                    x = x_wide.to(self.res_dt)
             prev_scale = np.float32(s_out)
             emit(f'{p}.quant_act_int32', x)
 

@@ -135,8 +135,9 @@ def main(argv=None) -> int:
                     help='comma list of capture points (default per-stage)')
     ap.add_argument('--input-mode', default='float32',
                     help='ResNet v1: float32, folded_float32, uint8 or '
-                         'folded_int8 (int16 carrier); the other families '
-                         'take float32')
+                         'folded_int8; the other families take float32')
+    ap.add_argument('--carrier', default='int16', choices=('int16', 'int32'),
+                    help='ResNet v1: the residual carrier between units')
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--n-iters', type=int, default=None,
                     help='calls a timing window (default: grown until the '
@@ -164,7 +165,8 @@ def main(argv=None) -> int:
             x = preproc.quantize_int8(x, fm.act_scale('quant_input'))
         elif args.input_mode == 'uint8':
             x = np.clip(x * 255.0, 0, 255).astype(np.uint8)
-        kwargs.update(residual_dtype=torch.int16, input_mode=args.input_mode)
+        kwargs.update(residual_dtype=getattr(torch, args.carrier),
+                      input_mode=args.input_mode)
     points = args.points.split(',') if args.points else None
     profile_engine(fm, x, points=points, n_iters=args.n_iters, **kwargs)
     if fm.arch in RESNET_UNITS:

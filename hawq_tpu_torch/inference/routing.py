@@ -4,7 +4,8 @@ hawq_tpu/inference/routing.py).
 A routing table maps conv keys to this card's routes:
 
   * ``'int8'``  — the int8 kernels (#1 ``int8_matmul_requant`` / #2
-    ``int8_matmul_acc`` for a 1×1 conv, #6 / #7 for a k×k one);
+    ``int8_matmul_acc`` for a 1×1 conv, or #2 with a bottleneck's residual
+    epilogue, ``int8_matmul_acc_residual``; #6 / #7 for a k×k one);
   * ``'int4w'`` — the same products on nibble-packed weights (#3 / #4, #8 /
     #9), half the weight bytes.  On a layer whose weights are not 4-bit it
     takes ``'int8'``: packing needs nibble-range weights (the JAX package's
@@ -119,6 +120,19 @@ class Routed1x1(NamedTuple):
         fn = km.int4w_matmul_acc if self.int4 else km.int8_matmul_acc
         y = fn(self._rows(x8), self.w, self.bias)
         return y.reshape(*x8.shape[:-1], y.shape[-1])
+
+    def residual(self, x8: torch.Tensor, identity: torch.Tensor,
+                 mult_main: torch.Tensor,
+                 mult_id: torch.Tensor) -> torch.Tensor:
+        """conv + bias, then the residual requant-add with ``identity``
+        (..., N) int32 and the ReLU → the int32 carrier (..., N): #2 with
+        its residual epilogue (``int8_matmul_acc_residual``; int8 weights
+        only).  ``mult_main`` and ``mult_id`` (N,) float32."""
+        n = identity.shape[-1]
+        y = km.int8_matmul_acc_residual(self._rows(x8), self.w, self.bias,
+                                        identity.reshape(-1, n), mult_main,
+                                        mult_id)
+        return y.reshape(identity.shape)
 
 
 def make_router(fm: FrozenModel, device: torch.device,

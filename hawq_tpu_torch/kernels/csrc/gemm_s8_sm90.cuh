@@ -20,6 +20,10 @@
 //    int8_matmul_acc (matmul.py:189).  Its int32 output is nine tenths of its
 //    bytes, so its stores bound it; the old core stored 4 bytes per lane with
 //    an 8-byte lane stride.
+//  * int8_matmul_acc_residual (!CONV, !REQUANT, RESIDUAL): the bottleneck's
+//    last 1x1 conv with the unit's residual requant-add and ReLU in its
+//    epilogue, so that it leaves as the int32 carrier and its accumulator
+//    never reaches device memory (see "Residual epilogue" below).
 //  * int8_matmul_requant (!CONV, REQUANT): replaces hawq_tpu/kernels/matmul.py
 //    int8_matmul_requant (matmul.py:68), the first 1x1 conv of every
 //    bottleneck unit.  Bound by its bytes (M K + K N + M N); the matmul
@@ -135,6 +139,22 @@
 // as the wgmma A operand (no shared-memory round trip, but only 64-wide
 // channel tiles, so half the blocks at 7x7 and 14x14).
 //
+// Residual epilogue (RESIDUAL, the int8 accumulator matmul only).  The
+// identity, an int32 (M, N) tensor (the identity conv's accumulator or the
+// previous carrier), is read through a map of the output's geometry into the
+// staged chunks, which then lie at the end of the ring: the producer lane,
+// after its last K tile, waits until every ring stage under them has been
+// released for the last time (a K of at most four stages, every conv3 of
+// ResNet-50, never fills the last ones, so the load starts at once) and
+// loads the tile on an mbarrier of its own.  The consumers release the last
+// stage too, wait for that barrier, and turn each staged identity value into
+//
+//   max(int32(round(acc + bias, mult) + round(identity, mult_id)), 0)
+//
+// in place (requant.cuh requant_add_relu: quant/ops.py requant_add_int32's
+// float32 op order); the TMA store is the accumulator's.  Rows and columns
+// outside (M, N) are neither read nor stored: the maps clip them.
+//
 // Shapes this core does not take (row strides or base pointers that are not
 // multiples of 16 bytes) go to gemm_s8.cuh by the explicit rule sm90_route
 // in kernels/matmul.py; a failure here is returned to the caller, never
@@ -171,6 +191,21 @@ struct Args {
   int tiles_x, tiles_y;  // conv: th x tw pixel rectangles per image
   int th, tw;
   int pad_y, pad_x;      // conv: rows / columns of zero border that TMA supplies
+};
+
+// The epilogue's tensor maps: the output's, and with RESIDUAL the identity's
+// (the output's geometry) and its multipliers.  The kernels without a
+// residual keep their one map where it was among the parameters.
+template <bool RESIDUAL>
+struct OutMaps {
+  CUtensorMap out;
+};
+
+template <>
+struct OutMaps<true> {
+  CUtensorMap out;
+  CUtensorMap identity;   // (M, N) int32
+  const float* mult_id;   // (N,)
 };
 
 // ---------------------------------------------------------------------------
@@ -451,23 +486,28 @@ __host__ __device__ constexpr int stage_bytes() {
 
 // Dynamic shared memory of one block: the ring, with INT4 the two unpack
 // buffers, 1024 bytes of slack to align it (the swizzle patterns repeat every
-// 1024 bytes), and the 2 * STAGES barriers.  The epilogue's staging tile
-// reuses the ring and the unpack buffers behind it.
-template <int BK, int BN, bool INT4, int WG>
+// 1024 bytes), and the 2 * STAGES barriers, with RESIDUAL one more for the
+// identity.  The epilogue's staging tile reuses the ring and the unpack
+// buffers behind it.
+template <int BK, int BN, bool INT4, int WG, bool RESIDUAL = false>
 constexpr int smem_bytes() {
   return STAGES * stage_bytes<BK, BN, INT4, WG>() + (INT4 ? 2 * BN * BK : 0) +
-         1024 + 2 * STAGES * 8;
+         1024 + 2 * STAGES * 8 + (RESIDUAL ? 8 : 0);
 }
 
 // One WG * 64 x BN output tile per block: WG consumer warpgroups, each with
 // its own 64 rows of A and its own accumulators, on one B tile.
-template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG>
+template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG,
+          bool RESIDUAL = false>
 __global__ void __launch_bounds__(threads<WG>())
 gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap wmap,
-                    const __grid_constant__ CUtensorMap omap, const Args p) {
+                    const __grid_constant__ OutMaps<RESIDUAL> omaps,
+                    const Args p) {
   static_assert(WG == 1 || (!CONV && INT4),
                 "two consumer warpgroups: only the packed matmul");
+  static_assert(!RESIDUAL || (!CONV && !REQUANT && !INT4),
+                "the residual epilogue: only the int8 accumulator matmul");
   constexpr int TM = WG * BM;                    // rows of the block's tile
   constexpr int CONSUMERS = WG * CONSUMER_THREADS;
   constexpr int A_BYTES = TM * BK;
@@ -480,6 +520,12 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   constexpr int CHUNK_BYTES = TM * CHUNK_COLS * (REQUANT ? 1 : 4);
   static_assert(CHUNKS * CHUNK_BYTES <= STAGES * STAGE_BYTES + 2 * UNPACK_BYTES,
                 "the staged output tile must fit in the ring");
+  // the staged chunks: at the ring's start, or with RESIDUAL at its end,
+  // over the stages from UNDER on
+  constexpr int OUT_OFF =
+      RESIDUAL ? STAGES * STAGE_BYTES - CHUNKS * CHUNK_BYTES : 0;
+  constexpr int UNDER = OUT_OFF / STAGE_BYTES;
+  static_assert(OUT_OFF % 1024 == 0, "the swizzle's 1024-byte alignment");
   constexpr int CHAINS = 2;
 
   extern __shared__ uint8_t smem_raw[];
@@ -489,6 +535,7 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   const uint32_t unpacked = ring + STAGES * STAGE_BYTES;
   const uint32_t full = unpacked + 2 * UNPACK_BYTES;
   const uint32_t empty = full + STAGES * 8;
+  const uint32_t id_full = empty + STAGES * 8;   // RESIDUAL: the identity
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -508,7 +555,8 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   if (tid == CONSUMERS) {            // the producer lane: descriptors on their way
     tma_prefetch_map(&amap);
     tma_prefetch_map(&wmap);
-    tma_prefetch_map(&omap);
+    tma_prefetch_map(&omaps.out);
+    if constexpr (RESIDUAL) tma_prefetch_map(&omaps.identity);
   }
   if (tid == 0) {
 #pragma unroll
@@ -516,6 +564,7 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
       mbar_init(full + s * 8, 1);    // the producer's arrive + the bytes
       mbar_init(empty + s * 8, 4 * WG);   // one lane of each consumer warp
     }
+    if (RESIDUAL) mbar_init(id_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -552,6 +601,22 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
           stage = 0;
           parity ^= 1;
         }
+      }
+      if constexpr (RESIDUAL) {
+        // the identity into the staged chunks, once the stages under them
+        // are released: the waits of the next STAGES tiles, for those stages
+        for (int i = 0; i < STAGES; ++i) {
+          if (stage >= UNDER) mbar_wait(empty + stage * 8, parity);
+          if (++stage == STAGES) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+        const int chunks = min(CHUNKS, (p.N - n0 + 31) / 32);
+        mbar_expect_tx(id_full, chunks * CHUNK_BYTES);
+        for (int c = 0; c < chunks; ++c)
+          tma_load_2d(ring + OUT_OFF + c * CHUNK_BYTES, &omaps.identity,
+                      id_full, n0 + c * 32, m0);
       }
     }
     return;
@@ -608,8 +673,10 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
       }
     }
     wgmma_wait<0>();
+    if (RESIDUAL && lane == 0) mbar_arrive(empty + prev * 8);  // the last
   }
   consumer_sync<WG>();              // every warp is done reading the ring
+  if (RESIDUAL) mbar_wait(id_full, 0);
 
   // ---- epilogue: registers -> staged tile -> TMA store ----
   const int row0 = warp * 16 + (lane >> 2);
@@ -620,10 +687,14 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
     const int n = n0 + col;
     const int32_t bias0 = n < p.N ? __ldg(p.bias + n) : 0;
     const int32_t bias1 = n + 1 < p.N ? __ldg(p.bias + n + 1) : 0;
-    float mult0 = 0.f, mult1 = 0.f;
-    if (REQUANT) {
+    float mult0 = 0.f, mult1 = 0.f, mid0 = 0.f, mid1 = 0.f;
+    if (REQUANT || RESIDUAL) {
       mult0 = n < p.N ? __ldg(p.mult + n) : 0.f;
       mult1 = n + 1 < p.N ? __ldg(p.mult + n + 1) : 0.f;
+    }
+    if constexpr (RESIDUAL) {
+      mid0 = n < p.N ? __ldg(omaps.mult_id + n) : 0.f;
+      mid1 = n + 1 < p.N ? __ldg(omaps.mult_id + n + 1) : 0.f;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -642,9 +713,15 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
       } else {
         const int cc = col & 31;
         const int unit = (cc >> 2) ^ (row & 7);
-        *reinterpret_cast<int2*>(ring_ptr + (col >> 5) * CHUNK_BYTES +
-                                 row * 128 + unit * 16 + (cc & 3) * 4) =
-            make_int2(v0, v1);
+        int2* slot = reinterpret_cast<int2*>(
+            ring_ptr + OUT_OFF + (col >> 5) * CHUNK_BYTES + row * 128 +
+            unit * 16 + (cc & 3) * 4);
+        if constexpr (RESIDUAL) {     // the staged identity, in place
+          const int2 id = *slot;
+          v0 = hawq::requant_add_relu(v0, mult0, id.x, mid0);
+          v1 = hawq::requant_add_relu(v1, mult1, id.y, mid1);
+        }
+        *slot = make_int2(v0, v1);
       }
     }
   }
@@ -656,9 +733,9 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
       const int nc = n0 + c * CHUNK_COLS;
       if (nc >= p.N) break;
       if (CONV)
-        tma_store_4d(&omap, ring + c * CHUNK_BYTES, nc, ox0, oy0, b);
+        tma_store_4d(&omaps.out, ring + c * CHUNK_BYTES, nc, ox0, oy0, b);
       else
-        tma_store_2d(&omap, ring + c * CHUNK_BYTES, nc, m0);
+        tma_store_2d(&omaps.out, ring + OUT_OFF + c * CHUNK_BYTES, nc, m0);
     }
     tma_store_commit_and_wait();    // the block's shared memory must outlive it
   }
@@ -732,16 +809,17 @@ inline int encode_weight_map(CUtensorMap* map, const int8_t* wt, int N,
                     box, k_swizzle(box_bytes));
 }
 
-template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG>
+template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG,
+          bool RESIDUAL>
 inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
-                      const CUtensorMap& omap, const Args& p, dim3 grid,
-                      int smem_extra, cudaStream_t stream) {
+                      const OutMaps<RESIDUAL>& omaps, const Args& p,
+                      dim3 grid, int smem_extra, cudaStream_t stream) {
   // above 48 KB the dynamic shared memory size is opted into, once per
   // instantiation, device and size
   constexpr int MAX_DEVICES = 64;
   static int configured[MAX_DEVICES] = {};
-  const int smem = smem_bytes<BK, BN, INT4, WG>() + smem_extra;
-  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN, WG>;
+  const int smem = smem_bytes<BK, BN, INT4, WG, RESIDUAL>() + smem_extra;
+  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN, WG, RESIDUAL>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -754,18 +832,19 @@ inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
     }
     if (device < MAX_DEVICES) configured[device] = smem;
   }
-  kernel<<<grid, threads<WG>(), smem, stream>>>(amap, wmap, omap, p);
+  kernel<<<grid, threads<WG>(), smem, stream>>>(amap, wmap, omaps, p);
   return (int)cudaGetLastError();
 }
 
-template <bool CONV, bool REQUANT, bool INT4, int WG = 1>
+template <bool CONV, bool REQUANT, bool INT4, int WG = 1,
+          bool RESIDUAL = false>
 inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
-                  const CUtensorMap& omap, const Args& p, dim3 grid, int bk,
-                  int bn, int smem_extra, cudaStream_t stream) {
+                  const OutMaps<RESIDUAL>& omaps, const Args& p, dim3 grid,
+                  int bk, int bn, int smem_extra, cudaStream_t stream) {
 #define HAWQ_SM90_CASE(K, N)                                                 \
   if (bk == K && bn == N)                                                    \
-    return launch_one<CONV, REQUANT, INT4, K, N, WG>(amap, wmap, omap, p,    \
-                                                     grid, smem_extra, stream);
+    return launch_one<CONV, REQUANT, INT4, K, N, WG, RESIDUAL>(              \
+        amap, wmap, omaps, p, grid, smem_extra, stream);
   HAWQ_SM90_CASE(64, 32)
   HAWQ_SM90_CASE(64, 64)
   HAWQ_SM90_CASE(64, 128)
@@ -783,15 +862,20 @@ inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
 // x (M, K) int8 row-major times the prepared weights behind ``wmap_bytes``
 // (with INT4 their nibble-packed handle): the int32 accumulator + bias (out
 // int32, bm x 32 boxes in the 128-byte swizzle), or with REQUANT its requant
-// (out int8, one dense bm x BN box).  bm, the rows of a block's tile, is 64,
-// or 128 (two consumer warpgroups) with INT4.
-template <bool REQUANT, bool INT4>
+// (out int8, one dense bm x BN box), or with RESIDUAL the residual epilogue's
+// int32 carrier over ``identity`` (M, N) int32, read in the output's boxes,
+// with ``mult`` and ``mult_id`` (N,) float32.  bm, the rows of a block's
+// tile, is 64, or 128 (two consumer warpgroups) with INT4.
+template <bool REQUANT, bool INT4, bool RESIDUAL = false>
 inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
                         const int32_t* bias, const float* mult, void* out,
                         int M, int K, int N, int lo, int hi, int bk, int bn,
-                        int bm, int smem_extra, cudaStream_t stream) {
+                        int bm, int smem_extra, cudaStream_t stream,
+                        const int32_t* identity = nullptr,
+                        const float* mult_id = nullptr) {
   if (bm != BM && !(INT4 && bm == 2 * BM)) return (int)cudaErrorInvalidValue;
-  CUtensorMap amap, wmap, omap;
+  CUtensorMap amap, wmap;
+  OutMaps<RESIDUAL> omaps;
   std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
   {
     const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
@@ -806,13 +890,20 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
     const cuuint64_t strides[1] = {(cuuint64_t)N * (REQUANT ? 1 : 4)};
     const cuuint32_t box[2] = {(cuuint32_t)(REQUANT ? bn : 32),
                                (cuuint32_t)bm};
-    int code = encode_map(&omap,
+    int code = encode_map(&omaps.out,
                           REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                   : CU_TENSOR_MAP_DATA_TYPE_INT32,
                           2, out, dims, strides, box,
                           REQUANT ? CU_TENSOR_MAP_SWIZZLE_NONE
                                   : CU_TENSOR_MAP_SWIZZLE_128B);
     if (code) return code;
+    if constexpr (RESIDUAL) {
+      code = encode_map(&omaps.identity, CU_TENSOR_MAP_DATA_TYPE_INT32, 2,
+                        identity, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+      if (code) return code;
+      omaps.mult_id = mult_id;
+    }
   }
   Args p{};
   p.bias = bias;
@@ -824,11 +915,11 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
   dim3 grid((M + bm - 1) / bm, (N + bn - 1) / bn);
   if constexpr (INT4) {
     if (bm == 2 * BM)
-      return launch<false, REQUANT, true, 2>(amap, wmap, omap, p, grid, bk, bn,
-                                             smem_extra, stream);
+      return launch<false, REQUANT, true, 2>(amap, wmap, omaps, p, grid, bk,
+                                             bn, smem_extra, stream);
   }
-  return launch<false, REQUANT, INT4>(amap, wmap, omap, p, grid, bk, bn,
-                                      smem_extra, stream);
+  return launch<false, REQUANT, INT4, 1, RESIDUAL>(amap, wmap, omaps, p, grid,
+                                                   bk, bn, smem_extra, stream);
 }
 
 // The stride-1 conv over xp: the zero-padded (B, Hp, Wp*C) slab, or with
@@ -859,7 +950,8 @@ inline int conv_entry(const int8_t* xp, const void* wmap_bytes,
   if (row_taps != 1 && (row_taps != kw || pad_w != 0))
     return (int)cudaErrorInvalidValue;
   const int Hp = H + kh - 1 - 2 * pad_h, Wp = W + kw - 1 - 2 * pad_w;
-  CUtensorMap amap, wmap, omap;
+  CUtensorMap amap, wmap;
+  OutMaps<false> omaps;
   std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
   {
     const cuuint64_t dims[4] = {(cuuint64_t)row_taps * C,
@@ -882,7 +974,7 @@ inline int conv_entry(const int8_t* xp, const void* wmap_bytes,
                                    (cuuint64_t)H * W * N * elem};
     const cuuint32_t box[4] = {(cuuint32_t)(REQUANT ? bn : 32), (cuuint32_t)tw,
                                (cuuint32_t)th, 1};
-    int code = encode_map(&omap,
+    int code = encode_map(&omaps.out,
                           REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                   : CU_TENSOR_MAP_DATA_TYPE_INT32,
                           4, out, dims, strides, box,
@@ -907,7 +999,7 @@ inline int conv_entry(const int8_t* xp, const void* wmap_bytes,
   p.pad_y = pad_h;
   p.pad_x = pad_w;
   dim3 grid(B * p.tiles_x * p.tiles_y, (N + bn - 1) / bn);
-  return launch<true, REQUANT, INT4>(amap, wmap, omap, p, grid, bk, bn,
+  return launch<true, REQUANT, INT4>(amap, wmap, omaps, p, grid, bk, bn,
                                      smem_extra, stream);
 }
 

@@ -7,6 +7,16 @@
 // int32 stores (4 M N of its M K + K N + 4 M N bytes): the tile leaves
 // through shared memory in whole 128-byte lines.  x is (M, K) row-major; the
 // weights arrive as the map of their prepared (N, Kpad) K-major copy.
+//
+// hawq_int8_matmul_residual_sm90 is the same matmul with the residual
+// epilogue (gemm_s8_sm90.cuh RESIDUAL): the bottleneck's last 1x1 conv
+// leaves as the unit's int32 carrier,
+//
+//   out = max(int32(round(acc + bias, mult) + round(identity, mult_id)), 0)
+//
+// the engine's requant-add and ReLU (quant/ops.py requant_add_int32), which
+// hawq_tpu runs as XLA ops after int8_matmul_acc.  It reads the identity
+// (M, N) int32 in place of writing and re-reading the accumulator.
 #include "gemm_s8_sm90.cuh"
 
 // Encodes the tensor map of prepared weights wt, N rows of row_bytes, for
@@ -28,4 +38,14 @@ extern "C" int hawq_int8_matmul_sm90(const int8_t* x, const void* wmap_bytes,
                                                out, M, K, N, 0, 0, bk, bn,
                                                hawq_sm90::BM, smem_extra,
                                                stream);
+}
+
+extern "C" int hawq_int8_matmul_residual_sm90(
+    const int8_t* x, const void* wmap_bytes, const int32_t* bias,
+    const float* mult, const int32_t* identity, const float* mult_id,
+    int32_t* out, int M, int K, int N, int bk, int bn, int smem_extra,
+    cudaStream_t stream) {
+  return hawq_sm90::matmul_entry<false, false, true>(
+      x, wmap_bytes, bias, mult, out, M, K, N, 0, 0, bk, bn, hawq_sm90::BM,
+      smem_extra, stream, identity, mult_id);
 }

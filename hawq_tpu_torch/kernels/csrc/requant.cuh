@@ -7,6 +7,11 @@
 // nvcc (--fmad=true) would otherwise contract them into one FMA, which
 // rounds once and flips borderline values against the reference.  The
 // result is an integer-valued float in [lo, hi].
+//
+// The residual requant-add of a bottleneck (the Hopper core's RESIDUAL
+// epilogue) rounds both branches so, adds them in float32 (rounded, as
+// quant/ops.py requant_add_int32 adds: above 2^24 an int add would differ)
+// and casts the sum to int32 before the ReLU.
 #pragma once
 
 #include <cstdint>
@@ -14,10 +19,21 @@
 
 namespace hawq {
 
+// floor(f32(v) * mult + 0.5), unclipped
+__device__ __forceinline__ float round_mult_f32(int32_t v, float mult) {
+  return floorf(__fadd_rn(__fmul_rn(__int2float_rn(v), mult), 0.5f));
+}
+
 __device__ __forceinline__ float requant_f32(int32_t v, float mult, float lo,
                                              float hi) {
-  const float f = __fadd_rn(__fmul_rn(__int2float_rn(v), mult), 0.5f);
-  return fminf(fmaxf(floorf(f), lo), hi);
+  return fminf(fmaxf(round_mult_f32(v, mult), lo), hi);
+}
+
+// max(int32(round(v, mult) + round(id, mult_id)), 0)
+__device__ __forceinline__ int32_t requant_add_relu(int32_t v, float mult,
+                                                    int32_t id, float mult_id) {
+  return max(__float2int_rz(__fadd_rn(round_mult_f32(v, mult),
+                                      round_mult_f32(id, mult_id))), 0);
 }
 
 }  // namespace hawq

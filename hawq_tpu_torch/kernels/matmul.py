@@ -23,11 +23,19 @@ kernel) lays them out once (the engine caches the handle); a wrapper handed
 plain weights lays them out on the device at each call.
 :data:`_build.CORE_LAUNCHES` counts the launches of each core.
 
-The four matmuls run as the operators ``torch.ops.hawq.<wrapper name>``
-(:data:`OPS`; ``_build.define_op``): the wrapper takes a handle apart into
-its ``wt`` and padded K and its options into ints, and the operator picks
-the core and the tile at launch.  The K-blocked matmul, on no engine's path,
-stays a plain call.
+``int8_matmul_acc_residual`` is ``int8_matmul_acc`` with a bottleneck
+unit's residual in its epilogue: the requant-add of the accumulator and an
+int32 identity, each with its own multipliers, then the ReLU
+(:func:`residual_epilogue`), so that the unit's last 1×1 conv leaves as its
+int32 carrier.  On the Hopper core it is that core's ``RESIDUAL`` epilogue;
+where the rule excludes the call, the first core's accumulator and then
+:func:`residual_epilogue` in PyTorch.
+
+The four matmuls and the residual form run as the operators
+``torch.ops.hawq.<wrapper name>`` (:data:`OPS`; ``_build.define_op``): the
+wrapper takes a handle apart into its ``wt`` and padded K and its options
+into ints, and the operator picks the core and the tile at launch.  The
+K-blocked matmul, on no engine's path, stays a plain call.
 """
 
 from __future__ import annotations
@@ -43,7 +51,11 @@ import torch
 import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
-from hawq_tpu_torch.quant.ops import requant_clip_bounds, round_half_up
+from hawq_tpu_torch.quant.ops import (requant_add_int32, requant_clip_bounds,
+                                      round_half_up)
+
+# the accumulator matmul with a bottleneck's residual epilogue
+RESIDUAL = 'int8_matmul_acc_residual'
 
 
 def epilogue_bounds(out_bits: int, signed: bool,
@@ -92,6 +104,16 @@ def requant_epilogue(acc: torch.Tensor, mult: torch.Tensor, lo: int,
     """clip(floor(f32(acc)·mult + 0.5), lo, hi) → int8 (plain version)."""
     out = round_half_up(acc.to(torch.float32) * mult)
     return torch.clamp(out, float(lo), float(hi)).to(torch.int8)
+
+
+def residual_epilogue(acc: torch.Tensor, mult_main: torch.Tensor,
+                      identity: torch.Tensor,
+                      mult_id: torch.Tensor) -> torch.Tensor:
+    """max(requant_add(acc, mult_main; identity, mult_id), 0) → int32 (plain
+    version): a bottleneck's residual requant-add
+    (``quant.ops.requant_add_int32``), then the ReLU."""
+    return torch.clamp_min(
+        requant_add_int32(acc, mult_main, identity, mult_id), 0)
 
 
 def int_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -435,11 +457,15 @@ def _matmul_name(requant: bool, int4: bool) -> str:
 
 def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
                  requant: bool, tile_n: Optional[int], tile_m: Optional[int],
-                 smem_extra: int, name: Optional[str] = None) -> torch.Tensor:
+                 smem_extra: int, name: Optional[str] = None,
+                 identity: Optional[torch.Tensor] = None,
+                 mult_id: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The four matmuls on the Hopper core: int8 or packed int4 weights
     (``prepared.int4``), with ``requant`` the requant forms (int8 out), else
-    the accumulator forms (int32 out); counted as ``name`` (the K-blocked
-    matmul runs the int8 requant form)."""
+    the accumulator forms (int32 out), the int8 one with ``identity`` (M, N)
+    int32 in its residual epilogue (``mult`` the accumulator's multipliers,
+    ``mult_id`` the identity's); counted as ``name`` (the K-blocked matmul
+    runs the int8 requant form)."""
     int4 = prepared.int4
     name = name or _matmul_name(requant, int4)
     m, k = x.shape
@@ -450,8 +476,11 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     _build.require(prepared.wt, 'prepared.wt', torch.int8,
                    (n, prepared.row_bytes), dev)
     _build.require(bias, 'bias', torch.int32, (n,), dev)
-    if requant:
+    if requant or identity is not None:
         _build.require(mult, 'mult', torch.float32, (n,), dev)
+    if identity is not None:
+        _build.require(identity, 'identity', torch.int32, (m, n), dev)
+        _build.require(mult_id, 'mult_id', torch.float32, (n,), dev)
     if m < 1:
         raise ValueError(f'{name}: empty x')
     k_tiles = -(-k // prepared.tile_k)
@@ -471,7 +500,11 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     tail = (prepared.tile_k, tile_n) + ((tile_m,) if int4 else ()) + (
         smem_extra, _build.stream_ptr(dev))
     with torch.cuda.device(dev):
-        if requant:
+        if identity is not None:
+            code = lib.hawq_int8_matmul_residual_sm90(
+                *head, mult.data_ptr(), identity.data_ptr(),
+                mult_id.data_ptr(), out.data_ptr(), m, k, n, *tail)
+        elif requant:
             entry = (lib.hawq_int4w_matmul_sm90 if int4
                      else lib.hawq_int8_matmul_requant_sm90)
             code = entry(*head, mult.data_ptr(), out.data_ptr(), m, k, n, lo,
@@ -485,8 +518,10 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     return out
 
 
-def _launch(x, w, bias, mult, lo, hi, requant: bool,
-            int4: bool) -> torch.Tensor:
+def _launch(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
+            name: Optional[str] = None) -> torch.Tensor:
+    """The four matmuls on the first core, counted as ``name`` (the
+    residual form runs the int8 accumulator form)."""
     m, k = x.shape
     n = w.shape[1]
     if int4 and k % 2:
@@ -502,7 +537,7 @@ def _launch(x, w, bias, mult, lo, hi, requant: bool,
                       device=dev)
     vec_a = int(k % 16 == 0 and x.data_ptr() % 16 == 0)
     vec_b = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
-    name = _matmul_name(requant, int4)
+    name = name or _matmul_name(requant, int4)
     with torch.cuda.device(dev):
         code = _build.lib().hawq_int8_matmul(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(),
@@ -592,9 +627,54 @@ def _define_matmul(name: str):
         f'-> Tensor', cpu, cuda, fake)
 
 
+def _residual_cuda(x, w, cpad, bias, identity, mult_main, mult_id, core,
+                   tile_n, smem_extra) -> torch.Tensor:
+    """The residual form's CUDA implementation: the Hopper core's
+    ``RESIDUAL`` epilogue where the rule takes the widths and the identity
+    lies on 16 bytes (TMA reads it), else the first core's accumulator and
+    :func:`residual_epilogue`."""
+    k = x.shape[1]
+    prepared = PreparedWeights(w, 1, k, cpad) if cpad else None
+    n = w.shape[0] if cpad else w.shape[1]
+    reason = sm90_route('matmul', k=k, n=n, ptr=x.data_ptr())
+    if reason is None and identity.data_ptr() % 16:
+        reason = 'identity pointer % 16'
+    if _core_for(RESIDUAL, _CORE_NAMES[core], reason) == 'mma':
+        if prepared is not None:
+            w = unprepare_weights(prepared)
+        acc = _launch(x, w, bias, None, 0, 0, False, False, RESIDUAL)
+        return residual_epilogue(acc, mult_main, identity, mult_id)
+    if prepared is None:
+        _build.require(w, 'w', torch.int8, (k, n), x.device)
+        prepared = prepare_weights(w)
+    return _launch_sm90(x, prepared, bias, mult_main, 0, 0, False,
+                        _build.from_opt_int(tile_n), None, smem_extra,
+                        RESIDUAL, identity, mult_id)
+
+
+def _define_residual():
+    """``hawq::int8_matmul_acc_residual(x, w, cpad, bias, identity,
+    mult_main, mult_id, core, tile_n, smem_extra)``: ``w`` and ``cpad`` as
+    for the matmuls, ``mult_main`` and ``mult_id`` (N,) float32."""
+
+    def cpu(x, w, cpad, bias, identity, mult_main, mult_id, core, tile_n,
+            smem_extra):
+        acc = _matmul_plain('int8_matmul_acc', x, w, cpad, bias, None, 0, 0)
+        return residual_epilogue(acc, mult_main, identity, mult_id)
+
+    def fake(x, w, cpad, bias, identity, mult_main, mult_id, core, tile_n,
+             smem_extra):
+        return identity.new_empty(identity.shape)
+    return _build.define_op(
+        f'{RESIDUAL}(Tensor x, Tensor w, int cpad, Tensor bias, '
+        f'Tensor identity, Tensor mult_main, Tensor mult_id, int core, '
+        f'int tile_n, int smem_extra) -> Tensor', cpu, _residual_cuda, fake)
+
+
 OPS = {name: _define_matmul(name) for name in (
     'int8_matmul_requant', 'int8_matmul_acc', 'int4w_matmul_requant',
     'int4w_matmul_acc')}
+OPS[RESIDUAL] = _define_residual()
 
 
 def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
@@ -643,6 +723,30 @@ def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
     The result does not depend on any of them."""
     return _matmul(x, w, bias, None, 0, 0, False, False, core, tile_n, None,
                    smem_extra)
+
+
+def int8_matmul_acc_residual(x: torch.Tensor, w, bias: torch.Tensor,
+                             identity: torch.Tensor, mult_main: torch.Tensor,
+                             mult_id: torch.Tensor, *,
+                             core: Optional[str] = None,
+                             tile_n: Optional[int] = None,
+                             smem_extra: int = 0) -> torch.Tensor:
+    """out[i, n] = max(round(acc[i, n]·mult_main[n]) +
+    round(identity[i, n]·mult_id[n]), 0) as int32, acc = Σ_k x[i,k]·w[k,n] +
+    bias[n]: :func:`int8_matmul_acc` with a bottleneck's residual
+    requant-add and ReLU (:func:`residual_epilogue`) in its epilogue.
+
+    ``identity`` (M, N) int32 (the identity conv's accumulator or the
+    previous carrier), ``mult_main`` and ``mult_id`` (N,) float32 (a scalar
+    multiplier repeated N times); the other arguments as in
+    :func:`int8_matmul_acc`."""
+    cpad = 0
+    if isinstance(w, PreparedWeights):
+        w.check(1, x.shape[1], RESIDUAL)
+        w, cpad = w.wt, w.cpad
+    return OPS[RESIDUAL](x, w, cpad, bias, identity, mult_main, mult_id,
+                         core_code(RESIDUAL, core), _build.opt_int(tile_n),
+                         smem_extra)
 
 
 def int4w_matmul_requant(x: torch.Tensor, w_packed, bias: torch.Tensor,

@@ -1,6 +1,7 @@
 """CUDA kernels == their plain PyTorch versions on the card, bit for bit
 (the int8 and the nibble-packed int4-weight forms, the K-blocked matmul on
-both cores, the folded pool and its requant-in-front form, the one-pass
+both cores, the accumulator matmul's residual epilogue against the
+composition it replaces, the folded pool and its requant-in-front form, the one-pass
 min/max, D1's depthwise conv and A1's average pool, with and without the
 requant in front), and the engines, the
 integer conv of the QAT layers, a QAT forward and the Hutchinson HVP on
@@ -446,6 +447,97 @@ def test_sm90_matmul_acc_equals_plain_and_first_core(dev, m, k, n):
                                rtol=0, atol=0)
     assert _core_counts() == {'int8_matmul_acc@sm90': 8,
                               'int8_matmul_acc@mma': 1}
+
+
+# the residual form's operand regimes (``_residual_operands``)
+RESIDUAL_CASES = ('carrier', 'id_conv', 'ties', 'past_2_24', 'negative')
+
+
+def _residual_operands(case, m, k, n):
+    """``int8_matmul_acc_residual``'s operands (x, w, bias, identity,
+    mult_main, mult_id; numpy) in one regime: 'carrier', a non-negative
+    identity (a previous carrier) with one multiplier, a 0-d array;
+    'id_conv', a signed identity conv's accumulator with per-channel
+    multipliers; 'ties', multipliers 2⁻¹ and 2⁻², whose products land on
+    .5; 'past_2_24', unit multipliers and sums on both sides of 2²⁴, where
+    int32 → float32 and the float32 add round; 'negative', most sums below
+    0, which the ReLU zeroes."""
+    rng = np.random.RandomState(m + k + n + RESIDUAL_CASES.index(case))
+    x = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    w = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    bias = rng.randint(-2 ** 16, 2 ** 16, n).astype(np.int32)
+
+    def dyadic(scale, shape):       # multipliers of about ``scale``
+        return np_dyadic_multiplier(
+            np.asarray(scale * (0.5 + rng.rand(*shape)), np.float32))
+    acc_rms = 5500.0 * np.sqrt(k)   # ≈ the accumulator's spread
+    mult_main = dyadic(64 / acc_rms, (n,))
+    identity = rng.randint(-2 ** 20, 2 ** 20, (m, n)).astype(np.int32)
+    mult_id = dyadic(64 / 2 ** 20, (n,))
+    if case == 'carrier':
+        identity = rng.randint(0, 2 ** 15, (m, n)).astype(np.int32)
+        mult_id = dyadic(64 / 2 ** 15, ())
+    elif case == 'ties':
+        mult_main = np.where(np.arange(n) % 2, 0.5, 0.25).astype(np.float32)
+        mult_id = np.full(n, 0.5, np.float32)
+        identity = rng.randint(-2 ** 10, 2 ** 10, (m, n)).astype(np.int32)
+    elif case == 'past_2_24':
+        x = rng.randint(-2, 3, (m, k)).astype(np.int8)
+        w = rng.randint(-2, 3, (k, n)).astype(np.int8)
+        bias = (2 ** 24 + rng.randint(-300, 300, n)).astype(np.int32)
+        mult_main = np.ones(n, np.float32)
+        identity = rng.randint(-300, 300, (m, n)).astype(np.int32)
+        mult_id = np.ones(n, np.float32)
+    elif case == 'negative':
+        bias = np.full(n, -int(acc_rms), np.int32)
+        identity = rng.randint(-2 ** 20, 2 ** 18, (m, n)).astype(np.int32)
+    return x, w, bias, identity, mult_main, mult_id
+
+
+# ResNet-50's conv3 (K, N, H = W), each stage's
+_R50_CONV3 = [(64, 256, 56), (128, 512, 28), (256, 1024, 14), (512, 2048, 7)]
+
+
+@pytest.mark.parametrize('identity', ['carrier', 'id_conv'])
+@pytest.mark.parametrize('batch,k,n,hw', [(8, *s) for s in _R50_CONV3]
+                         + [(1, 512, 2048, 7), (64, 64, 256, 56)])
+def test_sm90_residual_equals_the_first_core_composition(dev, batch, k, n, hw,
+                                                         identity):
+    """``int8_matmul_acc_residual`` at ResNet-50's conv3 shapes (b8, a b1
+    of 49 rows: a ragged tile, one b64) on the Hopper core == its CUDA
+    fallback (the first core's accumulator, then the requant-add and ReLU
+    in PyTorch) == the plain composition, bit for bit."""
+    m = batch * hw * hw
+    x, w, b, idt, mm, mi = (torch.tensor(a, device=dev) for a in
+                            _residual_operands(identity, m, k, n))
+    mi_n = mi.expand(n).contiguous()
+    want = km.residual_epilogue(km.matmul_acc_plain(x, w, b), mm, idt, mi)
+    prepared = km.prepare_weights(w)
+    _build.reset_launches()
+    got = km.int8_matmul_acc_residual(x, prepared, b, idt, mm, mi_n)
+    old = km.int8_matmul_acc_residual(x, w, b, idt, mm, mi_n, core='mma')
+    assert _core_counts() == {f'{km.RESIDUAL}@sm90': 1,
+                              f'{km.RESIDUAL}@mma': 1}
+    torch.testing.assert_close(old, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, old, rtol=0, atol=0)
+    assert bool((got == 0).any()) and bool((got > 0).any())
+
+
+@pytest.mark.parametrize('tile_n', [None, 32, 64, 128])
+@pytest.mark.parametrize('m,k,n', [(130, 80, 72), (49, 512, 2048),
+                                   (64, 64, 36), (1, 16, 4)])
+@pytest.mark.parametrize('case', RESIDUAL_CASES)
+def test_sm90_residual_regimes_equal_plain(dev, case, m, k, n, tile_n):
+    """Every operand regime of ``_residual_operands`` at ragged shapes (M,
+    K and N off the tiles, N off a 32-column chunk) and every tile width:
+    the Hopper core == the plain composition, bit for bit."""
+    x, w, b, idt, mm, mi = (torch.tensor(a, device=dev) for a in
+                            _residual_operands(case, m, k, n))
+    want = km.residual_epilogue(km.matmul_acc_plain(x, w, b), mm, idt, mi)
+    got = km.int8_matmul_acc_residual(x, km.prepare_weights(w), b, idt, mm,
+                                      mi.expand(n).contiguous(),
+                                      core='sm90', tile_n=tile_n)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # (B, H, W, C), N, taps, of the slab conv: the four 3×3 stages of ResNet-50

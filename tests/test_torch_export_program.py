@@ -3,8 +3,9 @@
 
 * Every kernel operator (``torch.ops.hawq.*``) passes
   ``torch.library.opcheck`` on small CPU inputs: the int8 and nibble-packed
-  int4 matmuls and convs, on plain weights and on the Hopper core's handle,
-  both forms of the folded pool, of D1 and of A1.
+  int4 matmuls and convs and the int8 matmul's residual form, on plain
+  weights and on the Hopper core's handle, both forms of the folded pool,
+  of D1 and of A1.
 * ``load_program(export_program(fm))`` gives logits bit-equal (tolerance 0)
   to the port's engine and to ``load_stablehlo(export_stablehlo(fm))`` on
   the same numpy images and weights (``frozen_from_numpy``), at tiny50
@@ -64,6 +65,19 @@ def _matmul_args(name, prepared):
     return (x, w, cpad, _bias(rng, 16), *epilogue, -1, -1, -1, 0)
 
 
+def _residual_args(prepared):
+    rng = np.random.RandomState(5)
+    x, w = _i8(rng, (5, 32)), _i8(rng, (32, 16))
+    cpad = 0
+    if prepared:
+        h = km.prepare_weights(w)
+        w, cpad = h.wt, h.cpad
+    identity = torch.tensor(rng.randint(-2 ** 20, 2 ** 20, (5, 16))
+                            .astype(np.int32))
+    return (x, w, cpad, _bias(rng, 16), identity, _mult(rng, 16),
+            _mult(rng, 16), -1, -1, 0)
+
+
 def _conv_args(name, prepared, pad):
     rng = np.random.RandomState(1)
     int4, requant = name.startswith('int4w'), name.endswith('requant')
@@ -114,7 +128,9 @@ def _avg_args(name, in_front=False):
 
 _CASES = (
     [(km, n, (lambda n=n, p=p: _matmul_args(n, p)), f'{n}-{p}')
-     for n in km.OPS for p in (False, True)]
+     for n in km.OPS if n != km.RESIDUAL for p in (False, True)]
+    + [(km, km.RESIDUAL, (lambda p=p: _residual_args(p)),
+        f'{km.RESIDUAL}-{p}') for p in (False, True)]
     + [(kc, n, (lambda n=n, p=p, pad=pad: _conv_args(n, p, pad)),
         f'{n}-{p}-{pad}')
        for n in kc.OPS for p in (False, True) for pad in ((0, 0), (1, 1))]

@@ -89,10 +89,11 @@ def _jax_nodes(build, fm, x, **kw):
 
 @contextlib.contextmanager
 def _counting(counts):
-    """Count calls of the four matmul and the four conv wrappers."""
+    """Count calls of the matmul and conv wrappers."""
     from hawq_tpu_torch.kernels import conv as kc
     names = [(km, n) for n in ('int8_matmul_requant', 'int8_matmul_acc',
-                               'int4w_matmul_requant', 'int4w_matmul_acc')]
+                               'int4w_matmul_requant', 'int4w_matmul_acc',
+                               'int8_matmul_acc_residual')]
     names += [(kc, n) for n in ('int8_conv_requant', 'int8_conv_acc',
                                 'int4w_conv_requant', 'int4w_conv_acc')]
     orig = {(m, n): getattr(m, n) for m, n in names}

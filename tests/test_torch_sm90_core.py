@@ -38,7 +38,9 @@ from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
 from hawq_tpu_torch.kernels import conv as tkc
 from hawq_tpu_torch.kernels import matmul as tkm
 from hawq_tpu_torch.nn import layers as TL
-from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
+from hawq_tpu_torch.quant.ops import (np_dyadic_multiplier,
+                                      requant_add_int32, round_half_up)
+from tests.test_torch_cuda import RESIDUAL_CASES, _residual_operands
 from tests.test_torch_engine import _port_fm, _reference_nodes
 
 torch.set_num_threads(1)
@@ -985,3 +987,151 @@ def test_engine_with_cached_handles_matches_reference(arch, scheme,
         port = build_resnet_engine(_port_fm(fm), capture=node, **tkw)(x)
         assert port.numpy().dtype == ref.dtype, node
         np.testing.assert_array_equal(port.numpy(), ref, err_msg=node)
+
+
+# ---------------------------------------------------------------------------
+# (f) the residual epilogue: a bottleneck's conv3 leaves as the carrier
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('m', [128, 49])
+@pytest.mark.parametrize('case', RESIDUAL_CASES)
+def test_residual_matmul_equals_the_unfused_composition(case, m):
+    """``int8_matmul_acc_residual`` (plain weights and the Hopper core's
+    handle, the identity's multiplier repeated over N as the engine caches
+    a scalar one) == the accumulator, the requant-add and the ReLU it
+    replaces, in each operand regime (a ragged M among them); each regime
+    hits what it is named for."""
+    k, n = 64, 48
+    x, w, bias, identity, mult_main, mult_id = (
+        torch.tensor(a) for a in _residual_operands(case, m, k, n))
+    acc = tkm.matmul_acc_plain(x, w, bias)
+    a = round_half_up(acc.to(torch.float32) * mult_main)
+    b = round_half_up(identity.to(torch.float32) * mult_id)
+    want = torch.clamp_min(requant_add_int32(acc, mult_main, identity,
+                                             mult_id), 0)
+    for weights in (w, tkm.prepare_weights(w)):
+        got = tkm.int8_matmul_acc_residual(x, weights, bias, identity,
+                                           mult_main,
+                                           mult_id.expand(n).contiguous())
+        assert got.dtype == torch.int32 and got.shape == (m, n)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    s = a + b
+    hit = {'carrier': mult_id.dim() == 0 and bool((identity >= 0).all()),
+           'id_conv': mult_id.shape == (n,) and bool((identity < 0).any()),
+           'ties': bool(((acc.to(torch.float32) * mult_main) % 1
+                         == 0.5).any()),
+           'past_2_24': bool((s > 2 ** 24).any() and (s < 2 ** 24).any()
+                             and (a.double() + b.double()
+                                  != s.double()).any()),
+           'negative': bool((s < 0).float().mean() > 0.5 and (s > 0).any())}
+    assert hit[case]
+
+
+def _unit_convs(fm, p):
+    """(weights (K, N), bias, per-channel scale) of unit ``p``'s 1×1 convs
+    that exist: conv3 and the identity conv."""
+    out = {}
+    for conv in ('quant_convbn3', 'quant_identity_convbn'):
+        key = f'{p}.{conv}'
+        if key + '.weight_int' in fm.tensors:
+            w = torch.from_numpy(np.asarray(fm[key + '.weight_int']))
+            out[conv] = (w.reshape(-1, w.shape[-1]),
+                         torch.from_numpy(np.asarray(fm[key + '.bias_int'])),
+                         np.asarray(fm[key + '.weight_scale'], np.float32))
+    return out
+
+
+def _mult(acc_scale, out_scale):
+    """The engine's native multiplier of a requant site, on the host."""
+    return torch.tensor(np_dyadic_multiplier(
+        (np.asarray(acc_scale, np.float32) / np.float32(out_scale))
+        .astype(np.float32)))
+
+
+def test_engine_conv3_leaves_as_the_carrier_of_the_unfused_composition():
+    """tiny50 uniform8, native requant, int32 carrier: every unit's
+    ``quant_act_int32`` node (conv3 through its residual epilogue) equals
+    the unfused composition computed here from the engine's earlier nodes:
+    conv3's accumulator over the ``conv2`` node, the identity conv's over
+    the unit's ``input`` node (or the carrier before the unit), then the
+    requant-add and the ReLU; the logits equal the JAX engine's."""
+    jfm = jax_synthetic_frozen_resnet(
+        'tiny50', jax_bit_config('tiny50', 'uniform8'), num_classes=10,
+        seed=5)
+    fm = _port_fm(jfm)
+    x = np.random.RandomState(6).randn(2, 32, 32, 3).astype(np.float32)
+
+    def node(name):
+        return build_resnet_engine(fm, capture=name, device='cpu')(x)
+    carrier, carrier_scale = node('init'), fm.act_scale('quant_act_int32')
+    for si, u in [(si, u) for si, n in enumerate(RESNET_UNITS['tiny50'], 1)
+                  for u in range(1, n + 1)]:
+        p = f'stage{si}.unit{u}'
+        stride = 2 if (u == 1 and si > 1) else 1
+        convs = _unit_convs(fm, p)
+        w3, b3, ws3 = convs['quant_convbn3']
+        h = node(f'{p}.conv2')
+        acc = tkm.matmul_acc_plain(h.reshape(-1, w3.shape[0]), w3, b3)
+        s_out = fm.act_scale(f'{p}.quant_act_int32')
+        if 'quant_identity_convbn' in convs:
+            wi, bi, wsi = convs['quant_identity_convbn']
+            xs = node(f'{p}.input')[:, ::stride, ::stride, :]
+            identity = tkm.matmul_acc_plain(xs.reshape(-1, wi.shape[0]), wi,
+                                            bi)
+            id_scale = wsi * np.float32(fm.act_scale(f'{p}.quant_act'))
+        else:
+            identity, id_scale = carrier.reshape(acc.shape), carrier_scale
+        want = torch.clamp_min(requant_add_int32(
+            acc, _mult(ws3 * np.float32(fm.act_scale(f'{p}.quant_act2')),
+                       s_out), identity, _mult(id_scale, s_out)), 0)
+        carrier, carrier_scale = node(f'{p}.quant_act_int32'), s_out
+        assert carrier.dtype == torch.int32
+        torch.testing.assert_close(carrier.reshape(want.shape), want,
+                                   rtol=0, atol=0)
+    np.testing.assert_array_equal(
+        build_resnet_engine(fm, device='cpu')(x).numpy(),
+        np.asarray(jax_engine(jfm)(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize('arch,scheme,kw,routing,fused', [
+    ('tiny50', 'uniform8', {}, None, True),
+    ('tiny50', 'uniform8', dict(input_mode='folded_float32'), None, True),
+    ('tiny50', 'uniform8', dict(residual_dtype=torch.int16), None, False),
+    ('tiny50', 'uniform8', dict(requant_mode='reference'), None, False),
+    ('tiny50', 'uniform4', {}, None, False),
+    ('tiny50', 'uniform4', {}, 'int8', True),
+    ('tiny50', 'uniform8', {}, 'int4w', True),
+    ('tiny18', 'uniform8', {}, None, False)])
+def test_engine_takes_the_residual_epilogue_where_it_can(monkeypatch, arch,
+                                                        scheme, kw, routing,
+                                                        fused):
+    """The residual epilogue once a unit for a bottleneck in native mode
+    with the int32 carrier and int8 conv3 weights (a routing table's
+    'int8' on 4-bit weights too, its 'int4w' only on 4-bit ones), never for
+    the int16 carrier, reference mode, packed conv3 weights or basic
+    blocks; the logits equal the JAX engine's."""
+    calls = []
+    residual = tkm.int8_matmul_acc_residual
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return residual(*args, **kwargs)
+    monkeypatch.setattr(tkm, 'int8_matmul_acc_residual', counted)
+    jfm = jax_synthetic_frozen_resnet(arch, jax_bit_config(arch, scheme),
+                                      num_classes=10, seed=7)
+    fm = _port_fm(jfm)
+    table = None
+    if routing is not None:                  # every unit conv one route
+        table = {k[:-len('.weight_int')]: routing for k in fm.tensors
+                 if k.startswith('stage') and k.endswith('.weight_int')}
+    x = np.random.RandomState(8).randn(2, 32, 32, 3).astype(np.float32)
+    jkw = dict(kw)
+    if kw.get('input_mode') == 'folded_float32':
+        x = jfold.fold4_images(x)
+    if 'residual_dtype' in kw:
+        jkw['residual_dtype'] = jnp.int16
+    got = build_resnet_engine(fm, device='cpu', routing=table, **kw)(x)
+    assert len(calls) == (sum(RESNET_UNITS[arch]) if fused else 0)
+    if routing is None and 'requant_mode' not in kw:
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax_engine(jfm, **jkw)(jnp.asarray(x))))

@@ -36,6 +36,10 @@ ENGINE_SITES = {
                        'engine.conv': 21, 'engine.requant': 10,
                        'engine.residual': 9},
 }
+# tiny50 with the int32 carrier: each unit's conv3 leaves through the
+# residual epilogue, inside its engine.residual and without an engine.conv
+ENGINE_SITES_INT32 = {'tiny50': dict(ENGINE_SITES['tiny50'],
+                                     **{'engine.conv': 9})}
 STEP_PHASES = {'train.step': 1, 'train.forward': 1, 'train.backward': 1,
                'train.optimizer': 1}
 
@@ -57,11 +61,11 @@ def _images(mode, batch=2, size=32):
     return x
 
 
-def _engine(arch, mode='float32'):
+def _engine(arch, mode='float32', carrier=torch.int16):
     fm = synthetic_frozen_resnet(arch, get_bit_config(arch, 'uniform8'),
                                  num_classes=10)
     return build_resnet_engine(fm, input_mode=mode, device='cpu',
-                               residual_dtype=torch.int16)
+                               residual_dtype=carrier)
 
 
 def _qat_step():
@@ -187,7 +191,18 @@ def test_stamps_lie_on_the_trace_clock(tmp_path):
                                        ('tiny18', 'float32'),
                                        ('resnet20_cifar', 'float32')])
 def test_engine_sites_a_forward(arch, mode):
-    eng, x = _engine(arch, mode), _images(mode)
+    _check_sites(_engine(arch, mode), _images(mode), ENGINE_SITES[arch])
+
+
+@pytest.mark.parametrize('mode', ['uint8', 'float32'])
+def test_engine_sites_a_forward_int32_carrier(mode):
+    _check_sites(_engine('tiny50', mode, torch.int32), _images(mode),
+                 ENGINE_SITES_INT32['tiny50'])
+
+
+def _check_sites(eng, x, want):
+    """Two traced forwards equal to an untraced one, each with ``want``
+    spans of each site, every site inside its ``engine.forward``."""
     plain = eng(x)
     with torch.profiler.profile(activities=CPU):
         traced = [eng(x), eng(x)]
@@ -197,7 +212,7 @@ def test_engine_sites_a_forward(arch, mode):
     calls = _by_call(spans)
     assert dropped == 0 and len(calls) == 2
     for counts in calls.values():
-        assert dict(counts) == ENGINE_SITES[arch]
+        assert dict(counts) == want
     for r in spans:
         assert (r['parent'] is None) == (r['name'] == 'engine.forward')
 
