@@ -11,7 +11,7 @@ statistics or the whole state left unchanged by the step), each against
 the float32 reference, as the run compares them
 (``traffic/train_steps.py``).
 
-    python3 portbench/control.py --workload resnet50_w8a8.batch_b64 \\
+    python3 portbench/control.py --workload resnet50_w8a8.batch_b256 \\
         --seeds 1,2,3 [--program 4,5,6]
 
 The control takes the program's place: its answers are its logits, and
@@ -56,7 +56,6 @@ def train_readings(config, mix, seed: int, device, faults: bool):
     program, and with ``faults`` the reference at TF32 and with each
     planted fault, each against the float32 reference."""
     from portbench import common
-    from portbench.reference import resnet_v1_qat
     from portbench.traffic import train_steps as ts
     data = ts.Data(config, mix, seed, device)
     qat, got = ts.checked(config, mix, data)
@@ -80,10 +79,7 @@ def train_readings(config, mix, seed: int, device, faults: bool):
              ('stats_unchanged', dict(step_updates=('params',)), None),
              ('state_unchanged', dict(step_updates=()), None))
     for name, kw, steps in sides:
-        got = resnet_v1_qat.train(
-            config, data.params0, data.stats0, data.calibration(),
-            steps or data.steps(), float(mix['lr']), float(mix['momentum']),
-            float(mix['weight_decay']), **kw)
+        got = ts.reference(config, mix, data, steps, **kw)
         out[name] = ts.compare(got, ref, data.params0)
     return out
 

@@ -1,6 +1,7 @@
-"""Mean host milliseconds of a call into the program's engine over the
-window (the call returns once the forward is enqueued): the reader of
-every ``host_dispatch_ms.<cells>`` metric."""
+"""Mean host milliseconds of a call into the program's engine made alone,
+each after the card has finished the one before (the call returns once
+the forward is enqueued): the reader of every ``host_dispatch_ms.<cells>``
+metric."""
 
 
 def read(rec):

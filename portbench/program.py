@@ -5,25 +5,26 @@ the reference imports nothing of it."""
 
 from __future__ import annotations
 
-import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-from portbench.reference import resnet_v1 as ref_resnet
+from portbench import common
+from portbench.work import common as work
 
 
 def bit_table(config: Mapping, tensors: Mapping[str, np.ndarray]
               ) -> Dict[str, int]:
-    """The configuration's bit rule as the program's name → bits table:
-    every activation node at its bits, every conv and FC at
-    ``weight_bits``."""
+    """The configuration's bit rule (its family's ``reference`` module's
+    ``bits``) as the program's name → bits table: every activation node at
+    its bits, every conv and FC at ``weight_bits``."""
+    bits = common.reference_family(config['family']).bits
     table = {}
     for name in tensors:
         key, kind = name.rsplit('.', 1)
         if kind == 'act_scale':
-            table[key] = ref_resnet.bits(config, key)
+            table[key] = bits(config, key)
         elif kind == 'weight_int':
             table[key] = int(config['weight_bits'])
     return table
@@ -52,11 +53,14 @@ def engine(fm, device, **kw):
 
 
 class QatTrainer:
-    """The program's QAT of a ResNet v1: ``QResNet`` (the trainer's
+    """The program's QAT of the configuration's model (the trainer's
     ``build_model``) with the benchmark's float state loaded, SGD with
     momentum and weight decay (``sgd_with_step_decay``), the unfolded train
     step (``make_train_step(folded=False)``) and the calibration pass
-    (``make_calibration_step``), batch norm unfolded in both."""
+    (``make_calibration_step``), batch norm unfolded in both.  The
+    trainer's leaves are keyed as the benchmark's state by the family's
+    ``work`` module's ``qat_key``, which a family with train cells
+    brings."""
 
     def __init__(self, config: Mapping, params, stats, device, lr: float,
                  momentum: float, weight_decay: float):
@@ -66,11 +70,19 @@ class QatTrainer:
             arch=config['arch'], scheme=config['scheme'],
             num_classes=config['num_classes']))
         model = model.to(device)
+        self._key = work.family(config).qat_key
         values = dict(params, **stats)
         with torch.no_grad():
             for name, t in list(model.named_parameters()) + list(
                     model.named_buffers()):
-                t.copy_(values[_ref_name(name)])
+                key = self._key(name)
+                if key not in values:
+                    raise LookupError(
+                        f"family {config['family']!r}: the trainer's leaf "
+                        f"{name!r} has no key in the benchmark's float "
+                        f"state (looked for {key!r}, by the qat_key of "
+                        f"portbench/work/{config['family']}.py)")
+                t.copy_(values[key])
         self.model = model
         self.state = tt.TrainState.create(model, tt.sgd_with_step_decay(
             model, lr, momentum, weight_decay))
@@ -97,21 +109,17 @@ class QatTrainer:
         return loss, kept[-1]
 
     def params(self):
-        return {_ref_name(n): p.detach().clone()
+        return {self._key(n): p.detach().clone()
                 for n, p in self.model.named_parameters()}
 
     def stats(self):
-        return {_ref_name(n): b.detach().clone()
+        return {self._key(n): b.detach().clone()
                 for n, b in self.model.named_buffers()}
 
     def momentum(self):
         """The optimizer's momentum trace of every parameter (zeros before
         its first step)."""
         opt = self.state.optimizer
-        return {_ref_name(n): opt.state.get(p, {}).get(
+        return {self._key(n): opt.state.get(p, {}).get(
             'momentum_buffer', torch.zeros_like(p)).detach().clone()
             for n, p in self.model.named_parameters()}
-
-
-def _ref_name(name: str) -> str:
-    return re.sub(r'^(stage\d+)_(unit\d+)\.', r'\1.\2.', name)

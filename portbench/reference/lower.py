@@ -15,15 +15,16 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 
-from portbench import weights
-from portbench.reference.resnet_v1 import bits
+from portbench import common, weights
 
 STEP = np.float32(127 / 7)
 
 
 def int4(config: Mapping, tensors: Mapping[str, np.ndarray]
          ) -> Tuple[Dict, Dict[str, np.ndarray]]:
-    """(config, tensors) of the control."""
+    """(config, tensors) of the control; the bits of each node by the
+    configuration's family's rule."""
+    bits = common.reference_family(config['family']).bits
     cfg = dict(config, act_bits=4, weight_bits=4)
     out = dict(tensors)
     for name, v in tensors.items():

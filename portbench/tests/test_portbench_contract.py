@@ -69,6 +69,21 @@ def test_workloads(bench):
             assert json.load(f)['config'] == w['config']
 
 
+def test_each_workload_has_its_tiny_cell(bench):
+    """The CPU tests run every cell at test sizes from its file
+    ``tests/cells/<cell>.json``, and every such file is a cell's."""
+    cells = os.path.dirname(tiny.cell_path(''))
+    files = {n[:-len('.json')] for n in os.listdir(cells)
+             if n.endswith('.json')}
+    assert files == {w['name'] for w in bench['workloads']}
+    for w in bench['workloads']:
+        with open(tiny.cell_path(w['name'])) as f:
+            cell = json.load(f)
+        assert set(cell) == {'why', 'base', 'config', 'traffic'}
+        assert cell['base'] == w['config'] and _line(cell['why'])
+        assert NAME.match(cell['config']['name'])
+
+
 def test_metrics(bench):
     e2e, per_layer = bench['end_to_end'], bench['per_layer']
     names = [m['name'] for m in e2e + per_layer]

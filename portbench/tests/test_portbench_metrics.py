@@ -48,22 +48,88 @@ def test_roofline_bytes_and_bound():
     the pixels read), its weights and int32 bias once, its output at the
     bits of the node it feeds."""
     pk = work.peaks()
-    l3 = work.Layer('c', 2, 14, 14, 3, 256, 256, 1, 8, 8, 8)
+    l3 = work.Layer('c', 2, 14, 14, 3, 3, 256, 256, 1, 8, 8, 8)
     assert l3.bytes == 2 * 14 * 14 * 256 + 9 * 256 * 256 + 4 * 256 + \
         2 * 14 * 14 * 256
     assert l3.bound_s(pk) == pytest.approx(max(
         l3.ops / 1.979e15, l3.bytes / 3.35e12))
-    l1 = work.Layer('p', 1, 56, 28, 1, 256, 512, 1, 8, 8, 16, stride=2)
+    l1 = work.Layer('p', 1, 56, 28, 1, 1, 256, 512, 1, 8, 8, 16,
+                    stride=2)
     assert l1.bytes == 28 * 28 * 256 + 256 * 512 + 4 * 512 + \
         28 * 28 * 512 * 2
-    dw = work.Layer('d', 1, 56, 28, 3, 144, 144, 144, 8, 8, 8)
+    dw = work.Layer('d', 1, 56, 28, 3, 3, 144, 144, 144, 8, 8, 8)
     assert dw.macs == 28 * 28 * 144 * 9
+
+
+def test_rectangular_kernel_counts_its_taps():
+    """A 1×7 conv (InceptionV3's factorised 7×7) counts 7 taps a pixel,
+    not 49, in its operations and its weight bytes."""
+    l17 = work.Layer('f', 2, 17, 17, 1, 7, 192, 160, 1, 8, 8, 8)
+    assert l17.macs == 2 * 17 * 17 * 160 * 7 * 192
+    assert l17.bytes == 2 * 17 * 17 * 192 + 7 * 192 * 160 + 4 * 160 + \
+        2 * 17 * 17 * 160
+    l71 = work.Layer('f', 2, 17, 17, 7, 1, 192, 160, 1, 8, 8, 8)
+    assert (l71.macs, l71.bytes) == (l17.macs, l17.bytes)
+
+
+def test_resnet50_layers_count_as_before():
+    """Each ResNet-50 layer's operations and bytes at the batch cell's 64
+    images equal those recorded before the layers took ``kh`` and ``kw``
+    (``resnet50_w8a8_work_b64.json``)."""
+    with open(os.path.join(os.path.dirname(__file__),
+                           'resnet50_w8a8_work_b64.json')) as f:
+        before = [tuple(r) for r in json.load(f)]
+    layers = work.forward_layers(_config('resnet50_w8a8'), 64)
+    assert [(l.key, l.ops, l.bytes) for l in layers] == before
 
 
 def test_trace_union_and_gaps():
     spans = [(0.0, 1.0), (0.5, 2.0), (3.0, 4.0), (3.5, 3.6), (5.0, 5.5)]
     assert trace.union_s(spans) == pytest.approx(3.5)
     assert trace.gaps(spans) == [(2.0, 3.0), (4.0, 5.0)]
+
+
+def _event(cat, name, corr):
+    return {'cat': cat, 'name': name, 'ph': 'X', 'ts': 0, 'dur': 1,
+            'args': {'correlation': corr}}
+
+
+def test_trace_counts_enqueued_work_it_lacks():
+    """A launch or copy without its device activity is lost; a call that
+    enqueues no device work, and a host operation, are not."""
+    events = [_event('cuda_runtime', 'cudaLaunchKernel', 1),
+              _event('kernel', 'k', 1),
+              _event('cuda_driver', 'cuLaunchKernelEx', 2),
+              _event('cuda_runtime', 'cudaMemcpyAsync', 3),
+              _event('gpu_memcpy', 'Memcpy HtoD', 3),
+              _event('cuda_runtime', 'cudaMemsetAsync', 4),
+              _event('cuda_runtime', 'cudaEventRecord', 5),
+              _event('cpu_op', 'aten::add', 6)]
+    assert trace.lost_share(events) == 0.5
+    assert trace.lost_share(events[-2:]) == 0.0
+
+
+@pytest.mark.parametrize('lost,tries', [([0.0], 1), ([0.01], 1),
+                                        ([0.5, 0.002], 2),
+                                        ([0.5, 0.5, 0.5, 0.5], 3)])
+def test_a_slice_that_lost_work_is_profiled_anew(monkeypatch, lost, tries):
+    readings = iter(lost)
+
+    class Fake:
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def summary(self):
+            return {'lost_share': next(readings)}
+
+    monkeypatch.setattr(trace, 'Slice', Fake)
+    done = []
+    summary = trace.profiled(lambda: done.append(1))
+    assert (len(done) == tries
+            and summary['lost_share'] == lost[tries - 1])
 
 
 @pytest.mark.parametrize('name,want', [

@@ -21,7 +21,16 @@ torch.set_num_threads(1)
 SEED = 2 ** 31 + 19
 CELLS = sorted(tiny.CELLS)
 with open(os.path.join(tiny.ROOT, 'BENCHMARK.json')) as _f:
-    DECLARED = [w['name'] for w in json.load(_f)['workloads']]
+    _WORKLOADS = json.load(_f)['workloads']
+DECLARED = [w['name'] for w in _WORKLOADS]
+
+
+def _kind(traffic: str) -> str:
+    with open(os.path.join(tiny.HERE, 'traffic', traffic + '.json')) as f:
+        return json.load(f)['kind']
+
+
+KIND = {w['name']: _kind(w['traffic']) for w in _WORKLOADS}
 
 
 def _execute(root, workload, trace=False, seconds=1.5):
@@ -82,7 +91,8 @@ def _half_left_out(engine):
     return call
 
 
-INFERENCE = [c for c in CELLS if not c.endswith('train_b128')]
+INFERENCE = [c for c in CELLS if KIND[c] == 'batch_closed']
+TRAIN = [c for c in CELLS if KIND[c] == 'train_steps']
 
 
 @pytest.mark.parametrize('workload', INFERENCE)
@@ -132,13 +142,14 @@ class _LabelAltered(program.QatTrainer):
         return super().step(images, labels)
 
 
+@pytest.mark.parametrize('workload', TRAIN)
 @pytest.mark.parametrize('fault', [_Unchanged, _HalfBatch, _LabelAltered,
                                    _StatsUnchanged],
                          ids=['state_unchanged', 'half_batch_left_out',
                               'answer_altered', 'statistics_unchanged'])
-def test_train_fault_is_not_correct(root, fault, monkeypatch):
+def test_train_fault_is_not_correct(root, workload, fault, monkeypatch):
     monkeypatch.setattr(program, 'QatTrainer', fault)
-    result = _execute(root, 'resnet50_w8a8.train_b128')
+    result = _execute(root, workload)
     assert result['correct'] is False
 
 

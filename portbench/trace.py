@@ -6,7 +6,8 @@ device's activities (kernels, copies, fills) it takes the busy time (the
 union of their intervals), the kernel time of the program's own kernels and
 of the rest (the PyTorch glue between them), and the breakdown: the device
 operations that took most time, and the longest idle gaps by what the host
-was doing meanwhile.  The kernel classifier is copied from the program's
+was doing meanwhile.  A slice whose device trace lacks much of the work
+that the host enqueued is profiled anew (:func:`profiled`).  The kernel classifier is copied from the program's
 card smoke script, so that the trace names the port's kernels as its
 builders do.
 """
@@ -17,9 +18,10 @@ import bisect
 import json
 import os
 import re
+import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,6 +34,8 @@ _AVG_TEMPLATE = re.compile(r'avgpool3x3_kernel(?:<[^<>]*?(true|false)>'
                            r'|I\w*?Lb\dELb(\d)E)')
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 HOST_CATS = ('cpu_op', 'user_annotation', 'python_function')
+LAUNCH_CATS = ('cuda_runtime', 'cuda_driver')
+_ENQUEUES = re.compile(r'Launch|Memcpy|Memset')
 
 
 def port_kernel(name: str) -> Optional[str]:
@@ -109,6 +113,42 @@ def short_name(name: str) -> str:
     return port_kernel(name) or name[:60]
 
 
+def lost_share(events: List[dict]) -> float:
+    """The share of the host calls that enqueue device work (a kernel
+    launch, a copy, a fill) whose device activity the trace lacks, matched
+    by correlation id.  A few at a slice's edges are usual; now and then
+    the profiler loses a long run of activities, and a slice read from
+    such a trace counts too little busy time."""
+    done = {e.get('args', {}).get('correlation') for e in events
+            if e.get('cat') in DEVICE_CATS}
+    enqueued = [e.get('args', {}).get('correlation') for e in events
+                if e.get('cat') in LAUNCH_CATS
+                and _ENQUEUES.search(e.get('name', ''))]
+    if not enqueued:
+        return 0.0
+    return sum(1 for c in enqueued if c not in done) / len(enqueued)
+
+
+def profiled(work: Callable[[], None], tries: int = 3,
+             most_lost: float = 0.01) -> Dict:
+    """The summary of a slice that profiles ``work()``; while its device
+    trace lacks more than ``most_lost`` of the enqueued work
+    (:func:`lost_share`), ``work()`` is profiled anew, up to ``tries``
+    slices in all, and the last is kept."""
+    for i in range(tries):
+        tr = Slice()
+        tr.start()
+        work()
+        tr.stop()
+        summary = tr.summary()
+        if summary['lost_share'] <= most_lost:
+            break
+        sys.stderr.write(f"trace: slice {i + 1} lacks the device activity "
+                         f"of {summary['lost_share']:.2%} of the host "
+                         f"calls that enqueued work\n")
+    return summary
+
+
 class Slice:
     """A profiled stretch of a run: ``start()``, the work, ``stop()``,
     then :meth:`summary`."""
@@ -175,6 +215,7 @@ class Slice:
         return dict(
             busy_s=union_s(spans) if spans else 0.0,
             wall_s=self.t1 - self.t0, kernels=len(kernels),
+            lost_share=lost_share(self.events),
             port_s=port_s, glue_s=glue_s,
             breakdown=dict(
                 device_ops=[[k, v] for k, v in sorted(

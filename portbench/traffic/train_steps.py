@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 from portbench import common, inputs, program, trace, weights
-from portbench.reference import resnet_v1_qat
 from portbench.work import common as work
 
 # a leaf whose reference value is under this share of the median leaf's
@@ -70,7 +69,7 @@ class Data:
 def checked(cfg: Mapping, mix: Mapping, data: Data):
     """Build the program's trainer, calibrate it and drive the checked
     steps through its step → (the trainer, what the check reads of it,
-    keyed as :func:`resnet_v1_qat.train` returns the reference's)."""
+    keyed as :func:`reference` returns the reference's)."""
     wd = float(mix['weight_decay'])
     qat = program.QatTrainer(cfg, data.params0, data.stats0, data.dev,
                              float(mix['lr']), float(mix['momentum']), wd)
@@ -90,12 +89,16 @@ def checked(cfg: Mapping, mix: Mapping, data: Data):
     return qat, got
 
 
-def reference(cfg: Mapping, mix: Mapping, data: Data, **fault) -> Dict:
-    """The reference's calibration and checked steps on ``data``."""
-    return resnet_v1_qat.train(
-        cfg, data.params0, data.stats0, data.calibration(), data.steps(),
-        float(mix['lr']), float(mix['momentum']), float(mix['weight_decay']),
-        **fault)
+def reference(cfg: Mapping, mix: Mapping, data: Data, steps=None,
+              **fault) -> Dict:
+    """The reference's calibration and checked steps on ``data`` (or on
+    ``steps``, (images, labels) batches), by the ``train`` of the family's
+    plain QAT, ``reference/<family>_qat.py``; ``fault`` goes to it."""
+    qat = common.reference_family(cfg['family'] + '_qat')
+    return qat.train(
+        cfg, data.params0, data.stats0, data.calibration(),
+        steps or data.steps(), float(mix['lr']), float(mix['momentum']),
+        float(mix['weight_decay']), **fault)
 
 
 def run(r: common.Run) -> Dict:
@@ -114,12 +117,14 @@ def run(r: common.Run) -> Dict:
     window_s = time.perf_counter() - t0
     summary = None
     if r.trace:
-        tr = trace.Slice()
-        tr.start()
-        for i in range(int(mix['trace_steps'])):
-            qat.step(*data.upload(data.n_check + n + i))
-        tr.stop()
-        summary = dict(tr.summary(), steps=int(mix['trace_steps']))
+        made = [n]
+
+        def steps() -> None:
+            for _ in range(int(mix['trace_steps'])):
+                qat.step(*data.upload(data.n_check + made[0]))
+                made[0] += 1
+
+        summary = dict(trace.profiled(steps), steps=int(mix['trace_steps']))
     peak = common.memory_peak(dev)
     del qat
     common.release()

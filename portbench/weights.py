@@ -21,12 +21,13 @@ device; only the per-layer arithmetic runs on the host.
 from __future__ import annotations
 
 import hashlib
-import importlib
 import math
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from portbench.work import common as work_common
 
 
 SIGMA_W = 127 / 3.5          # RMS of the integer weights
@@ -69,8 +70,7 @@ class Plan:
 
 def family_plan(config: Mapping) -> 'Plan':
     """The configuration's plan, from its family's ``work`` module."""
-    mod = importlib.import_module(f"portbench.work.{config['family']}")
-    return mod.plan(config)
+    return work_common.family(config).plan(config)
 
 
 def generate(config: Mapping, seed: int,

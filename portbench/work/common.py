@@ -19,13 +19,14 @@ def peaks() -> Mapping[str, float]:
 
 @dataclasses.dataclass(frozen=True)
 class Layer:
-    """A k×k conv (or the FC, as a 1×1 on a 1×1 map) over ``batch``
+    """A ``kh``×``kw`` conv (the FC as a 1×1 on a 1×1 map) over ``batch``
     images of ``hw_in``² × ``cin`` to ``hw_out``² × ``cout``."""
     key: str
     batch: int
     hw_in: int
     hw_out: int
-    k: int
+    kh: int
+    kw: int
     cin: int
     cout: int
     groups: int
@@ -36,7 +37,7 @@ class Layer:
 
     @property
     def macs(self) -> int:
-        return (self.batch * self.hw_out ** 2 * self.cout * self.k ** 2
+        return (self.batch * self.hw_out ** 2 * self.cout * self.kh * self.kw
                 * self.cin // self.groups)
 
     @property
@@ -48,9 +49,11 @@ class Layer:
     def bytes(self) -> float:
         """The input once (of a strided 1×1, the pixels it reads), the
         weights and int32 bias once, the output once."""
-        hw_read = self.hw_out if (self.k == 1 and self.stride > 1) else self.hw_in
+        hw_read = (self.hw_out if self.kh == self.kw == 1 and self.stride > 1
+                   else self.hw_in)
         x = self.batch * hw_read ** 2 * self.cin * self.in_bits / 8
-        w = self.k ** 2 * self.cin // self.groups * self.cout * self.w_bits / 8
+        w = (self.kh * self.kw * self.cin // self.groups * self.cout
+             * self.w_bits / 8)
         y = self.batch * self.hw_out ** 2 * self.cout * self.out_bits / 8
         return x + w + 4 * self.cout + y
 
@@ -62,10 +65,14 @@ class Layer:
                    self.bytes / pk['hbm_bytes_per_s'])
 
 
+def family(config: Mapping):
+    """The module of the configuration's family, ``work/<family>.py``."""
+    return importlib.import_module(f"portbench.work.{config['family']}")
+
+
 def forward_layers(config: Mapping, batch: int) -> List[Layer]:
     """The layers of the configuration's family at ``batch`` images."""
-    mod = importlib.import_module(f"portbench.work.{config['family']}")
-    return mod.layers(config, batch)
+    return family(config).layers(config, batch)
 
 
 def forward_ops(config: Mapping, batch: int) -> int:

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import math
+import re
 from typing import List, Mapping
 
 from portbench.reference import resnet_v1 as ref
@@ -20,23 +21,24 @@ def layers(config: Mapping, batch: int) -> List[Layer]:
     k = config['init_kernel']
     out = []
     hw_out = (hw + 2 * (k // 2) - k) // 2 + 1
-    out.append(Layer('quant_init_convbn', batch, hw, hw_out, k, 3,
+    out.append(Layer('quant_init_convbn', batch, hw, hw_out, k, k, 3,
                      config['init_features'], 1, a, wb, r))
     hw = (hw_out + 2 - 3) // 2 + 1                       # the max-pool
     for p, cin, mid, cout, stride, proj in ref.units(config):
         h2 = hw // stride
         if proj:
             out.append(Layer(f'{p}.quant_identity_convbn', batch, hw, h2, 1,
-                             cin, cout, 1, a, wb, r, stride=stride))
-        out.append(Layer(f'{p}.quant_convbn1', batch, hw, h2, 1, cin, mid, 1,
-                         a, wb, a, stride=stride))
-        out.append(Layer(f'{p}.quant_convbn2', batch, h2, h2, 3, mid, mid, 1,
-                         a, wb, a))
-        out.append(Layer(f'{p}.quant_convbn3', batch, h2, h2, 1, mid, cout, 1,
-                         a, wb, r))
+                             1, cin, cout, 1, a, wb, r, stride=stride))
+        out.append(Layer(f'{p}.quant_convbn1', batch, hw, h2, 1, 1, cin, mid,
+                         1, a, wb, a, stride=stride))
+        out.append(Layer(f'{p}.quant_convbn2', batch, h2, h2, 3, 3, mid, mid,
+                         1, a, wb, a))
+        out.append(Layer(f'{p}.quant_convbn3', batch, h2, h2, 1, 1, mid, cout,
+                         1, a, wb, r))
         hw = h2
-    out.append(Layer('quant_output', batch, 1, 1, 1, config['outs'][-1],
-                     config['num_classes'], 1, a, wb, 32))
+    out.append(Layer('quant_output', batch, 1, 1, 1, 1,
+                     config['outs'][-1], config['num_classes'], 1, a, wb,
+                     32))
     return out
 
 
@@ -74,3 +76,9 @@ def plan(config: Mapping) -> Plan:
     plan.conv('quant_output', (cin, config['num_classes']), cin, v,
               'quant_act_output')
     return plan
+
+
+def qat_key(name: str) -> str:
+    """The benchmark's key of the program trainer's leaf ``name``: the
+    trainer names a unit ``stageN_unitM.``, the state ``stageN.unitM.``."""
+    return re.sub(r'^(stage\d+)_(unit\d+)\.', r'\1.\2.', name)
