@@ -60,7 +60,9 @@ def build_engine_for(fm: FrozenModel, **kw):
 # against 23.6 at b8, 33.4 against 67.2 at b64.  Where the spreads overlap
 # the rule takes 'float32', which has no host fold.  Neither the family nor
 # the batch decides it (the JAX package's production_route(fm, batch) reads
-# both); the batch decides only InceptionV3's int16 containers (``main``).
+# both), nor InceptionV3's wide containers: the engine's own default
+# (``engine_inception.default_wide_dtype``) picks them, so that this CLI
+# and ``build_engine_for`` build the same engine.
 PRODUCTION_ROUTE = ('float32', 'int8')
 
 
@@ -208,10 +210,6 @@ def main(argv=None) -> int:
             return _fail(f'--routing {args.routing}: {e}')
     if args.capture:
         kw['capture'] = args.capture
-    if (fm.arch == 'inceptionv3' and args.batch >= 32
-            and args.requant_mode == 'native'):
-        # int16 containers for the 16-bit activation nodes (bit-exact)
-        kw['wide_dtype'] = torch.int16
 
     if args.classify:
         x = np.load(args.classify).astype(np.float32)
@@ -240,8 +238,6 @@ def main(argv=None) -> int:
                 'native' if fm.arch == 'inceptionv3'
                 and preproc.native_available() else 'numpy'))
         elif args.input_mode == 'uint8':
-            if fm.arch == 'inceptionv3':
-                return _fail('uint8 mode is resnet-only')
             x = np.clip(x * 255.0, 0, 255).astype(np.uint8)
     if fold_fn is not None:
         x = fold_fn(x)

@@ -74,10 +74,10 @@ engine ``engine.input`` (normalization and quantization of the images),
 ``engine.requant`` (each unit's entry requant and the FC's input) and
 ``engine.residual`` (each unit's requant-add, ReLU, clamp and cast; where
 conv3 takes the residual epilogue, that conv with them, in place of its
-``engine.conv``).  The
-pools and the head have none.  Only ``engine.forward`` takes a device time
-(two timing events a call); the sites' device times are their ranges in
-the profiler's trace.
+``engine.conv``); the InceptionV3 engine's own sites are listed in
+``engine_inception.py``.  The ResNet pools and head have none.  Here only
+``engine.forward`` takes a device time (two timing events a call); the
+sites' device times are their ranges in the profiler's trace.
 """
 
 from __future__ import annotations
@@ -152,12 +152,17 @@ class IntEngine:
     among them), the requants of either mode, and the checks of a call.
     Subclasses define ``_forward``.  ``reference_input_modes``: the input
     modes that ``requant_mode='reference'`` takes; ``routing``: a table of
-    ``inference.routing`` (native mode only)."""
+    ``inference.routing`` (native mode only); ``input_mean`` /
+    ``input_std``: the normalization of 'uint8' input."""
+
+    input_node = 'quant_input'       # the activation node of the images
 
     def __init__(self, fm: FrozenModel, capture: Optional[str],
                  input_modes, input_mode: str, residual_dtype: torch.dtype,
                  device: torch.device, requant_mode: str = 'native',
-                 reference_input_modes=None, routing=None):
+                 reference_input_modes=None, routing=None,
+                 input_mean: np.ndarray = IMAGENET_MEAN,
+                 input_std: np.ndarray = IMAGENET_STD):
         if input_mode not in input_modes:
             raise ValueError(f'input_mode {input_mode!r} not in '
                              f'{tuple(input_modes)}')
@@ -190,6 +195,10 @@ class IntEngine:
         self._mult: Dict[str, torch.Tensor] = {}
         self._w: Dict[Tuple, tuple] = {}
         self._route = make_router(fm, device, self._w)
+        # uint8 input: the host preprocessing u8/255 → (v − mean)/std,
+        # replayed on the device in the same float32 op order
+        self._u8_mean = self._dev(np.asarray(input_mean, np.float32))
+        self._u8_std = np.asarray(input_std, np.float32)
 
     # -- host-side constants ----------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -341,11 +350,24 @@ class IntEngine:
 
     def _quantize_float(self, images: torch.Tensor) -> torch.Tensor:
         """float32 images (or a folded layout) → the int8 input integers,
-        floor(v/s_in + 0.5) with a true division; the fold's pad zeros
-        quantize to 0, like the conv's padding."""
-        s_in = self.fm.act_scale('quant_input')
+        floor(v/s_in + 0.5) with a true division, s_in the scale of the
+        family's input node (``input_node``); the fold's pad zeros quantize
+        to 0, like the conv's padding."""
+        s_in = self.fm.act_scale(self.input_node)
         return torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
                            -128, 127).to(torch.int8)
+
+    def _quantize_input(self, images: torch.Tensor) -> torch.Tensor:
+        """Images → the int8 input integers (true divisions throughout:
+        :func:`qops.exact_div`): uint8 pixels normalized first, u8/255 →
+        (v − mean)/std; 'folded_int8' images as they come."""
+        if self.input_mode == 'folded_int8':
+            return images            # quantized and folded on the host
+        if self.input_mode == 'uint8':
+            images = qops.exact_div(
+                qops.exact_div(images.to(torch.float32), 255.0)
+                - self._u8_mean, self._u8_std)
+        return self._quantize_float(images)
 
     # -- layers -------------------------------------------------------------
     def _conv_kxk(self, x8, key, stride, mult=None, bits=8, signed=True, *,
@@ -431,7 +453,8 @@ class ResnetEngine(IntEngine):
                  device: torch.device, requant_mode: str = 'native',
                  routing=None):
         super().__init__(fm, capture, INPUT_MODES, input_mode, residual_dtype,
-                         device, requant_mode, routing=routing)
+                         device, requant_mode, routing=routing,
+                         input_mean=input_mean, input_std=input_std)
         arch = fm.arch
         self.bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
         self.conv1_stride = arch == 'resnet50'
@@ -444,10 +467,6 @@ class ResnetEngine(IntEngine):
             raise ValueError('folded input needs the 7×7/s2 init conv')
         self.units = [(si, u) for si, n in enumerate(RESNET_UNITS[arch], 1)
                       for u in range(1, n + 1)]
-        # uint8 input: the host preprocessing u8/255 → (v − mean)/std,
-        # replayed on the device in the same float32 op order
-        self._u8_mean = self._dev(np.asarray(input_mean, np.float32))
-        self._u8_std = np.asarray(input_std, np.float32)
 
     def _default_int4(self, key: str) -> bool:
         """Without a table a unit conv streams nibble-packed int4 weights
@@ -477,17 +496,6 @@ class ResnetEngine(IntEngine):
                 w, b = _fold.fold4_kernel(w), np.tile(b, 4)
             self._w['init'] = self._conv_weights(w, b, 'conv_acc', (0, 0))
         return self._w['init']
-
-    def _quantize_input(self, images: torch.Tensor) -> torch.Tensor:
-        """Images → the int8 input integers (true divisions throughout:
-        :func:`qops.exact_div`)."""
-        if self.input_mode == 'folded_int8':
-            return images            # quantized and folded on the host
-        if self.input_mode == 'uint8':
-            images = qops.exact_div(
-                qops.exact_div(images.to(torch.float32), 255.0)
-                - self._u8_mean, self._u8_std)
-        return self._quantize_float(images)
 
     def _forward(self, images: torch.Tensor, emit) -> torch.Tensor:
         fm = self.fm

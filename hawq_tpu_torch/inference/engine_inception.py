@@ -37,7 +37,8 @@ plain versions on a CPU device):
 
 Activations of 9–16 bits (the concat outputs, the inputs of the pool
 branches, the last conv of each branch) live in ``wide_dtype``, torch.int32
-or torch.int16; every other node in int8.  The kernels take int8
+or torch.int16 (by default int16 wherever every such node is symmetric,
+:func:`default_wide_dtype`); every other node in int8.  The kernels take int8
 activations only, so a conv whose input node is wider than 8 bits raises
 ``NotImplementedError`` (W1 in ROADMAP.md; neither published config has
 one, :func:`conv_input_nodes`).
@@ -54,6 +55,19 @@ The reference's ``conv_mode`` and ``init_mode`` (TPU layout choices) are
 not ported.  ``capture=<node>`` returns the raw
 integer tensor at a named node: 'input', 'init', '<unit
 prefix>.q_rescaling_activ', 'fc_input'.
+
+Spans (``utils.tracing``, as in the ResNet engine): ``engine.forward`` and
+``engine.conv`` (``engine.py``); ``engine.input``, the quantization of the
+images (uint8 pixels normalized first); ``engine.requant``, each branch's
+input requant (a pool branch's is fused into A1), the ReLU and requant
+after each accumulator-form conv, the sub-branch requants and concat of a
+C unit's 1×3 / 3×1 pair, and the FC's input; ``engine.concat``, a unit's
+requants of every branch onto its shared scale and the concatenation
+(eleven a forward, each over milliseconds of work at a serving batch);
+``engine.avgpool``, each A1 call (nine a forward).  The last two take a
+device time (two timing events each): on one H100 at b256 the nine A1
+spans' events cost under 1 % of the traced forward (PERF.md §6).  The
+stem's and the reductions' max-pools and the head's pool have none.
 """
 
 from __future__ import annotations
@@ -72,9 +86,9 @@ from hawq_tpu_torch.inference.freeze import (FrozenModel,
                                              _freeze_convbn, _freeze_linear)
 from hawq_tpu_torch.kernels import avgpool as ka
 from hawq_tpu_torch.models import inceptionv3 as mi
-from hawq_tpu_torch.quant import ops as qops
+from hawq_tpu_torch.utils.tracing import span
 
-INPUT_MODES = ('float32', 'folded_float32')
+INPUT_MODES = ('float32', 'folded_float32', 'uint8')
 _IP = 'features.q_init_block'
 
 
@@ -194,8 +208,25 @@ def width_div_from_frozen(fm: FrozenModel) -> int:
     raise ValueError(f'cannot infer width_div from channels {got}')
 
 
+def default_wide_dtype(cfg: BitConfig, requant_mode: str = 'native'
+                       ) -> torch.dtype:
+    """The container of the 9–16-bit nodes where the caller names none:
+    torch.int16 in native mode where every such node is symmetric (its
+    range [−2¹⁵, 2¹⁵ − 1] fits), else torch.int32.  int16 halves the bytes
+    of the concats, pool inputs and wide conv outputs that the glue reads
+    and writes; it was the faster container on one H100 at b256 (PERF.md
+    §6)."""
+    if requant_mode != 'native' or any(
+            cfg.act_bits(k) > 8 and cfg.act_mode(k) != 'symmetric'
+            for k in cfg.table):
+        return torch.int32
+    return torch.int16
+
+
 class InceptionEngine(IntEngine):
     """Callable integer InceptionV3; see :func:`build_inceptionv3_engine`."""
+
+    input_node = f'{_IP}.q_input_activ'
 
     def __init__(self, fm: FrozenModel, width_div: int,
                  capture: Optional[str], input_mode: str,
@@ -256,8 +287,9 @@ class InceptionEngine(IntEngine):
             return self._conv_kxk(h, key, stride, mult, b, sg, pad=pad), s
         acc = (self._conv1x1(h, key, stride) if one
                else self._conv_kxk(h, key, stride, pad=pad))
-        return self._requant(torch.clamp_min(acc, 0), mult, b, sg,
-                             self.res_dt), s
+        with span('engine.requant'):
+            return self._requant(torch.clamp_min(acc, 0), mult, b, sg,
+                                 self.res_dt), s
 
     def _stem_conv1(self, x8, s_in):
         """The stem's 3×3/s2 q_conv1 → (tensor, scale): through
@@ -272,8 +304,9 @@ class InceptionEngine(IntEngine):
         s, bits, sg = self.act_info(f'{kp}.q_activ')
         mult = self.requant_mult(f'{kp}.rq_f',
                                  _fold.tile4(self._scale(key, s_in)), s)
-        xq = self._requant(torch.clamp_min(acc, 0), mult, bits, sg,
-                           self._container(bits))
+        with span('engine.requant'):
+            xq = self._requant(torch.clamp_min(acc, 0), mult, bits, sg,
+                               self._container(bits))
         oh, ow = self.out_hw
         return _fold.depth_to_space_2x2(xq)[:, :oh, :ow, :].contiguous(), s
 
@@ -283,20 +316,27 @@ class InceptionEngine(IntEngine):
         requant fused in front of the pool (in reference mode: the input
         requant, A1's quotient form, the pool requant)."""
         if kind == mi.AVG_POOL and self.reference:
-            h, a = self._requant_to(x, s, f'{bp}.q_input_act', f'{bp}.in')
-            h, sp = self._requant_to(ka.int_avgpool3x3(h), a,
-                                     f'{bp}.q_pool_act', f'{bp}.pool')
+            with span('engine.requant'):
+                h, a = self._requant_to(x, s, f'{bp}.q_input_act',
+                                        f'{bp}.in')
+            with span('engine.avgpool', self.device):
+                h = ka.int_avgpool3x3(h)
+            with span('engine.requant'):
+                h, sp = self._requant_to(h, a, f'{bp}.q_pool_act',
+                                         f'{bp}.pool')
             return self._incept_conv(h, sp, f'{bp}.q_conv')
         if kind == mi.AVG_POOL:
             a, a_bits, a_sg = self.act_info(f'{bp}.q_input_act')
             sp, bp_bits, sgp = self.act_info(f'{bp}.q_pool_act')
-            h = ka.int_avgpool3x3_requant(
-                x, self.requant_mult(f'{bp}.pool', np.float32(a), sp),
-                out_bits=bp_bits, signed=sgp,
-                in_mult=self.requant_mult(f'{bp}.in', s, a), in_bits=a_bits,
-                in_signed=a_sg)
+            with span('engine.avgpool', self.device):
+                h = ka.int_avgpool3x3_requant(
+                    x, self.requant_mult(f'{bp}.pool', np.float32(a), sp),
+                    out_bits=bp_bits, signed=sgp,
+                    in_mult=self.requant_mult(f'{bp}.in', s, a),
+                    in_bits=a_bits, in_signed=a_sg)
             return self._incept_conv(h, np.float32(sp), f'{bp}.q_conv')
-        h, a = self._requant_to(x, s, f'{bp}.q_input_act', f'{bp}.in')
+        with span('engine.requant'):
+            h, a = self._requant_to(x, s, f'{bp}.q_input_act', f'{bp}.in')
         if kind == mi.MAX_POOL:
             return maxpool_int(h, pad=0), a
         if kind == mi.CONV1X1:
@@ -310,15 +350,15 @@ class InceptionEngine(IntEngine):
         y1, a1 = self._incept_conv(h, a, f'{bp}.q_conv1x3', 1, (0, 1))
         y2, a2 = self._incept_conv(h, a, f'{bp}.q_conv3x1', 1, (1, 0))
         key = f'{bp}.q_rescaling_activ'
-        r1, s_sub = self._requant_to(y1, a1, key, f'{bp}.rs1')
-        r2, _ = self._requant_to(y2, a2, key, f'{bp}.rs2')
-        return torch.cat([r1.to(r2.dtype), r2], dim=-1), s_sub
+        with span('engine.requant'):
+            r1, s_sub = self._requant_to(y1, a1, key, f'{bp}.rs1')
+            r2, _ = self._requant_to(y2, a2, key, f'{bp}.rs2')
+            return torch.cat([r1, r2], dim=-1), s_sub
 
     def _forward(self, images: torch.Tensor, emit) -> torch.Tensor:
-        s_in, b_in, _ = self.act_info(f'{_IP}.q_input_activ')
-        n = 2 ** (b_in - 1) - 1
-        x = torch.clamp(qops.round_half_up(qops.exact_div(images, s_in)),
-                        -n - 1, n).to(torch.int8)
+        s_in = self.fm.act_scale(self.input_node)
+        with span('engine.input'):
+            x = self._quantize_input(images)
         emit('input', x)
         x, s = self._stem_conv1(x, np.float32(s_in))
         for c, (_, _, stride, pad) in enumerate(mi.INIT_CONVS[1:], start=2):
@@ -329,22 +369,25 @@ class InceptionEngine(IntEngine):
 
         for unit in self.units:
             key = f'{unit.prefix}.q_rescaling_activ'
-            cat_dt = self._container(self.act_info(key)[1])
-            pieces = []
-            for bi, (name, kind, kwargs) in enumerate(unit.branch_defs):
-                h, a = self._branch(x, s, f'{unit.prefix}.branches.{name}',
-                                    kind, kwargs)
-                # each branch to the unit's shared scale, then the concat
-                r, s_unit = self._requant_to(h, a, key,
-                                             f'{unit.prefix}.cat{bi}')
-                pieces.append(r.to(cat_dt))
-            x, s = torch.cat(pieces, dim=-1), s_unit
+            outs = [self._branch(x, s, f'{unit.prefix}.branches.{name}',
+                                 kind, kwargs)
+                    for name, kind, kwargs in unit.branch_defs]
+            # each branch to the unit's shared scale, then the concat
+            with span('engine.concat', self.device):
+                pieces = []
+                for bi, (h, a) in enumerate(outs):
+                    r, s = self._requant_to(h, a, key,
+                                            f'{unit.prefix}.cat{bi}')
+                    pieces.append(r)
+                del outs
+                x = torch.cat(pieces, dim=-1)
             emit(key, x)
 
         # head: integer global average pool → requant → FC
         pooled = self._avg_pool(x).to(torch.int32)
-        f8, s_fc = self._requant_to(pooled, s, 'features.q_concat_activ',
-                                    'fc_in')
+        with span('engine.requant'):
+            f8, s_fc = self._requant_to(pooled, s, 'features.q_concat_activ',
+                                        'fc_in')
         emit('fc_input', f8)
         return self._head(f8, 'output.q_fc', s_fc)
 
@@ -353,7 +396,7 @@ def build_inceptionv3_engine(fm: FrozenModel, width_div: Optional[int] = None,
                              capture: Optional[str] = None,
                              input_mode: str = 'float32',
                              input_hw: Sequence[int] = (299, 299),
-                             wide_dtype: torch.dtype = torch.int32,
+                             wide_dtype: Optional[torch.dtype] = None,
                              requant_mode: str = 'native',
                              routing: Optional[Dict[str, str]] = None,
                              device='cuda') -> InceptionEngine:
@@ -362,13 +405,17 @@ def build_inceptionv3_engine(fm: FrozenModel, width_div: Optional[int] = None,
 
     ``width_div``: the channel divisor the model was built with (None: read
     from the artifact, :func:`width_div_from_frozen`).  ``input_mode``:
-    'float32' takes raw (B, H, W, 3) float32 images; 'folded_float32' takes
-    (B, fh, fw, 48) images the host folded with
+    'float32' takes raw (B, H, W, 3) float32 images; 'uint8' takes raw
+    (B, H, W, 3) uint8 pixels, normalized with the ImageNet mean and std
+    and quantized on the device in the host preprocessing's float32 op
+    order (u8/255 → (v − mean)/std → floor(v/s_in + 0.5));
+    'folded_float32' takes (B, fh, fw, 48) images the host folded with
     ``inference.fold.fold4_images_3x3s2(x, 0)``, and ``input_hw`` is the
     images' size before the fold.  ``wide_dtype``: the container of the
     9–16-bit activation nodes, torch.int32 or torch.int16 (half the bytes;
     the values are clamped to the 16-bit range, so the narrowing is exact
-    where those nodes are symmetric, which int16 requires).  With
+    where those nodes are symmetric, which int16 requires); None:
+    :func:`default_wide_dtype`.  With
     ``requant_mode``: 'native', or 'reference' (float32 input and the
     int32 container only).  ``routing``: a table of ``inference.routing``
     for the 1×1 convs whose requant fuses (native mode only).  With
@@ -376,6 +423,8 @@ def build_inceptionv3_engine(fm: FrozenModel, width_div: Optional[int] = None,
     the logits."""
     if width_div is None:
         width_div = width_div_from_frozen(fm)
+    if wide_dtype is None:
+        wide_dtype = default_wide_dtype(fm.cfg, requant_mode)
     return InceptionEngine(fm, width_div, capture, input_mode, input_hw,
                            wide_dtype, engine_device(device), requant_mode,
                            routing)

@@ -1,8 +1,9 @@
 """Spans of the program's own sites, recorded only while a profiler records.
 
 ``with span(name):`` marks a site: the engine's whole call and its input,
-conv, requant and residual sites (``inference/engine.py``), the QAT step
-and its forward, backward and optimizer phases (``train/train.py``).
+conv, requant and residual sites (``inference/engine.py``), InceptionV3's
+concat and average-pool sites (``inference/engine_inception.py``), the QAT
+step and its forward, backward and optimizer phases (``train/train.py``).
 There is no switch of its own.  Outside ``torch.profiler.profile`` ``span``
 costs one flag check and returns one shared object that does nothing.  The
 flag is ``torch.autograd.profiler._is_profiler_enabled``, set for the whole
@@ -27,10 +28,11 @@ threads is taken.  While a profiler records, a span
     elapsed time between two timing events recorded on its current stream
     at enter and exit (None otherwise).
 
-Only a span that covers milliseconds of work passes its device: the
-engine's whole call and the step's phases.  A timing event stalls the
-stream for microseconds, so events at each of a forward's ~90 sites would
-make the traced forward slower than the one it describes.
+Only a span that covers much work passes its device: the engine's whole
+call, InceptionV3's unit concats and A1 pools and the step's phases.  A
+timing event stalls the stream for microseconds, so events at each of a
+forward's ~90 sites would make the traced forward slower than the one it
+describes.
 :func:`records` reads the device times, waiting for each span's end event
 (call it after the work has been synchronized), and lets the events go.
 A span inside an open span of the same name records nothing.  Records are

@@ -27,8 +27,10 @@ from hawq_tpu.models import inceptionv3 as jm
 
 from hawq_tpu_torch.configs.bit_config import BitConfig, get_bit_config as tget
 from hawq_tpu_torch.inference import engine_inception as tei
+from hawq_tpu_torch.inference.engine import IMAGENET_MEAN, IMAGENET_STD
 from hawq_tpu_torch.inference.synthetic import synthetic_frozen_inception
 from hawq_tpu_torch.models import inceptionv3 as tm
+from hawq_tpu_torch.quant import ops as qops
 from tests.test_torch_engine import _port_fm, _RecordAll
 from tests.test_torch_resnet_v2 import _assert_frozen_equal
 
@@ -193,14 +195,30 @@ def test_engine_options_and_checks():
         tei.build_inceptionv3_engine(fm, requant_mode='reference',
                                      input_mode='folded_float32',
                                      device='cpu')
-    with pytest.raises(ValueError):
-        tei.build_inceptionv3_engine(fm, input_mode='uint8', device='cpu')
+    # uint8 pixels, normalized on the device in the host's float32 op
+    # order: the float32 engine's logits on the host-normalized images
+    u8 = np.random.RandomState(5).randint(0, 256, (2, 75, 75, 3)).astype(
+        np.uint8)
+    host = qops.exact_div(qops.exact_div(torch.from_numpy(u8).float(), 255.0)
+                          - torch.from_numpy(IMAGENET_MEAN), IMAGENET_STD)
+    by_u8 = tei.build_inceptionv3_engine(fm, input_mode='uint8',
+                                         input_hw=(75, 75), device='cpu')
+    assert torch.equal(by_u8(u8), tei.build_inceptionv3_engine(
+        fm, input_hw=(75, 75), device='cpu')(host))
+    with pytest.raises(ValueError):             # uint8 mode takes uint8
+        by_u8(host)
     with pytest.raises(ValueError):
         tei.build_inceptionv3_engine(fm, wide_dtype=torch.int8, device='cpu')
-    # int16 containers need the wide nodes symmetric
+    # int16 containers need the wide nodes symmetric; by default they are
+    # int16 where those are, in native mode, else int32
     asym = _port_fm(fm)
     asym.cfg = _AsymmetricConfig(name='asym', table=dict(fm.cfg.table))
-    tei.build_inceptionv3_engine(asym, device='cpu')
+    assert tei.build_inceptionv3_engine(asym, device='cpu').res_dt == \
+        torch.int32
+    assert tei.build_inceptionv3_engine(fm, device='cpu').res_dt == \
+        torch.int16
+    assert tei.build_inceptionv3_engine(
+        fm, requant_mode='reference', device='cpu').res_dt == torch.int32
     with pytest.raises(ValueError, match='int16'):
         tei.build_inceptionv3_engine(asym, wide_dtype=torch.int16,
                                      device='cpu')

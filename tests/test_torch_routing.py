@@ -148,6 +148,7 @@ def _family(name):
     return (fm, lambda fm, **k: jei.build_inceptionv3_engine(
         fm, width_div=W, input_hw=(75, 75), **k),
         lambda fm, **k: build_inceptionv3_engine(fm, input_hw=(75, 75),
+                                                 wide_dtype=torch.int32,
                                                  device='cpu', **k), x, sites)
 
 

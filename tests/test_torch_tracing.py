@@ -18,7 +18,9 @@ import torch
 from hawq_tpu_torch.configs.bit_config import get_bit_config
 from hawq_tpu_torch.inference import profile as tprof
 from hawq_tpu_torch.inference.engine import build_resnet_engine
-from hawq_tpu_torch.inference.synthetic import synthetic_frozen_resnet
+from hawq_tpu_torch.inference.engine_inception import build_inceptionv3_engine
+from hawq_tpu_torch.inference.synthetic import (synthetic_frozen_inception,
+                                                synthetic_frozen_resnet)
 from hawq_tpu_torch.train import train as tt
 from hawq_tpu_torch.train.trainer import TrainerConfig, build_model
 from hawq_tpu_torch.utils import preproc, tracing
@@ -40,6 +42,13 @@ ENGINE_SITES = {
 # residual epilogue, inside its engine.residual and without an engine.conv
 ENGINE_SITES_INT32 = {'tiny50': dict(ENGINE_SITES['tiny50'],
                                      **{'engine.conv': 9})}
+# InceptionV3 at width_div 16: 94 convs; requants at 33 branch inputs (a
+# pool branch's is A1's), after 45 accumulator-form convs, at the 4
+# sub-branch concats of the C units and the FC's input; 11 unit concats,
+# 9 A1 pools
+INCEPTION_SITES = {'engine.forward': 1, 'engine.input': 1, 'engine.conv': 94,
+                   'engine.requant': 83, 'engine.concat': 11,
+                   'engine.avgpool': 9}
 STEP_PHASES = {'train.step': 1, 'train.forward': 1, 'train.backward': 1,
                'train.optimizer': 1}
 
@@ -198,6 +207,26 @@ def test_engine_sites_a_forward(arch, mode):
 def test_engine_sites_a_forward_int32_carrier(mode):
     _check_sites(_engine('tiny50', mode, torch.int32), _images(mode),
                  ENGINE_SITES_INT32['tiny50'])
+
+
+@pytest.mark.parametrize('mode', ['uint8', 'float32'])
+def test_inception_sites_a_forward(mode):
+    fm = synthetic_frozen_inception(get_bit_config('inceptionv3', 'uniform8'),
+                                    num_classes=10, width_div=16)
+    eng = build_inceptionv3_engine(fm, input_mode=mode, input_hw=(75, 75),
+                                   device='cpu')
+    _check_sites(eng, _images(mode, size=75), INCEPTION_SITES)
+
+
+def test_inception_records_nothing_outside_a_profiler(monkeypatch):
+    def entered(name):
+        raise AssertionError(f'range {name!r} opened outside a profiler')
+    monkeypatch.setattr(tracing, '_enter', entered)
+    fm = synthetic_frozen_inception(get_bit_config('inceptionv3', 'uniform8'),
+                                    num_classes=10, width_div=16)
+    build_inceptionv3_engine(fm, input_mode='uint8', input_hw=(75, 75),
+                             device='cpu')(_images('uint8', size=75))
+    assert tracing.records() == ([], 0)
 
 
 def _check_sites(eng, x, want):
