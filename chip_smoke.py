@@ -17,7 +17,8 @@ non-zero exit and no result line:
     counts its bit config predicts, per kernel and per GEMM core (every
     launch of the four convs and the four matmuls on the Hopper core
     csrc/gemm_s8_sm90.cuh; the folded init's requant and pool in one
-    ``maxpool_folded_requant``).
+    ``maxpool_folded_requant``; each unit's entry requant and the FC's
+    input through R1, ``requant_int32``, csrc/requant.cu).
     Every kernel call of those runs is recorded; each is then repeated on
     the same inputs and held against its plain PyTorch version, bit for bit
     (tolerance 0), as are ragged shapes, among them the Hopper core's (M
@@ -32,7 +33,7 @@ non-zero exit and no result line:
     and unaligned inputs take one channel a thread) among the ragged calls;
     then each call of the path a kernel is reported on is timed
     (kernel, plain version, library call) and set beside its bound (the
-    pools also with their input streamed from device memory) — the
+    pools and R1 also with their input streamed from device memory) — the
     eight kernels on the Hopper core on both cores in turns (old, new, new,
     old), both equal to the plain version, with the wrapper's host time per
     call on each, and the packed ``int4w_*`` also beside their ``int8_*``
@@ -141,7 +142,11 @@ non-zero exit and no result line:
     call, the unfused pair (``requant_int32``, then A1), the plain version,
     ``F.avg_pool2d`` and ``x.to(torch.int8)`` in turns; each call at the rule's tile and at its
     alternatives in turns; #1 / #2 / #6 / #7 timed at this path's calls on
-    both cores in turns; a trace of the forward, and one with the pool
+    both cores in turns; R1's calls (``requant_int32``; its concat form
+    ``requant_concat``, one launch a unit's concat or 1×3 / 3×1 pair, each
+    piece into its slice) among the recorded calls held against the plain
+    version (the six elementwise ops, and ``torch.cat``), timed beside it and
+    their bytes bound, in L2 and streamed; a trace of the forward, and one with the pool
     branches unfused (kernels per forward before and after), ms per batch
     fused and unfused in turns;
 12. QAT training through the Trainer on InceptionV3 uniform8 at full
@@ -337,6 +342,14 @@ KERNELS = {
     # division alone, as the reference-checkpoint replay runs it
     'int_avgpool3x3': ('hawq_tpu_torch/kernels/csrc/avgpool.cu',
                        'hawq_tpu/inference/engine_inception.py:336'),
+    # R1: no Pallas kernel either; XLA fuses the requant's convert,
+    # multiply, add, floor, clamp and convert into one loop, and a unit's
+    # branch requants into the concat after them
+    'requant_int32': ('hawq_tpu_torch/kernels/csrc/requant.cu',
+                      'hawq_tpu/quant/ops.py:468 (XLA-fused)'),
+    'requant_concat': ('hawq_tpu_torch/kernels/csrc/requant.cu',
+                       'hawq_tpu/inference/engine_inception.py:456 '
+                       '(XLA-fused)'),
 }
 # the three kernels that no serving path launches: phase 3 (the standalone
 # pool, at the main path's pre-pool tensor), 6 and 7 drive them
@@ -351,10 +364,15 @@ DW = (DW_REQUANT, DW_ACC)
 # A1, the InceptionV3 engine's integer average pool (phase 11), and its
 # quotient form, which the reference-checkpoint replay runs (phase 13)
 AVGPOOL, AVGPOOL_Q = 'int_avgpool3x3_requant', 'int_avgpool3x3'
+# R1, the engines' standalone requant (every native path; phase 3 times it
+# on ResNet-50, phase 11 on InceptionV3), and its concat form (InceptionV3's
+# concats and 1x3 / 3x1 pairs, phase 11)
+REQUANT, REQUANT_CAT = 'requant_int32', 'requant_concat'
+RQ = (REQUANT, REQUANT_CAT)
 # the kernels on no ResNet serving path
 SERVING_KERNELS = [k for k in KERNELS
                    if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL, AVGPOOL_Q,
-                                RESIDUAL) + DW]
+                                RESIDUAL, REQUANT_CAT) + DW]
 TRAIN_BATCH = 32
 # the phase that trains each arch through the Trainer
 TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10,
@@ -370,9 +388,11 @@ INC_PATHS = (('uniform8', 'folded_float32', torch.int32),
              ('uniform8', 'float32', torch.int32),
              ('uniform8', 'folded_float32', torch.int16),
              ('uniform4', 'folded_float32', torch.int32))
-# the GEMM kernels the InceptionV3 engine runs
+# the GEMM kernels the InceptionV3 engine runs, and the kernels that phase
+# 11 times on its main path besides A1 (R1's concat form is reported there)
 INC_GEMMS = ('int8_matmul_requant', 'int8_matmul_acc', 'int8_conv_requant',
              'int8_conv_acc')
+INC_TIMED = INC_GEMMS + (REQUANT,)
 # MobileNetV2 w1 serving (phase 8), 224², batch 8: (scheme, input mode,
 # carrier); the first is this family's main path
 MNV2_PATHS = (('uniform8', 'folded_float32', torch.int16),
@@ -388,7 +408,7 @@ SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 RESIDUAL)
 POOLS = (POOL, POOL_REQUANT)
 GEMM_KERNELS = [k for k in KERNELS
-                if k not in POOLS + DW + (MINMAX, AVGPOOL, AVGPOOL_Q)]
+                if k not in POOLS + DW + RQ + (MINMAX, AVGPOOL, AVGPOOL_Q)]
 # the kernels of their own (no GEMM core): launches counted on '@cuda'
 OWN_CORE = DW + (AVGPOOL, AVGPOOL_Q)
 # Reference-checkpoint replay (phase 13), batch 8, int32 carriers, 224²
@@ -412,7 +432,7 @@ REPLAY_SIZE = {'inceptionv3': 75}
 # the forms that compute the native requant: none launches in reference mode
 FUSED_FORMS = ('int8_conv_requant', 'int4w_conv_requant',
                'int8_matmul_requant', 'int4w_matmul_requant', POOL_REQUANT,
-               DW_REQUANT, AVGPOOL)
+               DW_REQUANT, AVGPOOL, REQUANT, REQUANT_CAT)
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -448,11 +468,14 @@ def expected_inception_launches(fm, input_mode, reference=False,
     through the matmul, a k×k through the conv (4·C, C filled to a multiple
     of 4, after a stride 2's space-to-depth); the folded stem's q_conv1
     through ``int8_conv_acc`` over the fold (C = 48, N = 4·32); A1 once for
-    each pool branch; the FC through ``int8_matmul_acc``.  With a
-    ``routing`` table a 1×1 with 4-bit weights and the requant form that
-    the table routes to 'int4w' takes ``int4w_matmul_requant``.  With
-    ``reference`` (``requant_mode='reference'``) every conv takes the
-    accumulator form and every pool branch A1's quotient form."""
+    each pool branch; the FC through ``int8_matmul_acc``; ``requant_int32``
+    at each branch's input requant but a pool branch's (A1 takes it), after
+    each accumulator-form conv and at the FC's input; ``requant_concat`` at
+    each 1×3 / 3×1 pair and each unit's concat.  With a ``routing`` table a
+    1×1 with 4-bit weights and the requant form that the table routes to
+    'int4w' takes ``int4w_matmul_requant``.  With ``reference``
+    (``requant_mode='reference'``) every conv takes the accumulator form,
+    every pool branch A1's quotient form, and no requant a kernel."""
     from hawq_tpu_torch.inference.engine_inception import (
         conv_input_nodes, width_div_from_frozen)
     from hawq_tpu_torch.models import inceptionv3 as mi
@@ -461,21 +484,33 @@ def expected_inception_launches(fm, input_mode, reference=False,
     strides = {f'features.q_init_block.q_conv{c}': s
                for c, (_, _, s, _) in enumerate(mi.INIT_CONVS, start=1)}
     out = Launches()
+    native = not reference
     for _, _, unit in mi.units(width_div):
         for name, kind, kw in unit.branch_defs:
             bp = f'{unit.prefix}.branches.{name}'
             if kind == mi.AVG_POOL:
                 out.add(AVGPOOL_Q if reference else AVGPOOL)
+            elif native:                      # the branch's input requant
+                out.add(REQUANT)
+            if kind == mi.CONV_SEQ_3X3 and native:
+                out.add(REQUANT_CAT)
             for c, stride in enumerate(kw.get('strides', ()), start=1):
                 strides[f'{bp}.q_conv_list.q_conv{c}'] = stride
+        if native:
+            out.add(REQUANT_CAT)
     for key, _ in conv_input_nodes(width_div):
         if key == 'output.q_fc':
+            if native:
+                out.add(REQUANT)
             out.add('int8_matmul_acc', 'matmul',
                     *fm[key + '.weight_int'].shape)
             continue
         kh, kw_, c, n = fm[key + '.q_convbn.weight_int'].shape
         acc = reference or fm.cfg.act_bits(key + '.q_activ') > 8
-        if key == stem and input_mode == 'folded_float32':
+        folded_stem = key == stem and input_mode == 'folded_float32'
+        if native and (acc or folded_stem):
+            out.add(REQUANT)
+        if folded_stem:
             out.add('int8_conv_acc', 'conv_acc', 48, 4 * n)
         elif (kh, kw_) == (1, 1):
             site = key + '.q_convbn'
@@ -789,7 +824,8 @@ def inception_phase(dev, errs, totals):
             main = (eng, images[mode], calls, want, counts, label)
     eng, x, calls, want, counts, label = main
     check(want.counts[AVGPOOL] == 9
-          and sum(want.counts.values()) == 9 + 95
+          and sum(v for k, v in want.counts.items() if k not in RQ) == 9 + 95
+          and (want.counts[REQUANT], want.counts[REQUANT_CAT]) == (80, 15)
           and not [k for k in want.cores if k.endswith('@mma')],
           f'{label}: predicted {want.counts}, per core {want.cores}')
     ragged = avgpool_ragged_calls(dev)
@@ -803,8 +839,10 @@ def inception_phase(dev, errs, totals):
     totals[AVGPOOL].update(avgpool_fusion_turns(a1, 'phase 11'))
     avgpool_plan_sweep(a1, 'phase 11')
     gemm_totals = {}
-    log(f'phase 11: timed the GEMM kernels on {label}:')
-    time_calls([c for c in calls if c[0] in INC_GEMMS], gemm_totals)
+    log(f'phase 11: timed the GEMM kernels and {REQUANT} on {label}:')
+    time_calls([c for c in calls if c[0] in INC_TIMED], gemm_totals)
+    log(f'phase 11: timed {REQUANT_CAT} on {label}:')
+    time_calls([c for c in calls if c[0] == REQUANT_CAT], totals)
     trace = trace_breakdown(eng, x, label, 'phase 11')
     if trace:
         port = {k: v for k, v in trace[3].items() if k.startswith('port')}
@@ -890,12 +928,13 @@ def cold_ms(fn, args, reps):
     memory, not L2: copies of the tensor arguments that together fill twice
     the L2 (at least two), one call on each in turn, ``reps`` rounds
     captured into one CUDA graph (:func:`graph_ms`), per call."""
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    tensors = tensors_of(args)
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     l2 = getattr(torch.cuda.get_device_properties(tensors[0].device),
                  'L2_cache_size', 50 << 20)
     copies = max(2, -(-2 * l2 // nbytes))
-    sets = [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+    sets = [tuple([t.clone() for t in a] if isinstance(a, list) else
+                  a.clone() if isinstance(a, torch.Tensor) else a
                   for a in args) for _ in range(copies)]
 
     def each():
@@ -918,15 +957,21 @@ def expected_launches(arch, cfg, input_mode, reference=False, routing=None,
     4-bit weights; with a ``routing`` table, for 4-bit weights the table
     routes to 'int4w'), and the FC (int8).  A bottleneck's int8 conv3 with
     the int32 carrier (``residual_dtype``) takes the residual epilogue
-    (``int8_matmul_acc_residual``).  With ``reference``
+    (``int8_matmul_acc_residual``).  In native mode ``requant_int32`` at
+    each unit's entry, the FC's input and, where the folded init's pool
+    does not take it, the init.  With ``reference``
     (``requant_mode='reference'``) every unit conv takes its accumulator
-    form and the folded init the standalone pool."""
+    form, the folded init the standalone pool, and no requant a kernel."""
     from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
+                                                   RESNET_UNITS,
                                                    resnet_layer_keys)
     bottleneck = RESNET_CONVS_PER_UNIT[arch] == 3
     counts = {'int8_conv_acc': 1, 'int8_matmul_acc': 1}
-    if input_mode.startswith('folded'):
+    folded = input_mode.startswith('folded')
+    if folded:
         counts[POOL if reference else POOL_REQUANT] = 1
+    if not reference:
+        counts[REQUANT] = sum(RESNET_UNITS[arch]) + 1 + (not folded)
     for key in resnet_layer_keys(arch):
         conv = key.rsplit('.', 1)[-1]
         if not key.startswith('stage') or 'convbn' not in conv:
@@ -986,11 +1031,23 @@ def expected_mobilenet_launches(fm, input_mode, reference=False,
     conv1 / conv3 / final block with 4-bit weights that it routes to
     'int4w' through ``int4w_matmul_acc`` (K padded to even) — every
     depthwise conv2 through D1's requant form (with ``reference``, its
-    accumulator form)."""
+    accumulator form); in native mode ``requant_int32`` at the init, each
+    unit's input and conv1, the conv3 of a unit without the residual add,
+    the final block's input and output and the head's input."""
     n = fm['init_block.weight_int'].shape[-1]
     out = Launches().add('int8_conv_acc', 'conv_acc',
                          *((48, 4 * n) if input_mode.startswith('folded')
                            else (16, n)))
+    if not reference:
+        from hawq_tpu_torch.inference.engine_mobilenet import (
+            stages_from_frozen)
+        from hawq_tpu_torch.models.mobilenetv2 import unit_plan
+        sites = 4                    # init, final block in and out, head
+        for _, _, cin, cout, stride, _ in unit_plan(stages_from_frozen(fm),
+                                                    n):
+            sites += 2 + (cin != cout or stride != 1)
+        for _ in range(sites):
+            out.add(REQUANT)
     for key, w in fm.tensors.items():
         if key.endswith('.conv2.weight_int'):
             out.add(DW_ACC if reference else DW_REQUANT)
@@ -1010,13 +1067,15 @@ def expected_v2_launches(fm):
     script drives), from the frozen model's widths: the init conv
     (space-to-depth, C = 16); each unit's conv1 through
     ``int8_matmul_requant``, its 3×3 through ``int8_conv_requant``, conv3
-    and the identity conv through ``int8_matmul_acc``; the FC."""
+    and the identity conv through ``int8_matmul_acc``; the FC; the init's
+    requant through ``requant_int32``."""
     kernel = {'quant_conv1': ('int8_matmul_requant', 'matmul_requant'),
               'quant_conv2': ('int8_conv_requant', 'conv'),
               'quant_conv3': ('int8_matmul_acc', 'matmul'),
               'quant_identity_conv': ('int8_matmul_acc', 'matmul')}
     out = Launches().add('int8_conv_acc', 'conv_acc', 16,
                          fm['quant_init_conv.weight_int'].shape[-1])
+    out.add(REQUANT)
     for key, w in fm.tensors.items():
         if key.startswith('stage') and key.endswith('.weight_int'):
             out.add(*kernel[key.split('.')[2]], w.shape[2], w.shape[3])
@@ -1069,18 +1128,30 @@ def first_core():
 
 def kernel_modules():
     from hawq_tpu_torch.kernels import (avgpool, conv, depthwise, matmul,
-                                        pool, reduce)
+                                        pool, reduce, requant)
     return {name: (pool if name in POOLS else
                    avgpool if name in (AVGPOOL, AVGPOOL_Q) else
+                   requant if name in RQ else
                    reduce if name == MINMAX else
                    depthwise if name in DW else
                    conv if '_conv' in name else matmul) for name in KERNELS}
 
 
 def shapes_only(args):
-    """Tensors replaced by storage-free stand-ins of their shape and dtype."""
-    return tuple(torch.empty_like(a, device='meta')
-                 if isinstance(a, torch.Tensor) else a for a in args)
+    """Tensors (also in a list, R1's concat form) replaced by storage-free
+    stand-ins of their shape and dtype."""
+    def meta(a):
+        return (torch.empty_like(a, device='meta')
+                if isinstance(a, torch.Tensor) else a)
+    return tuple([meta(t) for t in a] if isinstance(a, list) else meta(a)
+                 for a in args)
+
+
+def tensors_of(args):
+    """The tensor arguments of a call, those of a list (R1's concat form's
+    pieces and multipliers) among them."""
+    return [t for a in args for t in (a if isinstance(a, list) else (a,))
+            if isinstance(t, torch.Tensor)]
 
 
 @contextlib.contextmanager
@@ -1165,6 +1236,14 @@ def plain_call(name, args, kw, stack=True):
     if name == AVGPOOL_Q:
         from hawq_tpu_torch.kernels.avgpool import avgpool3x3_plain
         return avgpool3x3_plain(*args)
+    if name in RQ:               # the six elementwise ops (and the cat)
+        from hawq_tpu_torch.kernels import requant as kr
+        out_dtype = kw.get('out_dtype', torch.int8)
+        if name == REQUANT_CAT:
+            return kr.requant_concat_plain(*args, kw['out_bits'],
+                                           kw['signed'], out_dtype)
+        return kr.requant_plain(*args, kw['out_bits'], kw['signed'],
+                                kw.get('relu', False), out_dtype)
     args = (args[0], unpacked_weights(name, args, kw)) + tuple(args[2:])
     return plain_gemm_call(name, args, kw)
 
@@ -1204,9 +1283,16 @@ def work(name, args, kw, out):
     the operations over the unpacked K (taps·C for the conv, x's K for the
     matmul)."""
     from hawq_tpu_torch.kernels.matmul import PreparedWeights
-    nbytes = sum(t.numel() * t.element_size() for t in (*args, *kw.values())
-                 if isinstance(t, torch.Tensor))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tensors_of((*args, *kw.values())))
     nbytes += out.numel() * out.element_size()
+    if name in RQ:                     # a convert, multiply, round and clip
+        ins = args[0] if name == REQUANT_CAT else [args[0]]
+        return nbytes, 0, ('x'.join(map(str, out.shape[:-1])) + ' C'
+                           + '+'.join(str(t.shape[-1]) for t in ins) + ' '
+                           + '/'.join(str(t.dtype)[6:] for t in ins) + '->'
+                           + str(out.dtype)[6:]
+                           + (' relu' if kw.get('relu') else ''))
     if name in POOLS + (MINMAX,):
         return nbytes, 0, 'x' + 'x'.join(map(str, args[0].shape))
     if name in (AVGPOOL, AVGPOOL_Q):   # 9 adds, a division, the requants
@@ -1746,9 +1832,10 @@ def call_key(name, args, kw):
     """What makes two kernel calls the same work: name, shapes, dtypes and
     keyword arguments."""
     from hawq_tpu_torch.kernels.matmul import PreparedWeights
+    flat = [t for a in args for t in (a if isinstance(a, list) else (a,))]
     shapes = tuple(((a.k, a.n), 'prepared int4' if a.int4 else 'prepared')
                    if isinstance(a, PreparedWeights)
-                   else (tuple(a.shape), str(a.dtype)) for a in args
+                   else (tuple(a.shape), str(a.dtype)) for a in flat
                    if isinstance(a, (torch.Tensor, PreparedWeights)))
     return (name, shapes, tuple(sorted(
         (k, (tuple(v.shape), str(v.dtype)) if isinstance(v, torch.Tensor)
@@ -1876,7 +1963,7 @@ def time_calls(calls, totals):
                 ms = extra.pop('ms')
             else:
                 ms = graph_ms(lambda: kernel_call(name, args, kw, False), 20)
-            if name in POOLS + OWN_CORE:
+            if name in POOLS + OWN_CORE + RQ:
                 extra['cold_ms'] = cold_ms(
                     lambda *a: kernel_call(name, a, kw, False), args, 10)
             if name in DW:
@@ -5288,6 +5375,7 @@ def main():
     # ---- phase 11: InceptionV3 serving, A1 ----
     inc_counts, inc_totals = inception_phase(dev, errs, totals)
     launches[AVGPOOL] = inc_counts[AVGPOOL]
+    launches[REQUANT_CAT] = inc_counts[REQUANT_CAT]
 
     # ---- phase 12: InceptionV3 training ----
     inc_train_launches, _, inc_batch = training_phase(
@@ -5314,6 +5402,7 @@ def main():
                       f'b{mnv2_batch} {SIZE}x{SIZE}')
     labels[AVGPOOL] = (f'inceptionv3 {INC_PATHS[0][0]} {INC_PATHS[0][1]} '
                        f'int32 b{BATCH} {INC_SIZE}x{INC_SIZE}')
+    labels[REQUANT_CAT] = labels[AVGPOOL]
     inc_train_label = (f'QAT train step inceptionv3 uniform8 b{inc_batch} '
                        f'{TRAIN_SIZE["inceptionv3"]}x'
                        f'{TRAIN_SIZE["inceptionv3"]}')
@@ -5365,7 +5454,7 @@ def main():
             if name.startswith('int4w'):
                 entry[f'{twin_name(name)}_on_unpacked_weights_ms'] = t[
                     'int8_twin_ms']
-        if name in POOLS + OWN_CORE:  # ms: the input L2-resident
+        if name in POOLS + OWN_CORE + RQ:   # ms: the input L2-resident
             entry['cold_ms'] = t['cold_ms']
         if name == AVGPOOL:           # phase 11: the fusion in turns
             entry.update({f'{k}_turns_ms': t[k] for k in (
@@ -5373,7 +5462,7 @@ def main():
             entry.update({k: t[k] for k in (
                 'kernels_per_forward', 'kernels_per_forward_unfused')
                 if k in t})
-        if name in INC_GEMMS:
+        if name in INC_TIMED:
             # the InceptionV3 engine's main path (phase 11)
             it = inc_totals[name]
             entry.update(inception_path=labels[AVGPOOL],
@@ -5382,8 +5471,11 @@ def main():
                          inception_plain_ms=it['plain_ms'],
                          inception_bound_ms=it['bound_ms'],
                          inception_library_ms=(it['library_ms']
-                                               if it['library_ok'] else None),
-                         inception_old_ms=it['old_ms'])
+                                               if it['library_ok'] else None))
+            if name in SM90_KERNELS:
+                entry['inception_old_ms'] = it['old_ms']
+            else:
+                entry['inception_cold_ms'] = it['cold_ms']
         if name in ('int8_conv_acc', 'int8_matmul_acc', MINMAX):
             entry.update(inception_train_path=inc_train_label,
                          inception_train_launches=inc_train_launches[name])

@@ -211,7 +211,7 @@ def load_program(blob: bytes, device=None):
     modules, whose operators the program calls.  Stands for ``hawq_tpu``'s
     ``load_stablehlo``."""
     from hawq_tpu_torch.kernels import (avgpool, conv, depthwise,  # noqa: F401
-                                        matmul, pool)
+                                        matmul, pool, requant)
     program = torch.export.load(io.BytesIO(blob))
     if device is not None:
         from torch.export.passes import move_to_device_pass

@@ -40,6 +40,11 @@ CPU device the kernels' plain versions run instead):
     as the carrier (:meth:`ResnetEngine._fused_residual`); every other unit
     conv3 and every basic block's conv2 take the accumulator form, then the
     requant-add, ReLU (and int16 clamp) as PyTorch ops;
+  * every other native requant (a unit's entry, the raw init's with its
+    ReLU, the FC's input; in the other families also the requants after
+    accumulator-form convs and, in InceptionV3, the requants of a concat's
+    pieces into it, ``InceptionEngine._concat_to``) → ``kernels.requant``
+    (:meth:`IntEngine._requant`), one pass over the integers;
   * the weights of every conv and matmul call whose widths the Hopper GEMM
     core takes (``kernels.matmul.sm90_route``; the init conv's too) are
     cached in that core's K-major layout (``prepare_weights``; the 4-bit
@@ -97,6 +102,7 @@ from hawq_tpu_torch.inference.routing import check_routing, make_router
 from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
+from hawq_tpu_torch.kernels import requant as kr
 from hawq_tpu_torch.quant import ops as qops
 from hawq_tpu_torch.quant import reference_oracle as ro
 from hawq_tpu_torch.utils.tracing import span
@@ -229,13 +235,16 @@ class IntEngine:
         return self._mult[name]
 
     def _requant(self, acc, mult, bits: int, signed: bool,
-                 out_dtype=torch.int8) -> torch.Tensor:
+                 out_dtype=torch.int8, *, relu: bool = False) -> torch.Tensor:
         """The requant of the engine's mode (``mult`` from
-        :meth:`requant_mult`)."""
+        :meth:`requant_mult`), with ``relu`` the ReLU before it (the
+        requant, monotone and 0 → 0, takes it in): in native mode one
+        ``kernels.requant.requant_int32``."""
         if self.reference:
-            return qops.requant_int32_ref(acc, *mult, bits, signed,
-                                          out_dtype)
-        return qops.requant_int32(acc, mult, bits, signed, out_dtype)
+            y = qops.requant_int32_ref(acc, *mult, bits, signed, out_dtype)
+            return torch.clamp_min(y, 0) if relu else y
+        return kr.requant_int32(acc, mult, out_bits=bits, signed=signed,
+                                relu=relu, out_dtype=out_dtype)
 
     def _requant_add(self, acc, mult_main, identity, mult_id,
                      out_dtype=torch.int32) -> torch.Tensor:
@@ -391,8 +400,7 @@ class IntEngine:
                 fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
                 y = fn(xp, wf, bias, **geo)
                 if mult is not None:
-                    y = self._requant(torch.clamp_min(y, 0), mult, bits,
-                                      signed)
+                    y = self._requant(y, mult, bits, signed, relu=True)
             else:
                 fn = kc.int4w_conv_requant if int4 else kc.int8_conv_requant
                 y = fn(xp, wf, bias, mult, out_bits=bits, signed=signed,
@@ -414,7 +422,7 @@ class IntEngine:
                                     relu=True)
             y = site.acc(x8)
             if mult is not None:
-                y = self._requant(torch.clamp_min(y, 0), mult, bits, signed)
+                y = self._requant(y, mult, bits, signed, relu=True)
             return y
 
     # -- forward ------------------------------------------------------------
@@ -533,8 +541,8 @@ class ResnetEngine(IntEngine):
                                           signed=signed16, relu=True,
                                           out_dtype=self.res_dt)
         else:
-            x = torch.clamp_min(
-                self._requant(acc, mult, b16, signed16, self.res_dt), 0)
+            x = self._requant(acc, mult, b16, signed16, self.res_dt,
+                              relu=True)
             if self.folded:
                 x = kp.maxpool_folded(x)
             elif not self.cifar:

@@ -23,11 +23,17 @@ plain versions on a CPU device):
     init among them, through space-to-depth, ``kernels.conv.conv_call``);
   * a conv whose ``q_activ`` is wider (the last conv of a branch, the
     stem's q_conv5) → ``int8_matmul_acc`` / ``int8_conv_acc``, then ReLU
-    and the requant into the wide container as PyTorch ops;
+    and the requant into the wide container in one
+    ``kernels.requant.requant_int32`` (the ReLU its lower bound);
   * the folded stem (``input_mode='folded_float32'``,
     ``inference.fold.fold4_images_3x3s2(x, 0)``) → ``int8_conv_acc`` over
     the 2×2/s1 rewrite of the 3×3/s2 q_conv1 (C = 48, N = 4·32), ReLU and
     the requant with the fourfold multipliers, depth-to-space and the slice;
+  * each branch's input requant and the FC's → ``requant_int32``; a unit's
+    requants of every branch onto its shared scale and their
+    concatenation, and the two sub-branch requants and concatenation of a
+    1×3 / 3×1 pair → one ``kernels.requant.requant_concat``, each piece
+    written straight into its slice;
   * the pool branches' ``q_input_act`` requant, their 3×3/s1/p1 average
     pool and its ``q_pool_act`` requant → one ``int_avgpool3x3_requant``
     on the unit input (A1, csrc/avgpool.cu, the requant fused in front);
@@ -85,6 +91,7 @@ from hawq_tpu_torch.inference.freeze import (FrozenModel,
                                              _act_scale_from_stats,
                                              _freeze_convbn, _freeze_linear)
 from hawq_tpu_torch.kernels import avgpool as ka
+from hawq_tpu_torch.kernels import requant as kr
 from hawq_tpu_torch.models import inceptionv3 as mi
 from hawq_tpu_torch.utils.tracing import span
 
@@ -273,6 +280,23 @@ class InceptionEngine(IntEngine):
         mult = self.requant_mult(name, from_scale, s)
         return self._requant(x, mult, b, sg, self._container(b)), np.float32(s)
 
+    def _concat_to(self, outs, key: str, names):
+        """(tensor, scale) pieces → (their concatenation on the last axis,
+        each piece requantized to node ``key`` with the multiplier of site
+        ``names[i]``, its scale): in native mode one
+        ``kernels.requant.requant_concat``, each piece written into its
+        slice."""
+        s, b, sg = self.act_info(key)
+        mults = [self.requant_mult(n, a, s) for n, (_, a) in zip(names, outs)]
+        pieces, dt = [h for h, _ in outs], self._container(b)
+        if self.reference:
+            y = torch.cat([self._requant(h, m, b, sg, dt)
+                           for h, m in zip(pieces, mults)], dim=-1)
+        else:
+            y = kr.requant_concat(pieces, mults, out_bits=b, signed=sg,
+                                  out_dtype=dt)
+        return y, np.float32(s)
+
     def _incept_conv(self, h, a_scale, kp: str, stride=1, pad=0):
         """conv+BN → ReLU → requant to ``<kp>.q_activ`` → (tensor, scale)."""
         key = f'{kp}.q_convbn'
@@ -288,8 +312,8 @@ class InceptionEngine(IntEngine):
         acc = (self._conv1x1(h, key, stride) if one
                else self._conv_kxk(h, key, stride, pad=pad))
         with span('engine.requant'):
-            return self._requant(torch.clamp_min(acc, 0), mult, b, sg,
-                                 self.res_dt), s
+            return self._requant(acc, mult, b, sg, self.res_dt,
+                                 relu=True), s
 
     def _stem_conv1(self, x8, s_in):
         """The stem's 3×3/s2 q_conv1 → (tensor, scale): through
@@ -305,8 +329,8 @@ class InceptionEngine(IntEngine):
         mult = self.requant_mult(f'{kp}.rq_f',
                                  _fold.tile4(self._scale(key, s_in)), s)
         with span('engine.requant'):
-            xq = self._requant(torch.clamp_min(acc, 0), mult, bits, sg,
-                               self._container(bits))
+            xq = self._requant(acc, mult, bits, sg, self._container(bits),
+                               relu=True)
         oh, ow = self.out_hw
         return _fold.depth_to_space_2x2(xq)[:, :oh, :ow, :].contiguous(), s
 
@@ -349,11 +373,10 @@ class InceptionEngine(IntEngine):
             return h, a
         y1, a1 = self._incept_conv(h, a, f'{bp}.q_conv1x3', 1, (0, 1))
         y2, a2 = self._incept_conv(h, a, f'{bp}.q_conv3x1', 1, (1, 0))
-        key = f'{bp}.q_rescaling_activ'
         with span('engine.requant'):
-            r1, s_sub = self._requant_to(y1, a1, key, f'{bp}.rs1')
-            r2, _ = self._requant_to(y2, a2, key, f'{bp}.rs2')
-            return torch.cat([r1, r2], dim=-1), s_sub
+            return self._concat_to([(y1, a1), (y2, a2)],
+                                   f'{bp}.q_rescaling_activ',
+                                   [f'{bp}.rs1', f'{bp}.rs2'])
 
     def _forward(self, images: torch.Tensor, emit) -> torch.Tensor:
         s_in = self.fm.act_scale(self.input_node)
@@ -372,15 +395,11 @@ class InceptionEngine(IntEngine):
             outs = [self._branch(x, s, f'{unit.prefix}.branches.{name}',
                                  kind, kwargs)
                     for name, kind, kwargs in unit.branch_defs]
-            # each branch to the unit's shared scale, then the concat
+            # each branch to the unit's shared scale, into the concat
             with span('engine.concat', self.device):
-                pieces = []
-                for bi, (h, a) in enumerate(outs):
-                    r, s = self._requant_to(h, a, key,
-                                            f'{unit.prefix}.cat{bi}')
-                    pieces.append(r)
+                x, s = self._concat_to(outs, key, [
+                    f'{unit.prefix}.cat{bi}' for bi in range(len(outs))])
                 del outs
-                x = torch.cat(pieces, dim=-1)
             emit(key, x)
 
         # head: integer global average pool → requant → FC

@@ -18,11 +18,11 @@ versions on a CPU device):
     folded layout (per-channel vectors tiled over the 4 stride-2 origins),
     depth-to-space and the slice to the output size;
   * every 1×1 conv (conv1, conv3, the final block, the head on the pooled
-    vector) → ``int8_matmul_acc``, then the ReLU6 clamp and the requant as
-    PyTorch ops; with a routing table (``inference.routing``) the conv1,
-    conv3 and final-block sites it routes to 'int4w' whose weights are 4-bit
-    → ``int4w_matmul_acc`` on nibble-packed weights, the same epilogue
-    after it;
+    vector) → ``int8_matmul_acc``, then the ReLU6 clamp as PyTorch ops and
+    the requant through ``kernels.requant.requant_int32``; with a routing
+    table (``inference.routing``) the conv1, conv3 and final-block sites it
+    routes to 'int4w' whose weights are 4-bit → ``int4w_matmul_acc`` on
+    nibble-packed weights, the same epilogue after it;
   * the depthwise 3×3 conv2 → ``int8_dwconv_requant`` (D1), which takes in
     the bias, the ReLU6 clamp and the requant;
   * the residual add through ``requant_add_int32``, clamped to the int16

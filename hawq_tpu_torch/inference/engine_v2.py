@@ -175,7 +175,7 @@ class ResnetV2Engine(IntEngine):
         s16, b16, sg16 = self.act_info('quant_act_int32')
         mult = self.requant_mult('init_rq', self._scale('quant_init_conv',
                                                         s_in), s16)
-        x = qops.requant_int32(acc, mult, b16, sg16, torch.int32)
+        x = self._requant(acc, mult, b16, sg16, torch.int32)
         prev_scale = np.float32(s16)
         emit('init', x)
 

@@ -70,6 +70,7 @@ _SIGNATURES = {
     'hawq_dwconv_requant': [_P] * 6 + [_I] * 13 + [_P],
     'hawq_avgpool3x3_requant': [_P] * 4 + [_I] * 16 + [_P],
     'hawq_avgpool3x3': [_P, _P] + [_I] * 10 + [_P],
+    'hawq_requant': [_P, _I, _P] + [_I] * 6 + [_P],
     'hawq_minmax_max_blocks': [],
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }
@@ -111,7 +112,8 @@ class Op:
     through Python kernels costs more host time than the launch itself
     (PERF.md §6; ``chip_op_dispatch.py`` measures it).  Every other
     call, a traced one among them, goes through the dispatcher, so that
-    ``torch.export`` records the operator."""
+    ``torch.export`` records the operator.  A first argument that is a list
+    of tensors is judged by its first tensor."""
 
     __slots__ = ('overload', 'cpu', 'cuda')
 
@@ -119,11 +121,12 @@ class Op:
         self.overload, self.cpu, self.cuda = overload, cpu, cuda
 
     def __call__(self, x, *args):
-        if (type(x) is torch.Tensor and not _dispatch_modes()
+        t = x[0] if type(x) is list else x
+        if (type(t) is torch.Tensor and not _dispatch_modes()
                 and not torch.compiler.is_compiling()):
-            if x.is_cuda:
+            if t.is_cuda:
                 return self.cuda(x, *args)
-            if x.is_cpu:
+            if t.is_cpu:
                 return self.cpu(x, *args)
         return self.overload(x, *args)
 
@@ -134,7 +137,8 @@ _dispatch_modes = torch._C._len_torch_dispatch_stack
 def define_op(schema: str, cpu, cuda, fake) -> Op:
     """Define ``hawq::<schema>`` with its CPU, CUDA and fake implementations
     and return it (:class:`Op`).  Every operator allocates its output (no
-    argument is mutated or aliased); its first argument is a tensor."""
+    argument is mutated or aliased); its first argument is a tensor or a
+    list of tensors."""
     name = schema.split('(', 1)[0]
     OPS.define(schema)
     OPS.impl(name, cpu, 'CPU')
@@ -143,8 +147,9 @@ def define_op(schema: str, cpu, cuda, fake) -> Op:
     def traced(t, *args):
         # the fake implementation also serves the meta device, and a meta
         # tensor has no kernel, as any device but the CPU and the card
-        if not is_fake(t):
-            kernel_device(t)
+        first = t[0] if isinstance(t, (list, tuple)) else t
+        if not is_fake(first):
+            kernel_device(first)
         return fake(t, *args)
     torch.library.register_fake(f'hawq::{name}', traced, lib=OPS)
     return Op(getattr(torch.ops.hawq, name).default, cpu, cuda)

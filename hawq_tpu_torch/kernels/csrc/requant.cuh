@@ -1,5 +1,6 @@
 // The dyadic requant of one int32 value, shared by the GEMM epilogues
-// (gemm_s8.cuh requant_s8) and the pool's requant-in-front form (pool.cu):
+// (gemm_s8.cuh requant_s8), the pool's requant-in-front form (pool.cu) and
+// the engines' standalone requant (requant.cu):
 //
 //   clip(floor(f32(v) * mult + 0.5), lo, hi)
 //

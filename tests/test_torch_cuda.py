@@ -1430,7 +1430,7 @@ def test_mobilenet_engine_cuda_equals_cpu(dev, mode, residual):
     got = build_mobilenetv2_engine(fm, device=dev, **kw)(x)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
     assert _counts() == {'int8_conv_acc': 1, 'int8_matmul_acc': 36,
-                         'int8_dwconv_requant': 17}
+                         'int8_dwconv_requant': 17, 'requant_int32': 45}
     assert _core_counts() == {'int8_conv_acc@sm90': 1,
                               'int8_matmul_acc@sm90': 34,
                               'int8_matmul_acc@mma': 2,
@@ -1863,7 +1863,7 @@ def _every_node(engine, x):
 _FUSED_FORMS = ('int8_conv_requant', 'int4w_conv_requant',
                 'int8_matmul_requant', 'int4w_matmul_requant',
                 'maxpool_folded_requant', 'int8_dwconv_requant',
-                'int_avgpool3x3_requant')
+                'int_avgpool3x3_requant', 'requant_int32', 'requant_concat')
 
 
 @pytest.mark.parametrize('family,mode', [

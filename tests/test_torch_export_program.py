@@ -5,7 +5,7 @@
   ``torch.library.opcheck`` on small CPU inputs: the int8 and nibble-packed
   int4 matmuls and convs and the int8 matmul's residual form, on plain
   weights and on the Hopper core's handle, both forms of the folded pool,
-  of D1 and of A1.
+  of D1 and of A1, and the standalone requant and its concat form.
 * ``load_program(export_program(fm))`` gives logits bit-equal (tolerance 0)
   to the port's engine and to ``load_stablehlo(export_stablehlo(fm))`` on
   the same numpy images and weights (``frozen_from_numpy``), at tiny50
@@ -34,6 +34,7 @@ from hawq_tpu_torch.kernels import conv as kc
 from hawq_tpu_torch.kernels import depthwise as kd
 from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
+from hawq_tpu_torch.kernels import requant as kr
 
 torch.set_num_threads(1)
 
@@ -126,6 +127,18 @@ def _avg_args(name, in_front=False):
             True, [])
 
 
+def _requant_args(name, per_channel):
+    rng = np.random.RandomState(6)
+    x = torch.tensor(rng.randint(-2 ** 20, 2 ** 20, (2, 3, 4, 16))
+                     .astype(np.int32))
+    m = _mult(rng, 16) if per_channel else torch.tensor(np.float32(7e-4))
+    if name == 'requant_int32':
+        return (x, m, 16, True, True, 1)
+    y = torch.tensor(rng.randint(-2 ** 14, 2 ** 14, (2, 3, 4, 8))
+                     .astype(np.int16))
+    return ([x, y], [m, _mult(rng, 8) * 40], 8, True, 0)
+
+
 _CASES = (
     [(km, n, (lambda n=n, p=p: _matmul_args(n, p)), f'{n}-{p}')
      for n in km.OPS if n != km.RESIDUAL for p in (False, True)]
@@ -140,7 +153,9 @@ _CASES = (
         (lambda f=f: _avg_args('int_avgpool3x3_requant', f)),
         f'int_avgpool3x3_requant-{f}') for f in (False, True)]
     + [(ka, 'int_avgpool3x3', (lambda: _avg_args('int_avgpool3x3')),
-        'int_avgpool3x3')])
+        'int_avgpool3x3')]
+    + [(kr, n, (lambda n=n, pc=pc: _requant_args(n, pc)), f'{n}-{pc}')
+       for n in kr.OPS for pc in (False, True)])
 
 
 @pytest.mark.parametrize('mod,name,args', [c[:3] for c in _CASES],
