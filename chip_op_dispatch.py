@@ -59,10 +59,9 @@ def probe_op(op):
     def probe(xp: torch.Tensor, w: torch.Tensor, cpad: int, row_taps: int,
               bias: torch.Tensor, mult: Optional[torch.Tensor], lo: int,
               hi: int, taps: List[int], out_hw: List[int], cin: int,
-              pad: List[int], core: int, tile_n: int,
-              smem_extra: int) -> torch.Tensor:
+              pad: List[int], tile_n: int, smem_extra: int) -> torch.Tensor:
         return op.cuda(xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
-                       out_hw, cin, pad, core, tile_n, smem_extra)
+                       out_hw, cin, pad, tile_n, smem_extra)
     return probe
 
 
@@ -123,8 +122,8 @@ def main() -> int:
         conv_op, matmul_op = kc.OPS['int8_conv_requant'], km.OPS[
             'int8_matmul_acc']
         conv_args = (x, h.wt, h.cpad, h.row_taps, b, m, lo, hi, [3, 3],
-                     [14, 14], 256, [1, 1], -1, -1, 0)
-        matmul_args = (xm, hm.wt, hm.cpad, b, None, 0, 0, -1, -1, -1, 0)
+                     [14, 14], 256, [1, 1], -1, 0)
+        matmul_args = (xm, hm.wt, hm.cpad, b, None, 0, 0, -1, -1, 0)
         probe = probe_op(conv_op)
         want = conv()
         for name, got in (('op_direct', conv_op(*conv_args)),

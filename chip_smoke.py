@@ -14,9 +14,9 @@ non-zero exit and no result line:
     the 4-bit layers) and ResNet-18 uniform4, all 224×224, batch 8,
     host-folded input, int16 residual carrier — each with the launch counts
     set to 0 just before it and read just after, and held against the
-    counts its bit config predicts, per kernel and per GEMM core (every
-    launch of the four convs and the four matmuls on the Hopper core
-    csrc/gemm_s8_sm90.cuh; the folded init's requant and pool in one
+    counts its bit config predicts, per kernel (the four convs and the four
+    matmuls on the GEMM core csrc/gemm_s8_sm90.cuh; the folded init's
+    requant and pool in one
     ``maxpool_folded_requant``; each unit's entry requant and the FC's
     input through R1, ``requant_int32``, csrc/requant.cu).
     Every kernel call of those runs is recorded; each is then repeated on
@@ -25,19 +25,19 @@ non-zero exit and no result line:
     off the tile, 7×7 and 14×14 images, N = 1000, B = 1, 1×1 and 2×2 taps,
     C = 16, saturated operands, requant inputs on a .5 boundary, packed
     int4 handles, 128-row tiles of the packed matmuls) and one call per
-    clause of its shape rule, checked to have run on the core the rule
-    names; the standalone ``maxpool_folded`` (on no path: the engine pools
-    through ``maxpool_folded_requant``) held, timed and driven once at the
-    main path's pre-pool tensor (its init accumulator requantized by the
-    plain version); both channel-vector widths of the two pools (ragged N
-    and unaligned inputs take one channel a thread) among the ragged calls;
-    then each call of the path a kernel is reported on is timed
+    clause of its alignment step (K or C, N, the pointer zero-padded first,
+    among them the CIFAR init's C = 3 and MobileNetV2's K = 24 and N = 24),
+    each one launch; the standalone ``maxpool_folded`` (on no path: the
+    engine pools through ``maxpool_folded_requant``) held, timed and driven
+    once at the main path's pre-pool tensor (its init accumulator
+    requantized by the plain version); both channel-vector widths of the
+    two pools (ragged N and unaligned inputs take one channel a thread)
+    among the ragged calls; then each call of the path a kernel is reported on is timed
     (kernel, plain version, library call) and set beside its bound (the
     pools and R1 also with their input streamed from device memory) — the
-    eight kernels on the Hopper core on both cores in turns (old, new, new,
-    old), both equal to the plain version, with the wrapper's host time per
-    call on each, and the packed ``int4w_*`` also beside their ``int8_*``
-    twins on the same weights unpacked once to int8;
+    GEMM core's kernels with the wrapper's host time per call, and the
+    packed ``int4w_*`` in turns beside their ``int8_*`` twins on the same
+    weights unpacked once to int8;
  4. the engine at full width: ResNet-50 uniform8 and uniform4, on folded
     input with the int16 carrier and on raw float32 input with the int32
     carrier, ResNet-50 bops_0.5 and ResNet-18 uniform4 on folded input, and
@@ -50,10 +50,9 @@ non-zero exit and no result line:
     ``int8_matmul_acc_residual`` calls of the ResNet-50 uniform8 int32
     engine (each bottleneck's conv3 with the residual requant-add and ReLU
     in its epilogue) held against their plain version, bit for bit, and
-    timed on both cores in turns beside their bound; the ResNet-50 uniform8 (main path) and uniform4
-    engines on the first core and on the Hopper core in turns; a profiler
-    trace of both forwards on both cores, and on the Hopper core also with
-    the init block's former sequence (requant as PyTorch glue, then
+    timed beside their bound; a profiler trace of the ResNet-50 uniform8
+    (main path) and uniform4 forwards, also with the init block's former
+    sequence (requant as PyTorch glue, then
     ``maxpool_folded``): kernels per forward and glue time before and after;
     the raw-input engines' integer max-pool beside its float32 form on the
     pool's input (kernels, device ms, host µs per call) and those engines'
@@ -65,13 +64,11 @@ non-zero exit and no result line:
  6. the K-blocked matmul ``int8_matmul_requant_kblocked`` (on no path of
     the package: the reference has it beside its matmul kernel) on the 16
     recorded ``int8_matmul_requant`` calls of the ResNet-50 uniform8 path:
-    on the engine's prepared handles on the Hopper core (K in one block,
-    ``int8_matmul_requant``'s kernel) and on plain weights as the first
-    core's split-K, both equal to its plain version and to that kernel's
-    output, timed on both cores in turns beside it and set beside the
-    core's smallest launch (its ragged calls and the calls its rule
-    excludes run in phase 3); then those 16 calls once more as its own
-    path, counted;
+    on the engine's prepared handles (K in one block,
+    ``int8_matmul_requant``'s kernel), equal to its plain version and to
+    that kernel's output, timed and set beside the core's smallest launch
+    (its ragged and padded calls run in phase 3); then those 16 calls once
+    more as its own path, counted;
  7. QAT training through the Trainer: ResNet-50 uniform8 at full width and
     depth, 224×224, 1000 classes, batch 32, synthetic data, seed 0 — 2
     calibration batches, 4 steps with ``fix_bn_threshold=2`` (two unfolded,
@@ -79,11 +76,11 @@ non-zero exit and no result line:
     artifact.  Losses finite; the launch counts of every step equal to what
     the architecture predicts (``minmax_1pass`` once per activation
     quantizer, every conv and the FC through ``int8_conv_acc`` /
-    ``int8_matmul_acc``, both on the Hopper core); every distinct kernel
-    call of a step repeated on synthetic inputs of its shapes and held
-    against its plain version, then timed (``int8_conv_acc`` and
-    ``int8_matmul_acc`` on both cores in turns, with the K-major layout of
-    their plain weights apart); ``minmax_1pass`` also on unaligned,
+    ``int8_matmul_acc``); every distinct kernel call of a step repeated on
+    synthetic inputs of its shapes and held against its plain version, then
+    timed (``int8_conv_acc`` and ``int8_matmul_acc`` with the K-major
+    layout of their plain weights apart); ``minmax_1pass`` also on
+    unaligned,
     one-element, NaN and ±inf
     inputs; one folded step at batch 2, 64×64 on the card against the same
     step on the CPU (integers and ranges equal, loss within 1e-5, gradients
@@ -94,8 +91,8 @@ non-zero exit and no result line:
  8. MobileNetV2 w1 serving at full width, 224², batch 8, synthetic weights
     (seed 0): uniform8 on host-folded input with the int16 carrier (this
     family's main path: its launch counts set to 0 just before it, read
-    just after, against the prediction from the model's widths per kernel
-    and per core — D1 on its own, '@cuda' — every kernel call recorded),
+    just after, against the prediction from the model's widths per kernel,
+    every kernel call recorded),
     uniform8 on float32 input with int32, uniform4 and bops_0.5 folded;
     logits and the 'final' and 'fc_input' nodes for the first two images
     equal the CPU engine's, and each engine on ``image_dependent(fm)``
@@ -114,8 +111,8 @@ non-zero exit and no result line:
     against its plain version, a trace;
 10. QAT training through the Trainer on MobileNetV2 w1 (b32, 2 calibration
     batches, 2 unfolded and 2 folded steps) and ResNet-50 v2 (b32, 1 + 1
-    steps) as in phase 7: losses finite, launches per step and per core
-    as the model's layers predict, the frozen artifact through the
+    steps) as in phase 7: losses finite, launches per step as the model's
+    layers predict, the frozen artifact through the
     family's engine equal as integers to the QAT eval logits, every
     distinct kernel call of a step against its plain version (D1's
     accumulator form timed, per call and at its alternative tiles, as in
@@ -126,8 +123,8 @@ non-zero exit and no result line:
     (``fold4_images_3x3s2(x, 0)``) with the int32 wide container (this
     family's main path: its launch counts set to 0 just before it, read
     just after, against ``expected_inception_launches`` from the model's
-    widths and bit config, per kernel and per core — A1 on its own,
-    '@cuda' — every kernel call recorded), uniform8 on float32 input,
+    widths and bit config, per kernel, every kernel call recorded), uniform8
+    on float32 input,
     uniform8 folded with the int16 container, uniform4 folded; logits and
     the 'init' node (on the main path also a stage-2 unit's output) for
     the first two images equal the CPU engine's; ms per batch; every
@@ -141,8 +138,8 @@ non-zero exit and no result line:
     per-call table with the tile the rule chose; each call as the fused
     call, the unfused pair (``requant_int32``, then A1), the plain version,
     ``F.avg_pool2d`` and ``x.to(torch.int8)`` in turns; each call at the rule's tile and at its
-    alternatives in turns; #1 / #2 / #6 / #7 timed at this path's calls on
-    both cores in turns; R1's calls (``requant_int32``; its concat form
+    alternatives in turns; #1 / #2 / #6 / #7 timed at this path's calls;
+    R1's calls (``requant_int32``; its concat form
     ``requant_concat``, one launch a unit's concat or 1×3 / 3×1 pair, each
     piece into its slice) among the recorded calls held against the plain
     version (the six elementwise ops, and ``torch.cat``), timed beside it and
@@ -151,8 +148,8 @@ non-zero exit and no result line:
     fused and unfused in turns;
 12. QAT training through the Trainer on InceptionV3 uniform8 at full
     width, 299², b32 (1 calibration batch, one unfolded and one folded
-    step) as in phase 7: launches per step and per core as the model's
-    layers predict, the frozen artifact through the engine equal as
+    step) as in phase 7: launches per step as the model's layers predict,
+    the frozen artifact through the engine equal as
     integers to the QAT eval logits, every distinct kernel call of a step
     against its plain version, one folded step at b2 75² on the card
     against the CPU, step times and a trace;
@@ -165,7 +162,7 @@ non-zero exit and no result line:
     through ``load_reference_quantized``, on those weights and on a variant
     with power-of-two scales (``dyadic_scales``, where native and reference
     rounding differ: the logits must differ from the native engine's);
-    launches per kernel and per core against the prediction (the
+    launches per kernel against the prediction (the
     accumulator forms, ``maxpool_folded`` on the folded ResNet path, D1's
     ``int8_dwconv_acc``, A1's quotient form ``int_avgpool3x3``; no
     fused-requant form), logits and an inner node for the first two images
@@ -185,7 +182,7 @@ non-zero exit and no result line:
     probes, reverse-over-reverse through the QAT forward (``int8_conv_acc``,
     ``int8_matmul_acc``, D1's accumulator form), the launch counts set to 0
     before the calibration and read after it and after each probe, against
-    the model's widths per kernel and per core; per probe ms, launches and
+    the model's widths per kernel; per probe ms, launches and
     peak memory beside a folded b8 train step's; a profiler trace of one
     probe; every distinct kernel call of a probe against its
     plain version; ResNet-50's 52 stage-conv traces
@@ -219,9 +216,9 @@ non-zero exit and no result line:
     ``autotune_routing`` on ResNet-50 uniform4 b8 and ``autotune_routing_1x1``
     on MobileNetV2 w1 and InceptionV3 w1 uniform4 b8, the tables written
     under chiprun_out/ and served (with every site 'int4w' too for the two
-    1×1 families): launches per kernel and per core as each table
-    predicts, logits equal to the CPU engine's and to the unrouted card
-    engine's, every recorded call against its plain version, each packed
+    1×1 families): launches per kernel as each table predicts, logits
+    equal to the CPU engine's and to the unrouted card engine's, every
+    recorded call against its plain version, each packed
     call timed beside its int8 twin; each table also routing
     ``image_dependent(fm)``, whose nodes all vary with the image: every node
     equal to the unrouted card engine's and the CPU engine's;
@@ -229,8 +226,8 @@ non-zero exit and no result line:
 17. parallel and serving across cards: (a) in a one-process ``nccl``
     group, the ``ServingEngine`` over ResNet-50 uniform8 folded_int8 int16
     b8 224² (one replica a visible card; its launches set to 0 just before
-    ``infer``, read just after, against the prediction per kernel and per
-    core), ``infer`` bit-equal to the engine's own call, a batcher built by
+    ``infer``, read just after, against the prediction per kernel),
+    ``infer`` bit-equal to the engine's own call, a batcher built by
     ``ServingEngine.batcher()`` answering 12 requests each equal to its
     row, its images/s; the JAX dry run's Trainer (ResNet-50 uniform8, 64
     classes, 32², global batch 8: calibrate, one counted step, evaluate,
@@ -248,7 +245,7 @@ non-zero exit and no result line:
     bytes and loaded in this process and in a fresh ``python -c`` that
     imports only hawq_tpu_torch, its logits bit-equal to the engine's, its
     launches (set to 0 just before the call, read just after) per kernel
-    and per core as ``expected_launches`` predicts, the export and load
+    as ``expected_launches`` predicts, the export and load
     seconds, the archive's bytes, ms/batch of the program and the engine in
     turns; then ``deploy.main`` with ``--dump-hlo`` on ResNet-50 uniform4
     (folded input), MobileNetV2 w1 and InceptionV3 w1 uniform8 (299²), the
@@ -284,6 +281,8 @@ import time
 
 import numpy as np
 import torch
+
+from portbench.trace import port_kernel, union_s
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the run-output directory that .gitignore lists: evidence a failed check
@@ -399,17 +398,13 @@ MNV2_PATHS = (('uniform8', 'folded_float32', torch.int16),
               ('uniform8', 'float32', torch.int32),
               ('uniform4', 'folded_float32', torch.int16),
               ('bops_0.5', 'folded_float32', torch.int16))
-# the kernels on the Hopper core (csrc/gemm_s8_sm90.cuh); the first core
-# (csrc/gemm_s8.cuh) keeps the shapes their rule excludes, and is timed
-# beside the new one
+# the kernels on the Hopper GEMM core (csrc/gemm_s8_sm90.cuh)
 SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
                 'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED,
                 RESIDUAL)
 POOLS = (POOL, POOL_REQUANT)
-GEMM_KERNELS = [k for k in KERNELS
-                if k not in POOLS + DW + RQ + (MINMAX, AVGPOOL, AVGPOOL_Q)]
-# the kernels of their own (no GEMM core): launches counted on '@cuda'
+# the kernels of their own (no GEMM core): D1 and A1
 OWN_CORE = DW + (AVGPOOL, AVGPOOL_Q)
 # Reference-checkpoint replay (phase 13), batch 8, int32 carriers, 224²
 # (InceptionV3 299²): (arch, scheme, input modes, the inner node held
@@ -465,9 +460,8 @@ def expected_inception_launches(fm, input_mode, reference=False,
     widths and its bit config: each conv (the graph's walk,
     ``engine_inception.conv_input_nodes``) through the requant form where
     its ``q_activ`` has at most 8 bits, else the accumulator form — a 1×1
-    through the matmul, a k×k through the conv (4·C, C filled to a multiple
-    of 4, after a stride 2's space-to-depth); the folded stem's q_conv1
-    through ``int8_conv_acc`` over the fold (C = 48, N = 4·32); A1 once for
+    through the matmul, a k×k through the conv; the folded stem's q_conv1
+    through ``int8_conv_acc`` over the fold; A1 once for
     each pool branch; the FC through ``int8_matmul_acc``; ``requant_int32``
     at each branch's input requant but a pool branch's (A1 takes it), after
     each accumulator-form conv and at the FC's input; ``requant_concat`` at
@@ -481,52 +475,41 @@ def expected_inception_launches(fm, input_mode, reference=False,
     from hawq_tpu_torch.models import inceptionv3 as mi
     width_div = width_div_from_frozen(fm)
     stem = 'features.q_init_block.q_conv1'
-    strides = {f'features.q_init_block.q_conv{c}': s
-               for c, (_, _, s, _) in enumerate(mi.INIT_CONVS, start=1)}
     out = Launches()
     native = not reference
     for _, _, unit in mi.units(width_div):
-        for name, kind, kw in unit.branch_defs:
-            bp = f'{unit.prefix}.branches.{name}'
+        for _, kind, _ in unit.branch_defs:
             if kind == mi.AVG_POOL:
                 out.add(AVGPOOL_Q if reference else AVGPOOL)
             elif native:                      # the branch's input requant
                 out.add(REQUANT)
             if kind == mi.CONV_SEQ_3X3 and native:
                 out.add(REQUANT_CAT)
-            for c, stride in enumerate(kw.get('strides', ()), start=1):
-                strides[f'{bp}.q_conv_list.q_conv{c}'] = stride
         if native:
             out.add(REQUANT_CAT)
     for key, _ in conv_input_nodes(width_div):
         if key == 'output.q_fc':
             if native:
                 out.add(REQUANT)
-            out.add('int8_matmul_acc', 'matmul',
-                    *fm[key + '.weight_int'].shape)
+            out.add('int8_matmul_acc')
             continue
-        kh, kw_, c, n = fm[key + '.q_convbn.weight_int'].shape
+        kh, kw_ = fm[key + '.q_convbn.weight_int'].shape[:2]
         acc = reference or fm.cfg.act_bits(key + '.q_activ') > 8
         folded_stem = key == stem and input_mode == 'folded_float32'
         if native and (acc or folded_stem):
             out.add(REQUANT)
         if folded_stem:
-            out.add('int8_conv_acc', 'conv_acc', 48, 4 * n)
+            out.add('int8_conv_acc')
         elif (kh, kw_) == (1, 1):
             site = key + '.q_convbn'
             if (not acc and routing is not None
                     and routing.get(site) == 'int4w'
                     and fm.cfg.weight_bits(site) == 4):
-                out.add('int4w_matmul_requant', 'matmul_requant',
-                        c + c % 2, n)
+                out.add('int4w_matmul_requant')
             else:
-                out.add('int8_matmul_acc' if acc else 'int8_matmul_requant',
-                        'matmul' if acc else 'matmul_requant', c, n)
+                out.add('int8_matmul_acc' if acc else 'int8_matmul_requant')
         else:
-            if strides.get(key, 1) == 2:
-                c = 4 * (c + -c % 4)
-            out.add('int8_conv_acc' if acc else 'int8_conv_requant',
-                    'conv_acc' if acc else 'conv', c, n)
+            out.add('int8_conv_acc' if acc else 'int8_conv_requant')
     return out
 
 
@@ -818,16 +801,14 @@ def inception_phase(dev, errs, totals):
             functools.partial(build_inceptionv3_engine, fm, input_mode=mode,
                               wide_dtype=wide,
                               input_hw=(INC_SIZE, INC_SIZE)),
-            images[mode], want.counts, want.cores, nodes, label, dev,
-            'phase 11', calls)
+            images[mode], want.counts, nodes, label, dev, 'phase 11', calls)
         if main is None:
             main = (eng, images[mode], calls, want, counts, label)
     eng, x, calls, want, counts, label = main
     check(want.counts[AVGPOOL] == 9
           and sum(v for k, v in want.counts.items() if k not in RQ) == 9 + 95
-          and (want.counts[REQUANT], want.counts[REQUANT_CAT]) == (80, 15)
-          and not [k for k in want.cores if k.endswith('@mma')],
-          f'{label}: predicted {want.counts}, per core {want.cores}')
+          and (want.counts[REQUANT], want.counts[REQUANT_CAT]) == (80, 15),
+          f'{label}: predicted {want.counts}')
     ragged = avgpool_ragged_calls(dev)
     check_calls(calls + ragged, errs, f'phase 11: all {len(calls)} recorded '
                 f'calls of {label} and {len(ragged)} ragged A1 calls')
@@ -988,56 +969,31 @@ def expected_launches(arch, cfg, input_mode, reference=False, routing=None,
     return counts
 
 
-def core_split(counts):
-    """Launches per GEMM core that go with launches per kernel, where every
-    call of the Hopper core's kernels (``SM90_KERNELS``) has widths that
-    core takes (all full-width ResNets): those on 'sm90', every other GEMM
-    kernel on 'mma'."""
-    return {f"{k}@{'sm90' if k in SM90_KERNELS else 'mma'}": v
-            for k, v in counts.items() if k in GEMM_KERNELS and v}
-
-
-def core_launches():
-    from hawq_tpu_torch.kernels import _build
-    return {k: v for k, v in _build.CORE_LAUNCHES.items() if v}
-
-
 class Launches:
-    """Predicted launches per kernel and per core ('name@core': for a GEMM
-    kernel the core the Hopper core's rule names for the call's widths,
-    'cuda' for D1 and A1)."""
+    """Predicted launches per kernel."""
 
     def __init__(self):
-        self.counts, self.cores = {}, {}
+        self.counts = {}
 
-    def add(self, name, kind=None, k=0, n=0):
-        from hawq_tpu_torch.kernels import matmul as km
+    def add(self, name):
         self.counts[name] = self.counts.get(name, 0) + 1
-        core = ('cuda' if name in OWN_CORE else None if kind is None else
-                'sm90' if km.sm90_route(kind, k=k, n=n, ptr=0) is None
-                else 'mma')
-        if core is not None:
-            key = f'{name}@{core}'
-            self.cores[key] = self.cores.get(key, 0) + 1
         return self
 
 
 def expected_mobilenet_launches(fm, input_mode, reference=False,
                                 routing=None):
     """Launches of one MobileNetV2 engine forward, from the frozen model's
-    widths: the init conv (the fold's C = 48, N = 4·32, or the raw image's
-    space-to-depth C = 16), every 1×1 conv (conv1, conv3, the final block,
-    the head) through ``int8_matmul_acc`` — with a ``routing`` table, a
-    conv1 / conv3 / final block with 4-bit weights that it routes to
-    'int4w' through ``int4w_matmul_acc`` (K padded to even) — every
-    depthwise conv2 through D1's requant form (with ``reference``, its
-    accumulator form); in native mode ``requant_int32`` at the init, each
+    widths (on any ``input_mode``): the init conv (over the fold, or the
+    raw image's space-to-depth), every 1×1 conv (conv1, conv3, the final
+    block, the head) through ``int8_matmul_acc`` — with a ``routing``
+    table, a conv1 / conv3 / final block with 4-bit weights that it routes
+    to 'int4w' through ``int4w_matmul_acc`` — every depthwise conv2
+    through D1's requant form (with ``reference``, its accumulator form);
+    in native mode ``requant_int32`` at the init, each
     unit's input and conv1, the conv3 of a unit without the residual add,
     the final block's input and output and the head's input."""
     n = fm['init_block.weight_int'].shape[-1]
-    out = Launches().add('int8_conv_acc', 'conv_acc',
-                         *((48, 4 * n) if input_mode.startswith('folded')
-                           else (16, n)))
+    out = Launches().add('int8_conv_acc')
     if not reference:
         from hawq_tpu_torch.inference.engine_mobilenet import (
             stages_from_frozen)
@@ -1048,17 +1004,16 @@ def expected_mobilenet_launches(fm, input_mode, reference=False,
             sites += 2 + (cin != cout or stride != 1)
         for _ in range(sites):
             out.add(REQUANT)
-    for key, w in fm.tensors.items():
+    for key in fm.tensors:
         if key.endswith('.conv2.weight_int'):
             out.add(DW_ACC if reference else DW_REQUANT)
         elif key.endswith('.weight_int') and key != 'init_block.weight_int':
             site = key[:-len('.weight_int')]
-            k = w.shape[2]
             if (routing is not None and routing.get(site) == 'int4w'
                     and fm.cfg.weight_bits(site) == 4 and site != 'output'):
-                out.add('int4w_matmul_acc', 'matmul', k + k % 2, w.shape[3])
+                out.add('int4w_matmul_acc')
             else:
-                out.add('int8_matmul_acc', 'matmul', k, w.shape[3])
+                out.add('int8_matmul_acc')
     return out
 
 
@@ -1069,61 +1024,16 @@ def expected_v2_launches(fm):
     ``int8_matmul_requant``, its 3×3 through ``int8_conv_requant``, conv3
     and the identity conv through ``int8_matmul_acc``; the FC; the init's
     requant through ``requant_int32``."""
-    kernel = {'quant_conv1': ('int8_matmul_requant', 'matmul_requant'),
-              'quant_conv2': ('int8_conv_requant', 'conv'),
-              'quant_conv3': ('int8_matmul_acc', 'matmul'),
-              'quant_identity_conv': ('int8_matmul_acc', 'matmul')}
-    out = Launches().add('int8_conv_acc', 'conv_acc', 16,
-                         fm['quant_init_conv.weight_int'].shape[-1])
+    kernel = {'quant_conv1': 'int8_matmul_requant',
+              'quant_conv2': 'int8_conv_requant',
+              'quant_conv3': 'int8_matmul_acc',
+              'quant_identity_conv': 'int8_matmul_acc'}
+    out = Launches().add('int8_conv_acc')
     out.add(REQUANT)
-    for key, w in fm.tensors.items():
+    for key in fm.tensors:
         if key.startswith('stage') and key.endswith('.weight_int'):
-            out.add(*kernel[key.split('.')[2]], w.shape[2], w.shape[3])
-    w = fm['quant_output.weight_int']
-    return out.add('int8_matmul_acc', 'matmul', w.shape[0], w.shape[1])
-
-
-def sm90_rule(name, args, kw):
-    """The clause of the Hopper core's shape rule that excludes a call of
-    one of its kernels, None where the core takes it."""
-    from hawq_tpu_torch.kernels import matmul as km
-    w = args[1]
-    n = w.n if isinstance(w, km.PreparedWeights) else w.shape[1]
-    if '_conv' in name:
-        return km.sm90_route('conv_acc' if name.endswith('acc') else 'conv',
-                             k=kw['cin'], n=n, ptr=args[0].data_ptr())
-    kind = 'matmul_requant' if '_requant' in name else 'matmul'
-    reason = km.sm90_route(kind, k=args[0].shape[1], n=n,
-                           ptr=args[0].data_ptr())
-    if name == KBLOCKED and reason is None and (kw.get('k_splits') or 1) > 1:
-        return 'k_splits > 1'
-    return reason
-
-
-def cores_by_rule(calls):
-    """Launches per core that the rule names for recorded calls (D1 and A1
-    have their own)."""
-    out = {}
-    for name, args, kw in calls:
-        if name in GEMM_KERNELS + list(OWN_CORE):
-            core = ('cuda' if name in OWN_CORE else 'sm90'
-                    if name in SM90_KERNELS
-                    and sm90_rule(name, args, kw) is None else 'mma')
-            out[f'{name}@{core}'] = out.get(f'{name}@{core}', 0) + 1
-    return out
-
-
-@contextlib.contextmanager
-def first_core():
-    """Inside, the Hopper core's rule excludes every call, so engines built
-    and run here keep plain weights and run on csrc/gemm_s8.cuh alone."""
-    from hawq_tpu_torch.kernels import matmul as km
-    rule = km.sm90_route
-    km.sm90_route = lambda kind, *, k, n, ptr: 'switched off'
-    try:
-        yield
-    finally:
-        km.sm90_route = rule
+            out.add(kernel[key.split('.')[2]])
+    return out.add('int8_matmul_acc')
 
 
 def kernel_modules():
@@ -1180,7 +1090,7 @@ def unpacked_weights(name, args, kw):
     its packed int4 unpacked."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
-    w = first_core_weights(args[1])
+    w = plain_weights(args[1])
     if name.startswith('int4w_matmul'):
         return km.unpack_int4(w)
     if name.startswith('int4w_conv'):
@@ -1188,9 +1098,9 @@ def unpacked_weights(name, args, kw):
     return w
 
 
-def first_core_weights(w):
-    """The weights as csrc/gemm_s8.cuh reads them: the (K, N) tensor, or the
-    packed (K/2, N) bytes, out of a Hopper-core handle."""
+def plain_weights(w):
+    """The plain weights of a call: the (K, N) tensor, or the packed (K/2,
+    N) bytes, out of a Hopper-core handle."""
     from hawq_tpu_torch.kernels import matmul as km
     return km.unprepare_weights(w) if isinstance(w, km.PreparedWeights) else w
 
@@ -1408,10 +1318,10 @@ def cudnn_depthwise(x8, w8, bias, stride):
 
 
 def ragged_calls(dev):
-    """Unaligned shapes beside the paths': odd M/K/N, small C (byte loads),
-    s2d stride 2, int32/float32 pools; for the split-K matmul ragged K and
-    every split count; for the int4w kernels odd M/N, C/2 odd (C = 6, 10),
-    s2d stride 2, nibbles -8 and 7."""
+    """Unaligned shapes beside the paths': odd M/K/N, small C, s2d stride
+    2, int32/float32 pools (the GEMM calls among them zero-padded on the
+    Hopper core); for the K-blocked matmul ragged K; for the int4w kernels
+    odd M/N, C/2 odd (C = 6, 10), s2d stride 2, nibbles -8 and 7."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
@@ -1445,15 +1355,14 @@ def ragged_calls(dev):
         calls.append(('int8_matmul_requant', (i8(m, k), i8(k, n), b, mu),
                       dict(out_bits=4, signed=False, relu=True)))
         calls.append(('int8_matmul_acc', (i8(m, k), i8(k, n), b), {}))
-    # split-K: K not a multiple of the 64-wide tile, M = 8, 1 to ⌈K/64⌉ pieces
+    # the K-blocked matmul: K not a multiple of the 64-wide tile, M = 8
     for m, k, n in ((8, 200, 72), (37, 45, 19), (8, 2048, 1000),
                     (130, 1000, 64)):
         x, w = i8(m, k), i8(k, n)
         b, mu = vec(n)
-        for splits in sorted({1, min(2, -(-k // 64)), -(-k // 64)}) + [None]:
-            calls.append((KBLOCKED, (x, w, b, mu), dict(
-                out_bits=4, signed=False, relu=True, k_splits=splits)))
-            calls.append((KBLOCKED, (x, w, b, mu), dict(k_splits=splits)))
+        calls.append((KBLOCKED, (x, w, b, mu), dict(
+            out_bits=4, signed=False, relu=True)))
+        calls.append((KBLOCKED, (x, w, b, mu), {}))
     for shape, n, stride in (((2, 9, 7, 5), 11, 1), ((1, 12, 10, 32), 40, 2),
                              ((2, 33, 31, 64), 72, 1)):
         x8 = i8(*shape)
@@ -1536,8 +1445,9 @@ def ragged_calls(dev):
 
 
 def sm90_calls(dev):
-    """Calls of the eight kernels on the Hopper core beside the paths' →
-    (calls its rule admits, [(call, excluding clause)]).
+    """Calls of the Hopper core's kernels beside the paths' → (calls whose
+    operands it reads as they are, [(call, the clause its alignment step
+    pads)]).
 
     Admitted: M off the 64-row tile, K below and between the K paddings,
     N = 1000 and N off every tile width, M = 1; 7×7, 14×14, 5×5 and 1×1
@@ -1553,11 +1463,10 @@ def sm90_calls(dev):
     N = 1000 (accumulator form), saturated operands, ``pack_int4``'s bytes
     and their handle, 128-row tiles asked for.
     For the K-blocked matmul: M off the tile and M = 1, K off the 64- and
-    128-deep steps, K in one piece asked for or not, plain weights and the
-    handle.
-    Excluded: one call per clause of ``sm90_route`` for each of the nine
-    kernels (the CIFAR init's C = 3 among them), and a K-blocked call that
-    asks for K in pieces."""
+    128-deep steps, plain weights and the handle.
+    Padded: one call per clause of ``matmul.sm90_operands`` (K or C, N, the
+    pointer) for each of the nine kernels (the CIFAR init's C = 3 and
+    MobileNetV2's K = 24 and N = 24 among them)."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.quant.ops import np_dyadic_multiplier
@@ -1725,15 +1634,16 @@ def sm90_calls(dev):
     for m, k, n in ((37, 1008, 48), (130, 208, 80), (1, 4096, 16),
                     (392, 2048, 512)):
         name, args, kw = matmul(m, k, n, saturate=m == 392, relu=True)
-        for splits in (None, 1):
-            admitted.append((KBLOCKED, args, dict(kw, k_splits=splits)))
+        admitted.append((KBLOCKED, args, kw))
         admitted.append((KBLOCKED, (args[0], km.prepare_weights(args[1]))
                          + args[2:], kw))
-    excluded = [(matmul(40, 45, 20), 'K % 16'), (matmul(40, 48, 18), 'N % 4'),
+    padded = [(matmul(40, 45, 20), 'K % 16'), (matmul(40, 48, 18), 'N % 4'),
                 (matmul(40, 48, 20, offset=8), 'pointer % 16'),
                 (matmul(40, 45, 16, relu=True), 'K % 16'),
                 (matmul(40, 48, 24, relu=True), 'N % 16'),
                 (matmul(40, 48, 16, offset=8, relu=True), 'pointer % 16'),
+                (matmul(40, 24, 24), 'K % 16'),
+                (matmul(40, 48, 24, relu=True), 'N % 16'),
                 (conv((2, 6, 5, 5), 16, (3, 3)), 'C % 16'),
                 (conv((2, 6, 5, 16), 24, (3, 3)), 'N % 16'),
                 (conv((2, 6, 5, 16), 16, (3, 3), offset=4), 'pointer % 16'),
@@ -1745,62 +1655,54 @@ def sm90_calls(dev):
                 (conv((2, 6, 5, 10), 16, (3, 3), pad=(1, 1), int4=True),
                  'C % 16')]
     for int4 in (False, True):
-        excluded += [(conv((2, 6, 5, 12), 16, (3, 3), int4=int4, acc=True),
+        padded += [(conv((2, 6, 5, 12), 16, (3, 3), int4=int4, acc=True),
                       'C % 16'),
                      (conv((2, 6, 5, 16), 18, (3, 3), int4=int4, acc=True),
                       'N % 4'),
                      (conv((2, 6, 5, 16), 20, (3, 3), offset=4, int4=int4,
                            acc=True), 'pointer % 16')]
-    excluded.append((conv((1, 8, 8, 3), 64, (3, 3), pad=(1, 1), acc=True),
-                     'C % 16'))
+    padded.append((conv((1, 8, 8, 3), 64, (3, 3), pad=(1, 1), acc=True),
+                   'C % 16'))
+    padded.append((conv((1, 8, 8, 3), 64, (3, 3), acc=True), 'C % 16'))
     for call, clause in ((matmul(40, 45, 16, relu=True), 'K % 16'),
                          (matmul(40, 48, 24, relu=True), 'N % 16'),
                          (matmul(40, 48, 16, offset=8, relu=True),
-                          'pointer % 16'),
-                         (matmul(40, 1024, 16, relu=True), 'k_splits > 1')):
-        excluded.append(((KBLOCKED, call[1], dict(call[2], k_splits=(
-            9 if clause == 'k_splits > 1' else None))), clause))
-    excluded += [(matmul4(40, 46, 20), 'K % 16'),
+                          'pointer % 16')):
+        padded.append(((KBLOCKED, call[1], call[2]), clause))
+    padded += [(matmul4(40, 46, 20), 'K % 16'),
                  (matmul4(40, 48, 18), 'N % 4'),
                  (matmul4(40, 48, 20, offset=8), 'pointer % 16'),
                  (matmul4(40, 46, 16, relu=True), 'K % 16'),
                  (matmul4(40, 48, 24, relu=True), 'N % 16'),
-                 (matmul4(40, 48, 16, offset=8, relu=True), 'pointer % 16')]
-    return admitted, excluded
+                 (matmul4(40, 48, 16, offset=8, relu=True), 'pointer % 16'),
+                 (matmul4(40, 24, 24), 'K % 16')]
+    return admitted, padded
 
 
-def sm90_rule_phase(dev, errs):
-    """The Hopper core's ragged calls and one call per clause of its rule:
-    each equal to its plain version, each on the core the rule names."""
+def sm90_phase(dev, errs):
+    """The Hopper core's ragged calls and one call per clause of its
+    alignment step: each equal to its plain version, each one launch."""
     from hawq_tpu_torch.kernels import _build
-    admitted, excluded = sm90_calls(dev)
-    for call in admitted:
-        check(sm90_rule(*call) is None, f'rule excludes {call_key(*call)}')
+    admitted, padded = sm90_calls(dev)
     _build.reset_launches()
     check_calls(admitted, errs, f'phase 3: {len(admitted)} ragged calls of '
                 f'the Hopper core')
     want = {}
     for name, _, _ in admitted:
-        want[f'{name}@sm90'] = want.get(f'{name}@sm90', 0) + 1
-    check(core_launches() == want, f'ragged calls of the Hopper core ran as '
-          f'{core_launches()}, expected {want}')
-    for call, clause in excluded:
-        name, args, kw = call
-        check(sm90_rule(*call) == clause, f'{call_key(*call)}: rule says '
-              f'{sm90_rule(*call)}, expected {clause}')
+        want[name] = want.get(name, 0) + 1
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(got == want, f'ragged calls of the Hopper core launched {got}, '
+          f'expected {want}')
+    for call, clause in padded:
+        name = call[0]
         _build.reset_launches()
-        check_calls([call], errs, f'phase 3: {name} excluded by "{clause}"')
-        check(core_launches() == {f'{name}@mma': 1}, f'{name} excluded by '
-              f'"{clause}" ran as {core_launches()}')
-        try:
-            kernel_call(name, args, dict(kw, core='sm90'))
-        except ValueError:
-            continue
-        raise RuntimeError(f'{name} excluded by "{clause}" was taken by the '
-                           f'Hopper core when asked')
-    log(f'phase 3: the {len(admitted)} ragged calls ran on the Hopper core, '
-        f'the {len(excluded)} calls its rule excludes (one per clause) on '
-        f'the first core')
+        check_calls([call], errs, f'phase 3: {name} padded for "{clause}"')
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(got == {name: 1}, f'{name} padded for "{clause}" launched '
+              f'{got}')
+    log(f'phase 3: the {len(admitted)} ragged calls and the {len(padded)} '
+        f'calls the alignment step pads (one per clause) ran on the Hopper '
+        f'core')
 
 
 def same(got, want):
@@ -1885,61 +1787,46 @@ def twin_name(name):
     return name.replace('int4w', 'int8')
 
 
-def time_both_cores(name, args, kw):
-    """One call of a kernel of the Hopper core on both cores, in turns (old,
-    new, new, old; CUDA-graph replay), both held against the plain version
-    → dict(ms, old_ms, host_us, old_host_us, prep_ms: laying out the
-    weights; for the packed ``int4w_*`` also int8_twin_ms).  The
-    kernels are timed on inputs each core reads as they are: (K, N) weights
-    (packed (K/2, N) bytes for an int4w kernel) and the padded slab for the
-    first core, the K-major handle (and the unpadded activations, where the
-    path passes them) for the Hopper core.
-    Where the path passes plain weights (training: they change every step)
-    the wrapper lays them out on the device at each call: that glue is
-    timed on its own, and is part of the host time, which is taken with the
-    arguments as the path passed them.
-    ``int8_twin_ms`` is the ``int8_*`` twin on the Hopper core over the
-    same call with the weights unpacked once to int8: what streaming them
-    packed, and unpacking them in the kernel, saves or costs."""
+def time_sm90(name, args, kw):
+    """One call of a kernel of the Hopper core, held against the plain
+    version and timed by CUDA-graph replay → dict(ms, host_us, prep_ms:
+    laying out the weights; for the packed ``int4w_*`` also int8_twin_ms).
+    The kernel is timed on the K-major handle (and the unpadded
+    activations, where the path passes them).  Where the path passes plain
+    weights (training: they change every step) the wrapper lays them out on
+    the device at each call: that glue is timed on its own, and is part of
+    the host time, which is taken with the arguments as the path passed
+    them.  ``int8_twin_ms`` is the ``int8_*`` twin over the same call with
+    the weights unpacked once to int8, in turns (new, twin, twin, new):
+    what streaming them packed, and unpacking them in the kernel, saves or
+    costs."""
     from hawq_tpu_torch.kernels import matmul as km
     from hawq_tpu_torch.kernels import conv as kc
     plain_w = unpacked_weights(name, args, kw)
-    old_args = (args[0], first_core_weights(args[1])) + tuple(args[2:])
-    old_kw = dict(kw)
-    if kw.get('pad', (0, 0)) != (0, 0):      # the first core reads the slab
-        geo = {k: kw[k] for k in ('taps', 'out_hw', 'cin')}
-        old_args = (kc.pad_conv_input(args[0], old_kw.pop('pad'), **geo),) \
-            + old_args[1:]
     prep_ms = 0.0
     if not isinstance(args[1], km.PreparedWeights):
         prep_ms = graph_ms(
             lambda: hopper_core_weights(name, args[1], kw), 20)
     new_args = (args[0], hopper_core_weights(name, args[1], kw)) \
         + tuple(args[2:])
-    want = plain_gemm_call(name, (old_args[0], plain_w) + old_args[2:],
-                           old_kw)
-    runs = {'mma': lambda: kernel_call(name, old_args,
-                                       dict(old_kw, core='mma')),
-            'sm90': lambda: kernel_call(name, new_args,
-                                        dict(kw, core='sm90'))}
+    want = plain_gemm_call(name, (args[0], plain_w) + tuple(args[2:]), kw)
+    runs = {'sm90': lambda: kernel_call(name, new_args, kw)}
     if name.startswith('int4w'):
         twin_w = (kc.prepare_conv_weights(plain_w, kw['taps'], kw['cin'],
                                           kw.get('pad', (0, 0)))
                   if '_conv' in name else km.prepare_weights(plain_w))
         twin_args = (args[0], twin_w) + tuple(args[2:])
-        runs['twin'] = lambda: kernel_call(twin_name(name), twin_args,
-                                           dict(kw, core='sm90'))
-    for core, run in runs.items():
-        check(same(run(), want), f'{name} on the {core} core differs from '
-              f'its plain version at {call_key(name, args, kw)[1]} {kw}')
-    ms = {core: [] for core in runs}
-    for core in ('mma', 'sm90', 'twin', 'twin', 'sm90', 'mma'):
-        if core in runs:
-            ms[core].append(graph_ms(runs[core], 20))
-    out = dict(ms=sum(ms['sm90']) / 2, old_ms=sum(ms['mma']) / 2,
-               host_us=host_us(lambda: kernel_call(name, args,
-                                                   dict(kw, core='sm90'))),
-               old_host_us=host_us(runs['mma']), prep_ms=prep_ms)
+        runs['twin'] = lambda: kernel_call(twin_name(name), twin_args, kw)
+    for which, run in runs.items():
+        check(same(run(), want), f'{name} ({which}) differs from its plain '
+              f'version at {call_key(name, args, kw)[1]} {kw}')
+    ms = {which: [] for which in runs}
+    for which in ('sm90', 'twin', 'twin', 'sm90'):
+        if which in runs:
+            ms[which].append(graph_ms(runs[which], 20))
+    out = dict(ms=sum(ms['sm90']) / 2,
+               host_us=host_us(lambda: kernel_call(name, args, kw)),
+               prep_ms=prep_ms)
     if 'twin' in runs:
         out['int8_twin_ms'] = sum(ms['twin']) / 2
     return out
@@ -1956,9 +1843,7 @@ def time_calls(calls, totals):
             nbytes, ops, label = work(name, args, kw, out)
             extra = {}
             if name in SM90_KERNELS:
-                check(sm90_rule(name, args, kw) is None, f'{name} at {label}: '
-                      f'the Hopper core\'s rule excludes a call of the path')
-                extra = dict(time_both_cores(name, args, kw),
+                extra = dict(time_sm90(name, args, kw),
                              tiles=sm90_tiles(name, args, kw))
                 ms = extra.pop('ms')
             else:
@@ -1984,11 +1869,10 @@ def time_calls(calls, totals):
         t = totals.setdefault(row['name'], dict(
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
             library_ok=True, library_calls=0,
-            bytes=0, ops=0, old_ms=0.0, host_us=0.0, old_host_us=0.0,
-            prep_ms=0.0, int8_twin_ms=0.0, cold_ms=0.0))
-        for k in ('ms', 'plain_ms', 'bound_ms', 'bytes', 'ops', 'old_ms',
-                  'host_us', 'old_host_us', 'prep_ms', 'int8_twin_ms',
-                  'cold_ms'):
+            bytes=0, ops=0, host_us=0.0, prep_ms=0.0, int8_twin_ms=0.0,
+            cold_ms=0.0))
+        for k in ('ms', 'plain_ms', 'bound_ms', 'bytes', 'ops', 'host_us',
+                  'prep_ms', 'int8_twin_ms', 'cold_ms'):
             t[k] += row.get(k, 0.0) * row['n']
         if row['library_ms'] is None:
             t['library_ok'] = False
@@ -2001,11 +1885,9 @@ def time_calls(calls, totals):
         if 'cold_ms' in row:
             both = (f" | input streamed from device memory "
                     f"{row['cold_ms']:.5f} ms")
-        if 'old_ms' in row:
-            both = (f" | first core {row['old_ms']:.5f} ms, x"
-                    f"{row['old_ms'] / row['ms']:.2f}; {row['tiles']}; host "
-                    f"us/call {row['host_us']:.1f} (first core "
-                    f"{row['old_host_us']:.1f})")
+        if row['name'] in SM90_KERNELS:
+            both = (f" | {row['tiles']}; host us/call "
+                    f"{row['host_us']:.1f}")
             if row['prep_ms']:
                 both += (f"; weights laid out K-major at each call: "
                          f"+{row['prep_ms']:.5f} ms of glue")
@@ -2025,10 +1907,9 @@ def time_calls(calls, totals):
     for name in SM90_KERNELS:
         if name in totals and any(r['name'] == name for r in seen.values()):
             t = totals[name]
-            log(f"  {name}: Hopper core {t['ms']:.4f} ms, first core "
-                f"{t['old_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms summed "
-                f"over the path's launches; host us summed {t['host_us']:.0f}"
-                f" (first core {t['old_host_us']:.0f}); laying out plain "
+            log(f"  {name}: Hopper core {t['ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms summed over the path's launches; "
+                f"host us summed {t['host_us']:.0f}; laying out plain "
                 f"weights {t['prep_ms']:.4f} ms; library over the "
                 f"{t['library_calls']} calls it takes {t['library_ms']:.4f} ms"
                 + (f"; {twin_name(name)} on the same calls with the weights "
@@ -2055,19 +1936,13 @@ def record_path(fm, x, dev):
         logits = eng(x)
         torch.cuda.synchronize()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        cores = core_launches()
     label = f'{fm.arch} {fm.cfg.name}'
     want = expected_launches(fm.arch, fm.cfg, 'folded_float32',
                              residual_dtype=torch.int16)
     check(launches == want, f'{label}: launches {launches}, expected {want}')
-    # per core: what the rule says of each recorded call, which at these
-    # widths is the Hopper core for every call of its kernels
-    by_rule = cores_by_rule(calls)
-    check(cores == by_rule == core_split(want), f'{label}: launches per core '
-          f'{cores}, by the rule {by_rule}, expected {core_split(want)}')
     check(bool(torch.isfinite(logits).all()), f'{label}: logits not finite')
     log(f'phase 3: {label} folded_float32 int16 batch {BATCH}: launches '
-        f'{launches}; per core {cores}')
+        f'{launches}')
     return calls, launches
 
 
@@ -2082,16 +1957,13 @@ def engine_input(fm, mode, raw, raw_u8, dev):
     return torch.from_numpy(x).to(dev)
 
 
-def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
-                 calls=None):
+def engine_check(build, x, want, nodes, label, dev, phase, calls=None):
     """One engine at full width: built by ``build(device=...)``, launch
     counts (set to 0 just before a forward, read just after) against the
-    prediction per kernel and per GEMM core, logits and the capture
-    ``nodes`` for the first two images equal the CPU (plain) engine's,
-    ms/batch → (the engine, the counted forward's launches per kernel).
-    With ``calls`` (a list), the counted forward's kernel calls are
-    recorded into it, and the per-core counts are also held against what
-    the rule says of each recorded call."""
+    prediction per kernel, logits and the capture ``nodes`` for the first
+    two images equal the CPU (plain) engine's, ms/batch → (the engine, the
+    counted forward's launches per kernel).  With ``calls`` (a list), the
+    counted forward's kernel calls are recorded into it."""
     from hawq_tpu_torch.kernels import _build
     eng = build(device=dev)
     eng(x)                                   # uploads weights, warms up
@@ -2101,14 +1973,7 @@ def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
         logits = eng(x)
         torch.cuda.synchronize()
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-        cores = core_launches()
     check(counts == want, f'{label}: launches {counts}, expected {want}')
-    check(cores == want_cores, f'{label}: launches per core {cores}, '
-          f'expected {want_cores}')
-    if calls is not None:
-        by_rule = cores_by_rule(calls)
-        check(by_rule == cores, f'{label}: launches per core {cores}, by '
-              f'the rule {by_rule}')
     out = logits.cpu()
     check(out.shape == (BATCH, 1000) and bool(torch.isfinite(out).all()),
           f'{label}: logits {tuple(out.shape)} not finite/shaped')
@@ -2129,7 +1994,7 @@ def engine_check(build, x, want, want_cores, nodes, label, dev, phase,
     wall = (time.perf_counter() - t0) / 10 * 1e3
     what = f'logits and {", ".join(nodes)}' if nodes else 'logits'
     log(f'{phase}: {label}: {what} == CPU engine (2 '
-        f'images), launches {counts}, per core {cores}, {ms:.3f} ms/batch '
+        f'images), launches {counts}, {ms:.3f} ms/batch '
         f'CUDA-event-timed, {wall:.3f} ms/batch host-timed (input '
         f'{tuple(x.shape)} {str(x.dtype).replace("torch.", "")})')
     return eng, counts
@@ -2139,7 +2004,7 @@ def residual_phase(eng, x, errs, totals):
     """The residual form (``int8_matmul_acc_residual``: each bottleneck's
     conv3 with the int32 carrier) on phase 4's int32 main path: the calls of
     one forward of ``eng`` recorded, each held against its plain version,
-    then timed on both cores in turns beside its bound → its launches."""
+    then timed beside its bound → its launches."""
     calls = []
     with recording(calls):
         eng(x)
@@ -2165,7 +2030,7 @@ def engine_phase(fm, x, mode, residual, dev):
     eng = engine_check(
         functools.partial(build_resnet_engine, fm, input_mode=mode,
                           residual_dtype=residual), x, want,
-        core_split(want), ('avg_pool',), label, dev, 'phase 4')[0]
+        ('avg_pool',), label, dev, 'phase 4')[0]
     if fm.cfg.name.endswith('uniform4'):
         image_dependent_check(
             lambda f, **kw: build_resnet_engine(
@@ -2230,106 +2095,6 @@ def raw_pool_cost(engines, fms, raw, raw_u8, dev):
             f'forward')
 
 
-def engine_both_cores(fm, x, eng, dev):
-    """A folded int16 engine on the first core (built and run with every
-    GEMM call sent there) and on the Hopper core (``eng``), in turns: equal
-    logits, the first core's launch counts, ms per batch of each → the
-    first-core engine."""
-    from hawq_tpu_torch.inference.engine import build_resnet_engine
-    from hawq_tpu_torch.kernels import _build
-    with first_core():
-        old = build_resnet_engine(fm, input_mode='folded_float32',
-                                  residual_dtype=torch.int16, device=dev)
-        old(x)
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        logits = old(x)
-        torch.cuda.synchronize()
-        want = {f'{k}@mma': v for k, v in expected_launches(
-            fm.arch, fm.cfg, 'folded_float32',
-            residual_dtype=torch.int16).items() if k in GEMM_KERNELS}
-        check(core_launches() == want, f'engine on the first core: launches '
-              f'per core {core_launches()}, expected {want}')
-    check(torch.equal(logits, eng(x)), 'engine logits on the first core '
-          'differ from those on the Hopper core')
-
-    def ms_per_batch(engine):
-        event = cuda_ms(lambda: engine(x), 20)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            engine(x)
-        torch.cuda.synchronize()
-        return event, (time.perf_counter() - t0) / 10 * 1e3
-    rows = []
-    for core in ('mma', 'sm90', 'sm90', 'mma'):
-        if core == 'mma':
-            with first_core():
-                rows.append((core,) + ms_per_batch(old))
-        else:
-            rows.append((core,) + ms_per_batch(eng))
-    log(f'phase 4: {fm.arch} {fm.cfg.name} folded_float32 int16 engine, '
-        f'first core and Hopper core in turns, equal logits; ms/batch '
-        f'(CUDA events / host clock): '
-        + ', '.join(f'{c} {e:.3f} / {h:.3f}' for c, e, h in rows))
-    return old
-
-
-_TEMPLATE = (re.compile(r'gemm_s8_kernel<(\w+), \w+, (\w+)>'),
-             re.compile(r'gemm_s8_kernelILb(\d)ELb\dELb(\d)E'))
-
-
-_SM90_TEMPLATE = (
-    re.compile(r'gemm_s8_sm90_kernel<(\w+), (\w+), (\w+),'),
-    re.compile(r'gemm_s8_sm90_kernelILb(\d)ELb(\d)ELb(\d)E'))
-
-
-_DW_TEMPLATE = re.compile(r'dwconv_kernel(?:<(\w+),|ILb(\d)E)')
-_AVG_TEMPLATE = re.compile(r'avgpool3x3_kernel(?:<[^<>]*?(true|false)>'
-                           r'|I\w*?Lb\dELb(\d)E)')
-
-
-def port_kernel(name):
-    """'port: conv' / 'port: matmul' (' sm90' on the Hopper core, there
-    ' requant' for the matmul with the requant epilogue, ' acc' for the
-    conv with the int32 one; ' int4' with packed weights; ' split-K' on the
-    first core) /
-    'port: pool' / 'port: pool requant' / 'port: avgpool' / 'port: minmax'
-    / 'port: depthwise ...' for the port's
-    kernels in a trace (demangled or mangled names), None for any other
-    kernel."""
-    for pattern in _SM90_TEMPLATE:
-        m = pattern.search(name)
-        if m:
-            conv, requant, int4 = (g in ('true', '1') for g in m.groups())
-            return ('port: ' + ('conv' if conv else 'matmul') + ' sm90'
-                    + (' requant' if requant and not conv else '')
-                    + (' acc' if conv and not requant else '')
-                    + (' int4' if int4 else ''))
-    for pattern in _TEMPLATE:
-        m = pattern.search(name)
-        if m:
-            conv, int4 = (g in ('true', '1') for g in m.groups())
-            return ('port: ' + ('conv' if conv else 'matmul')
-                    + (' int4' if int4 else ''))
-    if 'gemm_s8_splitk_kernel' in name:
-        return 'port: matmul split-K'
-    m = _DW_TEMPLATE.search(name)
-    if m:
-        requant = m.group(1) in ('true', '1') or m.group(2) in ('true', '1')
-        return 'port: depthwise ' + ('requant' if requant else 'acc')
-    m = _AVG_TEMPLATE.search(name)
-    if m:                 # the last template flag: the requant after it
-        return 'port: avgpool' + ('' if (m.group(1) or m.group(2)) in (
-            'true', '1') else ' quotient')
-    if 'maxpool_folded_requant_kernel' in name:
-        return 'port: pool requant'
-    if 'maxpool_folded_kernel' in name:
-        return 'port: pool'
-    if 'minmax_partial_kernel' in name or 'minmax_finish_kernel' in name:
-        return 'port: minmax'
-    return None
-
-
 def device_kernels(fn):
     """The device kernels of one call of ``fn`` (after a warm-up call), from
     a torch.profiler trace."""
@@ -2352,13 +2117,10 @@ def device_kernels(fn):
 def busy_and_timeline(kernels):
     """(µs with a kernel running, µs from the first kernel's start to the
     last one's end)."""
-    spans = sorted((float(e['ts']), float(e['ts']) + float(e['dur']))
-                   for e in kernels)
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy, spans[-1][1] - spans[0][0]
+    spans = [(float(e['ts']), float(e['ts']) + float(e['dur']))
+             for e in kernels]
+    return (union_s(spans),
+            max(b for _, b in spans) - min(a for a, _ in spans))
 
 
 def trace_breakdown(eng, x, label, phase='phase 4'):
@@ -2485,55 +2247,41 @@ def pool_phase(main_calls, errs, totals):
 def kblocked_phase(conv1_calls, errs, totals):
     """Phase 6: the K-blocked matmul on the recorded
     ``int8_matmul_requant`` calls of the ResNet-50 uniform8 path, on the
-    engine's prepared handles (the Hopper core: K in one block) and on
-    plain weights (the first core's split-K) in turns, set beside the
-    core's smallest launch → its launch count when those calls are driven
-    once through it."""
+    engine's prepared handles (the Hopper core: K in one block), set beside
+    the core's smallest launch → its launch count when those calls are
+    driven once through it."""
     from hawq_tpu_torch.kernels import _build
     from hawq_tpu_torch.kernels import matmul as km
     check(len(conv1_calls) == 16, f'{len(conv1_calls)} recorded '
           f'int8_matmul_requant calls on resnet50 uniform8, expected 16')
     calls = [(KBLOCKED, args, kw) for _, args, kw in conv1_calls]
-    first = [(KBLOCKED, (args[0], first_core_weights(args[1])) + args[2:],
-              dict(kw, core='mma')) for _, args, kw in calls]
-    _build.reset_launches()
-    check_calls(calls + first, errs, f'phase 6: {KBLOCKED} on the 16 recorded '
-                f'int8_matmul_requant calls, on both cores')
-    check(core_launches() == {f'{KBLOCKED}@sm90': 16, f'{KBLOCKED}@mma': 16},
-          f'phase 6: launches per core {core_launches()}')
+    check_calls(calls, errs, f'phase 6: {KBLOCKED} on the 16 recorded '
+                f'int8_matmul_requant calls')
     for (_, args, kw) in calls:
         check(torch.equal(kernel_call(KBLOCKED, args, kw),
                           km.int8_matmul_requant(*args, **kw)),
               f'{KBLOCKED} differs from int8_matmul_requant at '
               f'{[tuple(a.shape) for a in args[:1]]}')
-    sm = km.sm_count(calls[0][1][0].device)
-    splits = [km.default_k_splits(a[0].shape[0], a[0].shape[1], a[1].n, sm)
-              for _, a, _ in calls]
-    log(f'phase 6: equal to int8_matmul_requant on all 16; the first core\'s '
-        f'K splits on {sm} SMs: {splits}; timed (Hopper core on the handles, '
-        f'first core on plain weights, in turns):')
+    log('phase 6: equal to int8_matmul_requant on all 16; timed on the '
+        'handles:')
     time_calls(calls, totals)
     # the core's smallest launch: one 64 x 32 tile, one 64-deep K step
     x, w = calls[0][1][0][:64, :64].contiguous(), calls[0][1][1]
-    w = km.prepare_weights(first_core_weights(w)[:64, :32].contiguous())
+    w = km.prepare_weights(plain_weights(w)[:64, :32].contiguous())
     b, mult = calls[0][1][2][:32], calls[0][1][3][:32]
     floor = graph_ms(lambda: km.int8_matmul_requant(x, w, b, mult), 50)
     t = totals[KBLOCKED]
     beside = totals['int8_matmul_requant']       # the same calls, phase 3
-    log(f"phase 6: over the 16 calls {KBLOCKED} {t['ms']:.4f} ms on the "
-        f"Hopper core, {t['old_ms']:.4f} ms on the first; bound "
+    log(f"phase 6: over the 16 calls {KBLOCKED} {t['ms']:.4f} ms; bound "
         f"{t['bound_ms']:.4f} ms; the core's smallest launch {floor:.5f} ms, "
         f"x16 = {16 * floor:.4f} ms; int8_matmul_requant in phase 3 of this "
-        f"run {beside['ms']:.4f} ms on the Hopper core, {beside['old_ms']:.4f}"
-        f" ms on the first (a reading, not a claim)")
+        f"run {beside['ms']:.4f} ms (a reading, not a claim)")
     _build.reset_launches()
     for name, args, kw in calls:
         kernel_call(name, args, kw)
     torch.cuda.synchronize()
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-    check(counts == {KBLOCKED: 16} and core_launches() == {
-        f'{KBLOCKED}@sm90': 16}, f'phase 6: launches {counts}, per core '
-        f'{core_launches()}')
+    check(counts == {KBLOCKED: 16}, f'phase 6: launches {counts}')
     return 16, floor
 
 
@@ -2542,9 +2290,8 @@ def expected_train_launches(model):
     step; ``minmax_1pass`` only where the ranges update), from the model's
     layers: one ``minmax_1pass`` per activation quantizer, every 1×1 conv
     and the FC through ``int8_matmul_acc``, every depthwise conv through
-    ``int8_dwconv_acc``, every other conv through ``int8_conv_acc`` (4·C
-    after the space-to-depth of a stride 2, C zero-filled to a multiple of
-    4) → Launches."""
+    ``int8_dwconv_acc``, every other conv through ``int8_conv_acc`` →
+    Launches."""
     from hawq_tpu_torch.nn import layers as L
     out = Launches()
     for m in model.modules():
@@ -2552,16 +2299,14 @@ def expected_train_launches(model):
             if getattr(m, 'percentile', 0) == 0:
                 out.add(MINMAX)
         elif isinstance(m, L.QuantLinear):
-            out.add('int8_matmul_acc', 'matmul', *m.kernel.shape)
+            out.add('int8_matmul_acc')
         elif isinstance(m, (L.QuantConvBn, L.QuantConv2d)):
-            kh, kw, c, n = m.kernel.shape
             if m.groups > 1:
                 out.add(DW_ACC)
-            elif (kh, kw) == (1, 1):
-                out.add('int8_matmul_acc', 'matmul', c, n)
+            elif m.kernel.shape[:2] == (1, 1):
+                out.add('int8_matmul_acc')
             else:
-                c = c if m.strides == (1, 1) else 4 * (c + -c % 4)
-                out.add('int8_conv_acc', 'conv_acc', c, n)
+                out.add('int8_conv_acc')
     return out
 
 
@@ -2653,9 +2398,8 @@ def serving_engine(fm, dev):
     if fm.arch.endswith('v2'):
         return (build_resnet_v2_engine(fm, device=dev),
                 expected_v2_launches(fm), 'quant_output', 'quant_act_output')
-    want = expected_launches(fm.arch, fm.cfg, 'float32')
     out = Launches()
-    out.counts, out.cores = want, core_split(want)
+    out.counts = expected_launches(fm.arch, fm.cfg, 'float32')
     return (build_resnet_engine(fm, device=dev), out, 'quant_output',
             'quant_act_output')
 
@@ -2677,7 +2421,6 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
             del specs[:]
             torch.cuda.synchronize()
             before = dict(_build.LAUNCHES)
-            cores_before = dict(_build.CORE_LAUNCHES)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -2688,12 +2431,9 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
             counts = {k: v - before.get(k, 0)
                       for k, v in _build.LAUNCHES.items()
                       if v - before.get(k, 0)}
-            cores = {k: v - cores_before.get(k, 0)
-                     for k, v in _build.CORE_LAUNCHES.items()
-                     if v - cores_before.get(k, 0)}
             records.append(dict(step=state.step - 1, folded=folded,
                                 ms=t0.elapsed_time(t1), counts=counts,
-                                cores=cores, loss=float(out[1]['loss'])))
+                                loss=float(out[1]['loss'])))
             return out
         return run
 
@@ -2726,8 +2466,6 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
                   f'{s["loss"]}')
             check(s['counts'] == want.counts, f'step {s["step"]}: launches '
                   f'{s["counts"]}, expected {want.counts}')
-            check(s['cores'] == want.cores, f'step {s["step"]}: launches per '
-                  f'core {s["cores"]}, expected {want.cores}')
         # the calibration passes and the steps update the ranges, the eval
         # batch does not
         want_total = {k: v * (calib + steps + (k != MINMAX))
@@ -2741,7 +2479,7 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
                         f"loss {s['loss']:.4f} {s['ms']:.1f} ms"
                         for s in records)
             + f', 1 eval batch, checkpoint; {wall:.1f} s in all; launches '
-            f'per step {want.counts} (per core {want.cores}), whole run '
+            f'per step {want.counts}, whole run '
             f'{total}')
         for name in ('checkpoint.npz', 'checkpoint.npz.meta.json',
                      'quantized_checkpoint.npz',
@@ -2762,9 +2500,6 @@ def run_trainer(arch, batch_size, dev, steps, fix_bn_threshold, calib):
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
         check(counts == want_eng.counts, f'engine on the frozen checkpoint: '
               f'launches {counts}, expected {want_eng.counts}')
-        check(core_launches() == want_eng.cores, f'engine on the frozen '
-              f'checkpoint: launches per core {core_launches()}, expected '
-              f'{want_eng.cores}')
         scale = (torch.from_numpy(fm[head + '.weight_scale']).to(
             dev).double() * float(fm.act_scale(head_act)))
         qat_int = torch.round(qat.double() / scale)
@@ -3147,8 +2882,8 @@ def mobilenet_phase(raw, dev, errs, totals):
         eng, counts = engine_check(
             functools.partial(build_mobilenetv2_engine, fm, input_mode=mode,
                               residual_dtype=residual, input_hw=(SIZE, SIZE)),
-            images[mode], want.counts, want.cores, ('final', 'fc_input'),
-            label, dev, 'phase 8', calls)
+            images[mode], want.counts, ('final', 'fc_input'), label, dev,
+            'phase 8', calls)
         # the synthetic model's nodes stop depending on the image early
         image_dependent_check(
             lambda f, **kw: build_mobilenetv2_engine(
@@ -3191,7 +2926,7 @@ def resnet_v2_phase(raw, dev, errs):
     label = 'resnet50v2 uniform8 float32 int32'
     calls = []
     eng, _ = engine_check(functools.partial(build_resnet_v2_engine, fm), x,
-                          want.counts, want.cores,
+                          want.counts,
                           ('fc_input', 'stage4.unit3.quant_act_int32'),
                           label, dev, 'phase 9', calls)
     check_calls(calls, errs, f'phase 9: all {len(calls)} recorded calls of '
@@ -3264,7 +2999,6 @@ def expected_reference_launches(fm, mode):
         return expected_inception_launches(fm, mode, reference=True)
     out = Launches()
     out.counts = expected_launches(fm.arch, fm.cfg, mode, reference=True)
-    out.cores = core_split(out.counts)
     return out
 
 
@@ -3348,8 +3082,7 @@ def reference_phase(raw, dev, errs, totals):
                     calls = []
                     eng, counts = engine_check(
                         reference_builder(fm, mode, 'reference'), x,
-                        want.counts, want.cores, (node,), label, dev,
-                        'phase 13', calls)
+                        want.counts, (node,), label, dev, 'phase 13', calls)
                     check(not set(FUSED_FORMS) & set(counts),
                           f'{label}: a fused-requant form launched: '
                           f'{counts}')
@@ -3403,8 +3136,8 @@ def spearman(a, b):
 @contextlib.contextmanager
 def probes_observed(records, specs):
     """Inside, every ``sensitivity.hessian.hvp`` call (one Hutchinson
-    probe) is observed: CUDA events around it, its launches per kernel and
-    per core (counts read before and after), its peak allocated memory
+    probe) is observed: CUDA events around it, its launches per kernel
+    (counts read before and after), its peak allocated memory
     above what was allocated before it, and the launches counted before
     the first probe; the first probe's kernel calls are recorded (shapes
     only) into ``specs``."""
@@ -3415,7 +3148,6 @@ def probes_observed(records, specs):
     def observed(loss_fn, params, v):
         torch.cuda.synchronize()
         before = {k: v for k, v in _build.LAUNCHES.items() if v}
-        cores_before = core_launches()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = torch.cuda.Event(enable_timing=True)
@@ -3429,9 +3161,6 @@ def probes_observed(records, specs):
             ms=t0.elapsed_time(t1), before=before,
             counts={k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                     if v - before.get(k, 0)},
-            cores={k: v - cores_before.get(k, 0)
-                   for k, v in core_launches().items()
-                   if v - cores_before.get(k, 0)},
             peak=torch.cuda.max_memory_allocated() - base))
         return out
     hessian.hvp = observed
@@ -3446,7 +3175,7 @@ def sensitivity_traces(arch, dev, errs):
     (``pipeline.estimate_layer_costs``: the uniform8 QAT model of seed 0,
     one calibration pass, ``HVP_PROBES`` probes), the launch counts set to 0
     just before and read after the calibration pass and each probe, held
-    against the model's widths per kernel and per core; every distinct
+    against the model's widths per kernel; every distinct
     kernel call of a probe against its plain version → (model, costs,
     probe records)."""
     from hawq_tpu_torch.kernels import _build
@@ -3469,13 +3198,11 @@ def sensitivity_traces(arch, dev, errs):
     for i, r in enumerate(records):
         check(r['counts'] == per_probe, f'{label}: probe {i} launches '
               f'{r["counts"]}, expected {per_probe}')
-        check(r['cores'] == want.cores, f'{label}: probe {i} launches per '
-              f'core {r["cores"]}, expected {want.cores}')
     check(all(np.isfinite(c.trace) and np.isfinite(c.delta_w4)
               for c in costs), f'{label}: a trace is not finite')
     log(f'phase 14: {label}: calibration pass launches {want.counts}; '
-        f'{HVP_PROBES} HVP probes, each launching {per_probe} (per core '
-        f'{want.cores}): ' + ', '.join(
+        f'{HVP_PROBES} HVP probes, each launching {per_probe}: '
+        + ', '.join(
             f"{r['ms']:.1f} ms / peak +{r['peak'] / 2 ** 30:.2f} GiB"
             for r in records) + f'; {wall:.1f} s in all (model build, '
         f'calibration, probes, costs)')
@@ -3684,7 +3411,6 @@ def sensitivity_phase(dev, errs):
         if arch == 'resnet50':
             want = expected_launches(arch, fm.cfg, 'folded_float32',
                                      residual_dtype=torch.int16)
-            want_cores = core_split(want)
             build = functools.partial(build_resnet_engine, fm,
                                       input_mode='folded_float32',
                                       residual_dtype=torch.int16)
@@ -3692,14 +3418,13 @@ def sensitivity_phase(dev, errs):
             check(any(k.startswith('int4w_') for k in want), f'{label}: no '
                   f'4-bit layer: {want}')
         else:
-            w = expected_mobilenet_launches(fm, 'folded_float32')
-            want, want_cores = w.counts, w.cores
+            want = expected_mobilenet_launches(fm, 'folded_float32').counts
             build = functools.partial(build_mobilenetv2_engine, fm,
                                       input_mode='folded_float32',
                                       input_hw=(SIZE, SIZE),
                                       residual_dtype=torch.int16)
             images = torch.from_numpy(fold4_images_3x3s2(x_np, 1)).to(dev)
-        eng, _ = engine_check(build, images, want, want_cores,
+        eng, _ = engine_check(build, images, want,
                               ('avg_pool' if arch == 'resnet50' else 'final',),
                               label, dev, 'phase 14', calls)
         check_calls(calls, errs, f'phase 14: all {len(calls)} recorded calls '
@@ -4193,20 +3918,17 @@ def routed_turns(calls, label):
     beside its int8 twin (the same call on the weights unpacked once to
     int8, on the same core) in turns (packed, twin, twin, packed; CUDA-graph
     replay), the twin held against the plain version → per kernel: launches,
-    launches per core, ms, twin ms and bound summed over the path."""
+    ms, twin ms and bound summed over the path."""
     from hawq_tpu_torch.kernels import conv as kc
     from hawq_tpu_torch.kernels import matmul as km
     seen = {}
     for name, args, kw in calls:
         key = call_key(name, args, kw)
         if key not in seen:
-            core = 'mma' if sm90_rule(name, args, kw) else 'sm90'
             plain_w = unpacked_weights(name, args, kw)
-            twin_w = plain_w
-            if core == 'sm90':
-                twin_w = (kc.prepare_conv_weights(
-                    plain_w, kw['taps'], kw['cin'], kw.get('pad', (0, 0)))
-                    if '_conv' in name else km.prepare_weights(plain_w))
+            twin_w = (kc.prepare_conv_weights(
+                plain_w, kw['taps'], kw['cin'], kw.get('pad', (0, 0)))
+                if '_conv' in name else km.prepare_weights(plain_w))
             twin_args = (args[0], twin_w) + tuple(args[2:])
             runs = (lambda: kernel_call(name, args, kw, False),
                     lambda: kernel_call(twin_name(name), twin_args, kw,
@@ -4218,24 +3940,23 @@ def routed_turns(calls, label):
             for i in (0, 1, 1, 0):
                 ms[i].append(graph_ms(runs[i], 20))
             nbytes, ops, shape = work(name, args, kw, out)
-            seen[key] = dict(name=name, core=core, shape=shape, n=0,
+            seen[key] = dict(name=name, shape=shape, n=0,
                              ms=sum(ms[0]) / 2, twin_ms=sum(ms[1]) / 2,
                              bound_ms=max(nbytes / HBM_BYTES_PER_S,
                                           ops / INT8_OPS_PER_S) * 1e3)
         seen[key]['n'] += 1
     totals = {}
     for row in seen.values():
-        t = totals.setdefault(row['name'], dict(launches=0, cores={}, ms=0.0,
+        t = totals.setdefault(row['name'], dict(launches=0, ms=0.0,
                                                 int8_twin_ms=0.0,
                                                 bound_ms=0.0))
         t['launches'] += row['n']
-        t['cores'][row['core']] = t['cores'].get(row['core'], 0) + row['n']
         for k in ('ms', 'bound_ms'):
             t[k] += row[k] * row['n']
         t['int8_twin_ms'] += row['twin_ms'] * row['n']
     for name, t in totals.items():
-        log(f"phase 16: {label}: {name} x{t['launches']} (per core "
-            f"{t['cores']}) {t['ms']:.4f} ms, its int8 twin "
+        log(f"phase 16: {label}: {name} x{t['launches']} {t['ms']:.4f} ms, "
+            f"its int8 twin "
             f"{t['int8_twin_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"summed over the path")
     return totals
@@ -4372,9 +4093,8 @@ def routing_phase(dev, errs, tmp):
             kw = dict(input_mode=mode)
             if arch == 'resnet50':
                 kw['residual_dtype'] = carrier
-                counts = expected_launches('resnet50', cfg, mode, routing=tab,
-                                           residual_dtype=carrier)
-                want = (counts, core_split(counts))
+                want = expected_launches('resnet50', cfg, mode, routing=tab,
+                                         residual_dtype=carrier)
             else:
                 if arch == 'mobilenetv2':
                     kw.update(residual_dtype=carrier, input_hw=(size, size))
@@ -4382,7 +4102,7 @@ def routing_phase(dev, errs, tmp):
                 else:
                     kw.update(wide_dtype=carrier, input_hw=(size, size))
                     w = expected_inception_launches(fm, mode, routing=tab)
-                want = (w.counts, w.cores)
+                want = w.counts
             label = (f'{arch} uniform4 {mode} '
                      f'{str(carrier).replace("torch.", "")} b{BATCH}, '
                      f'{what} table')
@@ -4390,7 +4110,7 @@ def routing_phase(dev, errs, tmp):
             t0 = time.perf_counter()
             eng, counts = engine_check(
                 functools.partial(deploy.build_engine_for, fm, routing=tab,
-                                  **kw), x, *want, (),
+                                  **kw), x, want, (),
                 label, dev, 'phase 16', calls)
             plain = deploy.build_engine_for(fm, device=dev, **kw)
             check(torch.equal(eng(x), plain(x)), f'phase 16: {label}: logits '
@@ -4539,7 +4259,6 @@ def parallel_trainer(mp, save_path, dev, fix_bn=False):
     loss = tr.train_epoch(0)
     sync(dev)
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-    cores = core_launches()
     colls = dict(coll.COLLECTIVES)
     want = expected_train_launches(tr.model)
     label = (f'resnet50 uniform8 b{PAR_CFG["batch_size"]} 32x32 '
@@ -4548,8 +4267,6 @@ def parallel_trainer(mp, save_path, dev, fix_bn=False):
     check(np.isfinite(loss), f'{label}: loss {loss}')
     check(counts == want.counts, f'{label}: launches per step {counts}, '
           f'expected {want.counts}')
-    check(cores == want.cores, f'{label}: launches per core {cores}, '
-          f'expected {want.cores}')
     acc = tr.evaluate()
     check(np.isfinite(acc), f'{label}: top-1 {acc}')
     tr.save_checkpoint(1, False)
@@ -4573,7 +4290,7 @@ def parallel_trainer(mp, save_path, dev, fix_bn=False):
     # bucket and rebuilds its buckets after it: the steady steps' counts
     steady = {k: v / PAR_STEPS for k, v in coll.COLLECTIVES.items()}
     return tr, dict(label=label, loss=float(loss), acc=float(acc),
-                    counts=counts, cores=cores, collectives=steady,
+                    counts=counts, collectives=steady,
                     first_step_collectives=colls, step_ms=ms, rows=rows)
 
 
@@ -4759,14 +4476,11 @@ def parallel_phase(dev, fm, raw):
         out = serving.infer(parts)
         sync(dev)
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
-        cores = core_launches()
         want = {k: v * n_rep for k, v in expected_launches(
             'resnet50', fm.cfg, 'folded_int8',
             residual_dtype=torch.int16).items()}
         check(counts == want, f'phase 17: ServingEngine launches {counts}, '
               f'expected {want}')
-        check(cores == core_split(want), f'phase 17: launches per core '
-              f'{cores}, expected {core_split(want)}')
         got = serving.fetch(out)
         single = build(device=parts[0].device)
         ref = single(torch.from_numpy(x).to(parts[0].device)).cpu().numpy()
@@ -4794,7 +4508,7 @@ def parallel_phase(dev, fm, raw):
         log(f'phase 17 (a): ServingEngine ({dist.get_backend()} group of 1, '
             f'{n_rep} replica(s)) over resnet50 uniform8 folded_int8 int16 '
             f'b{BATCH} {SIZE}x{SIZE}: infer == the engine\'s call, launches '
-            f'{counts}, per core {cores}; a batcher answered {n_req} '
+            f'{counts}; a batcher answered {n_req} '
             f'requests, each == its row; {ips:.1f} images/s '
             f'(utils/timing.py, CUDA events)')
         with tempfile.TemporaryDirectory() as tmp:
@@ -4804,8 +4518,8 @@ def parallel_phase(dev, fm, raw):
                 rec[f'one_folded' if fix_bn else 'one'] = one
                 log(f'phase 17 (a): Trainer, one process, {one["label"]}: '
                     f'loss {one["loss"]:.4f}, top-1 {one["acc"]:.4f}, '
-                    f'launches per step {one["counts"]} (per core '
-                    f'{one["cores"]}), collectives {one["collectives"]}, '
+                    f'launches per step {one["counts"]}, collectives '
+                    f'{one["collectives"]}, '
                     f'{one["step_ms"]:.1f} ms per step')
             one, one_f = rec['one'], rec['one_folded']
             runs = [('gloo', 2)]
@@ -4916,46 +4630,42 @@ torch.save(out.cpu(), sys.argv[3])
 print(json.dumps({
     'load_s': load_s,
     'launches': {k: v for k, v in _build.LAUNCHES.items() if v},
-    'cores': {k: v for k, v in _build.CORE_LAUNCHES.items() if v},
     'foreign': sorted(m for m in sys.modules
                       if m.split('.')[0] in ('jax', 'hawq_tpu'))}))
 """
 
 
 def counted(fn, x):
-    """(fn(x), launches per kernel, launches per core), the counts set to
-    0 just before the call and read just after."""
+    """(fn(x), launches per kernel), the counts set to 0 just before the
+    call and read just after."""
     from hawq_tpu_torch.kernels import _build
     _build.reset_launches()
     out = fn(x)
     torch.cuda.synchronize()
-    return out, {k: v for k, v in _build.LAUNCHES.items() if v}, \
-        core_launches()
+    return out, {k: v for k, v in _build.LAUNCHES.items() if v}
 
 
-def program_check(label, engine, program, x, x2, want, want_cores):
+def program_check(label, engine, program, x, x2, want):
     """The loaded ``program`` against its ``engine`` on ``x``: logits
     bit-equal, finite and of the batch's shape, and the launches of each
-    per kernel and per core as predicted (the loaded graph calls the
+    per kernel as predicted (the loaded graph calls the
     operators, not the wrappers, so only the counts see its launches).
     Then on ``x2``, another batch of that shape: logits bit-equal to the
     engine's and unlike those of ``x``, so that the program reads its
     input and froze nothing of the batch it was traced on."""
     engine(x)
     program(x)                               # warm both
-    ref, counts, cores = counted(engine, x)
-    got, p_counts, p_cores = counted(program, x)
+    ref, counts = counted(engine, x)
+    got, p_counts = counted(program, x)
     check(tuple(got.shape) == (x.shape[0], 1000)
           and bool(torch.isfinite(got).all()),
           f'phase 18: {label}: program logits {tuple(got.shape)} not finite')
     check(torch.equal(got, ref), f'phase 18: {label}: the loaded program '
           f'differs from the engine on {int((got != ref).sum())} logits')
-    check(counts == want and cores == want_cores, f'phase 18: {label}: '
-          f'engine launches {counts} per core {cores}, expected {want} '
-          f'{want_cores}')
-    check(p_counts == want and p_cores == want_cores, f'phase 18: {label}: '
-          f'program launches {p_counts} per core {p_cores}, expected '
-          f'{want} {want_cores}')
+    check(counts == want, f'phase 18: {label}: engine launches {counts}, '
+          f'expected {want}')
+    check(p_counts == want, f'phase 18: {label}: program launches '
+          f'{p_counts}, expected {want}')
     got2, ref2 = program(x2), engine(x2)
     check(torch.equal(got2, ref2), f'phase 18: {label}: on a second batch '
           f'the loaded program differs from the engine on '
@@ -5038,8 +4748,7 @@ def program_phase(fms, raw, dev):
     raw2 = np.random.RandomState(11).randn(*raw.shape).astype(np.float32)
     want = expected_launches(fm.arch, fm.cfg, 'float32')
     logits = program_check(label, engine, program, x,
-                           torch.from_numpy(raw2).to(dev), want,
-                           core_split(want))
+                           torch.from_numpy(raw2).to(dev), want)
     with tempfile.TemporaryDirectory() as tmp:
         paths = [os.path.join(tmp, n) for n in ('program.pt2', 'x.pt',
                                                 'logits.pt')]
@@ -5057,9 +4766,8 @@ def program_phase(fms, raw, dev):
         fresh_logits = torch.load(paths[2])
     check(torch.equal(fresh_logits, logits.cpu()), 'phase 18: the program '
           'loaded in a fresh process differs from the engine')
-    check(fresh['launches'] == want and fresh['cores'] == core_split(want),
-          f'phase 18: fresh process launches {fresh["launches"]} per core '
-          f'{fresh["cores"]}, expected {want}')
+    check(fresh['launches'] == want, f'phase 18: fresh process launches '
+          f'{fresh["launches"]}, expected {want}')
     check(not fresh['foreign'], f'phase 18: the fresh process imported '
           f'{fresh["foreign"][:5]}')
     ms = turns_ms({'program': program, 'engine': engine}, x)
@@ -5072,8 +4780,7 @@ def program_phase(fms, raw, dev):
         f'and {fresh["load_s"]:.2f} s in a fresh process ({fresh_s:.1f} s '
         f'with its start, imports: hawq_tpu_torch only); logits bit-equal '
         f'to the engine in both (here on a second batch too), launches '
-        f'{want} per core '
-        f'{core_split(want)}; ms/batch in turns: program '
+        f'{want}; ms/batch in turns: program '
         f'{ms["program"]:.3f}, engine {ms["engine"]:.3f}')
     del program, engine, blob
 
@@ -5089,22 +4796,19 @@ def program_phase(fms, raw, dev):
                                           device=dev),
          lambda fm_n, i: engine_input(fm_n, 'folded_int8', (raw, raw2)[i],
                                       None, dev),
-         lambda fm_n: (lambda w: (w, core_split(w)))(expected_launches(
-             'resnet50', fm_n.cfg, 'folded_int8')),
+         lambda fm_n: expected_launches('resnet50', fm_n.cfg, 'folded_int8'),
          f'resnet50 uniform4 folded_int8 int16 b{BATCH} {SIZE}x{SIZE}'),
         ('mobilenetv2', 'uniform8', [],
          lambda fm_d: expected_mobilenet_launches(fm_d, 'float32').counts,
          lambda fm_n: build_mobilenetv2_engine(fm_n, device=dev),
          lambda fm_n, i: torch.from_numpy((raw, raw2)[i]).to(dev),
-         lambda fm_n: (lambda w: (w.counts, w.cores))(
-             expected_mobilenet_launches(fm_n, 'float32')),
+         lambda fm_n: expected_mobilenet_launches(fm_n, 'float32').counts,
          f'mobilenetv2_w1 uniform8 float32 int32 b{BATCH} {SIZE}x{SIZE}'),
         ('inceptionv3', 'uniform8', ['--image-size', str(INC_SIZE)],
          lambda fm_d: expected_inception_launches(fm_d, 'float32').counts,
          lambda fm_n: build_inceptionv3_engine(fm_n, device=dev),
          lambda fm_n, i: torch.from_numpy(s_raws[i]).to(dev),
-         lambda fm_n: (lambda w: (w.counts, w.cores))(
-             expected_inception_launches(fm_n, 'float32')),
+         lambda fm_n: expected_inception_launches(fm_n, 'float32').counts,
          f'inceptionv3 uniform8 float32 int32 b{BATCH} '
          f'{INC_SIZE}x{INC_SIZE}'))
     with tempfile.TemporaryDirectory() as tmp:
@@ -5129,9 +4833,8 @@ def program_phase(fms, raw, dev):
             engine = build(fm_n)
             x = images(fm_n, 0)
             program, export_s, n_bytes, load_s = saved_and_loaded(engine, x)
-            want, want_cores = predict(fm_n)
-            program_check(label, engine, program, x, images(fm_n, 1), want,
-                          want_cores)
+            want = predict(fm_n)
+            program_check(label, engine, program, x, images(fm_n, 1), want)
             ms = turns_ms({'program': program, 'engine': engine}, x)
             rec[label] = dict(dump_s=dump_s, dump_chars=chars,
                               export_s=export_s, bytes=n_bytes, load_s=load_s,
@@ -5293,7 +4996,7 @@ def main():
     check_calls([c for path in PATHS for c in recorded[path][0]] + ragged,
                 errs, f'phase 3: all {n_recorded} recorded and {len(ragged)} '
                 f'ragged calls')
-    sm90_rule_phase(dev, errs)
+    sm90_phase(dev, errs)
     totals = {}
     for path in PATHS:
         log(f'phase 3: timed on {path[0]} {path[1]}:')
@@ -5328,12 +5031,6 @@ def main():
     raw_pool_cost(engines, fms, raw, raw_u8, dev)
     for scheme in ('uniform8', 'uniform4'):     # W8A8 and W4A4 serving
         eng = engines['resnet50', scheme, 'folded_float32']
-        old_engine = engine_both_cores(fms['resnet50', scheme], folded, eng,
-                                       dev)
-        with first_core():
-            trace_breakdown(old_engine, folded, f'resnet50 {scheme} '
-                            f'folded_float32 int16 on the first core')
-        del old_engine
         init_block_before_after(eng, folded,
                                 f'resnet50 {scheme} folded_float32 int16')
 
@@ -5444,10 +5141,7 @@ def main():
             library_ms=t['library_ms'] if t['library_ok'] else None,
             path=labels[name])
         if name in SM90_KERNELS:
-            entry.update(core='sm90', old_ms=t['old_ms'],
-                         host_us_per_call=t['host_us'] / launches[name],
-                         old_host_us_per_call=(t['old_host_us']
-                                               / launches[name]))
+            entry.update(host_us_per_call=t['host_us'] / launches[name])
             if not t['library_ok'] and t['library_calls']:
                 entry.update(library_partial_ms=t['library_ms'],
                              library_partial_calls=t['library_calls'])
@@ -5472,9 +5166,7 @@ def main():
                          inception_bound_ms=it['bound_ms'],
                          inception_library_ms=(it['library_ms']
                                                if it['library_ok'] else None))
-            if name in SM90_KERNELS:
-                entry['inception_old_ms'] = it['old_ms']
-            else:
+            if name not in SM90_KERNELS:
                 entry['inception_cold_ms'] = it['cold_ms']
         if name in ('int8_conv_acc', 'int8_matmul_acc', MINMAX):
             entry.update(inception_train_path=inc_train_label,
@@ -5508,8 +5200,7 @@ def main():
                          train_library_ms=(tt['library_ms']
                                            if tt['library_ok'] else None))
             if name in SM90_KERNELS:
-                entry.update(train_old_ms=tt['old_ms'],
-                             train_weight_layout_ms=tt['prep_ms'])
+                entry['train_weight_layout_ms'] = tt['prep_ms']
         kernels.append(entry)
     log(json.dumps({'deploy': {k: v for k, v in deployment.items()
                                if k != 'routed_paths'}}))

@@ -189,10 +189,9 @@ def autotune_routing_1x1(sites, weight_bits: Callable[[str], int],
         mult = torch.full((cout,), 1e-4, dtype=torch.float32, device=device)
         x = torch.from_numpy(rng.randint(-128, 128, (
             batch, spatial, spatial, cin)).astype(np.int8)).to(device)
-        kind = 'matmul' if epi == 'acc' else 'matmul_requant'
 
         def site(int4):
-            r = Routed1x1.prepare(w, bias, int4, kind, device)
+            r = Routed1x1.prepare(w, bias, int4, device)
             if epi == 'acc':
                 return r.acc
             return lambda xi: r.requant(xi, mult, out_bits=8, signed=True,

@@ -45,13 +45,12 @@ CPU device the kernels' plain versions run instead):
     accumulator-form convs and, in InceptionV3, the requants of a concat's
     pieces into it, ``InceptionEngine._concat_to``) → ``kernels.requant``
     (:meth:`IntEngine._requant`), one pass over the integers;
-  * the weights of every conv and matmul call whose widths the Hopper GEMM
-    core takes (``kernels.matmul.sm90_route``; the init conv's too) are
-    cached in that core's K-major layout (``prepare_weights``; the 4-bit
-    convs' and 1×1 convs' ``prepare_weights_int4``, still nibble-packed),
-    on a CPU device too, where the wrappers then run the plain versions of
-    that core's walk; the stride-1 k×k convs among them take unpadded
-    activations (TMA supplies the zero border).
+  * the weights of every conv and matmul call (the init conv's too) are
+    cached in the Hopper GEMM core's K-major layout (``prepare_weights``;
+    the 4-bit convs' and 1×1 convs' ``prepare_weights_int4``, still
+    nibble-packed), on a CPU device too, where the wrappers then run the
+    plain versions of that core's walk; the stride-1 k×k convs take
+    unpadded activations (TMA supplies the zero border).
 
 ``requant_mode='reference'`` replays an imported reference checkpoint
 (``utils.checkpoint.import_reference_quantized``) with the reference's own
@@ -100,7 +99,6 @@ from hawq_tpu_torch.inference import fold as _fold
 from hawq_tpu_torch.inference.freeze import FrozenModel
 from hawq_tpu_torch.inference.routing import check_routing, make_router
 from hawq_tpu_torch.kernels import conv as kc
-from hawq_tpu_torch.kernels import matmul as km
 from hawq_tpu_torch.kernels import pool as kp
 from hawq_tpu_torch.kernels import requant as kr
 from hawq_tpu_torch.quant import ops as qops
@@ -297,41 +295,36 @@ class IntEngine:
         """The FC (or 1×1 head) on the int8 pooled vector through
         ``int8_matmul_acc`` (a float product of 2048·127·127 would not be
         exact) → float32 logits."""
-        acc = self._route(key, 'matmul', False).acc(f8)
+        acc = self._route(key, False).acc(f8)
         if 'out_scale' not in self._mult:
             self._mult['out_scale'] = self._dev(self._scale(key, act_scale))
         return acc.to(torch.float32) * self._mult['out_scale']
 
     def _conv_w(self, key: str, stride: int, pad: Tuple[int, int],
-                int4: bool, requant: bool):
+                int4: bool):
         """Flattened conv weights (rewritten for ``stride`` by
         ``kernels.conv.conv_call_kernel``; per-tap nibble-packed with
         ``int4``), taps, cin, bias.  They are prepared for the Hopper core,
-        the packed ones still packed, where its rule takes the widths (kind
-        'conv' for the weights of ``int8_conv_requant`` /
-        ``int4w_conv_requant``, with ``requant``, else 'conv_acc'), for
-        calls with ``pad``, the border :func:`kernels.conv.conv_call` leaves
-        to the kernel."""
+        the packed ones still packed, for calls with ``pad``, the border
+        :func:`kernels.conv.conv_call` leaves to the kernel."""
         if (key, stride) not in self._w:
             w = kc.conv_call_kernel(np.asarray(self.fm[key + '.weight_int']),
                                     (stride, stride))
             self._w[key, stride] = self._conv_weights(
-                w, self.fm[key + '.bias_int'], 'conv' if requant else
-                'conv_acc', pad, int4)
+                w, self.fm[key + '.bias_int'], pad, int4)
         return self._w[key, stride]
 
-    def _conv_weights(self, w: np.ndarray, bias: np.ndarray, kind: str,
+    def _conv_weights(self, w: np.ndarray, bias: np.ndarray,
                       pad: Tuple[int, int], int4: bool = False):
         """(weights, taps, cin, bias) of an HWIO kernel on the device: the
-        flattened (or per-tap packed) tensor, or where ``sm90_route(kind)``
-        takes the widths its Hopper-core handle for calls with ``pad``."""
+        Hopper-core handle of the flattened (or per-tap packed) tensor for
+        calls with ``pad``."""
         wf = kc.flatten_conv_kernel(w)
         taps = (w.shape[0], w.shape[1])
         if int4:
             wf = kc.pack_int4_conv(wf, taps[0] * taps[1])
-        wd = self._dev(wf)
-        if km.sm90_route(kind, k=w.shape[2], n=w.shape[3], ptr=0) is None:
-            wd = kc.prepare_conv_weights(wd, taps, w.shape[2], pad, int4)
+        wd = kc.prepare_conv_weights(self._dev(wf), taps, w.shape[2], pad,
+                                     int4)
         return wd, taps, w.shape[2], self._dev(bias)
 
     def _fold3x3s2_acc(self, x8: torch.Tensor, key: str) -> torch.Tensor:
@@ -350,7 +343,7 @@ class IntEngine:
             w = np.asarray(self.fm[key + '.weight_int'])
             self._w['init'] = self._conv_weights(
                 _fold.fold4_kernel_3x3s2(w),
-                _fold.tile4(self.fm[key + '.bias_int']), 'conv_acc', (0, 0))
+                _fold.tile4(self.fm[key + '.bias_int']), (0, 0))
         wf, taps, cin, bias = self._w['init']
         with span('engine.conv'):
             return kc.int8_conv_acc(kc.prepare_conv_input(x8, (0, 0)), wf,
@@ -394,8 +387,7 @@ class IntEngine:
                                    ((ph, ph), (pw, pw)))
             int4 = self._int4(key)
             fused = mult is not None and not self.reference
-            wf, taps, cin, bias = self._conv_w(key, stride, geo['pad'], int4,
-                                               requant=fused)
+            wf, taps, cin, bias = self._conv_w(key, stride, geo['pad'], int4)
             if not fused:
                 fn = kc.int4w_conv_acc if int4 else kc.int8_conv_acc
                 y = fn(xp, wf, bias, **geo)
@@ -415,8 +407,7 @@ class IntEngine:
             if stride > 1:
                 x8 = x8[:, ::stride, ::stride, :].contiguous()
             fused = mult is not None and not self.reference
-            site = self._route(key, 'matmul_requant' if fused else 'matmul',
-                               self._int4(key))
+            site = self._route(key, self._int4(key))
             if fused:
                 return site.requant(x8, mult, out_bits=bits, signed=signed,
                                     relu=True)
@@ -495,14 +486,14 @@ class ResnetEngine(IntEngine):
 
     def _init_w(self):
         """Weights of the init conv that does not take the space-to-depth
-        route: the 3×3 fold (folded input) or the CIFAR 3×3 (C = 3: the
-        rule leaves it on the first core)."""
+        route: the 3×3 fold (folded input) or the CIFAR 3×3 (C = 3, which
+        the card's alignment step zero-fills to 16 at each call)."""
         if 'init' not in self._w:
             w = np.asarray(self.fm[self.init_key + '.weight_int'])
             b = np.asarray(self.fm[self.init_key + '.bias_int'])
             if self.folded:
                 w, b = _fold.fold4_kernel(w), np.tile(b, 4)
-            self._w['init'] = self._conv_weights(w, b, 'conv_acc', (0, 0))
+            self._w['init'] = self._conv_weights(w, b, (0, 0))
         return self._w['init']
 
     def _forward(self, images: torch.Tensor, emit) -> torch.Tensor:
@@ -600,7 +591,7 @@ class ResnetEngine(IntEngine):
             mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out, n)
             with span('engine.residual'):
                 if fused:     # conv3 leaves as the carrier
-                    x = self._route(key3, 'matmul', False).residual(
+                    x = self._route(key3, False).residual(
                         h, id_acc, mult_main, mult_id)
                 else:
                     x_wide = torch.clamp_min(self._requant_add(

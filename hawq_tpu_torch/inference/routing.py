@@ -71,18 +71,17 @@ class Routed1x1(NamedTuple):
     one kind (:meth:`prepare`): ``w`` the (K, N) int8 weights for #1 / #2,
     or with ``int4`` the nibble-packed (K/2, N) bytes for #3 / #4 (an odd K
     padded to even with a zero row), either laid out as the Hopper core's
-    handle (``kernels.matmul.prepare_weights``) where its rule takes the
-    widths; ``bias`` int32; ``cin`` the input channels."""
+    handle (``kernels.matmul.prepare_weights`` /
+    ``prepare_weights_int4``); ``bias`` int32; ``cin`` the input
+    channels."""
     w: object
     bias: torch.Tensor
     cin: int
     int4: bool
 
     @classmethod
-    def prepare(cls, w, bias, int4: bool, kind: str,
+    def prepare(cls, w, bias, int4: bool,
                 device: torch.device) -> 'Routed1x1':
-        """``kind``: 'matmul' (the accumulator forms) or 'matmul_requant'
-        (the requant forms), the ``sm90_route`` kind of its calls."""
         w = np.asarray(w, np.int8)
         cin, cout = w.shape[-2], w.shape[-1]
         w = w.reshape(cin, cout)
@@ -90,9 +89,7 @@ class Routed1x1(NamedTuple):
             w = np.concatenate([w, np.zeros((1, cout), np.int8)])
         wd = torch.tensor(km.pack_int4(w) if int4 else
                           np.ascontiguousarray(w), device=device)
-        if km.sm90_route(kind, k=w.shape[0], n=cout, ptr=0) is None:
-            wd = (km.prepare_weights_int4(wd) if int4
-                  else km.prepare_weights(wd))
+        wd = km.prepare_weights_int4(wd) if int4 else km.prepare_weights(wd)
         return cls(wd, torch.tensor(np.asarray(bias, np.int32).reshape(-1),
                                     device=device), cin, int4)
 
@@ -137,17 +134,17 @@ class Routed1x1(NamedTuple):
 
 def make_router(fm: FrozenModel, device: torch.device,
                 cache: Optional[Dict] = None
-                ) -> Callable[[str, str, bool], Routed1x1]:
-    """``route(key, kind, int4)`` → the :class:`Routed1x1` of 1×1 conv or FC
-    ``key`` for kernels of ``kind``, nibble-packed with ``int4`` (the
-    caller's rule: an engine's :meth:`_int4`), prepared once into
-    ``cache`` (an engine keeps its weights there)."""
+                ) -> Callable[[str, bool], Routed1x1]:
+    """``route(key, int4)`` → the :class:`Routed1x1` of 1×1 conv or FC
+    ``key``, nibble-packed with ``int4`` (the caller's rule: an engine's
+    :meth:`_int4`), prepared once into ``cache`` (an engine keeps its
+    weights there)."""
     cache = {} if cache is None else cache
 
-    def route(key: str, kind: str, int4: bool) -> Routed1x1:
+    def route(key: str, int4: bool) -> Routed1x1:
         if key not in cache:
             cache[key] = Routed1x1.prepare(fm[key + '.weight_int'],
-                                           fm[key + '.bias_int'], int4, kind,
+                                           fm[key + '.bias_int'], int4,
                                            device)
         return cache[key]
     return route

@@ -20,10 +20,11 @@ the ``hawq`` namespace (:func:`define_op`; ``torch.ops.hawq.<wrapper name>``),
 so that ``torch.export`` can trace an engine and a saved program can call the
 kernels again (``export.export.export_program``).  An operator takes tensors,
 ints, floats and bools only; its CUDA implementation is the wrapper's launch
-(the core, the tile and the tensor map chosen there, from the real
-pointers), its CPU implementation the plain version, its fake implementation
-the output's shape and dtype.  An eager call on a plain CPU or CUDA tensor
-runs the implementation without the dispatcher's cost (:class:`Op`).
+(the operands' alignment, the tile and the tensor map chosen there, from
+the real pointers), its CPU implementation the plain version, its fake
+implementation the output's shape and dtype.  An eager call on a plain CPU
+or CUDA tensor runs the implementation without the dispatcher's cost
+(:class:`Op`).
 Registering the operators builds nothing: the library is compiled at the
 first launch.
 """
@@ -51,9 +52,6 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    'hawq_int8_matmul': [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    'hawq_int8_matmul_kblocked': [_P] * 6 + [_I] * 8 + [_P],
-    'hawq_int8_conv': [_P, _P, _P, _P, _P] + [_I] * 13 + [_P],
     'hawq_sm90_weight_map': [_P, _P] + [_I] * 4,
     'hawq_int8_matmul_sm90': [_P, _P, _P, _P] + [_I] * 6 + [_P],
     'hawq_int8_matmul_requant_sm90': [_P] * 5 + [_I] * 8 + [_P],
@@ -75,12 +73,8 @@ _SIGNATURES = {
     'hawq_minmax_f32': [_P, _L, _P, _P, _P],
 }
 
-# Launch counts per wrapper, and per wrapper and core ('name@sm90' for
-# csrc/gemm_s8_sm90.cuh, 'name@mma' for csrc/gemm_s8.cuh, 'name@cuda' for
-# D1's own kernel in csrc/depthwise.cu and A1's in csrc/avgpool.cu); reset
-# with reset_launches().
+# Launch counts per wrapper; reset with reset_launches().
 LAUNCHES: Dict[str, int] = {}
-CORE_LAUNCHES: Dict[str, int] = {}
 
 # The ``hawq`` operator namespace; the operators live as long as this object.
 OPS = torch.library.Library('hawq', 'DEF')
@@ -91,17 +85,13 @@ build_info: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, CORE_LAUNCHES):
-        for k in list(counts):
-            counts[k] = 0
+    for k in list(LAUNCHES):
+        LAUNCHES[k] = 0
 
 
-def count(name: str, core: Optional[str] = None) -> None:
-    """One launch of wrapper ``name``; on ``core`` where it has one."""
+def count(name: str) -> None:
+    """One launch of wrapper ``name``."""
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
-    if core is not None:
-        key = f'{name}@{core}'
-        CORE_LAUNCHES[key] = CORE_LAUNCHES.get(key, 0) + 1
 
 
 class Op:

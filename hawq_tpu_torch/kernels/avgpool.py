@@ -273,7 +273,7 @@ def _avgpool_requant_cuda(x, mult, out_bits, signed, in_mult, in_bits,
             in_stride, int(in_lo), int(in_hi), mult_stride, int(lo), int(hi),
             *plan, _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name, 'cuda')
+    _build.count(name)
     return out
 
 
@@ -292,7 +292,7 @@ def _avgpool_cuda(x, plan) -> torch.Tensor:
             x.data_ptr(), out.data_ptr(), b, h, w, c, _IN_CODES[x.dtype],
             *plan, _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name, 'cuda')
+    _build.count(name)
     return out
 
 

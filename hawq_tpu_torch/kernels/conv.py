@@ -9,26 +9,24 @@ Same layouts and signatures as the reference: the input is the zero-padded
 :func:`pack_int4_conv`), the output (B, H·W, N).  Stride 2 is rewritten to
 stride 1 by space-to-depth (:func:`s2d_conv_transform`).
 
-On a CUDA tensor each wrapper launches the hand-written kernel
-(csrc/conv.cu over csrc/gemm_s8.cuh: any taps, C and N, ragged edges
-masked; the int4 forms need an even C); on a CPU tensor it runs the plain
-version, a tap-decomposed float64 product that is exact for these integer
-sums.
-
-All four run on the Hopper core (csrc/conv_sm90.cu and
-csrc/conv_int4_sm90.cu over csrc/gemm_s8_sm90.cuh) wherever
-``matmul.sm90_route`` admits the shape (kind 'conv' for the requant forms,
-'conv_acc' for the int32 ones): the M tiles are rectangles of output pixels
-(:func:`conv_tile_plan`) so that every tap of a tile is one TMA box of the
-slab, and the weights are the K-major layout of ``matmul.prepare_weights``
-/ ``matmul.prepare_weights_int4`` (a handle, or laid out on the device at
-each call); the int4 forms keep them nibble-packed in device memory and
-unpack them inside the kernel.  :func:`conv_acc_tiled_plain` is the plain
-version of that walk, :func:`conv_requant_tiled_plain` its requant.
+On a CUDA tensor each wrapper launches the hand-written GEMM core for
+Hopper (csrc/conv_sm90.cu and csrc/conv_int4_sm90.cu over
+csrc/gemm_s8_sm90.cuh; any taps, C and N, the int4 forms need an even C);
+on a CPU tensor it runs the plain version, a tap-decomposed float64 product
+that is exact for these integer sums.  The M tiles are rectangles of
+output pixels (:func:`conv_tile_plan`) so that every tap of a tile is one
+TMA box of the slab, and the weights are the K-major layout of
+``matmul.prepare_weights`` / ``matmul.prepare_weights_int4`` (a handle, or
+laid out on the device at each call); the int4 forms keep them
+nibble-packed in device memory and unpack them inside the kernel.  A slab
+whose C is not a multiple of 16, or an output whose rows are not whole 16
+bytes, is zero-padded first by ``matmul.sm90_operands``.
+:func:`conv_acc_tiled_plain` is the plain version of that walk,
+:func:`conv_requant_tiled_plain` its requant.
 
 The four run as the operators ``torch.ops.hawq.<wrapper name>`` (:data:`OPS`,
-as ``matmul.OPS``): the core, the border's zero fill and the tile are chosen
-at launch, from the real pointers.
+as ``matmul.OPS``): the border's zero fill (TMA's) and the tile are chosen
+at launch.
 """
 
 from __future__ import annotations
@@ -41,15 +39,14 @@ import torch
 import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
-from hawq_tpu_torch.kernels.matmul import (_CORE_NAMES, SM90_K_ALIGN,
+from hawq_tpu_torch.kernels.matmul import (SM90_ALIGN, SM90_K_ALIGN,
                                            SM90_TILE_M, PreparedWeights,
-                                           core_code, epilogue_bounds,
-                                           pack_int4, pick_core,
+                                           epilogue_bounds, pack_int4,
                                            prepare_weights,
                                            prepare_weights_int4,
-                                           requant_epilogue, sm90_tile_n,
-                                           sm_count, unpack_int4,
-                                           unprepare_weights)
+                                           requant_epilogue, sm90_operands,
+                                           sm90_tile_n, sm_count,
+                                           unpack_int4)
 
 
 # ---------------------------------------------------------------------------
@@ -159,14 +156,15 @@ def conv_call(x8: torch.Tensor, taps: Tuple[int, int],
 
       * stride 1 with a symmetric border on each axis: the unpadded
         activations, the border passed on as ``pad`` (TMA's zero fill on
-        the Hopper core; elsewhere the wrapper pads a copy);
+        the card; on the CPU the wrapper pads a copy);
       * stride 1 otherwise: the padded slab;
       * stride 2: the space-to-depth rewrite of the padded input, its C
         zero-filled to a multiple of 4 first, so that the rewrite's 4·C
-        meets the Hopper core's C % 16 (zero activations meet zero
-        weights; the RGB image's 3 → 4), cut or zero-extended to the rows
-        and columns the rewritten kernel reads (an even kernel size gains a
-        zero tap, and with it one more zero row or column of input).
+        is whole 16-byte pixels, as the Hopper core's TMA reads them (zero
+        activations meet zero weights; the RGB image's 3 → 4), cut or
+        zero-extended to the rows and columns the rewritten kernel reads
+        (an even kernel size gains a zero tap, and with it one more zero
+        row or column of input).
 
     The engines and the QAT layers' integer conv both take this route."""
     kh, kw = taps
@@ -270,14 +268,18 @@ def conv_tile_plan(h: int, w: int) -> Tuple[int, int]:
 def sm90_row_taps(taps: Tuple[int, int], cin: int,
                   pad: Tuple[int, int] = (0, 0)) -> int:
     """Taps of a kernel row the Hopper core reads as one: kw where C is not
-    a multiple of 64 and the slab is read whole along x (no zero border left
-    to TMA there), else 1.  A row's kw·C bytes are contiguous in the slab,
-    so one TMA box over a map whose pixels are kw·C bytes wide, C bytes
-    apart, holds the whole row: K is padded to 64 once a row, not once a
-    tap (the RGB init's 4×4 taps of C = 16: 64 bytes a row, not 4 × 64),
-    and the box's inner extent is whole."""
+    a multiple of 64 but of 16 and the slab is read whole along x (no zero
+    border left to TMA there), else 1.  A row's kw·C bytes are contiguous
+    in the slab, so one TMA box over a map whose pixels are kw·C bytes
+    wide, C bytes apart, holds the whole row: K is padded to 64 once a row,
+    not once a tap (the RGB init's 4×4 taps of C = 16: 64 bytes a row, not
+    4 × 64), and the box's inner extent is whole.  The map's pixels must
+    lie 16 bytes apart, so a C that is not a multiple of 16 reads a tap at
+    a time, over the slab that ``matmul.sm90_operands`` zero-fills to a
+    multiple of 16 channels."""
     kw = taps[1]
-    return kw if kw > 1 and pad[1] == 0 and cin % SM90_K_ALIGN else 1
+    return (kw if kw > 1 and pad[1] == 0 and cin % SM90_K_ALIGN
+            and cin % SM90_ALIGN == 0 else 1)
 
 
 def prepare_conv_weights(weights: torch.Tensor, taps: Tuple[int, int],
@@ -311,8 +313,9 @@ def conv_acc_tiled_plain(xp, prepared: PreparedWeights, bias, *, taps,
     rectangle's box of the slab, zero-filled where it leaves the slab (as
     TMA does) and in the channels up to the weights' padded C; the product
     against the K-major ``prepared.wt`` (a packed int4 handle unpacked chunk
-    by chunk, as the kernel does); pixels outside the image dropped at the
-    store → (B, H·W, N) int32."""
+    by chunk, as the kernel does), its N columns zero-filled to the bias's
+    width (an output widened by ``matmul.sm90_operands``); pixels outside
+    the image dropped at the store → (B, H·W, N) int32."""
     kh, kw = taps
     h, w = out_hw
     b = xp.shape[0]
@@ -337,6 +340,7 @@ def conv_acc_tiled_plain(xp, prepared: PreparedWeights, bias, *, taps,
                 0, 1, 3, 2, 4, 5).reshape(b * ty * tx * SM90_TILE_M, cpad)
             d = rows.to(torch.float64) @ wd[:, t * cpad:(t + 1) * cpad].t()
             acc = d if acc is None else acc + d
+    acc = F.pad(acc, (0, bias.shape[0] - prepared.n))
     acc = acc.to(torch.int32).reshape(b, ty, tx, th, tw, -1).permute(
         0, 1, 3, 2, 4, 5).reshape(b, ty * th, tx * tw, -1)
     return acc[:, :h, :w, :].reshape(b, h * w, -1) + bias
@@ -359,7 +363,8 @@ def _launch_sm90(name, xp, prepared: PreparedWeights, bias, mult, taps,
                  out_hw, cin, lo, hi, pad, tile_n: Optional[int],
                  smem_extra: int) -> torch.Tensor:
     """The four convs on the Hopper core: with ``mult`` the requant forms
-    (int8 out), without it the accumulator forms (int32 out)."""
+    (int8 out), without it the accumulator forms (int32 out); the operands
+    aligned by ``matmul.sm90_operands``."""
     requant = mult is not None
     kh, kw = taps
     h, w = out_hw
@@ -376,13 +381,16 @@ def _launch_sm90(name, xp, prepared: PreparedWeights, bias, mult, taps,
         _build.require(mult, 'mult', torch.float32, (n,), dev)
     if b < 1 or h < 1 or w < 1:
         raise ValueError(f'{name}: empty output')
+    xp, prepared, (bias, mult), _ = sm90_operands(
+        xp, prepared, (bias, mult), 1 if requant else 4)
+    cin, n_out = prepared.cin // prepared.row_taps, bias.shape[0]
     th, tw = conv_tile_plan(h, w)
     if tile_n is None:
         tile_n = sm90_conv_tile_n(prepared, b, out_hw, sm_count(dev))
-    out = torch.empty((b, h * w, n),
+    out = torch.empty((b, h * w, n_out),
                       dtype=torch.int8 if requant else torch.int32, device=dev)
     lib = _build.lib()
-    shape = (b, h, w, cin, kh, kw, n)
+    shape = (b, h, w, cin, kh, kw, n_out)
     tail = (prepared.row_taps, prepared.cpad, prepared.tile_k, tile_n, th,
             tw, pad[0], pad[1], smem_extra, _build.stream_ptr(dev))
     with torch.cuda.device(dev):
@@ -397,42 +405,9 @@ def _launch_sm90(name, xp, prepared: PreparedWeights, bias, mult, taps,
                      else lib.hawq_int8_conv_acc_sm90)
             code = entry(xp.data_ptr(), prepared.tensor_map(tile_n),
                          bias.data_ptr(), out.data_ptr(), *shape, *tail)
-    _build.check(code, f'{name} (sm90 core)')
-    _build.count(name, 'sm90')
-    return out
-
-
-def _launch(xp, w_flat, bias, mult, taps, out_hw, cin, lo, hi,
-            requant: bool, int4: bool) -> torch.Tensor:
-    kh, kw = taps
-    h, w = out_hw
-    b = xp.shape[0]
-    n = w_flat.shape[1]
-    if int4 and cin % 2:
-        raise ValueError(f'int4w conv needs an even C per tap, got {cin}')
-    dev = _build.kernel_device(xp)
-    _build.require(xp, 'xp', torch.int8, (b, h + kh - 1, (w + kw - 1) * cin),
-                   dev)
-    _build.require(w_flat, 'w_packed' if int4 else 'w_flat', torch.int8,
-                   (kh * kw * (cin // 2 if int4 else cin), n), dev)
-    _build.require(bias, 'bias', torch.int32, (n,), dev)
-    if requant:
-        _build.require(mult, 'mult', torch.float32, (n,), dev)
-    out = torch.empty((b, h * w, n),
-                      dtype=torch.int8 if requant else torch.int32, device=dev)
-    vec_a = int(cin % 16 == 0 and xp.data_ptr() % 16 == 0)
-    vec_b = int(n % 4 == 0 and w_flat.data_ptr() % 4 == 0)
-    name = (('int4w' if int4 else 'int8') + '_conv_'
-            + ('requant' if requant else 'acc'))
-    with torch.cuda.device(dev):
-        code = _build.lib().hawq_int8_conv(
-            xp.data_ptr(), w_flat.data_ptr(), bias.data_ptr(),
-            mult.data_ptr() if requant else None, out.data_ptr(),
-            b, h, w, cin, kh, kw, n, lo, hi, int(requant), int(int4), vec_a,
-            vec_b, _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name, 'mma')
-    return out
+    _build.count(name)
+    return out if n_out == n else out[..., :n].contiguous()
 
 
 def _handle(w, cpad, row_taps, taps, cin, int4) -> PreparedWeights:
@@ -464,27 +439,14 @@ def _conv_plain(name, xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
 
 
 def _conv_cuda(name, xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
-               out_hw, cin, pad, core, tile_n, smem_extra) -> torch.Tensor:
-    """The four convs' CUDA implementation: the core the rule, or ``core``,
-    names for these pointers; the first core on the input padded first, the
-    Hopper core on the handle's layout (``cpad`` not 0) or on plain weights
-    laid out here."""
+               out_hw, cin, pad, tile_n, smem_extra) -> torch.Tensor:
+    """The four convs' CUDA implementation: the Hopper core on the handle's
+    layout (``cpad`` not 0) or on plain weights laid out here."""
     int4 = name.startswith('int4w')
-    requant = mult is not None
     taps, out_hw, pad = tuple(taps), tuple(out_hw), tuple(pad)
-    prepared = _handle(w, cpad, row_taps, taps, cin, int4) if cpad else None
-    core = pick_core('conv' if requant else 'conv_acc', name,
-                     _CORE_NAMES[core], k=cin,
-                     n=w.shape[0] if cpad else w.shape[1], ptr=xp.data_ptr())
-    if pad != (0, 0) and core != 'sm90':
-        xp = pad_conv_input(xp, pad, taps=taps, out_hw=out_hw, cin=cin)
-        pad = (0, 0)
-    if core == 'mma':
-        if prepared is not None:
-            w = unprepare_weights(prepared)
-        return _launch(xp, w, bias, mult, taps, out_hw, cin, lo, hi,
-                       requant, int4)
-    if prepared is None:
+    if cpad:
+        prepared = _handle(w, cpad, row_taps, taps, cin, int4)
+    else:
         if int4 and cin % 2:
             raise ValueError(f'{name} needs an even C per tap, got {cin}')
         _build.require(w, 'w_packed' if int4 else 'w_flat', torch.int8,
@@ -497,32 +459,31 @@ def _conv_cuda(name, xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
 
 def _define_conv(name: str):
     """``hawq::<name>(xp, w, cpad, row_taps, bias, mult, lo, hi, taps,
-    out_hw, cin, pad, core, tile_n, smem_extra)``: ``cpad`` 0 for plain
-    weights, else with ``row_taps`` the handle whose ``wt`` is ``w``;
-    ``mult`` None (``lo``, ``hi`` 0) for the accumulator forms; ``core`` a
-    ``matmul.CORE_CODES`` value; ``tile_n`` −1 for the rule's."""
+    out_hw, cin, pad, tile_n, smem_extra)``: ``cpad`` 0 for plain weights,
+    else with ``row_taps`` the handle whose ``wt`` is ``w``; ``mult`` None
+    (``lo``, ``hi`` 0) for the accumulator forms; ``tile_n`` −1 for the
+    rule's."""
     requant = name.endswith('_requant')
 
     def cpu(xp, w, cpad, row_taps, bias, mult, lo, hi, taps, out_hw, cin,
-            pad, core, tile_n, smem_extra):
+            pad, tile_n, smem_extra):
         return _conv_plain(name, xp, w, cpad, row_taps, bias, mult, lo, hi,
                            taps, out_hw, cin, pad)
 
     def cuda(xp, w, cpad, row_taps, bias, mult, lo, hi, taps, out_hw, cin,
-             pad, core, tile_n, smem_extra):
+             pad, tile_n, smem_extra):
         return _conv_cuda(name, xp, w, cpad, row_taps, bias, mult, lo, hi,
-                          taps, out_hw, cin, pad, core, tile_n, smem_extra)
+                          taps, out_hw, cin, pad, tile_n, smem_extra)
 
     def fake(xp, w, cpad, row_taps, bias, mult, lo, hi, taps, out_hw, cin,
-             pad, core, tile_n, smem_extra):
+             pad, tile_n, smem_extra):
         return xp.new_empty((xp.shape[0], out_hw[0] * out_hw[1],
                              w.shape[0] if cpad else w.shape[1]),
                             dtype=torch.int8 if requant else torch.int32)
     return _build.define_op(
         f'{name}(Tensor xp, Tensor w, int cpad, int row_taps, Tensor bias, '
         f'Tensor? mult, int lo, int hi, int[] taps, int[] out_hw, int cin, '
-        f'int[] pad, int core, int tile_n, int smem_extra) -> Tensor',
-        cpu, cuda, fake)
+        f'int[] pad, int tile_n, int smem_extra) -> Tensor', cpu, cuda, fake)
 
 
 OPS = {name: _define_conv(name) for name in (
@@ -531,7 +492,7 @@ OPS = {name: _define_conv(name) for name in (
 
 
 def _conv(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi, pad,
-          core, tile_n, smem_extra):
+          tile_n, smem_extra):
     """The four convs (``mult`` None for the accumulator forms) through
     their operators: a handle taken apart into its ``wt``, padded C and row
     taps, the geometry and options into ints."""
@@ -547,14 +508,12 @@ def _conv(name, xp, weights, bias, mult, taps, out_hw, cin, lo, hi, pad,
         weights, cpad, row_taps = weights.wt, weights.cpad, weights.row_taps
     return OPS[name](xp, weights, cpad, row_taps, bias, mult, lo, hi,
                      [int(t) for t in taps], [int(v) for v in out_hw],
-                     int(cin), list(pad), core_code(name, core),
-                     _build.opt_int(tile_n), smem_extra)
+                     int(cin), list(pad), _build.opt_int(tile_n), smem_extra)
 
 
 def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
                       out_bits=8, signed=True, relu=False,
                       pad: Tuple[int, int] = (0, 0),
-                      core: Optional[str] = None,
                       tile_n: Optional[int] = None, smem_extra: int = 0):
     """Stride-1 int8 conv + fused dyadic requant → (B, H·W, N) int8.
 
@@ -565,53 +524,49 @@ def int8_conv_requant(xp, w_flat, bias, mult, *, taps, out_hw, cin,
 
     With ``pad`` = (ph, pw), xp is the activations that still lack ph rows
     and pw columns of zero border on each side, (B, H + kh − 1 − 2ph,
-    (W + kw − 1 − 2pw)·C): the Hopper core lets TMA's out-of-bounds zero
-    fill supply the border, so no padded copy is made; on the CPU and on
-    the first core the wrapper pads first.
+    (W + kw − 1 − 2pw)·C): on the card TMA's out-of-bounds zero fill
+    supplies the border, so no padded copy is made; on the CPU the wrapper
+    pads first.
 
-    On a CUDA tensor the call runs on the Hopper core where
-    ``matmul.sm90_route`` admits it, else on the first core; ``core``
-    ('sm90' / 'mma') overrides the rule, ``tile_n`` the Hopper core's tile
-    width, and ``smem_extra`` adds to its shared-memory request (timing and
-    tests).  The result does not depend on any of them."""
+    On a CUDA tensor ``tile_n`` sets the Hopper core's tile width, and
+    ``smem_extra`` adds to its shared-memory request (timing and tests).
+    The result does not depend on either."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
     return _conv('int8_conv_requant', xp, w_flat, bias, mult, taps, out_hw,
-                 cin, lo, hi, pad, core, tile_n, smem_extra)
+                 cin, lo, hi, pad, tile_n, smem_extra)
 
 
 def int8_conv_acc(xp, w_flat, bias, *, taps, out_hw, cin,
-                  pad: Tuple[int, int] = (0, 0), core: Optional[str] = None,
+                  pad: Tuple[int, int] = (0, 0),
                   tile_n: Optional[int] = None, smem_extra: int = 0):
     """Stride-1 int8 conv returning the raw int32 accumulator + bias →
     (B, H·W, N) int32.  ``w_flat`` (or its ``prepare_weights`` handle),
-    ``pad``, ``core``, ``tile_n`` and ``smem_extra`` as in
-    :func:`int8_conv_requant`; the Hopper core takes the call where
-    ``matmul.sm90_route('conv_acc', …)`` admits it."""
+    ``pad``, ``tile_n`` and ``smem_extra`` as in
+    :func:`int8_conv_requant`."""
     return _conv('int8_conv_acc', xp, w_flat, bias, None, taps, out_hw, cin,
-                 0, 0, pad, core, tile_n, smem_extra)
+                 0, 0, pad, tile_n, smem_extra)
 
 
 def int4w_conv_requant(xp, w_packed, bias, mult, *, taps, out_hw, cin,
                        out_bits=8, signed=True, relu=False,
                        pad: Tuple[int, int] = (0, 0),
-                       core: Optional[str] = None,
                        tile_n: Optional[int] = None, smem_extra: int = 0):
     """:func:`int8_conv_requant` with nibble-packed int4 weights: w_packed
     (kh·kw·C/2, N) from :func:`pack_int4_conv`, or its
-    ``prepare_weights_int4(w_packed, kh·kw)`` handle; C even.  On the Hopper
-    core the weights stay packed in device memory and the kernel unpacks
-    them; ``pad``, ``core``, ``tile_n`` and ``smem_extra`` as in
+    ``prepare_weights_int4(w_packed, kh·kw)`` handle; C even.  On the card
+    the weights stay packed in device memory and the kernel unpacks them;
+    ``pad``, ``tile_n`` and ``smem_extra`` as in
     :func:`int8_conv_requant`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
     return _conv('int4w_conv_requant', xp, w_packed, bias, mult, taps,
-                 out_hw, cin, lo, hi, pad, core, tile_n, smem_extra)
+                 out_hw, cin, lo, hi, pad, tile_n, smem_extra)
 
 
 def int4w_conv_acc(xp, w_packed, bias, *, taps, out_hw, cin,
-                   pad: Tuple[int, int] = (0, 0), core: Optional[str] = None,
+                   pad: Tuple[int, int] = (0, 0),
                    tile_n: Optional[int] = None, smem_extra: int = 0):
     """:func:`int8_conv_acc` with nibble-packed int4 weights: w_packed from
     :func:`pack_int4_conv`, or its ``prepare_weights_int4`` handle (kept
-    packed on the Hopper core); C even."""
+    packed on the card); C even."""
     return _conv('int4w_conv_acc', xp, w_packed, bias, None, taps, out_hw,
-                 cin, 0, 0, pad, core, tile_n, smem_extra)
+                 cin, 0, 0, pad, tile_n, smem_extra)

@@ -9,9 +9,9 @@
 // int8 conv (operations at C >= 128, bytes at C = 64) with half the weight
 // bytes.  hawq_int4w_conv_acc_sm90 replaces int4w_conv_acc (conv.py:265):
 // bound by its bytes, of which the int32 output is most; it leaves in whole
-// 128-byte lines through TMA.  Both for the shapes the core takes
-// (kernels/matmul.py sm90_route, kinds 'conv' and 'conv_acc'); the others
-// stay on conv.cu.  The weights arrive as the map of their
+// 128-byte lines through TMA.  Both take every shape with an even C
+// (kernels/matmul.py sm90_operands pads what TMA cannot read as it is).
+// The weights arrive as the map of their
 // prepare_weights_int4 handle (N, taps*Cpad/2); the other arguments are
 // those of hawq_sm90::conv_entry.
 #include "gemm_s8_sm90.cuh"

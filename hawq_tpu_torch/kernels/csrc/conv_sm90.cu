@@ -8,10 +8,10 @@
 // hawq_int8_conv_acc_sm90 replaces int8_conv_acc (conv.py:243, the same
 // kernel with acc_only): bound by its bytes, of which the int32 output is
 // most (4 bytes per output against 1 per input); the tile leaves through
-// shared memory and TMA in whole 128-byte lines.  Both for the shapes the
-// core takes (kernels/matmul.py sm90_route, kinds 'conv' and 'conv_acc');
-// the others stay on conv.cu.  The arguments are those of
-// hawq_sm90::conv_entry.
+// shared memory and TMA in whole 128-byte lines.  Both take every shape:
+// the wrapper zero-pads a slab whose C, or an output whose N, misses TMA's
+// 16 bytes first (kernels/matmul.py sm90_operands).  The arguments are
+// those of hawq_sm90::conv_entry.
 #include "gemm_s8_sm90.cuh"
 
 extern "C" int hawq_int8_conv_sm90(const int8_t* xp, const void* wmap_bytes,

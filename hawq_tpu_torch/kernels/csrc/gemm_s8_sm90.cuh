@@ -5,20 +5,19 @@
 //
 //   out[m, n] = epilogue(sum_k A[m, k] * W[k, n] + bias[n])
 //
-// the function of gemm_s8.cuh, for the kernels a ResNet-50 forward loses the
-// most time on:
+// the port's one integer GEMM core, for every conv and matmul kernel:
 //
 //  * int8_conv_requant (CONV, REQUANT): replaces hawq_tpu/kernels/conv.py
 //    int8_conv_requant (conv.py:228, through _conv_call / _conv_kernel /
 //    _tap_dot).  On the H100 the 3x3 convs of stages 2-4 are bound by their
 //    int8 operations (550-1200 ops per byte against a ridge of ~590), the
-//    C = 64 convs of stage 1 by their bytes; in practice the old core was held
-//    45x above that bound by one shared-memory stage, two __syncthreads per
-//    64-deep K step, mma.sync fed by 4-byte shared loads, and a 4x4 byte
-//    transpose of W by every block on every K tile.
+//    C = 64 convs of stage 1 by their bytes; an earlier mma.sync core was
+//    held 45x above that bound by one shared-memory stage, two
+//    __syncthreads per 64-deep K step, mma.sync fed by 4-byte shared loads,
+//    and a 4x4 byte transpose of W by every block on every K tile.
 //  * int8_matmul_acc (!CONV, !REQUANT): replaces hawq_tpu/kernels/matmul.py
 //    int8_matmul_acc (matmul.py:189).  Its int32 output is nine tenths of its
-//    bytes, so its stores bound it; the old core stored 4 bytes per lane with
+//    bytes, so its stores bound it; that core stored 4 bytes per lane with
 //    an 8-byte lane stride.
 //  * int8_matmul_acc_residual (!CONV, !REQUANT, RESIDUAL): the bottleneck's
 //    last 1x1 conv with the unit's residual requant-add and ReLU in its
@@ -53,7 +52,7 @@
 //    form itself.  The TPU kernel keeps its int32 accumulator in on-chip
 //    scratch across a sequential K grid and requantizes at the last K step;
 //    here one block's register accumulators walk the whole K through the
-//    ring and requantize once (kernels/matmul.py kblocked_core).
+//    ring and requantize once: no split-K workspace.
 //
 // What the design does about that:
 //
@@ -90,7 +89,7 @@
 //    (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint) and passed as
 //    __grid_constant__ parameters; the weight map is encoded once per
 //    prepared weight and tile width and handed in.
-//  * The epilogue adds the bias (and requants with gemm_s8.cuh's requant_s8,
+//  * The epilogue adds the bias (and requants with requant.cuh's requant_s8,
 //    rounded multiply then rounded add) in registers, stages the tile in the
 //    ring's shared memory, and one thread stores it with TMA: int32 tiles as
 //    64 x 32 chunks in the 128-byte swizzle (conflict-free 8-byte shared
@@ -155,10 +154,10 @@
 // float32 op order); the TMA store is the accumulator's.  Rows and columns
 // outside (M, N) are neither read nor stored: the maps clip them.
 //
-// Shapes this core does not take (row strides or base pointers that are not
-// multiples of 16 bytes) go to gemm_s8.cuh by the explicit rule sm90_route
-// in kernels/matmul.py; a failure here is returned to the caller, never
-// retried on the other core.
+// Every row stride and base pointer handed in is a multiple of 16 bytes, as
+// TMA needs: kernels/matmul.py sm90_operands zero-pads a call's operands to
+// that first, so that this core takes every shape.  A failure here is
+// returned to the caller.
 #pragma once
 
 #include <cstdint>
@@ -167,7 +166,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "gemm_s8.cuh"
+#include "requant.cuh"
 
 namespace hawq_sm90 {
 
@@ -341,6 +340,14 @@ __device__ __forceinline__ int swizzled(int off) {
   return off ^ (((off >> 7) & (ROW / 16 - 1)) << 4);
 }
 
+// Four packed int4 values (one per byte, low or high nibble) -> four
+// sign-extended int8 bytes: bit 3 of each byte is copied into bits 4..7
+// (u | (u & 0x08)*0x1E per byte; no carries cross a byte).
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t v, bool high) {
+  uint32_t u = (high ? v >> 4 : v) & 0x0F0F0F0Fu;
+  return u | ((u & 0x08080808u) * 0x1Eu);
+}
+
 // The packed BN x BK/2 tile at ``packed`` -> the int8 BN x BK tile at ``dst``,
 // both swizzled, by the NT consumer threads.  Item i is the 16-byte packed
 // unit u of row r, with i % 8 the row inside an 8-row group, so that the
@@ -375,14 +382,14 @@ __device__ __forceinline__ void unpack_b_tile(const uint8_t* __restrict__ packed
     const int u = g % UNITS;
     if (ITEMS % NT == 0 || i < ITEMS) {
       uint4 lo, hi;
-      lo.x = hawq::sext_nibbles(v[it].x, false);
-      lo.y = hawq::sext_nibbles(v[it].y, false);
-      lo.z = hawq::sext_nibbles(v[it].z, false);
-      lo.w = hawq::sext_nibbles(v[it].w, false);
-      hi.x = hawq::sext_nibbles(v[it].x, true);
-      hi.y = hawq::sext_nibbles(v[it].y, true);
-      hi.z = hawq::sext_nibbles(v[it].z, true);
-      hi.w = hawq::sext_nibbles(v[it].w, true);
+      lo.x = sext_nibbles(v[it].x, false);
+      lo.y = sext_nibbles(v[it].y, false);
+      lo.z = sext_nibbles(v[it].z, false);
+      lo.w = sext_nibbles(v[it].w, false);
+      hi.x = sext_nibbles(v[it].x, true);
+      hi.y = sext_nibbles(v[it].y, true);
+      hi.z = sext_nibbles(v[it].z, true);
+      hi.w = sext_nibbles(v[it].w, true);
       *reinterpret_cast<uint4*>(dst + swizzled<BK>(r * BK + u * 16)) = lo;
       *reinterpret_cast<uint4*>(dst + swizzled<BK>(r * BK + (u + UNITS) * 16)) =
           hi;

@@ -7,13 +7,12 @@
 // int4w_matmul_requant (matmul.py:134): bound on the H100 by its bytes
 // (M K + K N / 2 + M N).  hawq_int4w_matmul_acc_sm90 replaces
 // int4w_matmul_acc (matmul.py:234): bound by its bytes, of which the int32
-// output is most; it leaves in whole 128-byte lines through TMA.  Both for
-// the shapes the core takes (kernels/matmul.py sm90_route, kinds
-// 'matmul_requant' and 'matmul'); the others stay on matmul.cu.  x is (M, K)
-// row-major; the weights arrive as the map of their prepare_weights_int4
-// handle (N, Kpad / 2); bm is the rows of a block's tile, 64 or 128 (two
-// consumer warpgroups that share each unpacked B tile); the other arguments
-// are those of the int8 entry points.
+// output is most; it leaves in whole 128-byte lines through TMA.  Both take
+// every shape with an even K (kernels/matmul.py sm90_operands pads what TMA
+// cannot read as it is).  x is (M, K) row-major; the weights arrive as the
+// map of their prepare_weights_int4 handle (N, Kpad / 2); bm is the rows
+// of a block's tile, 64 or 128 (two consumer warpgroups that share each
+// unpacked B tile); the other arguments are those of the int8 entry points.
 #include "gemm_s8_sm90.cuh"
 
 extern "C" int hawq_int4w_matmul_sm90(const int8_t* x, const void* wmap_bytes,

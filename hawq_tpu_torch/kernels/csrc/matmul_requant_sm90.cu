@@ -1,10 +1,10 @@
 // int8 matmul with fused bias + dyadic requant on the Hopper-native core
 // (gemm_s8_sm90.cuh: TMA ring, mbarriers, wgmma).
 //
-// Replaces hawq_tpu/kernels/matmul.py int8_matmul_requant (matmul.py:68) for
-// the shapes the core takes (kernels/matmul.py sm90_route: K, N and the
-// pointer multiples of 16); the others stay on matmul.cu.  Bound on the H100
-// by its bytes (M K + K N + M N).  x is (M, K) row-major; the weights arrive
+// Replaces hawq_tpu/kernels/matmul.py int8_matmul_requant (matmul.py:68) at
+// every shape (kernels/matmul.py sm90_operands pads a K, an N or a pointer
+// that is not a multiple of 16 first).  Bound on the H100 by its bytes
+// (M K + K N + M N).  x is (M, K) row-major; the weights arrive
 // as the map of their prepared (N, Kpad) K-major copy; the int8 tile leaves
 // through shared memory as one dense 64 x BN TMA box.
 //

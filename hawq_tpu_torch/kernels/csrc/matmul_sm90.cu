@@ -1,11 +1,11 @@
 // int8 matmul returning the int32 accumulator + bias on the Hopper-native
 // core (gemm_s8_sm90.cuh: TMA ring, mbarriers, wgmma).
 //
-// Replaces hawq_tpu/kernels/matmul.py int8_matmul_acc (matmul.py:189) for
-// the shapes the core takes (kernels/matmul.py sm90_route); the others, and
-// the int4 forms, stay on matmul.cu.  Bound on the H100 by its
-// int32 stores (4 M N of its M K + K N + 4 M N bytes): the tile leaves
-// through shared memory in whole 128-byte lines.  x is (M, K) row-major; the
+// Replaces hawq_tpu/kernels/matmul.py int8_matmul_acc (matmul.py:189) at
+// every shape (kernels/matmul.py sm90_operands pads what TMA cannot read as
+// it is).  Bound on the H100 by its int32 stores (4 M N of its
+// M K + K N + 4 M N bytes): the tile leaves through shared memory in whole
+// 128-byte lines.  x is (M, K) row-major; the
 // weights arrive as the map of their prepared (N, Kpad) K-major copy.
 //
 // hawq_int8_matmul_residual_sm90 is the same matmul with the residual

@@ -1,5 +1,5 @@
 // The dyadic requant of one int32 value, shared by the GEMM epilogues
-// (gemm_s8.cuh requant_s8), the pool's requant-in-front form (pool.cu) and
+// (requant_s8), the pool's requant-in-front form (pool.cu) and
 // the engines' standalone requant (requant.cu):
 //
 //   clip(floor(f32(v) * mult + 0.5), lo, hi)
@@ -28,6 +28,13 @@ __device__ __forceinline__ float round_mult_f32(int32_t v, float mult) {
 __device__ __forceinline__ float requant_f32(int32_t v, float mult, float lo,
                                              float hi) {
   return fminf(fmaxf(round_mult_f32(v, mult), lo), hi);
+}
+
+// clip(floor(f32(v) * mult + 0.5), lo, hi) as int8: the GEMM core's requant
+// epilogue
+__device__ __forceinline__ int8_t requant_s8(int32_t v, float mult, int lo,
+                                            int hi) {
+  return (int8_t)__float2int_rz(requant_f32(v, mult, (float)lo, (float)hi));
 }
 
 // max(int32(round(v, mult) + round(id, mult_id)), 0)

@@ -313,7 +313,7 @@ def _dwconv_acc_cuda(x8, w8, bias, stride, plan) -> torch.Tensor:
             x8.data_ptr(), w8.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
             h, w, c, stride, *plan, _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name, 'cuda')
+    _build.count(name)
     return out
 
 
@@ -336,7 +336,7 @@ def _dwconv_requant_cuda(x8, w8, bias, hi6, mult, stride, lo, hi,
             mult.data_ptr(), out.data_ptr(), b, h, w, c, stride, int(lo),
             int(hi), *plan, _build.stream_ptr(dev))
     _build.check(code, name)
-    _build.count(name, 'cuda')
+    _build.count(name)
     return out
 
 

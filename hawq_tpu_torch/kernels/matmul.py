@@ -4,38 +4,36 @@ their nibble-packed int4-weight forms ``int4w_matmul_requant`` /
 ``int4w_matmul_acc``, and the K-blocked ``int8_matmul_requant_kblocked``),
 and the host packer for those weights.
 
-On a CUDA tensor each wrapper launches the hand-written tensor-core kernel
-(csrc/matmul.cu and csrc/matmul_kblocked.cu over csrc/gemm_s8.cuh, any M, K
-and N; the int4 forms need an even K); on a CPU tensor it runs the plain
-PyTorch version beside it.
-The plain versions compute the int32 accumulator exactly through float64
-(every sum here is far below 2⁵³) and repeat the kernel's epilogue op for
-op; the int4 forms unpack the weights with :func:`unpack_int4` first.
+On a CUDA tensor each wrapper launches the hand-written GEMM core for
+Hopper (csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma; any M, K and N, the
+int4 forms need an even K); on a CPU tensor it runs the plain PyTorch
+version beside it.  The plain versions compute the int32 accumulator
+exactly through float64 (every sum here is far below 2⁵³) and repeat the
+kernel's epilogue op for op; the int4 forms unpack the weights with
+:func:`unpack_int4` first.
 
-``int8_matmul_requant``, ``int8_matmul_acc``, their int4 forms, the
-K-blocked matmul (as ``int8_matmul_requant``'s kernel) and the four convs of
-kernels/conv.py run on a second core written for Hopper
-(csrc/gemm_s8_sm90.cuh: TMA, mbarriers, wgmma) wherever :func:`sm90_route`
-admits the shape, and on csrc/gemm_s8.cuh elsewhere.  That core reads the
-weights K-major: :func:`prepare_weights` (and :func:`prepare_weights_int4`
-for nibble-packed weights, which stay packed and are unpacked inside the
-kernel) lays them out once (the engine caches the handle); a wrapper handed
-plain weights lays them out on the device at each call.
-:data:`_build.CORE_LAUNCHES` counts the launches of each core.
+The core reads the weights K-major: :func:`prepare_weights` (and
+:func:`prepare_weights_int4` for nibble-packed weights, which stay packed
+and are unpacked inside the kernel) lays them out once (the engine caches
+the handle); a wrapper handed plain weights lays them out on the device at
+each call.  TMA needs every row stride and base pointer on 16 bytes;
+:func:`sm90_operands`, the one alignment step, zero-pads the operands of a
+call that misses it, so that the core takes every shape (the cells' shapes
+need none of it).  The K-blocked matmul is ``int8_matmul_requant``'s
+kernel: one block walks the whole K in its register accumulators and
+requantizes once.
 
 ``int8_matmul_acc_residual`` is ``int8_matmul_acc`` with a bottleneck
 unit's residual in its epilogue: the requant-add of the accumulator and an
 int32 identity, each with its own multipliers, then the ReLU
-(:func:`residual_epilogue`), so that the unit's last 1×1 conv leaves as its
-int32 carrier.  On the Hopper core it is that core's ``RESIDUAL`` epilogue;
-where the rule excludes the call, the first core's accumulator and then
-:func:`residual_epilogue` in PyTorch.
+(:func:`residual_epilogue`, the plain version), so that the unit's last
+1×1 conv leaves as its int32 carrier: the core's ``RESIDUAL`` epilogue.
 
 The four matmuls and the residual form run as the operators
 ``torch.ops.hawq.<wrapper name>`` (:data:`OPS`; ``_build.define_op``): the
 wrapper takes a handle apart into its ``wt`` and padded K and its options
-into ints, and the operator picks the core and the tile at launch.  The
-K-blocked matmul, on no engine's path, stays a plain call.
+into ints, and the operator aligns the operands and picks the tile at
+launch.  The K-blocked matmul, on no engine's path, stays a plain call.
 """
 
 from __future__ import annotations
@@ -132,13 +130,15 @@ def matmul_requant_plain(x, w, bias, mult, lo, hi):
 def matmul_acc_kmajor_plain(x, prepared: 'PreparedWeights', bias,
                             name: str = 'int8_matmul_acc'):
     """:func:`matmul_acc_plain` by the Hopper core's walk: x zero-filled to
-    whole 64-row tiles and to the padded K of the K-major weights (what TMA
-    does out of bounds), the product against ``prepared.wt``, the rows
-    beyond M dropped at the store."""
+    whole 64-row tiles and to the padded K of the K-major weights, and the
+    weights' N rows to the bias's width (what TMA does out of bounds: an
+    output widened by :func:`sm90_operands`), the product against
+    ``prepared.wt``, the rows beyond M dropped at the store."""
     m, k = x.shape
     prepared.check(1, k, name)
     xt = F.pad(x, (0, prepared.cpad - k, 0, -m % SM90_TILE_M))
     acc = (xt.to(torch.float64) @ prepared.kmajor_int8().to(torch.float64).t())
+    acc = F.pad(acc, (0, bias.shape[0] - prepared.n))
     return acc[:m].to(torch.int32) + bias
 
 
@@ -151,12 +151,13 @@ def matmul_requant_kmajor_plain(x, prepared: 'PreparedWeights', bias, mult,
 
 
 # ---------------------------------------------------------------------------
-# the Hopper core's weights, routing rule and tile width
+# the Hopper core's weights, alignment step and tile width
 # ---------------------------------------------------------------------------
 
 SM90_TILE_M = 64          # rows of an output tile (one wgmma)
 SM90_TILE_NS = (128, 64, 32)
 SM90_K_ALIGN = 64         # every tap's K is zero-padded to a multiple of it
+SM90_ALIGN = 16           # bytes: TMA's rule for row strides and pointers
 
 
 class PreparedWeights:
@@ -338,29 +339,56 @@ def unprepare_weights(prepared: PreparedWeights) -> torch.Tensor:
     return w.reshape(p.k, p.n).contiguous()
 
 
-def sm90_route(kind: str, *, k: int, n: int, ptr: int) -> Optional[str]:
-    """The rule that sends a call to the Hopper core or to the first one:
-    None where the Hopper core takes it, else the clause that excludes it.
+def sm90_operands(x: torch.Tensor, prepared: PreparedWeights, vectors,
+                  out_bytes: int, identity: Optional[torch.Tensor] = None):
+    """The one alignment step between a call and the Hopper core, whose TMA
+    maps need every row stride and base pointer on 16 bytes: it zero-pads
+    the operands that miss that, so that the core takes every shape.
 
-    TMA needs every row stride and base pointer to be a multiple of 16
-    bytes: the input's rows of ``k`` int8 at ``ptr`` (x (M, K) for a
-    matmul, the slab's pixels of C channels for a conv), and the output's
-    rows of N, int32 (4 N bytes) for an accumulator, int8 after a requant.
-    ``kind`` 'matmul' (``int8_matmul_acc``, ``int4w_matmul_acc``): K % 16,
-    N % 4; 'matmul_requant' (``int8_matmul_requant``,
-    ``int4w_matmul_requant``): K % 16, N % 16; 'conv'
-    (``int8_conv_requant``, ``int4w_conv_requant``): C % 16, N % 16;
-    'conv_acc' (``int8_conv_acc``, ``int4w_conv_acc``): C % 16, N % 4."""
-    if kind not in ('matmul', 'matmul_requant', 'conv', 'conv_acc'):
-        raise ValueError(f'sm90_route: kind {kind!r}')
-    if k % 16:
-        return 'C % 16' if kind.startswith('conv') else 'K % 16'
-    n_align = 4 if kind in ('matmul', 'conv_acc') else 16
-    if n % n_align:
-        return f'N % {n_align}'
-    if ptr % 16:
-        return 'pointer % 16'
-    return None
+      * x's channels (a matmul's K; the C of a conv slab's pixels, x's last
+        axis being a whole number of them) zero-filled to a multiple of 16,
+        and the handle viewed at that width: its bytes are the same, each
+        tap's rows being zeros from C up to ``cpad`` already;
+      * the output's N widened to a multiple of 16 / ``out_bytes`` (16 for
+        an int8 output, 4 for int32), and with it ``vectors`` (the bias and
+        the multipliers, which the epilogue reads by column; a None stays
+        None) and ``identity``'s (M, N) columns, zero-filled; the weights
+        stay as they are, since TMA zero-fills the weight map's rows beyond
+        N;
+      * x or ``identity`` copied to a fresh allocation where its pointer is
+        not on 16 bytes.
+
+    Zero activations meet zero weight rows and the added columns are cut
+    away, so no result changes.  → (x, prepared, vectors, identity); the
+    output has ``vectors[0].shape[0]`` columns, and the caller cuts it back
+    to ``prepared.n``.  A call that needs none of it, as every call of the
+    benchmark's cells, gets its operands back as they are.  The handle's
+    layout is decided where it is prepared (``conv.sm90_row_taps`` reads a
+    kernel row as one tap only where C is a multiple of 16)."""
+    c = prepared.cin // prepared.row_taps
+    c16 = -(-c // SM90_ALIGN) * SM90_ALIGN
+    if c16 != c:
+        if prepared.row_taps > 1:
+            raise ValueError(f'weights prepared to read rows of '
+                             f'{prepared.row_taps} taps of C = {c}: a row '
+                             f'read as one tap needs C % {SM90_ALIGN}')
+        x = F.pad(x.reshape(-1, c), (0, c16 - c)).reshape(
+            *x.shape[:-1], x.shape[-1] // c * c16)
+        prepared = PreparedWeights(prepared.wt, prepared.taps, c16,
+                                   prepared.cpad, prepared.int4)
+    elif x.data_ptr() % SM90_ALIGN:
+        x = x.clone()
+    n = prepared.n
+    step = SM90_ALIGN // out_bytes
+    n_out = -(-n // step) * step
+    if n_out != n:
+        vectors = tuple(v if v is None else F.pad(v, (0, n_out - n))
+                        for v in vectors)
+        if identity is not None:
+            identity = F.pad(identity, (0, n_out - n))
+    elif identity is not None and identity.data_ptr() % SM90_ALIGN:
+        identity = identity.clone()
+    return x, prepared, vectors, identity
 
 
 @functools.lru_cache(maxsize=None)
@@ -428,24 +456,6 @@ def sm_count(dev: torch.device) -> int:
     return _SM_COUNT[dev]
 
 
-def pick_core(kind: str, name: str, core: Optional[str], *, k: int, n: int,
-              ptr: int) -> str:
-    """'sm90' or 'mma' for a call: by :func:`sm90_route`, or as ``core``
-    asks; asking for 'sm90' where the rule excludes the shape raises."""
-    return _core_for(name, core, sm90_route(kind, k=k, n=n, ptr=ptr))
-
-
-def _core_for(name: str, core: Optional[str], reason: Optional[str]) -> str:
-    """'sm90' where no clause (``reason``) excludes the call, else 'mma';
-    or ``core``, where the call allows it."""
-    if core not in (None, 'sm90', 'mma'):
-        raise ValueError(f'{name}: core {core!r} not in (None, sm90, mma)')
-    if core == 'sm90' and reason is not None:
-        raise ValueError(f'{name}: the Hopper core does not take this call '
-                         f'({reason})')
-    return core or ('mma' if reason is not None else 'sm90')
-
-
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -464,8 +474,9 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     (``prepared.int4``), with ``requant`` the requant forms (int8 out), else
     the accumulator forms (int32 out), the int8 one with ``identity`` (M, N)
     int32 in its residual epilogue (``mult`` the accumulator's multipliers,
-    ``mult_id`` the identity's); counted as ``name`` (the K-blocked matmul
-    runs the int8 requant form)."""
+    ``mult_id`` the identity's); the operands aligned by
+    :func:`sm90_operands`; counted as ``name`` (the K-blocked matmul runs
+    the int8 requant form)."""
     int4 = prepared.int4
     name = name or _matmul_name(requant, int4)
     m, k = x.shape
@@ -483,6 +494,9 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
         _build.require(mult_id, 'mult_id', torch.float32, (n,), dev)
     if m < 1:
         raise ValueError(f'{name}: empty x')
+    x, prepared, (bias, mult, mult_id), identity = sm90_operands(
+        x, prepared, (bias, mult, mult_id), 1 if requant else 4, identity)
+    k, n_out = x.shape[1], bias.shape[0]
     k_tiles = -(-k // prepared.tile_k)
     if tile_m is None:
         tile_m = (sm90_tile_m(m, n, k_tiles, sm_count(dev)) if int4
@@ -493,7 +507,7 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     if tile_n is None:
         tile_n = sm90_tile_n(-(-m // SM90_TILE_M), n, k_tiles, sm_count(dev),
                              SM90_INT4_MATMUL_WIDEST if int4 else 128)
-    out = torch.empty((m, n), dtype=torch.int8 if requant else torch.int32,
+    out = torch.empty((m, n_out), dtype=torch.int8 if requant else torch.int32,
                       device=dev)
     lib = _build.lib()
     head = (x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr())
@@ -503,61 +517,19 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
         if identity is not None:
             code = lib.hawq_int8_matmul_residual_sm90(
                 *head, mult.data_ptr(), identity.data_ptr(),
-                mult_id.data_ptr(), out.data_ptr(), m, k, n, *tail)
+                mult_id.data_ptr(), out.data_ptr(), m, k, n_out, *tail)
         elif requant:
             entry = (lib.hawq_int4w_matmul_sm90 if int4
                      else lib.hawq_int8_matmul_requant_sm90)
-            code = entry(*head, mult.data_ptr(), out.data_ptr(), m, k, n, lo,
-                         hi, *tail)
+            code = entry(*head, mult.data_ptr(), out.data_ptr(), m, k, n_out,
+                         lo, hi, *tail)
         else:
             entry = (lib.hawq_int4w_matmul_acc_sm90 if int4
                      else lib.hawq_int8_matmul_sm90)
-            code = entry(*head, out.data_ptr(), m, k, n, *tail)
-    _build.check(code, f'{name} (sm90 core)')
-    _build.count(name, 'sm90')
-    return out
-
-
-def _launch(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
-            name: Optional[str] = None) -> torch.Tensor:
-    """The four matmuls on the first core, counted as ``name`` (the
-    residual form runs the int8 accumulator form)."""
-    m, k = x.shape
-    n = w.shape[1]
-    if int4 and k % 2:
-        raise ValueError(f'int4w matmul needs an even K, got {k}')
-    dev = _build.kernel_device(x)
-    _build.require(x, 'x', torch.int8, (m, k), dev)
-    _build.require(w, 'w_packed' if int4 else 'w', torch.int8,
-                   (k // 2 if int4 else k, n), dev)
-    _build.require(bias, 'bias', torch.int32, (n,), dev)
-    if requant:
-        _build.require(mult, 'mult', torch.float32, (n,), dev)
-    out = torch.empty((m, n), dtype=torch.int8 if requant else torch.int32,
-                      device=dev)
-    vec_a = int(k % 16 == 0 and x.data_ptr() % 16 == 0)
-    vec_b = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
-    name = name or _matmul_name(requant, int4)
-    with torch.cuda.device(dev):
-        code = _build.lib().hawq_int8_matmul(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            mult.data_ptr() if requant else None, out.data_ptr(),
-            m, k, n, lo, hi, int(requant), int(int4), vec_a, vec_b,
-            _build.stream_ptr(dev))
+            code = entry(*head, out.data_ptr(), m, k, n_out, *tail)
     _build.check(code, name)
-    _build.count(name, 'mma')
-    return out
-
-
-# ``core`` as an operator argument
-CORE_CODES = {None: -1, 'mma': 0, 'sm90': 1}
-_CORE_NAMES = {v: k for k, v in CORE_CODES.items()}
-
-
-def core_code(name: str, core: Optional[str]) -> int:
-    if core not in CORE_CODES:
-        raise ValueError(f'{name}: core {core!r} not in (None, sm90, mma)')
-    return CORE_CODES[core]
+    _build.count(name)
+    return out if n_out == n else out[:, :n].contiguous()
 
 
 def _matmul_plain(name, x, w, cpad, bias, mult, lo, hi) -> torch.Tensor:
@@ -576,99 +548,76 @@ def _matmul_plain(name, x, w, cpad, bias, mult, lo, hi) -> torch.Tensor:
     return matmul_acc_kmajor_plain(x, prepared, bias, name)
 
 
-def _matmul_cuda(name, x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
-                 smem_extra) -> torch.Tensor:
-    """The four matmuls' CUDA implementation: the core the rule, or
-    ``core``, names for these pointers, on the handle's layout (``cpad``
-    not 0) or on plain weights, laid out here for the Hopper core."""
-    requant, int4 = name.endswith('_requant'), name.startswith('int4w')
+def _prepared(name, x, w, cpad) -> PreparedWeights:
+    """The handle whose ``wt`` is ``w`` (``cpad`` not 0), or plain weights
+    laid out here."""
+    int4 = name.startswith('int4w')
     k = x.shape[1]
-    prepared = PreparedWeights(w, 1, k, cpad, int4) if cpad else None
-    n = w.shape[0] if cpad else w.shape[1]
-    core = pick_core('matmul_requant' if requant else 'matmul', name,
-                     _CORE_NAMES[core], k=k, n=n, ptr=x.data_ptr())
-    if core == 'mma':
-        if prepared is not None:
-            w = unprepare_weights(prepared)
-        return _launch(x, w, bias, mult, lo, hi, requant, int4)
-    if prepared is None:
-        _build.require(w, 'w_packed' if int4 else 'w', torch.int8,
-                       (k // 2 if int4 else k, n), x.device)
-        prepared = prepare_weights_int4(w) if int4 else prepare_weights(w)
-    return _launch_sm90(x, prepared, bias, mult, lo, hi, requant,
-                        _build.from_opt_int(tile_n),
+    if cpad:
+        return PreparedWeights(w, 1, k, cpad, int4)
+    _build.require(w, 'w_packed' if int4 else 'w', torch.int8,
+                   (k // 2 if int4 else k, w.shape[1]), x.device)
+    return prepare_weights_int4(w) if int4 else prepare_weights(w)
+
+
+def _matmul_cuda(name, x, w, cpad, bias, mult, lo, hi, tile_n, tile_m,
+                 smem_extra) -> torch.Tensor:
+    """The four matmuls' CUDA implementation: the Hopper core on the
+    handle's layout (``cpad`` not 0) or on plain weights laid out here."""
+    return _launch_sm90(x, _prepared(name, x, w, cpad), bias, mult, lo, hi,
+                        name.endswith('_requant'), _build.from_opt_int(tile_n),
                         _build.from_opt_int(tile_m), smem_extra)
 
 
 def _define_matmul(name: str):
-    """``hawq::<name>(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
+    """``hawq::<name>(x, w, cpad, bias, mult, lo, hi, tile_n, tile_m,
     smem_extra)``: ``cpad`` 0 for plain weights, else the padded K of the
     handle whose ``wt`` is ``w``; ``mult`` None (``lo``, ``hi`` 0) for the
-    accumulator forms; ``core`` a :data:`CORE_CODES` value; ``tile_n`` /
-    ``tile_m`` −1 for the rule's."""
+    accumulator forms; ``tile_n`` / ``tile_m`` −1 for the rule's."""
     requant = name.endswith('_requant')
 
-    def cpu(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
-            smem_extra):
+    def cpu(x, w, cpad, bias, mult, lo, hi, tile_n, tile_m, smem_extra):
         return _matmul_plain(name, x, w, cpad, bias, mult, lo, hi)
 
-    def cuda(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
-             smem_extra):
-        return _matmul_cuda(name, x, w, cpad, bias, mult, lo, hi, core,
-                            tile_n, tile_m, smem_extra)
+    def cuda(x, w, cpad, bias, mult, lo, hi, tile_n, tile_m, smem_extra):
+        return _matmul_cuda(name, x, w, cpad, bias, mult, lo, hi, tile_n,
+                            tile_m, smem_extra)
 
-    def fake(x, w, cpad, bias, mult, lo, hi, core, tile_n, tile_m,
-             smem_extra):
+    def fake(x, w, cpad, bias, mult, lo, hi, tile_n, tile_m, smem_extra):
         return x.new_empty((x.shape[0], w.shape[0] if cpad else w.shape[1]),
                            dtype=torch.int8 if requant else torch.int32)
     return _build.define_op(
         f'{name}(Tensor x, Tensor w, int cpad, Tensor bias, Tensor? mult, '
-        f'int lo, int hi, int core, int tile_n, int tile_m, int smem_extra) '
-        f'-> Tensor', cpu, cuda, fake)
+        f'int lo, int hi, int tile_n, int tile_m, int smem_extra) -> Tensor',
+        cpu, cuda, fake)
 
 
-def _residual_cuda(x, w, cpad, bias, identity, mult_main, mult_id, core,
-                   tile_n, smem_extra) -> torch.Tensor:
+def _residual_cuda(x, w, cpad, bias, identity, mult_main, mult_id, tile_n,
+                   smem_extra) -> torch.Tensor:
     """The residual form's CUDA implementation: the Hopper core's
-    ``RESIDUAL`` epilogue where the rule takes the widths and the identity
-    lies on 16 bytes (TMA reads it), else the first core's accumulator and
-    :func:`residual_epilogue`."""
-    k = x.shape[1]
-    prepared = PreparedWeights(w, 1, k, cpad) if cpad else None
-    n = w.shape[0] if cpad else w.shape[1]
-    reason = sm90_route('matmul', k=k, n=n, ptr=x.data_ptr())
-    if reason is None and identity.data_ptr() % 16:
-        reason = 'identity pointer % 16'
-    if _core_for(RESIDUAL, _CORE_NAMES[core], reason) == 'mma':
-        if prepared is not None:
-            w = unprepare_weights(prepared)
-        acc = _launch(x, w, bias, None, 0, 0, False, False, RESIDUAL)
-        return residual_epilogue(acc, mult_main, identity, mult_id)
-    if prepared is None:
-        _build.require(w, 'w', torch.int8, (k, n), x.device)
-        prepared = prepare_weights(w)
-    return _launch_sm90(x, prepared, bias, mult_main, 0, 0, False,
-                        _build.from_opt_int(tile_n), None, smem_extra,
-                        RESIDUAL, identity, mult_id)
+    ``RESIDUAL`` epilogue."""
+    return _launch_sm90(x, _prepared(RESIDUAL, x, w, cpad), bias, mult_main, 0,
+                        0, False, _build.from_opt_int(tile_n), None,
+                        smem_extra, RESIDUAL, identity, mult_id)
 
 
 def _define_residual():
     """``hawq::int8_matmul_acc_residual(x, w, cpad, bias, identity,
-    mult_main, mult_id, core, tile_n, smem_extra)``: ``w`` and ``cpad`` as
-    for the matmuls, ``mult_main`` and ``mult_id`` (N,) float32."""
+    mult_main, mult_id, tile_n, smem_extra)``: ``w`` and ``cpad`` as for the
+    matmuls, ``mult_main`` and ``mult_id`` (N,) float32."""
 
-    def cpu(x, w, cpad, bias, identity, mult_main, mult_id, core, tile_n,
+    def cpu(x, w, cpad, bias, identity, mult_main, mult_id, tile_n,
             smem_extra):
         acc = _matmul_plain('int8_matmul_acc', x, w, cpad, bias, None, 0, 0)
         return residual_epilogue(acc, mult_main, identity, mult_id)
 
-    def fake(x, w, cpad, bias, identity, mult_main, mult_id, core, tile_n,
+    def fake(x, w, cpad, bias, identity, mult_main, mult_id, tile_n,
              smem_extra):
         return identity.new_empty(identity.shape)
     return _build.define_op(
         f'{RESIDUAL}(Tensor x, Tensor w, int cpad, Tensor bias, '
-        f'Tensor identity, Tensor mult_main, Tensor mult_id, int core, '
-        f'int tile_n, int smem_extra) -> Tensor', cpu, _residual_cuda, fake)
+        f'Tensor identity, Tensor mult_main, Tensor mult_id, int tile_n, '
+        f'int smem_extra) -> Tensor', cpu, _residual_cuda, fake)
 
 
 OPS = {name: _define_matmul(name) for name in (
@@ -678,8 +627,8 @@ OPS[RESIDUAL] = _define_residual()
 
 
 def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
-            core: Optional[str], tile_n: Optional[int],
-            tile_m: Optional[int], smem_extra: int) -> torch.Tensor:
+            tile_n: Optional[int], tile_m: Optional[int],
+            smem_extra: int) -> torch.Tensor:
     """The four matmuls through their operators: a handle taken apart into
     its ``wt`` and padded K, the options into ints."""
     name = _matmul_name(requant, int4)
@@ -687,48 +636,42 @@ def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
     if isinstance(w, PreparedWeights):
         w.check(1, x.shape[1], name)
         w, cpad = w.wt, w.cpad
-    return OPS[name](x, w, cpad, bias, mult, lo, hi, core_code(name, core),
-                     _build.opt_int(tile_n), _build.opt_int(tile_m),
-                     smem_extra)
+    return OPS[name](x, w, cpad, bias, mult, lo, hi, _build.opt_int(tile_n),
+                     _build.opt_int(tile_m), smem_extra)
 
 
 def int8_matmul_requant(x: torch.Tensor, w, bias: torch.Tensor,
                         mult: torch.Tensor, *, out_bits: int = 8,
                         signed: bool = True, relu: bool = False,
-                        core: Optional[str] = None,
                         tile_n: Optional[int] = None,
                         smem_extra: int = 0) -> torch.Tensor:
     """out[i, n] = requant(Σ_k x[i,k]·w[k,n] + bias[n]) as int8.
 
     x (M, K) int8, w (K, N) int8 or its :func:`prepare_weights` handle,
     bias (N,) int32, mult (N,) float32 dyadic multipliers.  relu=True
-    clamps the low end at 0.  ``core``, ``tile_n`` and ``smem_extra`` as in
+    clamps the low end at 0.  ``tile_n`` and ``smem_extra`` as in
     :func:`int8_matmul_acc`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    return _matmul(x, w, bias, mult, lo, hi, True, False, core, tile_n, None,
+    return _matmul(x, w, bias, mult, lo, hi, True, False, tile_n, None,
                    smem_extra)
 
 
 def int8_matmul_acc(x: torch.Tensor, w, bias: torch.Tensor, *,
-                    core: Optional[str] = None,
                     tile_n: Optional[int] = None,
                     smem_extra: int = 0) -> torch.Tensor:
     """int8 matmul returning the raw int32 accumulator + bias.
 
     ``w`` is the (K, N) int8 tensor or its :func:`prepare_weights` handle.
-    On a CUDA tensor the call runs on the Hopper core where
-    :func:`sm90_route` admits it, else on the first core; ``core`` ('sm90' /
-    'mma') overrides the rule, ``tile_n`` the Hopper core's tile width, and
+    On a CUDA tensor ``tile_n`` sets the Hopper core's tile width, and
     ``smem_extra`` adds to its shared-memory request (timing and tests).
-    The result does not depend on any of them."""
-    return _matmul(x, w, bias, None, 0, 0, False, False, core, tile_n, None,
+    The result does not depend on either."""
+    return _matmul(x, w, bias, None, 0, 0, False, False, tile_n, None,
                    smem_extra)
 
 
 def int8_matmul_acc_residual(x: torch.Tensor, w, bias: torch.Tensor,
                              identity: torch.Tensor, mult_main: torch.Tensor,
                              mult_id: torch.Tensor, *,
-                             core: Optional[str] = None,
                              tile_n: Optional[int] = None,
                              smem_extra: int = 0) -> torch.Tensor:
     """out[i, n] = max(round(acc[i, n]·mult_main[n]) +
@@ -745,14 +688,12 @@ def int8_matmul_acc_residual(x: torch.Tensor, w, bias: torch.Tensor,
         w.check(1, x.shape[1], RESIDUAL)
         w, cpad = w.wt, w.cpad
     return OPS[RESIDUAL](x, w, cpad, bias, identity, mult_main, mult_id,
-                         core_code(RESIDUAL, core), _build.opt_int(tile_n),
-                         smem_extra)
+                         _build.opt_int(tile_n), smem_extra)
 
 
 def int4w_matmul_requant(x: torch.Tensor, w_packed, bias: torch.Tensor,
                          mult: torch.Tensor, *, out_bits: int = 8,
                          signed: bool = True, relu: bool = False,
-                         core: Optional[str] = None,
                          tile_n: Optional[int] = None,
                          tile_m: Optional[int] = None,
                          smem_extra: int = 0) -> torch.Tensor:
@@ -762,105 +703,40 @@ def int4w_matmul_requant(x: torch.Tensor, w_packed, bias: torch.Tensor,
     Hopper core's output tile, 64 or 128 (:func:`sm90_tile_m`); the other
     keywords as in :func:`int8_matmul_acc`."""
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    return _matmul(x, w_packed, bias, mult, lo, hi, True, True, core, tile_n,
+    return _matmul(x, w_packed, bias, mult, lo, hi, True, True, tile_n,
                    tile_m, smem_extra)
 
 
 def int4w_matmul_acc(x: torch.Tensor, w_packed, bias: torch.Tensor, *,
-                     core: Optional[str] = None,
                      tile_n: Optional[int] = None,
                      tile_m: Optional[int] = None,
                      smem_extra: int = 0) -> torch.Tensor:
     """:func:`int8_matmul_acc` with nibble-packed int4 weights (or their
     handle), as in :func:`int4w_matmul_requant`."""
-    return _matmul(x, w_packed, bias, None, 0, 0, False, True, core, tile_n,
+    return _matmul(x, w_packed, bias, None, 0, 0, False, True, tile_n,
                    tile_m, smem_extra)
-
-
-def kblocked_core(core: Optional[str], k_splits: Optional[int], *, k: int,
-                  n: int, ptr: int) -> str:
-    """'sm90' or 'mma' for ``int8_matmul_requant_kblocked``: the Hopper
-    core where :func:`sm90_route` admits the call as a ``'matmul_requant'``
-    and it asks for K in one piece (``k_splits`` None or 1), else the first
-    core's split-K; ``core`` as in :func:`pick_core`."""
-    reason = sm90_route('matmul_requant', k=k, n=n, ptr=ptr)
-    if reason is None and k_splits is not None and k_splits > 1:
-        reason = 'k_splits > 1'
-    return _core_for('int8_matmul_requant_kblocked', core, reason)
-
-
-def default_k_splits(m: int, k: int, n: int, sm_count: int) -> int:
-    """Pieces of K for the split-K kernel: enough that output tiles × splits
-    reach about two blocks per SM, with at least four 64-wide K tiles in a
-    piece; 1 when the output tiles alone fill the card."""
-    tiles = -(-m // 64) * -(-n // 64)
-    k_tiles = -(-k // 64)
-    return max(1, min(2 * sm_count // tiles, k_tiles // 4))
 
 
 def int8_matmul_requant_kblocked(x: torch.Tensor, w, bias: torch.Tensor,
                                  mult: torch.Tensor, *, out_bits: int = 8,
-                                 signed: bool = True, relu: bool = False,
-                                 k_splits: Optional[int] = None,
-                                 core: Optional[str] = None) -> torch.Tensor:
+                                 signed: bool = True,
+                                 relu: bool = False) -> torch.Tensor:
     """:func:`int8_matmul_requant`'s function with K accumulated on chip and
     a single requant at the end.  Any K.
 
     ``w`` is the (K, N) int8 tensor or its :func:`prepare_weights` handle.
-    On a CUDA tensor the call runs, by :func:`kblocked_core`, on the Hopper
-    core as :func:`int8_matmul_requant`'s kernel (one block walks the whole
-    K in its register accumulators and requantizes once,
-    csrc/matmul_requant_sm90.cu), or on the first core as split-K through
-    an int32 workspace (csrc/matmul_kblocked.cu).  ``k_splits`` is the
-    number of pieces of K, at most ⌈K/64⌉; more than one asks for the
-    split-K, and None lets the first core pick (:func:`default_k_splits`).
-    ``core`` as in :func:`int8_matmul_acc`.  The result does not depend on
-    either."""
+    On a CUDA tensor the call runs :func:`int8_matmul_requant`'s kernel on
+    the Hopper core (one block walks the whole K in its register
+    accumulators and requantizes once, csrc/matmul_requant_sm90.cu)."""
     name = 'int8_matmul_requant_kblocked'
     lo, hi = epilogue_bounds(out_bits, signed, relu)
-    m, k = x.shape
     prepared = w if isinstance(w, PreparedWeights) else None
-    n = prepared.n if prepared is not None else w.shape[1]
-    k_tiles = -(-k // 64)
-    if k_splits is not None and not 1 <= k_splits <= k_tiles:
-        raise ValueError(f'k_splits {k_splits} not in [1, {k_tiles}] for '
-                         f'K = {k}')
     if x.device.type == 'cpu':
         if prepared is None:
             return matmul_requant_plain(x, w, bias, mult, lo, hi)
         return matmul_requant_kmajor_plain(x, prepared, bias, mult, lo, hi,
                                            name)
-    dev = _build.kernel_device(x)
-    if kblocked_core(core, k_splits, k=k, n=n, ptr=x.data_ptr()) == 'sm90':
-        if prepared is None:
-            _build.require(w, 'w', torch.int8, (k, n), dev)
-            prepared = prepare_weights(w)
-        return _launch_sm90(x, prepared, bias, mult, lo, hi, True, None, None,
-                            0, name)
-    if prepared is not None:
-        w = unprepare_weights(prepared)
-    _build.require(x, 'x', torch.int8, (m, k), dev)
-    _build.require(w, 'w', torch.int8, (k, n), dev)
-    _build.require(bias, 'bias', torch.int32, (n,), dev)
-    _build.require(mult, 'mult', torch.float32, (n,), dev)
-    if m < 1 or k < 1 or n < 1:
-        raise ValueError(f'int8_matmul_requant_kblocked: empty shape '
-                         f'({m}, {k}) x ({k}, {n})')
-    if k_splits is None:
-        k_splits = default_k_splits(
-            m, k, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    out = torch.empty((m, n), dtype=torch.int8, device=dev)
-    ws = None
-    if k_splits > 1:        # the sums, then one arrival counter per tile
-        ws = torch.zeros(m * n + -(-m // 64) * -(-n // 64),
-                         dtype=torch.int32, device=dev)
-    vec_a = int(k % 16 == 0 and x.data_ptr() % 16 == 0)
-    vec_b = int(n % 4 == 0 and w.data_ptr() % 4 == 0)
-    with torch.cuda.device(dev):
-        code = _build.lib().hawq_int8_matmul_kblocked(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), mult.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n,
-            lo, hi, k_splits, vec_a, vec_b, _build.stream_ptr(dev))
-    _build.check(code, 'int8_matmul_requant_kblocked')
-    _build.count('int8_matmul_requant_kblocked', 'mma')
-    return out
+    if prepared is None:
+        prepared = _prepared(name, x, w, 0)
+    return _launch_sm90(x, prepared, bias, mult, lo, hi, True, None, None, 0,
+                        name)

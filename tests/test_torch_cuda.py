@@ -1,7 +1,8 @@
 """CUDA kernels == their plain PyTorch versions on the card, bit for bit
-(the int8 and the nibble-packed int4-weight forms, the K-blocked matmul on
-both cores, the accumulator matmul's residual epilogue against the
-composition it replaces, the folded pool and its requant-in-front form, the one-pass
+(the int8 and the nibble-packed int4-weight forms, the K-blocked matmul,
+each class of operands the GEMM core's alignment step zero-pads, the
+accumulator matmul's residual epilogue against the composition it
+replaces, the folded pool and its requant-in-front form, the one-pass
 min/max, D1's depthwise conv and A1's average pool, with and without the
 requant in front), and the engines, the
 integer conv of the QAT layers, a QAT forward and the Hutchinson HVP on
@@ -9,7 +10,7 @@ the card == on the CPU; a QONNX file's replay == the card engine; the
 ServingEngine in a one-process ``nccl`` group == the engine, two
 ``gloo`` ranks sharing the card == one process's train step, and an
 engine's saved ``torch.export`` program == the engine, its launches per
-kernel and per core included.
+kernel included.
 
 These need an NVIDIA GPU with nvcc (they build the kernels) and skip
 without one.  They import only torch and hawq_tpu_torch, so they run on a
@@ -228,31 +229,6 @@ def test_engine_cuda_equals_cpu(dev, arch, mode, scheme):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize('m,k,n', [(37, 45, 19), (8, 2048, 1000),
-                                   (392, 2048, 512), (392, 512, 2048),
-                                   (3, 5, 2), (130, 200, 72), (64, 64, 64)])
-def test_kblocked_kernel_equals_plain_and_matmul_kernel(dev, m, k, n):
-    rng = np.random.RandomState(m + k + n)
-    x, w, b, mult = _operands(rng, m, k, n, dev)
-    k_tiles = -(-k // 64)
-    for out_bits, signed, relu in _EPILOGUES:
-        lo, hi = km.epilogue_bounds(out_bits, signed, relu)
-        want = km.matmul_requant_plain(x, w, b, mult, lo, hi)
-        kw = dict(out_bits=out_bits, signed=signed, relu=relu)
-        for splits in sorted({None, 1, 2, 3, k_tiles} - {0},
-                             key=lambda v: -1 if v is None else v):
-            if splits is not None and splits > k_tiles:
-                continue
-            got = km.int8_matmul_requant_kblocked(x, w, b, mult,
-                                                  k_splits=splits, core='mma',
-                                                  **kw)
-            torch.testing.assert_close(got, want, rtol=0, atol=0)
-        torch.testing.assert_close(km.int8_matmul_requant(x, w, b, mult, **kw),
-                                   want, rtol=0, atol=0)
-    with pytest.raises(ValueError):
-        km.int8_matmul_requant_kblocked(x, w, b, mult, k_splits=k_tiles + 1)
-
-
 @pytest.mark.parametrize('shape', [(1,), (3,), (777,), (2, 56, 56, 128),
                                    (32, 112, 112, 64), (5, 1031), (4099,)])
 def test_minmax_kernel_equals_plain(dev, shape):
@@ -390,8 +366,7 @@ def test_qat_train_step_cuda_equals_cpu(dev):
                     if k.endswith(('x_min', 'x_max'))},
             grads={k: p.grad.cpu() for k, p in model.named_parameters()},
             loss=float(metrics['loss']))
-    assert _core_counts()['int8_conv_acc@sm90'] == 7      # init + six 3×3
-    assert 'int8_conv_acc@mma' not in _core_counts()
+    assert _counts()['int8_conv_acc'] == 7      # init + six 3×3
     for kind in ('q', 'ranges'):
         assert sorted(out['card'][kind]) == sorted(out['cpu'][kind])
         for k, want in out['cpu'][kind].items():
@@ -410,10 +385,6 @@ def test_qat_train_step_cuda_equals_cpu(dev):
 # the four convs
 # ---------------------------------------------------------------------------
 
-def _core_counts():
-    return {k: v for k, v in _build.CORE_LAUNCHES.items() if v}
-
-
 # the int8_matmul_acc shapes of ResNet-50 at batch 8 (conv3, identity, FC)
 # and of a batch-32 QAT step, then ragged ones: M, K, N off the tiles, K
 # padded up to 64 and to 128, N = 1000, M = 1
@@ -426,7 +397,7 @@ _SM90_MATMULS = [(25088, 64, 256), (6272, 128, 512), (6272, 256, 512),
 
 
 @pytest.mark.parametrize('m,k,n', _SM90_MATMULS)
-def test_sm90_matmul_acc_equals_plain_and_first_core(dev, m, k, n):
+def test_sm90_matmul_acc_equals_plain(dev, m, k, n):
     rng = np.random.RandomState(m + k + n)
     x, w, b, _ = _operands(rng, m, k, n, dev)
     if k >= 2048:                   # saturated operands: |acc| passes 2**24
@@ -442,11 +413,7 @@ def test_sm90_matmul_acc_equals_plain_and_first_core(dev, m, k, n):
         for weights in (w, prepared):
             got = km.int8_matmul_acc(x, weights, b, tile_n=tile_n)
             torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert _core_counts() == {'int8_matmul_acc@sm90': 8}
-    torch.testing.assert_close(km.int8_matmul_acc(x, w, b, core='mma'), want,
-                               rtol=0, atol=0)
-    assert _core_counts() == {'int8_matmul_acc@sm90': 8,
-                              'int8_matmul_acc@mma': 1}
+    assert _counts() == {'int8_matmul_acc': 8}
 
 
 # the residual form's operand regimes (``_residual_operands``)
@@ -501,12 +468,12 @@ _R50_CONV3 = [(64, 256, 56), (128, 512, 28), (256, 1024, 14), (512, 2048, 7)]
 @pytest.mark.parametrize('identity', ['carrier', 'id_conv'])
 @pytest.mark.parametrize('batch,k,n,hw', [(8, *s) for s in _R50_CONV3]
                          + [(1, 512, 2048, 7), (64, 64, 256, 56)])
-def test_sm90_residual_equals_the_first_core_composition(dev, batch, k, n, hw,
-                                                         identity):
+def test_sm90_residual_equals_the_plain_composition(dev, batch, k, n, hw,
+                                                    identity):
     """``int8_matmul_acc_residual`` at ResNet-50's conv3 shapes (b8, a b1
-    of 49 rows: a ragged tile, one b64) on the Hopper core == its CUDA
-    fallback (the first core's accumulator, then the requant-add and ReLU
-    in PyTorch) == the plain composition, bit for bit."""
+    of 49 rows: a ragged tile, one b64) on the Hopper core, on the handle
+    and on plain weights, == the plain composition (the accumulator, then
+    the requant-add and ReLU), bit for bit."""
     m = batch * hw * hw
     x, w, b, idt, mm, mi = (torch.tensor(a, device=dev) for a in
                             _residual_operands(identity, m, k, n))
@@ -515,11 +482,10 @@ def test_sm90_residual_equals_the_first_core_composition(dev, batch, k, n, hw,
     prepared = km.prepare_weights(w)
     _build.reset_launches()
     got = km.int8_matmul_acc_residual(x, prepared, b, idt, mm, mi_n)
-    old = km.int8_matmul_acc_residual(x, w, b, idt, mm, mi_n, core='mma')
-    assert _core_counts() == {f'{km.RESIDUAL}@sm90': 1,
-                              f'{km.RESIDUAL}@mma': 1}
-    torch.testing.assert_close(old, want, rtol=0, atol=0)
-    torch.testing.assert_close(got, old, rtol=0, atol=0)
+    plain_w = km.int8_matmul_acc_residual(x, w, b, idt, mm, mi_n)
+    assert _counts() == {km.RESIDUAL: 2}
+    torch.testing.assert_close(plain_w, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert bool((got == 0).any()) and bool((got > 0).any())
 
 
@@ -536,7 +502,7 @@ def test_sm90_residual_regimes_equal_plain(dev, case, m, k, n, tile_n):
     want = km.residual_epilogue(km.matmul_acc_plain(x, w, b), mm, idt, mi)
     got = km.int8_matmul_acc_residual(x, km.prepare_weights(w), b, idt, mm,
                                       mi.expand(n).contiguous(),
-                                      core='sm90', tile_n=tile_n)
+                                      tile_n=tile_n)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -553,7 +519,7 @@ _SM90_CONVS = [((8, 56, 56, 64), 64, (3, 3)), ((8, 28, 28, 128), 128, (3, 3)),
 
 
 @pytest.mark.parametrize('shape,n,taps', _SM90_CONVS)
-def test_sm90_conv_requant_equals_plain_and_first_core(dev, shape, n, taps):
+def test_sm90_conv_requant_equals_plain(dev, shape, n, taps):
     rng = np.random.RandomState(sum(shape) + n)
     b, h, w, c = shape
     kh, kw = taps
@@ -580,10 +546,7 @@ def test_sm90_conv_requant_equals_plain_and_first_core(dev, shape, n, taps):
         torch.testing.assert_close(kc.int8_conv_requant(xp, wf, bias, mult,
                                                         **epi), want,
                                    rtol=0, atol=0)
-        torch.testing.assert_close(kc.int8_conv_requant(
-            xp, wf, bias, mult, core='mma', **epi), want, rtol=0, atol=0)
-    assert _core_counts() == {'int8_conv_requant@sm90': 15,
-                              'int8_conv_requant@mma': 3}
+    assert _counts() == {'int8_conv_requant': 15}
 
 
 @pytest.mark.parametrize('shape,n,taps,pad', [
@@ -593,8 +556,7 @@ def test_sm90_conv_requant_equals_plain_and_first_core(dev, shape, n, taps):
     ((1, 12, 20, 32), 48, (5, 5), (2, 2)), ((1, 1, 1, 16), 16, (3, 3), (1, 1))])
 def test_sm90_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
     """``pad``: the kernel reads the unpadded activations and TMA's zero fill
-    is the conv's border; the first core pads in the wrapper.  Both equal the
-    slab call on the padded copy."""
+    is the conv's border; it equals the slab call on the padded copy."""
     rng = np.random.RandomState(sum(shape) + n)
     b, h, w, c = shape
     kh, kw = taps
@@ -613,11 +575,7 @@ def test_sm90_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
             got = kc.int8_conv_requant(x, weights, bias, mult, relu=True,
                                        pad=pad, tile_n=tile_n, **geo)
             torch.testing.assert_close(got, want, rtol=0, atol=0)
-    got = kc.int8_conv_requant(x, wf, bias, mult, relu=True, pad=pad,
-                               core='mma', **geo)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert _core_counts() == {'int8_conv_requant@sm90': 6,
-                              'int8_conv_requant@mma': 1}
+    assert _counts() == {'int8_conv_requant': 6}
     with pytest.raises(ValueError):             # the slab where x is expected
         kc.int8_conv_requant(xp, wf, bias, mult, pad=pad, **geo)
 
@@ -633,7 +591,7 @@ _SM90_REQUANT_MATMULS = [(25088, 64, 64), (25088, 256, 64), (6272, 256, 128),
 
 
 @pytest.mark.parametrize('m,k,n', _SM90_REQUANT_MATMULS)
-def test_sm90_matmul_requant_equals_plain_and_first_core(dev, m, k, n):
+def test_sm90_matmul_requant_equals_plain(dev, m, k, n):
     rng = np.random.RandomState(m + k + n)
     x, w, b, mult = _operands(rng, m, k, n, dev)
     mult[::3] = 0.5          # odd accumulators land exactly on a .5 boundary
@@ -657,10 +615,7 @@ def test_sm90_matmul_requant_equals_plain_and_first_core(dev, m, k, n):
         torch.testing.assert_close(km.int8_matmul_requant(
             x, prepared, b, mult, smem_extra=4096, **epi), want, rtol=0,
             atol=0)
-        torch.testing.assert_close(km.int8_matmul_requant(
-            x, prepared, b, mult, core='mma', **epi), want, rtol=0, atol=0)
-    assert _core_counts() == {'int8_matmul_requant@sm90': 27,
-                              'int8_matmul_requant@mma': 3}
+    assert _counts() == {'int8_matmul_requant': 27}
 
 
 def _w4_conv(rng, shape, n, taps, dev):
@@ -677,11 +632,10 @@ def _w4_conv(rng, shape, n, taps, dev):
 
 
 @pytest.mark.parametrize('shape,n,taps', _SM90_CONVS)
-def test_sm90_int4w_conv_equals_plain_int8_form_and_first_core(dev, shape, n,
-                                                               taps):
+def test_sm90_int4w_conv_equals_plain_and_int8_form(dev, shape, n, taps):
     """The packed form on the Hopper core == the plain version == the int8
     form of the same core on the unpacked weights (whose B tile TMA
-    swizzles; here the kernel's unpack writes it) == the first core."""
+    swizzles; here the kernel's unpack writes it)."""
     rng = np.random.RandomState(sum(shape) + n)
     b, h, w, c = shape
     kh, kw = taps
@@ -714,13 +668,9 @@ def test_sm90_int4w_conv_equals_plain_int8_form_and_first_core(dev, shape, n,
             xp, prepared, bias, mult, smem_extra=4096, **epi), want, rtol=0,
             atol=0)
         torch.testing.assert_close(kc.int8_conv_requant(
-            xp, wf, bias, mult, core='sm90', **epi), want, rtol=0, atol=0)
-        torch.testing.assert_close(kc.int4w_conv_requant(
-            xp, prepared, bias, mult, core='mma', **epi), want, rtol=0,
-            atol=0)
-    assert _core_counts() == {'int4w_conv_requant@sm90': 18,
-                              'int8_conv_requant@sm90': 3,
-                              'int4w_conv_requant@mma': 3}
+            xp, wf, bias, mult, **epi), want, rtol=0, atol=0)
+    assert _counts() == {'int4w_conv_requant': 18,
+                                'int8_conv_requant': 3}
 
 
 @pytest.mark.parametrize('c,n', [(64, 32), (128, 128), (192, 80), (16, 16),
@@ -775,11 +725,7 @@ def test_sm90_int4w_conv_with_the_border_left_to_tma(dev, shape, n, taps, pad):
             got = kc.int4w_conv_requant(x, weights, bias, mult, relu=True,
                                         pad=pad, tile_n=tile_n, **geo)
             torch.testing.assert_close(got, want, rtol=0, atol=0)
-    got = kc.int4w_conv_requant(x, wp, bias, mult, relu=True, pad=pad,
-                                core='mma', **geo)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert _core_counts() == {'int4w_conv_requant@sm90': 6,
-                              'int4w_conv_requant@mma': 1}
+    assert _counts() == {'int4w_conv_requant': 6}
     with pytest.raises(ValueError):             # the slab where x is expected
         kc.int4w_conv_requant(xp, wp, bias, mult, pad=pad, **geo)
 
@@ -812,14 +758,12 @@ _SM90_CONV_ACCS = [((8, 56, 56, 48), 256, (3, 3), (0, 0)),
 
 @pytest.mark.parametrize('int4', [False, True])
 @pytest.mark.parametrize('shape,n,taps,pad', _SM90_CONV_ACCS)
-def test_sm90_conv_acc_equals_plain_and_first_core(dev, shape, n, taps, pad,
-                                                   int4):
+def test_sm90_conv_acc_equals_plain(dev, shape, n, taps, pad, int4):
     """``int8_conv_acc`` / ``int4w_conv_acc`` on the Hopper core (the int32
-    epilogue through a 4-D map) == the plain version == its walk == the
-    first core, with a handle (a plain one, and where the call allows the
-    one that reads a kernel row as one tap) and with plain weights (laid
-    out at each call), at every tile width and with the border left to
-    TMA; the two cores in turns."""
+    epilogue through a 4-D map) == the plain version == its walk, with a
+    handle (a plain one, and where the call allows the one that reads a
+    kernel row as one tap) and with plain weights (laid out at each call),
+    at every tile width and with the border left to TMA."""
     rng = np.random.RandomState(sum(shape) + n + int4)
     b, h, w, c = shape
     kh, kw = taps
@@ -856,15 +800,13 @@ def test_sm90_conv_acc_equals_plain_and_first_core(dev, shape, n, taps, pad,
         for tile_n in (None, 32, 64, 128):
             torch.testing.assert_close(fn(x, handle, bias, tile_n=tile_n,
                                           **geo), want, rtol=0, atol=0)
-    for core in ('mma', 'sm90', 'sm90', 'mma'):
-        torch.testing.assert_close(fn(x, weights, bias, core=core, **geo),
-                                   want, rtol=0, atol=0)
+    torch.testing.assert_close(fn(x, weights, bias, **geo), want, rtol=0,
+                               atol=0)
     torch.testing.assert_close(fn(x, prepared, bias, smem_extra=4096, **geo),
                                want, rtol=0, atol=0)
     torch.testing.assert_close(fn(xp, weights, bias, **flat), want, rtol=0,
                                atol=0)
-    assert _core_counts() == {f'{name}@sm90': 4 * len(handles) + 4,
-                              f'{name}@mma': 2}
+    assert _counts() == {name: 4 * len(handles) + 3}
     if pad != (0, 0):
         with pytest.raises(ValueError):         # the slab where x is expected
             fn(xp, weights, bias, **geo)
@@ -893,13 +835,11 @@ _SM90_INT4_MATMULS = [
 
 
 @pytest.mark.parametrize('kind,m,k,n', _SM90_INT4_MATMULS)
-def test_sm90_int4w_matmul_equals_plain_int8_form_and_first_core(dev, kind, m,
-                                                                 k, n):
+def test_sm90_int4w_matmul_equals_plain_and_int8_form(dev, kind, m, k, n):
     """The packed matmul on the Hopper core == the plain version on the
     unpacked weights == its walk == the int8 form of the same core on those
-    weights == the first core, with the handle and with ``pack_int4``'s
-    bytes (laid out at each call), at every tile width and with 64- and
-    128-row tiles; the two cores in turns."""
+    weights, with the handle and with ``pack_int4``'s bytes (laid out at
+    each call), at every tile width and with 64- and 128-row tiles."""
     rng = np.random.RandomState(m + k + n)
     _, _, bias, mult = _operands(rng, 1, 1, n, dev)
     mult[::3] = 0.5          # odd accumulators land exactly on a .5 boundary
@@ -927,13 +867,12 @@ def test_sm90_int4w_matmul_equals_plain_int8_form_and_first_core(dev, kind, m,
                                                   hi, name)
             fn = lambda wts, **o: km.int4w_matmul_requant(x, wts, bias, mult,
                                                           **kw, **o)
-            twin = km.int8_matmul_requant(x, w8, bias, mult, core='sm90',
-                                          **kw)
+            twin = km.int8_matmul_requant(x, w8, bias, mult, **kw)
         else:
             want = km.matmul_acc_plain(x, w8, bias)
             walk = km.matmul_acc_kmajor_plain(x, prepared, bias, name)
             fn = lambda wts, **o: km.int4w_matmul_acc(x, wts, bias, **o)
-            twin = km.int8_matmul_acc(x, w8, bias, core='sm90')
+            twin = km.int8_matmul_acc(x, w8, bias)
         torch.testing.assert_close(walk, want, rtol=0, atol=0)
         torch.testing.assert_close(twin, want, rtol=0, atol=0)
         for tile_m in (None, 64, 128):
@@ -941,14 +880,12 @@ def test_sm90_int4w_matmul_equals_plain_int8_form_and_first_core(dev, kind, m,
                 torch.testing.assert_close(
                     fn(prepared, tile_n=tile_n, tile_m=tile_m), want, rtol=0,
                     atol=0, msg=f'{epi} tile {tile_m} x {tile_n}')
-        for core in ('mma', 'sm90', 'sm90', 'mma'):
-            torch.testing.assert_close(fn(wp, core=core), want, rtol=0,
-                                       atol=0)
+        torch.testing.assert_close(fn(wp), want, rtol=0, atol=0)
         torch.testing.assert_close(fn(prepared, smem_extra=4096), want,
                                    rtol=0, atol=0)
     e = len(epilogues)
-    assert _core_counts() == {f'{name}@sm90': 15 * e, f'{name}@mma': 2 * e,
-                              f'{name.replace("int4w", "int8")}@sm90': e}
+    assert _counts() == {name: 14 * e,
+                                name.replace('int4w', 'int8'): e}
 
 
 @pytest.mark.parametrize('k,n', [(64, 32), (128, 128), (192, 80), (16, 16),
@@ -975,27 +912,27 @@ def test_sm90_int4w_matmul_places_every_nibble(dev, k, n):
                                        msg=f'tile {tile_m} x {tile_n}')
 
 
-def test_sm90_rule_routes_int4w_matmul_exclusions_to_the_first_core(dev):
-    """One call of each packed matmul per clause of ``sm90_route``: it runs
-    on the first core with the packed bytes (from a handle too), equals the
-    plain version, and asking for the Hopper core raises."""
+def test_sm90_pads_each_refused_class_of_the_int4w_matmuls(dev):
+    """One call of each packed matmul per clause of the alignment step
+    (``sm90_operands``: K % 16, the output's N, x's pointer % 16, and
+    MobileNetV2's K = 24): it runs padded on the Hopper core, once, with
+    the packed bytes and with their handle, and equals the plain
+    version."""
     rng = np.random.RandomState(3)
     big = torch.tensor(rng.randint(-128, 128, 1 << 16).astype(np.int8),
                        device=dev)
     for requant, cases in (
-            (False, (((40, 46, 20, 0), 'K % 16'), ((40, 48, 18, 0), 'N % 4'),
-                     ((40, 48, 20, 8), 'pointer % 16'))),
-            (True, (((40, 46, 16, 0), 'K % 16'), ((40, 48, 24, 0), 'N % 16'),
-                    ((40, 48, 16, 8), 'pointer % 16')))):
-        kind = 'matmul_requant' if requant else 'matmul'
+            (False, ((40, 46, 20, 0), (40, 48, 18, 0), (40, 48, 20, 8),
+                     (40, 24, 24, 0))),
+            (True, ((40, 46, 16, 0), (40, 48, 24, 0), (40, 48, 16, 8),
+                    (40, 24, 24, 0)))):
         name = 'int4w_matmul_requant' if requant else 'int4w_matmul_acc'
-        for (m, k, n, offset), clause in cases:
+        for m, k, n, offset in cases:
             x = big[offset:offset + m * k].view(m, k)
             w = torch.tensor(_w4(rng, (k, n)), device=dev)
             wp = torch.tensor(km.pack_int4(w.cpu().numpy()), device=dev)
             _, _, b, _ = _operands(rng, 1, 1, n, dev)
             mult = torch.full((n,), 2.0 ** -9, device=dev)
-            assert km.sm90_route(kind, k=k, n=n, ptr=x.data_ptr()) == clause
             if requant:
                 fn = lambda wts, **o: km.int4w_matmul_requant(x, wts, b, mult,
                                                               **o)
@@ -1006,14 +943,15 @@ def test_sm90_rule_routes_int4w_matmul_exclusions_to_the_first_core(dev):
             for wts in (wp, km.prepare_weights_int4(wp)):
                 _build.reset_launches()
                 torch.testing.assert_close(fn(wts), want, rtol=0, atol=0)
-                assert _core_counts() == {f'{name}@mma': 1}
-                with pytest.raises(ValueError):
-                    fn(wts, core='sm90')
+                assert _counts() == {name: 1}
 
 
-def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
-    """One call per clause of ``sm90_route``: it runs on the first core,
-    equals the plain version, and asking for the Hopper core raises."""
+def test_sm90_pads_each_refused_class(dev):
+    """One call per clause of the alignment step (``sm90_operands``): K or
+    C % 16, the output's N (% 16 for int8, % 4 for int32), the pointer %
+    16, among them MobileNetV2's K = 24 and N = 24 and the CIFAR init's C
+    = 3 (its border left to TMA, and on the padded slab): it runs padded on
+    the Hopper core, once, and equals the plain version."""
     rng = np.random.RandomState(0)
     big = torch.tensor(rng.randint(-128, 128, 1 << 16).astype(np.int8),
                        device=dev)
@@ -1022,35 +960,41 @@ def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
         x = big[offset:offset + m * k].view(m, k)
         _, w, b, _ = _operands(rng, 1, k, n, dev)
         return x, w, b
-    for (m, k, n, offset), clause in (((40, 45, 20, 0), 'K % 16'),
-                                      ((40, 48, 18, 0), 'N % 4'),
-                                      ((40, 48, 20, 8), 'pointer % 16')):
+    for m, k, n, offset in ((40, 45, 20, 0), (40, 48, 18, 0),
+                            (40, 48, 20, 8), (40, 24, 24, 0)):
         x, w, b = matmul_case(m, k, n, offset)
-        assert km.sm90_route('matmul', k=k, n=n, ptr=x.data_ptr()) == clause
-        _build.reset_launches()
-        torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
-                                   km.matmul_acc_plain(x, w, b), rtol=0,
-                                   atol=0)
-        assert _core_counts() == {'int8_matmul_acc@mma': 1}
-        with pytest.raises(ValueError):
-            km.int8_matmul_acc(x, w, b, core='sm90')
-    for (m, k, n, offset), clause in (((40, 45, 16, 0), 'K % 16'),
-                                      ((40, 48, 24, 0), 'N % 16'),
-                                      ((40, 48, 16, 8), 'pointer % 16')):
+        for weights in (w, km.prepare_weights(w)):
+            _build.reset_launches()
+            torch.testing.assert_close(km.int8_matmul_acc(x, weights, b),
+                                       km.matmul_acc_plain(x, w, b), rtol=0,
+                                       atol=0)
+            assert _counts() == {'int8_matmul_acc': 1}
+    for m, k, n, offset in ((40, 45, 16, 0), (40, 48, 24, 0),
+                            (40, 48, 16, 8), (40, 24, 24, 0)):
         x, w, b = matmul_case(m, k, n, offset)
         mult = torch.full((n,), 2.0 ** -9, device=dev)
-        assert km.sm90_route('matmul_requant', k=k, n=n,
-                             ptr=x.data_ptr()) == clause
+        want = km.matmul_requant_plain(x, w, b, mult, -128, 127)
+        for fn in (km.int8_matmul_requant, km.int8_matmul_requant_kblocked):
+            _build.reset_launches()
+            torch.testing.assert_close(fn(x, w, b, mult), want, rtol=0,
+                                       atol=0)
+            assert _counts() == {fn.__name__: 1}
+    # the residual form: K % 16, N % 4, the pointers of x and the identity
+    for m, k, n, offset, id_offset in ((40, 24, 24, 0, 0), (40, 48, 18, 0, 0),
+                                       (40, 48, 16, 8, 0), (40, 48, 16, 0, 8)):
+        x, w, b = matmul_case(m, k, n, offset)
+        ids = torch.tensor(rng.randint(-2 ** 20, 2 ** 20, m * n + 4).astype(
+            np.int32), device=dev)
+        idt = ids[id_offset // 4:id_offset // 4 + m * n].view(m, n)
+        mm = torch.full((n,), 2.0 ** -9, device=dev)
+        mi = torch.full((n,), 2.0 ** -7, device=dev)
+        want = km.residual_epilogue(km.matmul_acc_plain(x, w, b), mm, idt, mi)
         _build.reset_launches()
         torch.testing.assert_close(
-            km.int8_matmul_requant(x, w, b, mult),
-            km.matmul_requant_plain(x, w, b, mult, -128, 127), rtol=0, atol=0)
-        assert _core_counts() == {'int8_matmul_requant@mma': 1}
-        with pytest.raises(ValueError):
-            km.int8_matmul_requant(x, w, b, mult, core='sm90')
-    for (c, n, offset), clause in (((10, 16, 0), 'C % 16'),
-                                   ((16, 24, 0), 'N % 16'),
-                                   ((16, 16, 4), 'pointer % 16')):
+            km.int8_matmul_acc_residual(x, w, b, idt, mm, mi), want, rtol=0,
+            atol=0)
+        assert _counts() == {km.RESIDUAL: 1}
+    for c, n, offset in ((10, 16, 0), (16, 24, 0), (16, 16, 4), (24, 24, 0)):
         bsz, h, w_ = 2, 6, 5
         size = bsz * (h + 2) * (w_ + 2) * c
         xp = big[offset:offset + size].view(bsz, h + 2, (w_ + 2) * c)
@@ -1063,51 +1007,48 @@ def test_sm90_rule_routes_each_excluded_class_to_the_first_core(dev):
             kc.int4w_conv_requant(xp, wp, bias, mult, **geo),
             kc.conv_requant_plain(xp, torch.tensor(wf, device=dev), bias, mult,
                                   lo=-128, hi=127, **geo), rtol=0, atol=0)
-        assert _core_counts() == {'int4w_conv_requant@mma': 1}
-        with pytest.raises(ValueError):
-            kc.int4w_conv_requant(xp, wp, bias, mult, core='sm90', **geo)
-    for (c, n, offset), clause in (((5, 16, 0), 'C % 16'),
-                                   ((16, 24, 0), 'N % 16'),
-                                   ((16, 16, 4), 'pointer % 16')):
+        assert _counts() == {'int4w_conv_requant': 1}
+    for c, n, offset in ((5, 16, 0), (16, 24, 0), (16, 16, 4), (3, 16, 0)):
         bsz, h, w_ = 2, 6, 5
         size = bsz * (h + 2) * (w_ + 2) * c
         xp = big[offset:offset + size].view(bsz, h + 2, (w_ + 2) * c)
         _, wf, bias, mult = _operands(rng, 1, 9 * c, n, dev)
         geo = dict(taps=(3, 3), out_hw=(h, w_), cin=c)
-        assert km.sm90_route('conv', k=c, n=n, ptr=xp.data_ptr()) == clause
         _build.reset_launches()
         torch.testing.assert_close(
             kc.int8_conv_requant(xp, wf, bias, mult, **geo),
             kc.conv_requant_plain(xp, wf, bias, mult, lo=-128, hi=127, **geo),
             rtol=0, atol=0)
-        assert _core_counts() == {'int8_conv_requant@mma': 1}
-        with pytest.raises(ValueError):
-            kc.int8_conv_requant(xp, wf, bias, mult, core='sm90', **geo)
-    for (c, n, offset), clause in (((12, 16, 0), 'C % 16'),
-                                   ((16, 18, 0), 'N % 4'),
-                                   ((16, 20, 4), 'pointer % 16')):
+        assert _counts() == {'int8_conv_requant': 1}
+    for c, n, offset, pad in ((12, 16, 0, (0, 0)), (16, 18, 0, (0, 0)),
+                              (16, 20, 4, (0, 0)), (3, 16, 0, (1, 1)),
+                              (3, 64, 0, (0, 0))):
         bsz, h, w_ = 2, 6, 5
-        size = bsz * (h + 2) * (w_ + 2) * c
-        xp = big[offset:offset + size].view(bsz, h + 2, (w_ + 2) * c)
+        size = bsz * (h + 2 - 2 * pad[0]) * (w_ + 2 - 2 * pad[1]) * c
+        x = big[offset:offset + size].view(bsz, h + 2 - 2 * pad[0],
+                                           (w_ + 2 - 2 * pad[1]) * c)
         wf = _w4(rng, (9 * c, n))
-        wp = torch.tensor(kc.pack_int4_conv(wf, 9), device=dev)
+        wp = torch.tensor(kc.pack_int4_conv(wf, 9), device=dev) if c % 2 == 0 \
+            else None
         wf = torch.tensor(wf, device=dev)
         _, _, bias, _ = _operands(rng, 1, 1, n, dev)
         geo = dict(taps=(3, 3), out_hw=(h, w_), cin=c)
-        assert km.sm90_route('conv_acc', k=c, n=n, ptr=xp.data_ptr()) == clause
+        xp = kc.pad_conv_input(x, pad, **geo) if pad != (0, 0) else x
         want = kc.conv_acc_plain(xp, wf, bias, **geo)
         for fn, weights, name in ((kc.int8_conv_acc, wf, 'int8_conv_acc'),
                                   (kc.int4w_conv_acc, wp, 'int4w_conv_acc')):
-            _build.reset_launches()
-            torch.testing.assert_close(fn(xp, weights, bias, **geo), want,
-                                       rtol=0, atol=0)
-            assert _core_counts() == {f'{name}@mma': 1}
-            with pytest.raises(ValueError):
-                fn(xp, weights, bias, core='sm90', **geo)
+            if weights is None:           # packing needs an even C
+                continue
+            for wts in (weights, kc.prepare_conv_weights(
+                    weights, (3, 3), c, pad, name.startswith('int4w'))):
+                _build.reset_launches()
+                torch.testing.assert_close(fn(x, wts, bias, pad=pad, **geo),
+                                           want, rtol=0, atol=0)
+                assert _counts() == {name: 1}
 
 
 def test_sm90_oversized_shared_memory_request_raises(dev):
-    """A launch the card refuses is an error, not a run on the first core."""
+    """A launch the card refuses is an error, not a run on another path."""
     rng = np.random.RandomState(1)
     x, w, b, mult = _operands(rng, 64, 64, 64, dev)
     _build.reset_launches()
@@ -1137,26 +1078,26 @@ def test_sm90_oversized_shared_memory_request_raises(dev):
                                     smem_extra=1 << 20)
         with pytest.raises(RuntimeError):
             km.int4w_matmul_acc(x, wpm, b, tile_m=tile_m, smem_extra=1 << 20)
-    assert _core_counts() == {}
+    assert _counts() == {}
     # and the same calls go through afterwards
     torch.testing.assert_close(km.int8_matmul_acc(x, w, b),
                                km.matmul_acc_plain(x, w, b), rtol=0, atol=0)
-    assert _core_counts() == {'int8_matmul_acc@sm90': 1}
+    assert _counts() == {'int8_matmul_acc': 1}
 
 
 @pytest.mark.parametrize('scheme,want', [
-    ('uniform8', {'int8_conv_requant@sm90': 16, 'int8_matmul_acc@sm90': 21,
-                  'int8_matmul_requant@sm90': 16, 'int8_conv_acc@sm90': 1}),
-    ('uniform4', {'int4w_conv_requant@sm90': 16, 'int4w_matmul_requant@sm90': 16,
-                  'int4w_matmul_acc@sm90': 20, 'int8_matmul_acc@sm90': 1,
-                  'int8_conv_acc@sm90': 1}),
-    ('bops_0.5', {'int8_conv_acc@sm90': 1, 'int8_matmul_acc@sm90': 16,
-                  'int8_matmul_requant@sm90': 16, 'int8_conv_requant@sm90': 2,
-                  'int4w_conv_requant@sm90': 14, 'int4w_matmul_acc@sm90': 5}),
-    ('resnet18-uniform4', {'int8_conv_acc@sm90': 1, 'int8_matmul_acc@sm90': 1,
-                           'int4w_conv_requant@sm90': 8,
-                           'int4w_conv_acc@sm90': 8,
-                           'int4w_matmul_acc@sm90': 3})])
+    ('uniform8', {'int8_conv_requant': 16, 'int8_matmul_acc': 21,
+                  'int8_matmul_requant': 16, 'int8_conv_acc': 1}),
+    ('uniform4', {'int4w_conv_requant': 16, 'int4w_matmul_requant': 16,
+                  'int4w_matmul_acc': 20, 'int8_matmul_acc': 1,
+                  'int8_conv_acc': 1}),
+    ('bops_0.5', {'int8_conv_acc': 1, 'int8_matmul_acc': 16,
+                  'int8_matmul_requant': 16, 'int8_conv_requant': 2,
+                  'int4w_conv_requant': 14, 'int4w_matmul_acc': 5}),
+    ('resnet18-uniform4', {'int8_conv_acc': 1, 'int8_matmul_acc': 1,
+                           'int4w_conv_requant': 8,
+                           'int4w_conv_acc': 8,
+                           'int4w_matmul_acc': 3})])
 def test_engine_cuda_runs_the_hopper_core(dev, scheme, want):
     """ResNet widths at a small image: the engine's prepared weights (the
     packed ones of the 4-bit layers too) go through the Hopper core and the
@@ -1171,7 +1112,8 @@ def test_engine_cuda_runs_the_hopper_core(dev, scheme, want):
     logits = build_resnet_engine(fm, device='cpu', **kw)(x)
     _build.reset_launches()
     got = build_resnet_engine(fm, device=dev, **kw)(x)
-    assert _core_counts() == want
+    assert {k: v for k, v in _counts().items()
+            if k not in ('requant_int32', 'maxpool_folded_requant')} == want
     torch.testing.assert_close(got.cpu(), logits, rtol=0, atol=0)
 
 
@@ -1263,8 +1205,8 @@ def test_folded_engine_launches_the_fused_pool(dev, arch, mode):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-# the shapes of test_kblocked_kernel_equals_plain_and_matmul_kernel, and
-# ones the Hopper core's rule admits with K and M off its tiles
+# #5's shapes: M, K and N off the tiles (K and N that are not multiples of
+# 16 padded first), conv1 of ResNet-50's stage 4, the FC's N = 1000
 _KBLOCKED_SHAPES = [(37, 45, 19), (8, 2048, 1000), (392, 2048, 512),
                     (392, 512, 2048), (3, 5, 2), (130, 200, 72), (64, 64, 64),
                     (130, 208, 80), (37, 1008, 48), (1568, 1024, 256),
@@ -1274,19 +1216,9 @@ _KBLOCKED_SHAPES = [(37, 45, 19), (8, 2048, 1000), (392, 2048, 512),
 @pytest.mark.parametrize('m,k,n', _KBLOCKED_SHAPES)
 def test_kblocked_hopper_equals_plain_and_matmul_kernel(dev, m, k, n):
     """#5 on the Hopper core (K in one piece, on a handle and on plain
-    weights) == #1 == the plain version, counted on that core; a split of K
-    goes to the first core, and raises when asked onto the Hopper core, as
-    does a call the rule sends to the first core."""
+    weights) == #1 == the plain version, one launch each."""
     rng = np.random.RandomState(m + k + n)
     x, w, b, mult = _operands(rng, m, k, n, dev)
-    reason = km.sm90_route('matmul_requant', k=k, n=n, ptr=x.data_ptr())
-    if reason is not None:
-        with pytest.raises(ValueError):
-            km.int8_matmul_requant_kblocked(x, w, b, mult, core='sm90')
-        _build.reset_launches()
-        km.int8_matmul_requant_kblocked(x, w, b, mult)
-        assert _core_counts() == {'int8_matmul_requant_kblocked@mma': 1}
-        return
     prepared = km.prepare_weights(w)
     for out_bits, signed, relu in _EPILOGUES:
         lo, hi = km.epilogue_bounds(out_bits, signed, relu)
@@ -1295,24 +1227,11 @@ def test_kblocked_hopper_equals_plain_and_matmul_kernel(dev, m, k, n):
         torch.testing.assert_close(km.int8_matmul_requant(x, prepared, b,
                                                           mult, **kw),
                                    want, rtol=0, atol=0)
-        for splits in (None, 1):
-            for weights in (prepared, w):
-                _build.reset_launches()
-                got = km.int8_matmul_requant_kblocked(x, weights, b, mult,
-                                                      k_splits=splits, **kw)
-                assert _core_counts() == {
-                    'int8_matmul_requant_kblocked@sm90': 1}
-                torch.testing.assert_close(got, want, rtol=0, atol=0)
-    if k > 64:
-        _build.reset_launches()
-        got = km.int8_matmul_requant_kblocked(x, prepared, b, mult,
-                                              k_splits=2)
-        assert _core_counts() == {'int8_matmul_requant_kblocked@mma': 1}
-        torch.testing.assert_close(got, km.matmul_requant_plain(
-            x, w, b, mult, -128, 127), rtol=0, atol=0)
-        with pytest.raises(ValueError):
-            km.int8_matmul_requant_kblocked(x, prepared, b, mult, k_splits=2,
-                                            core='sm90')
+        for weights in (prepared, w):
+            _build.reset_launches()
+            got = km.int8_matmul_requant_kblocked(x, weights, b, mult, **kw)
+            assert _counts() == {'int8_matmul_requant_kblocked': 1}
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -1394,8 +1313,6 @@ def test_dwconv_kernel_equals_plain(dev, shape, stride):
                 torch.testing.assert_close(got, wq, rtol=0, atol=0)
             assert _counts() == {'int8_dwconv_acc': 1,
                                  'int8_dwconv_requant': 2}
-            assert _core_counts() == {'int8_dwconv_acc@cuda': 1,
-                                      'int8_dwconv_requant@cuda': 2}
         # the rule's own plan, as the wrappers pick it
         torch.testing.assert_close(kd.int8_dwconv_acc(xx, ww, b,
                                                       stride=stride),
@@ -1413,8 +1330,8 @@ def test_dwconv_kernel_equals_plain(dev, shape, stride):
                                            ('float32', torch.int32)])
 def test_mobilenet_engine_cuda_equals_cpu(dev, mode, residual):
     """Full-width MobileNetV2 at 64×64: logits and every unit's nodes equal
-    the CPU engine's; D1 17 times, the 1×1 convs on the core the rule names
-    for their widths (K = 24 on the first)."""
+    the CPU engine's; D1 17 times, the 1×1 convs on the Hopper core (K = 24
+    zero-padded to 32 first)."""
     from hawq_tpu_torch.inference.engine_mobilenet import (
         build_mobilenetv2_engine)
     from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
@@ -1431,10 +1348,6 @@ def test_mobilenet_engine_cuda_equals_cpu(dev, mode, residual):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
     assert _counts() == {'int8_conv_acc': 1, 'int8_matmul_acc': 36,
                          'int8_dwconv_requant': 17, 'requant_int32': 45}
-    assert _core_counts() == {'int8_conv_acc@sm90': 1,
-                              'int8_matmul_acc@sm90': 34,
-                              'int8_matmul_acc@mma': 2,
-                              'int8_dwconv_requant@cuda': 17}
     for node in ('init', 'features.stage2.unit2.conv2',
                  'features.stage4.unit5.quant_act_int32', 'final'):
         torch.testing.assert_close(
@@ -1454,10 +1367,9 @@ def test_resnet_v2_engine_cuda_equals_cpu(dev):
     _build.reset_launches()
     got = build_resnet_v2_engine(fm, device=dev)(x)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
-    assert _core_counts() == {'int8_conv_acc@sm90': 1,
-                              'int8_matmul_requant@sm90': 16,
-                              'int8_conv_requant@sm90': 16,
-                              'int8_matmul_acc@sm90': 21}
+    assert {k: v for k, v in _counts().items() if k != 'requant_int32'} == {
+        'int8_conv_acc': 1, 'int8_matmul_requant': 16,
+        'int8_conv_requant': 16, 'int8_matmul_acc': 21}
     for node in ('init', 'stage2.unit1.pre', 'stage4.unit3.quant_act_int32',
                  'fc_input'):
         torch.testing.assert_close(
@@ -1491,7 +1403,6 @@ def test_family_qat_forward_cuda_equals_cpu(dev, arch):
                          logits.cpu())
     if arch == 'tiny_mnv2':
         assert _counts()['int8_dwconv_acc'] == 3 * 3
-        assert _core_counts()['int8_dwconv_acc@cuda'] == 3 * 3
     for got, want in zip(results['cuda'][:2], results['cpu'][:2]):
         assert sorted(got) == sorted(want)
         for key in want:
@@ -1518,8 +1429,7 @@ def test_avgpool_kernel_equals_plain(dev, dtype):
     cycling through {1, 3, 4, 12, 32, 288}, per-tensor and per-channel
     multipliers, both forms (4 channels a thread; one, for C % 4 or an
     unaligned input), saturated inputs, negative multiples of 9, and
-    requant products on a .5 boundary; one launch each, counted on
-    '@cuda'."""
+    requant products on a .5 boundary; one launch each."""
     rng = np.random.RandomState(7)
     hi = 128 if dtype == torch.int8 else 32768
     hws = (1, 2, 3, 5, 8, 17, 35)
@@ -1552,7 +1462,6 @@ def test_avgpool_kernel_equals_plain(dev, dtype):
         p.cpu().float() * 0.5 + 0.5).clamp(-128, 127).to(torch.int8))
     n += 3
     assert _counts() == {'int_avgpool3x3_requant': n}
-    assert _core_counts() == {'int_avgpool3x3_requant@cuda': n}
     x = torch.zeros((1, 3, 3, 4), dtype=dtype, device=dev)
     one = torch.tensor(np.float32(1.0), device=dev)
     with pytest.raises(ValueError):                  # 16 bits into int8
@@ -1586,8 +1495,7 @@ def test_avgpool_fused_kernel_equals_plain(dev, dtype):
     and unaligned inputs), into 16 bits signed and unsigned and into 8
     bits, per-tensor and per-channel multipliers in front and after; every
     form of the kernel at ragged tiles (16-byte copies, one-word copies,
-    one channel a thread) of 1 to 9 rows; one launch each, counted on
-    '@cuda'."""
+    one channel a thread) of 1 to 9 rows; one launch each."""
     rng = np.random.RandomState(11)
     hi = 128 if dtype == torch.int8 else 32768
     base = 100.0 if dtype == torch.int8 else 1.0
@@ -1627,7 +1535,6 @@ def test_avgpool_fused_kernel_equals_plain(dev, dtype):
         _fused_check(x, m, in_m, 16, True, plan=plan)
         n += 1
     assert _counts() == {'int_avgpool3x3_requant': n}
-    assert _core_counts() == {'int_avgpool3x3_requant@cuda': n}
     one = torch.tensor(np.float32(1.0), device=dev)
     with pytest.raises(ValueError):                  # 17 bits in front
         ka.int_avgpool3x3_requant(x, one, out_bits=8, signed=True,
@@ -1731,8 +1638,7 @@ def test_sm90_conv_at_inception_geometries(dev, shape, n, taps, stride, pad):
         torch.testing.assert_close(
             kc.int8_conv_requant(xp, weights, bias, mult, relu=True,
                                  **geo).cpu(), want_q, rtol=0, atol=0)
-    assert _core_counts() == {'int8_conv_acc@sm90': 2,
-                              'int8_conv_requant@sm90': 2}
+    assert _counts() == {'int8_conv_acc': 2, 'int8_conv_requant': 2}
 
 
 @pytest.mark.parametrize('width_div,scheme,mode,wide', [
@@ -1742,8 +1648,8 @@ def test_sm90_conv_at_inception_geometries(dev, shape, n, taps, stride, pad):
 def test_inception_engine_cuda_equals_cpu(dev, width_div, scheme, mode,
                                           wide):
     """InceptionV3 at 75² on the card: logits and the capture nodes equal
-    the CPU engine's; A1 nine times; at full width every conv on the
-    Hopper core."""
+    the CPU engine's; A1 nine times; at full width the 94 convs and the
+    FC."""
     from hawq_tpu_torch.inference.engine_inception import (
         build_inceptionv3_engine)
     from hawq_tpu_torch.inference.fold import fold4_images_3x3s2
@@ -1758,11 +1664,11 @@ def test_inception_engine_cuda_equals_cpu(dev, width_div, scheme, mode,
     _build.reset_launches()
     got = build_inceptionv3_engine(fm, device=dev, **kw)(x)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
-    cores = _core_counts()
-    assert cores['int_avgpool3x3_requant@cuda'] == 9
+    counts = _counts()
+    assert counts['int_avgpool3x3_requant'] == 9
     if width_div == 1:
-        assert not [k for k in cores if k.endswith('@mma')], cores
-        assert sum(cores.values()) == 9 + 95
+        assert sum(v for k, v in counts.items()
+                   if not k.startswith('requant_')) == 9 + 95, counts
     for node in ('init', 'features.stage1.unit3.q_rescaling_activ',
                  'features.stage2.unit1.q_rescaling_activ',
                  'features.stage2.unit5.q_rescaling_activ',
@@ -1785,8 +1691,7 @@ def test_avgpool_quotient_kernel_equals_plain(dev, dtype):
     """A1's quotient form (no requant, int32 out) over the ragged set: every
     H, W in {1, 2, 3, 5, 8, 17, 35} with C cycling through {1, 3, 4, 12,
     288}, both forms (an unaligned input takes one channel a thread),
-    saturated inputs and a constant −9 field; one launch each, counted on
-    '@cuda'."""
+    saturated inputs and a constant −9 field; one launch each."""
     rng = np.random.RandomState(11)
     top = min(torch.iinfo(dtype).max, 2 ** 31 // 9)    # int32: no overflow
     hws = (1, 2, 3, 5, 8, 17, 35)
@@ -1815,7 +1720,6 @@ def test_avgpool_quotient_kernel_equals_plain(dev, dtype):
     check(torch.full((1, 4, 5, 4), -9, dtype=dtype, device=dev))
     n += 2
     assert _counts() == {'int_avgpool3x3': n}
-    assert _core_counts() == {'int_avgpool3x3@cuda': n}
     with pytest.raises(ValueError):
         ka.int_avgpool3x3(x.float())
 
@@ -2023,8 +1927,8 @@ def test_deploy_cuda_equals_cpu(dev, tmp_path, capsys):
 def test_routed_int4w_sites_equal_plain(dev, family):
     """Every 1×1 site of MobileNetV2 w1 (#4, the accumulator form) and of
     InceptionV3 w1 (#3 with ReLU) at b8 on nibble-packed 4-bit weights ==
-    the plain version (the same site on the CPU), tolerance 0, on whichever
-    core the rule names."""
+    the plain version (the same site on the CPU), tolerance 0, on the
+    Hopper core (MobileNetV2's K = 24 zero-padded first)."""
     from hawq_tpu_torch.inference import routing as rt
     sites = (rt.mobilenet_conv1x1_sites() if family == 'mobilenetv2'
              else rt.inception_conv1x1_sites())
@@ -2035,9 +1939,8 @@ def test_routed_int4w_sites_equal_plain(dev, family):
         b = rng.randint(-2 ** 15, 2 ** 15, cout).astype(np.int32)
         x = torch.from_numpy(rng.randint(-128, 128, (
             8, spatial, spatial, cin)).astype(np.int8))
-        kind = 'matmul' if epi == 'acc' else 'matmul_requant'
-        card = rt.Routed1x1.prepare(w, b, True, kind, dev)
-        plain = rt.Routed1x1.prepare(w, b, True, kind, cpu)
+        card = rt.Routed1x1.prepare(w, b, True, dev)
+        plain = rt.Routed1x1.prepare(w, b, True, cpu)
         if epi == 'acc':
             got, want = card.acc(x.to(dev)), plain.acc(x)
         else:
@@ -2199,12 +2102,12 @@ def test_two_ranks_share_the_card_gloo_train_step(dev, tmp_path):
 # ---------------------------------------------------------------------------
 
 def _program_launches(fn, x):
-    """(output, launches per kernel, launches per core) of one ``fn(x)``,
-    the counts set to 0 just before it and read just after."""
+    """(output, launches per kernel) of one ``fn(x)``, the counts set to 0
+    just before it and read just after."""
     _build.reset_launches()
     out = fn(x)
     torch.cuda.synchronize()
-    return out, _counts(), _core_counts()
+    return out, _counts()
 
 
 @pytest.mark.parametrize('arch,scheme,mode', [
@@ -2212,8 +2115,8 @@ def _program_launches(fn, x):
     ('resnet18', 'uniform4', 'float32')])
 def test_loaded_program_equals_engine(dev, arch, scheme, mode):
     """``load_program(export_program(fm))`` on the card: logits equal to the
-    engine's, and the same launches per kernel and per core, which are the
-    bit config's prediction."""
+    engine's, and the same launches per kernel, which are the bit config's
+    prediction."""
     import chip_smoke
     from hawq_tpu_torch.export.export import export_program, load_program
     fm = synthetic_frozen_resnet(arch, get_bit_config(arch, scheme),
@@ -2222,12 +2125,11 @@ def test_loaded_program_equals_engine(dev, arch, scheme, mode):
         np.float32)).to(dev)
     engine = build_resnet_engine(fm, device=dev)
     program = load_program(export_program(fm, 2, 32, device=dev))
-    want, counts, cores = _program_launches(engine, x)
-    got, got_counts, got_cores = _program_launches(program, x)
+    want, counts = _program_launches(engine, x)
+    got, got_counts = _program_launches(program, x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert got_counts == counts == chip_smoke.expected_launches(
         arch, fm.cfg, mode)
-    assert got_cores == cores
 
 
 def test_card_program_loads_on_the_cpu(dev):
@@ -2292,7 +2194,7 @@ def test_exported_engine_equals_engine(dev, family):
     """``export_engine`` of a folded ResNet (int16 carrier), a full-width
     MobileNetV2 at 64² and an InceptionV3 of width / 8 at 75², on
     ``image_dependent`` weights, saved and loaded: logits and launches per
-    kernel and per core equal the engine's on the traced batch, and on
+    kernel equal the engine's on the traced batch, and on
     another batch the logits equal the engine's and differ from the first
     batch's (the program reads its input)."""
     import io
@@ -2301,10 +2203,10 @@ def test_exported_engine_equals_engine(dev, family):
     buf = io.BytesIO()
     torch.export.save(export_engine(engine, x), buf)
     program = load_program(buf.getvalue())
-    want, counts, cores = _program_launches(engine, x)
-    got, got_counts, got_cores = _program_launches(program, x)
+    want, counts = _program_launches(engine, x)
+    got, got_counts = _program_launches(program, x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert got_counts == counts and got_cores == cores
+    assert got_counts == counts
     got2 = program(x2)
     torch.testing.assert_close(got2, engine(x2), rtol=0, atol=0)
     assert not torch.equal(got2, got)

@@ -63,7 +63,7 @@ def _matmul_args(name, prepared):
         h = km.prepare_weights_int4(w) if int4 else km.prepare_weights(w)
         w, cpad = h.wt, h.cpad
     epilogue = (_mult(rng, 16), 0, 127) if requant else (None, 0, 0)
-    return (x, w, cpad, _bias(rng, 16), *epilogue, -1, -1, -1, 0)
+    return (x, w, cpad, _bias(rng, 16), *epilogue, -1, -1, 0)
 
 
 def _residual_args(prepared):
@@ -76,7 +76,7 @@ def _residual_args(prepared):
     identity = torch.tensor(rng.randint(-2 ** 20, 2 ** 20, (5, 16))
                             .astype(np.int32))
     return (x, w, cpad, _bias(rng, 16), identity, _mult(rng, 16),
-            _mult(rng, 16), -1, -1, 0)
+            _mult(rng, 16), -1, 0)
 
 
 def _conv_args(name, prepared, pad):
@@ -93,7 +93,7 @@ def _conv_args(name, prepared, pad):
         w, cpad, row_taps = h.wt, h.cpad, h.row_taps
     epilogue = (_mult(rng, n), -128, 127) if requant else (None, 0, 0)
     return (xp, w, cpad, row_taps, _bias(rng, n), *epilogue, list(taps),
-            list(out_hw), cin, list(pad), -1, -1, 0)
+            list(out_hw), cin, list(pad), -1, 0)
 
 
 def _pool_args(name):

@@ -234,27 +234,7 @@ def test_kblocked_plain_matches_pallas_kernel_and_oracle():
         np.testing.assert_array_equal(
             tkm.int8_matmul_requant_kblocked(
                 _t(x), _t(w), _t(bias), _t(mult), out_bits=out_bits,
-                signed=signed, relu=relu, k_splits=1).numpy(), want)
-
-
-def test_kblocked_rejects_bad_split_counts():
-    x, w, bias, mult = (_t(a) for a in _operands(np.random.RandomState(0),
-                                                 8, 130, 16))
-    for splits in (0, 4, -1):                    # K = 130: three K tiles
-        with pytest.raises(ValueError):
-            tkm.int8_matmul_requant_kblocked(x, w, bias, mult,
-                                             k_splits=splits)
-    tkm.int8_matmul_requant_kblocked(x, w, bias, mult, k_splits=3)
-
-
-def test_default_k_splits():
-    # stage-4 conv1 of ResNet-50 at batch 8: 56 tiles on 132 SMs, 32 K tiles
-    assert tkm.default_k_splits(392, 2048, 512, 132) == 4
-    # many output tiles: no split; a short K: no split
-    assert tkm.default_k_splits(25088, 64, 256, 132) == 1
-    assert tkm.default_k_splits(8, 128, 64, 132) == 1
-    for m, k, n in ((8, 2048, 1000), (392, 512, 2048), (1, 1, 1)):
-        assert 1 <= tkm.default_k_splits(m, k, n, 132) <= max(1, -(-k // 64))
+                signed=signed, relu=relu).numpy(), want)
 
 
 def test_device_twins_of_the_host_conv_helpers():

@@ -10,9 +10,8 @@ inputs from a seed, tolerance 0: the pool against
 the matmul against the Pallas ``int8_matmul_requant_kblocked`` in interpret
 mode and ``reference_matmul_requant``.  Beside them: the plain walk of the
 pool kernel (runs of R columns, the left term carried) against the oracle,
-the routing clause of the K-blocked matmul, and the folded engine's call of
-the fused pool.  The kernels themselves are held against these plain
-versions on the card (tests/test_torch_cuda.py).
+and the folded engine's call of the fused pool.  The kernels themselves are
+held against these plain versions on the card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -181,22 +180,28 @@ def _operands(rng, m, k, n):
 
 # M, K, N and the Pallas kernel's blocks (they must divide the shape): K
 # ragged against the Hopper core's 64- and 128-deep steps (1000: eight
-# 128-deep steps over a padded 1024; 520: nine 64-deep steps over 576)
+# 128-deep steps over a padded 1024; 520: nine 64-deep steps over 576); K
+# and N that are not multiples of 16, which the card zero-pads first
+# (MobileNetV2's K = 24 and N = 24 among them); the FC's N = 1000
 _KBLOCKED_SHAPES = [((64, 1000, 64), (64, 64, 200)),
-                    ((37, 520, 48), (37, 48, 104))]
+                    ((37, 520, 48), (37, 48, 104)),
+                    ((37, 45, 19), (37, 19, 45)),
+                    ((16, 24, 24), (16, 24, 24)),
+                    ((50, 130, 20), (50, 20, 65)),
+                    ((8, 2048, 1000), (8, 200, 512)),
+                    ((128, 256, 40), (64, 40, 128)),
+                    ((3, 72, 10), (3, 10, 24))]
 
 
-@pytest.mark.parametrize('k_splits', [None, 1, 2, 3])
 @pytest.mark.parametrize('shape,blocks', _KBLOCKED_SHAPES)
-def test_kblocked_handle_matches_pallas_kernel_and_oracle(k_splits, shape,
-                                                         blocks):
+def test_kblocked_handle_matches_pallas_kernel_and_oracle(shape, blocks):
     """The wrapper over a handle walks the Hopper core's way (the padded K
     in one accumulator, one requant), over plain weights the plain version;
-    both equal the Pallas K-blocked kernel and the oracle at any split."""
+    both equal the Pallas K-blocked kernel and the oracle."""
     m, k, n = shape
-    rng = np.random.RandomState(m + k + (k_splits or 0))
+    rng = np.random.RandomState(m + k + n)
     x, w, bias, mult = _operands(rng, m, k, n)
-    x[0], w[:, 0] = -128, 127                     # |acc| past 2^24
+    x[0], w[:, 0] = -128, 127                     # |acc| past 2^24 at K 2048
     args = [jnp.asarray(a) for a in (x, w, bias, mult)]
     prepared = tkm.prepare_weights(_t(w))
     for out_bits, signed, relu in ((8, True, False), (4, False, True)):
@@ -212,31 +217,6 @@ def test_kblocked_handle_matches_pallas_kernel_and_oracle(k_splits, shape,
         for weights in (prepared, _t(w)):
             got = tkm.int8_matmul_requant_kblocked(
                 _t(x), weights, _t(bias), _t(mult), out_bits=out_bits,
-                signed=signed, relu=relu, k_splits=k_splits)
+                signed=signed, relu=relu)
             assert got.dtype == torch.int8
             np.testing.assert_array_equal(got.numpy(), oracle)
-
-
-# (core asked, k_splits, K, N, x's pointer) → the core, or None: it raises
-_KBLOCKED_ROUTES = [
-    (None, None, 2048, 512, 0, 'sm90'),       # a conv1 call of ResNet-50
-    (None, 1, 2048, 512, 0, 'sm90'),          # K in one piece
-    (None, 2, 2048, 512, 0, 'mma'),           # split-K asked for
-    (None, 9, 2048, 512, 0, 'mma'),
-    ('mma', None, 2048, 512, 0, 'mma'),
-    ('sm90', 9, 2048, 512, 0, None),
-    (None, None, 45, 512, 0, 'mma'),          # the core's clauses: K % 16,
-    (None, None, 2048, 20, 0, 'mma'),         # N % 16, pointer % 16
-    (None, None, 2048, 512, 8, 'mma'),
-    ('sm90', None, 45, 512, 0, None),
-    ('sm90', None, 2048, 20, 0, None),
-    ('tpu', None, 2048, 512, 0, None)]
-
-
-@pytest.mark.parametrize('core,k_splits,k,n,ptr,want', _KBLOCKED_ROUTES)
-def test_kblocked_routing_clause(core, k_splits, k, n, ptr, want):
-    if want is None:
-        with pytest.raises(ValueError):
-            tkm.kblocked_core(core, k_splits, k=k, n=n, ptr=ptr)
-    else:
-        assert tkm.kblocked_core(core, k_splits, k=k, n=n, ptr=ptr) == want

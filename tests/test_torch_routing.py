@@ -223,11 +223,13 @@ def test_odd_k_site_pads_with_zeros():
     x = torch.from_numpy(rng.randint(-128, 128, (2, 3, 5, 7)).astype(
         np.int8))
     mult = torch.full((24,), 0.003, dtype=torch.float32)
-    for kind in ('matmul', 'matmul_requant'):
-        packed = trt.Routed1x1.prepare(w, b, True, kind, torch.device('cpu'))
-        plain = trt.Routed1x1.prepare(w, b, False, kind, torch.device('cpu'))
-        assert packed.w.shape == (4, 24) and packed.cin == 7
-        if kind == 'matmul':
+    packed = trt.Routed1x1.prepare(w, b, True, torch.device('cpu'))
+    plain = trt.Routed1x1.prepare(w, b, False, torch.device('cpu'))
+    assert packed.cin == 7 and packed.w.int4 and (packed.w.k, packed.w.n) == (
+        8, 24)
+    assert km.unprepare_weights(packed.w).shape == (4, 24)
+    for requant in (False, True):
+        if not requant:
             got, want = packed.acc(x), plain.acc(x)
             assert got.shape == (2, 3, 5, 24) and got.dtype == torch.int32
         else:

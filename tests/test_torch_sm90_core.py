@@ -3,7 +3,7 @@
 The four convs (``int8_conv_requant``, ``int4w_conv_requant``,
 ``int8_conv_acc``, ``int4w_conv_acc``) and the four matmuls
 (``int8_matmul_requant``, ``int8_matmul_acc`` and their packed int4 forms)
-run on a second CUDA core on the card (csrc/gemm_s8_sm90.cuh).  What
+run on the Hopper GEMM core on the card (csrc/gemm_s8_sm90.cuh).  What
 surrounds that kernel is Python and is tested here: the K-major weight
 layouts (``prepare_weights``, and ``prepare_weights_int4`` for weights that
 stay nibble-packed), the conv's plan of pixel-rectangle tiles, the plain
@@ -11,8 +11,9 @@ versions of the kernel's own walk (``conv_acc_tiled_plain`` and its requant
 ``conv_requant_tiled_plain``, ``matmul_acc_kmajor_plain``,
 ``matmul_requant_kmajor_plain``) against the first plain versions and
 against the JAX package's Pallas kernels in interpret mode (same numpy
-inputs from a seed, tolerance 0), the rule that routes a call to one core or
-the other, the tile rules, and the engine's caches of prepared weights.
+inputs from a seed, tolerance 0), the alignment step that zero-pads what TMA
+cannot read as it is (``sm90_operands``) and the walk on its padded
+operands, the tile rules, and the engine's caches of prepared weights.
 The kernel itself is held against these plain versions on the card
 (tests/test_torch_cuda.py).
 """
@@ -31,6 +32,7 @@ from hawq_tpu.inference.synthetic import (
     synthetic_frozen_resnet as jax_synthetic_frozen_resnet)
 from hawq_tpu.kernels import conv as jkc
 from hawq_tpu.kernels import matmul as jkm
+from hawq_tpu.quant import ops as jops
 
 from hawq_tpu_torch.configs.bit_config import (RESNET_UNITS, get_bit_config)
 from hawq_tpu_torch.inference.engine import build_resnet_engine
@@ -151,13 +153,15 @@ def test_prepare_weights_int4_of_pack_int4_bytes(k, n):
 @pytest.mark.parametrize('taps,cin,pad,rows', [
     ((4, 4), 16, (0, 0), 4), ((3, 3), 48, (0, 0), 3), ((3, 3), 16, (1, 0), 3),
     ((3, 3), 16, (1, 1), 1), ((3, 3), 64, (0, 0), 1), ((1, 1), 16, (0, 0), 1),
-    ((2, 2), 80, (0, 0), 2)])
+    ((2, 2), 80, (0, 0), 2), ((3, 3), 24, (0, 0), 1)])
 def test_prepare_conv_weights_reads_a_kernel_row_as_one_tap(taps, cin, pad,
                                                             rows, int4):
-    """Where C is not a multiple of 64 and no border is left to TMA along x,
-    a kernel row of kw taps is one tap of kw·C channels: the handle is that
-    of the (kh, kw·C, N) weights, K padded to 64 once a row; it round-trips
-    to the flat weights (per-tap packed bytes for int4)."""
+    """Where C is not a multiple of 64 but of 16 and no border is left to
+    TMA along x, a kernel row of kw taps is one tap of kw·C channels: the
+    handle is that of the (kh, kw·C, N) weights, K padded to 64 once a row;
+    it round-trips to the flat weights (per-tap packed bytes for int4).  A
+    C off 16 (24) reads a tap at a time: TMA's pixels of a row must lie 16
+    bytes apart."""
     kh, kw = taps
     n = 12
     rng = np.random.RandomState(kh + cin + n)
@@ -628,6 +632,13 @@ def test_wrappers_reject_a_handle_of_another_shape():
     with pytest.raises(ValueError):
         tkc.int8_conv_acc(torch.zeros((1, 4, 4 * 16), dtype=torch.int8), rows,
                           bias, pad=(1, 1), **geo3)
+    # and pixels of whole 16 bytes: a row handle of C = 5 has no view at the
+    # width the alignment step pads the slab to
+    rows5 = tkm.prepare_weights(torch.zeros((9 * 5, 8), dtype=torch.int8), 9,
+                                row_taps=3)
+    with pytest.raises(ValueError, match='C % 16'):
+        tkm.sm90_operands(torch.zeros((1, 6, 6 * 5), dtype=torch.int8), rows5,
+                          (bias,), 1)
     # packed weights only through the int4w kernel, int8 ones only through
     # the int8 kernels
     p4 = tkm.prepare_weights_int4(torch.zeros((4 * 8, 8), dtype=torch.int8), 4)
@@ -641,7 +652,7 @@ def test_wrappers_reject_a_handle_of_another_shape():
 
 
 # ---------------------------------------------------------------------------
-# (d) the routing rule and the tile width
+# (d) the alignment step and the tile width
 # ---------------------------------------------------------------------------
 
 def _resnet50_gemm_shapes(batch, size=224):
@@ -684,16 +695,54 @@ _ENGINE_SHAPES, _ = _resnet50_gemm_shapes(8)
 _, _TRAIN_SHAPES = _resnet50_gemm_shapes(32)
 
 
+# bytes of an output element of each kind of call: the requant forms write
+# int8, the accumulator forms int32
+_OUT_BYTES = {'matmul': 4, 'matmul_requant': 1, 'conv': 1, 'conv_acc': 4}
+
+
+def _at(a, ptr: int) -> torch.Tensor:
+    """``a`` as a contiguous tensor whose data pointer lies ``ptr`` % 16
+    bytes past a 16-byte boundary."""
+    t = _t(a)
+    size, off = t.numel() * t.element_size(), ptr % 16
+    buf = torch.zeros(size + 32, dtype=torch.uint8)
+    start = -buf.data_ptr() % 16 + off
+    out = buf[start:start + size].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == off
+    return out
+
+
+def _step(kind, k, n, ptr=0):
+    """The alignment step on the operands of a ``kind`` call with K (a
+    matmul) or C (a 3×3 conv over a slab of 3 pixels a row) of ``k``, N of
+    ``n``, x at ``ptr`` → (x, handle, vectors, the step's result)."""
+    conv = kind.startswith('conv')
+    taps, cpad = (9 if conv else 1), -(-k // 64) * 64
+    prepared = tkm.PreparedWeights(
+        torch.zeros((n, taps * cpad), dtype=torch.int8), taps, k, cpad)
+    x = _at(np.arange(2 * (3 if conv else 1) * k).astype(np.int8).reshape(
+        2, -1), ptr)
+    vectors = (torch.arange(n, dtype=torch.int32), torch.ones(n))
+    return x, prepared, vectors, tkm.sm90_operands(x, prepared, vectors,
+                                                   _OUT_BYTES[kind])
+
+
+def _needs_no_padding(kind, k, n):
+    x, prepared, vectors, (x2, p2, v2, _) = _step(kind, k, n)
+    assert x2 is x and p2 is prepared and v2 is vectors
+
+
 @pytest.mark.parametrize('kind,m,k,n', sorted(set(_ENGINE_SHAPES)))
 def test_rule_takes_every_engine_shape_of_resnet50_b8(kind, m, k, n):
-    assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
+    _needs_no_padding(kind, k, n)
     assert tkm.sm90_tile_n(-(-m // 64), n, -(-k // 128), 132) in \
         tkm.SM90_TILE_NS
 
 
 @pytest.mark.parametrize('kind,m,k,n', sorted(set(_TRAIN_SHAPES)))
 def test_rule_takes_every_train_shape_of_resnet50_b32(kind, m, k, n):
-    assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
+    _needs_no_padding(kind, k, n)
 
 
 # the int4w_matmul_requant ('matmul_requant') and int4w_matmul_acc
@@ -706,7 +755,7 @@ _INT4W_MATMUL_SHAPES = [s for s in _ENGINE_SHAPES
 
 @pytest.mark.parametrize('kind,m,k,n', sorted(set(_INT4W_MATMUL_SHAPES)))
 def test_rule_takes_every_int4w_matmul_shape_of_resnet50_b8(kind, m, k, n):
-    assert tkm.sm90_route(kind, k=k, n=n, ptr=512) is None
+    _needs_no_padding(kind, k, n)
     k_tiles = -(-k // (128 if k % 128 == 0 else 64))
     assert tkm.sm90_tile_n(-(-m // 64), n, k_tiles, 132,
                            tkm.SM90_INT4_MATMUL_WIDEST) in tkm.SM90_TILE_NS
@@ -737,23 +786,170 @@ def test_resnet50_shape_lists_have_the_launch_counts():
     ('conv_acc', 16, 18, 512, 'N % 4'), ('conv_acc', 48, 1002, 512, 'N % 4'),
     ('conv_acc', 16, 20, 520, 'pointer % 16')])
 def test_rule_names_the_clause_that_excludes(kind, k, n, ptr, clause):
-    assert tkm.sm90_route(kind, k=k, n=n, ptr=ptr) == clause
-    with pytest.raises(ValueError):
-        tkm.pick_core(kind, 'test', 'sm90', k=k, n=n, ptr=ptr)
-    assert tkm.pick_core(kind, 'test', None, k=k, n=n, ptr=ptr) == 'mma'
+    """The step pads what each clause names, and nothing else: x's K or C
+    zero-filled to a multiple of 16 (the handle viewed at that width),
+    the vectors widened to an N of whole 16-byte output rows, x copied to
+    a 16-byte boundary; a case may hit more clauses than the one it is
+    named for (C = 3, N = 7 at an odd pointer)."""
+    conv = kind.startswith('conv')
+    x, prepared, vectors, (x2, p2, v2, _) = _step(kind, k, n, ptr)
+    align = 16 // _OUT_BYTES[kind]
+    k16, n_out = -(-k // 16) * 16, -(-n // align) * align
+    want = ({'C % 16' if conv else 'K % 16'} if k16 != k else set()) | (
+        {f'N % {align}'} if n_out != n else set()) | (
+        {'pointer % 16'} if ptr % 16 and k16 == k else set())
+    assert clause in want
+    padded = set()
+    if x2.shape[-1] != x.shape[-1]:
+        padded.add('C % 16' if conv else 'K % 16')
+        assert x2.shape == (2, x.shape[-1] // k * k16)
+        assert (p2.wt is prepared.wt and (p2.taps, p2.cin, p2.cpad) ==
+                (prepared.taps, k16, prepared.cpad))
+        pix = x2.reshape(-1, k16)
+        assert torch.equal(pix[:, :k], x.reshape(-1, k))
+        assert not pix[:, k:].any()
+    elif x2 is not x:
+        padded.add('pointer % 16')
+        assert torch.equal(x2, x) and p2 is prepared
+    if v2 is not vectors:
+        padded.add(f'N % {align}')
+        for got, was in zip(v2, vectors):
+            assert got.shape == (n_out,) and torch.equal(got[:n], was)
+            assert not got[n:].any()
+    assert padded == want
+    assert x2.data_ptr() % 16 == 0 and x2.is_contiguous()
 
 
-def test_pick_core_follows_the_rule_unless_asked():
-    args = dict(k=64, n=64, ptr=0)
-    assert tkm.pick_core('conv', 'test', None, **args) == 'sm90'
-    assert tkm.pick_core('conv', 'test', 'mma', **args) == 'mma'
-    # an int32 output row of N = 20 is 80 bytes: the accumulator form takes it
-    assert tkm.sm90_route('conv_acc', k=16, n=20, ptr=0) is None
-    assert tkm.sm90_route('conv', k=16, n=20, ptr=0) == 'N % 16'
-    with pytest.raises(ValueError):
-        tkm.pick_core('conv', 'test', 'wgmma', **args)
-    with pytest.raises(ValueError):
-        tkm.sm90_route('pool', **args)
+# form, shape, x's pointer % 16 ('identity': the residual's identity's): a
+# matmul's (M, K, N), a conv's ((B, H, W, C), N, taps, pad), each refused
+# class of the bare core, int8 and packed int4; MobileNetV2's K = 24 1×1
+# convs and N = 24 projections, the CIFAR init's C = 3 (on the padded slab,
+# and with its border left to TMA)
+_PADDED = [('int8_matmul_acc', (37, 24, 24), 0),
+           ('int8_matmul_requant', (37, 48, 24), 0),
+           ('int8_matmul_acc', (20, 48, 18), 0),
+           ('int8_matmul_requant', (20, 48, 16), 8),
+           ('int8_matmul_requant', (9, 45, 19), 1),
+           ('int4w_matmul_requant', (37, 24, 24), 0),
+           ('int4w_matmul_acc', (20, 40, 18), 4),
+           ('int8_conv_acc', ((2, 8, 8, 3), 16, (3, 3), (1, 1)), 0),
+           ('int8_conv_acc', ((2, 8, 8, 3), 16, (3, 3), (0, 0)), 0),
+           ('int8_conv_requant', ((2, 6, 6, 16), 24, (3, 3), (1, 1)), 0),
+           ('int8_conv_acc', ((2, 6, 6, 16), 18, (3, 3), (0, 0)), 0),
+           ('int8_conv_requant', ((1, 5, 5, 16), 16, (3, 3), (1, 1)), 8),
+           ('int4w_conv_requant', ((2, 6, 6, 24), 24, (3, 3), (1, 1)), 0),
+           ('int4w_conv_acc', ((1, 7, 7, 10), 18, (1, 1), (0, 0)), 4),
+           ('residual', (37, 24, 24), 0),
+           ('residual', (20, 48, 18), 0),
+           ('residual', (20, 48, 16), 'identity'),
+           ('residual', (20, 48, 16), 8)]
+
+
+def _padded_conv(form, shape, ptr, rng):
+    """(the walk on the step's operands cut back to N, the plain version,
+    the Pallas kernel) of a conv call."""
+    (b, h, w, c), n, taps, pad = shape
+    kh, kw = taps
+    int4, requant = form.startswith('int4w'), form.endswith('_requant')
+    x = rng.randint(-128, 128, (b, h + kh - 1 - 2 * pad[0],
+                                (w + kw - 1 - 2 * pad[1]) * c)).astype(np.int8)
+    wf = (_w4 if int4 else lambda r, s: r.randint(-127, 128, s).astype(
+        np.int8))(rng, (kh * kw * c, n))
+    wp = tkc.pack_int4_conv(wf, kh * kw) if int4 else wf
+    bias, mult = _vectors(rng, n, half=False)
+    geo = dict(taps=taps, out_hw=(h, w), cin=c)
+    xp = tkc.pad_conv_input(_t(x), pad, **geo) if pad != (0, 0) else _t(x)
+    plain = tkc.conv_acc_plain(xp, _t(wf), _t(bias), **geo)
+    prepared = tkc.prepare_conv_weights(_t(wp), taps, c, pad, int4)
+    x2, p2, (b2, m2), _ = tkm.sm90_operands(
+        _at(x, ptr), prepared, (_t(bias), _t(mult)), 1 if requant else 4)
+    c2 = p2.cin // p2.row_taps
+    geo2 = dict(geo, cin=c2)
+    if pad != (0, 0):
+        x2 = tkc.pad_conv_input(x2, pad, **geo2)
+    walk = tkc.conv_acc_tiled_plain(x2, p2, b2, **geo2)
+    epi = dict(out_bits=8, signed=True, relu=True)
+    lo, hi = tkm.epilogue_bounds(**epi)
+    args = [jnp.asarray(a) for a in (xp.numpy(), wp, bias)]
+    with pltpu.force_tpu_interpret_mode():
+        if requant:
+            walk = tkm.requant_epilogue(walk, m2, lo, hi)
+            plain = tkm.requant_epilogue(plain, _t(mult), lo, hi)
+            fn = jkc.int4w_conv_requant if int4 else jkc.int8_conv_requant
+            pallas = fn(*args, jnp.asarray(mult), **geo, **epi)
+        else:
+            fn = jkc.int4w_conv_acc if int4 else jkc.int8_conv_acc
+            pallas = fn(*args, **geo)
+    assert walk.shape == (b, h * w, b2.shape[0])
+    return walk[..., :n], plain, np.asarray(pallas)
+
+
+def _padded_matmul(form, shape, ptr, rng):
+    """(the walk on the step's operands cut back to N, the plain version,
+    the Pallas kernel, with the residual's requant-add after hawq_tpu's
+    accumulator) of a matmul call."""
+    m, k, n = shape
+    int4, requant = form.startswith('int4w'), form.endswith('_requant')
+    x = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    w = (_w4(rng, (k, n)) if int4
+         else rng.randint(-127, 128, (k, n)).astype(np.int8))
+    wp = tkm.pack_int4(w) if int4 else w
+    bias, mult = _vectors(rng, n, half=False)
+    prepared = (tkm.prepare_weights_int4 if int4 else tkm.prepare_weights)(
+        _t(wp))
+    plain = tkm.matmul_acc_plain(_t(x), _t(w), _t(bias))
+    identity = None
+    if form == 'residual':
+        identity = rng.randint(-2 ** 20, 2 ** 20, (m, n)).astype(np.int32)
+        mult_id = np_dyadic_multiplier(
+            (rng.rand(n) * 2e-3 + 1e-4).astype(np.float32))
+        vectors = (_t(bias), _t(mult), _t(mult_id))
+        idt = _at(identity, 8 if ptr == 'identity' else 0)
+    else:
+        vectors = (_t(bias), _t(mult))
+    x2, p2, v2, id2 = tkm.sm90_operands(
+        _at(x, 0 if ptr == 'identity' else ptr), prepared, vectors,
+        1 if requant else 4, None if identity is None else idt)
+    walk = tkm.matmul_acc_kmajor_plain(
+        x2, p2, v2[0], 'int4w_matmul_acc' if int4 else 'int8_matmul_acc')
+    epi = dict(out_bits=8, signed=True, relu=True)
+    lo, hi = tkm.epilogue_bounds(**epi)
+    args = [jnp.asarray(a) for a in (x, wp, bias)]
+    with pltpu.force_tpu_interpret_mode():
+        if requant:
+            walk = tkm.requant_epilogue(walk, v2[1], lo, hi)
+            plain = tkm.requant_epilogue(plain, _t(mult), lo, hi)
+            fn = jkm.int4w_matmul_requant if int4 else jkm.int8_matmul_requant
+            pallas = np.asarray(fn(*args, jnp.asarray(mult), **epi))
+        else:
+            fn = jkm.int4w_matmul_acc if int4 else jkm.int8_matmul_acc
+            pallas = np.asarray(fn(*args))
+    if identity is not None:
+        assert id2.shape == (m, v2[0].shape[0]) and id2.data_ptr() % 16 == 0
+        walk = tkm.residual_epilogue(walk, v2[1], id2, v2[2])
+        plain = tkm.residual_epilogue(plain, _t(mult), _t(identity),
+                                      _t(mult_id))
+        pallas = np.maximum(np.asarray(jops.requant_add_int32(
+            jnp.asarray(pallas), jnp.asarray(mult), jnp.asarray(identity),
+            jnp.asarray(mult_id))), 0)
+    assert walk.shape == (m, v2[0].shape[0])
+    return walk[:, :n], plain, pallas
+
+
+@pytest.mark.parametrize('form,shape,ptr', _PADDED)
+def test_padded_walk_equals_plain_and_pallas(form, shape, ptr):
+    """A call the bare core refuses (K or C not a multiple of 16, an output
+    row that is not whole 16 bytes, a pointer off 16 bytes): the step's
+    padded operands through the Hopper core's plain walk, the output cut
+    back to N, equal the plain version and the JAX package's Pallas kernel
+    (with the residual, hawq_tpu's accumulator and requant-add)."""
+    rng = np.random.RandomState(len(form) + sum(np.ravel(shape[0])))
+    padded = (_padded_conv if '_conv_' in form else _padded_matmul)(
+        form, shape, ptr, rng)
+    walk, plain, pallas = padded
+    assert walk.dtype == plain.dtype
+    np.testing.assert_array_equal(walk.numpy(), plain.numpy())
+    np.testing.assert_array_equal(walk.numpy(), pallas)
 
 
 @pytest.mark.parametrize('k,s,pad,c,o,h', [
@@ -765,8 +961,8 @@ def test_qat_convs_reach_the_rule_with_its_widths(monkeypatch, k, s, pad, c,
     ``int8_conv_acc`` the unpadded activations with ``pad`` (1, 1); a
     stride-2 conv its space-to-depth rewrite with C zero-filled to a
     multiple of 4 first (the RGB init: 3 → 4, C = 16 after the rewrite), so
-    that ``sm90_route('conv_acc')`` admits the call; the result equals a
-    float64 convolution (exact for these integers)."""
+    that the alignment step has nothing to pad; the result equals a float64
+    convolution (exact for these integers)."""
     calls = []
     real = tkc.int8_conv_acc
 
@@ -780,7 +976,7 @@ def test_qat_convs_reach_the_rule_with_its_widths(monkeypatch, k, s, pad, c,
     b = rng.randint(-2 ** 20, 2 ** 20, (o,)).astype(np.float32)
     got = TL.int_conv2d(_t(x), _t(w), _t(b), (s, s), pad)
     (shape, kw), = calls
-    assert tkm.sm90_route('conv_acc', k=kw['cin'], n=o, ptr=512) is None
+    _needs_no_padding('conv_acc', kw['cin'], o)
     if s == 1:
         assert kw['pad'] == (1, 1) and shape == (2, h, h * c)
     else:
@@ -851,15 +1047,25 @@ def test_tile_rows_rule_of_the_packed_matmul(m, n, k_tiles, want):
 # the engine keeps prepared weights, on the CPU too
 # ---------------------------------------------------------------------------
 
+def _unprepared(eng):
+    """``eng``, its caches filled by a call, with every cached handle taken
+    back to its plain weights (``unprepare_weights``), which the wrappers
+    run by the first plain versions."""
+    for key, val in eng._w.items():
+        w = tkm.unprepare_weights(val[0])
+        eng._w[key] = (val._replace(w=w) if hasattr(val, '_replace')
+                       else (w,) + tuple(val[1:]))
+    return eng
+
+
 def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
-    """tiny50's stage-2 widths are multiples of 16, so its CPU engine keeps
-    K-major handles for every conv of that stage (conv1 feeds
-    ``int8_matmul_requant``, conv2 ``int8_conv_requant``, conv3 / identity
-    ``int8_matmul_acc``) and for the init conv (``int8_conv_acc`` over the
-    channel-padded 4×4-tap rewrite, C = 16) and runs the plain walk; the
-    8-wide convs of stage 1 and the 10-class FC (N % 4) stay plain
-    tensors, as does everything where the rule excludes every width.  Both
-    give the same logits."""
+    """The CPU engine keeps K-major handles for every conv of tiny50 (conv1
+    feeds ``int8_matmul_requant``, conv2 ``int8_conv_requant``, conv3 /
+    identity ``int8_matmul_acc``), the 8-wide convs of stage 1 and the
+    10-class FC (N % 4 and N % 16 unaligned) among them, and for the init
+    conv (``int8_conv_acc`` over the channel-padded 4×4-tap rewrite, C =
+    16), and runs the plain walk; the engine whose handles are taken back
+    to plain weights gives the same logits."""
     fm = synthetic_frozen_resnet('tiny50', get_bit_config('tiny50',
                                                           'uniform8'),
                                  num_classes=10, seed=3)
@@ -867,40 +1073,32 @@ def test_engine_caches_prepared_weights_where_the_rule_takes_the_widths():
     eng = build_resnet_engine(fm, device='cpu')
     got = eng(x)
     kinds = {key: type(val[0]) for key, val in eng._w.items()}
-    prepared = [k for k, t in kinds.items() if t is tkm.PreparedWeights]
     for conv in ('quant_convbn1', 'quant_convbn2', 'quant_convbn3',
                  'quant_identity_convbn'):
-        assert any(conv in str(k) for k in prepared), conv
-    assert all(kinds[k] is tkm.PreparedWeights for k in kinds
-               if str(k).startswith(('stage2', "('stage2")))
-    assert kinds['stage1.unit1.quant_convbn1'] is torch.Tensor   # N = 8
-    assert kinds['quant_output'] is torch.Tensor
-    assert not any(eng._w[k][0].int4 for k in prepared)
+        assert any(conv in str(k) for k in kinds), conv
+    assert all(t is tkm.PreparedWeights for t in kinds.values()), kinds
+    assert 'stage1.unit1.quant_convbn1' in kinds         # N = 8
+    assert 'quant_output' in kinds                       # N = 10
+    assert not any(v[0].int4 for v in eng._w.values())
     # the raw init conv is cached by the k×k route, under (key, stride)
-    assert kinds['quant_init_convbn', 2] is tkm.PreparedWeights
     init = eng._w['quant_init_convbn', 2][0]  # 4 rows of 4 taps of C = 16
     assert (init.taps, init.cin, init.row_taps) == (4, 64, 4)
-    rule = tkm.sm90_route
-    tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
-    try:
-        plain_eng = build_resnet_engine(fm, device='cpu')
-        want = plain_eng(x)
-    finally:
-        tkm.sm90_route = rule
-    assert not any(t is tkm.PreparedWeights
-                   for t in (type(v[0]) for v in plain_eng._w.values()))
+    plain_eng = build_resnet_engine(fm, device='cpu')
+    plain_eng(x)
+    want = _unprepared(plain_eng)(x)
+    assert not any(isinstance(v[0], tkm.PreparedWeights)
+                   for v in plain_eng._w.values())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('arch,scheme', [('tiny50', 'uniform4'),
                                          ('resnet50', 'bops_0.5')])
 def test_engine_caches_packed_matmul_handles(arch, scheme):
-    """Every 1×1 conv with 4-bit weights whose widths the rule takes keeps a
-    packed handle (``int4``, one tap) for ``int4w_matmul_requant`` /
-    ``int4w_matmul_acc``, every 8-bit one an int8 handle, the excluded
-    widths plain tensors (the FC's int8 weights: a handle where N
-    % 4 allows); the logits equal those of the engine
-    with the rule switched off (plain packed bytes, first plain versions)."""
+    """Every 1×1 conv with 4-bit weights keeps a packed handle (``int4``,
+    one tap) for ``int4w_matmul_requant`` / ``int4w_matmul_acc``, every
+    8-bit one an int8 handle (the FC's int8 weights too, whatever its N);
+    the logits equal those of the engine whose handles are taken back to
+    plain weights (plain packed bytes, first plain versions)."""
     cfg = get_bit_config(arch, scheme)
     fm = synthetic_frozen_resnet(arch, cfg, num_classes=16, seed=9)
     x = np.random.RandomState(10).randn(1, 32, 32, 3).astype(np.float32)
@@ -909,26 +1107,15 @@ def test_engine_caches_packed_matmul_handles(arch, scheme):
     n4 = 0
     for key, (w, _) in ((k, v[:2]) for k, v in eng._w.items()
                         if isinstance(k, str) and k != 'init'):
-        wi = np.asarray(fm[key + '.weight_int'])
-        cin, cout = wi.shape[-2:]
-        kind = ('matmul_requant' if key.endswith('quant_convbn1')
-                else 'matmul')
-        admitted = tkm.sm90_route(kind, k=cin, n=cout, ptr=0) is None
+        cin = np.asarray(fm[key + '.weight_int']).shape[-2]
         four = key != 'quant_output' and cfg.weight_bits(key) == 4
-        if admitted:
-            assert isinstance(w, tkm.PreparedWeights), key
-            assert w.int4 == four and w.taps == 1 and w.k == cin, key
-            n4 += four
-        else:
-            assert isinstance(w, torch.Tensor), key
-            assert w.shape == ((cin // 2 if four else cin), cout), key
+        assert isinstance(w, tkm.PreparedWeights), key
+        assert w.int4 == four and w.taps == 1 and w.k == cin, key
+        n4 += four
     assert n4 > 0
-    rule = tkm.sm90_route
-    tkm.sm90_route = lambda kind, *, k, n, ptr: 'excluded'
-    try:
-        want = build_resnet_engine(fm, device='cpu')(x)
-    finally:
-        tkm.sm90_route = rule
+    plain = build_resnet_engine(fm, device='cpu')
+    plain(x)
+    want = _unprepared(plain)(x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
