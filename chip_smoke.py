@@ -46,11 +46,15 @@ non-zero exit and no result line:
     (plain) engine's, finite, launch counts as the bit config predicts,
     milliseconds per batch; each uniform4 engine also on
     ``image_dependent(fm)``, every node and the logits equal to the CPU
-    engine's and different across the images; the 16
-    ``int8_matmul_acc_residual`` calls of the ResNet-50 uniform8 int32
-    engine (each bottleneck's conv3 with the residual requant-add and ReLU
-    in its epilogue) held against their plain version, bit for bit, and
-    timed beside their bound; a profiler trace of the ResNet-50 uniform8
+    engine's and different across the images; the 16 residual-epilogue
+    calls of the ResNet-50 uniform8 int32 engine (each bottleneck's conv3
+    with the residual requant-add and ReLU in its epilogue: 12
+    ``int8_matmul_acc_residual_requant`` and 3
+    ``int8_matmul_residual_requant``, which also take the next unit's entry
+    requant, the second without storing the carrier, and the last unit's
+    ``int8_matmul_acc_residual``) held against their plain version, bit for
+    bit, and timed beside their bound; a profiler trace of the ResNet-50
+    uniform8
     (main path) and uniform4 forwards, also with the init block's former
     sequence (requant as PyTorch glue, then
     ``maxpool_folded``): kernels per forward and glue time before and after;
@@ -309,6 +313,17 @@ KERNELS = {
         'hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
         'hawq_tpu/kernels/matmul.py:189 + '
         'hawq_tpu/inference/engine.py:725'),
+    # the same with the next unit's entry requant (XLA-fused in the TPU
+    # engine) in its epilogue too: the carrier and the int8 entry, or the
+    # entry alone where nothing reads the carrier
+    'int8_matmul_acc_residual_requant': (
+        'hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
+        'hawq_tpu/kernels/matmul.py:189 + '
+        'hawq_tpu/inference/engine.py:725 + hawq_tpu/quant/ops.py:468'),
+    'int8_matmul_residual_requant': (
+        'hawq_tpu_torch/kernels/csrc/matmul_sm90.cu',
+        'hawq_tpu/kernels/matmul.py:189 + '
+        'hawq_tpu/inference/engine.py:725 + hawq_tpu/quant/ops.py:468'),
     'maxpool_folded': ('hawq_tpu_torch/kernels/csrc/pool.cu',
                        'hawq_tpu/kernels/pool.py:69'),
     'maxpool_folded_requant': ('hawq_tpu_torch/kernels/csrc/pool.cu',
@@ -354,8 +369,13 @@ KERNELS = {
 # pool, at the main path's pre-pool tensor), 6 and 7 drive them
 KBLOCKED, MINMAX = 'int8_matmul_requant_kblocked', 'minmax_1pass'
 POOL, POOL_REQUANT = 'maxpool_folded', 'maxpool_folded_requant'
-# the residual form: on phase 4's int32-carrier paths, not phase 3's int16
+# the residual forms: on phase 4's int32-carrier paths, not phase 3's int16;
+# the last two also take the next unit's entry requant, the last of them
+# without storing the carrier
 RESIDUAL = 'int8_matmul_acc_residual'
+RESIDUAL_REQUANT = 'int8_matmul_acc_residual_requant'
+RESIDUAL_REQUANT_ONLY = 'int8_matmul_residual_requant'
+RESIDUALS = (RESIDUAL, RESIDUAL_REQUANT, RESIDUAL_REQUANT_ONLY)
 # D1's two forms: the MobileNetV2 engine's (phase 8) and the QAT forward's
 # (phase 10)
 DW_REQUANT, DW_ACC = 'int8_dwconv_requant', 'int8_dwconv_acc'
@@ -371,7 +391,7 @@ RQ = (REQUANT, REQUANT_CAT)
 # the kernels on no ResNet serving path
 SERVING_KERNELS = [k for k in KERNELS
                    if k not in (KBLOCKED, MINMAX, POOL, AVGPOOL, AVGPOOL_Q,
-                                RESIDUAL, REQUANT_CAT) + DW]
+                                REQUANT_CAT) + DW + RESIDUALS]
 TRAIN_BATCH = 32
 # the phase that trains each arch through the Trainer
 TRAIN_PHASE = {'resnet50': 7, 'mobilenetv2_w1': 10, 'resnet50v2': 10,
@@ -402,7 +422,7 @@ MNV2_PATHS = (('uniform8', 'folded_float32', torch.int16),
 SM90_KERNELS = ('int8_conv_requant', 'int8_matmul_acc', 'int8_matmul_requant',
                 'int4w_conv_requant', 'int8_conv_acc', 'int4w_conv_acc',
                 'int4w_matmul_requant', 'int4w_matmul_acc', KBLOCKED,
-                RESIDUAL)
+                *RESIDUALS)
 POOLS = (POOL, POOL_REQUANT)
 # the kernels of their own (no GEMM core): D1 and A1
 OWN_CORE = DW + (AVGPOOL, AVGPOOL_Q)
@@ -427,7 +447,8 @@ REPLAY_SIZE = {'inceptionv3': 75}
 # the forms that compute the native requant: none launches in reference mode
 FUSED_FORMS = ('int8_conv_requant', 'int4w_conv_requant',
                'int8_matmul_requant', 'int4w_matmul_requant', POOL_REQUANT,
-               DW_REQUANT, AVGPOOL, REQUANT, REQUANT_CAT)
+               DW_REQUANT, AVGPOOL, REQUANT, REQUANT_CAT, RESIDUAL_REQUANT,
+               RESIDUAL_REQUANT_ONLY)
 
 # The serving paths of phase 3, (arch, scheme), all folded input, int16
 # carrier, batch 8, 224²; the first is the main path.  Each kernel is
@@ -931,16 +952,21 @@ def cold_ms(fn, args, reps):
 # ---------------------------------------------------------------------------
 
 def expected_launches(arch, cfg, input_mode, reference=False, routing=None,
-                      residual_dtype=torch.int32):
+                      residual_dtype=torch.int32, keep_carriers=False):
     """Kernel launches of one engine forward, from the arch and the bit
     config: the init conv (int8), the folded init's requant + pool, each
     unit conv by its place in the unit and its weight bits (``int4w_*`` for
     4-bit weights; with a ``routing`` table, for 4-bit weights the table
     routes to 'int4w'), and the FC (int8).  A bottleneck's int8 conv3 with
     the int32 carrier (``residual_dtype``) takes the residual epilogue
-    (``int8_matmul_acc_residual``).  In native mode ``requant_int32`` at
-    each unit's entry, the FC's input and, where the folded init's pool
-    does not take it, the init.  With ``reference``
+    (``int8_matmul_acc_residual``), and in every unit but the last, where
+    the next unit's activation has at most 8 bits, the next unit's entry
+    requant with it: ``int8_matmul_acc_residual_requant``, or
+    ``int8_matmul_residual_requant`` where the next unit has an identity
+    conv, so that nothing reads the carrier (unless ``keep_carriers``: a
+    forward whose emit reads every node).  In native mode ``requant_int32``
+    at each other unit's entry, the FC's input and, where the folded init's
+    pool does not take it, the init.  With ``reference``
     (``requant_mode='reference'``) every unit conv takes its accumulator
     form, the folded init the standalone pool, and no requant a kernel."""
     from hawq_tpu_torch.configs.bit_config import (RESNET_CONVS_PER_UNIT,
@@ -953,20 +979,37 @@ def expected_launches(arch, cfg, input_mode, reference=False, routing=None,
         counts[POOL if reference else POOL_REQUANT] = 1
     if not reference:
         counts[REQUANT] = sum(RESNET_UNITS[arch]) + 1 + (not folded)
-    for key in resnet_layer_keys(arch):
+    keys = list(resnet_layer_keys(arch))
+
+    def int4(key):
+        return cfg.weight_bits(key) == 4 and (
+            routing is None or routing.get(key) == 'int4w')
+
+    def add(name, n=1):
+        counts[name] = counts.get(name, 0) + n
+    for key in keys:
         conv = key.rsplit('.', 1)[-1]
         if not key.startswith('stage') or 'convbn' not in conv:
             continue
         form = _UNIT_CONV[bottleneck, conv]
-        int4 = cfg.weight_bits(key) == 4 and (
-            routing is None or routing.get(key) == 'int4w')
-        name = (('int4w_' if int4 else 'int8_')
+        name = (('int4w_' if int4(key) else 'int8_')
                 + (form.replace('_requant', '_acc') if reference else form))
-        if (conv == 'quant_convbn3' and not int4 and not reference
+        if (conv == 'quant_convbn3' and not int4(key) and not reference
                 and residual_dtype == torch.int32):
             name = RESIDUAL
-        counts[name] = counts.get(name, 0) + 1
-    return counts
+        add(name)
+    units = [f'stage{s}.unit{u}' for s, n in enumerate(RESNET_UNITS[arch], 1)
+             for u in range(1, n + 1)]
+    for p, q in zip(units, units[1:]):
+        if (f'{p}.quant_convbn3' in keys and not int4(f'{p}.quant_convbn3')
+                and not reference and residual_dtype == torch.int32
+                and cfg.act_bits(f'{q}.quant_act') <= 8):
+            own_identity = f'{q}.quant_identity_convbn' in keys
+            add(RESIDUAL, -1)
+            add(REQUANT, -1)
+            add(RESIDUAL_REQUANT_ONLY if own_identity and not keep_carriers
+                else RESIDUAL_REQUANT)
+    return {k: v for k, v in counts.items() if v}
 
 
 class Launches:
@@ -1171,6 +1214,12 @@ def plain_gemm_call(name, args, kw):
         x, w, bias, identity, mult_main, mult_id = args
         return km.residual_epilogue(km.matmul_acc_plain(x, w, bias),
                                     mult_main, identity, mult_id)
+    if name in RESIDUALS:            # and the entry requant's multiplier
+        x, w, bias, identity, mult_main, mult_id, mult_in = args
+        out = km.residual_requant_epilogue(
+            km.matmul_acc_plain(x, w, bias), mult_main, identity, mult_id,
+            mult_in, kw.get('out_bits', 8), kw.get('signed', True))
+        return out if name == RESIDUAL_REQUANT else out[1]
     if name.endswith('conv_acc'):
         return kc.conv_acc_plain(*args, **geo)
     lo, hi = km.epilogue_bounds(kw.get('out_bits', 8), kw.get('signed', True),
@@ -1195,7 +1244,7 @@ def work(name, args, kw, out):
     from hawq_tpu_torch.kernels.matmul import PreparedWeights
     nbytes = sum(t.numel() * t.element_size()
                  for t in tensors_of((*args, *kw.values())))
-    nbytes += out.numel() * out.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in outputs(out))
     if name in RQ:                     # a convert, multiply, round and clip
         ins = args[0] if name == REQUANT_CAT else [args[0]]
         return nbytes, 0, ('x'.join(map(str, out.shape[:-1])) + ' C'
@@ -1705,8 +1754,17 @@ def sm90_phase(dev, errs):
         f'core')
 
 
+def outputs(out):
+    """The tensors of a call's result: one, or a tuple's (the residual
+    form's carrier and entry)."""
+    return list(out) if isinstance(out, tuple) else [out]
+
+
 def same(got, want):
-    """Bit-equal, a NaN equal to a NaN."""
+    """Bit-equal, a NaN equal to a NaN; tuples element by element."""
+    if isinstance(got, tuple):
+        return (isinstance(want, tuple) and len(got) == len(want)
+                and all(same(g, w) for g, w in zip(got, want)))
     if got.is_floating_point():
         return bool(((got == want) | (got.isnan() & want.isnan())).all())
     return torch.equal(got, want)
@@ -1718,12 +1776,17 @@ def check_calls(calls, errs, what):
     for name, args, kw in calls:
         got = kernel_call(name, args, kw)
         want = plain_call(name, args, kw)
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f'{name}: {got.dtype}{tuple(got.shape)} vs plain '
-              f'{want.dtype}{tuple(want.shape)}')
-        err = float(torch.nan_to_num(
-            (got.to(torch.float64) - want.to(torch.float64)).abs(),
-            nan=0.0).max())
+        err = 0.0
+        for g, w in zip(outputs(got), outputs(want)):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f'{name}: {g.dtype}{tuple(g.shape)} vs plain '
+                  f'{w.dtype}{tuple(w.shape)}')
+            err = max(err, float(torch.nan_to_num(
+                (g.to(torch.float64) - w.to(torch.float64)).abs(),
+                nan=0.0).max()))
+        check(len(outputs(got)) == len(outputs(want)),
+              f'{name}: {len(outputs(got))} outputs vs plain '
+              f'{len(outputs(want))}')
         errs[name] = max(errs[name], err)
         check(same(got, want), f'{name} differs from its plain version '
               f'at {call_key(name, args, kw)[1]} {kw}: max |err| {err}')
@@ -2001,22 +2064,28 @@ def engine_check(build, x, want, nodes, label, dev, phase, calls=None):
 
 
 def residual_phase(eng, x, errs, totals):
-    """The residual form (``int8_matmul_acc_residual``: each bottleneck's
-    conv3 with the int32 carrier) on phase 4's int32 main path: the calls of
-    one forward of ``eng`` recorded, each held against its plain version,
-    then timed beside its bound → its launches."""
+    """The residual forms (each bottleneck's conv3 with the int32 carrier:
+    ``int8_matmul_acc_residual`` for the last unit; with the next unit's
+    entry requant ``int8_matmul_acc_residual_requant``, or
+    ``int8_matmul_residual_requant`` where the next unit has an identity
+    conv and the carrier is not stored) on phase 4's int32 main path: the
+    calls of one forward of ``eng`` recorded, each held against its plain
+    version, then timed beside its bound → their launches per form."""
     calls = []
     with recording(calls):
         eng(x)
         torch.cuda.synchronize()
-    calls = [c for c in calls if c[0] == RESIDUAL]
-    check(len(calls) == 16, f'phase 4: {len(calls)} {RESIDUAL} calls on '
-          f'resnet50 uniform8 float32 int32, expected 16')
-    check_calls(calls, errs, f'phase 4: the {len(calls)} {RESIDUAL} calls '
-                f'of resnet50 uniform8 float32 int32')
-    log(f'phase 4: timed {RESIDUAL} on resnet50 uniform8 float32 int32:')
+    calls = [c for c in calls if c[0] in RESIDUALS]
+    counts = {name: sum(c[0] == name for c in calls) for name in RESIDUALS}
+    want = {RESIDUAL: 1, RESIDUAL_REQUANT: 12, RESIDUAL_REQUANT_ONLY: 3}
+    check(counts == want, f'phase 4: residual-epilogue calls {counts} on '
+          f'resnet50 uniform8 float32 int32, expected {want}')
+    check_calls(calls, errs, f'phase 4: the {len(calls)} residual-epilogue '
+                f'calls of resnet50 uniform8 float32 int32')
+    log('phase 4: timed the residual forms on resnet50 uniform8 float32 '
+        'int32:')
     time_calls(calls, totals)
-    return len(calls)
+    return counts
 
 
 def engine_phase(fm, x, mode, residual, dev):
@@ -5025,9 +5094,9 @@ def main():
         engines[arch, scheme, mode] = engine_phase(
             fm, engine_input(fm, mode, raw, raw_u8, dev), mode, residual, dev)
     fm = fms['resnet50', 'uniform8']
-    launches[RESIDUAL] = residual_phase(
+    launches.update(residual_phase(
         engines['resnet50', 'uniform8', 'float32'],
-        engine_input(fm, 'float32', raw, raw_u8, dev), errs, totals)
+        engine_input(fm, 'float32', raw, raw_u8, dev), errs, totals))
     raw_pool_cost(engines, fms, raw, raw_u8, dev)
     for scheme in ('uniform8', 'uniform4'):     # W8A8 and W4A4 serving
         eng = engines['resnet50', scheme, 'folded_float32']
@@ -5082,7 +5151,8 @@ def main():
                   f'{SIZE}x{SIZE}'
     labels = {name: f'{arch} {scheme} folded_float32 int16 b{BATCH} '
                     f'{SIZE}x{SIZE}' for name, (arch, scheme) in report.items()}
-    labels[RESIDUAL] = (f'resnet50 uniform8 float32 int32 b{BATCH} '
+    for name in RESIDUALS:
+        labels[name] = (f'resnet50 uniform8 float32 int32 b{BATCH} '
                         f'{SIZE}x{SIZE}')
     labels[KBLOCKED] = (f'the 16 int8_matmul_requant calls of resnet50 '
                         f'uniform8 b{BATCH}, driven once through it (on no '

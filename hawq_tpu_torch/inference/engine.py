@@ -40,6 +40,14 @@ CPU device the kernels' plain versions run instead):
     as the carrier (:meth:`ResnetEngine._fused_residual`); every other unit
     conv3 and every basic block's conv2 take the accumulator form, then the
     requant-add, ReLU (and int16 clamp) as PyTorch ops;
+  * such a conv3 of every unit but the last, where the next unit's
+    activation has at most 8 bits, also leaves as the next unit's entry
+    requant (``int8_matmul_acc_residual_requant``,
+    :meth:`ResnetEngine._entry_in_epilogue`), which that unit takes as its
+    input; where nothing reads the carrier (the next unit takes its identity
+    from its own conv, and the forward's emit does not read the unit's
+    ``quant_act_int32`` node) it is not stored
+    (``int8_matmul_residual_requant``);
   * every other native requant (a unit's entry, the raw init's with its
     ReLU, the FC's input; in the other families also the requants after
     accumulator-form convs and, in InceptionV3, the requants of a concat's
@@ -75,10 +83,12 @@ Spans (``utils.tracing``, recorded only while a profiler records):
 through :meth:`IntEngine._conv_kxk` / :meth:`IntEngine._conv1x1` and the
 folded or CIFAR init conv, with its own layout glue; and in the ResNet v1
 engine ``engine.input`` (normalization and quantization of the images),
-``engine.requant`` (each unit's entry requant and the FC's input) and
-``engine.residual`` (each unit's requant-add, ReLU, clamp and cast; where
-conv3 takes the residual epilogue, that conv with them, in place of its
-``engine.conv``); the InceptionV3 engine's own sites are listed in
+``engine.requant`` (each unit's entry requant that conv3's epilogue does
+not take, and the FC's input) and ``engine.residual`` (each unit's
+requant-add, ReLU, clamp and cast; where conv3 takes the residual epilogue,
+that conv with them, in place of its ``engine.conv``, and the next unit's
+entry requant where the epilogue takes it); the InceptionV3 engine's own
+sites are listed in
 ``engine_inception.py``.  The ResNet pools and head have none.  Here only
 ``engine.forward`` takes a device time (two timing events a call); the
 sites' device times are their ranges in the profiler's trace.
@@ -147,6 +157,32 @@ class _Truncated(Exception):
     def __init__(self, value: torch.Tensor):
         super().__init__('capture')
         self.value = value
+
+
+class _Capture:
+    """The emit of an engine call: the capture node's value ends the
+    forward; :meth:`wants` tells the forward that no other node's value is
+    read."""
+
+    __slots__ = ('node',)
+
+    def __init__(self, node: Optional[str]):
+        self.node = node
+
+    def wants(self, name: str) -> bool:
+        return name == self.node
+
+    def __call__(self, name: str, value) -> None:
+        if name == self.node:
+            raise _Truncated(value)
+
+
+def _emit_reads(emit, name: str) -> bool:
+    """Whether a forward's ``emit`` reads node ``name``'s value: an engine
+    call's reads its capture node alone; any other emit (a caller's record
+    of every node) reads each one."""
+    wants = getattr(emit, 'wants', None)
+    return wants is None or wants(name)
 
 
 class IntEngine:
@@ -430,12 +466,9 @@ class IntEngine:
         if images.dtype != want:
             raise ValueError(f'input_mode {self.input_mode!r} takes {want} '
                              f'images, got {images.dtype}')
-        def emit(name, value):
-            if name == self.capture:
-                raise _Truncated(value)
         try:
             with span('engine.forward', self.device):
-                logits = self._forward(images, emit)
+                logits = self._forward(images, _Capture(self.capture))
         except _Truncated as t:          # the forward stops at the capture
             return t.value
         if self.capture is not None:
@@ -483,6 +516,28 @@ class ResnetEngine(IntEngine):
         packed by the bit config's rule or the routing table)."""
         return (not self.reference and self.res_dt == torch.int32
                 and not self._int4(key3))
+
+    def _entry_in_epilogue(self, i: int, s_out, emit):
+        """(mult, bits, signed, carrier) of the next unit's entry requant
+        where the fused conv3 of unit ``i`` (:meth:`_fused_residual`) takes
+        it in its epilogue: a next unit whose activation has at most 8 bits
+        (the int8 entry; ``s_out`` the carrier's scale).  ``carrier``:
+        whether the carrier is stored, i.e. read: as the next unit's identity
+        (it has no identity conv), or as this unit's ``quant_act_int32``
+        node by ``emit``.  None for the last unit, or a wider activation."""
+        if i + 1 == len(self.units):
+            return None
+        q = 'stage{}.unit{}'.format(*self.units[i + 1])
+        sa, ba, signed = self.act_info(f'{q}.quant_act')
+        if ba > 8:
+            return None
+        p = 'stage{}.unit{}'.format(*self.units[i])
+        own_identity = (f'{q}.quant_identity_convbn.weight_int'
+                        in self.fm.tensors)
+        carrier = not own_identity or _emit_reads(emit,
+                                                  f'{p}.quant_act_int32')
+        return (self.requant_mult(f'{q}.in', np.float32(s_out), sa), ba,
+                signed, carrier)
 
     def _init_w(self):
         """Weights of the init conv that does not take the space-to-depth
@@ -542,13 +597,17 @@ class ResnetEngine(IntEngine):
         prev_scale = np.float32(s16)
 
         # ---- units ----
-        for si, u in self.units:
+        entry = None     # a unit's input, where the conv3 before took it
+        for i, (si, u) in enumerate(self.units):
             p = f'stage{si}.unit{u}'
             stride = 2 if (u == 1 and si > 1) else 1
             sa, ba, signed_a = self.act_info(f'{p}.quant_act')
-            mult = self.requant_mult(f'{p}.in', prev_scale, sa)
-            with span('engine.requant'):
-                xa = self._requant(x, mult, ba, signed_a)
+            if entry is None:
+                mult = self.requant_mult(f'{p}.in', prev_scale, sa)
+                with span('engine.requant'):
+                    xa = self._requant(x, mult, ba, signed_a)
+            else:
+                xa, entry = entry, None
             emit(f'{p}.input', xa)
 
             id_key = f'{p}.quant_identity_convbn'
@@ -590,7 +649,12 @@ class ResnetEngine(IntEngine):
                                           n)
             mult_id = self.requant_mult(f'{p}.res_id', id_scale, s_out, n)
             with span('engine.residual'):
-                if fused:     # conv3 leaves as the carrier
+                nxt = self._entry_in_epilogue(i, s_out, emit) if fused \
+                    else None
+                if nxt is not None:   # conv3 leaves as the next unit's input
+                    x, entry = self._route(key3, False).residual_requant(
+                        h, id_acc, mult_main, mult_id, *nxt)
+                elif fused:           # conv3 leaves as the carrier
                     x = self._route(key3, False).residual(
                         h, id_acc, mult_main, mult_id)
                 else:

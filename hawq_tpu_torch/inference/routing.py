@@ -5,7 +5,9 @@ A routing table maps conv keys to this card's routes:
 
   * ``'int8'``  — the int8 kernels (#1 ``int8_matmul_requant`` / #2
     ``int8_matmul_acc`` for a 1×1 conv, or #2 with a bottleneck's residual
-    epilogue, ``int8_matmul_acc_residual``; #6 / #7 for a k×k one);
+    epilogue, ``int8_matmul_acc_residual``, and with the next unit's entry
+    requant in it too, ``int8_matmul_acc_residual_requant`` /
+    ``int8_matmul_residual_requant``; #6 / #7 for a k×k one);
   * ``'int4w'`` — the same products on nibble-packed weights (#3 / #4, #8 /
     #9), half the weight bytes.  On a layer whose weights are not 4-bit it
     takes ``'int8'``: packing needs nibble-range weights (the JAX package's
@@ -130,6 +132,27 @@ class Routed1x1(NamedTuple):
                                         identity.reshape(-1, n), mult_main,
                                         mult_id)
         return y.reshape(identity.shape)
+
+    def residual_requant(self, x8: torch.Tensor, identity: torch.Tensor,
+                         mult_main: torch.Tensor, mult_id: torch.Tensor,
+                         mult_in: torch.Tensor, out_bits: int, signed: bool,
+                         carrier: bool):
+        """:meth:`residual`, and in the same epilogue the next unit's entry
+        requant of the carrier by the one float32 ``mult_in`` to
+        ``out_bits`` (at most 8) → (the carrier (..., N) int32, the entry
+        (..., N) int8).  Without ``carrier`` (nothing reads it) the carrier
+        is not stored and comes back as None:
+        ``int8_matmul_residual_requant`` in place of
+        ``int8_matmul_acc_residual_requant``."""
+        n = identity.shape[-1]
+        args = (self._rows(x8), self.w, self.bias, identity.reshape(-1, n),
+                mult_main, mult_id, mult_in)
+        kw = dict(out_bits=out_bits, signed=signed)
+        if carrier:
+            c, e = km.int8_matmul_acc_residual_requant(*args, **kw)
+            return c.reshape(identity.shape), e.reshape(identity.shape)
+        e = km.int8_matmul_residual_requant(*args, **kw)
+        return None, e.reshape(identity.shape)
 
 
 def make_router(fm: FrozenModel, device: torch.device,

@@ -56,6 +56,7 @@ _SIGNATURES = {
     'hawq_int8_matmul_sm90': [_P, _P, _P, _P] + [_I] * 6 + [_P],
     'hawq_int8_matmul_requant_sm90': [_P] * 5 + [_I] * 8 + [_P],
     'hawq_int8_matmul_residual_sm90': [_P] * 7 + [_I] * 6 + [_P],
+    'hawq_int8_matmul_residual_requant_sm90': [_P] * 9 + [_I] * 8 + [_P],
     'hawq_int4w_matmul_sm90': [_P] * 5 + [_I] * 9 + [_P],
     'hawq_int4w_matmul_acc_sm90': [_P, _P, _P, _P] + [_I] * 7 + [_P],
     'hawq_int8_conv_sm90': [_P, _P, _P, _P, _P] + [_I] * 18 + [_P],

@@ -22,7 +22,10 @@
 //  * int8_matmul_acc_residual (!CONV, !REQUANT, RESIDUAL): the bottleneck's
 //    last 1x1 conv with the unit's residual requant-add and ReLU in its
 //    epilogue, so that it leaves as the int32 carrier and its accumulator
-//    never reaches device memory (see "Residual epilogue" below).
+//    never reaches device memory (see "Residual epilogue" below); with
+//    ENTRY (int8_matmul_acc_residual_requant, int8_matmul_residual_requant)
+//    it also leaves as the next unit's int8 entry requant of that carrier,
+//    and stores the carrier only where something reads it.
 //  * int8_matmul_requant (!CONV, REQUANT): replaces hawq_tpu/kernels/matmul.py
 //    int8_matmul_requant (matmul.py:68), the first 1x1 conv of every
 //    bottleneck unit.  Bound by its bytes (M K + K N + M N); the matmul
@@ -154,6 +157,21 @@
 // float32 op order); the TMA store is the accumulator's.  Rows and columns
 // outside (M, N) are neither read nor stored: the maps clip them.
 //
+// Entry requant (ENTRY, with RESIDUAL).  The next unit's entry requant reads
+// the whole carrier back to write one byte an element; here each carrier
+// value, still in registers, is also turned into
+//
+//   clip(floor(f32(carrier) * mult_in + 0.5), lo, hi)
+//
+// with one scalar mult_in (requant.cuh requant_s8, the op order of the
+// standalone requant in requant.cu, so the bytes are its bytes): two
+// requants in a row, kept as two.  The int8 tile is staged as one dense
+// 64 x BN box at the ring's start, below the identity's chunks (the ring's
+// front stages are free once the last K tile is consumed), and leaves
+// through a second map, (M, N) int8, beside the carrier's store.  With
+// carrier = 0 (the next unit takes its identity from its own conv, and no
+// capture reads the carrier) the carrier is neither staged nor stored.
+//
 // Every row stride and base pointer handed in is a multiple of 16 bytes, as
 // TMA needs: kernels/matmul.py sm90_operands zero-pads a call's operands to
 // that first, so that this core takes every shape.  A failure here is
@@ -193,18 +211,30 @@ struct Args {
 };
 
 // The epilogue's tensor maps: the output's, and with RESIDUAL the identity's
-// (the output's geometry) and its multipliers.  The kernels without a
-// residual keep their one map where it was among the parameters.
-template <bool RESIDUAL>
+// (the output's geometry) and its multipliers; with ENTRY also the entry
+// requant's output map and multiplier, and whether the carrier is stored.
+// The kernels without a residual keep their one map where it was among the
+// parameters.
+template <bool RESIDUAL, bool ENTRY = false>
 struct OutMaps {
   CUtensorMap out;
 };
 
 template <>
-struct OutMaps<true> {
+struct OutMaps<true, false> {
   CUtensorMap out;
   CUtensorMap identity;   // (M, N) int32
   const float* mult_id;   // (N,)
+};
+
+template <>
+struct OutMaps<true, true> {
+  CUtensorMap out;        // unused with carrier = 0
+  CUtensorMap identity;   // (M, N) int32
+  const float* mult_id;   // (N,)
+  CUtensorMap entry;      // (M, N) int8
+  const float* mult_in;   // one value
+  int carrier;            // 0: the carrier is not stored
 };
 
 // ---------------------------------------------------------------------------
@@ -503,18 +533,21 @@ constexpr int smem_bytes() {
 }
 
 // One WG * 64 x BN output tile per block: WG consumer warpgroups, each with
-// its own 64 rows of A and its own accumulators, on one B tile.
+// its own 64 rows of A and its own accumulators, on one B tile.  With ENTRY
+// p.lo and p.hi are the entry requant's clip bounds.
 template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG,
-          bool RESIDUAL = false>
+          bool RESIDUAL = false, bool ENTRY = false>
 __global__ void __launch_bounds__(threads<WG>())
 gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap wmap,
-                    const __grid_constant__ OutMaps<RESIDUAL> omaps,
+                    const __grid_constant__ OutMaps<RESIDUAL, ENTRY> omaps,
                     const Args p) {
   static_assert(WG == 1 || (!CONV && INT4),
                 "two consumer warpgroups: only the packed matmul");
   static_assert(!RESIDUAL || (!CONV && !REQUANT && !INT4),
                 "the residual epilogue: only the int8 accumulator matmul");
+  static_assert(!ENTRY || RESIDUAL,
+                "the entry requant: only with the residual epilogue");
   constexpr int TM = WG * BM;                    // rows of the block's tile
   constexpr int CONSUMERS = WG * CONSUMER_THREADS;
   constexpr int A_BYTES = TM * BK;
@@ -533,7 +566,12 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
       RESIDUAL ? STAGES * STAGE_BYTES - CHUNKS * CHUNK_BYTES : 0;
   constexpr int UNDER = OUT_OFF / STAGE_BYTES;
   static_assert(OUT_OFF % 1024 == 0, "the swizzle's 1024-byte alignment");
+  // ENTRY: the int8 entry tile at the ring's start, below the identity
+  static_assert(!ENTRY || TM * BN <= OUT_OFF,
+                "the entry tile must lie below the staged identity");
   constexpr int CHAINS = 2;
+  bool carrier = true;               // whether the output map is stored
+  if constexpr (ENTRY) carrier = omaps.carrier != 0;
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -562,8 +600,9 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   if (tid == CONSUMERS) {            // the producer lane: descriptors on their way
     tma_prefetch_map(&amap);
     tma_prefetch_map(&wmap);
-    tma_prefetch_map(&omaps.out);
+    if (carrier) tma_prefetch_map(&omaps.out);
     if constexpr (RESIDUAL) tma_prefetch_map(&omaps.identity);
+    if constexpr (ENTRY) tma_prefetch_map(&omaps.entry);
   }
   if (tid == 0) {
 #pragma unroll
@@ -688,6 +727,8 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
   // ---- epilogue: registers -> staged tile -> TMA store ----
   const int row0 = warp * 16 + (lane >> 2);
   const int q2 = (lane & 3) * 2;
+  float mult_in = 0.f;
+  if constexpr (ENTRY) mult_in = __ldg(omaps.mult_in);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = j * 8 + q2;
@@ -728,7 +769,15 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
           v0 = hawq::requant_add_relu(v0, mult0, id.x, mid0);
           v1 = hawq::requant_add_relu(v1, mult1, id.y, mid1);
         }
-        *slot = make_int2(v0, v1);
+        if constexpr (ENTRY) {        // the carrier's entry requant
+          const uint32_t lo8 =
+              (uint8_t)hawq::requant_s8(v0, mult_in, p.lo, p.hi);
+          const uint32_t hi8 =
+              (uint8_t)hawq::requant_s8(v1, mult_in, p.lo, p.hi);
+          *reinterpret_cast<uint16_t*>(ring_ptr + row * BN + col) =
+              (uint16_t)(lo8 | (hi8 << 8));
+        }
+        if (carrier) *slot = make_int2(v0, v1);
       }
     }
   }
@@ -738,12 +787,13 @@ gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       const int nc = n0 + c * CHUNK_COLS;
-      if (nc >= p.N) break;
+      if (nc >= p.N || !carrier) break;
       if (CONV)
         tma_store_4d(&omaps.out, ring + c * CHUNK_BYTES, nc, ox0, oy0, b);
       else
         tma_store_2d(&omaps.out, ring + OUT_OFF + c * CHUNK_BYTES, nc, m0);
     }
+    if constexpr (ENTRY) tma_store_2d(&omaps.entry, ring, n0, m0);
     tma_store_commit_and_wait();    // the block's shared memory must outlive it
   }
 }
@@ -817,16 +867,17 @@ inline int encode_weight_map(CUtensorMap* map, const int8_t* wt, int N,
 }
 
 template <bool CONV, bool REQUANT, bool INT4, int BK, int BN, int WG,
-          bool RESIDUAL>
+          bool RESIDUAL, bool ENTRY>
 inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
-                      const OutMaps<RESIDUAL>& omaps, const Args& p,
+                      const OutMaps<RESIDUAL, ENTRY>& omaps, const Args& p,
                       dim3 grid, int smem_extra, cudaStream_t stream) {
   // above 48 KB the dynamic shared memory size is opted into, once per
   // instantiation, device and size
   constexpr int MAX_DEVICES = 64;
   static int configured[MAX_DEVICES] = {};
   const int smem = smem_bytes<BK, BN, INT4, WG, RESIDUAL>() + smem_extra;
-  auto kernel = gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN, WG, RESIDUAL>;
+  auto kernel =
+      gemm_s8_sm90_kernel<CONV, REQUANT, INT4, BK, BN, WG, RESIDUAL, ENTRY>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -844,13 +895,14 @@ inline int launch_one(const CUtensorMap& amap, const CUtensorMap& wmap,
 }
 
 template <bool CONV, bool REQUANT, bool INT4, int WG = 1,
-          bool RESIDUAL = false>
+          bool RESIDUAL = false, bool ENTRY = false>
 inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
-                  const OutMaps<RESIDUAL>& omaps, const Args& p, dim3 grid,
-                  int bk, int bn, int smem_extra, cudaStream_t stream) {
+                  const OutMaps<RESIDUAL, ENTRY>& omaps, const Args& p,
+                  dim3 grid, int bk, int bn, int smem_extra,
+                  cudaStream_t stream) {
 #define HAWQ_SM90_CASE(K, N)                                                 \
   if (bk == K && bn == N)                                                    \
-    return launch_one<CONV, REQUANT, INT4, K, N, WG, RESIDUAL>(              \
+    return launch_one<CONV, REQUANT, INT4, K, N, WG, RESIDUAL, ENTRY>(       \
         amap, wmap, omaps, p, grid, smem_extra, stream);
   HAWQ_SM90_CASE(64, 32)
   HAWQ_SM90_CASE(64, 64)
@@ -871,18 +923,23 @@ inline int launch(const CUtensorMap& amap, const CUtensorMap& wmap,
 // int32, bm x 32 boxes in the 128-byte swizzle), or with REQUANT its requant
 // (out int8, one dense bm x BN box), or with RESIDUAL the residual epilogue's
 // int32 carrier over ``identity`` (M, N) int32, read in the output's boxes,
-// with ``mult`` and ``mult_id`` (N,) float32.  bm, the rows of a block's
-// tile, is 64, or 128 (two consumer warpgroups) with INT4.
-template <bool REQUANT, bool INT4, bool RESIDUAL = false>
+// with ``mult`` and ``mult_id`` (N,) float32; with ENTRY also its entry
+// requant into ``entry`` (M, N) int8, by the one float32 at ``mult_in``
+// into [lo, hi], and the carrier stored only where ``out`` is not null.
+// bm, the rows of a block's tile, is 64, or 128 (two consumer warpgroups)
+// with INT4.
+template <bool REQUANT, bool INT4, bool RESIDUAL = false, bool ENTRY = false>
 inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
                         const int32_t* bias, const float* mult, void* out,
                         int M, int K, int N, int lo, int hi, int bk, int bn,
                         int bm, int smem_extra, cudaStream_t stream,
                         const int32_t* identity = nullptr,
-                        const float* mult_id = nullptr) {
+                        const float* mult_id = nullptr,
+                        int8_t* entry = nullptr,
+                        const float* mult_in = nullptr) {
   if (bm != BM && !(INT4 && bm == 2 * BM)) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, wmap;
-  OutMaps<RESIDUAL> omaps;
+  OutMaps<RESIDUAL, ENTRY> omaps{};
   std::memcpy(&wmap, wmap_bytes, sizeof(wmap));
   {
     const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
@@ -897,12 +954,14 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
     const cuuint64_t strides[1] = {(cuuint64_t)N * (REQUANT ? 1 : 4)};
     const cuuint32_t box[2] = {(cuuint32_t)(REQUANT ? bn : 32),
                                (cuuint32_t)bm};
-    int code = encode_map(&omaps.out,
-                          REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                  : CU_TENSOR_MAP_DATA_TYPE_INT32,
-                          2, out, dims, strides, box,
-                          REQUANT ? CU_TENSOR_MAP_SWIZZLE_NONE
-                                  : CU_TENSOR_MAP_SWIZZLE_128B);
+    int code = 0;
+    if (!ENTRY || out != nullptr)
+      code = encode_map(&omaps.out,
+                        REQUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                : CU_TENSOR_MAP_DATA_TYPE_INT32,
+                        2, out, dims, strides, box,
+                        REQUANT ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                : CU_TENSOR_MAP_SWIZZLE_128B);
     if (code) return code;
     if constexpr (RESIDUAL) {
       code = encode_map(&omaps.identity, CU_TENSOR_MAP_DATA_TYPE_INT32, 2,
@@ -910,6 +969,15 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
                         CU_TENSOR_MAP_SWIZZLE_128B);
       if (code) return code;
       omaps.mult_id = mult_id;
+    }
+    if constexpr (ENTRY) {          // int8, one dense bn x bm box
+      const cuuint64_t strides8[1] = {(cuuint64_t)N};
+      const cuuint32_t box8[2] = {(cuuint32_t)bn, (cuuint32_t)bm};
+      code = encode_map(&omaps.entry, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, entry,
+                        dims, strides8, box8, CU_TENSOR_MAP_SWIZZLE_NONE);
+      if (code) return code;
+      omaps.mult_in = mult_in;
+      omaps.carrier = out != nullptr;
     }
   }
   Args p{};
@@ -925,8 +993,8 @@ inline int matmul_entry(const int8_t* x, const void* wmap_bytes,
       return launch<false, REQUANT, true, 2>(amap, wmap, omaps, p, grid, bk,
                                              bn, smem_extra, stream);
   }
-  return launch<false, REQUANT, INT4, 1, RESIDUAL>(amap, wmap, omaps, p, grid,
-                                                   bk, bn, smem_extra, stream);
+  return launch<false, REQUANT, INT4, 1, RESIDUAL, ENTRY>(
+      amap, wmap, omaps, p, grid, bk, bn, smem_extra, stream);
 }
 
 // The stride-1 conv over xp: the zero-padded (B, Hp, Wp*C) slab, or with

@@ -28,8 +28,16 @@ unit's residual in its epilogue: the requant-add of the accumulator and an
 int32 identity, each with its own multipliers, then the ReLU
 (:func:`residual_epilogue`, the plain version), so that the unit's last
 1×1 conv leaves as its int32 carrier: the core's ``RESIDUAL`` epilogue.
+``int8_matmul_acc_residual_requant`` also leaves as the next unit's entry
+requant of that carrier, int8 by one scalar multiplier
+(:func:`residual_requant_epilogue`, the plain version: the standalone
+requant of ``kernels.requant`` after the residual), so that the next unit
+reads one byte an element in place of the carrier's four: the core's
+``ENTRY`` epilogue.  ``int8_matmul_residual_requant`` is the same call
+where nothing reads the carrier: it returns the entry alone, and the
+carrier is never stored.
 
-The four matmuls and the residual form run as the operators
+The four matmuls and the three residual forms run as the operators
 ``torch.ops.hawq.<wrapper name>`` (:data:`OPS`; ``_build.define_op``): the
 wrapper takes a handle apart into its ``wt`` and padded K and its options
 into ints, and the operator aligns the operands and picks the tile at
@@ -50,10 +58,14 @@ import torch.nn.functional as F
 
 from hawq_tpu_torch.kernels import _build
 from hawq_tpu_torch.quant.ops import (requant_add_int32, requant_clip_bounds,
-                                      round_half_up)
+                                      requant_int32, round_half_up)
 
 # the accumulator matmul with a bottleneck's residual epilogue
 RESIDUAL = 'int8_matmul_acc_residual'
+# the same with the next unit's entry requant of the carrier: the carrier
+# and the entry, or the entry alone (the carrier not stored)
+RESIDUAL_REQUANT = 'int8_matmul_acc_residual_requant'
+RESIDUAL_REQUANT_ONLY = 'int8_matmul_residual_requant'
 
 
 def epilogue_bounds(out_bits: int, signed: bool,
@@ -112,6 +124,19 @@ def residual_epilogue(acc: torch.Tensor, mult_main: torch.Tensor,
     (``quant.ops.requant_add_int32``), then the ReLU."""
     return torch.clamp_min(
         requant_add_int32(acc, mult_main, identity, mult_id), 0)
+
+
+def residual_requant_epilogue(acc: torch.Tensor, mult_main: torch.Tensor,
+                              identity: torch.Tensor, mult_id: torch.Tensor,
+                              mult_in: torch.Tensor, out_bits: int,
+                              signed: bool):
+    """(carrier int32, entry int8) (plain version): the carrier of
+    :func:`residual_epilogue`, then its requant by the one float32
+    ``mult_in`` to ``out_bits`` (``quant.ops.requant_int32``, as
+    ``kernels.requant`` requantizes a unit's input)."""
+    carrier = residual_epilogue(acc, mult_main, identity, mult_id)
+    return carrier, requant_int32(carrier, mult_in, out_bits, signed,
+                                  torch.int8)
 
 
 def int_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -469,14 +494,18 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
                  requant: bool, tile_n: Optional[int], tile_m: Optional[int],
                  smem_extra: int, name: Optional[str] = None,
                  identity: Optional[torch.Tensor] = None,
-                 mult_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mult_id: Optional[torch.Tensor] = None,
+                 mult_in: Optional[torch.Tensor] = None,
+                 carrier: bool = True):
     """The four matmuls on the Hopper core: int8 or packed int4 weights
     (``prepared.int4``), with ``requant`` the requant forms (int8 out), else
     the accumulator forms (int32 out), the int8 one with ``identity`` (M, N)
     int32 in its residual epilogue (``mult`` the accumulator's multipliers,
-    ``mult_id`` the identity's); the operands aligned by
-    :func:`sm90_operands`; counted as ``name`` (the K-blocked matmul runs
-    the int8 requant form)."""
+    ``mult_id`` the identity's), and with ``mult_in`` (one float32) also the
+    entry requant of its carrier into [lo, hi] → (the carrier, or None
+    without ``carrier``: not stored; the int8 entry); the operands aligned
+    by :func:`sm90_operands`; counted as ``name`` (the K-blocked matmul
+    runs the int8 requant form)."""
     int4 = prepared.int4
     name = name or _matmul_name(requant, int4)
     m, k = x.shape
@@ -492,10 +521,17 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     if identity is not None:
         _build.require(identity, 'identity', torch.int32, (m, n), dev)
         _build.require(mult_id, 'mult_id', torch.float32, (n,), dev)
+    entry = mult_in is not None
+    if entry:
+        _build.require(mult_in, 'mult_in', torch.float32, mult_in.shape, dev)
+        if mult_in.numel() != 1:
+            raise ValueError(f'{name}: mult_in must be one value, got '
+                             f'{tuple(mult_in.shape)}')
     if m < 1:
         raise ValueError(f'{name}: empty x')
     x, prepared, (bias, mult, mult_id), identity = sm90_operands(
-        x, prepared, (bias, mult, mult_id), 1 if requant else 4, identity)
+        x, prepared, (bias, mult, mult_id), 1 if requant or entry else 4,
+        identity)
     k, n_out = x.shape[1], bias.shape[0]
     k_tiles = -(-k // prepared.tile_k)
     if tile_m is None:
@@ -507,29 +543,41 @@ def _launch_sm90(x, prepared: PreparedWeights, bias, mult, lo, hi,
     if tile_n is None:
         tile_n = sm90_tile_n(-(-m // SM90_TILE_M), n, k_tiles, sm_count(dev),
                              SM90_INT4_MATMUL_WIDEST if int4 else 128)
-    out = torch.empty((m, n_out), dtype=torch.int8 if requant else torch.int32,
-                      device=dev)
+    out = (torch.empty((m, n_out),
+                       dtype=torch.int8 if requant else torch.int32,
+                       device=dev) if carrier else None)
+    out8 = torch.empty((m, n_out), dtype=torch.int8,
+                       device=dev) if entry else None
     lib = _build.lib()
     head = (x.data_ptr(), prepared.tensor_map(tile_n), bias.data_ptr())
     tail = (prepared.tile_k, tile_n) + ((tile_m,) if int4 else ()) + (
         smem_extra, _build.stream_ptr(dev))
     with torch.cuda.device(dev):
-        if identity is not None:
+        if entry:
+            code = lib.hawq_int8_matmul_residual_requant_sm90(
+                *head, mult.data_ptr(), identity.data_ptr(),
+                mult_id.data_ptr(), mult_in.data_ptr(),
+                None if out is None else out.data_ptr(), out8.data_ptr(), m,
+                k, n_out, lo, hi, *tail)
+        elif identity is not None:
             code = lib.hawq_int8_matmul_residual_sm90(
                 *head, mult.data_ptr(), identity.data_ptr(),
                 mult_id.data_ptr(), out.data_ptr(), m, k, n_out, *tail)
         elif requant:
-            entry = (lib.hawq_int4w_matmul_sm90 if int4
-                     else lib.hawq_int8_matmul_requant_sm90)
-            code = entry(*head, mult.data_ptr(), out.data_ptr(), m, k, n_out,
-                         lo, hi, *tail)
+            fn = (lib.hawq_int4w_matmul_sm90 if int4
+                  else lib.hawq_int8_matmul_requant_sm90)
+            code = fn(*head, mult.data_ptr(), out.data_ptr(), m, k, n_out,
+                      lo, hi, *tail)
         else:
-            entry = (lib.hawq_int4w_matmul_acc_sm90 if int4
-                     else lib.hawq_int8_matmul_sm90)
-            code = entry(*head, out.data_ptr(), m, k, n_out, *tail)
+            fn = (lib.hawq_int4w_matmul_acc_sm90 if int4
+                  else lib.hawq_int8_matmul_sm90)
+            code = fn(*head, out.data_ptr(), m, k, n_out, *tail)
     _build.check(code, name)
     _build.count(name)
-    return out if n_out == n else out[:, :n].contiguous()
+    if n_out != n:                  # the columns the alignment step added
+        out, out8 = [t if t is None else t[:, :n].contiguous()
+                     for t in (out, out8)]
+    return (out, out8) if entry else out
 
 
 def _matmul_plain(name, x, w, cpad, bias, mult, lo, hi) -> torch.Tensor:
@@ -620,10 +668,59 @@ def _define_residual():
         f'int smem_extra) -> Tensor', cpu, _residual_cuda, fake)
 
 
+def _entry_bounds(name: str, out_bits: int, signed: bool) -> Tuple[int, int]:
+    """Clip bounds of the entry requant; raises where its values do not fit
+    int8."""
+    lo, hi = epilogue_bounds(out_bits, signed, False)
+    if not 1 <= out_bits <= 8 or lo < -128 or hi > 127:
+        raise ValueError(f'{name}: {out_bits}-bit '
+                         f'{"signed" if signed else "unsigned"} values do not '
+                         f'fit int8')
+    return lo, hi
+
+
+def _define_residual_requant(name: str):
+    """``hawq::<name>(x, w, cpad, bias, identity, mult_main, mult_id,
+    mult_in, out_bits, signed, tile_n, smem_extra)``: the residual form's
+    arguments, then the entry requant's one-value ``mult_in`` and its bits;
+    → (carrier, entry) for :data:`RESIDUAL_REQUANT`, the entry alone for
+    :data:`RESIDUAL_REQUANT_ONLY`."""
+    carrier = name == RESIDUAL_REQUANT
+
+    def cpu(x, w, cpad, bias, identity, mult_main, mult_id, mult_in,
+            out_bits, signed, tile_n, smem_extra):
+        acc = _matmul_plain('int8_matmul_acc', x, w, cpad, bias, None, 0, 0)
+        out = residual_requant_epilogue(acc, mult_main, identity, mult_id,
+                                        mult_in, out_bits, signed)
+        return out if carrier else out[1]
+
+    def cuda(x, w, cpad, bias, identity, mult_main, mult_id, mult_in,
+             out_bits, signed, tile_n, smem_extra):
+        lo, hi = _entry_bounds(name, out_bits, signed)
+        out = _launch_sm90(x, _prepared(name, x, w, cpad), bias, mult_main,
+                           lo, hi, False, _build.from_opt_int(tile_n), None,
+                           smem_extra, name, identity, mult_id, mult_in,
+                           carrier)
+        return out if carrier else out[1]
+
+    def fake(x, w, cpad, bias, identity, mult_main, mult_id, mult_in,
+             out_bits, signed, tile_n, smem_extra):
+        entry = identity.new_empty(identity.shape, dtype=torch.int8)
+        return (identity.new_empty(identity.shape), entry) if carrier \
+            else entry
+    return _build.define_op(
+        f'{name}(Tensor x, Tensor w, int cpad, Tensor bias, '
+        f'Tensor identity, Tensor mult_main, Tensor mult_id, Tensor mult_in, '
+        f'int out_bits, bool signed, int tile_n, int smem_extra) -> '
+        + ('(Tensor, Tensor)' if carrier else 'Tensor'), cpu, cuda, fake)
+
+
 OPS = {name: _define_matmul(name) for name in (
     'int8_matmul_requant', 'int8_matmul_acc', 'int4w_matmul_requant',
     'int4w_matmul_acc')}
 OPS[RESIDUAL] = _define_residual()
+OPS[RESIDUAL_REQUANT] = _define_residual_requant(RESIDUAL_REQUANT)
+OPS[RESIDUAL_REQUANT_ONLY] = _define_residual_requant(RESIDUAL_REQUANT_ONLY)
 
 
 def _matmul(x, w, bias, mult, lo, hi, requant: bool, int4: bool,
@@ -689,6 +786,48 @@ def int8_matmul_acc_residual(x: torch.Tensor, w, bias: torch.Tensor,
         w, cpad = w.wt, w.cpad
     return OPS[RESIDUAL](x, w, cpad, bias, identity, mult_main, mult_id,
                          _build.opt_int(tile_n), smem_extra)
+
+
+def _residual_requant(name, x, w, bias, identity, mult_main, mult_id,
+                      mult_in, out_bits, signed, tile_n, smem_extra):
+    _entry_bounds(name, out_bits, signed)
+    cpad = 0
+    if isinstance(w, PreparedWeights):
+        w.check(1, x.shape[1], name)
+        w, cpad = w.wt, w.cpad
+    return OPS[name](x, w, cpad, bias, identity, mult_main, mult_id, mult_in,
+                     int(out_bits), bool(signed), _build.opt_int(tile_n),
+                     smem_extra)
+
+
+def int8_matmul_acc_residual_requant(
+        x: torch.Tensor, w, bias: torch.Tensor, identity: torch.Tensor,
+        mult_main: torch.Tensor, mult_id: torch.Tensor,
+        mult_in: torch.Tensor, *, out_bits: int = 8, signed: bool = True,
+        tile_n: Optional[int] = None, smem_extra: int = 0):
+    """:func:`int8_matmul_acc_residual` with the next unit's entry requant
+    of the carrier in the same epilogue → (carrier int32 (M, N), entry int8
+    (M, N)), entry = clip(floor(f32(carrier)·mult_in + 0.5), lo, hi) bit
+    for bit as ``kernels.requant.requant_int32`` computes it from the
+    carrier (:func:`residual_requant_epilogue`).  ``mult_in``: one float32
+    value; [lo, hi] the ``out_bits`` range (``signed``), which must fit
+    int8; the other arguments as in :func:`int8_matmul_acc_residual`."""
+    return _residual_requant(RESIDUAL_REQUANT, x, w, bias, identity,
+                             mult_main, mult_id, mult_in, out_bits, signed,
+                             tile_n, smem_extra)
+
+
+def int8_matmul_residual_requant(
+        x: torch.Tensor, w, bias: torch.Tensor, identity: torch.Tensor,
+        mult_main: torch.Tensor, mult_id: torch.Tensor,
+        mult_in: torch.Tensor, *, out_bits: int = 8, signed: bool = True,
+        tile_n: Optional[int] = None, smem_extra: int = 0) -> torch.Tensor:
+    """The entry of :func:`int8_matmul_acc_residual_requant` alone, int8
+    (M, N): for a carrier that nothing reads, which the kernel then never
+    stores."""
+    return _residual_requant(RESIDUAL_REQUANT_ONLY, x, w, bias, identity,
+                             mult_main, mult_id, mult_in, out_bits, signed,
+                             tile_n, smem_extra)
 
 
 def int4w_matmul_requant(x: torch.Tensor, w_packed, bias: torch.Tensor,

@@ -2,7 +2,8 @@
 (the int8 and the nibble-packed int4-weight forms, the K-blocked matmul,
 each class of operands the GEMM core's alignment step zero-pads, the
 accumulator matmul's residual epilogue against the composition it
-replaces, the folded pool and its requant-in-front form, the one-pass
+replaces, and with the next unit's entry requant against that epilogue
+followed by the standalone requant, the folded pool and its requant-in-front form, the one-pass
 min/max, D1's depthwise conv and A1's average pool, with and without the
 requant in front), and the engines, the
 integer conv of the QAT layers, a QAT forward and the Hutchinson HVP on
@@ -504,6 +505,82 @@ def test_sm90_residual_regimes_equal_plain(dev, case, m, k, n, tile_n):
                                       mi.expand(n).contiguous(),
                                       tile_n=tile_n)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _entry_mult(carrier, hi=127):
+    """A dyadic scalar multiplier that spreads ``carrier`` over the entry's
+    range and past it (the clip), on its device."""
+    return torch.tensor(np_dyadic_multiplier(np.float32(
+        2 * hi / max(float(carrier.max()), 1.0))), device=carrier.device)
+
+
+@pytest.mark.parametrize('carrier', [True, False])
+@pytest.mark.parametrize('case,m,k,n,tile_n', [
+    (case, 2 * hw * hw, k, n, None) for k, n, hw in _R50_CONV3
+    for case in ('carrier', 'id_conv')]
+    + [('id_conv', m, k, n, t) for m, k, n in ((130, 80, 72), (49, 64, 36))
+       for t in (None, 32, 64, 128)])
+def test_sm90_residual_requant_equals_residual_then_r1(dev, case, m, k, n,
+                                                      tile_n, carrier):
+    """``int8_matmul_acc_residual_requant`` (carrier and entry) and
+    ``int8_matmul_residual_requant`` (the entry alone, the carrier not
+    stored) on the Hopper core == ``int8_matmul_acc_residual``, then R1
+    (``kernels.requant.requant_int32``) over its carrier, bit for bit:
+    every ResNet-50 conv3 shape at b2, and ragged M, K and N (N off 16) at
+    every tile width, so both ring depths and the three tile widths of the
+    ENTRY epilogue run; one launch each."""
+    from hawq_tpu_torch.kernels import requant as kr
+    x, w, b, idt, mm, mi = (torch.tensor(a, device=dev) for a in
+                            _residual_operands(case, m, k, n))
+    mi = mi.expand(n).contiguous()
+    prepared = km.prepare_weights(w)
+    carried = km.int8_matmul_acc_residual(x, prepared, b, idt, mm, mi)
+    mult_in = _entry_mult(carried)
+    want = kr.requant_int32(carried, mult_in, out_bits=8, signed=True)
+    assert bool((want == 127).any()) and bool((want == 0).any())
+    args = (x, prepared, b, idt, mm, mi, mult_in)
+    _build.reset_launches()
+    if carrier:
+        got_c, got = km.int8_matmul_acc_residual_requant(*args,
+                                                         tile_n=tile_n)
+        torch.testing.assert_close(got_c, carried, rtol=0, atol=0)
+        assert _counts() == {km.RESIDUAL_REQUANT: 1}
+    else:
+        got = km.int8_matmul_residual_requant(*args, tile_n=tile_n)
+        assert _counts() == {km.RESIDUAL_REQUANT_ONLY: 1}
+    assert got.dtype == torch.int8 and got.shape == (m, n)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_resnet50_entry_requants_leave_through_conv3(dev):
+    """ResNet-50 uniform8 on uint8 images with the int32 carrier (the batch
+    cell's engine) at b2 64²: 3 R1 launches (the init, unit 1's entry, the
+    FC input), 16 residual-epilogue calls, 15 of them with the next unit's
+    entry and 3 of those without the carrier; the logits and each unit's
+    input and carrier (captured, so stored) equal the CPU engine's."""
+    import chip_smoke
+    fm = synthetic_frozen_resnet('resnet50', get_bit_config(
+        'resnet50', 'uniform8'), num_classes=16, seed=2)
+    x = np.random.RandomState(3).randint(0, 256, (2, 64, 64, 3)).astype(
+        np.uint8)
+    want = build_resnet_engine(fm, input_mode='uint8', device='cpu')(x)
+    engine = build_resnet_engine(fm, input_mode='uint8', device=dev)
+    engine(torch.from_numpy(x).to(dev))
+    got, counts = _program_launches(engine, torch.from_numpy(x).to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert counts == chip_smoke.expected_launches('resnet50', fm.cfg,
+                                                  'uint8')
+    assert (counts['requant_int32'], counts[km.RESIDUAL],
+            counts[km.RESIDUAL_REQUANT],
+            counts[km.RESIDUAL_REQUANT_ONLY]) == (3, 1, 12, 3)
+    for node in ('stage1.unit3.quant_act_int32', 'stage2.unit1.input',
+                 'stage2.unit2.quant_act_int32', 'stage4.unit1.input',
+                 'stage3.unit6.quant_act_int32'):
+        torch.testing.assert_close(
+            build_resnet_engine(fm, capture=node, input_mode='uint8',
+                                device=dev)(x).cpu(),
+            build_resnet_engine(fm, capture=node, input_mode='uint8',
+                                device='cpu')(x), rtol=0, atol=0, msg=node)
 
 
 # (B, H, W, C), N, taps, of the slab conv: the four 3×3 stages of ResNet-50

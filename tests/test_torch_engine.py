@@ -25,6 +25,7 @@ from hawq_tpu.inference.synthetic import synthetic_frozen_resnet
 
 from hawq_tpu_torch.inference.engine import build_resnet_engine
 from hawq_tpu_torch.inference.freeze import frozen_from_numpy
+from hawq_tpu_torch.kernels import matmul as km
 
 torch.set_num_threads(1)
 
@@ -122,6 +123,58 @@ def test_resnet50_small_image_matches_reference(scheme, input_mode, residual):
             _port_fm(fm), capture=node, input_mode=input_mode,
             residual_dtype=getattr(torch, residual), device='cpu')(x).numpy()
         np.testing.assert_array_equal(port, nodes[node], err_msg=node)
+
+
+@pytest.mark.parametrize('scheme,input_mode,routing', [
+    ('uniform8', 'uint8', None), ('uniform4', 'float32', 'int8')])
+def test_entry_requant_in_epilogue_matches_reference(monkeypatch, scheme,
+                                                     input_mode, routing):
+    """tiny50 with the int32 carrier, where each conv3 but the last also
+    leaves as the next unit's entry requant (8-bit entries on uint8 images,
+    the benchmark's input; 4-bit ones, every unit conv routed 'int8'): every
+    capture node and the logits equal the JAX engine's.  A forward stores
+    stage1.unit1's carrier only when that node is captured (stage2.unit1
+    takes its identity from its own conv); a capture of any other node
+    leaves it unstored."""
+    fm = synthetic_frozen_resnet('tiny50', get_bit_config('tiny50', scheme),
+                                 num_classes=10, seed=3)
+    rng = np.random.RandomState(4)
+    if input_mode == 'uint8':
+        x = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
+    else:
+        x = rng.randn(2, 32, 32, 3).astype(np.float32)
+    jkw = dict(input_mode=input_mode, residual_dtype=jnp.int32)
+    port_fm = _port_fm(fm)
+    table = None
+    if routing is not None:
+        table = {k[:-len('.weight_int')]: routing for k in port_fm.tensors
+                 if k.startswith('stage') and k.endswith('.weight_int')}
+    calls = []
+    for name in (km.RESIDUAL, km.RESIDUAL_REQUANT, km.RESIDUAL_REQUANT_ONLY):
+        def counted(*args, _name=name, _fn=getattr(km, name), **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(km, name, counted)
+
+    def build(capture=None):
+        return build_resnet_engine(port_fm, capture=capture,
+                                   input_mode=input_mode, device='cpu',
+                                   routing=table)
+    np.testing.assert_array_equal(
+        build()(x).numpy(), np.asarray(jax_engine(fm, **jkw)(jnp.asarray(x))))
+    assert calls == [km.RESIDUAL_REQUANT_ONLY, km.RESIDUAL_REQUANT,
+                     km.RESIDUAL]
+    nodes = _reference_nodes(fm, x, **jkw)
+    assert len(nodes) == 5 + 3 * 4
+    for node, ref in nodes.items():
+        calls.clear()
+        port = build(node)(x).numpy()
+        assert port.dtype == ref.dtype, node
+        np.testing.assert_array_equal(port, ref, err_msg=node)
+        if node == 'stage1.unit1.quant_act_int32':
+            assert calls == [km.RESIDUAL_REQUANT]
+        elif calls:
+            assert calls[0] == km.RESIDUAL_REQUANT_ONLY, node
 
 
 def test_int16_carrier_clamps_like_reference():

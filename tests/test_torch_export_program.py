@@ -3,7 +3,8 @@
 
 * Every kernel operator (``torch.ops.hawq.*``) passes
   ``torch.library.opcheck`` on small CPU inputs: the int8 and nibble-packed
-  int4 matmuls and convs and the int8 matmul's residual form, on plain
+  int4 matmuls and convs and the int8 matmul's residual forms (with the
+  next unit's entry requant, with and without the carrier), on plain
   weights and on the Hopper core's handle, both forms of the folded pool,
   of D1 and of A1, and the standalone requant and its concat form.
 * ``load_program(export_program(fm))`` gives logits bit-equal (tolerance 0)
@@ -79,6 +80,13 @@ def _residual_args(prepared):
             _mult(rng, 16), -1, 0)
 
 
+def _residual_requant_args(prepared):
+    """The residual form's arguments, the entry requant's one multiplier
+    and its bits (4, unsigned: the ReLU'd carrier spread over 0..15)."""
+    args = _residual_args(prepared)
+    return args[:7] + (torch.tensor(np.float32(3e-5)), 4, False) + args[7:]
+
+
 def _conv_args(name, prepared, pad):
     rng = np.random.RandomState(1)
     int4, requant = name.startswith('int4w'), name.endswith('requant')
@@ -139,11 +147,14 @@ def _requant_args(name, per_channel):
     return ([x, y], [m, _mult(rng, 8) * 40], 8, True, 0)
 
 
+_RESIDUALS = (km.RESIDUAL, km.RESIDUAL_REQUANT, km.RESIDUAL_REQUANT_ONLY)
 _CASES = (
     [(km, n, (lambda n=n, p=p: _matmul_args(n, p)), f'{n}-{p}')
-     for n in km.OPS if n != km.RESIDUAL for p in (False, True)]
+     for n in km.OPS if n not in _RESIDUALS for p in (False, True)]
     + [(km, km.RESIDUAL, (lambda p=p: _residual_args(p)),
         f'{km.RESIDUAL}-{p}') for p in (False, True)]
+    + [(km, n, (lambda p=p: _residual_requant_args(p)), f'{n}-{p}')
+       for n in _RESIDUALS[1:] for p in (False, True)]
     + [(kc, n, (lambda n=n, p=p, pad=pad: _conv_args(n, p, pad)),
         f'{n}-{p}-{pad}')
        for n in kc.OPS for p in (False, True) for pad in ((0, 0), (1, 1))]

@@ -204,7 +204,9 @@ def _recording(calls):
     """Record (wrapper name, weight tensor) of every kernel-wrapper call."""
     names = {tkm: ('int8_matmul_requant', 'int8_matmul_acc',
                    'int4w_matmul_requant', 'int4w_matmul_acc',
-                   'int8_matmul_acc_residual'),
+                   'int8_matmul_acc_residual',
+                   'int8_matmul_acc_residual_requant',
+                   'int8_matmul_residual_requant'),
              tkc: ('int8_conv_requant', 'int8_conv_acc',
                    'int4w_conv_requant', 'int4w_conv_acc')}
     orig = {(mod, n): getattr(mod, n) for mod, ns in names.items()

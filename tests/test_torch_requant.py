@@ -323,15 +323,21 @@ def test_engine_calls_the_operator_once_a_site(name):
 
 
 def test_full_depth_site_counts():
-    """The predictions at full depth: ResNet-50's 16 unit entries, its init
-    and FC input; InceptionV3's 33 branch inputs, 45 accumulator-form convs
-    and FC input (79), its 4 pair concats and 11 unit concats (15)."""
+    """The predictions at full depth: ResNet-50's init, its FC input and
+    its first unit's entry (the other 15 unit entries leave through the
+    residual epilogue of the conv3 before them with the int32 carrier; all
+    16 with the int16 one); InceptionV3's 33 branch inputs, 45
+    accumulator-form convs and FC input (79), its 4 pair concats and 11
+    unit concats (15)."""
     import chip_smoke
     cfg = get_bit_config('resnet50', 'uniform8')
     assert chip_smoke.expected_launches('resnet50', cfg, 'uint8')[
-        'requant_int32'] == 18
+        'requant_int32'] == 3
     assert chip_smoke.expected_launches('resnet50', cfg, 'folded_float32')[
-        'requant_int32'] == 17
+        'requant_int32'] == 2
+    assert chip_smoke.expected_launches(
+        'resnet50', cfg, 'uint8', residual_dtype=torch.int16)[
+        'requant_int32'] == 18
     assert 'requant_int32' not in chip_smoke.expected_launches(
         'resnet50', cfg, 'float32', reference=True)
     fm = synthetic_frozen_inception(get_bit_config('inceptionv3',

@@ -41,7 +41,8 @@ from hawq_tpu_torch.kernels import conv as tkc
 from hawq_tpu_torch.kernels import matmul as tkm
 from hawq_tpu_torch.nn import layers as TL
 from hawq_tpu_torch.quant.ops import (np_dyadic_multiplier,
-                                      requant_add_int32, round_half_up)
+                                      requant_add_int32, requant_clip_bounds,
+                                      requant_int32, round_half_up)
 from tests.test_torch_cuda import RESIDUAL_CASES, _residual_operands
 from tests.test_torch_engine import _port_fm, _reference_nodes
 
@@ -1214,6 +1215,45 @@ def test_residual_matmul_equals_the_unfused_composition(case, m):
     assert hit[case]
 
 
+@pytest.mark.parametrize('out_bits,signed', [(8, True), (4, True),
+                                             (4, False), (7, False)])
+@pytest.mark.parametrize('case', ['carrier', 'id_conv'])
+def test_residual_requant_plain_equals_residual_then_requant(case, out_bits,
+                                                             signed):
+    """The plain version of ``int8_matmul_acc_residual_requant`` and
+    ``int8_matmul_residual_requant`` (plain weights and the Hopper core's
+    handle, a ragged M) == ``residual_epilogue``, then
+    ``quant.ops.requant_int32`` of that carrier at a scalar multiplier,
+    signed and unsigned, both ends of the range hit; 8-bit unsigned values
+    do not fit the int8 entry and are refused."""
+    m, k, n = 49, 64, 48
+    x, w, bias, identity, mult_main, mult_id = (
+        torch.tensor(a) for a in _residual_operands(case, m, k, n))
+    mult_id = mult_id.expand(n).contiguous()
+    carrier = tkm.residual_epilogue(tkm.matmul_acc_plain(x, w, bias),
+                                    mult_main, identity, mult_id)
+    # a multiplier that spreads the carriers over the whole entry range and
+    # past it (the clip)
+    lo, hi = requant_clip_bounds(out_bits, signed)
+    mult_in = _mult(2 * hi, float(carrier.max()))
+    want = requant_int32(carrier, mult_in, out_bits, signed, torch.int8)
+    assert int(want.min()) == max(lo, 0) and int(want.max()) == hi
+    assert (want > 0).sum() > m * n // 4 and mult_in.dim() == 0
+    for weights in (w, tkm.prepare_weights(w)):
+        args = (x, weights, bias, identity, mult_main, mult_id, mult_in)
+        kw = dict(out_bits=out_bits, signed=signed)
+        got_c, got = tkm.int8_matmul_acc_residual_requant(*args, **kw)
+        torch.testing.assert_close(got_c, carrier, rtol=0, atol=0)
+        assert got.dtype == torch.int8
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(tkm.int8_matmul_residual_requant(
+            *args, **kw), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match='do not fit int8'):
+        tkm.int8_matmul_residual_requant(x, w, bias, identity, mult_main,
+                                         mult_id, mult_in, out_bits=8,
+                                         signed=False)
+
+
 def _unit_convs(fm, p):
     """(weights (K, N), bias, per-channel scale) of unit ``p``'s 1×1 convs
     that exist: conv3 and the identity conv."""
@@ -1296,14 +1336,20 @@ def test_engine_takes_the_residual_epilogue_where_it_can(monkeypatch, arch,
     with the int32 carrier and int8 conv3 weights (a routing table's
     'int8' on 4-bit weights too, its 'int4w' only on 4-bit ones), never for
     the int16 carrier, reference mode, packed conv3 weights or basic
-    blocks; the logits equal the JAX engine's."""
+    blocks; in every unit but the last with the next unit's entry requant
+    (tiny50: stage2.unit1 has an identity conv, so stage1.unit1's carrier
+    is not stored; stage2.unit2 reads stage2.unit1's as its identity); the
+    logits equal the JAX engine's."""
     calls = []
-    residual = tkm.int8_matmul_acc_residual
+    forms = (tkm.RESIDUAL, tkm.RESIDUAL_REQUANT, tkm.RESIDUAL_REQUANT_ONLY)
 
-    def counted(*args, **kwargs):
-        calls.append(args[0].shape)
-        return residual(*args, **kwargs)
-    monkeypatch.setattr(tkm, 'int8_matmul_acc_residual', counted)
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+    for name in forms:
+        monkeypatch.setattr(tkm, name, counted(name, getattr(tkm, name)))
     jfm = jax_synthetic_frozen_resnet(arch, jax_bit_config(arch, scheme),
                                       num_classes=10, seed=7)
     fm = _port_fm(jfm)
@@ -1319,6 +1365,9 @@ def test_engine_takes_the_residual_epilogue_where_it_can(monkeypatch, arch,
         jkw['residual_dtype'] = jnp.int16
     got = build_resnet_engine(fm, device='cpu', routing=table, **kw)(x)
     assert len(calls) == (sum(RESNET_UNITS[arch]) if fused else 0)
+    if fused:
+        assert calls == [tkm.RESIDUAL_REQUANT_ONLY, tkm.RESIDUAL_REQUANT,
+                         tkm.RESIDUAL]
     if routing is None and 'requant_mode' not in kw:
         np.testing.assert_array_equal(
             got.numpy(), np.asarray(jax_engine(jfm, **jkw)(jnp.asarray(x))))

@@ -39,9 +39,12 @@ ENGINE_SITES = {
                        'engine.residual': 9},
 }
 # tiny50 with the int32 carrier: each unit's conv3 leaves through the
-# residual epilogue, inside its engine.residual and without an engine.conv
+# residual epilogue, inside its engine.residual and without an engine.conv,
+# and the conv3 of units 1 and 2 as the next unit's input too, without an
+# engine.requant there
 ENGINE_SITES_INT32 = {'tiny50': dict(ENGINE_SITES['tiny50'],
-                                     **{'engine.conv': 9})}
+                                     **{'engine.conv': 9,
+                                        'engine.requant': 2})}
 # InceptionV3 at width_div 16: 94 convs; requants at 33 branch inputs (a
 # pool branch's is A1's), after 45 accumulator-form convs, at the 4
 # sub-branch concats of the C units and the FC's input; 11 unit concats,
